@@ -8,11 +8,19 @@ mel -> encoder -> prefill (K1) -> greedy decode loop (K2, K3) as in the JAX
 package's ``_run_pipeline_batch``, with the same batch, frame, prompt and
 token buckets, so both packages emit the same token ids.
 
+Int8 runs as in the JAX package, in every combination it allows:
+``RuntimeConfig(quantization="int8")`` quantizes the decoder's weights
+(decode matmuls and the lm head run kernel K9), ``act_quant="int8"`` on top
+of it also quantizes the encoder and runs the prefill and encoder matmuls
+as W8A8 (kernel K10), and ``kv_cache_dtype="int8"`` keeps the decode loop's
+cache in int8 (kernels K4 and K3-int8).  On CPU tensors every kernel
+wrapper runs its plain PyTorch version.
+
 Not ported yet, and raising ``NotImplementedError``: sampled decoding
 (``temperature > 0``), clips longer than ``chunk_duration`` (long-form
 chunking), ``RuntimeConfig.speculative="ngram"`` (``"auto"`` runs the plain
-loop, which the JAX package's n-gram loop matches token for token), int8
-weights or KV cache, and multi-device meshes.
+loop, which the JAX package's n-gram loop matches token for token), and
+multi-device meshes.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from .config import ModelConfig, RuntimeConfig
 from .models.decoder import fuse_decoder_params
 from .models.encoder import encoder_forward
 from .models.params import load_checkpoint, random_params
+from .ops.quant import is_quantized, quantize_decoder_params, quantize_encoder_params
 from .runtime.generate import Generator
 from .tokenizer import EOS_TOKEN_IDS, Tokenizer
 from .utils.telemetry import RequestStats, logger, stage_timer
@@ -81,8 +90,6 @@ def _validate_samples(audio) -> np.ndarray:
 def _check_runtime(runtime: RuntimeConfig) -> None:
     if runtime.dp * runtime.tp > 1:
         raise NotImplementedError("multi-device meshes are not ported yet")
-    if runtime.quantization != "none" or runtime.kv_cache_dtype != "bf16":
-        raise NotImplementedError("int8 weights / KV cache are not ported yet")
     if runtime.speculative == "ngram":
         raise NotImplementedError(
             "speculative decoding is not ported yet (speculative='auto' runs "
@@ -108,17 +115,36 @@ class Qwen3ASR:
         self._config = config
         self._runtime = runtime or RuntimeConfig()
         _check_runtime(self._runtime)
-        if self._runtime.fuse_qkv and "wq" in decoder_params["layers"][0]:
-            decoder_params = fuse_decoder_params(decoder_params)
+        encoder_params, decoder_params = self._transform_params(
+            encoder_params, decoder_params
+        )
         self._encoder_params = encoder_params
         self._decoder_params = decoder_params
-        self._device = decoder_params["embedding"].device
+        self._device = decoder_params["final_norm"].device
         self._tokenizer = tokenizer
         self._lock = threading.Lock()
         #: Timing/throughput record of the most recent transcription.
         self.last_stats: RequestStats | None = None
         self._mel = MelFrontend(self._runtime.frame_buckets)
         self._generator = Generator(decoder_params, config.text_decoder, self._runtime)
+
+    def _transform_params(self, encoder_params, decoder_params):
+        """Storage-layout transforms of freshly loaded parameters, as JAX
+        ``api.py:180-207``: fuse QKV and gate|up, then quantize the decoder
+        with ``quantization="int8"``, and the encoder only when
+        ``act_quant="int8"`` as well (its W8A8 path is what uses them)."""
+        rt = self._runtime
+        layer0 = decoder_params["layers"][0]
+        if rt.fuse_qkv and "wq" in layer0 and not is_quantized(layer0["wq"]):
+            decoder_params = fuse_decoder_params(decoder_params)
+        if rt.quantization == "int8":
+            if not is_quantized(decoder_params["embedding"]):
+                decoder_params = quantize_decoder_params(decoder_params)
+            if rt.act_quant == "int8" and not is_quantized(
+                encoder_params["layers"][0]["wq"]
+            ):
+                encoder_params = quantize_encoder_params(encoder_params)
+        return encoder_params, decoder_params
 
     # ------------------------------------------------------------------
 

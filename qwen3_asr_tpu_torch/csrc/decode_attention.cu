@@ -27,6 +27,15 @@
 // Masking is by construction (only valid rows are visited) and the running
 // max starts at a finite -0.7 * FLT_MAX, so an idle lane (prompt_len 0,
 // decode_end == prompt_bucket) yields the self-term alone: finite, no NaN.
+//
+// K4, the int8-cache variant, is the same kernel instantiated with Q8:
+// replaces decode_attention_hbm4.py:decode_attention_hbm4_q8 (:434).  The
+// cache is int8 rows (128 B) with one f32 scale per row, kscale/vscale
+// (L, B, Hkv, S).  Each half-warp thread reads 8 bytes of a row, and the
+// scales fold into the small quantities, as in ops/quant_kv.py:20-23: the
+// row's score is (q . k8) * ks and its probability p weighs v8 as
+// (p * vs) . v8, while the softmax sum takes p itself.  Half the K/V bytes
+// of the bf16 cache, plus 8 bytes of scales per row; k_new/v_new stay bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -52,11 +61,21 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
   }
 }
 
-template <int G>
+__device__ __forceinline__ void unpack8_i8(const uint2& raw, float (&out)[8]) {
+  const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(p[i]);
+}
+
+// Q8: kall/vall are int8 rows with per-row scales kscale/vscale; otherwise
+// bf16 rows and the scale pointers are unused.
+template <int G, bool Q8>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ kall,
-                        const __nv_bfloat16* __restrict__ vall,
+                        const void* __restrict__ kall,
+                        const void* __restrict__ vall,
+                        const float* __restrict__ kscale,
+                        const float* __restrict__ vscale,
                         const int* __restrict__ prompt_len,
                         const int* __restrict__ decode_end,
                         float* __restrict__ ws, int layer, int B, int Hkv,
@@ -96,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kPerThread; ++e) acc[gi][e] = 0.f;
   }
 
-  const int64_t lane_base = (((int64_t)layer * B + b) * Hkv + hk) * S * kD;
+  const int64_t lane_row0 = (((int64_t)layer * B + b) * Hkv + hk) * S;
   // Warp-uniform trip count (the shuffles need all 32 lanes): the warp's
   // two half-warps take rows j0 and j0 + 1.
   for (int j0 = start + warp * 2; j0 < end; j0 += kWorkers) {
@@ -104,10 +123,23 @@ __global__ void __launch_bounds__(kThreads)
     const bool live = j < end;
     const int row = j < plen ? j : pb + (j - plen);
     float kf[kPerThread], vf[kPerThread];
+    float ks = 1.f, vs = 1.f;
     if (live) {
-      const int64_t off = lane_base + (int64_t)row * kD + sub * kPerThread;
-      unpack8(*reinterpret_cast<const uint4*>(kall + off), kf);
-      unpack8(*reinterpret_cast<const uint4*>(vall + off), vf);
+      const int64_t r = lane_row0 + row;
+      const int64_t off = r * kD + sub * kPerThread;
+      if (Q8) {
+        unpack8_i8(*reinterpret_cast<const uint2*>(
+                       static_cast<const int8_t*>(kall) + off), kf);
+        unpack8_i8(*reinterpret_cast<const uint2*>(
+                       static_cast<const int8_t*>(vall) + off), vf);
+        ks = kscale[r];
+        vs = vscale[r];
+      } else {
+        unpack8(*reinterpret_cast<const uint4*>(
+                    static_cast<const __nv_bfloat16*>(kall) + off), kf);
+        unpack8(*reinterpret_cast<const uint4*>(
+                    static_cast<const __nv_bfloat16*>(vall) + off), vf);
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < kPerThread; ++e) kf[e] = vf[e] = 0.f;
@@ -122,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int o = kRowThreads / 2; o >= 1; o >>= 1) {
         part += __shfl_xor_sync(0xffffffffu, part, o);
       }
-      s[gi] = part;
+      s[gi] = Q8 ? part * ks : part;
     }
     if (live) {
 #pragma unroll
@@ -131,9 +163,10 @@ __global__ void __launch_bounds__(kThreads)
         const float alpha = expf(m[gi] - mn);
         const float p = expf(s[gi] - mn);
         l[gi] = l[gi] * alpha + p;
+        const float pv = Q8 ? p * vs : p;
 #pragma unroll
         for (int e = 0; e < kPerThread; ++e) {
-          acc[gi][e] = fmaf(p, vf[e], acc[gi][e] * alpha);
+          acc[gi][e] = fmaf(pv, vf[e], acc[gi][e] * alpha);
         }
         m[gi] = mn;
       }
@@ -226,16 +259,16 @@ __global__ void __launch_bounds__(kThreads)
   out[((int64_t)b * Hq + h) * kD + d] = __float2bfloat16(A / L);
 }
 
-template <int G>
-int launch(const void* q, const void* kall, const void* vall, const void* k_new,
+template <int G, bool Q8>
+int launch(const void* q, const void* kall, const void* vall,
+           const void* kscale, const void* vscale, const void* k_new,
            const void* v_new, const void* prompt_len, const void* decode_end,
            void* ws, void* out, int layer, int B, int Hkv, int S, int pb,
            int splits, float scale, cudaStream_t stream) {
   const dim3 grid1(splits, Hkv, B);
-  decode_split_kernel<G><<<grid1, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kall),
-      static_cast<const __nv_bfloat16*>(vall),
+  decode_split_kernel<G, Q8><<<grid1, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), kall, vall,
+      static_cast<const float*>(kscale), static_cast<const float*>(vscale),
       static_cast<const int*>(prompt_len), static_cast<const int*>(decode_end),
       static_cast<float*>(ws), layer, B, Hkv, S, pb, splits, scale);
   cudaError_t err = cudaGetLastError();
@@ -249,6 +282,32 @@ int launch(const void* q, const void* kall, const void* vall, const void* k_new,
   return (int)cudaGetLastError();
 }
 
+template <bool Q8>
+int dispatch(const void* q, const void* kall, const void* vall,
+             const void* kscale, const void* vscale, const void* k_new,
+             const void* v_new, const void* prompt_len, const void* decode_end,
+             void* ws, void* out, int layer, int B, int Hq, int Hkv, int S,
+             int pb, int splits, float scale, void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (Hq / Hkv) {
+    case 1:
+      return launch<1, Q8>(q, kall, vall, kscale, vscale, k_new, v_new,
+                           prompt_len, decode_end, ws, out, layer, B, Hkv, S,
+                           pb, splits, scale, st);
+    case 2:
+      return launch<2, Q8>(q, kall, vall, kscale, vscale, k_new, v_new,
+                           prompt_len, decode_end, ws, out, layer, B, Hkv, S,
+                           pb, splits, scale, st);
+    case 4:
+      return launch<4, Q8>(q, kall, vall, kscale, vscale, k_new, v_new,
+                           prompt_len, decode_end, ws, out, layer, B, Hkv, S,
+                           pb, splits, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Shapes as in the header comment; ws is f32 (B, Hkv, splits, Hq/Hkv, 130).
@@ -260,19 +319,22 @@ extern "C" int decode_attention_bf16(const void* q, const void* kall,
                                      void* out, int layer, int B, int Hq,
                                      int Hkv, int S, int pb, int splits,
                                      float scale, void* stream) {
-  if (B == 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (Hq / Hkv) {
-    case 1:
-      return launch<1>(q, kall, vall, k_new, v_new, prompt_len, decode_end, ws,
-                       out, layer, B, Hkv, S, pb, splits, scale, st);
-    case 2:
-      return launch<2>(q, kall, vall, k_new, v_new, prompt_len, decode_end, ws,
-                       out, layer, B, Hkv, S, pb, splits, scale, st);
-    case 4:
-      return launch<4>(q, kall, vall, k_new, v_new, prompt_len, decode_end, ws,
-                       out, layer, B, Hkv, S, pb, splits, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, kall, vall, nullptr, nullptr, k_new, v_new,
+                         prompt_len, decode_end, ws, out, layer, B, Hq, Hkv,
+                         S, pb, splits, scale, stream);
+}
+
+// K4: kall/vall int8 (L, B, Hkv, S, 128), kscale/vscale f32 (L, B, Hkv, S);
+// everything else as decode_attention_bf16.
+extern "C" int decode_attention_q8(const void* q, const void* kall,
+                                   const void* vall, const void* kscale,
+                                   const void* vscale, const void* k_new,
+                                   const void* v_new, const void* prompt_len,
+                                   const void* decode_end, void* ws, void* out,
+                                   int layer, int B, int Hq, int Hkv, int S,
+                                   int pb, int splits, float scale,
+                                   void* stream) {
+  return dispatch<true>(q, kall, vall, kscale, vscale, k_new, v_new,
+                        prompt_len, decode_end, ws, out, layer, B, Hq, Hkv, S,
+                        pb, splits, scale, stream);
 }

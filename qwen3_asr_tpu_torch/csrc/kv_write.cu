@@ -12,6 +12,14 @@
 // target rows touched.  The TPU kernel's 8-row read-modify-write tile exists
 // only because of the TPU's (8, 128) memory tiling and is not carried over.
 // Rows whose slot lies outside [0, S) are dropped.
+//
+// The int8 cache (kv_write_rows_q8): the same rows arrive in bf16 and are
+// quantized on the way in, with ops/quant_kv.py:quantize_kv's rule per
+// 128-wide row (s = max|x| / 127, or 1 for an all-zero row; q =
+// clip(round_half_even(x / s), -127, 127), IEEE f32 divide): one launch
+// stores the int8 row and its f32 scale, in place of a quantize pass, a
+// row write and a scale write.  One half-warp per row: each thread holds 8
+// elements, the abs-max is reduced with shuffles inside the half-warp.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,6 +47,44 @@ __global__ void kv_write_rows_kernel(__nv_bfloat16* __restrict__ cache,
   *dst = val;
 }
 
+__global__ void kv_write_rows_q8_kernel(int8_t* __restrict__ cache_q,
+                                        float* __restrict__ cache_s,
+                                        const __nv_bfloat16* __restrict__ rows,
+                                        const int* __restrict__ slots, int B,
+                                        int H, int S, int64_t n_rows) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kVecPerRow;
+  if (row >= n_rows) return;      // whole half-warps: n_rows is per 16 lanes
+  const int v = threadIdx.x % kVecPerRow;
+  const unsigned half_mask = 0xffffu << (threadIdx.x & 16);
+  const uint4 raw = reinterpret_cast<const uint4*>(rows)[row * kVecPerRow + v];
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  float f[kVec];
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    f[e] = __bfloat162float(x[e]);
+    amax = fmaxf(amax, fabsf(f[e]));
+  }
+#pragma unroll
+  for (int o = kVecPerRow / 2; o >= 1; o >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(half_mask, amax, o));
+  }
+  const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+  uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    int q = __float2int_rn(__fdiv_rn(f[e], scale));
+    q = max(-127, min(127, q));
+    packed[e / 4] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (e % 4));
+  }
+  const int b = (int)((row / H) % B);
+  const int slot = slots[b];
+  if (slot < 0 || slot >= S) return;
+  const int64_t dst = row * S + slot;
+  reinterpret_cast<uint2*>(cache_q + dst * kD)[v] = make_uint2(packed[0], packed[1]);
+  if (v == 0) cache_s[dst] = scale;
+}
+
 }  // namespace
 
 // cache (L, B, H, S, 128) bf16; rows (L, B, H, 1, 128) bf16; slots (B,) int32,
@@ -54,6 +100,23 @@ extern "C" int kv_write_rows_bf16(void* cache, const void* rows,
       static_cast<__nv_bfloat16*>(cache),
       static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(slots),
       B, H, S, n_vec);
+  return (int)cudaGetLastError();
+}
+
+// cache_q (L, B, H, S, 128) int8 and cache_s (L, B, H, S) f32; rows
+// (L, B, H, 1, 128) bf16; slots (B,) int32; all on the device and
+// contiguous.  Returns the launch's cudaError_t.
+extern "C" int kv_write_rows_q8(void* cache_q, void* cache_s, const void* rows,
+                                const void* slots, int L, int B, int H, int S,
+                                void* stream) {
+  const int64_t n_rows = (int64_t)L * B * H;
+  if (n_rows == 0) return (int)cudaSuccess;
+  const int64_t blocks = (n_rows * kVecPerRow + kThreads - 1) / kThreads;
+  kv_write_rows_q8_kernel<<<(unsigned)blocks, kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      static_cast<int8_t*>(cache_q), static_cast<float*>(cache_s),
+      static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(slots),
+      B, H, S, n_rows);
   return (int)cudaGetLastError();
 }
 

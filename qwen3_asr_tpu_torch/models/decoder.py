@@ -20,6 +20,14 @@ Parameters are a dict: ``embedding`` (vocab, H), ``final_norm`` (H,),
 ``fuse_decoder_params`` concatenates Q|K|V and gate|up as the JAX package
 does.  The KV cache is a pair of (L, B, Hkv, S, D) tensors updated in place
 (JAX returns new arrays; here the caller's cache is the result).
+
+Int8 (``ops/quant.py``): every linear goes through ``qlinear``, so
+quantized ``{"q", "s"}`` weights run kernel K9 (or K10 inside the
+activation-quant gate); a quantized embedding is stored transposed (H, V),
+so the lookup gathers columns and the lm head is ``qlinear`` with f32
+output.  The split decode step also takes the int8 cache ``{"q": int8,
+"s": f32}`` pair: attention runs K4 and the step's fresh bf16 rows are
+quantized and written by one K3-int8 launch per K and per V.
 """
 
 from __future__ import annotations
@@ -30,10 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from ..config import TextDecoderConfig
-from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.decode_attention import decode_attention, decode_attention_q8
 from ..ops.kernels.flash_attention import flash_attention_causal
-from ..ops.kernels.kv_write import kv_write_rows
+from ..ops.kernels.kv_write import kv_write_rows, kv_write_rows_q8
 from ..ops.norms import rms_norm
+from ..ops.quant import is_quantized, qlinear
+from ..ops.quant_kv import is_quantized_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 
 DecoderParams = dict[str, Any]
@@ -105,8 +115,15 @@ def fuse_decoder_params(params: DecoderParams) -> DecoderParams:
 
 
 def embed_tokens(params: DecoderParams, ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup, (...) -> (..., hidden)."""
-    return params["embedding"][ids.long()]
+    """Token embedding lookup, (...) -> (..., hidden).  A quantized (H, V)
+    embedding gathers columns and rescales them."""
+    emb = params["embedding"]
+    ids = ids.long()
+    if is_quantized(emb):
+        cols = emb["q"].index_select(1, ids.reshape(-1)).t()      # (n, H)
+        rows = cols.float() * emb["s"][ids.reshape(-1)][:, None]
+        return rows.to(params["final_norm"].dtype).reshape(*ids.shape, -1)
+    return emb[ids]
 
 
 def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin):
@@ -118,9 +135,9 @@ def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin):
     eps = cfg.rms_norm_eps
     x = rms_norm(h, lp["ln1"], eps)
     if "wqkv" in lp:
-        q, k, v = torch.split(x @ lp["wqkv"], [nq * D, nkv * D, nkv * D], dim=-1)
+        q, k, v = torch.split(qlinear(x, lp["wqkv"]), [nq * D, nkv * D, nkv * D], dim=-1)
     else:
-        q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+        q, k, v = qlinear(x, lp["wq"]), qlinear(x, lp["wk"]), qlinear(x, lp["wv"])
     q = rms_norm(q.reshape(B, T, nq, D), lp["q_norm"], eps).transpose(1, 2)
     k = rms_norm(k.reshape(B, T, nkv, D), lp["k_norm"], eps).transpose(1, 2)
     v = v.reshape(B, T, nkv, D).transpose(1, 2).contiguous()
@@ -133,10 +150,10 @@ def _mlp_block(h, lp, eps):
     """Pre-norm SwiGLU MLP with residual."""
     x = rms_norm(h, lp["ln2"], eps)
     if "wgu" in lp:
-        gate, up = (x @ lp["wgu"]).chunk(2, dim=-1)
+        gate, up = qlinear(x, lp["wgu"]).chunk(2, dim=-1)
     else:
-        gate, up = x @ lp["wg"], x @ lp["wu"]
-    return h + (F.silu(gate) * up) @ lp["wd"]
+        gate, up = qlinear(x, lp["wg"]), qlinear(x, lp["wu"])
+    return h + qlinear(F.silu(gate) * up, lp["wd"])
 
 
 def decoder_forward(
@@ -171,28 +188,36 @@ def decoder_forward(
             keys[layer, :, :, :T] = k
             values[layer, :, :, :T] = v
             attn = flash_attention_causal(q, k, v, scale=scale)
-            h = h + attn.transpose(1, 2).reshape(B, T, nq * D) @ lp["wo"]
+            h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
             h = _mlp_block(h, lp, eps)
         return h, (keys, values)
 
     if decode_ctx is not None and T == 1 and write_slots is not None:
         plen, dend, pbucket = decode_ctx
-        dend = torch.full((B,), int(dend), dtype=torch.int32, device=keys.device)
+        q8 = is_quantized_kv(keys)
+        device = hidden.device
+        dend = torch.full((B,), int(dend), dtype=torch.int32, device=device)
+        attend = decode_attention_q8 if q8 else decode_attention
         n_layers = len(params["layers"])
-        k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=keys.dtype, device=keys.device)
+        k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=hidden.dtype, device=device)
         v_rows = torch.empty_like(k_rows)
         for layer, lp in enumerate(params["layers"]):
             q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
-            attn = decode_attention(
+            attn = attend(
                 q[:, :, 0, :], keys, values, k_new, v_new, layer, plen, dend,
                 pbucket, scale=scale,
             )
             k_rows[layer] = k_new
             v_rows[layer] = v_new
-            h = h + attn.reshape(B, 1, nq * D) @ lp["wo"]
+            h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
             h = _mlp_block(h, lp, eps)
-        kv_write_rows(keys, k_rows, write_slots)
-        kv_write_rows(values, v_rows, write_slots)
+        if q8:
+            slots = torch.full((B,), int(write_slots), dtype=torch.int32, device=device)
+            kv_write_rows_q8(keys, k_rows, slots)
+            kv_write_rows_q8(values, v_rows, slots)
+        else:
+            kv_write_rows(keys, k_rows, write_slots)
+            kv_write_rows(values, v_rows, write_slots)
         return h, (keys, values)
 
     raise NotImplementedError(
@@ -204,8 +229,17 @@ def decoder_forward(
 def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
     """Final RMSNorm + tied lm_head -> float32 logits (B, T, vocab).
 
-    With bf16 weights the GEMM accumulates in f32 and rounds its output to
-    bf16 before the upcast (the JAX package keeps the f32 accumulator);
-    float32 weights give float32 logits directly."""
+    The logits are the f32 accumulator, as in the JAX package
+    (``preferred_element_type=float32``): bf16 weights on the GPU go
+    through ``torch.mm(..., out_dtype=float32)``, so two logits closer than
+    a bf16 ulp keep their order; a quantized (H, V) embedding is K9 with
+    f32 output; float32 weights (and the CPU) take the plain product."""
     h = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
-    return (h @ params["embedding"].T).float()
+    emb = params["embedding"]
+    if is_quantized(emb):
+        return qlinear(h, emb, out_dtype=torch.float32)
+    if h.is_cuda and emb.dtype == torch.bfloat16:
+        h2 = h.reshape(-1, h.shape[-1])
+        logits = torch.mm(h2, emb.T, out_dtype=torch.float32)
+        return logits.reshape(*h.shape[:-1], emb.shape[0])
+    return (h @ emb.T).float()

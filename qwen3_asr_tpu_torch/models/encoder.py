@@ -13,10 +13,15 @@ Counterpart of ``qwen3_asr_tpu/models/encoder.py:118-437`` with the default
   * ln_post -> GELU(proj1) -> proj2.
 
 Parameters are a dict: conv weights OIHW (``F.conv2d``'s layout), linear
-weights (in, out) so every dense product is ``x @ w``, and ``"layers"`` a
-list of per-layer dicts.  No kernel of this repository runs here: the conv
-stem is ``F.conv2d``, dense products ``torch.matmul``, attention plain sdpa
-(``ops/attention.py``), as the JAX package leaves them to XLA.
+weights (in, out) so every dense product is ``qlinear(x, w)``, and
+``"layers"`` a list of per-layer dicts.  With bf16 weights no kernel of this
+repository runs here: the conv stem is ``F.conv2d``, dense products
+``torch.matmul``, attention plain sdpa (``ops/attention.py``), as the JAX
+package leaves them to XLA.  In the W8A8 prefill mode
+(``act_quant="int8"``) the dense weights are int8 ``{"q", "s"}`` and the
+whole forward runs under the activation-quant gate with at least 256 rows
+(JAX ``encoder.py:337``, ``:368-371``), so its products run kernel K10 (K9
+below 256 rows); conv kernels, biases and norms stay full precision.
 """
 
 from __future__ import annotations
@@ -31,10 +36,14 @@ import torch.nn.functional as F
 from ..config import AudioEncoderConfig
 from ..ops.attention import windowed_self_attention
 from ..ops.norms import layer_norm
+from ..ops.quant import act_quant_rows, is_quantized, qlinear
 
 EncoderParams = dict[str, Any]
 
 _LN_EPS = 1e-5
+#: Row gate of the encoder's W8A8 products (the JAX package's
+#: ``_ACT_QUANT_ENC_MIN_ROWS``).
+_ACT_QUANT_ENC_MIN_ROWS = 256
 
 #: Per-layer parameter names (the JAX package's stacked keys).
 LAYER_KEYS = (
@@ -118,7 +127,7 @@ def conv_stem(params: EncoderParams, chunks: torch.Tensor) -> torch.Tensor:
     # (N, ch, freq', time') -> channel-major flatten (N, time', ch * freq').
     n, ch, freq, time = x.shape
     x = x.permute(0, 3, 1, 2).reshape(n, time, ch * freq)
-    return x @ params["conv_out"]
+    return qlinear(x, params["conv_out"])
 
 
 def encoder_forward(
@@ -129,7 +138,15 @@ def encoder_forward(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode (B, n_mels, T) log-mel (T a multiple of ``n_window_infer``,
     invalid frames zero) to ``(features (B, T // 100 * 13, output_dim),
-    n_valid_tokens (B,))``."""
+    n_valid_tokens (B,))``.  Quantized layer weights run the whole forward
+    under the activation-quant gate."""
+    if is_quantized(params["layers"][0]["wq"]):
+        with act_quant_rows(_ACT_QUANT_ENC_MIN_ROWS):
+            return _encoder_forward(params, cfg, mel, n_valid_frames)
+    return _encoder_forward(params, cfg, mel, n_valid_frames)
+
+
+def _encoder_forward(params, cfg, mel, n_valid_frames):
     B, n_mels, T = mel.shape
     chunk = cfg.chunk_frames
     if T % cfg.n_window_infer:
@@ -161,20 +178,20 @@ def encoder_forward(
 
     for lp in params["layers"]:
         x = layer_norm(h, lp["ln1_w"], lp["ln1_b"], _LN_EPS)
-        q = heads(x @ lp["wq"] + lp["bq"])
-        k = heads(x @ lp["wk"] + lp["bk"])
-        v = heads(x @ lp["wv"] + lp["bv"])
+        q = heads(qlinear(x, lp["wq"]) + lp["bq"])
+        k = heads(qlinear(x, lp["wk"]) + lp["bk"])
+        v = heads(qlinear(x, lp["wv"]) + lp["bv"])
         attn = windowed_self_attention(
             q, k, v, window=cfg.window_tokens, valid_mask=token_valid, scale=scale
         )
         attn = attn.transpose(1, 2).reshape(B, total, d)
-        h = h + attn @ lp["wo"] + lp["bo"]
+        h = h + qlinear(attn, lp["wo"]) + lp["bo"]
         x = layer_norm(h, lp["ln2_w"], lp["ln2_b"], _LN_EPS)
-        x = F.gelu(x @ lp["fc1_w"] + lp["fc1_b"], approximate="none")
-        h = h + x @ lp["fc2_w"] + lp["fc2_b"]
+        x = F.gelu(qlinear(x, lp["fc1_w"]) + lp["fc1_b"], approximate="none")
+        h = h + qlinear(x, lp["fc2_w"]) + lp["fc2_b"]
 
     h = layer_norm(h, params["ln_post_w"], params["ln_post_b"], _LN_EPS)
-    h = F.gelu(h @ params["proj1_w"] + params["proj1_b"], approximate="none")
-    features = h @ params["proj2_w"] + params["proj2_b"]
+    h = F.gelu(qlinear(h, params["proj1_w"]) + params["proj1_b"], approximate="none")
+    features = qlinear(h, params["proj2_w"]) + params["proj2_b"]
     features = torch.where(token_valid[:, :, None], features, torch.zeros((), dtype=features.dtype, device=features.device))
     return features, n_tokens

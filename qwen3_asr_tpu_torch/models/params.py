@@ -29,10 +29,27 @@ def _tensor(x, dtype=None, device=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _unstack(stacked: Mapping, dtype, device) -> list[dict[str, torch.Tensor]]:
-    n = len(next(iter(stacked.values())))
+def _is_quantized(x) -> bool:
+    return isinstance(x, Mapping) and set(x) == {"q", "s"}
+
+
+def _leaf(x, dtype, device):
+    """A tensor, or a quantized ``{"q", "s"}`` weight whose int8 values and
+    f32 scales keep their dtypes."""
+    if _is_quantized(x):
+        return {k: _tensor(v, None, device) for k, v in x.items()}
+    return _tensor(x, dtype, device)
+
+
+def _unstack(stacked: Mapping, dtype, device) -> list[dict]:
+    first = next(iter(stacked.values()))
+    n = len(first["q"] if _is_quantized(first) else first)
+
+    def layer(v, i):
+        return {k: a[i] for k, a in v.items()} if _is_quantized(v) else v[i]
+
     return [
-        {k: _tensor(v[i], dtype, device) for k, v in stacked.items()}
+        {k: _leaf(layer(v, i), dtype, device) for k, v in stacked.items()}
         for i in range(n)
     ]
 
@@ -41,9 +58,13 @@ def params_from_jax(enc: Mapping, dec: Mapping, dtype=None, device=None):
     """The JAX package's (encoder, decoder) pytrees, as nested dicts of
     numpy arrays, -> the port's parameters computing the same function.
 
-    Handles layer stacks (L, ...), HWIO conv kernels (-> OIHW) and either
-    the split (wq/wk/wv, wg/wu) or the fused (wqkv, wgu) decoder layout.
-    ``dtype`` None keeps each array's own dtype.
+    Handles layer stacks (L, ...), HWIO conv kernels (-> OIHW), either the
+    split (wq/wk/wv, wg/wu) or the fused (wqkv, wgu) decoder layout, and
+    int8 ``{"q", "s"}`` weights (a stacked (L, in, out) int8 with (L, out)
+    scales becomes one ``{"q", "s"}`` per layer; the transposed (H, V)
+    quantized embedding and quantized top-level encoder linears carry over
+    as they are).  ``dtype`` None keeps each array's own dtype; quantized
+    weights always keep theirs.
     """
     enc_t: dict = {}
     for k, v in enc.items():
@@ -52,9 +73,9 @@ def params_from_jax(enc: Mapping, dec: Mapping, dtype=None, device=None):
         elif k.startswith("conv") and k.endswith("_w"):
             enc_t[k] = _tensor(np.transpose(np.asarray(v), (3, 2, 0, 1)), dtype, device)
         else:
-            enc_t[k] = _tensor(v, dtype, device)
+            enc_t[k] = _leaf(v, dtype, device)
     dec_t = {
-        "embedding": _tensor(dec["embedding"], dtype, device),
+        "embedding": _leaf(dec["embedding"], dtype, device),
         "final_norm": _tensor(dec["final_norm"], dtype, device),
         "layers": _unstack(dec["layers"], dtype, device),
     }

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``qwen3_asr_tpu_torch/csrc``).
 
-The ``.cu`` sources have a plain C interface (no PyTorch headers), so one
-``nvcc`` call compiles all of them into a shared library in seconds::
+The ``.cu`` sources have a plain C interface (no PyTorch headers).  Each is
+compiled by its own ``nvcc`` process, all started together, and one more
+``nvcc`` links the objects into a shared library; seconds in all::
 
-    nvcc -O3 -std=c++17 -shared -Xcompiler -fPIC \\
-         -gencode arch=compute_90a,code=sm_90a -o <lib>.so csrc/*.cu
+    nvcc -O3 -std=c++17 -Xcompiler -fPIC \\
+         -gencode arch=compute_90a,code=sm_90a -c -o <name>.o csrc/<name>.cu
+    nvcc -shared -o <lib>.so *.o
 
 The library lands in ``build/torch_kernels/`` at the repository root, named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -34,7 +36,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-gencode", "arch=compute_90a,code=sm_90a",
 )
 
@@ -55,8 +57,21 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    # q, kall, vall, kscale, vscale, k_new, v_new, prompt_len, decode_end,
+    # workspace, out, layer, B, Hq, Hkv, S, prompt_bucket, splits, scale,
+    # stream
+    "decode_attention_q8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
     # cache, rows, slots, L, B, H, S, stream
     "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # cache_q, cache_s, rows, slots, L, B, H, S, stream
+    "kv_write_rows_q8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, wq, s, out, M, N, K, out_f32, stream
+    "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, sx, wq, ws, out, M, N, K, out_f32, stream
+    "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -92,23 +107,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqwen3_asr_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outputs = [p.communicate() for p in procs]
+    for cmd, p, (stdout, stderr) in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}"
+            )
+
+
 def build() -> Path:
-    """Compile the sources unless a library for their hash exists."""
+    """Compile the sources unless a library for their hash exists: one
+    ``nvcc`` per source, all at once, then one link."""
     global last_build_seconds
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    try:
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)
+        ])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     last_build_seconds = time.perf_counter() - t0
     return out

@@ -13,15 +13,23 @@ carried over.
 On a CPU tensor the wrappers run the plain version (``index_copy_``); on a
 CUDA tensor they launch the kernel or raise.  Both update ``cache`` in
 place and return it.
+
+The int8 cache ``{"q", "s"}`` takes the step's bf16 rows through
+:func:`kv_write_rows_q8`: one launch quantizes each 128-wide row with
+``ops/quant_kv.py:quantize_kv``'s rule and stores the int8 row and its f32
+scale; its plain version is ``quantize_kv`` + :func:`kv_write_rows_plain` +
+the scale write, and the kernel matches it bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..quant_kv import quantize_kv
 from . import _build
 
 NAME = "kv_write_rows"
+NAME_Q8 = "kv_write_rows_q8"
 
 
 def kv_write_rows_plain(
@@ -79,3 +87,50 @@ def kv_write_rows_batch(
 ) -> torch.Tensor:
     """Per-lane variant: lane b's rows land at ``slots[b]`` (int32, (B,))."""
     return _write(cache, rows, slots)
+
+
+def kv_write_rows_q8_plain(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> dict:
+    """Quantize ``rows`` per row and write ``q`` and ``s`` at ``slots[b]``."""
+    qr = quantize_kv(rows)
+    kv_write_rows_plain(cache["q"], qr["q"], slots)
+    kv_write_rows_plain(cache["s"][..., None], qr["s"][..., None], slots)
+    return cache
+
+
+def _check_q8(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> None:
+    cq, cs = cache["q"], cache["s"]
+    if cq.dim() != 5 or cq.dtype != torch.int8:
+        raise TypeError("cache['q'] must be int8 (L, B, Hkv, S, D)")
+    L, B, H, S, D = cq.shape
+    if tuple(cs.shape) != (L, B, H, S) or cs.dtype != torch.float32:
+        raise TypeError(f"cache['s'] must be f32 {(L, B, H, S)}")
+    if tuple(rows.shape) != (L, B, H, 1, D) or rows.dtype != torch.bfloat16:
+        raise ValueError(f"rows must be bf16 {(L, B, H, 1, D)}")
+    if D != 128:
+        raise ValueError(f"head_dim must be 128, got {D}")
+    if slots.dtype != torch.int32 or tuple(slots.shape) != (B,):
+        raise ValueError("slots must be int32 (B,)")
+    for name, t in (("cache['s']", cs), ("rows", rows), ("slots", slots)):
+        if t.device != cq.device:
+            raise ValueError(f"{name} is on {t.device}, cache on {cq.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not cq.is_contiguous():
+        raise ValueError("cache['q'] must be contiguous")
+
+
+def kv_write_rows_q8(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> dict:
+    """Quantize the bf16 ``rows`` (L, B, Hkv, 1, D) per row and store them
+    in the int8 cache ``{"q", "s"}`` at lane b's ``slots[b]`` (int32, (B,));
+    in place, returns ``cache``."""
+    if not cache["q"].is_cuda:
+        return kv_write_rows_q8_plain(cache, rows, slots)
+    _check_q8(cache, rows, slots)
+    L, B, H, S, _ = cache["q"].shape
+    err = _build.library().kv_write_rows_q8(
+        cache["q"].data_ptr(), cache["s"].data_ptr(), rows.data_ptr(),
+        slots.data_ptr(), L, B, H, S, _build.stream_ptr(rows),
+    )
+    _build.check(err, NAME_Q8)
+    _build.LAUNCHES[NAME_Q8] += 1
+    return cache

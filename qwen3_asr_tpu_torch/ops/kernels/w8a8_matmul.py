@@ -1,0 +1,102 @@
+"""K10: W8A8 matmul, activation quantize fused into the kernel.
+
+Replaces ``qwen3_asr_tpu/ops/pallas/w8a8_matmul.py:w8a8_matmul``.  x (M, K)
+bf16 is quantized per row to int8 against ``sx = max|x| / 127`` (the
+abs-max is taken here, outside the kernel, as in the TPU wrapper), the
+int8 x int8 product accumulates in int32, and the epilogue is
+``float(acc) * sx * ws``.  Bound on the H100: int8 tensor-core operations
+at prefill shapes.  The CUDA kernel (``csrc/w8a8_matmul.cu``) stages bf16 x
+and int8 weight tiles through a 3-stage ``cp.async`` ring, quantizes each x
+tile once in shared memory (IEEE divide, round half to even, clip +-127)
+and runs ``mma.sync`` m16n8k32 s8 x s8 -> s32.  It takes K a multiple of
+64 and N of 16, any M.
+
+On a CPU tensor the wrapper runs :func:`w8a8_matmul_plain`: the JAX
+package's W8A8 branch of ``qlinear`` (``quant.py:229-236``) with an exact
+int32 product; on a CUDA tensor it launches the kernel or raises.  Kernel
+and plain version compute the same function bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..quant_kv import div127
+from . import _build
+
+NAME = "w8a8_matmul"
+_BK = 64
+
+
+def activation_scales(x2: torch.Tensor) -> torch.Tensor:
+    """Per-row f32 scales ``max|x| / 127`` (1 for an all-zero row).  The
+    abs-max is exact in any dtype; an all-zero row divides 127 by 127."""
+    amax = torch.linalg.vector_norm(x2, float("inf"), dim=1, dtype=torch.float32)
+    return div127(torch.where(amax > 0, amax, 127.0))
+
+
+def quantize_activations(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: (M, K) -> (int8 (M, K), f32 scales (M,));
+    ``qwen3_asr_tpu/ops/quant.py:quantize_activations``."""
+    scale = activation_scales(x2)
+    q = torch.clamp(torch.round(x2.float() / scale[:, None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def w8a8_matmul_plain(
+    x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype: torch.dtype
+) -> torch.Tensor:
+    """Quantize x per row, exact integer product, ``acc * sx * ws``."""
+    xq, sx = quantize_activations(x)
+    if x.is_cuda:
+        # No integer matmul on CUDA: an f64 product of int8 values is exact
+        # (|acc| <= 127 * 127 * K < 2**53).
+        acc = (xq.double() @ wq.double()).float()
+    else:
+        acc = (xq.int() @ wq.int()).float()
+    return (acc * sx[:, None] * ws[None, :]).to(out_dtype)
+
+
+def _check(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype) -> None:
+    if x.dim() != 2 or wq.dim() != 2 or ws.dim() != 1:
+        raise ValueError("x must be (M, K), wq (K, N) and ws (N,)")
+    M, K = x.shape
+    Kw, N = wq.shape
+    if Kw != K or ws.shape[0] != N:
+        raise ValueError(f"shapes x {tuple(x.shape)}, wq {tuple(wq.shape)}, ws {tuple(ws.shape)}")
+    if K % _BK or N % 16:
+        raise ValueError(f"K={K} must be a multiple of {_BK} and N={N} of 16")
+    if x.dtype != torch.bfloat16 or wq.dtype != torch.int8 or ws.dtype != torch.float32:
+        raise TypeError(f"need bf16 x, int8 wq, f32 ws; got {x.dtype}, {wq.dtype}, {ws.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    for name, t in (("wq", wq), ("ws", ws)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if not (x.is_contiguous() and wq.is_contiguous() and ws.is_contiguous()):
+        raise ValueError("x, wq and ws must be contiguous")
+
+
+def w8a8_matmul(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    ws: torch.Tensor,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """(M, K) activations x (K, N) int8 weights with (N,) scales -> (M, N)
+    in ``out_dtype`` (default x's dtype), activations quantized per row."""
+    out_dtype = out_dtype or x.dtype
+    if not x.is_cuda:
+        return w8a8_matmul_plain(x, wq, ws, out_dtype)
+    _check(x, wq, ws, out_dtype)
+    M, K = x.shape
+    N = wq.shape[1]
+    sx = activation_scales(x)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    err = _build.library().w8a8_matmul_bf16(
+        x.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        M, N, K, int(out_dtype == torch.float32), _build.stream_ptr(x),
+    )
+    _build.check(err, NAME)
+    _build.LAUNCHES[NAME] += 1
+    return out

@@ -16,15 +16,26 @@ JAX package's, so both produce the same tokens:
     ``recent_token_window``;
   * a lane stops at EOS or at its token budget; finished lanes keep their
     tokens while the others run on.
+
+Int8 (``RuntimeConfig``): with ``quantization == act_quant == "int8"`` the
+prefill forward runs under the activation-quant gate (JAX
+``generate.py:193-209``, ``:244``), so its matmuls take W8A8 while the
+prefill lm head (M = B rows) stays weight-only; with
+``kv_cache_dtype="int8"`` :meth:`Generator.decode` quantizes the freshly
+prefilled bf16 cache once before the loop (JAX ``:1230-1234``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from ..config import RuntimeConfig, TextDecoderConfig
 from ..models.decoder import decoder_forward, decoder_logits, embed_tokens, init_kv_cache
+from ..ops.quant import act_quant_rows
+from ..ops.quant_kv import is_quantized_kv, kv_seq_len, quantize_kv_cache
 from ..ops.sampling import apply_repetition_penalty, recent_token_window
 from ..tokenizer import EOS_TOKEN_IDS, PROMPT_PREFIX
 from ..utils.telemetry import logger
@@ -60,7 +71,8 @@ class Generator:
     ) -> tuple[int, int, int]:
         """(prompt_bucket, token_bucket, cache_len), as the JAX package
         plans them: a 256-multiple prompt bucket and a memory-aware token
-        bucket under ``kv_cache_budget_gb``."""
+        bucket under ``kv_cache_budget_gb``.  Rows are sized as bf16 even
+        with the int8 cache: the prefill holds the bf16 cache first."""
         prompt_bucket = -(-(audio_token_bucket + 32) // 256) * 256
         if max_prompt_len > prompt_bucket:
             raise ValueError(
@@ -110,6 +122,14 @@ class Generator:
                 )
         return "greedy", rep_window, 1024
 
+    def _act_quant_ctx(self):
+        """The W8A8 gate for the prefill forward, when both
+        ``quantization`` and ``act_quant`` are "int8"."""
+        rt = self.runtime
+        if rt.quantization == "int8" and rt.act_quant == "int8":
+            return act_quant_rows(rt.act_quant_min_rows)
+        return contextlib.nullcontext()
+
     # -- prefill ----------------------------------------------------------
 
     def prefill(self, features, ids, n_audio, prompt_len, cache_len: int):
@@ -130,7 +150,8 @@ class Generator:
         embeds = torch.where(is_audio[:, :, None], injected, embeds)
 
         kv = init_kv_cache(cfg, B, cache_len, embeds.dtype, embeds.device)
-        hidden, kv = decoder_forward(self.params, cfg, embeds, slot.expand(B, P), kv)
+        with self._act_quant_ctx():
+            hidden, kv = decoder_forward(self.params, cfg, embeds, slot.expand(B, P), kv)
         last = hidden[torch.arange(B, device=ids.device), prompt_len.long() - 1]
         logits = decoder_logits(self.params, cfg, last[:, None, :])[:, 0]
         return kv, logits
@@ -158,10 +179,12 @@ class Generator:
             token_bucket, temperature, top_k, repetition_penalty,
             repetition_context_size,
         )
+        if self.runtime.kv_cache_dtype == "int8" and not is_quantized_kv(kv[0]):
+            kv = quantize_kv_cache(kv)      # the bf16 pair is freed on return
         cfg = self.cfg
         device = first_logits.device
         B = first_logits.shape[0]
-        S = kv[0].shape[3]
+        S = kv_seq_len(kv[0])
         prompt_bucket = S - token_bucket
         plen = torch.tensor(prompt_lens, dtype=torch.int32, device=device)
         max_new = torch.tensor(

@@ -1,7 +1,9 @@
-"""The PyTorch port's slice as a whole: greedy ``transcribe`` and
+"""The PyTorch port's slices as a whole: greedy ``transcribe`` and
 ``transcribe_batch`` are token-identical to the JAX package on the same
-tiny float32 checkpoint; what the slice leaves out raises
-``NotImplementedError``; importing the port needs neither JAX nor nvcc."""
+tiny float32 checkpoint, in bf16 and under each int8 setting
+(``quantization``, ``act_quant``, ``kv_cache_dtype``, alone and together);
+what the port leaves out raises ``NotImplementedError``; importing the port
+needs neither JAX nor nvcc."""
 
 from __future__ import annotations
 
@@ -74,6 +76,46 @@ def test_empty_and_invalid_audio(pair):
         port.transcribe(np.zeros((2, 100), np.float32))
 
 
+#: The int8 settings, alone and together.  ``act_quant_min_rows`` 16 lets
+#: the tiny prefill (4 padded lanes x at least 64 rows) take W8A8 while the
+#: decode steps (M = 4 rows) stay weight-only; test_torch_quant.py checks
+#: that split with a spy.
+INT8_SETTINGS = {
+    "w8": dict(quantization="int8"),
+    "w8a8": dict(quantization="int8", act_quant="int8", act_quant_min_rows=16),
+    "kv8": dict(kv_cache_dtype="int8"),
+    "all": dict(quantization="int8", act_quant="int8", act_quant_min_rows=16,
+                kv_cache_dtype="int8"),
+}
+
+
+@pytest.fixture(scope="module", params=list(INT8_SETTINGS))
+def int8_pair(request):
+    return models(seed=0, runtime=INT8_SETTINGS[request.param])
+
+
+def test_int8_transcribe_batch_token_identical(int8_pair):
+    jax_model, port = int8_pair
+    audio = clips((1.0, 2.3, 5.1), seed=1)
+    ref = ids_of(jax_model.transcribe_batch(audio, max_tokens=12))
+    out = ids_of(port.transcribe_batch(audio, max_tokens=12))
+    assert out == ref
+    assert all(len(t) == 12 for t in out)
+    assert len({t for seq in out for t in seq}) > 3
+
+
+def test_int8_transcribe_and_detect_token_identical(int8_pair):
+    jax_model, port = int8_pair
+    audio = clips((3.7,), seed=2)[0]
+    ref = jax_model.transcribe(audio, max_tokens=20, language="de")
+    out = port.transcribe(audio, max_tokens=20, language="de")
+    assert ids_of([out]) == ids_of([ref])
+    pcm = [(a * 30000).astype(np.int16) for a in clips((1.5, 0.4), seed=3)]
+    ref = jax_model.transcribe_batch(pcm, max_tokens=6, language="detect")
+    out = port.transcribe_batch(pcm, max_tokens=6, language="detect")
+    assert [(r.text, r.language) for r in out] == [(r.text, r.language) for r in ref]
+
+
 def test_unported_features_raise(pair):
     from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
 
@@ -85,8 +127,8 @@ def test_unported_features_raise(pair):
         port.transcribe(audio, chunk_duration=1.0, max_tokens=2)   # long-form
     with pytest.raises(NotImplementedError):
         port.transcribe_batch([audio], chunk_duration=1.0, max_tokens=2)
-    for rt in ({"speculative": "ngram"}, {"quantization": "int8"},
-               {"kv_cache_dtype": "int8"}, {"dp": 2}):
+    for rt in ({"speculative": "ngram"}, {"dp": 2},
+               {"speculative": "ngram", "kv_cache_dtype": "int8"}):
         with pytest.raises(NotImplementedError):
             Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
                      port._tokenizer, RuntimeConfig(**rt))
@@ -139,7 +181,8 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
         "import qwen3_asr_tpu_torch\n"
         "from qwen3_asr_tpu_torch import api, models, runtime\n"
         "from qwen3_asr_tpu_torch.ops.kernels import _build, decode_attention, "
-        "flash_attention, kv_write\n"
+        "flash_attention, kv_write, quantized_matmul, w8a8_matmul\n"
+        "from qwen3_asr_tpu_torch.ops import quant, quant_kv\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'qwen3_asr_tpu.'))"
         " or m == 'qwen3_asr_tpu']\n"
         "assert not bad, bad\n"

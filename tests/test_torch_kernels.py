@@ -1,5 +1,6 @@
 """Kernel modules of the PyTorch port (K1 prefill flash attention, K2 decode
-attention, K3 KV-row write).
+attention, K3 KV-row write, K4 decode attention over the int8 cache, K3 on
+the int8 cache; K9 and K10 are in test_torch_quant.py, their GPU tests here).
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode on the same
@@ -12,7 +13,10 @@ Pallas kernel rounds q * scale, K, V and the softmax weights to bf16 even
 for float32 inputs (decode_attention_hbm4.py:166, :199) -- the tolerance
 tests/test_pallas.py holds it to.  K2's plain version is also held at
 1e-4 against the JAX decoder's own float32 decode path in
-test_torch_modules.py.
+test_torch_modules.py.  K4's plain version is held at 5e-3 against the
+Pallas ``decode_attention_hbm4_q8`` (the bound of tests/test_quant_kv.py),
+and the int8 row write bit-exact against JAX ``quantize_kv`` + the Pallas
+``kv_write_rows``.
 
 Tests marked ``cuda`` compare each CUDA kernel with its plain version on
 the GPU and skip without one.
@@ -209,6 +213,80 @@ def test_kv_write_rows_in_place():
     assert cache[:, :, :, 6].eq(1).all() and cache.sum() == 2 * 128
 
 
+# -- K4: decode attention over the int8 cache; K3 on the int8 cache ---------------
+
+
+@pytest.mark.parametrize("dend_off", [0, 1, 37])
+def test_decode_q8_plain_matches_pallas(dend_off):
+    """At tests/test_quant_kv.py:118's shapes and bound (atol 5e-3), plus
+    one idle lane (prompt_len 0, decode_end == prompt_bucket)."""
+    import jax.numpy as jnp
+
+    from qwen3_asr_tpu.ops.pallas.decode_attention_hbm4 import decode_attention_hbm4_q8
+    from qwen3_asr_tpu.ops.quant_kv import quantize_kv as jax_qkv
+
+    from qwen3_asr_tpu_torch.ops.kernels.decode_attention import decode_attention_q8
+
+    L, B, hq, hkv, S, D, pb = 2, 4, 4, 2, 640, 128, 512
+    rng = np.random.default_rng(40 + dend_off)
+    q = rng.standard_normal((B, hq, D)).astype(np.float32)
+    kall = rng.standard_normal((L, B, hkv, S, D)).astype(np.float32)
+    vall = rng.standard_normal((L, B, hkv, S, D)).astype(np.float32)
+    k_new = rng.standard_normal((B, hkv, 1, D)).astype(np.float32)
+    v_new = rng.standard_normal((B, hkv, 1, D)).astype(np.float32)
+    plen = np.array([100, 412, 37, 0], np.int32)
+    dend = np.array([pb + dend_off] * 3 + [pb], np.int32)
+    kq, vq = jax_qkv(kall), jax_qkv(vall)
+    ref = np.asarray(decode_attention_hbm4_q8(
+        q, kq, vq, k_new, v_new, jnp.int32(1), plen, dend, pb, interpret=True,
+    ))
+
+    def t(tree):
+        return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+    out = decode_attention_q8(
+        torch.from_numpy(q), t(kq), t(vq), torch.from_numpy(k_new),
+        torch.from_numpy(v_new), 1, torch.from_numpy(plen), torch.from_numpy(dend), pb,
+    ).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out[:3], ref[:3], atol=5e-3, rtol=0)
+    # The idle lane attends the self-term alone (the Pallas wrapper reads one
+    # clamped row there, and the caller discards that lane).
+    np.testing.assert_allclose(out[3], np.repeat(v_new[3, :, 0], 2, axis=0), atol=1e-6)
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_kv_write_q8_bit_exact_vs_pallas(per_lane):
+    import jax.numpy as jnp
+
+    from qwen3_asr_tpu.ops.pallas.kv_write import kv_write_rows as pallas_write
+    from qwen3_asr_tpu.ops.pallas.kv_write import kv_write_rows_batch as pallas_write_batch
+    from qwen3_asr_tpu.ops.quant_kv import quantize_kv as jax_qkv
+
+    from qwen3_asr_tpu_torch.ops.kernels.kv_write import kv_write_rows_q8
+
+    rng = np.random.default_rng(11 + per_lane)
+    L, B, H, S = 2, 3, 2, 64
+    cache = jax_qkv(rng.standard_normal((L, B, H, S, 128)).astype(np.float32))
+    rows = rng.standard_normal((L, B, H, 1, 128)).astype(np.float32)
+    rows[1, 2, 0] = 0.0                                # an all-zero row
+    slots = np.array([3, 40, 63], np.int32) if per_lane else np.full(3, 17, np.int32)
+    qr = jax_qkv(rows)
+    if per_lane:
+        ref_q = pallas_write_batch(cache["q"], qr["q"], jnp.asarray(slots), interpret=True)
+    else:
+        ref_q = pallas_write(cache["q"], qr["q"], jnp.int32(17), interpret=True)
+    ref_s = np.asarray(cache["s"]).copy()
+    for b in range(B):
+        ref_s[:, b, :, slots[b]] = np.asarray(qr["s"])[:, b, :, 0]
+    out = kv_write_rows_q8(
+        {"q": torch.from_numpy(np.array(cache["q"])), "s": torch.from_numpy(np.array(cache["s"]))},
+        torch.from_numpy(rows), torch.from_numpy(slots),
+    )
+    np.testing.assert_array_equal(out["q"].numpy(), np.asarray(ref_q))
+    np.testing.assert_array_equal(out["s"].numpy(), ref_s)
+
+
 # -- wrapper checks and the build -----------------------------------------------
 
 
@@ -316,3 +394,95 @@ def test_cuda_kv_write_matches_plain(cuda):
     assert torch.equal(out, kv_write_rows_plain(cache.clone(), rows, slots))
     out = kv_write_rows(cache.clone(), rows, 7)
     assert torch.equal(out, kv_write_rows_plain(cache.clone(), rows, torch.full_like(slots, 7)))
+
+
+# -- on the GPU: the int8 kernels (K4, K9, K10, K3 int8) against their plain versions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (1, 2048, 4096), (8, 2048, 2048), (17, 6144, 2048), (96, 2048, 12288),
+    (300, 256, 1040), (8, 2048, 151936),
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantized_matmul_matches_plain(cuda, M, K, N, out_dtype):
+    from qwen3_asr_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
+
+    g = torch.Generator(device=cuda).manual_seed(M * N + K)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    wq = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=cuda) * 1e-3
+    before = LAUNCHES["quantized_matmul"]
+    out = quantized_matmul(x, wq, s, out_dtype)
+    assert LAUNCHES["quantized_matmul"] == before + 1
+    ref = x.float() @ (wq.float() * s)         # f32 reference of the same function
+    tol = 1e-5 * ref.abs().max().item()
+    rtol = 1e-5 if out_dtype == torch.float32 else 8e-3
+    assert out.dtype == out_dtype
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (3584, 2048, 4096), (3584, 6144, 2048), (3328, 7680, 1024), (37, 256, 384),
+    (200, 1024, 1040),
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_w8a8_matmul_bit_exact_vs_plain(cuda, M, K, N, out_dtype):
+    from qwen3_asr_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    x[1] = 0                                  # an all-zero row: scale 1, output 0
+    wq = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    ws = torch.rand(N, generator=g, device=cuda) * 1e-3
+    out = w8a8_matmul(x, wq, ws, out_dtype)
+    ref = w8a8_matmul_plain(x, wq, ws, out_dtype)
+    assert torch.equal(out, ref)
+    assert out[1].eq(0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(1, 640), (8, 2560), (5, 700)])
+def test_cuda_decode_q8_matches_plain(cuda, B, S):
+    from qwen3_asr_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_q8,
+        decode_attention_q8_plain,
+    )
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    g = torch.Generator(device=cuda).manual_seed(B * S + 1)
+    pb = 512
+    kall = quantize_kv(torch.randn(2, B, 8, S, 128, generator=g, device=cuda))
+    vall = quantize_kv(torch.randn(2, B, 8, S, 128, generator=g, device=cuda))
+    q = torch.randn(B, 16, 128, generator=g, device=cuda).bfloat16()
+    k_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    v_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    plen = torch.randint(0, pb + 1, (B,), generator=g, device=cuda).int()
+    dend = torch.randint(pb, S + 1, (B,), generator=g, device=cuda).int()
+    before = LAUNCHES["decode_attention_q8"]
+    out = decode_attention_q8(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    assert LAUNCHES["decode_attention_q8"] == before + 1
+    ref = decode_attention_q8_plain(
+        q.float(), kall, vall, k_new.float(), v_new.float(), 1, plen, dend, pb,
+        128 ** -0.5,
+    )
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_kv_write_q8_bit_exact_vs_plain(cuda):
+    from qwen3_asr_tpu_torch.ops.kernels.kv_write import kv_write_rows_q8, kv_write_rows_q8_plain
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    L, B, H, S = 28, 8, 8, 640
+    cache = quantize_kv(torch.randn(L, B, H, S, 128, generator=g, device=cuda))
+    rows = torch.randn(L, B, H, 1, 128, generator=g, device=cuda).bfloat16()
+    rows[0, 0, 0] = 0                             # an all-zero row: scale 1
+    for slots in (torch.full((B,), 600, dtype=torch.int32, device=cuda),
+                  torch.randint(512, S, (B,), generator=g, device=cuda).int()):
+        out = kv_write_rows_q8({k: v.clone() for k, v in cache.items()}, rows, slots)
+        ref = kv_write_rows_q8_plain({k: v.clone() for k, v in cache.items()}, rows, slots)
+        assert torch.equal(out["q"], ref["q"]) and torch.equal(out["s"], ref["s"])

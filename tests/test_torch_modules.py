@@ -281,3 +281,51 @@ def test_generator_plan_matches_jax():
         assert tg.plan_statics(128, 0.0, 0, 1.2, 100)[:2] == jg.plan_statics(128, 0.0, 0, 1.2, 100)[:2]
     with pytest.raises(NotImplementedError):
         tg.plan_statics(128, 0.7, 0, 1.2, 100)
+
+
+# -- the lm head hands the argmax f32 logits ---------------------------------------
+
+
+def _near_tie_lm_head(device):
+    """bf16 tied embedding whose rows 5 and 9 score 20.0 and 20.046875 on an
+    all-ones hidden state: closer than a bf16 ulp (0.125 between 16 and 32),
+    so a product rounded to bf16 ties them and argmax takes row 5, while
+    the f32 accumulator (the JAX package's logits) picks row 9."""
+    from torch_parity import TINY_DECODER
+
+    from qwen3_asr_tpu_torch.config import TextDecoderConfig
+
+    cfg = TextDecoderConfig(**TINY_DECODER)
+    emb = torch.zeros(cfg.vocab_size, cfg.hidden_size)
+    emb[5, :2] = torch.tensor([16.0, 4.0])
+    emb[9, :3] = torch.tensor([16.0, 4.0, 0.046875])
+    params = {
+        "embedding": emb.to(device, torch.bfloat16),
+        "final_norm": torch.ones(cfg.hidden_size, dtype=torch.bfloat16, device=device),
+        "layers": [],
+    }
+    hidden = torch.ones(2, 1, cfg.hidden_size, dtype=torch.bfloat16, device=device)
+    return cfg, params, hidden
+
+
+def test_lm_head_logits_f32_contract():
+    cfg, params, hidden = _near_tie_lm_head("cpu")
+    logits = tdec.decoder_logits(params, cfg, hidden)
+    assert logits.dtype == torch.float32 and logits.shape == (2, 1, cfg.vocab_size)
+    h = tnorms.rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    emb = params["embedding"]
+    f32 = h.float() @ emb.float().T
+    assert f32[0, 0, 9] - f32[0, 0, 5] == 0.046875
+    assert (f32.argmax(-1) == 9).all()                       # the reference pick
+    assert ((h @ emb.T).float().argmax(-1) == 5).all()       # the bf16-rounded fault
+
+
+@pytest.mark.cuda
+def test_cuda_lm_head_keeps_the_f32_accumulator():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    cfg, params, hidden = _near_tie_lm_head("cuda")
+    logits = tdec.decoder_logits(params, cfg, hidden)
+    assert logits.dtype == torch.float32
+    assert (logits.argmax(-1) == 9).all()
+    assert (logits[..., 9] - logits[..., 5]).eq(0.046875).all()

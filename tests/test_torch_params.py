@@ -1,6 +1,7 @@
 """Weights of the PyTorch port: ``params_from_jax``, ``load_checkpoint`` on a
 checkpoint written by the JAX package's ``save_checkpoint`` (exact
-equality), and seeded random init."""
+equality), seeded random init, and int8 weights: the port's quantizers on
+converted weights equal the JAX quantizers' trees converted, bit for bit."""
 
 from __future__ import annotations
 
@@ -131,3 +132,60 @@ def test_random_params_seeded_and_shaped(jax_params):
                 assert v.shape == got[k].shape, k
     std = d1["layers"][0]["wq"].std().item()
     assert 0.015 < std < 0.025
+
+
+def _assert_trees_equal(a, b, path=""):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), path
+        for k in a:
+            _assert_trees_equal(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        assert isinstance(b, list) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_trees_equal(x, y, f"{path}[{i}]")
+    else:
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_quantize_decoder_params_matches_jax(jax_params, fused):
+    import jax
+    import jax.numpy as jnp
+
+    from qwen3_asr_tpu.models.decoder import fuse_decoder_params as jax_fuse
+    from qwen3_asr_tpu.ops.quant import quantize_decoder_params as jax_quantize
+
+    from qwen3_asr_tpu_torch.ops.quant import quantize_decoder_params
+
+    _, _, enc, dec = jax_params
+    dec_j = jax.tree_util.tree_map(jnp.asarray, dec)
+    if fused:
+        dec_j = jax_fuse(dec_j)
+    ref = jax.tree_util.tree_map(np.asarray, jax_quantize(dec_j))
+    _, dec_t = params_from_jax(enc, dec)
+    if fused:
+        dec_t = fuse_decoder_params(dec_t)
+    port = quantize_decoder_params(dec_t)
+    _, from_jax = params_from_jax(enc, ref)
+    _assert_trees_equal(port, from_jax)
+    assert port["embedding"]["q"].shape == (dec["embedding"].shape[1], dec["embedding"].shape[0])
+    assert port["layers"][0]["ln1"].dtype == torch.float32
+
+
+def test_quantize_encoder_params_matches_jax(jax_params):
+    import jax
+    import jax.numpy as jnp
+
+    from qwen3_asr_tpu.ops.quant import quantize_encoder_params as jax_quantize
+
+    from qwen3_asr_tpu_torch.ops.quant import is_quantized, quantize_encoder_params
+
+    _, _, enc, dec = jax_params
+    ref = jax.tree_util.tree_map(np.asarray, jax_quantize(jax.tree_util.tree_map(jnp.asarray, enc)))
+    enc_t, _ = params_from_jax(enc, dec)
+    port = quantize_encoder_params(enc_t)
+    from_jax, _ = params_from_jax(ref, dec)
+    _assert_trees_equal(port, from_jax)
+    for k in ("conv_out", "proj1_w", "proj2_w"):
+        assert is_quantized(port[k])
+    assert not is_quantized(port["conv1_w"]) and not is_quantized(port["layers"][0]["bq"])
