@@ -13,23 +13,35 @@ failure raises and the script exits non-zero):
      the card: max abs error vs the plain version computed in float32
      (K1, K2, K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9: f32
      tolerance, 1e-5 of the largest |value| + rtol 1e-5, against the f32
-     product of the same int8 weights; K3, K3 int8 and K10: exact), both
-     times from CUDA events, and the share of the published peak (HBM
-     bytes for K2, K4, K9; int8 operations for K10);
-  4. small-width reference checks: the decoder's prefill logits and one
-     decode step with the kernels on the GPU against the same weights on
-     the CPU with the plain versions -- bf16 against float32, and the int8
+     product of the same int8 weights; K3, K3 int8, K5 and K10: exact, K5
+     with overflow rows dropped), kernel, plain and library-call times from
+     CUDA events, the bound (bytes over 3.35 TB/s or operations over the
+     peak of their type, whichever is larger), and the share of the
+     published peak;
+  4. small-width reference checks: the decoder's prefill logits, one
+     decode step and (bf16) one verify-split forward (T=4, per-lane write
+     slots) with the kernels on the GPU against the same weights on the
+     CPU with the plain versions -- bf16 against float32, and the int8
      decoder (int8 weights, W8A8 prefill, int8 cache) against the same
      quantized weights in float32;
-  5. the full-width 1.7B slice from random weights (seed 0): greedy
-     ``transcribe_batch`` of 8 synthetic clips of 4-30 s (``max_tokens=64``)
-     twice and one ``transcribe``; token ids must be < vocab, logits never
-     NaN, both batch runs identical, and every kernel of the path launched
-     (launch counters are reset right before it).  The bf16 prefill logits
-     must equal the f32 product of a few of their rows (the lm head keeps
-     its f32 accumulator).  Then the model is freed and the same runs go
-     through a second 1.7B model with ``RuntimeConfig(quantization="int8",
-     act_quant="int8", kv_cache_dtype="int8")``;
+  5. the full-width 1.7B paths from random weights (seed 0), each with the
+     launch counters set to 0 just before it and read just after: greedy
+     ``transcribe_batch`` of 8 synthetic clips of 4-30 s
+     (``max_tokens=64``) twice and one ``transcribe`` under
+     ``speculative="off"`` (K1-K3; the bf16 lm head must keep its f32
+     accumulator), then the same runs on the same weights under the
+     default ``"auto"`` (the speculative loop: K5, no K2/K3), each lane's
+     stream equal to the plain one or first differing at a near-tie of the
+     plain run's penalized logits, and every token of the B=8 stream held
+     to the plain step's logits on the same prefix (the plain loop forced
+     along the speculative stream), for the n-gram run and for a
+     teacher-forced run whose drafts are mostly accepted; sampled ``transcribe_batch`` twice with
+     one seed (identical), sampled speculative (``spec_sampling``),
+     int8-weights speculative (K5 and K9), long-form 20 s clips in 8 s
+     chunks (one clip, and two pooled into one group); then a second 1.7B
+     model with ``RuntimeConfig(quantization="int8", act_quant="int8",
+     kv_cache_dtype="int8")``.  Token ids must be < vocab, logits never
+     NaN, repeated runs identical, every kernel of a path launched;
   6. ``{"kernels": [...]}`` JSON, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +55,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -84,11 +97,26 @@ KERNELS = {
         "cuda", "qwen3_asr_tpu_torch/csrc/w8a8_matmul.cu",
         "qwen3_asr_tpu/ops/pallas/w8a8_matmul.py:65",
     ),
+    "kv_write_span_batch": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/kv_write.cu",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:156",
+    ),
 }
-#: The kernels each main path must launch.
+#: The kernels each path must launch, and those it must not.
 BF16_PATH = ("flash_attention_causal", "decode_attention", "kv_write_rows")
 INT8_PATH = ("flash_attention_causal", "decode_attention_q8", "kv_write_rows_q8",
              "quantized_matmul", "w8a8_matmul")
+SPEC_PATH = ("flash_attention_causal", "kv_write_span_batch")
+SPEC_NEVER = ("decode_attention", "kv_write_rows")
+SPEC_W8_PATH = ("flash_attention_causal", "kv_write_span_batch", "quantized_matmul")
+#: bf16 speculative vs plain rows of one prefix at 1.7B: the largest allowed
+#: max |difference| over max |logit|, 1.5x what the plain loop's own rows of
+#: one lane differ by between B=1 and B=8 (2.7e-2 on an H100 80GB HBM3 from
+#: seed 0), and the top-two gap over max |logit| under which the two may
+#: choose apart: above the largest gap of such a flip measured there
+#: (1.3e-2), below the median gap of the plain run's choices (2.1e-2).
+LOGIT_TOL = 4e-2
+NEAR_TIE = 1.5e-2
 
 
 def card_identity() -> str:
@@ -115,6 +143,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, peak_ops_per_s: float) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its operations over the peak rate of their type."""
+    t_bytes = nbytes / (PEAK_HBM_GBPS * 1e9) * 1e3
+    t_ops = ops / peak_ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _sum_bounds(parts: list[dict]) -> dict:
+    """The bound of calls run one after another (their bounds summed; the
+    label of the larger share)."""
+    by_bytes = sum(b["bound_ms"] for b in parts if b["bound_by"] == "bytes")
+    total = sum(b["bound_ms"] for b in parts)
+    return {"bound_ms": total,
+            "bound_by": "bytes" if by_bytes >= total - by_bytes else "operations"}
+
+
 def _close(name: str, out, ref, atol: float, rtol: float) -> float:
     import torch
 
@@ -133,6 +180,7 @@ def _close(name: str, out, ref, atol: float, rtol: float) -> float:
 
 def check_flash(gen) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from qwen3_asr_tpu_torch.ops.kernels import flash_attention as fa
 
@@ -148,17 +196,22 @@ def check_flash(gen) -> dict:
         err = _close(f"K1 T={T}", out, ref, 2e-2, 2e-2)
         ms = cuda_ms(lambda: fa.flash_attention_causal(q, k, v))
         plain_ms = cuda_ms(lambda: fa.flash_attention_causal_plain(q, k, v))
-        # Causal QK^T and PV: 2 products x 2 FLOP per MAC over T(T+1)/2 pairs.
-        tflops = 4 * B * hq * D * T * (T + 1) / 2 / (ms * 1e-3) / 1e12
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        # Causal QK^T and PV: 2 products x 2 FLOP per MAC over T(T+1)/2 pairs;
+        # q, k, v read and the output written once.
+        flops = 4 * B * hq * D * T * (T + 1) / 2
+        b = bound(2 * B * T * D * (2 * hq + 2 * hkv), flops, PEAK_BF16_TFLOPS * 1e12)
+        tflops = flops / (ms * 1e-3) / 1e12
         print(f"K1 flash_attention_causal B={B} T={T}: max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {tflops:.1f} TFLOP/s "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); {tflops:.1f} TFLOP/s "
               f"= {tflops / PEAK_BF16_TFLOPS:.1%} of the bf16 peak")
         worst = max(worst, err)
-        times.append((T, ms, plain_ms))
+        times.append((T, {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}))
     # The record's time is the main path's largest smoke shape (T=448: the
     # 30 s bucket's 64-aligned prefill run).
-    _, ms, plain_ms = next(t for t in times if t[0] == 448)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, **next(t for T, t in times if T == 448)}
 
 
 def check_decode(gen) -> dict:
@@ -194,17 +247,24 @@ def check_decode(gen) -> dict:
                 q, kall, vall, k_new, v_new, layer, plen, dend, pb))
             plain_ms = cuda_ms(lambda: da.decode_attention_plain(
                 q, kall, vall, k_new, v_new, layer, plen, dend, pb, D ** -0.5))
-            # The K and V bytes of the valid rows, each read once.
+            # The K and V bytes of the valid rows, each read once, plus q,
+            # the fresh rows and the output; QK and PV over the valid rows
+            # and the self-term.
             rows = int((plen + dend - pb).sum())
+            b = bound(rows * hkv * D * 2 * 2 + B * (2 * hq + 2 * hkv) * D * 2,
+                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
             gbps = rows * hkv * D * 2 * 2 / (ms * 1e-3) / 1e9
             print(f"K2 decode_attention B={B} pb={pb} S={S}: max_abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {rows} valid rows, "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {rows} valid rows, "
                   f"{gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
             worst = max(worst, err)
-            times.append((B, S, ms, plain_ms))
+            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
             del kall, vall
-    _, _, ms, plain_ms = next(t for t in times if t[0] == 8 and t[1] == 640)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # No one PyTorch call computes it: two valid intervals plus the
+    # self-term of a row that is not in the cache.
+    rec = next(t for B, S, t in times if B == 8 and S == 640)
+    return {"max_abs_err": worst, **rec, "library_ms": None}
 
 
 def check_kv_write(gen) -> dict:
@@ -229,8 +289,20 @@ def check_kv_write(gen) -> dict:
     work = cache.clone()
     ms = cuda_ms(lambda: kw.kv_write_rows(work, rows, 600))
     plain_ms = cuda_ms(lambda: kw.kv_write_rows_plain(work, rows, torch.full_like(slots, 600)))
-    print(f"K3 kv_write_rows L={L} B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    # One index_put_ of the same rows at the same (lane, slot) pairs.
+    lane = torch.arange(B, device="cuda")
+    slot = torch.full((B,), 600, device="cuda")
+    vals = rows[:, :, :, 0].transpose(0, 1).contiguous()          # (B, L, H, D)
+
+    def index_put():
+        work[:, lane, :, slot] = vals
+
+    library_ms = cuda_ms(index_put)
+    b = bound(2 * L * B * hkv * D * 2, 0, 1.0)
+    print(f"K3 kv_write_rows L={L} B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_put_ {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms (bytes)")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
 
 
 def check_decode_q8(gen) -> dict:
@@ -269,15 +341,19 @@ def check_decode_q8(gen) -> dict:
                 q, kall, vall, k_new, v_new, layer, plen, dend, pb, D ** -0.5))
             # int8 K and V bytes plus one f32 scale each, per valid row.
             rows = int((plen + dend - pb).sum())
+            b = bound(rows * hkv * (D + 4) * 2 + B * (2 * hq + 2 * hkv) * D * 2,
+                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
             gbps = rows * hkv * (D + 4) * 2 / (ms * 1e-3) / 1e9
             print(f"K4 decode_attention_q8 B={B} pb={pb} S={S}: max_abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {rows} valid rows, "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {rows} valid rows, "
                   f"{gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
             worst = max(worst, err)
-            times.append((B, S, ms, plain_ms))
+            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
             del kall, vall
-    _, _, ms, plain_ms = next(t for t in times if t[0] == 8 and t[1] == 640)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # No one PyTorch call: K2's intervals and self-term over int8 rows.
+    rec = next(t for B, S, t in times if B == 8 and S == 640)
+    return {"max_abs_err": worst, **rec, "library_ms": None}
 
 
 def check_kv_write_q8(gen) -> dict:
@@ -302,8 +378,12 @@ def check_kv_write_q8(gen) -> dict:
     work = {k: v.clone() for k, v in cache.items()}
     ms = cuda_ms(lambda: kw.kv_write_rows_q8(work, rows, shared))
     plain_ms = cuda_ms(lambda: kw.kv_write_rows_q8_plain(work, rows, shared))
-    print(f"K3 kv_write_rows_q8 L={L} B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    # bf16 rows in; int8 rows and f32 scales out.
+    b = bound(L * B * hkv * (D * 2 + D + 4), 0, 1.0)
+    print(f"K3 kv_write_rows_q8 L={L} B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms (bytes)")
+    # No one PyTorch call quantizes a row and stores it with its scale.
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 #: Decoder (K, N) of every decode-time matmul (1.7B widths): fused QKV, o,
@@ -342,18 +422,24 @@ def check_quantized_matmul(gen) -> dict:
             err = _close(f"K9 {name} M={B}", out, ref, 1e-5 * ref.abs().max().item(), rtol)
             ms = cuda_ms(lambda: qm.quantized_matmul(x, wq, s, out_dtype))
             plain_ms = cuda_ms(lambda: qm.quantized_matmul_plain(x, wq, s, out_dtype))
+            library_ms = weight_int8pack_ms(x, wq, s) if out_dtype == torch.bfloat16 else None
             nbytes = K * N + B * K * 2 + B * N * out.element_size() + N * 4
+            b = bound(nbytes, 2 * B * K * N, PEAK_BF16_TFLOPS * 1e12)
             gbps = nbytes / (ms * 1e-3) / 1e9
+            lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
             print(f"K9 quantized_matmul {name} M={B} K={K} N={N}: max_abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {gbps:.0f} GB/s = "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, _weight_int8pack_mm {lib}, "
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
                   f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
             worst = max(worst, err)
-            times.append((B, name, ms, plain_ms))
+            times.append((B, name, ms, plain_ms, b, library_ms))
             del wq
     # The record: B=8 decode, summed over one layer's four matmuls.
-    ms = sum(t[2] for t in times if t[0] == 8 and t[1] != "lm_head")
-    plain_ms = sum(t[3] for t in times if t[0] == 8 and t[1] != "lm_head")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    layer = [t for t in times if t[0] == 8 and t[1] != "lm_head"]
+    libs = [t[5] for t in layer]
+    return {"max_abs_err": worst, "ms": sum(t[2] for t in layer),
+            "plain_ms": sum(t[3] for t in layer), **_sum_bounds([t[4] for t in layer]),
+            "library_ms": None if None in libs else sum(libs)}
 
 
 def check_w8a8_matmul(gen) -> dict:
@@ -374,16 +460,79 @@ def check_w8a8_matmul(gen) -> dict:
             raise AssertionError(f"K10 {name}: not bit-exact (max abs err {err:.3e})")
         ms = cuda_ms(lambda: w8.w8a8_matmul(x, wq, ws))
         plain_ms = cuda_ms(lambda: w8.w8a8_matmul_plain(x, wq, ws, torch.bfloat16))
+        b = bound(M * K * 2 + K * N + M * N * 2 + N * 4, 2 * M * N * K, PEAK_INT8_TOPS * 1e12)
         tops = 2 * M * N * K / (ms * 1e-3) / 1e12
         print(f"K10 w8a8_matmul {name} M={M} K={K} N={N}: bit-exact (f32 out); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {tops:.1f} TOPS = "
-              f"{tops / PEAK_INT8_TOPS:.1%} of the int8 peak")
-        times.append((name, ms, plain_ms))
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); {tops:.1f} TOPS = {tops / PEAK_INT8_TOPS:.1%} of the int8 peak")
+        times.append((name, ms, plain_ms, b))
         del wq
-    # The record: one decoder layer's four prefill matmuls.
-    ms = sum(t[1] for t in times if t[0].startswith("dec"))
-    plain_ms = sum(t[2] for t in times if t[0].startswith("dec"))
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    # The record: one decoder layer's four prefill matmuls.  No one PyTorch
+    # call computes it (torch._int_mm takes int8 operands: the row quantize
+    # and the scale epilogue are further calls).
+    dec = [t for t in times if t[0].startswith("dec")]
+    return {"max_abs_err": 0.0, "ms": sum(t[1] for t in dec), "plain_ms": sum(t[2] for t in dec),
+            **_sum_bounds([t[3] for t in dec]), "library_ms": None}
+
+
+def weight_int8pack_ms(x, wq, s) -> float | None:
+    """CUDA-event ms of ``torch._weight_int8pack_mm`` (bf16 x, int8 (N, K)
+    weight, per-column scale: K9's function in one PyTorch call), or None
+    where the card's torch has no CUDA implementation of it."""
+    import torch
+
+    w_nk = wq.t().contiguous()
+    scales = s.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, w_nk, scales)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, scales))
+
+
+def check_kv_write_span(gen) -> dict:
+    """K5 at the verify pass's shapes: lane b's T=4 rows at per-lane slots,
+    one lane with slot + T > S (its overflow rows dropped) and one wholly
+    past S; bit-exact against the plain version."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
+
+    L, B, hkv, T, S, D = 28, 8, 8, 4, 640, 128
+    cache = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+    rows = torch.randn(L, B, hkv, T, D, generator=gen, device="cuda").bfloat16()
+    slots = torch.tensor([512, 515, 531, 560, 600, 617, S - 2, S + 5],
+                         dtype=torch.int32, device="cuda")
+    out = kw.kv_write_span_batch(cache.clone(), rows, slots)
+    ref = kw.kv_write_span_batch_plain(cache.clone(), rows, slots)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("K5: differs from the plain version")
+    if not (torch.equal(out[:, 6, :, : S - 2], cache[:, 6, :, : S - 2])
+            and torch.equal(out[:, 7], cache[:, 7])):
+        raise AssertionError("K5: rows past the cache end were not dropped")
+    print(f"K5 kv_write_span_batch L={L} B={B} T={T} S={S}, slots {slots.tolist()}: "
+          f"bit-exact, overflow rows dropped")
+    work = cache.clone()
+    ms = cuda_ms(lambda: kw.kv_write_span_batch(work, rows, slots))
+    plain_ms = cuda_ms(lambda: kw.kv_write_span_batch_plain(work, rows, slots))
+    lane, row, slot = kw.span_indices(slots, T, S)
+    vals = rows[:, lane, :, row].contiguous()
+
+    def index_put():
+        work[:, lane, :, slot] = vals
+
+    library_ms = cuda_ms(index_put)
+    # The valid rows, read once and written once.
+    nbytes = 2 * L * hkv * D * 2 * int(lane.numel())
+    b = bound(nbytes, 0, 1.0)
+    gbps = nbytes / (ms * 1e-3) / 1e9
+    print(f"K5 kv_write_span_batch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_put_ {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms (bytes); "
+          f"{lane.numel()} valid span rows per layer and head, {gbps:.0f} GB/s = "
+          f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
 def _params_to(tree, device, dtype):
@@ -400,8 +549,11 @@ def _params_to(tree, device, dtype):
 
 def reference_check(quantized: bool) -> None:
     """Kernels (GPU) against the plain path (float32, CPU) on one small
-    decoder: prefill logits and one split-decode step.  ``quantized``: int8
-    weights, W8A8 prefill and the int8 cache on both sides."""
+    decoder: prefill logits, one split-decode step and, on the bf16 cache,
+    one verify-split forward (T=4 per lane at per-lane write slots, one
+    lane's span running past the cache end).  ``quantized``: int8 weights,
+    W8A8 prefill and the int8 cache on both sides (no verify: the int8 cache
+    never speculates)."""
     import torch
 
     from qwen3_asr_tpu_torch.config import RuntimeConfig, TextDecoderConfig
@@ -432,6 +584,8 @@ def reference_check(quantized: bool) -> None:
     ids = torch.randint(0, cfg.vocab_size, (B, P), generator=g)
     n_audio = torch.tensor([60, 41, 17])
     plen = torch.tensor([77, 58, 34])
+    draft = torch.randint(0, cfg.vocab_size, (B, 3), generator=g)   # verify ids 1..3
+    ws = torch.tensor([pb + 1, pb + 3, pb + tb - 2], dtype=torch.int32)
     cur = None                       # step token: the f32 run's first argmax
 
     def run(params, dev):
@@ -454,13 +608,24 @@ def reference_check(quantized: bool) -> None:
                 decode_ctx=(plen.to(dev, torch.int32), pb, pb),
             )
             step_logits = decoder_logits(params, cfg, hidden)[:, 0]
-        return logits.float().cpu(), step_logits.float().cpu()
+            if quantized:
+                return logits.float().cpu(), step_logits.float().cpu()
+            verify_ids = torch.cat([cur[:, None], draft], dim=1).to(dev)
+            w = ws.to(dev)
+            pos = plen.to(dev)[:, None] + (w.long() - pb)[:, None] + torch.arange(4, device=dev)
+            hidden, kv = decoder_forward(
+                params, cfg, embed_tokens(params, verify_ids), pos, kv, write_slots=w,
+                decode_ctx=(plen.to(dev, torch.int32), w, pb),
+            )
+            verify_logits = decoder_logits(params, cfg, hidden)
+        return logits.float().cpu(), step_logits.float().cpu(), verify_logits.float().cpu()
 
     ref = run(ref_params, "cpu")
     out = run(gpu_params, "cuda")
     what = "int8 decoder, GPU kernels vs f32 CPU plain" if quantized else \
         "bf16 GPU kernels vs f32 CPU plain"
-    for i, label in ((0, "prefill logits"), (1, "decode-step logits")):
+    labels = ("prefill logits", "decode-step logits", "verify-split logits (T=4)")
+    for i, label in enumerate(labels[: len(ref)]):
         rel = ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item()
         print(f"reference check ({label}, {what}): "
               f"max abs err / max |ref| = {rel:.3e}")
@@ -513,99 +678,509 @@ def check_lm_head_f32(model, hidden) -> None:
           f"product: max_abs_err={err:.3e} (max |logit| {ref.abs().max().item():.3f})")
 
 
-def slice_phase(card: str, runtime: dict | None, path: tuple[str, ...]) -> dict:
+def smoke_clips():
+    """The smoke batch: 8 tone-plus-noise clips of 4-30 s (133 s of audio)."""
     import numpy as np
-    import torch
-
-    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig
-    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
-    from qwen3_asr_tpu_torch.runtime import generate
-
-    cfg = ModelConfig()
-    vocab = cfg.text_decoder.vocab_size
-    t0 = time.perf_counter()
-    model = Qwen3ASR.from_random(
-        cfg, tokenizer=StubTokenizer(), runtime=RuntimeConfig(**(runtime or {})),
-        dtype=torch.bfloat16, seed=SEED, device="cuda",
-    )
-    torch.cuda.synchronize()
-    tag = f"RuntimeConfig({', '.join(f'{k}={v!r}' for k, v in (runtime or {}).items())})"
-    print(f"from_random(ModelConfig(), bf16, seed={SEED}, {tag}) on cuda: "
-          f"{time.perf_counter() - t0:.2f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     rng = np.random.default_rng(SEED)
-    durations = (4.0, 7.5, 11.0, 14.5, 18.0, 22.0, 26.0, 30.0)
     clips = []
-    for d in durations:
+    for d in (4.0, 7.5, 11.0, 14.5, 18.0, 22.0, 26.0, 30.0):
         t = np.arange(int(d * 16000)) / 16000.0
         f = rng.uniform(120.0, 900.0)
         clip = 0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(len(t))
         clips.append(clip.astype(np.float32))
+    return clips
 
-    # Watch every logits tensor of the main path for NaN (one device flag,
-    # no extra sync per step).
-    nan_seen = torch.zeros((), dtype=torch.bool, device="cuda")
-    real_logits = generate.decoder_logits
-    first_hidden = []            # the main path's first (prefill) lm-head input
-    armed = [False]
 
-    def watched_logits(params, cfg_, hidden):
-        out = real_logits(params, cfg_, hidden)
-        nan_seen.logical_or_(torch.isnan(out).any())
-        if armed[0] and not first_hidden:
-            first_hidden.append(hidden.clone())
-        return out
+def runtime_tag(runtime: dict | None) -> str:
+    return f"RuntimeConfig({', '.join(f'{k}={v!r}' for k, v in (runtime or {}).items())})"
 
-    generate.decoder_logits = watched_logits
-    try:
-        model.warm_up(durations=(4.0,), batch_sizes=(8,), max_tokens=4)
-        LAUNCHES.clear()
-        armed[0] = True
-        runs = []
-        for _ in range(2):
-            res = model.transcribe_batch(clips, max_tokens=64)
-            runs.append((_ids(res), model.last_stats))
-        single = model.transcribe(clips[-1], max_tokens=64)
-        single_stats = model.last_stats
-        launches = dict(LAUNCHES)
-    finally:
-        generate.decoder_logits = real_logits
 
-    ids_a, stats = runs[0]
-    ids_b, stats_b = runs[1]
-    if ids_a != ids_b:
-        raise AssertionError("two greedy transcribe_batch runs gave different tokens")
-    all_ids = [t for seq in ids_a + _ids([single]) for t in seq]
-    if not all_ids or max(all_ids) >= vocab or min(all_ids) < 0:
-        raise AssertionError("token ids outside [0, vocab)")
-    if stats.n_generated_tokens <= 0 or single_stats.n_generated_tokens <= 0:
-        raise AssertionError("no tokens generated")
-    if bool(nan_seen):
-        raise AssertionError("NaN logits on the main path")
+def build_model(runtime: dict | None, base=None):
+    """The 1.7B model from random weights (seed 0) on the card, or, given
+    ``base``, a model sharing its weights under another runtime (with
+    ``quantization="int8"`` the decoder is quantized from them)."""
+    import torch
+
+    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig
+
+    t0 = time.perf_counter()
+    rt = RuntimeConfig(**(runtime or {}))
+    if base is None:
+        model = Qwen3ASR.from_random(ModelConfig(), tokenizer=StubTokenizer(), runtime=rt,
+                                     dtype=torch.bfloat16, seed=SEED, device="cuda")
+        how = f"from_random(ModelConfig(), bf16, seed={SEED})"
+    else:
+        model = Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
+                         base._tokenizer, rt)
+        how = "the same weights"
+    torch.cuda.synchronize()
+    print(f"{how}, {runtime_tag(runtime)} on cuda: {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return model
+
+
+class Watch:
+    """Wraps the decode loop's logits function while active: one device
+    flag for NaN logits (no sync per step) and the first lm-head input."""
+
+    def __init__(self):
+        import torch
+
+        from qwen3_asr_tpu_torch.runtime import generate
+
+        self.generate = generate
+        self.nan_seen = torch.zeros((), dtype=torch.bool, device="cuda")
+        self.first_hidden = []
+
+    def __enter__(self):
+        import torch
+
+        real_logits = self.real_logits = self.generate.decoder_logits
+
+        def logits(params, cfg, hidden):
+            out = real_logits(params, cfg, hidden)
+            self.nan_seen.logical_or_(torch.isnan(out).any())
+            if not self.first_hidden:
+                self.first_hidden.append(hidden.clone())
+            return out
+
+        self.generate.decoder_logits = logits
+        return self
+
+    def __exit__(self, *exc):
+        self.generate.decoder_logits = self.real_logits
+
+
+def top_two_gaps(rows):
+    """(choices, 2, B) on the host: per recorded token choice, the gap
+    between the top two penalized logits and the row's max |logit|."""
+    import torch
+
+    out = []
+    for r in rows:
+        top2 = r.topk(2, dim=-1).values
+        out.append(torch.stack([top2[:, 0] - top2[:, 1], r.abs().amax(-1)]))
+    return torch.stack(out).cpu()
+
+
+def check_launches(label: str, launches: dict, path=(), never=()) -> None:
     for name in path:
         if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    print(f"main path launches ({tag}): {launches}")
-    if runtime is None:
-        check_lm_head_f32(model, first_hidden[0])
+            raise AssertionError(f"{label}: kernel {name} was not launched")
+    for name in never:
+        if launches.get(name, 0):
+            raise AssertionError(f"{label}: kernel {name} was launched {launches[name]} times")
+    print(f"{label} launches: {launches}")
 
-    for label, st in (("transcribe_batch B=8 run 1", stats),
+
+def check_ids(label: str, ids: list[list[int]], vocab: int) -> None:
+    flat = [t for seq in ids for t in seq]
+    if not flat or min(flat) < 0 or max(flat) >= vocab:
+        raise AssertionError(f"{label}: no tokens, or token ids outside [0, vocab)")
+
+
+def print_stats(label: str, card: str, st) -> None:
+    steps = max(st.n_decode_steps, 1)
+    decode_ms = st.stages["decode"] * 1e3
+    kind = "verify iterations" if st.n_spec_forwards else "steps"
+    spec = (f", {st.spec_tokens_per_forward:.3f} tokens per lane-forward"
+            if st.n_spec_forwards else "")
+    print(
+        f"{label} [{card}]: audio {st.audio_seconds:.1f} s, prepare "
+        f"{st.stages['prepare'] * 1e3:.1f} ms, mel+encoder+prefill "
+        f"{st.stages['prefill'] * 1e3:.1f} ms, decode {decode_ms:.1f} ms over "
+        f"{st.n_decode_steps} {kind} = {decode_ms / steps:.2f} ms/iteration, "
+        f"{st.n_generated_tokens} tokens = {decode_ms / max(st.n_generated_tokens, 1):.3f} "
+        f"ms per emitted token{spec}, RTFx {st.rtfx:.1f}"
+    )
+
+
+def slice_phase(card: str, model, runtime: dict | None, path, never=(),
+                lm_head: bool = False, record_gaps: bool = False) -> dict:
+    """The 1.7B path through the entry points: a warm-up, then greedy
+    ``transcribe_batch`` of the smoke batch (``max_tokens=64``) twice and one
+    ``transcribe`` of the 30 s clip, with the launch counters set to 0 just
+    before and read just after.  Checks ids, NaN, run-to-run identity and
+    the path's launches."""
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    vocab = model._config.text_decoder.vocab_size
+    tag = runtime_tag(runtime)
+    clips = smoke_clips()
+    out = {"gaps": []}
+    with Watch() as watch:
+        model.warm_up(durations=(4.0,), batch_sizes=(8,), max_tokens=4)
+        watch.first_hidden.clear()
+        LAUNCHES.clear()
+        runs = []
+        for i in range(2):
+            with Choices() if record_gaps and i == 0 else nullcontext() as rec:
+                runs.append((_ids(model.transcribe_batch(clips, max_tokens=64)), model.last_stats))
+            if rec is not None:
+                out["gaps"].append(top_two_gaps(rec.rows))
+        with Choices() if record_gaps else nullcontext() as rec:
+            single = model.transcribe(clips[-1], max_tokens=64)
+        if rec is not None:
+            out["gaps"].append(top_two_gaps(rec.rows))
+        del rec
+        launches = dict(LAUNCHES)
+        if bool(watch.nan_seen):
+            raise AssertionError(f"{tag}: NaN logits on the path")
+        if lm_head:
+            check_lm_head_f32(model, watch.first_hidden[0])
+    (ids_a, stats_a), (ids_b, stats_b) = runs
+    if ids_a != ids_b:
+        raise AssertionError(f"{tag}: two greedy transcribe_batch runs gave different tokens")
+    check_ids(tag, ids_a + _ids([single]), vocab)
+    check_launches(f"path {tag}", launches, path, never)
+    for label, st in (("transcribe_batch B=8 run 1", stats_a),
                       ("transcribe_batch B=8 run 2", stats_b),
-                      ("transcribe B=1", single_stats)):
-        steps = max(st.n_decode_steps, 1)
-        print(
-            f"{label} {tag} [{card}]: audio {st.audio_seconds:.1f} s, prepare "
-            f"{st.stages['prepare'] * 1e3:.1f} ms, mel+encoder+prefill "
-            f"{st.stages['prefill'] * 1e3:.1f} ms, decode "
-            f"{st.stages['decode'] * 1e3:.1f} ms over {st.n_decode_steps} steps = "
-            f"{st.stages['decode'] * 1e3 / steps:.2f} ms/step, "
-            f"{st.n_generated_tokens} tokens, RTFx {st.rtfx:.1f}"
-        )
-    model.close()
-    del model
+                      ("transcribe B=1", model.last_stats)):
+        print_stats(f"{label} {tag}", card, st)
+    out.update(launches=launches, ids=(ids_a, _ids([single])[0]),
+               stats=(stats_a, stats_b, model.last_stats))
+    return out
+
+
+def compare_streams(label: str, plain, spec, gaps) -> None:
+    """Each lane's speculative stream equals its plain stream, or first
+    differs where the plain run's top two penalized logits lie within
+    NEAR_TIE of that row's max |logit| (a bf16 near-tie: the verify
+    forward's M = 4B-row products may round otherwise than the step's
+    M = B).  ``gaps`` (choices, 2, B): position p of a lane is the plain
+    run's p-th token choice.  Prints the median top-two gap of the plain
+    run's choices beside the limit."""
+    import torch
+
+    rel = gaps[:, 0] / gaps[:, 1]
+    live = torch.arange(gaps.shape[0])[:, None] < torch.tensor([len(p) for p in plain])[None, :]
+    print(f"{label}: median plain top-two gap {rel[live].median().item():.2e} of max "
+          f"|logit| over {int(live.sum())} choices, {(rel[live] <= NEAR_TIE).float().mean():.1%} "
+          f"of them within the near-tie limit {NEAR_TIE:g}")
+    identical, diverged = 0, []
+    for b, (p, s) in enumerate(zip(plain, spec)):
+        if p == s:
+            identical += 1
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(p, s)) if x != y), min(len(p), len(s)))
+        if i >= gaps.shape[0]:
+            raise AssertionError(f"{label} lane {b}: diverges at {i}, past the recorded steps")
+        gap, top = float(gaps[i, 0, b]), float(gaps[i, 1, b])
+        diverged.append((b, i, gap, top))
+        print(f"{label} lane {b}: first divergence at position {i}, plain top-two gap "
+              f"{gap:.4e} = {gap / top:.2e} of max |logit| {top:.3f}")
+        if gap > NEAR_TIE * top:
+            raise AssertionError(f"{label} lane {b}: diverges at {i} where the plain "
+                                 f"run's top-two gap is {gap / top:.2e} of max |logit|")
+    print(f"{label}: {identical} of {len(plain)} lanes identical in full, "
+          f"{len(diverged)} diverge at a near-tie")
+
+
+class Choices:
+    """Records, while active, every greedy token choice of the decode loops
+    (its penalized logits row (B, V), on the device), the lanes' counts at
+    each verify iteration, and each decode call's token lists.  ``drafts``
+    (B, n) replaces the n-gram draft with each lane's next ``gamma`` tokens
+    of that stream (teacher forcing); ``forced`` (B, n) makes the loop emit
+    that stream whatever its own choice."""
+
+    def __init__(self, drafts=None, forced=None):
+        from qwen3_asr_tpu_torch.runtime import generate
+
+        self.generate = generate
+        self.drafts, self.forced = drafts, forced
+        self.rows, self.counts, self.streams = [], [], []
+        self.n_sampled = 0
+
+    def __enter__(self):
+        import torch
+
+        g = self.generate
+        self.saved = (g.apply_repetition_penalty, g.ngram_draft, g._Request.sample,
+                      g.Generator.decode)
+        real_penalty, real_draft, real_sample, real_decode = self.saved
+
+        def penalty(lg, recent, pen):
+            out = real_penalty(lg, recent, pen)
+            self.rows.append(out)
+            return out
+
+        def draft(tokens, counts, n, gamma):
+            self.counts.append(counts.clone())
+            if self.drafts is None:
+                return real_draft(tokens, counts, n=n, gamma=gamma)
+            stream, lens = self.drafts
+            idx = counts.long()[:, None] + torch.arange(gamma, device=counts.device)[None, :]
+            return stream.gather(1, idx.clamp(max=stream.shape[1] - 1)), idx < lens[:, None]
+
+        def sample(req, logits, recent, pen):
+            out = real_sample(req, logits, recent, pen)
+            j, self.n_sampled = self.n_sampled, self.n_sampled + 1
+            if self.forced is None or j >= self.forced[0].shape[1]:
+                return out
+            return self.forced[0][:, j]
+
+        def decode(gen, *args, **kwargs):
+            out = real_decode(gen, *args, **kwargs)
+            self.streams.append(out)
+            return out
+
+        g.apply_repetition_penalty, g.ngram_draft = penalty, draft
+        g._Request.sample, g.Generator.decode = sample, decode
+        return self
+
+    def __exit__(self, *exc):
+        g = self.generate
+        (g.apply_repetition_penalty, g.ngram_draft, g._Request.sample,
+         g.Generator.decode) = self.saved
+
+
+def padded(streams):
+    """Token lists as a (B, n) int64 tensor on the card and their lengths."""
+    import torch
+
+    n = max(len(s) for s in streams)
+    out = torch.zeros((len(streams), n), dtype=torch.long)
+    for b, s in enumerate(streams):
+        out[b, : len(s)] = torch.tensor(s)
+    return out.cuda(), torch.tensor([len(s) for s in streams], device="cuda")
+
+
+def hold_to_plain(label: str, base, model, clips, teacher=None, penalty: float = 1.2):
+    """One greedy ``transcribe_batch`` of ``clips`` through the speculative
+    loop of ``model`` (n-gram drafts, or with ``teacher`` each lane's next
+    tokens of that stream), then the plain loop of ``base`` (same weights,
+    ``"off"``) forced to emit the speculative stream.  Both see the same
+    prefix at every position, so every token the verify forward emitted is
+    held to the plain step's row: the token is the verify row's argmax (the
+    accept chain emitted what the verify forward chose), |verify row - plain
+    row| <= LOGIT_TOL of max |plain row|, and the token is the plain argmax
+    unless the plain top two lie within NEAR_TIE of max |logit|.  Returns
+    (stream, the plain rows (choices, B, V))."""
+    import torch
+
+    T = model._runtime.spec_gamma + 1
+    kw = dict(max_tokens=64, repetition_penalty=penalty)
+    with Choices(drafts=teacher) as spec:
+        model.transcribe_batch(clips, **kw)
+    stream = spec.streams[-1]
+    K = len(spec.counts)
+    if len(spec.rows) != 1 + T * K:
+        raise AssertionError(f"{label}: {len(spec.rows)} choices for {K} verify iterations")
+    with Choices(forced=padded(stream)) as plain:
+        base.transcribe_batch(clips, **kw)
+    if plain.streams[-1] != stream:
+        raise AssertionError(f"{label}: the forced plain run left the speculative stream")
+    P = torch.stack(plain.rows)               # (choices, B, V): choice i made token i
+    B = len(stream)
+    lanes = torch.arange(B, device="cuda")
+    counts = spec.counts + [torch.tensor([len(s) for s in stream], device="cuda")]
+    per = []
+    with torch.inference_mode():
+        for k in range(K):
+            for t in range(T):
+                s_row = spec.rows[1 + k * T + t]
+                i = counts[k].long() + t
+                p_row = P[i.clamp(max=P.shape[0] - 1), lanes]
+                top2 = p_row.topk(2, dim=-1).values
+                per.append(torch.stack([
+                    i.float(), (i < counts[k + 1]).float(),
+                    (s_row - p_row).abs().amax(-1), p_row.abs().amax(-1),
+                    top2[:, 0] - top2[:, 1], p_row.argmax(-1).float(),
+                    s_row.argmax(-1).float(),
+                ]))
+    per = torch.stack(per).cpu().reshape(K, T, 7, B)
+    rels, flips = [], []
+    for k in range(K):
+        for t in range(T):
+            for b in range(B):
+                i, emitted, diff, top, gap, p_arg, s_arg = per[k, t, :, b].tolist()
+                if not emitted:
+                    continue
+                i = int(i)
+                tok = stream[b][i]
+                if tok != int(s_arg):
+                    raise AssertionError(f"{label} lane {b} token {i}: not the verify row's argmax")
+                rels.append(diff / top)
+                if diff > LOGIT_TOL * top:
+                    raise AssertionError(f"{label} lane {b} token {i}: verify row differs from "
+                                         f"the plain row by {diff / top:.2e} of max |logit|")
+                if tok != int(p_arg):
+                    flips.append(gap / top)
+                    if gap > NEAR_TIE * top:
+                        raise AssertionError(
+                            f"{label} lane {b} token {i}: the verify forward chose otherwise "
+                            f"than the plain step at a top-two gap of {gap / top:.2e} of max |logit|")
+    if len(rels) != sum(len(s) - 1 for s in stream):
+        raise AssertionError(f"{label}: {len(rels)} tokens held, "
+                             f"{sum(len(s) - 1 for s in stream)} emitted")
+    # A token emitted at position t >= 1 of an iteration follows t accepted drafts.
+    emitted = per[:, :, 1, :] > 0                        # (K, T, B)
+    accepted = int(emitted[:, 1:].sum())
+    full = int(emitted[:, T - 1].sum())
+    rels.sort()
+    same = "" if teacher is None else (
+        f"; {sum(x == y for x, y in zip(stream, teacher_lists(teacher)))} of {B} lanes "
+        f"equal their teacher stream in full")
+    print(f"{label}: {len(rels)} tokens after the first over {K} verify iterations x {B} lanes "
+          f"({sum(len(s) for s in stream) / (K * B):.3f} tokens per lane-forward, {accepted} "
+          f"drafts accepted, {full} lane-iterations accepting all {T - 1}){same}; every token "
+          f"held to the forced plain step's row: row diff / max |logit| median "
+          f"{rels[len(rels) // 2]:.2e}, p99 {rels[int(len(rels) * 0.99)]:.2e}, max {rels[-1]:.2e} "
+          f"(limit {LOGIT_TOL:g}); {len(flips)} choices apart from the plain argmax, at "
+          f"top-two gaps up to {max(flips, default=0.0):.2e} of max |logit| (limit {NEAR_TIE:g})")
+    return stream, P, accepted, full
+
+
+def teacher_lists(teacher) -> list[list[int]]:
+    stream, lens = teacher
+    return [row[:n] for row, n in zip(stream.tolist(), lens.tolist())]
+
+
+def plain_floor(base, clip, stream, rows8, lane: int) -> None:
+    """The bf16 floor of the row check: the plain loop's rows of one lane
+    at B=1 (``transcribe`` forced along the lane's stream) against its rows
+    at B=8, the same prefixes computed at another batch size."""
+    import torch
+
+    with Choices(forced=padded([stream])) as one:
+        base.transcribe(clip, max_tokens=64)
+    P1 = torch.stack(one.rows)[: len(stream), 0]
+    P8 = rows8[: len(stream), lane]
+    rel = ((P1 - P8).abs().amax(-1) / P8.abs().amax(-1)).cpu()
+    print(f"plain B=1 vs plain B=8 rows of lane {lane} over {len(stream)} choices: row diff / "
+          f"max|logit| median {rel.median().item():.2e}, max {rel.max().item():.2e}")
+
+
+def speculative_phase(card: str, base, off: dict) -> dict:
+    """Greedy ``"auto"`` (the default) on the plain run's weights: the same
+    runs as the plain path, through the speculative loop (K5; no K2/K3),
+    held to the plain streams; then sampled, sampled-speculative,
+    int8-weights speculative and long-form runs.  Returns the launches of
+    the speculative path."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    vocab = base._config.text_decoder.vocab_size
+    model = build_model({}, base)
+    spec = slice_phase(card, model, {}, SPEC_PATH, SPEC_NEVER)
+    compare_streams("spec vs plain, transcribe_batch B=8", off["ids"][0], spec["ids"][0],
+                    off["gaps"][0])
+    compare_streams("spec vs plain, transcribe B=1", [off["ids"][1]], [spec["ids"][1]],
+                    off["gaps"][1])
+    # The whole of every stream, past any divergence: the n-gram run (drafts
+    # mostly rejected), then a teacher-forced run whose drafts are the
+    # n-gram run's own stream (drafts the verify forward confirms).
+    # Every token of the B=8 stream, past any divergence, held to the plain
+    # step on the same prefix: the default n-gram run (drafts mostly
+    # rejected), the bf16 floor of that check (plain rows at B=1 against
+    # B=8), and a teacher-forced run whose drafts are the stream of an
+    # n-gram run without repetition penalty (more of them accepted).
+    clips = smoke_clips()
+    own, rows8, _, _ = hold_to_plain("spec held to plain, n-gram drafts, B=8", base, model, clips)
+    plain_floor(base, clips[-1], own[-1], rows8, len(clips) - 1)
+    del rows8
+    own1, _, _, _ = hold_to_plain("spec held to plain, n-gram drafts, penalty 1.0, B=8", base,
+                                  model, clips, penalty=1.0)
+    _, _, accepted, full = hold_to_plain(
+        "spec held to plain, teacher-forced drafts, penalty 1.0, B=8", base, model, clips,
+        teacher=padded(own1), penalty=1.0)
+    if not (accepted and full):
+        raise AssertionError("teacher-forced run: no iteration accepted all its drafts")
     torch.cuda.empty_cache()
-    return launches
+    for (label, p_st, s_st) in zip(("B=8 run 1", "B=8 run 2", "B=1"), off["stats"], spec["stats"]):
+        p_ms, s_ms = p_st.stages["decode"] * 1e3, s_st.stages["decode"] * 1e3
+        print(f"spec vs plain {label} [{card}]: tokens per lane-forward "
+              f"{s_st.spec_tokens_per_forward:.3f} vs 1; ms per iteration "
+              f"{s_ms / max(s_st.n_decode_steps, 1):.2f} vs {p_ms / max(p_st.n_decode_steps, 1):.2f}; "
+              f"ms per emitted token {s_ms / s_st.n_generated_tokens:.3f} vs "
+              f"{p_ms / p_st.n_generated_tokens:.3f}; decode {s_ms:.1f} vs {p_ms:.1f} ms")
+
+    # Sampled, plain loop (spec_sampling is off by default): twice, same seed.
+    sample_kw = dict(max_tokens=64, temperature=0.7, top_k=50, top_p=0.9, seed=1)
+    LAUNCHES.clear()
+    runs = []
+    for _ in range(2):
+        runs.append(_ids(model.transcribe_batch(clips, **sample_kw)))
+        print_stats("sampled transcribe_batch B=8 (T=0.7, top_k=50, top_p=0.9, seed=1)",
+                    card, model.last_stats)
+    if runs[0] != runs[1]:
+        raise AssertionError("sampled runs with one seed gave different tokens")
+    check_ids("sampled", runs[0], vocab)
+    check_launches("sampled B=8", dict(LAUNCHES), BF16_PATH, ("kv_write_span_batch",))
+
+    # Sampled and speculative (rejection-sampling verification).
+    spec_sampling = build_model({"spec_sampling": True}, base)
+    LAUNCHES.clear()
+    res = spec_sampling.transcribe(clips[-1], **sample_kw)
+    print_stats("sampled speculative transcribe B=1", card, spec_sampling.last_stats)
+    check_ids("sampled speculative", _ids([res]), vocab)
+    check_launches("sampled speculative B=1", dict(LAUNCHES), SPEC_PATH, SPEC_NEVER)
+
+    # Int8 weights with the bf16 cache: the verify forward's products run K9.
+    w8 = build_model({"quantization": "int8"}, base)
+    LAUNCHES.clear()
+    res = w8.transcribe(clips[-1], max_tokens=64)
+    print_stats("int8-weights speculative transcribe B=1", card, w8.last_stats)
+    check_ids("int8-weights speculative", _ids([res]), vocab)
+    check_launches("int8-weights speculative B=1", dict(LAUNCHES), SPEC_W8_PATH, SPEC_NEVER)
+    w8.close()
+    del w8
+    torch.cuda.empty_cache()
+
+    # Long-form: 20 s clips, chunk_duration 8, quiet pockets at 8 s and 16 s
+    # (so chunks of about 8 + 8 + 4 s); every chunk decodes up to max(256, 50 s)
+    # tokens (the chunked path ignores max_tokens, as in the JAX package).
+    rng = np.random.default_rng(SEED + 1)
+    long_clips = []
+    for f in (230.0, 410.0):
+        t = np.arange(20 * 16000) / 16000.0
+        x = 0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(len(t))
+        for pocket in (8.0, 16.0):
+            x[int(pocket * 16000) - 1600 : int(pocket * 16000) + 1600] *= 0.01
+        long_clips.append(x.astype(np.float32))
+    groups = []
+    real = model._run_pipeline_batch
+
+    def recorded(batch, *args):
+        groups.append([len(c) / 16000 for c in batch])
+        return real(batch, *args)
+
+    model._run_pipeline_batch = recorded
+    LAUNCHES.clear()
+    try:
+        for label, call in (
+            ("transcribe, one 20 s clip", lambda: [model.transcribe(long_clips[0], chunk_duration=8.0)]),
+            ("transcribe_batch, two 20 s clips", lambda: model.transcribe_batch(long_clips, chunk_duration=8.0)),
+        ):
+            groups.clear()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            chunks = [d for g in groups for d in g]
+            budgets = [max(256, int(d * 50)) for d in chunks]
+            st = model.last_stats
+            print(f"long-form {label}, chunk_duration 8 [{card}]: {len(chunks)} chunks "
+                  f"({', '.join(f'{d:.2f}' for d in chunks)} s) in {len(groups)} group(s) of "
+                  f"{[len(g) for g in groups]}, token budgets {budgets}; {wall:.2f} s wall, "
+                  f"{sum(len(r.text.split()) for r in res)} tokens, last group "
+                  f"{st.n_decode_steps} verify iterations "
+                  f"({st.spec_tokens_per_forward:.3f} tokens per lane-forward)")
+            check_ids(f"long-form {label}", _ids(res), vocab)
+            if any(abs(r.duration - 20.0) > 1e-6 for r in res):
+                raise AssertionError(f"long-form {label}: wrong durations")
+        if [len(g) for g in groups] != [6]:
+            raise AssertionError(f"long-form batch: chunks not pooled into one group: {groups}")
+    finally:
+        del model._run_pipeline_batch
+    check_launches("long-form", dict(LAUNCHES), SPEC_PATH, SPEC_NEVER)
+    for m in (spec_sampling, model):
+        m.close()
+    return spec["launches"]
 
 
 def main() -> int:
@@ -642,13 +1217,25 @@ def main() -> int:
         "kv_write_rows_q8": check_kv_write_q8(gen),
         "quantized_matmul": check_quantized_matmul(gen),
         "w8a8_matmul": check_w8a8_matmul(gen),
+        "kv_write_span_batch": check_kv_write_span(gen),
     }
     torch.cuda.empty_cache()
     reference_check(quantized=False)
     reference_check(quantized=True)
     # Each kernel's launch count comes from the run of its own path.
-    launches = dict(slice_phase(card, None, BF16_PATH))
-    int8_launches = slice_phase(card, INT8_RUNTIME, INT8_PATH)
+    off_rt = {"speculative": "off"}
+    base = build_model(off_rt)
+    off = slice_phase(card, base, off_rt, BF16_PATH, ("kv_write_span_batch",),
+                      lm_head=True, record_gaps=True)
+    launches = dict(off["launches"])
+    spec_launches = speculative_phase(card, base, off)
+    launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
+    base.close()
+    del base
+    torch.cuda.empty_cache()
+    int8 = build_model(INT8_RUNTIME)
+    int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH)["launches"]
+    int8.close()
     launches.update({name: int8_launches[name] for name in INT8_PATH})
 
     rows = []

@@ -1,12 +1,21 @@
 """Public API: ``Qwen3ASR`` — load, transcribe, warm up, close (PyTorch).
 
-Counterpart of ``qwen3_asr_tpu/api.py`` for greedy transcription of short
-clips: ``from_pretrained``/``from_random`` (with an explicit ``device``),
+Counterpart of ``qwen3_asr_tpu/api.py`` for offline transcription:
+``from_pretrained``/``from_random`` (with an explicit ``device``),
 ``transcribe``, ``transcribe_batch``, ``warm_up``, ``close``, the context
 manager, ``TranscriptionResult`` and ``LANGUAGE_MAP``.  One request runs
-mel -> encoder -> prefill (K1) -> greedy decode loop (K2, K3) as in the JAX
-package's ``_run_pipeline_batch``, with the same batch, frame, prompt and
-token buckets, so both packages emit the same token ids.
+mel -> encoder -> prefill (K1) -> decode as in the JAX package's
+``_run_pipeline_batch``, with the same batch, frame, prompt and token
+buckets, so both packages emit the same greedy token ids.  The decode is
+the JAX package's default dispatch: under ``speculative="auto"`` greedy
+requests of at most ``spec_auto_max_batch`` (padded) clips run the n-gram
+speculative loop (verify forward + kernel K5), larger batches and
+``"off"`` the plain loop (K2, K3); ``temperature > 0`` samples (top-k,
+top-p, seeded ``torch.Generator``), speculatively only with
+``spec_sampling``.  Clips longer than ``chunk_duration`` split at
+low-energy points into chunks that run in pooled batches sized by the KV
+budget, and their texts are stitched; as in the JAX package, the chunked
+path ignores ``max_tokens`` (each chunk's budget is ``max(256, 50 s)``).
 
 Int8 runs as in the JAX package, in every combination it allows:
 ``RuntimeConfig(quantization="int8")`` quantizes the decoder's weights
@@ -16,11 +25,8 @@ as W8A8 (kernel K10), and ``kv_cache_dtype="int8"`` keeps the decode loop's
 cache in int8 (kernels K4 and K3-int8).  On CPU tensors every kernel
 wrapper runs its plain PyTorch version.
 
-Not ported yet, and raising ``NotImplementedError``: sampled decoding
-(``temperature > 0``), clips longer than ``chunk_duration`` (long-form
-chunking), ``RuntimeConfig.speculative="ngram"`` (``"auto"`` runs the plain
-loop, which the JAX package's n-gram loop matches token for token), and
-multi-device meshes.
+Not ported yet, and raising ``NotImplementedError``: multi-device meshes
+(``dp * tp > 1``).
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .audio.io import SAMPLE_RATE, load_audio
+from .audio.io import SAMPLE_RATE, find_split_points, load_audio
 from .audio.mel import HOP_LENGTH, N_FFT, MelFrontend, host_pad_batch, log_mel_batch
 from .config import ModelConfig, RuntimeConfig
 from .models.decoder import fuse_decoder_params
@@ -90,11 +96,6 @@ def _validate_samples(audio) -> np.ndarray:
 def _check_runtime(runtime: RuntimeConfig) -> None:
     if runtime.dp * runtime.tp > 1:
         raise NotImplementedError("multi-device meshes are not ported yet")
-    if runtime.speculative == "ngram":
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (speculative='auto' runs "
-            "the plain greedy loop, which it matches token for token)"
-        )
 
 
 class Qwen3ASR:
@@ -195,7 +196,8 @@ class Qwen3ASR:
         chunk_duration: float = 1200.0,
         seed: int = 0,
     ) -> TranscriptionResult:
-        """Transcribe one clip (a file path or 1-D float32 16 kHz samples)."""
+        """Transcribe one clip (a file path or 1-D float32 16 kHz samples);
+        a clip longer than ``chunk_duration`` takes the long-form path."""
         with self._lock:
             samples = (
                 load_audio(audio) if isinstance(audio, (str, Path))
@@ -206,7 +208,13 @@ class Qwen3ASR:
             duration = len(samples) / SAMPLE_RATE
             if max_tokens is None:
                 max_tokens = max(256, int(duration * 50))
-            self._check_short(duration, chunk_duration)
+            chunk_duration = self._clamp_chunk_duration(chunk_duration)
+            if duration > chunk_duration:
+                return self._transcribe_chunked(
+                    samples, duration, language, temperature, top_p, top_k,
+                    repetition_penalty, repetition_context_size, chunk_duration,
+                    seed,
+                )
             lang_name = self._resolve_language(language)
             token_lists, self.last_stats = self._run_pipeline_batch(
                 [samples], lang_name, temperature, top_p, top_k,
@@ -229,7 +237,9 @@ class Qwen3ASR:
         seed: int = 0,
     ) -> list[TranscriptionResult]:
         """Transcribe several clips in one batched mel/encoder/prefill pass
-        and one decode loop (per-clip EOS and token budgets)."""
+        and one decode loop (per-clip EOS and token budgets).  Clips longer
+        than ``chunk_duration`` take the long-form path, all their chunks
+        pooled into shared groups; the rest still run as one batch."""
         with self._lock:
             lang_name = self._resolve_language(language)
             samples_list = [
@@ -243,21 +253,53 @@ class Qwen3ASR:
             live = [i for i, s in enumerate(samples_list) if len(s) > 0]
             if not live:
                 return results
-            for i in live:
-                self._check_short(len(samples_list[i]) / SAMPLE_RATE, chunk_duration)
-            batch = [samples_list[i] for i in live]
-            durations = [len(s) / SAMPLE_RATE for s in batch]
-            budgets = [
-                max_tokens if max_tokens is not None else max(256, int(d * 50))
-                for d in durations
-            ]
-            token_lists, self.last_stats = self._run_pipeline_batch(
-                batch, lang_name, temperature, top_p, top_k,
-                repetition_penalty, budgets, repetition_context_size, seed,
-            )
-            for i, toks, dur in zip(live, token_lists, durations):
-                text, out_lang = self._finalize_output(toks, lang_name)
-                results[i] = TranscriptionResult(text=text, language=out_lang, duration=dur)
+            chunk_duration = self._clamp_chunk_duration(chunk_duration)
+            chunk_samples = int(chunk_duration * SAMPLE_RATE)
+            short_live = [i for i in live if len(samples_list[i]) <= chunk_samples]
+            long_live = [i for i in live if len(samples_list[i]) > chunk_samples]
+            if short_live:
+                batch = [samples_list[i] for i in short_live]
+                durations = [len(s) / SAMPLE_RATE for s in batch]
+                budgets = [
+                    max_tokens if max_tokens is not None else max(256, int(d * 50))
+                    for d in durations
+                ]
+                token_lists, self.last_stats = self._run_pipeline_batch(
+                    batch, lang_name, temperature, top_p, top_k,
+                    repetition_penalty, budgets, repetition_context_size, seed,
+                )
+                for i, toks, dur in zip(short_live, token_lists, durations):
+                    text, out_lang = self._finalize_output(toks, lang_name)
+                    results[i] = TranscriptionResult(
+                        text=text, language=out_lang, duration=dur
+                    )
+            if long_live:
+                # Every long clip's chunks share groups; outputs keep their
+                # order, so ownership is positional.
+                all_chunks: list = []
+                owners: list[int] = []
+                for i in long_live:
+                    cs = self._split_long_chunks(samples_list[i], chunk_duration)
+                    all_chunks.extend(cs)
+                    owners.extend([i] * len(cs))
+                texts, detected = self._run_chunks_grouped(
+                    all_chunks, lang_name, temperature, top_p, top_k,
+                    repetition_penalty, repetition_context_size, seed,
+                )
+                per: dict[int, list[tuple[str, str]]] = {i: [] for i in long_live}
+                for own, text, lang in zip(owners, texts, detected):
+                    if text:
+                        per[own].append((text, lang))
+                for i in long_live:
+                    keep = per[i]
+                    language_out = lang_name if lang_name is not None else (
+                        keep[0][1] if keep else "Unknown"
+                    )
+                    results[i] = TranscriptionResult(
+                        text=" ".join(t for t, _ in keep),
+                        language=language_out,
+                        duration=len(samples_list[i]) / SAMPLE_RATE,
+                    )
             return results
 
     def warm_up(
@@ -293,12 +335,81 @@ class Qwen3ASR:
 
     # ------------------------------------------------------------------
 
-    def _check_short(self, duration: float, chunk_duration: float) -> None:
-        if duration > self._clamp_chunk_duration(chunk_duration):
-            raise NotImplementedError(
-                f"clips longer than chunk_duration ({chunk_duration:.0f} s) need "
-                "long-form chunking, which is not ported yet"
+    def _split_long_chunks(self, samples, chunk_duration: float) -> list:
+        """Slice a long clip at low-energy boundaries; the search window is
+        5 s where the bucket table affords it, else half the slack left, so
+        every chunk fits the largest frame bucket (JAX ``api.py:1092``)."""
+        max_bucket_s = self._runtime.frame_buckets[-1] * HOP_LENGTH / SAMPLE_RATE
+        search_s = max(0.0, min(5.0, (max_bucket_s - chunk_duration) / 2))
+        chunk_samples = int(chunk_duration * SAMPLE_RATE)
+        split_points = find_split_points(
+            samples, chunk_samples, int(search_s * SAMPLE_RATE)
+        )
+        chunks, prev = [], 0
+        for sp in split_points + [len(samples)]:
+            if sp > prev:
+                chunks.append(samples[prev:sp])
+            prev = sp
+        return chunks
+
+    def _transcribe_chunked(
+        self, samples, duration, language, temperature, top_p, top_k,
+        repetition_penalty, repetition_context_size, chunk_duration, seed,
+    ) -> TranscriptionResult:
+        """Long-form path: split at low-energy boundaries, stitch texts."""
+        lang_name = self._resolve_language(language)
+        chunks = self._split_long_chunks(samples, chunk_duration)
+        texts, detected = self._run_chunks_grouped(
+            chunks, lang_name, temperature, top_p, top_k,
+            repetition_penalty, repetition_context_size, seed,
+        )
+        keep = [(t, lg) for t, lg in zip(texts, detected) if t]
+        language_out = lang_name if lang_name is not None else (
+            keep[0][1] if keep else "Unknown"
+        )
+        return TranscriptionResult(
+            text=" ".join(t for t, _ in keep), language=language_out, duration=duration,
+        )
+
+    def _run_chunks_grouped(
+        self, chunks, lang_name, temperature, top_p, top_k,
+        repetition_penalty, repetition_context_size, seed,
+    ) -> tuple[list[str], list[str]]:
+        """Per-chunk texts and detected languages, in order (empty texts
+        included), from groups of at most ``max_batch_size`` chunks, fewer
+        where the KV budget (``kv_cache_budget_gb``) cannot hold that many
+        caches of the longest chunk.  Each chunk's token budget is
+        ``max(256, 50 * seconds)``: the caller's ``max_tokens`` is ignored,
+        as in the JAX package (``api.py:1134-1181``)."""
+        group_size = max(1, self._runtime.max_batch_size)
+        if chunks:
+            tc = self._config.text_decoder
+            ac = self._config.audio_encoder
+            frames_bucket = self._mel.bucket_for(max(len(c) for c in chunks))
+            slots = (
+                frames_bucket // ac.chunk_frames * ac.tokens_per_chunk
+                + 32
+                + self._runtime.max_decode_slots
             )
+            per_seq_bytes = (
+                tc.num_hidden_layers * tc.num_key_value_heads * slots * tc.head_dim * 2 * 2
+            )
+            budget = int(self._runtime.kv_cache_budget_gb * 2**30)
+            group_size = max(1, min(group_size, budget // max(per_seq_bytes, 1)))
+        texts: list[str] = []
+        detected: list[str] = []
+        for start in range(0, len(chunks), group_size):
+            group = chunks[start : start + group_size]
+            budgets = [max(256, int(len(c) / SAMPLE_RATE * 50)) for c in group]
+            token_lists, self.last_stats = self._run_pipeline_batch(
+                group, lang_name, temperature, top_p, top_k,
+                repetition_penalty, budgets, repetition_context_size, seed,
+            )
+            for toks in token_lists:
+                text, out_lang = self._finalize_output(toks, lang_name)
+                texts.append(text)
+                detected.append(out_lang)
+        return texts, detected
 
     def _run_pipeline_batch(
         self, samples_list, lang_name, temperature, top_p, top_k,
@@ -372,6 +483,8 @@ class Qwen3ASR:
         token_lists = token_lists[:n_real]
         stats.n_generated_tokens = sum(len(t) for t in token_lists)
         stats.n_decode_steps = gen.last_decode_steps
+        # Lane-forwards: every verify iteration computes one row per lane.
+        stats.n_spec_forwards = gen.last_spec_forwards * n_real
         logger.debug("transcribe stats (batch=%d): %s", B, stats.as_dict())
         return token_lists, stats
 
@@ -419,7 +532,9 @@ class Qwen3ASR:
         return parse_output(raw), parse_language(raw) or "Unknown"
 
     def _clamp_chunk_duration(self, chunk_duration: float) -> float:
-        """The JAX package's cap: the largest frame bucket minus up to 10 s."""
+        """The JAX package's cap: the largest frame bucket minus up to 10 s
+        of slack, since both ends of an interior chunk may snap outward by
+        the 5 s search window."""
         max_bucket_s = self._runtime.frame_buckets[-1] * HOP_LENGTH / SAMPLE_RATE
         slack = min(10.0, max_bucket_s / 2)
         return max(min(chunk_duration, max_bucket_s - slack), 1.0)

@@ -1,9 +1,9 @@
 """Audio file IO: RIFF/WAV decoding and resampling (numpy).
 
 Counterpart of ``qwen3_asr_tpu/audio/io.py``: the same numpy WAV decoder,
-``soundfile`` fallback and linear-interpolation resampler.  The native C++
-decoder (``qwen3_asr_tpu/audio/native.py``) and the long-form split-point
-search are not ported yet.
+``soundfile`` fallback, linear-interpolation resampler and long-form
+split-point search.  The native C++ decoder (``qwen3_asr_tpu/audio/native.py``)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -107,3 +107,43 @@ def load_audio(path: str | Path, target_sr: int = SAMPLE_RATE) -> np.ndarray:
             samples = samples.mean(axis=1)
 
     return resample_linear(np.asarray(samples, dtype=np.float32), int(sr), target_sr)
+
+
+def frame_rms(samples: np.ndarray, frame_samples: int = 480) -> np.ndarray:
+    """Per-frame RMS energy over non-overlapping ~30 ms frames."""
+    n_frames = len(samples) // frame_samples
+    if n_frames == 0:
+        return np.zeros((0,), dtype=np.float32)
+    framed = samples[: n_frames * frame_samples].reshape(n_frames, frame_samples)
+    return np.sqrt(np.mean(framed.astype(np.float64) ** 2, axis=1)).astype(np.float32)
+
+
+def find_split_points(
+    samples: np.ndarray,
+    chunk_samples: int,
+    search_samples: int,
+    frame_samples: int = 480,
+) -> list[int]:
+    """Low-energy split points for long-form audio: every multiple of
+    ``chunk_samples`` snaps to the minimum-RMS frame within +/-
+    ``search_samples`` (ties toward the earliest frame)."""
+    total = len(samples)
+    energy = frame_rms(samples, frame_samples)
+    n_frames = len(energy)
+    if n_frames == 0:
+        return []
+
+    search_frames = search_samples // frame_samples
+    points: list[int] = []
+    boundary = chunk_samples
+    while boundary < total:
+        center = boundary // frame_samples
+        lo = max(0, center - search_frames)
+        hi = min(n_frames - 1, center + search_frames)
+        if lo >= hi:
+            points.append(boundary)
+        else:
+            best = int(np.argmin(energy[lo : hi + 1])) + lo
+            points.append(best * frame_samples)
+        boundary += chunk_samples
+    return points

@@ -1,17 +1,22 @@
-// K3: KV-cache row write, in place.
+// K3 and K5: KV-cache row writes, in place.
 //
-// Replaces qwen3_asr_tpu/ops/pallas/kv_write.py: kv_write_rows (:260) and
-// kv_write_rows_batch (:85).  Writes rows[l, b, h, 0, :] to
-// cache[l, b, h, slots[b], :] for every (l, b, h): one decode step's fresh
-// K (or V) rows of all layers after the layer loop.
+// One bf16 kernel (kv_write_rows_bf16) serves both.  It writes
+// rows[l, b, h, t, :] to cache[l, b, h, slots[b] + t, :] for every
+// (l, b, h) and t < T, and drops rows whose slot lies outside [0, S).
+//   * K3 (T = 1) replaces qwen3_asr_tpu/ops/pallas/kv_write.py:
+//     kv_write_rows (:260) and kv_write_rows_batch (:85): one decode step's
+//     fresh K (or V) rows of all layers after the layer loop.
+//   * K5 (T <= 8) replaces kv_write_span_batch (:156): the speculative
+//     verify pass's T rows per lane, the overflow past S dropped.
 //
-// Bound on the H100: bytes.  The step moves L*B*Hkv*D*2 bytes in and the
-// same out (28*8*8*128*2 = 459 KB at B=8): a few microseconds at HBM rate,
-// so launch latency dominates.  Design: one thread per 16-byte vector
-// (8 bf16), neighbouring threads on neighbouring addresses, and exactly the
-// target rows touched.  The TPU kernel's 8-row read-modify-write tile exists
-// only because of the TPU's (8, 128) memory tiling and is not carried over.
-// Rows whose slot lies outside [0, S) are dropped.
+// Bound on the H100: bytes.  A call moves L*B*Hkv*T*D*2 bytes in and the
+// same out (459 KB at L=28, B=8, T=1; 3.7 MB at T=4): a few microseconds
+// at HBM rate, so launch latency dominates.  Design: one thread per 16-byte
+// vector (8 bf16), neighbouring threads on neighbouring addresses, so each
+// 256-byte target row is stored by 16 neighbouring threads and exactly the
+// target rows are touched.  The TPU kernels' read-modify-write tiles (8
+// rows for K3, a two-tile window per (layer, lane) for K5) exist only
+// because of the TPU's (8, 128) memory tiling and are not carried over.
 //
 // The int8 cache (kv_write_rows_q8): the same rows arrive in bf16 and are
 // quantized on the way in, with ops/quant_kv.py:quantize_kv's rule per
@@ -31,20 +36,23 @@ constexpr int kVec = 8;                   // bf16 per 16-byte vector
 constexpr int kVecPerRow = kD / kVec;     // 16
 constexpr int kThreads = 256;
 
+// One thread per 16-byte vector of rows (L, B, H, T, 128), flat in that
+// order.
 __global__ void kv_write_rows_kernel(__nv_bfloat16* __restrict__ cache,
                                      const __nv_bfloat16* __restrict__ rows,
-                                     const int* __restrict__ slots,
-                                     int B, int H, int S, int64_t n_vec) {
+                                     const int* __restrict__ slots, int B,
+                                     int H, int T, int S, int64_t n_vec) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_vec) return;
-  const int64_t row = i / kVecPerRow;     // flat (l, b, h)
+  const int64_t row = i / kVecPerRow;     // flat (l, b, h, t)
   const int v = (int)(i % kVecPerRow);
-  const int b = (int)((row / H) % B);
-  const int slot = slots[b];
+  const int t = (int)(row % T);
+  const int64_t lbh = row / T;            // flat (l, b, h)
+  const int b = (int)((lbh / H) % B);
+  const int slot = slots[b] + t;
   if (slot < 0 || slot >= S) return;
   const uint4 val = reinterpret_cast<const uint4*>(rows)[i];
-  uint4* dst = reinterpret_cast<uint4*>(cache + (row * S + slot) * kD) + v;
-  *dst = val;
+  reinterpret_cast<uint4*>(cache + (lbh * S + slot) * kD)[v] = val;
 }
 
 __global__ void kv_write_rows_q8_kernel(int8_t* __restrict__ cache_q,
@@ -87,19 +95,20 @@ __global__ void kv_write_rows_q8_kernel(int8_t* __restrict__ cache_q,
 
 }  // namespace
 
-// cache (L, B, H, S, 128) bf16; rows (L, B, H, 1, 128) bf16; slots (B,) int32,
-// all on the device and contiguous.  Returns the launch's cudaError_t.
+// cache (L, B, H, S, 128) bf16; rows (L, B, H, T, 128) bf16; slots (B,)
+// int32 (lane b's first slot); all on the device and contiguous.  Returns
+// the launch's cudaError_t.
 extern "C" int kv_write_rows_bf16(void* cache, const void* rows,
                                   const void* slots, int L, int B, int H,
-                                  int S, void* stream) {
-  const int64_t n_vec = (int64_t)L * B * H * kVecPerRow;
+                                  int T, int S, void* stream) {
+  const int64_t n_vec = (int64_t)L * B * H * T * kVecPerRow;
   if (n_vec == 0) return (int)cudaSuccess;
   const int64_t blocks = (n_vec + kThreads - 1) / kThreads;
   kv_write_rows_kernel<<<(unsigned)blocks, kThreads, 0,
                          (cudaStream_t)stream>>>(
       static_cast<__nv_bfloat16*>(cache),
       static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(slots),
-      B, H, S, n_vec);
+      B, H, T, S, n_vec);
   return (int)cudaGetLastError();
 }
 

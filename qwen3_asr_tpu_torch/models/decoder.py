@@ -1,7 +1,7 @@
 """Qwen3 text decoder (GQA + QK-norm + RoPE + SwiGLU) in PyTorch.
 
-Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for the two paths the
-greedy transcription slice runs:
+Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for the three paths the
+transcription slices run:
 
   * **fresh prefill** (``write_slots is None``, T > 1): attention over the
     fresh K/V with the causal flash kernel K1, and each layer's K/V rows
@@ -11,7 +11,12 @@ greedy transcription slice runs:
   * **split decode** (``decode_ctx`` given, T == 1, ``decoder.py:534-731``):
     attention runs over the PRE-step cache plus the fresh row (kernel K2),
     and all layers' fresh rows are written by ONE post-loop K3 call at the
-    shared slot.
+    shared slot;
+  * **verify split** (``decode_ctx`` given, 1 < T <= 8, ``decoder.py:744-814``):
+    the speculative loop's T positions per lane against the read-only
+    cache plus a T x T causal block of the fresh rows, in plain PyTorch
+    products (the JAX package uses XLA einsums here too), and one post-loop
+    K5 call each for K and V at the per-lane write slots.
 
 Per layer: RMSNorm -> fused QKV -> per-head Q/K RMSNorm BEFORE RoPE
 (non-interleaved, theta 1e6) -> attention -> o_proj -> RMSNorm -> SwiGLU.
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 from ..config import TextDecoderConfig
 from ..ops.kernels.decode_attention import decode_attention, decode_attention_q8
 from ..ops.kernels.flash_attention import flash_attention_causal
-from ..ops.kernels.kv_write import kv_write_rows, kv_write_rows_q8
+from ..ops.kernels.kv_write import kv_write_rows, kv_write_rows_q8, kv_write_span_batch
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear
 from ..ops.quant_kv import is_quantized_kv
@@ -171,8 +176,11 @@ def decoder_forward(
     Fresh prefill: ``write_slots`` and ``decode_ctx`` None, T > 1; rows land
     at slots [0, T).  Split decode: ``decode_ctx = (prompt_len (B,) int32,
     decode_end int, prompt_bucket int)`` and T == 1; the fresh rows land at
-    ``write_slots`` (an int shared by every lane).  Returns the pre-final-norm
-    hidden (B, T, H) and the (updated in place) cache.
+    ``write_slots`` (an int shared by every lane).  Verify split:
+    ``decode_ctx = (prompt_len, ws, prompt_bucket)`` with ``ws`` (B,) the
+    per-lane write slots (also passed as ``write_slots``) and 1 < T <= 8;
+    bf16 or f32 cache only.  Returns the pre-final-norm hidden (B, T, H) and
+    the (updated in place) cache.
     """
     B, T, _ = hidden.shape
     nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -220,10 +228,81 @@ def decoder_forward(
             kv_write_rows(values, v_rows, write_slots)
         return h, (keys, values)
 
+    if decode_ctx is not None and 1 < T <= 8 and write_slots is not None:
+        if is_quantized_kv(keys):
+            raise ValueError("the int8 KV cache takes single-token decode only")
+        return _verify_split(params, cfg, h, cos, sin, keys, values, decode_ctx)
+
     raise NotImplementedError(
-        "the PyTorch port runs fresh prefill (T > 1, no write_slots) and "
-        "single-token split decode (decode_ctx, T == 1) only"
+        "the PyTorch port runs fresh prefill (T > 1, no write_slots), "
+        "single-token split decode (decode_ctx, T == 1) and the verify split "
+        "(decode_ctx, 1 < T <= 8) only"
     )
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product with a float32 result accumulated in float32, as the
+    JAX einsums' ``preferred_element_type=float32``: bf16 operands on the
+    GPU keep the f32 accumulator (``out_dtype``) instead of rounding it."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, decode_ctx):
+    """The speculative verify pass (JAX ``decoder.py:744-814``): T fresh
+    positions per lane against the read-only cache, one forward.
+
+    Old-cache slots are valid in ``[0, plen) ∪ [pbucket, ws)``, strictly
+    before each lane's write slot ``ws`` (B,); the T fresh positions attend
+    each other through a T x T causal block; masked scores take the finite
+    ``f32.min / 2``.  Scores and P·V accumulate in f32; the cache-side
+    probabilities are rounded to the cache dtype before their product, as
+    the JAX package does.  All layers' T rows are written after the loop by
+    one K5 launch for K and one for V at slots ``ws .. ws + T - 1``."""
+    plen, ws, pbucket = decode_ctx
+    B, T, _ = h.shape
+    nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    G = nq // nkv
+    S = keys.shape[3]
+    scale = D ** -0.5
+    device = h.device
+    neg = torch.finfo(torch.float32).min / 2
+    ws = ws.to(device=device, dtype=torch.int32)
+    slot_ids = torch.arange(S, device=device)[None, :]
+    cache_ok = (slot_ids < plen.long()[:, None]) | (
+        (slot_ids >= pbucket) & (slot_ids < ws.long()[:, None])
+    )                                                         # (B, S)
+    cache_ok = cache_ok[:, None, None, :]                     # (B, 1, 1, S)
+    t_idx = torch.arange(T, device=device)
+    self_ok = (t_idx[None, :] <= t_idx[:, None]).repeat(G, 1)  # (G*T, T)
+
+    n_layers = len(params["layers"])
+    k_rows = torch.empty((n_layers, B, nkv, T, D), dtype=h.dtype, device=device)
+    v_rows = torch.empty_like(k_rows)
+    for layer, lp in enumerate(params["layers"]):
+        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+        # Query rows (g, t) of each KV head: (B*nkv, G*T, D).
+        qg = q.reshape(B * nkv, G * T, D)
+        kc = keys[layer].reshape(B * nkv, S, D)
+        vc = values[layer].reshape(B * nkv, S, D)
+        scores = _bmm_f32(qg, kc.transpose(1, 2)).reshape(B, nkv, G * T, S) * scale
+        scores = torch.where(cache_ok, scores, neg)
+        kn = k_new.reshape(B * nkv, T, D)
+        self_scores = _bmm_f32(qg, kn.transpose(1, 2)).reshape(B, nkv, G * T, T) * scale
+        self_scores = torch.where(self_ok, self_scores, neg)
+        w = torch.softmax(torch.cat([scores, self_scores], dim=-1), dim=-1)
+        w_cache = w[..., :S].reshape(B * nkv, G * T, S).to(vc.dtype)
+        w_self = w[..., S:].reshape(B * nkv, G * T, T)
+        out = _bmm_f32(w_cache, vc) + torch.bmm(w_self, v_new.reshape(B * nkv, T, D).float())
+        attn = out.reshape(B, nq, T, D).to(h.dtype)
+        k_rows[layer] = k_new
+        v_rows[layer] = v_new
+        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
+        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+    kv_write_span_batch(keys, k_rows, ws)
+    kv_write_span_batch(values, v_rows, ws)
+    return h, (keys, values)
 
 
 def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.Tensor) -> torch.Tensor:

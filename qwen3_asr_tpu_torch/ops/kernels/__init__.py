@@ -6,6 +6,7 @@
 | ``decode_attention`` (``decode_attention``, K2) | ``ops/pallas/decode_attention_hbm4.py:decode_attention_hbm4`` |
 | ``kv_write`` (``kv_write_rows``, ``kv_write_rows_batch``, K3) | ``ops/pallas/kv_write.py`` (same names) |
 | ``kv_write`` (``kv_write_rows_q8``, K3 on the int8 cache) | ``ops/pallas/kv_write.py`` on int8 rows, with ``quantize_kv`` |
+| ``kv_write`` (``kv_write_span_batch``, K5) | ``ops/pallas/kv_write.py:kv_write_span_batch`` |
 | ``decode_attention`` (``decode_attention_q8``, K4) | ``ops/pallas/decode_attention_hbm4.py:decode_attention_hbm4_q8`` |
 | ``quantized_matmul`` (``quantized_matmul``, K9) | ``ops/quant.py:quantized_matmul`` |
 | ``w8a8_matmul`` (``w8a8_matmul``, K10) | ``ops/pallas/w8a8_matmul.py:w8a8_matmul`` |

@@ -64,8 +64,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # cache, rows, slots, L, B, H, S, stream
-    "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # cache, rows, slots, L, B, H, T, S, stream
+    "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # cache_q, cache_s, rows, slots, L, B, H, S, stream
     "kv_write_rows_q8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, wq, s, out, M, N, K, out_f32, stream

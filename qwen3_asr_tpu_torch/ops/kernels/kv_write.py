@@ -1,18 +1,22 @@
-"""K3: in-place KV-cache row write.
+"""K3 and K5: in-place KV-cache row writes.
 
 Replaces ``qwen3_asr_tpu/ops/pallas/kv_write.py``: ``kv_write_rows`` (one
-slot shared by every lane, the decode loop's case) and
-``kv_write_rows_batch`` (a slot per lane).  Bound on the H100: bytes, and
-at these sizes (459 KB per step at B=8) launch latency.  The CUDA kernel
-(``csrc/kv_write.cu``) stores exactly rows ``[l, b, :, slots[b], :]`` with
-one thread per 16-byte vector; both wrappers launch it, the shared-slot one
-with the slot broadcast to every lane.  The TPU kernel's 8-row
-read-modify-write exists only for the TPU's memory tiling and is not
-carried over.
+slot shared by every lane, the decode loop's case),
+``kv_write_rows_batch`` (a slot per lane) and, as K5,
+``kv_write_span_batch`` (the speculative verify pass's T <= 8 rows per lane
+at ``slots[b] .. slots[b] + T - 1``, rows past the cache end dropped, as
+the JAX package's ``mode="drop"`` scatter).  Bound on the H100: bytes, and
+at these sizes (459 KB per step at B=8) launch latency.  One CUDA kernel
+(``csrc/kv_write.cu``) serves all three: it stores exactly rows
+``[l, b, :, slots[b] + t, :]`` with one thread per 16-byte vector, at
+T = 1 for K3 (the shared-slot wrapper broadcasts its slot to every lane)
+and T = ``rows.shape[3]`` for K5; each wrapper counts its launches under
+its own name.  The TPU kernels' read-modify-write tiles exist only for the
+TPU's memory tiling and are not carried over.
 
-On a CPU tensor the wrappers run the plain version (``index_copy_``); on a
-CUDA tensor they launch the kernel or raise.  Both update ``cache`` in
-place and return it.
+On a CPU tensor the wrappers run the plain versions (``index_copy_`` for
+K3, one ``index_put_`` for K5); on a CUDA tensor they launch the kernel or
+raise.  All update ``cache`` in place and return it.
 
 The int8 cache ``{"q", "s"}`` takes the step's bf16 rows through
 :func:`kv_write_rows_q8`: one launch quantizes each 128-wide row with
@@ -30,6 +34,7 @@ from . import _build
 
 NAME = "kv_write_rows"
 NAME_Q8 = "kv_write_rows_q8"
+NAME_SPAN = "kv_write_span_batch"
 
 
 def kv_write_rows_plain(
@@ -41,12 +46,14 @@ def kv_write_rows_plain(
     return cache
 
 
-def _check(cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor) -> None:
+def _check(
+    cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, T: int = 1
+) -> None:
     if cache.dim() != 5:
         raise ValueError("cache must be (L, B, Hkv, S, D)")
     L, B, H, S, D = cache.shape
-    if tuple(rows.shape) != (L, B, H, 1, D):
-        raise ValueError(f"rows shape {tuple(rows.shape)} != {(L, B, H, 1, D)}")
+    if tuple(rows.shape) != (L, B, H, T, D):
+        raise ValueError(f"rows shape {tuple(rows.shape)} != {(L, B, H, T, D)}")
     if D != 128:
         raise ValueError(f"head_dim must be 128, got {D}")
     if cache.dtype != torch.bfloat16 or rows.dtype != torch.bfloat16:
@@ -60,19 +67,26 @@ def _check(cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor) -> None
         raise ValueError("cache, rows and slots must be contiguous")
 
 
+def _launch(
+    name: str, cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor, T: int
+) -> torch.Tensor:
+    """Launch the bf16 row-write kernel for ``rows`` (L, B, Hkv, T, D) and
+    count it under ``name``."""
+    _check(cache, rows, slots, T)
+    L, B, H, S, _ = cache.shape
+    err = _build.library().kv_write_rows_bf16(
+        cache.data_ptr(), rows.data_ptr(), slots.data_ptr(), L, B, H, T, S,
+        _build.stream_ptr(cache),
+    )
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return cache
+
+
 def _write(cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     if not cache.is_cuda:
         return kv_write_rows_plain(cache, rows, slots)
-    _check(cache, rows, slots)
-    L, B, H, S, _ = cache.shape
-    lib = _build.library()
-    err = lib.kv_write_rows_bf16(
-        cache.data_ptr(), rows.data_ptr(), slots.data_ptr(), L, B, H, S,
-        _build.stream_ptr(cache),
-    )
-    _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
-    return cache
+    return _launch(NAME, cache, rows, slots, 1)
 
 
 def kv_write_rows(cache: torch.Tensor, rows: torch.Tensor, slot: int) -> torch.Tensor:
@@ -87,6 +101,43 @@ def kv_write_rows_batch(
 ) -> torch.Tensor:
     """Per-lane variant: lane b's rows land at ``slots[b]`` (int32, (B,))."""
     return _write(cache, rows, slots)
+
+
+def span_indices(
+    slots: torch.Tensor, T: int, S: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lane, row, slot) index vectors of the span rows that land inside
+    the cache: row t of lane b goes to ``slots[b] + t`` unless that is
+    outside [0, S).  Syncs with the device (the count is data-dependent)."""
+    target = slots.long()[:, None] + torch.arange(T, device=slots.device)[None, :]
+    lane, row = torch.nonzero((target >= 0) & (target < S), as_tuple=True)
+    return lane, row, target[lane, row]
+
+
+def kv_write_span_batch_plain(
+    cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor
+) -> torch.Tensor:
+    """cache[:, b, :, slots[b] + t, :] = rows[:, b, :, t, :] for every lane b
+    and span row t whose slot lies in [0, S) (one ``index_put_``); the rest
+    are dropped."""
+    lane, row, slot = span_indices(slots, rows.shape[3], cache.shape[3])
+    cache[:, lane, :, slot] = rows[:, lane, :, row]
+    return cache
+
+
+def kv_write_span_batch(
+    cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor
+) -> torch.Tensor:
+    """K5: write lane b's ``T`` <= 8 rows ``rows`` (L, B, Hkv, T, D) into
+    ``cache`` (L, B, Hkv, S, D) at ``slots[b] .. slots[b] + T - 1`` (int32
+    ``slots`` (B,)), dropping rows past the cache end; in place, returns
+    ``cache``."""
+    T = rows.shape[3]
+    if T > 8:
+        raise ValueError(f"span writer takes at most 8 rows, got {T}")
+    if not cache.is_cuda:
+        return kv_write_span_batch_plain(cache, rows, slots)
+    return _launch(NAME_SPAN, cache, rows, slots, T)
 
 
 def kv_write_rows_q8_plain(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> dict:

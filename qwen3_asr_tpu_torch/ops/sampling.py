@@ -1,6 +1,18 @@
-"""Greedy-decoding helpers (counterpart of ``qwen3_asr_tpu/ops/sampling.py``
-lines 28-43 and 81-106): the repetition penalty and the recent-token window
-it reads.  Batched over a leading axis; stochastic sampling is not ported.
+"""Sampling on the device (counterpart of ``qwen3_asr_tpu/ops/sampling.py``):
+the repetition penalty and the recent-token window it reads, the top-k and
+top-p filters, ``sample_logits`` and the speculative verifier
+``spec_verify_sample``.
+
+Everything is batched over a leading lane axis, where the JAX package
+``vmap``s one-lane functions.  The transform order is the JAX package's:
+penalty -> temperature (``max(T, 1e-6)``) -> a top-``k_subset`` candidate
+pool -> top-k keeping ties (``>= kth``) -> top-p on the exclusive cumsum of
+full-vocabulary probabilities (the softmax denominator is a logsumexp over
+every logit) -> draw.  Draws are Gumbel-max over uniforms from an explicit
+``torch.Generator`` on the lanes' device (``jax.random.categorical`` is
+Gumbel-max too); the two packages' random streams differ, so they agree in
+distribution, not draw for draw.  ``temperature`` and the filters are host
+scalars, so the greedy case (``temperature == 0``) is a Python branch.
 """
 
 from __future__ import annotations
@@ -9,6 +21,10 @@ import torch
 
 #: Sentinel for empty slots of the recent-tokens window (any id >= vocab).
 RECENT_PAD_ID = 2**30
+
+#: Default size of the stochastic candidate pool (JAX ``TOP_K_SUBSET``);
+#: ``RuntimeConfig.pick_top_k_subset`` widens it for larger ``top_k``.
+TOP_K_SUBSET = 1024
 
 
 def apply_repetition_penalty(
@@ -42,3 +58,117 @@ def recent_token_window(
     if rep_ctx_c <= 0:
         return torch.full_like(vals, RECENT_PAD_ID)
     return torch.where(in_ctx, vals, torch.full_like(vals, RECENT_PAD_ID))
+
+
+def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Keep logits >= the k-th largest of their row (ties kept); k <= 0
+    disables."""
+    if k <= 0:
+        return logits
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = sorted_desc[..., min(k, logits.shape[-1]) - 1 : min(k, logits.shape[-1])]
+    return torch.where(logits >= kth, logits, torch.full_like(logits, float("-inf")))
+
+
+def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filter per row: drop tokens whose exclusive cumulative
+    probability (descending order) is >= p; p >= 1 disables."""
+    if p >= 1.0:
+        return logits
+    probs = torch.softmax(logits, dim=-1)
+    sorted_probs, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    keep_sorted = (torch.cumsum(sorted_probs, dim=-1) - sorted_probs) < p
+    keep = torch.zeros_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    return torch.where(keep, logits, torch.full_like(logits, float("-inf")))
+
+
+def _filtered_pool(
+    logits: torch.Tensor, temperature: float, top_k: int, top_p: float, k_subset: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(masked values (B, k_sub) in descending order, vocab ids (B, k_sub))
+    of the filtered candidate pool; filtered entries are -inf."""
+    scaled = logits / max(temperature, 1e-6)
+    k_sub = min(k_subset, scaled.shape[-1])
+    vals, idx = torch.topk(scaled, k_sub, dim=-1)          # descending
+    keep = torch.ones_like(vals, dtype=torch.bool)
+    if top_k > 0:
+        kth = vals[:, min(top_k, k_sub) - 1 : min(top_k, k_sub)]
+        keep &= vals >= kth
+    if top_p < 1.0:
+        denom = torch.logsumexp(scaled, dim=-1, keepdim=True)
+        probs = torch.exp(vals - denom)
+        keep &= (torch.cumsum(probs, dim=-1) - probs) < top_p
+    masked = torch.where(keep, vals, torch.full_like(vals, float("-inf")))
+    return masked, idx
+
+
+def _gumbel_choice(masked: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Column index of one categorical draw per row over the logits
+    ``masked`` (Gumbel-max)."""
+    u = torch.rand(masked.shape, generator=generator, device=masked.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(masked + gumbel, dim=-1)
+
+
+def sample_logits(
+    logits: torch.Tensor,          # (B, vocab)
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    repetition_penalty: float,
+    recent_tokens: torch.Tensor,   # (B, W)
+    generator: torch.Generator | None,
+    k_subset: int = TOP_K_SUBSET,
+) -> torch.Tensor:
+    """One token id per lane (B,) int64: the penalized argmax at
+    ``temperature == 0``, else a draw from the filtered distribution."""
+    logits = apply_repetition_penalty(logits.float(), recent_tokens, repetition_penalty)
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    masked, idx = _filtered_pool(logits, temperature, top_k, top_p, k_subset)
+    choice = _gumbel_choice(masked, generator)
+    return idx.gather(1, choice[:, None])[:, 0]
+
+
+def spec_verify_sample(
+    logits: torch.Tensor,          # (B, vocab)
+    draft_id: torch.Tensor,        # (B,) int, < 0 = no proposal
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    repetition_penalty: float,
+    recent_tokens: torch.Tensor,   # (B, W)
+    generator: torch.Generator | None,
+    k_subset: int = TOP_K_SUBSET,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One speculative-sampling verify position per lane against a
+    point-mass draft: ``(accept (B,) bool, token (B,) int64)``.
+
+    Accept the draft with probability p(draft) under the full sampling
+    transform; on rejection draw from p with the draft's mass removed, so
+    the emitted token is an exact draw from :func:`sample_logits`'s
+    distribution.  ``draft_id < 0`` matches no vocab id: p(draft) = 0 and
+    the draw is a plain sample.  Both random draws are made for every lane
+    whatever the outcome, so the stream consumed does not depend on it."""
+    logits = apply_repetition_penalty(logits.float(), recent_tokens, repetition_penalty)
+    draft_id = draft_id.long()
+    if temperature == 0.0:
+        tok = logits.argmax(dim=-1)
+        return tok == draft_id, tok
+    masked, idx = _filtered_pool(logits, temperature, top_k, top_p, k_subset)
+    norm = torch.logsumexp(masked, dim=-1)
+    is_draft = idx == draft_id[:, None]
+    neg_inf = torch.full_like(masked, float("-inf"))
+    draft_val = torch.where(is_draft, masked, neg_inf).amax(dim=-1)
+    p_draft = torch.exp(draft_val - norm)                  # 0 if filtered/absent
+    u = torch.rand(p_draft.shape, generator=generator, device=logits.device)
+    accept = u < p_draft
+    residual = torch.where(is_draft, neg_inf, masked)
+    residual_ok = (residual > float("-inf")).any(dim=-1)
+    choice = _gumbel_choice(torch.where(residual_ok[:, None], residual, masked), generator)
+    alt = idx.gather(1, choice[:, None])[:, 0]
+    # Degenerate residual: the draft holds all surviving mass (top_k == 1
+    # hitting the draft); a rejection there is only rounding in p_draft,
+    # so keep the draft and count it accepted.
+    accepted = accept | ~residual_ok
+    return accepted, torch.where(accepted, draft_id, alt)

@@ -27,8 +27,13 @@ class RequestStats:
     audio_seconds: float = 0.0
     n_prompt_tokens: int = 0
     n_generated_tokens: int = 0
-    #: Decode-loop iterations (forward passes of the whole batch).
+    #: Decode-loop iterations (forward passes of the whole batch; verify
+    #: iterations in the speculative loop).
     n_decode_steps: int = 0
+    #: Verify lane-forwards of the speculative loop (0 = plain decode):
+    #: iterations x real lanes, since the batch runs in lockstep.  tokens /
+    #: forwards is the realized tokens per lane-forward (ceiling gamma+1).
+    n_spec_forwards: int = 0
     stages: dict[str, float] = field(default_factory=dict)
 
     @property
@@ -46,8 +51,17 @@ class RequestStats:
         t = self.stages.get("decode", 0.0)
         return self.n_generated_tokens / t if t > 0 else 0.0
 
+    @property
+    def spec_tokens_per_forward(self) -> float:
+        """Realized speculative acceptance (tokens per verify lane-forward)."""
+        return (
+            self.n_generated_tokens / self.n_spec_forwards
+            if self.n_spec_forwards
+            else 0.0
+        )
+
     def as_dict(self) -> dict:
-        return {
+        out = {
             "audio_seconds": round(self.audio_seconds, 4),
             "n_prompt_tokens": self.n_prompt_tokens,
             "n_generated_tokens": self.n_generated_tokens,
@@ -57,6 +71,10 @@ class RequestStats:
             "decode_tokens_per_second": round(self.decode_tokens_per_second, 1),
             **{f"stage_{k}_seconds": round(v, 4) for k, v in self.stages.items()},
         }
+        if self.n_spec_forwards:
+            out["n_spec_forwards"] = self.n_spec_forwards
+            out["spec_tokens_per_forward"] = round(self.spec_tokens_per_forward, 2)
+        return out
 
 
 @contextlib.contextmanager

@@ -1,9 +1,10 @@
 """The PyTorch port's slices as a whole: greedy ``transcribe`` and
-``transcribe_batch`` are token-identical to the JAX package on the same
-tiny float32 checkpoint, in bf16 and under each int8 setting
-(``quantization``, ``act_quant``, ``kv_cache_dtype``, alone and together);
-what the port leaves out raises ``NotImplementedError``; importing the port
-needs neither JAX nor nvcc."""
+``transcribe_batch`` (under the default ``speculative="auto"``, so the
+n-gram speculative loop at these batch sizes) are token-identical to the
+JAX package on the same tiny float32 checkpoint, in bf16 and under each
+int8 setting (``quantization``, ``act_quant``, ``kv_cache_dtype``, alone
+and together); what the port leaves out raises ``NotImplementedError``;
+importing the port needs neither JAX nor nvcc."""
 
 from __future__ import annotations
 
@@ -38,7 +39,12 @@ def test_transcribe_batch_token_identical(pair):
     assert [r.duration for r in out] == [r.duration for r in ref]
     assert [r.language for r in out] == ["English"] * 3
     assert port.last_stats.n_generated_tokens == 36
-    assert port.last_stats.n_decode_steps == 11
+    # B=3 pads to 4 lanes and speculates: decode steps are verify
+    # iterations, and lane-forwards count them once per real lane.
+    iters = jax_model._generator.last_spec_forwards
+    assert 0 < iters <= 11
+    assert port.last_stats.n_decode_steps == iters
+    assert port.last_stats.n_spec_forwards == jax_model.last_stats.n_spec_forwards == 3 * iters
 
 
 def test_transcribe_token_identical_with_default_budget(pair):
@@ -117,21 +123,19 @@ def test_int8_transcribe_and_detect_token_identical(int8_pair):
 
 
 def test_unported_features_raise(pair):
+    """Only multi-device meshes are left out; sampling, long-form chunking
+    and ``speculative="ngram"`` (with either cache) construct and run."""
     from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
 
     _, port = pair
-    audio = clips((1.5,))[0]
-    with pytest.raises(NotImplementedError):
-        port.transcribe(audio, temperature=0.7, max_tokens=2)
-    with pytest.raises(NotImplementedError):
-        port.transcribe(audio, chunk_duration=1.0, max_tokens=2)   # long-form
-    with pytest.raises(NotImplementedError):
-        port.transcribe_batch([audio], chunk_duration=1.0, max_tokens=2)
-    for rt in ({"speculative": "ngram"}, {"dp": 2},
-               {"speculative": "ngram", "kv_cache_dtype": "int8"}):
-        with pytest.raises(NotImplementedError):
+    for rt in ({"dp": 2}, {"tp": 2}, {"dp": 2, "speculative": "ngram"}):
+        with pytest.raises(NotImplementedError, match="multi-device"):
             Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
                      port._tokenizer, RuntimeConfig(**rt))
+    for rt in ({"speculative": "ngram"},
+               {"speculative": "ngram", "kv_cache_dtype": "int8"}):
+        Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
+                 port._tokenizer, RuntimeConfig(**rt))
 
 
 def test_wav_file_round_trip(pair, tmp_path):
@@ -182,6 +186,7 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
         "from qwen3_asr_tpu_torch import api, models, runtime\n"
         "from qwen3_asr_tpu_torch.ops.kernels import _build, decode_attention, "
         "flash_attention, kv_write, quantized_matmul, w8a8_matmul\n"
+        "from qwen3_asr_tpu_torch.ops import sampling, speculative\n"
         "from qwen3_asr_tpu_torch.ops import quant, quant_kv\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'qwen3_asr_tpu.'))"
         " or m == 'qwen3_asr_tpu']\n"

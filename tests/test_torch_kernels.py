@@ -486,3 +486,28 @@ def test_cuda_kv_write_q8_bit_exact_vs_plain(cuda):
         out = kv_write_rows_q8({k: v.clone() for k, v in cache.items()}, rows, slots)
         ref = kv_write_rows_q8_plain({k: v.clone() for k, v in cache.items()}, rows, slots)
         assert torch.equal(out["q"], ref["q"]) and torch.equal(out["s"], ref["s"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_cuda_kv_write_span_bit_exact_vs_plain(cuda, T):
+    """K5 at the verify pass's shapes (L=28, B=8, S=640): per-lane slots,
+    two lanes whose span runs past S (rows there dropped) and one lane
+    wholly past the end."""
+    from qwen3_asr_tpu_torch.ops.kernels.kv_write import (
+        kv_write_span_batch,
+        kv_write_span_batch_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(T)
+    L, B, H, S = 28, 8, 8, 640
+    cache = torch.randn(L, B, H, S, 128, generator=g, device=cuda).bfloat16()
+    rows = torch.randn(L, B, H, T, 128, generator=g, device=cuda).bfloat16()
+    slots = torch.tensor([512, 513, 530, 600, 601, S - T + 1, S - 1, S + 3],
+                         dtype=torch.int32, device=cuda)
+    before = LAUNCHES["kv_write_span_batch"]
+    out = kv_write_span_batch(cache.clone(), rows, slots)
+    assert LAUNCHES["kv_write_span_batch"] == before + 1
+    ref = kv_write_span_batch_plain(cache.clone(), rows, slots)
+    assert torch.equal(out, ref)
+    assert torch.equal(out[:, 7], cache[:, 7])

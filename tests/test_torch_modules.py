@@ -278,9 +278,11 @@ def test_generator_plan_matches_jax():
             assert tg.plan(atb, plen, new, batch) == jg.plan(atb, plen, new, batch)
             run = RuntimeConfig(**rt).plan_prefill_run(plen, tg.plan(atb, plen, new, batch)[0])
             assert run == JRT(**rt).plan_prefill_run(plen, jg.plan(atb, plen, new, batch)[0])
-        assert tg.plan_statics(128, 0.0, 0, 1.2, 100)[:2] == jg.plan_statics(128, 0.0, 0, 1.2, 100)[:2]
-    with pytest.raises(NotImplementedError):
-        tg.plan_statics(128, 0.7, 0, 1.2, 100)
+        # (mode, rep_window, k_subset), greedy and sampled (top-k subset
+        # buckets, including a top_k past the largest bucket).
+        for args in ((128, 0.0, 0, 1.2, 100), (128, 0.7, 0, 1.2, 100),
+                     (4096, 0.7, 2000, 1.0, 3000), (128, 1.0, 10**6, 1.2, 100)):
+            assert tg.plan_statics(*args) == jg.plan_statics(*args)
 
 
 # -- the lm head hands the argmax f32 logits ---------------------------------------
