@@ -14,16 +14,19 @@ failure raises and the script exits non-zero):
      (K1, K2, K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9: f32
      tolerance, 1e-5 of the largest |value| + rtol 1e-5, against the f32
      product of the same int8 weights; K3, K3 int8, K5 and K10: exact, K5
-     with overflow rows dropped), kernel, plain and library-call times from
-     CUDA events, the bound (bytes over 3.35 TB/s or operations over the
-     peak of their type, whichever is larger), and the share of the
-     published peak;
+     with overflow rows dropped; K6 and K7, the paged decode attention and
+     verify over bf16 and int8 pools: as K2; K8, the paged row write, bf16
+     and int8: exact outside the trash page 0), kernel, plain and
+     library-call times from CUDA events, the bound (bytes over 3.35 TB/s
+     or operations over the peak of their type, whichever is larger), and
+     the share of the published peak;
   4. small-width reference checks: the decoder's prefill logits, one
      decode step and (bf16) one verify-split forward (T=4, per-lane write
      slots) with the kernels on the GPU against the same weights on the
      CPU with the plain versions -- bf16 against float32, and the int8
      decoder (int8 weights, W8A8 prefill, int8 cache) against the same
-     quantized weights in float32;
+     quantized weights in float32; then one paged step and one paged
+     verify forward (K6, K7, K8) over shuffled pages, bf16 against float32;
   5. the full-width 1.7B paths from random weights (seed 0), each with the
      launch counters set to 0 just before it and read just after: greedy
      ``transcribe_batch`` of 8 synthetic clips of 4-30 s
@@ -38,10 +41,18 @@ failure raises and the script exits non-zero):
      teacher-forced run whose drafts are mostly accepted; sampled ``transcribe_batch`` twice with
      one seed (identical), sampled speculative (``spec_sampling``),
      int8-weights speculative (K5 and K9), long-form 20 s clips in 8 s
-     chunks (one clip, and two pooled into one group); then a second 1.7B
-     model with ``RuntimeConfig(quantization="int8", act_quant="int8",
-     kv_cache_dtype="int8")``.  Token ids must be < vocab, logits never
-     NaN, repeated runs identical, every kernel of a path launched;
+     chunks (one clip, and two pooled into one group); the
+     ``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` on the
+     smoke clips in two waves (the second admitted mid-decode): paged under
+     ``spec_engine="off"`` (K6, K8) and the default ``"auto"`` (K7, K8),
+     the int8 pool under both (q8 K6/K7, int8 K8), never a contiguous-cache
+     kernel, and the flat engine (K2, per-lane K3), every stream held to
+     the plain ``transcribe_batch`` stream by the near-tie rule, with ms per
+     chunk iteration, engine counters and each request's TTFT; then a
+     second 1.7B model with ``RuntimeConfig(quantization="int8",
+     act_quant="int8", kv_cache_dtype="int8")``.  Token ids must be <
+     vocab, logits never NaN, repeated runs identical, every kernel of a
+     path launched;
   6. ``{"kernels": [...]}`` JSON, then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -101,6 +112,30 @@ KERNELS = {
         "cuda", "qwen3_asr_tpu_torch/csrc/kv_write.cu",
         "qwen3_asr_tpu/ops/pallas/kv_write.py:156",
     ),
+    "decode_attention_paged": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_paged.cu",
+        "qwen3_asr_tpu/ops/pallas/decode_attention_paged.py:472",
+    ),
+    "decode_attention_paged_q8": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_paged.cu",
+        "qwen3_asr_tpu/ops/pallas/decode_attention_paged.py:499",
+    ),
+    "decode_attention_paged_verify": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_paged.cu",
+        "qwen3_asr_tpu/ops/pallas/decode_attention_paged.py:526",
+    ),
+    "decode_attention_paged_verify_q8": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_paged.cu",
+        "qwen3_asr_tpu/ops/pallas/decode_attention_paged.py:560",
+    ),
+    "kv_write_rows_paged": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/kv_write.cu",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:219",
+    ),
+    "kv_write_rows_paged_q8": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/kv_write.cu",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:219",
+    ),
 }
 #: The kernels each path must launch, and those it must not.
 BF16_PATH = ("flash_attention_causal", "decode_attention", "kv_write_rows")
@@ -109,6 +144,31 @@ INT8_PATH = ("flash_attention_causal", "decode_attention_q8", "kv_write_rows_q8"
 SPEC_PATH = ("flash_attention_causal", "kv_write_span_batch")
 SPEC_NEVER = ("decode_attention", "kv_write_rows")
 SPEC_W8_PATH = ("flash_attention_causal", "kv_write_span_batch", "quantized_matmul")
+#: The continuous server's paths: the paged engine never launches a
+#: contiguous-cache kernel; the flat engine runs K2 and per-lane K3.
+CONTIGUOUS = ("decode_attention", "decode_attention_q8", "kv_write_rows", "kv_write_rows_q8",
+              "kv_write_span_batch")
+PAGED = ("decode_attention_paged", "decode_attention_paged_q8", "decode_attention_paged_verify",
+         "decode_attention_paged_verify_q8", "kv_write_rows_paged", "kv_write_rows_paged_q8")
+SERVER_PATHS = {
+    # (runtime, paged): (kernels the run must launch, kernels it must not)
+    "paged, spec_engine off": ({"spec_engine": "off"}, True,
+                               ("flash_attention_causal", "decode_attention_paged",
+                                "kv_write_rows_paged"), CONTIGUOUS),
+    "paged, spec_engine auto": ({}, True,
+                                ("flash_attention_causal", "decode_attention_paged_verify",
+                                 "kv_write_rows_paged"), CONTIGUOUS),
+    "paged int8 pool, spec_engine off": ({"kv_cache_dtype": "int8", "spec_engine": "off"}, True,
+                                         ("flash_attention_causal", "decode_attention_paged_q8",
+                                          "kv_write_rows_paged_q8"), CONTIGUOUS),
+    "paged int8 pool, spec_engine auto": ({"kv_cache_dtype": "int8"}, True,
+                                          ("flash_attention_causal",
+                                           "decode_attention_paged_verify_q8",
+                                           "kv_write_rows_paged_q8"), CONTIGUOUS),
+    "flat, spec_engine off": ({"spec_engine": "off"}, False,
+                              ("flash_attention_causal", "decode_attention", "kv_write_rows"),
+                              PAGED + ("kv_write_span_batch",)),
+}
 #: bf16 speculative vs plain rows of one prefix at 1.7B: the largest allowed
 #: max |difference| over max |logit|, 1.5x what the plain loop's own rows of
 #: one lane differ by between B=1 and B=8 (2.7e-2 on an H100 80GB HBM3 from
@@ -535,6 +595,156 @@ def check_kv_write_span(gen) -> dict:
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
+def smoke_prompt_lens() -> list[int]:
+    """Prompt lengths of the 8 smoke clips (the model's prompt builder)."""
+    from types import SimpleNamespace
+
+    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR
+    from qwen3_asr_tpu_torch.audio.mel import HOP_LENGTH
+
+    fake = SimpleNamespace(_config=ModelConfig())
+    tok = StubTokenizer()
+    return [len(tok.build_prompt(Qwen3ASR._n_audio_tokens(fake, len(c) // HOP_LENGTH)))
+            for c in smoke_clips()]
+
+
+def paged_case(gen, T: int, q8: bool, L: int = 2) -> dict:
+    """Inputs at the smoke batch's shapes: B=8, 16/8 heads, PS=256, the 8
+    clips' prompt lengths, dcount 64, pages shuffled over a pool sized as
+    the engine's (1 + 8 x 4 pages)."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    B, hq, hkv, D, PS, max_pages = 8, 16, 8, 128, 256, 4
+    plen = np.asarray(smoke_prompt_lens(), np.int32)
+    dcount = np.full(B, 64, np.int32)
+    n_pages = 1 + B * max_pages
+    free = list(np.random.default_rng(SEED).permutation(np.arange(1, n_pages)))
+    table = np.zeros((B, max_pages), np.int32)
+    for b in range(B):
+        need = -(-int(plen[b]) // PS) + -(-int(dcount[b]) // PS)
+        table[b, :need] = [free.pop() for _ in range(need)]
+    shape = (L, n_pages, hkv, PS, D)
+    if q8:
+        kpool = quantize_kv(torch.randn(shape, generator=gen, device="cuda"))
+        vpool = quantize_kv(torch.randn(shape, generator=gen, device="cuda"))
+    else:
+        kpool = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        vpool = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    to = lambda x: torch.from_numpy(x).cuda()   # noqa: E731
+    return dict(
+        q=torch.randn(B, hq, T, D, generator=gen, device="cuda").bfloat16(),
+        kpool=kpool, vpool=vpool,
+        k_new=torch.randn(B, hkv, T, D, generator=gen, device="cuda").bfloat16(),
+        v_new=torch.randn(B, hkv, T, D, generator=gen, device="cuda").bfloat16(),
+        table=to(table), plen=to(plen), dcount=to(dcount), rows=int((plen + dcount).sum()),
+    )
+
+
+def check_decode_paged(gen, T: int, q8: bool) -> dict:
+    """K6 (T = 1) or K7 (T = 4, 8 query rows per KV head), bf16 or int8
+    pool, against the plain version in float32 (atol 2e-2 + rtol 2e-2 of
+    the bf16 kernel, as K2)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention_paged as dap
+
+    c = paged_case(gen, T, q8)
+    B, hq, _, D = c["q"].shape
+    hkv = c["k_new"].shape[1]
+    if T == 1:
+        fn = dap.decode_attention_paged_q8 if q8 else dap.decode_attention_paged
+        q = c["q"][:, :, 0]
+        label = "K6 decode_attention_paged" + ("_q8" if q8 else "")
+    else:
+        fn = dap.decode_attention_paged_verify_q8 if q8 else dap.decode_attention_paged_verify
+        q = c["q"]
+        label = "K7 decode_attention_paged_verify" + ("_q8" if q8 else "")
+    args = (c["kpool"], c["vpool"], c["k_new"], c["v_new"], 1, c["table"], c["plen"],
+            c["dcount"])
+    out = fn(q, *args)
+    torch.cuda.synchronize()
+    plain = dap.paged_attention_q8_plain if q8 else dap.paged_attention_plain
+    f32 = (lambda p: p) if q8 else (lambda p: p.float())
+    ref = plain(c["q"].float(), f32(c["kpool"]), f32(c["vpool"]), c["k_new"].float(),
+                c["v_new"].float(), 1, c["table"], c["plen"], c["dcount"], D ** -0.5)
+    err = _close(label, out if T > 1 else out[:, :, None], ref, 2e-2, 2e-2)
+    ms = cuda_ms(lambda: fn(q, *args))
+    plain_ms = cuda_ms(lambda: plain(c["q"], *args, D ** -0.5))
+    # The valid rows' K and V (int8 rows plus one f32 scale each), read once,
+    # plus q, the fresh rows and the output; QK and PV over the valid rows
+    # and the fresh block.
+    row_bytes = (D + 4) if q8 else D * 2
+    rows = c["rows"]
+    b = bound(rows * hkv * row_bytes * 2 + B * T * (2 * hq + 2 * hkv) * D * 2,
+              4 * hq * T * D * (rows + B * T), PEAK_BF16_TFLOPS * 1e12)
+    gbps = rows * hkv * row_bytes * 2 / (ms * 1e-3) / 1e9
+    print(f"{label} B={B} T={T} PS=256 plen={c['plen'].tolist()} dcount=64: "
+          f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {rows} valid rows, {gbps:.0f} GB/s = "
+          f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+    # No one PyTorch call: a page-table gather, two masked intervals and a
+    # fresh (causal) block of rows not in the pool.
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def check_kv_write_paged(gen, q8: bool) -> dict:
+    """K8 at the engine's shapes (L=28, B=8, PS=256, the 33-page pool): the
+    step's one row per lane and the verify's 4, one lane on the trash page,
+    one past the pool (clipped); bit-exact outside page 0."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    L, B, hkv, PS, D, n_pages = 28, 8, 8, 256, 128, 33
+    if q8:
+        pool = quantize_kv(torch.randn(L, n_pages, hkv, PS, D, generator=gen, device="cuda"))
+        fn, plain, label = kw.kv_write_rows_paged_q8, kw.kv_write_rows_paged_q8_plain, "K8 int8"
+    else:
+        pool = torch.randn(L, n_pages, hkv, PS, D, generator=gen, device="cuda").bfloat16()
+        fn, plain, label = kw.kv_write_rows_paged, kw.kv_write_rows_paged_plain, "K8 bf16"
+    clone = (lambda p: {k: v.clone() for k, v in p.items()}) if q8 else (lambda p: p.clone())
+    rec = None
+    for T in (1, 4):
+        rows = torch.randn(L, B, hkv, T, D, generator=gen, device="cuda").bfloat16()
+        pages = torch.tensor([5, 9, 0, 17, 22, 30, 2, n_pages + 4], dtype=torch.int32,
+                             device="cuda")[:, None].repeat(1, T).contiguous()
+        offs = (torch.tensor([64, 100, 7, 0, 255 - T, 128, 31, 90], device="cuda")[:, None]
+                + torch.arange(T, device="cuda")).int().contiguous()
+        out, ref = fn(clone(pool), rows, pages, offs), plain(clone(pool), rows, pages, offs)
+        torch.cuda.synchronize()
+        outs = (out["q"], out["s"]) if q8 else (out,)
+        refs = (ref["q"], ref["s"]) if q8 else (ref,)
+        if not all(torch.equal(o[:, 1:], r[:, 1:]) for o, r in zip(outs, refs)):
+            raise AssertionError(f"{label} T={T}: differs from the plain version outside page 0")
+        print(f"{label} kv_write_rows_paged T={T}: bit-exact outside the trash page")
+        if T == 1:
+            work = clone(pool)
+            ms = cuda_ms(lambda: fn(work, rows, pages, offs))
+            plain_ms = cuda_ms(lambda: plain(work, rows, pages, offs))
+            library_ms = None
+            if not q8:
+                keep, p, o = kw.paged_indices(pages, offs, n_pages, PS)
+                vals = rows.permute(1, 3, 0, 2, 4).reshape(B * T, L, hkv, D)[keep].contiguous()
+
+                def index_put():
+                    work[:, p, :, o] = vals
+
+                library_ms = cuda_ms(index_put)
+            # bf16 rows in; bf16 rows, or int8 rows and f32 scales, out.
+            b = bound(L * B * T * hkv * (D * 2 + ((D + 4) if q8 else D * 2)), 0, 1.0)
+            lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"{label} kv_write_rows_paged L={L} B={B} T=1: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, index_put_ {lib}, bound {b['bound_ms']:.4f} ms (bytes)")
+            # int8: no one PyTorch call quantizes a row and stores it with its scale.
+            rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
+                   "library_ms": library_ms}
+    return rec
+
+
 def _params_to(tree, device, dtype):
     """A parameter tree on ``device``: float tensors in ``dtype``, int8
     ``{"q", "s"}`` weights with their own dtypes."""
@@ -633,6 +843,91 @@ def reference_check(quantized: bool) -> None:
             raise AssertionError(f"{label}: relative error {rel:.3e} >= 5e-2")
 
 
+def reference_check_paged() -> None:
+    """Kernels (GPU, bf16) against the plain path (CPU, float32) on one small
+    decoder, through the paged pool: a prefill's rows scattered into
+    shuffled pages (PS=128), then one paged step (K6, K8) and one paged
+    verify (K7 at T=4, K8) on the rows the step wrote."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.config import TextDecoderConfig
+    from qwen3_asr_tpu_torch.models.decoder import (
+        decoder_logits, decoder_paged_step, decoder_paged_verify, embed_tokens,
+        fuse_decoder_params, init_decoder_params,
+    )
+    from qwen3_asr_tpu_torch.runtime.generate import Generator
+
+    cfg = TextDecoderConfig(
+        hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=128, intermediate_size=512, vocab_size=1024,
+    )
+    g = torch.Generator().manual_seed(SEED + 7)
+    ref_params = fuse_decoder_params(init_decoder_params(cfg, g, torch.float32, "cpu"))
+    gpu_params = _params_to(ref_params, "cuda", torch.bfloat16)
+    B, P, Ta, pb, PS = 3, 77, 60, 256, 128
+    features = torch.randn(B, Ta, cfg.hidden_size, generator=g)
+    ids = torch.randint(0, cfg.vocab_size, (B, P), generator=g)
+    n_audio = torch.tensor([60, 41, 17])
+    plen = torch.tensor([77, 58, 34], dtype=torch.int32)
+    draft = torch.randint(0, cfg.vocab_size, (B, 3), generator=g)
+    npg, max_pages = pb // PS, pb // PS + 1
+    n_pages = 1 + B * max_pages
+    perm = np.random.default_rng(SEED).permutation(np.arange(1, n_pages))
+    table = torch.from_numpy(perm.reshape(B, max_pages).astype(np.int32))
+    lanes = torch.arange(B)
+    cur = None
+
+    def run(params, dev):
+        nonlocal cur
+        gen = Generator(params, cfg)
+        dtype = params["final_norm"].dtype
+        with torch.inference_mode():
+            (k, v), logits = gen.prefill(features.to(dev, dtype), ids.to(dev),
+                                         n_audio.to(dev), plen.long().to(dev), pb)
+            pools = []
+            for c in (k, v):
+                pool = torch.zeros((cfg.num_hidden_layers, n_pages) + c.shape[2:3] + (PS, 128),
+                                   dtype=dtype, device=dev)
+                src = c.reshape(c.shape[0], B, c.shape[2], npg, PS, 128).transpose(2, 3)
+                pool[:, table[:, :npg].reshape(-1).long().to(dev)] = src.reshape(
+                    c.shape[0], B * npg, c.shape[2], PS, 128)
+                pools.append(pool)
+            if cur is None:                  # the f32 run's first argmax
+                cur = logits.argmax(-1).cpu()
+            tab, pl = table.to(dev), plen.to(dev)
+            pp = (plen.long() + PS - 1) // PS
+            # The step: decode row 0 of each lane at its first decode page.
+            hidden, pools = decoder_paged_step(
+                params, cfg, embed_tokens(params, cur.to(dev))[:, None], pl.long()[:, None],
+                tuple(pools), tab, pl, torch.zeros(B, dtype=torch.int32, device=dev),
+                table[lanes, pp].to(dev), torch.zeros(B, dtype=torch.int32, device=dev),
+            )
+            step_logits = decoder_logits(params, cfg, hidden)[:, 0]
+            # The verify: decode rows 1..4 after the step's row.
+            verify_ids = torch.cat([cur[:, None], draft], dim=1).to(dev)
+            pos = pl.long()[:, None] + 1 + torch.arange(4, device=dev)
+            rows = 1 + torch.arange(4)
+            pages = table[lanes[:, None], pp[:, None] + rows[None, :] // PS].to(dev)
+            offs = (rows % PS).int()[None, :].repeat(B, 1).to(dev)
+            hidden, _ = decoder_paged_verify(
+                params, cfg, embed_tokens(params, verify_ids), pos, pools, tab, pl,
+                torch.ones(B, dtype=torch.int32, device=dev), pages, offs,
+            )
+            verify_logits = decoder_logits(params, cfg, hidden)
+        return step_logits.float().cpu(), verify_logits.float().cpu()
+
+    ref = run(ref_params, "cpu")
+    out = run(gpu_params, "cuda")
+    for label, o, r in zip(("paged step logits (K6, K8)", "paged verify logits (K7 T=4, K8)"),
+                           out, ref):
+        rel = ((o - r).abs().max() / r.abs().max()).item()
+        print(f"reference check ({label}, bf16 GPU kernels vs f32 CPU plain): "
+              f"max abs err / max |ref| = {rel:.3e}")
+        if not rel < 5e-2:
+            raise AssertionError(f"{label}: relative error {rel:.3e} >= 5e-2")
+
+
 class StubTokenizer:
     """Prompt-structure-preserving tokenizer: no tokenizer files are on the
     card's machine.  ``decode`` writes ids as ``t<id>`` words."""
@@ -721,15 +1016,16 @@ def build_model(runtime: dict | None, base=None):
 
 
 class Watch:
-    """Wraps the decode loop's logits function while active: one device
-    flag for NaN logits (no sync per step) and the first lm-head input."""
+    """Wraps the decode loop's logits function while active (``module``'s
+    ``decoder_logits``: the generator's, or the engine's): one device flag
+    for NaN logits (no sync per step) and the first lm-head input."""
 
-    def __init__(self):
+    def __init__(self, module=None):
         import torch
 
         from qwen3_asr_tpu_torch.runtime import generate
 
-        self.generate = generate
+        self.generate = module or generate
         self.nan_seen = torch.zeros((), dtype=torch.bool, device="cuda")
         self.first_hidden = []
 
@@ -1183,6 +1479,100 @@ def speculative_phase(card: str, base, off: dict) -> dict:
     return spec["launches"]
 
 
+def server_run(card: str, model, label: str, paged: bool, path, never, plain) -> dict:
+    """``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` on the
+    smoke clips in two waves (the second submitted once the first chunk
+    ran), greedy, 64-token budgets; launch counters set to 0 just before the
+    first submit and read after the last result.  Each stream is held to
+    ``plain`` (ids, gaps) of the same clips by the near-tie rule."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.runtime import engine as engine_mod
+    from qwen3_asr_tpu_torch.serving import ContinuousTranscriptionServer
+
+    clips = smoke_clips()
+    vocab = model._config.text_decoder.vocab_size
+    srv = ContinuousTranscriptionServer(model, n_slots=8, max_duration=30.0,
+                                        max_new_tokens=512, chunk_steps=16, paged=paged)
+    engine = srv._engine
+    step_s = []
+    real_step = engine.step
+
+    def timed(k_steps=None):            # a chunk ends in its status fetch
+        t0 = time.perf_counter()
+        real_step(k_steps)
+        step_s.append(time.perf_counter() - t0)
+
+    engine.step = timed
+    keys = engine._keys["q"] if isinstance(engine._keys, dict) else engine._keys
+    cache_gib = 2 * sum(t.numel() * t.element_size() for t in (
+        engine._keys.values() if isinstance(engine._keys, dict) else [engine._keys])) / 2**30
+    shape = f"{engine.n_pages} pages of {engine.page_size} rows" if paged else \
+        f"{engine.n_slots} slots x {engine.cache_len} rows"
+    with Watch(engine_mod) as watch:
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with srv:
+            futs = [srv.submit(c, max_tokens=64) for c in clips[:4]]
+            deadline = time.time() + 300
+            while engine.stats.chunks < 1 and time.time() < deadline:
+                time.sleep(0.002)
+            futs += [srv.submit(c, max_tokens=64) for c in clips[4:]]
+            results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        if bool(watch.nan_seen):
+            raise AssertionError(f"server {label}: NaN logits")
+    ids = _ids(results)
+    check_ids(f"server {label}", ids, vocab)
+    check_launches(f"server {label}", launches, path, never)
+    st = engine.stats
+    if st.mid_decode_admissions < 1:
+        raise AssertionError(f"server {label}: no mid-decode admission")
+    if srv.stats.failures or any(getattr(f, "ttft_s", None) is None for f in futs):
+        raise AssertionError(f"server {label}: a request failed or has no ttft_s")
+    spec = (f", {st.spec_tokens_per_forward:.3f} spec tokens per lane-forward"
+            if st.spec_chunks else "")
+    print(f"server {label} [{card}]: {keys.dtype} cache of {shape} ({cache_gib:.2f} GiB "
+          f"K+V), {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; {wall:.2f} s "
+          f"wall for 8 requests, {st.chunks} chunks, {st.iterations} iterations, "
+          f"{sum(step_s) * 1e3 / max(st.iterations, 1):.2f} ms per chunk iteration; mean "
+          f"occupancy {st.mean_occupancy:.2f}, {st.mid_decode_admissions} mid-decode "
+          f"admissions{spec}; ttft_s {[round(f.ttft_s, 3) for f in futs]}")
+    compare_streams(f"server {label} vs plain transcribe_batch B=8", plain[0], ids, plain[1])
+    return launches
+
+
+def server_phase(card: str, base, off: dict) -> dict:
+    """The continuous server at 1.7B on the plain run's weights: paged
+    (K6, K8), paged speculative (K7, K8), the int8 pool plain and
+    speculative (q8 K6/K7, int8 K8), and the flat engine (K2, per-lane K3).
+    Returns the launches of the paged kernels, each from its own path."""
+    import torch
+
+    launches = {}
+    plain = (off["ids"][0], off["gaps"][0])
+    int8_plain = None
+    for label, (runtime, paged, path, never) in SERVER_PATHS.items():
+        model = build_model(runtime, base)
+        if runtime.get("kv_cache_dtype") == "int8" and int8_plain is None:
+            # The plain loop over the int8 cache is the reference there.
+            ref = build_model({"kv_cache_dtype": "int8", "speculative": "off"}, base)
+            with Choices() as rec:
+                ids = _ids(ref.transcribe_batch(smoke_clips(), max_tokens=64))
+            int8_plain = (ids, top_two_gaps(rec.rows))
+            del rec, ref
+        run = server_run(card, model, label, paged, path, never,
+                         int8_plain if runtime.get("kv_cache_dtype") == "int8" else plain)
+        for name in path:
+            if name in PAGED:
+                launches.setdefault(name, run[name])
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -1218,10 +1608,17 @@ def main() -> int:
         "quantized_matmul": check_quantized_matmul(gen),
         "w8a8_matmul": check_w8a8_matmul(gen),
         "kv_write_span_batch": check_kv_write_span(gen),
+        "decode_attention_paged": check_decode_paged(gen, 1, False),
+        "decode_attention_paged_q8": check_decode_paged(gen, 1, True),
+        "decode_attention_paged_verify": check_decode_paged(gen, 4, False),
+        "decode_attention_paged_verify_q8": check_decode_paged(gen, 4, True),
+        "kv_write_rows_paged": check_kv_write_paged(gen, False),
+        "kv_write_rows_paged_q8": check_kv_write_paged(gen, True),
     }
     torch.cuda.empty_cache()
     reference_check(quantized=False)
     reference_check(quantized=True)
+    reference_check_paged()
     # Each kernel's launch count comes from the run of its own path.
     off_rt = {"speculative": "off"}
     base = build_model(off_rt)
@@ -1230,6 +1627,7 @@ def main() -> int:
     launches = dict(off["launches"])
     spec_launches = speculative_phase(card, base, off)
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
+    launches.update(server_phase(card, base, off))
     base.close()
     del base
     torch.cuda.empty_cache()

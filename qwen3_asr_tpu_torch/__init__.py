@@ -1,8 +1,9 @@
 """qwen3_asr_tpu_torch — the PyTorch/CUDA port of ``qwen3_asr_tpu``.
 
-Greedy transcription of short clips on an NVIDIA H100, with hand-written
-CUDA kernels for the decoder's prefill attention, decode attention and
-KV-row write (``ops/kernels``, sources in ``csrc``).  Imports ``torch`` and
+Transcription on an NVIDIA H100 (``Qwen3ASR``), the continuous-batching
+engine and its servers (``runtime/engine.py``, ``serving``), with
+hand-written CUDA kernels for the decoder's hot path (``ops/kernels``,
+sources in ``csrc``).  Imports ``torch`` and
 never ``jax``; importing needs no GPU and no ``nvcc`` (kernels are built at
 first use on a CUDA tensor).
 """

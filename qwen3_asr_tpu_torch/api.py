@@ -25,6 +25,10 @@ as W8A8 (kernel K10), and ``kv_cache_dtype="int8"`` keeps the decode loop's
 cache in int8 (kernels K4 and K3-int8).  On CPU tensors every kernel
 wrapper runs its plain PyTorch version.
 
+The continuous-batching hooks ``make_engine`` (flat or paged
+``DecodeEngine``) and ``prefill_group`` feed ``serving/server.py``'s
+``ContinuousTranscriptionServer``.
+
 Not ported yet, and raising ``NotImplementedError``: multi-device meshes
 (``dp * tp > 1``).
 """
@@ -487,6 +491,103 @@ class Qwen3ASR:
         stats.n_spec_forwards = gen.last_spec_forwards * n_real
         logger.debug("transcribe stats (batch=%d): %s", B, stats.as_dict())
         return token_lists, stats
+
+    # -- continuous-batching engine hooks ------------------------------
+
+    def make_engine(
+        self,
+        n_slots: int = 8,
+        max_duration: float = 30.0,
+        max_new_tokens: int = 512,
+        chunk_steps: int = 32,
+        paged: bool = False,
+        page_size: int = 256,
+        kv_pool_gb: float | None = None,
+    ):
+        """A :class:`~qwen3_asr_tpu_torch.runtime.engine.DecodeEngine` sized
+        for clips up to ``max_duration`` seconds and transcripts up to
+        ``max_new_tokens`` tokens (both rounded up to buckets), on the
+        model's device (JAX ``api.py:898-956``).  ``paged=True`` backs it
+        with a page pool of ``kv_pool_gb`` (default ``kv_cache_budget_gb``),
+        at most every slot's worst case: slots then hold pages for their
+        actual prompt and transcript lengths."""
+        from .runtime.engine import DecodeEngine
+
+        gen = self._generator
+        bucket = self._mel.bucket_for(int(max_duration * SAMPLE_RATE))
+        ac = self._config.audio_encoder
+        atb = bucket // ac.chunk_frames * ac.tokens_per_chunk
+        prompt_bucket, token_bucket, _ = gen.plan(atb, atb + 20, max_new_tokens)
+        token_bucket = max(128, token_bucket)
+        n_pages = None
+        if paged:
+            tc = self._config.text_decoder
+            # Bytes per cached row: bf16 2 * D; int8 D + 4 (the f32 scale).
+            row_bytes = (
+                tc.head_dim + 4 if self._runtime.kv_cache_dtype == "int8"
+                else tc.head_dim * 2
+            )
+            page_bytes = tc.num_hidden_layers * tc.num_key_value_heads * page_size * row_bytes * 2
+            budget_gb = kv_pool_gb if kv_pool_gb is not None else self._runtime.kv_cache_budget_gb
+            n_pages = max(4, int(budget_gb * 2**30) // page_bytes)
+            full = 1 + n_slots * (-(-prompt_bucket // page_size) - (-token_bucket // page_size))
+            n_pages = min(n_pages, full)
+        return DecodeEngine(
+            gen, prompt_bucket, token_bucket, n_slots=n_slots, chunk_steps=chunk_steps,
+            paged=paged, page_size=page_size, n_pages=n_pages,
+        )
+
+    def prefill_group(self, samples_list, lang_names):
+        """Prefill an admission group for the continuous engine (JAX
+        ``api.py:958-1019``): returns ``(kv, first_logits, prompts)``, ``kv``
+        covering only the prompt region (cache length = the group's prompt
+        bucket).  ``lang_names`` are resolved full names (None: detect), one
+        per clip.  The group's batch is padded to a power of two with silent
+        clips and sliced back, as in the JAX package."""
+        gen = self._generator
+        device = self._device
+        n_real = len(samples_list)
+        bg_pad = 1 << (n_real - 1).bit_length() if n_real > 1 else 1
+        if all(s.dtype == np.int16 for s in samples_list):
+            transport = list(samples_list)
+            pad_clip = np.zeros(N_FFT, np.int16)
+        else:
+            transport = [
+                s.astype(np.float32) / 32768.0 if s.dtype == np.int16 else s
+                for s in samples_list
+            ]
+            pad_clip = np.zeros(N_FFT, np.float32)
+        transport += [pad_clip] * (bg_pad - n_real)
+        bucket = max(self._mel.bucket_for(len(s)) for s in samples_list)
+        n_valid = [len(s) // HOP_LENGTH for s in transport]
+        n_audio = [self._n_audio_tokens(v) for v in n_valid]
+        prompts = [
+            self._tokenizer.build_prompt(n, lang) for n, lang in zip(n_audio, lang_names)
+        ] + [self._tokenizer.build_prompt(n, "English") for n in n_audio[n_real:]]
+        prompt_lens = [len(p) for p in prompts]
+        ac = self._config.audio_encoder
+        atb = bucket // ac.chunk_frames * ac.tokens_per_chunk
+        pb_g = gen.plan(atb, max(prompt_lens), 1)[0]
+        run_g = self._runtime.plan_prefill_run(max(prompt_lens), pb_g)
+        ids = gen.pack_prompts(prompts, run_g)
+        padded = host_pad_batch(transport, bucket, N_FFT, HOP_LENGTH)
+        with self._lock, torch.inference_mode():
+            n_valid_t = torch.tensor(n_valid, dtype=torch.long, device=device)
+            mel = log_mel_batch(torch.from_numpy(padded).to(device), n_valid_t, bucket)
+            features, _ = encoder_forward(
+                self._encoder_params, self._config.audio_encoder, mel, n_valid_t
+            )
+            kv, first_logits = gen.prefill(
+                features,
+                torch.from_numpy(ids).to(device),
+                torch.tensor(n_audio, dtype=torch.long, device=device),
+                torch.tensor(prompt_lens, dtype=torch.long, device=device),
+                pb_g,
+            )
+        if bg_pad > n_real:
+            kv = (kv[0][:, :n_real], kv[1][:, :n_real])
+            first_logits = first_logits[:n_real]
+        return kv, first_logits, prompts[:n_real]
 
     def _batch_bucket(self, B: int) -> int:
         """Powers of two below 8, multiples of 8 above (identity when

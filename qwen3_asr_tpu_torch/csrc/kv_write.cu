@@ -25,6 +25,21 @@
 // stores the int8 row and its f32 scale, in place of a quantize pass, a
 // row write and a scale write.  One half-warp per row: each thread holds 8
 // elements, the abs-max is reduced with shuffles inside the half-warp.
+//
+// K8, the paged pool's writer (kv_write_rows_paged_bf16 and
+// kv_write_rows_paged_q8), replaces kv_write.py:kv_write_rows_paged (:219,
+// pallas_call :245): row t of lane b lands at pool[l, page[b, t], h,
+// off[b, t]] of the page pool (L, n_pages, H, PS, 128), the page clipped to
+// [0, n_pages) as the TPU wrapper does (:252), rows whose offset lies
+// outside [0, PS) dropped.  The step writes T = 1 row per lane, the
+// speculative verify T = gamma + 1 in the same single launch (the TPU
+// verify calls its writer T times, decoder.py:1183-1195).  Bound: bytes,
+// the same few hundred KB as K3 per step, so launch latency; the design is
+// K3's (one thread per 16-byte vector of the target rows; for int8 one
+// half-warp per row, quantized on the way in with the same bit-exact rule).
+// Several lanes may write the reserved trash page 0 at one offset in one
+// launch (idle slots, rows past a slot's table): those stores race, and
+// page 0 is never read as a valid row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,7 +108,110 @@ __global__ void kv_write_rows_q8_kernel(int8_t* __restrict__ cache_q,
   if (v == 0) cache_s[dst] = scale;
 }
 
+// Rows (L, B, H, T, 128), flat in that order; pages and offs (B, T).
+__device__ __forceinline__ int64_t paged_row(int64_t row, int B, int H, int T,
+                                             const int* pages, const int* offs,
+                                             int n_pages, int PS) {
+  const int t = (int)(row % T);
+  const int64_t lbh = row / T;
+  const int h = (int)(lbh % H);
+  const int64_t lb = lbh / H;
+  const int b = (int)(lb % B);
+  const int64_t l = lb / B;
+  const int off = offs[b * T + t];
+  if (off < 0 || off >= PS) return -1;
+  const int page = min(max(pages[b * T + t], 0), n_pages - 1);
+  return ((l * n_pages + page) * H + h) * PS + off;
+}
+
+__global__ void kv_write_rows_paged_kernel(__nv_bfloat16* __restrict__ pool,
+                                           const __nv_bfloat16* __restrict__ rows,
+                                           const int* __restrict__ pages,
+                                           const int* __restrict__ offs, int B,
+                                           int H, int T, int n_pages, int PS,
+                                           int64_t n_vec) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_vec) return;
+  const int64_t dst = paged_row(i / kVecPerRow, B, H, T, pages, offs, n_pages, PS);
+  if (dst < 0) return;
+  reinterpret_cast<uint4*>(pool + dst * kD)[i % kVecPerRow] =
+      reinterpret_cast<const uint4*>(rows)[i];
+}
+
+__global__ void kv_write_rows_paged_q8_kernel(int8_t* __restrict__ pool_q,
+                                              float* __restrict__ pool_s,
+                                              const __nv_bfloat16* __restrict__ rows,
+                                              const int* __restrict__ pages,
+                                              const int* __restrict__ offs,
+                                              int B, int H, int T, int n_pages,
+                                              int PS, int64_t n_rows) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kVecPerRow;
+  if (row >= n_rows) return;      // whole half-warps: n_rows is per 16 lanes
+  const int v = threadIdx.x % kVecPerRow;
+  const unsigned half_mask = 0xffffu << (threadIdx.x & 16);
+  const uint4 raw = reinterpret_cast<const uint4*>(rows)[row * kVecPerRow + v];
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  float f[kVec];
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    f[e] = __bfloat162float(x[e]);
+    amax = fmaxf(amax, fabsf(f[e]));
+  }
+#pragma unroll
+  for (int o = kVecPerRow / 2; o >= 1; o >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(half_mask, amax, o));
+  }
+  const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+  uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    int q = __float2int_rn(__fdiv_rn(f[e], scale));
+    q = max(-127, min(127, q));
+    packed[e / 4] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (e % 4));
+  }
+  const int64_t dst = paged_row(row, B, H, T, pages, offs, n_pages, PS);
+  if (dst < 0) return;
+  reinterpret_cast<uint2*>(pool_q + dst * kD)[v] = make_uint2(packed[0], packed[1]);
+  if (v == 0) pool_s[dst] = scale;
+}
+
 }  // namespace
+
+// K8: pool (L, n_pages, H, PS, 128) bf16; rows (L, B, H, T, 128) bf16;
+// pages and offs (B, T) int32; all on the device and contiguous.  Returns
+// the launch's cudaError_t.
+extern "C" int kv_write_rows_paged_bf16(void* pool, const void* rows,
+                                        const void* pages, const void* offs,
+                                        int L, int B, int H, int T, int n_pages,
+                                        int PS, void* stream) {
+  const int64_t n_vec = (int64_t)L * B * H * T * kVecPerRow;
+  if (n_vec == 0) return (int)cudaSuccess;
+  const int64_t blocks = (n_vec + kThreads - 1) / kThreads;
+  kv_write_rows_paged_kernel<<<(unsigned)blocks, kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      static_cast<__nv_bfloat16*>(pool), static_cast<const __nv_bfloat16*>(rows),
+      static_cast<const int*>(pages), static_cast<const int*>(offs), B, H, T,
+      n_pages, PS, n_vec);
+  return (int)cudaGetLastError();
+}
+
+// K8 on the int8 pool: pool_q (L, n_pages, H, PS, 128) int8 and pool_s
+// (L, n_pages, H, PS) f32; rows, pages and offs as kv_write_rows_paged_bf16.
+extern "C" int kv_write_rows_paged_q8(void* pool_q, void* pool_s, const void* rows,
+                                      const void* pages, const void* offs, int L,
+                                      int B, int H, int T, int n_pages, int PS,
+                                      void* stream) {
+  const int64_t n_rows = (int64_t)L * B * H * T;
+  if (n_rows == 0) return (int)cudaSuccess;
+  const int64_t blocks = (n_rows * kVecPerRow + kThreads - 1) / kThreads;
+  kv_write_rows_paged_q8_kernel<<<(unsigned)blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      static_cast<int8_t*>(pool_q), static_cast<float*>(pool_s),
+      static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(pages),
+      static_cast<const int*>(offs), B, H, T, n_pages, PS, n_rows);
+  return (int)cudaGetLastError();
+}
 
 // cache (L, B, H, S, 128) bf16; rows (L, B, H, T, 128) bf16; slots (B,)
 // int32 (lane b's first slot); all on the device and contiguous.  Returns

@@ -11,12 +11,19 @@ transcription slices run:
   * **split decode** (``decode_ctx`` given, T == 1, ``decoder.py:534-731``):
     attention runs over the PRE-step cache plus the fresh row (kernel K2),
     and all layers' fresh rows are written by ONE post-loop K3 call at the
-    shared slot;
+    shared slot, or at per-lane slots for the continuous engine's flat
+    cache;
   * **verify split** (``decode_ctx`` given, 1 < T <= 8, ``decoder.py:744-814``):
     the speculative loop's T positions per lane against the read-only
     cache plus a T x T causal block of the fresh rows, in plain PyTorch
     products (the JAX package uses XLA einsums here too), and one post-loop
     K5 call each for K and V at the per-lane write slots.
+
+The continuous engine's paged pool (``decoder_paged_step``, JAX
+``decoder.py:881-1033``, and ``decoder_paged_verify``, ``:1036-1201``) runs
+the same split form through a page table: attention is kernel K6 (or K7
+for the T-position verify), and all layers' fresh rows land after the loop
+in one K8 launch each for K and V.
 
 Per layer: RMSNorm -> fused QKV -> per-head Q/K RMSNorm BEFORE RoPE
 (non-interleaved, theta 1e6) -> attention -> o_proj -> RMSNorm -> SwiGLU.
@@ -45,7 +52,20 @@ import torch.nn.functional as F
 from ..config import TextDecoderConfig
 from ..ops.kernels.decode_attention import decode_attention, decode_attention_q8
 from ..ops.kernels.flash_attention import flash_attention_causal
-from ..ops.kernels.kv_write import kv_write_rows, kv_write_rows_q8, kv_write_span_batch
+from ..ops.kernels.decode_attention_paged import (
+    decode_attention_paged,
+    decode_attention_paged_q8,
+    decode_attention_paged_verify,
+    decode_attention_paged_verify_q8,
+)
+from ..ops.kernels.kv_write import (
+    kv_write_rows,
+    kv_write_rows_batch,
+    kv_write_rows_paged,
+    kv_write_rows_paged_q8,
+    kv_write_rows_q8,
+    kv_write_span_batch,
+)
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear
 from ..ops.quant_kv import is_quantized_kv
@@ -175,8 +195,10 @@ def decoder_forward(
 
     Fresh prefill: ``write_slots`` and ``decode_ctx`` None, T > 1; rows land
     at slots [0, T).  Split decode: ``decode_ctx = (prompt_len (B,) int32,
-    decode_end int, prompt_bucket int)`` and T == 1; the fresh rows land at
-    ``write_slots`` (an int shared by every lane).  Verify split:
+    decode_end, prompt_bucket int)`` and T == 1; the fresh rows land at
+    ``write_slots``; ``decode_end`` and ``write_slots`` are each an int
+    shared by every lane (the decode loop) or a (B,) tensor (the continuous
+    engine's lanes at their own depths, JAX ``engine.py:446-451``).  Verify split:
     ``decode_ctx = (prompt_len, ws, prompt_bucket)`` with ``ws`` (B,) the
     per-lane write slots (also passed as ``write_slots``) and 1 < T <= 8;
     bf16 or f32 cache only.  Returns the pre-final-norm hidden (B, T, H) and
@@ -204,7 +226,7 @@ def decoder_forward(
         plen, dend, pbucket = decode_ctx
         q8 = is_quantized_kv(keys)
         device = hidden.device
-        dend = torch.full((B,), int(dend), dtype=torch.int32, device=device)
+        dend = _per_lane(dend, B, device)
         attend = decode_attention_q8 if q8 else decode_attention
         n_layers = len(params["layers"])
         k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=hidden.dtype, device=device)
@@ -220,9 +242,13 @@ def decoder_forward(
             h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
             h = _mlp_block(h, lp, eps)
         if q8:
-            slots = torch.full((B,), int(write_slots), dtype=torch.int32, device=device)
+            slots = _per_lane(write_slots, B, device)
             kv_write_rows_q8(keys, k_rows, slots)
             kv_write_rows_q8(values, v_rows, slots)
+        elif isinstance(write_slots, torch.Tensor):
+            slots = _per_lane(write_slots, B, device)
+            kv_write_rows_batch(keys, k_rows, slots)
+            kv_write_rows_batch(values, v_rows, slots)
         else:
             kv_write_rows(keys, k_rows, write_slots)
             kv_write_rows(values, v_rows, write_slots)
@@ -238,6 +264,14 @@ def decoder_forward(
         "single-token split decode (decode_ctx, T == 1) and the verify split "
         "(decode_ctx, 1 < T <= 8) only"
     )
+
+
+def _per_lane(x, B: int, device) -> torch.Tensor:
+    """An int shared by every lane, or a (B,) tensor, as int32 (B,) on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(B).contiguous()
+    return torch.full((B,), int(x), dtype=torch.int32, device=device)
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -302,6 +336,93 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
         h = _mlp_block(h, lp, cfg.rms_norm_eps)
     kv_write_span_batch(keys, k_rows, ws)
     kv_write_span_batch(values, v_rows, ws)
+    return h, (keys, values)
+
+
+def decoder_paged_step(
+    params: DecoderParams,
+    cfg: TextDecoderConfig,
+    hidden: torch.Tensor,          # (B, 1, H) current-token embeddings
+    positions: torch.Tensor,       # (B, 1) absolute RoPE positions
+    kv_pages,                      # (keys, values) pools (L, n_pages, Hkv, PS, D)
+    page_table: torch.Tensor,      # (B, max_pages) int32 physical pages
+    prompt_len: torch.Tensor,      # (B,) valid prompt rows
+    decode_count: torch.Tensor,    # (B,) generated rows already in the pool
+    write_pages: torch.Tensor,     # (B,) physical page of this step's row
+    write_offsets: torch.Tensor,   # (B,) row offset inside that page
+):
+    """One decode step over the paged pool (JAX ``decoder.py:881-1033``):
+    attention over the read-only pre-step pages with the fresh token's
+    self-term (K6, or its int8 form on the ``{"q", "s"}`` pool), then all
+    layers' rows written by one K8 launch each for K and V.  The pools are
+    updated in place.  Returns (pre-final-norm hidden (B, 1, H), pools)."""
+    return _paged_forward(
+        params, cfg, hidden, positions, kv_pages, page_table, prompt_len,
+        decode_count, write_pages[:, None], write_offsets[:, None],
+    )
+
+
+def decoder_paged_verify(
+    params: DecoderParams,
+    cfg: TextDecoderConfig,
+    hidden: torch.Tensor,          # (B, T, H) current token + gamma drafts
+    positions: torch.Tensor,       # (B, T)
+    kv_pages,
+    page_table: torch.Tensor,
+    prompt_len: torch.Tensor,
+    decode_count: torch.Tensor,    # (B,) rows in the pool, excluding the T fresh
+    write_pages: torch.Tensor,     # (B, T) physical page per fresh row
+    write_offsets: torch.Tensor,   # (B, T)
+):
+    """The speculative verify forward over the paged pool (JAX
+    ``decoder.py:1036-1201``): T positions per lane in one forward, history
+    through K7 (every position reads each page once), the fresh rows
+    causally inside the kernel; all T rows of every layer land in one K8
+    launch each for K and V (the JAX package calls its writer T times).
+    Returns (hidden (B, T, H), pools)."""
+    return _paged_forward(
+        params, cfg, hidden, positions, kv_pages, page_table, prompt_len,
+        decode_count, write_pages, write_offsets,
+    )
+
+
+def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_table,
+                   prompt_len, decode_count, write_pages, write_offsets):
+    """Shared body of :func:`decoder_paged_step` (T = 1) and
+    :func:`decoder_paged_verify`."""
+    keys, values = kv_pages
+    B, T, _ = h.shape
+    nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    device = h.device
+    q8 = is_quantized_kv(keys)
+    if T == 1:
+        attend = decode_attention_paged_q8 if q8 else decode_attention_paged
+    else:
+        attend = decode_attention_paged_verify_q8 if q8 else decode_attention_paged_verify
+    write = kv_write_rows_paged_q8 if q8 else kv_write_rows_paged
+    table = page_table.to(device=device, dtype=torch.int32).contiguous()
+    plen = _per_lane(prompt_len, B, device)
+    dcount = _per_lane(decode_count, B, device)
+    cos, sin = rope_cos_sin(positions[:, None, :], D, cfg.rope_theta)
+    n_layers = len(params["layers"])
+    k_rows = torch.empty((n_layers, B, nkv, T, D), dtype=h.dtype, device=device)
+    v_rows = torch.empty_like(k_rows)
+    for layer, lp in enumerate(params["layers"]):
+        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+        if T == 1:
+            attn = attend(q[:, :, 0], keys, values, k_new, v_new, layer, table,
+                          plen, dcount, scale=D ** -0.5)[:, :, None]
+        else:
+            attn = attend(q, keys, values, k_new, v_new, layer, table, plen,
+                          dcount, scale=D ** -0.5)
+        k_rows[layer] = k_new
+        v_rows[layer] = v_new
+        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
+        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+    pages = write_pages.to(device=device, dtype=torch.int32).contiguous()
+    offsets = write_offsets.to(device=device, dtype=torch.int32).contiguous()
+    write(keys, k_rows, pages, offsets)
+    write(values, v_rows, pages, offsets)
     return h, (keys, values)
 
 

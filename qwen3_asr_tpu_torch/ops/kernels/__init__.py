@@ -10,6 +10,9 @@
 | ``decode_attention`` (``decode_attention_q8``, K4) | ``ops/pallas/decode_attention_hbm4.py:decode_attention_hbm4_q8`` |
 | ``quantized_matmul`` (``quantized_matmul``, K9) | ``ops/quant.py:quantized_matmul`` |
 | ``w8a8_matmul`` (``w8a8_matmul``, K10) | ``ops/pallas/w8a8_matmul.py:w8a8_matmul`` |
+| ``decode_attention_paged`` (``decode_attention_paged``, ``_q8``, K6) | ``ops/pallas/decode_attention_paged.py`` (same names) |
+| ``decode_attention_paged`` (``decode_attention_paged_verify``, ``_verify_q8``, K7) | ``ops/pallas/decode_attention_paged.py`` (same names) |
+| ``kv_write`` (``kv_write_rows_paged``, ``kv_write_rows_paged_q8``, K8) | ``ops/pallas/kv_write.py:kv_write_rows_paged`` |
 
 Each wrapper runs its module's plain PyTorch version for CPU tensors and
 launches its kernel (built at first use by ``_build``) for CUDA tensors.

@@ -68,6 +68,23 @@ _SIGNATURES = {
     "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # cache_q, cache_s, rows, slots, L, B, H, S, stream
     "kv_write_rows_q8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # pool, rows, pages, offs, L, B, H, T, n_pages, PS, stream
+    "kv_write_rows_paged_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # pool_q, pool_s, rows, pages, offs, L, B, H, T, n_pages, PS, stream
+    "kv_write_rows_paged_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, kpool, vpool, k_new, v_new, table, prompt_len, decode_count,
+    # workspace, out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages, splits,
+    # scale, stream
+    "decode_attention_paged_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # q, kpool, vpool, kscale, vscale, k_new, v_new, table, prompt_len,
+    # decode_count, workspace, out, then as decode_attention_paged_bf16
+    "decode_attention_paged_q8": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
     # x, wq, s, out, M, N, K, out_f32, stream
     "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, sx, wq, ws, out, M, N, K, out_f32, stream

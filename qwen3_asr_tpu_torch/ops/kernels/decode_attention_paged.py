@@ -1,0 +1,232 @@
+"""K6 and K7: decode attention over the paged KV pool, through a page table.
+
+Replaces ``qwen3_asr_tpu/ops/pallas/decode_attention_paged.py``:
+``decode_attention_paged`` and ``decode_attention_paged_q8`` (K6, the
+continuous engine's single-token step) and ``decode_attention_paged_verify``
+and ``decode_attention_paged_verify_q8`` (K7, its speculative verify at T
+positions per lane).  The pool is (L, n_pages, Hkv, PS, D), bf16 or the int8
+``{"q", "s"}`` pair; lane b's rows resolve through ``table[b]``: its prompt
+rows ``[0, plen)`` on the first ``pp = ceil(plen / PS)`` entries, its decode
+rows ``[0, dcount)`` from entry ``pp`` on (compact masking: no prompt-bucket
+arithmetic), table entries clipped into the pool.  ``dcount`` excludes the
+fresh rows ``k_new``/``v_new`` (B, Hkv, T, D), which every query position t
+attends causally (fresh column u iff u <= t).
+
+Bound on the H100: bytes (each valid K and V row read once per layer).  The
+CUDA kernel (``csrc/decode_attention_paged.cu``) is K2's design with page
+addressing: a split pass over each lane's densely numbered valid rows, every
+row resolved through the table, all T x group query rows of a KV head read
+each row once; a combine pass folds the partials and the causal fresh
+block.  Its largest T x group is :data:`MAX_QUERY_ROWS` (8, the JAX kernel's
+sublane pad); the engine's speculative gate reads this constant.
+
+On a CPU tensor each wrapper runs :func:`paged_attention_plain`, the JAX
+decoder's gather-and-mask path (``decoder.py:924-989``, ``:1078-1149``): the
+lane's pages gathered into one compact view, the two masked intervals, the
+causal fresh block, one softmax; the int8 pool is dequantized to q's dtype
+first.  On a CUDA tensor it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..attention import NEG_INF
+from . import _build
+from .decode_attention import _sm_count, split_count
+
+NAME = "decode_attention_paged"
+NAME_Q8 = "decode_attention_paged_q8"
+NAME_VERIFY = "decode_attention_paged_verify"
+NAME_VERIFY_Q8 = "decode_attention_paged_verify_q8"
+
+#: The most query rows (T x GQA group) per KV head that K7 takes.
+MAX_QUERY_ROWS = 8
+
+
+def _gather(pool: torch.Tensor, layer: int, table: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv, max_pages * PS, D): lane b's table pages of layer ``layer``
+    in table order."""
+    pages = pool[layer][table.long().clamp(0, pool.shape[1] - 1)]   # (B, mp, H, PS, D)
+    B, mp, H, PS, D = pages.shape
+    return pages.transpose(1, 2).reshape(B, H, mp * PS, D)
+
+
+def compact_mask(table: torch.Tensor, page_size: int, prompt_len, decode_count) -> torch.Tensor:
+    """(B, max_pages * PS) validity of the gathered view: prompt rows
+    ``< plen``, then decode rows ``< dcount`` from the first decode page."""
+    cols = torch.arange(table.shape[1] * page_size, device=table.device)[None, :]
+    dstart = ((prompt_len.long() + page_size - 1) // page_size * page_size)[:, None]
+    return (cols < prompt_len.long()[:, None]) | (
+        (cols >= dstart) & (cols < dstart + decode_count.long()[:, None])
+    )
+
+
+def paged_attention_plain(
+    q: torch.Tensor,            # (B, Hq, T, D)
+    kpool: torch.Tensor,        # (L, n_pages, Hkv, PS, D)
+    vpool: torch.Tensor,
+    k_new: torch.Tensor,        # (B, Hkv, T, D)
+    v_new: torch.Tensor,
+    layer: int,
+    table: torch.Tensor,        # (B, max_pages)
+    prompt_len: torch.Tensor,   # (B,)
+    decode_count: torch.Tensor,  # (B,)
+    scale: float,
+) -> torch.Tensor:
+    """Masked softmax over the gathered pages plus the causal fresh block,
+    f32 scores; the cache-side probabilities are rounded to the pool's dtype
+    before their product, as in the JAX decoder.  Returns (B, Hq, T, D)."""
+    B, hq, T, D = q.shape
+    hkv, PS = kpool.shape[2], kpool.shape[3]
+    G = hq // hkv
+    kc, vc = _gather(kpool, layer, table), _gather(vpool, layer, table)
+    Sc = kc.shape[2]
+    mask = compact_mask(table, PS, prompt_len, decode_count)
+    qg = q.reshape(B, hkv, G, T, D).float()
+    logits = torch.einsum("bkgtd,bkld->bkgtl", qg, kc.float()) * scale
+    logits = logits.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    fresh = torch.einsum("bkgtd,bkud->bkgtu", qg, k_new.float()) * scale
+    t_idx = torch.arange(T, device=q.device)
+    fresh = fresh.masked_fill(t_idx[None, :] > t_idx[:, None], NEG_INF)
+    w = torch.softmax(torch.cat([logits, fresh], dim=-1), dim=-1)
+    out = torch.einsum(
+        "bkgtl,bkld->bkgtd", w[..., :Sc].to(vc.dtype).float(), vc.float()
+    ) + torch.einsum("bkgtu,bkud->bkgtd", w[..., Sc:], v_new.float())
+    return out.reshape(B, hq, T, D).to(q.dtype)
+
+
+def paged_attention_q8_plain(q, kpool: dict, vpool: dict, k_new, v_new, layer, table,
+                             prompt_len, decode_count, scale) -> torch.Tensor:
+    """:func:`paged_attention_plain` over layer ``layer`` of the int8 pool,
+    dequantized to q's dtype (the JAX decoder's ``gather_pages``)."""
+    def deq(pool):
+        return (pool["q"][layer].float() * pool["s"][layer][..., None]).to(q.dtype)[None]
+
+    return paged_attention_plain(
+        q, deq(kpool), deq(vpool), k_new, v_new, 0, table, prompt_len,
+        decode_count, scale,
+    )
+
+
+def _check(q, kpool, vpool, k_new, v_new, layer, table, prompt_len, decode_count,
+           pool_dtype) -> None:
+    if q.dim() != 4 or kpool.dim() != 5:
+        raise ValueError("q must be (B, Hq, T, D) and the pool (L, n_pages, Hkv, PS, D)")
+    B, hq, T, D = q.shape
+    L, _, hkv, _, Dc = kpool.shape
+    if D != 128 or Dc != 128:
+        raise ValueError(f"head_dim must be 128, got {D}/{Dc}")
+    if vpool.shape != kpool.shape:
+        raise ValueError("pool shape mismatch")
+    if hq % hkv or T * (hq // hkv) > MAX_QUERY_ROWS:
+        raise ValueError(
+            f"T={T} x group {hq}/{hkv} exceeds {MAX_QUERY_ROWS} query rows per KV head"
+        )
+    if tuple(k_new.shape) != (B, hkv, T, D) or v_new.shape != k_new.shape:
+        raise ValueError(f"k_new/v_new must be {(B, hkv, T, D)}")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+    for name, t, want in (("q", q, torch.bfloat16), ("kpool", kpool, pool_dtype),
+                          ("vpool", vpool, pool_dtype), ("k_new", k_new, torch.bfloat16),
+                          ("v_new", v_new, torch.bfloat16), ("table", table, torch.int32),
+                          ("prompt_len", prompt_len, torch.int32),
+                          ("decode_count", decode_count, torch.int32)):
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if table.dim() != 2 or table.shape[0] != B:
+        raise ValueError("table must be (B, max_pages)")
+    for name, t in (("prompt_len", prompt_len), ("decode_count", decode_count)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be (B,)")
+
+
+def _launch(name, entry, q, pool_shape, pool_ptrs, k_new, v_new, layer, table,
+            prompt_len, decode_count, scale) -> torch.Tensor:
+    """Allocate the split workspace and the output; launch ``entry``."""
+    B, hq, T, D = q.shape
+    _, n_pages, hkv, PS, _ = pool_shape
+    max_pages = table.shape[1]
+    splits = split_count(B, hkv, max_pages * PS, _sm_count(q.device))
+    ws = torch.empty(
+        (B, hkv, splits, T * hq // hkv, D + 2), dtype=torch.float32, device=q.device
+    )
+    out = torch.empty_like(q)
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), *pool_ptrs, k_new.data_ptr(), v_new.data_ptr(),
+        table.data_ptr(), prompt_len.data_ptr(), decode_count.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T, n_pages, PS,
+        max_pages, splits, float(scale), _build.stream_ptr(q),
+    )
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def _attend(name, q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
+            decode_count, scale):
+    """Shared body of the four wrappers; ``q`` is (B, Hq, T, D)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    q8 = isinstance(kpool, dict)
+    if not q.is_cuda:
+        plain = paged_attention_q8_plain if q8 else paged_attention_plain
+        return plain(q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
+                     decode_count, scale)
+    if q8:
+        _check(q, kpool["q"], vpool["q"], k_new, v_new, layer, table, prompt_len,
+               decode_count, torch.int8)
+        for pool in (kpool, vpool):
+            sc = pool["s"]
+            if tuple(sc.shape) != tuple(pool["q"].shape[:-1]) or sc.dtype != torch.float32:
+                raise TypeError(f"pool['s'] must be f32 {tuple(pool['q'].shape[:-1])}")
+            if sc.device != q.device or not sc.is_contiguous():
+                raise ValueError(f"pool['s'] must be contiguous on {q.device}")
+        ptrs = (kpool["q"].data_ptr(), vpool["q"].data_ptr(), kpool["s"].data_ptr(),
+                vpool["s"].data_ptr())
+        return _launch(name, "decode_attention_paged_q8", q, kpool["q"].shape, ptrs,
+                       k_new, v_new, layer, table, prompt_len, decode_count, scale)
+    _check(q, kpool, vpool, k_new, v_new, layer, table, prompt_len, decode_count,
+           torch.bfloat16)
+    return _launch(name, "decode_attention_paged_bf16", q, kpool.shape,
+                   (kpool.data_ptr(), vpool.data_ptr()), k_new, v_new, layer, table,
+                   prompt_len, decode_count, scale)
+
+
+def decode_attention_paged(q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
+                           decode_count, scale=None) -> torch.Tensor:
+    """K6: one-token attention of q (B, Hq, D) over layer ``layer`` of the
+    bf16 pool plus the fresh row k_new/v_new (B, Hkv, 1, D); ``table``
+    (B, max_pages), ``prompt_len`` and ``decode_count`` (B,) int32.
+    Returns (B, Hq, D)."""
+    return _attend(NAME, q[:, :, None], kpool, vpool, k_new, v_new, layer, table,
+                   prompt_len, decode_count, scale)[:, :, 0]
+
+
+def decode_attention_paged_q8(q, kpool: dict, vpool: dict, k_new, v_new, layer, table,
+                              prompt_len, decode_count, scale=None) -> torch.Tensor:
+    """K6 over the int8 pool ``{"q", "s"}``; the fresh rows stay bf16."""
+    return _attend(NAME_Q8, q[:, :, None], kpool, vpool, k_new, v_new, layer, table,
+                   prompt_len, decode_count, scale)[:, :, 0]
+
+
+def decode_attention_paged_verify(q, kpool, vpool, k_new, v_new, layer, table,
+                                  prompt_len, decode_count, scale=None) -> torch.Tensor:
+    """K7: T positions per lane, q (B, Hq, T, D), k_new/v_new (B, Hkv, T, D),
+    T x group <= :data:`MAX_QUERY_ROWS`; every position attends the same
+    history (``decode_count`` excludes the T fresh rows) and the fresh rows
+    causally.  Returns (B, Hq, T, D)."""
+    return _attend(NAME_VERIFY, q, kpool, vpool, k_new, v_new, layer, table,
+                   prompt_len, decode_count, scale)
+
+
+def decode_attention_paged_verify_q8(q, kpool: dict, vpool: dict, k_new, v_new, layer,
+                                     table, prompt_len, decode_count,
+                                     scale=None) -> torch.Tensor:
+    """K7 over the int8 pool ``{"q", "s"}``."""
+    return _attend(NAME_VERIFY_Q8, q, kpool, vpool, k_new, v_new, layer, table,
+                   prompt_len, decode_count, scale)

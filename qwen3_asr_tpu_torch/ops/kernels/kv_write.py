@@ -23,6 +23,16 @@ The int8 cache ``{"q", "s"}`` takes the step's bf16 rows through
 ``ops/quant_kv.py:quantize_kv``'s rule and stores the int8 row and its f32
 scale; its plain version is ``quantize_kv`` + :func:`kv_write_rows_plain` +
 the scale write, and the kernel matches it bit for bit.
+
+K8, :func:`kv_write_rows_paged` and :func:`kv_write_rows_paged_q8`,
+replaces ``kv_write.py:kv_write_rows_paged``: the paged pool's writer.
+Row t of lane b lands at ``pool[l, pages[b, t], h, offsets[b, t]]`` of the
+pool (L, n_pages, Hkv, PS, D), the page clipped to ``[0, n_pages)`` as the
+JAX wrapper does, rows whose offset lies outside ``[0, PS)`` dropped.  T
+rows per lane go in one launch (1 for the step, ``gamma + 1`` for the
+verify).  The plain version is one ``index_put_``; where several rows land
+on one (page, offset), which happens only on the trash page 0, which of
+them stays is unspecified in both versions.
 """
 
 from __future__ import annotations
@@ -185,3 +195,116 @@ def kv_write_rows_q8(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> di
     _build.check(err, NAME_Q8)
     _build.LAUNCHES[NAME_Q8] += 1
     return cache
+
+
+NAME_PAGED = "kv_write_rows_paged"
+NAME_PAGED_Q8 = "kv_write_rows_paged_q8"
+
+
+def paged_indices(
+    pages: torch.Tensor, offsets: torch.Tensor, n_pages: int, page_size: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(flat row, page, offset) of the rows that land: row ``b * T + t``
+    goes to ``clip(pages[b, t], 0, n_pages - 1)`` at ``offsets[b, t]`` unless
+    the offset lies outside [0, page_size).  Syncs with the device."""
+    p = pages.reshape(-1).long().clamp(0, n_pages - 1)
+    o = offsets.reshape(-1).long()
+    (keep,) = torch.nonzero((o >= 0) & (o < page_size), as_tuple=True)
+    return keep, p[keep], o[keep]
+
+
+def kv_write_rows_paged_plain(
+    pool: torch.Tensor, rows: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor
+) -> torch.Tensor:
+    """pool[:, pages[b, t], :, offsets[b, t], :] = rows[:, b, :, t, :] (pages
+    clipped, out-of-page offsets dropped) as one ``index_put_``."""
+    L, B, H, T, D = rows.shape
+    keep, p, o = paged_indices(pages, offsets, pool.shape[1], pool.shape[3])
+    flat = rows.permute(1, 3, 0, 2, 4).reshape(B * T, L, H, D)
+    pool[:, p, :, o] = flat[keep].to(pool.dtype)
+    return pool
+
+
+def _paged_shape(pool: torch.Tensor, rows: torch.Tensor, pages, offsets, pool_dtype) -> int:
+    if pool.dim() != 5 or pool.dtype != pool_dtype:
+        raise TypeError(f"pool must be {pool_dtype} (L, n_pages, Hkv, PS, D)")
+    L, _, H, _, D = pool.shape
+    if rows.dim() != 5 or (rows.shape[0], rows.shape[2], rows.shape[4]) != (L, H, D):
+        raise ValueError(f"rows shape {tuple(rows.shape)} is not ({L}, B, {H}, T, {D})")
+    B, T = rows.shape[1], rows.shape[3]
+    if rows.dtype != torch.bfloat16:
+        raise TypeError("rows must be bfloat16")
+    if D != 128:
+        raise ValueError(f"head_dim must be 128, got {D}")
+    for name, t in (("pages", pages), ("offsets", offsets)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B, T):
+            raise ValueError(f"{name} must be int32 {(B, T)}")
+    for name, t in (("rows", rows), ("pages", pages), ("offsets", offsets)):
+        if t.device != pool.device:
+            raise ValueError(f"{name} is on {t.device}, pool on {pool.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not pool.is_contiguous():
+        raise ValueError("pool must be contiguous")
+    return T
+
+
+def _as_bt(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B,) per-lane pages or offsets of a one-row write as (B, 1)."""
+    return x.reshape(rows.shape[1], rows.shape[3])
+
+
+def kv_write_rows_paged(
+    pool: torch.Tensor, rows: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor
+) -> torch.Tensor:
+    """K8: write ``rows`` (L, B, Hkv, T, D) into the page pool ``pool`` (L,
+    n_pages, Hkv, PS, D) at ``pages``/``offsets`` (int32 (B, T), or (B,) for
+    T = 1); in place, returns ``pool``."""
+    pages, offsets = _as_bt(pages, rows), _as_bt(offsets, rows)
+    if not pool.is_cuda:
+        return kv_write_rows_paged_plain(pool, rows, pages, offsets)
+    T = _paged_shape(pool, rows, pages, offsets, torch.bfloat16)
+    L, n_pages, H, PS, _ = pool.shape
+    err = _build.library().kv_write_rows_paged_bf16(
+        pool.data_ptr(), rows.data_ptr(), pages.data_ptr(), offsets.data_ptr(),
+        L, rows.shape[1], H, T, n_pages, PS, _build.stream_ptr(pool),
+    )
+    _build.check(err, NAME_PAGED)
+    _build.LAUNCHES[NAME_PAGED] += 1
+    return pool
+
+
+def kv_write_rows_paged_q8_plain(
+    pool: dict, rows: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor
+) -> dict:
+    """``quantize_kv`` of the rows, then :func:`kv_write_rows_paged_plain`
+    of the int8 rows and of their scales."""
+    qr = quantize_kv(rows)
+    kv_write_rows_paged_plain(pool["q"], qr["q"], pages, offsets)
+    kv_write_rows_paged_plain(pool["s"][..., None], qr["s"][..., None], pages, offsets)
+    return pool
+
+
+def kv_write_rows_paged_q8(
+    pool: dict, rows: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor
+) -> dict:
+    """K8 on the int8 pool ``{"q": int8 (L, n_pages, Hkv, PS, D), "s": f32
+    (L, n_pages, Hkv, PS)}``: quantize each bf16 row of ``rows`` and store
+    the int8 row and its scale, one launch; in place, returns ``pool``."""
+    pages, offsets = _as_bt(pages, rows), _as_bt(offsets, rows)
+    if not pool["q"].is_cuda:
+        return kv_write_rows_paged_q8_plain(pool, rows, pages, offsets)
+    pq, ps = pool["q"], pool["s"]
+    T = _paged_shape(pq, rows, pages, offsets, torch.int8)
+    L, n_pages, H, PS, _ = pq.shape
+    if tuple(ps.shape) != (L, n_pages, H, PS) or ps.dtype != torch.float32:
+        raise TypeError(f"pool['s'] must be f32 {(L, n_pages, H, PS)}")
+    if ps.device != pq.device or not ps.is_contiguous():
+        raise ValueError(f"pool['s'] must be contiguous on {pq.device}")
+    err = _build.library().kv_write_rows_paged_q8(
+        pq.data_ptr(), ps.data_ptr(), rows.data_ptr(), pages.data_ptr(),
+        offsets.data_ptr(), L, rows.shape[1], H, T, n_pages, PS, _build.stream_ptr(pq),
+    )
+    _build.check(err, NAME_PAGED_Q8)
+    _build.LAUNCHES[NAME_PAGED_Q8] += 1
+    return pool

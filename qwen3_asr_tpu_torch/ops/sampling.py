@@ -28,12 +28,16 @@ TOP_K_SUBSET = 1024
 
 
 def apply_repetition_penalty(
-    logits: torch.Tensor, recent_tokens: torch.Tensor, penalty: float
+    logits: torch.Tensor, recent_tokens: torch.Tensor, penalty
 ) -> torch.Tensor:
     """Penalize, per row, the tokens present in ``recent_tokens`` (B, W):
     positive logits are divided by ``penalty``, negative ones multiplied.
-    Sentinel slots (ids >= vocab) are ignored."""
-    if penalty == 1.0:
+    ``penalty`` is one float or a (B,) tensor (the continuous engine's
+    per-slot penalties; a row at 1.0 is unchanged).  Sentinel slots (ids
+    >= vocab) are ignored."""
+    if isinstance(penalty, torch.Tensor):
+        penalty = penalty.to(logits.dtype)[:, None]
+    elif penalty == 1.0:
         return logits
     B, vocab = logits.shape
     hit = torch.zeros((B, vocab + 1), dtype=torch.bool, device=logits.device)
@@ -45,16 +49,20 @@ def apply_repetition_penalty(
 def recent_token_window(
     tokens: torch.Tensor,     # (B, token_bucket) generated ids
     counts: torch.Tensor,     # (B,) tokens generated so far
-    rep_ctx: int,             # live repetition_context_size
+    rep_ctx,                  # live repetition_context_size: int, or (B,) tensor
     rep_window: int,          # static gather width
     token_bucket: int,
 ) -> torch.Tensor:
     """Last ``rep_window`` generated ids per sequence, :data:`RECENT_PAD_ID`
     outside the live ``repetition_context_size``."""
-    rep_ctx_c = min(max(rep_ctx, 0), rep_window)
     idx = counts[:, None] - rep_window + torch.arange(rep_window, device=tokens.device)
-    in_ctx = (idx >= 0) & (idx >= (counts - rep_ctx_c)[:, None])
     vals = torch.gather(tokens, 1, idx.clamp(0, token_bucket - 1))
+    if isinstance(rep_ctx, torch.Tensor):
+        rep_ctx_c = rep_ctx.to(counts.dtype).clamp(max=rep_window)
+        in_ctx = (idx >= 0) & (idx >= (counts - rep_ctx_c)[:, None]) & (rep_ctx_c > 0)[:, None]
+        return torch.where(in_ctx, vals, torch.full_like(vals, RECENT_PAD_ID))
+    rep_ctx_c = min(max(rep_ctx, 0), rep_window)
+    in_ctx = (idx >= 0) & (idx >= (counts - rep_ctx_c)[:, None])
     if rep_ctx_c <= 0:
         return torch.full_like(vals, RECENT_PAD_ID)
     return torch.where(in_ctx, vals, torch.full_like(vals, RECENT_PAD_ID))

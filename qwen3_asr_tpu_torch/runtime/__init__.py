@@ -1,5 +1,6 @@
 """Generation runtime."""
 
+from .engine import DecodeEngine, EngineStats, SlotRequest
 from .generate import Generator
 
-__all__ = ["Generator"]
+__all__ = ["DecodeEngine", "EngineStats", "Generator", "SlotRequest"]
