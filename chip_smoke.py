@@ -16,14 +16,19 @@ failure raises and the script exits non-zero):
      product of the same int8 weights; K3, K3 int8, K5 and K10: exact, K5
      with overflow rows dropped; K6 and K7, the paged decode attention and
      verify over bf16 and int8 pools: as K2; K8, the paged row write, bf16
-     and int8: exact outside the trash page 0), kernel, plain and
+     and int8: exact outside the trash page 0; K11a and K11b, decode
+     attention with one decode end for every lane, at K2's shapes: as K2;
+     K11e, the stem's conv + bias + GELU at conv2's and conv3's shapes for
+     the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
+     output), kernel, plain and
      library-call times from CUDA events, the bound (bytes over 3.35 TB/s
      or operations over the peak of their type, whichever is larger), and
      the share of the published peak;
   4. small-width reference checks: the decoder's prefill logits, one
      decode step and (bf16) one verify-split forward (T=4, per-lane write
      slots) with the kernels on the GPU against the same weights on the
-     CPU with the plain versions -- bf16 against float32, and the int8
+     CPU with the plain versions -- bf16 against float32 under decode modes
+     "auto" (K2), "3" (K11a) and "4" (K11b) in turn, and the int8
      decoder (int8 weights, W8A8 prefill, int8 cache) against the same
      quantized weights in float32; then one paged step and one paged
      verify forward (K6, K7, K8) over shuffled pages, bf16 against float32;
@@ -32,7 +37,16 @@ failure raises and the script exits non-zero):
      ``transcribe_batch`` of 8 synthetic clips of 4-30 s
      (``max_tokens=64``) twice and one ``transcribe`` under
      ``speculative="off"`` (K1-K3; the bf16 lm head must keep its f32
-     accumulator), then the same runs on the same weights under the
+     accumulator); on the same model ``transcribe_batch`` under decode
+     modes "3" (K11a) and "4" (K11b), K2 never launched and the mode's
+     kernel 28 x steps, and under the "pallas" stem (K11e twice per encoder
+     call), each stream held to the plain one by the near-tie rule below,
+     every token of the three streams held to the default modes' logits
+     on the same prefix (the default loop forced along the stream),
+     the encoder features of the "pallas" stem held to the "conv" stem's
+     (5e-2 of max |feature|) and those of "taps", "merged", "c512" and
+     "merged512" (the "conv" stem here) equal to them;
+     then the same runs on the same weights under the
      default ``"auto"`` (the speculative loop: K5, no K2/K3), each lane's
      stream equal to the plain one or first differing at a near-tie of the
      plain run's penalized logits, and every token of the B=8 stream held
@@ -135,6 +149,18 @@ KERNELS = {
     "kv_write_rows_paged_q8": (
         "cuda", "qwen3_asr_tpu_torch/csrc/kv_write.cu",
         "qwen3_asr_tpu/ops/pallas/kv_write.py:219",
+    ),
+    "decode_attention_hbm2": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_hbm2.cu",
+        "qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm2.py:134",
+    ),
+    "decode_attention_hbm3": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_hbm3.cu",
+        "qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm3.py:181",
+    ),
+    "conv_s2_gelu": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/conv_stem.cu",
+        "qwen3_asr_tpu/ops/pallas/experiments/conv_stem.py:82",
     ),
 }
 #: The kernels each path must launch, and those it must not.
@@ -414,6 +440,113 @@ def check_decode_q8(gen) -> dict:
     # No one PyTorch call: K2's intervals and self-term over int8 rows.
     rec = next(t for B, S, t in times if B == 8 and S == 640)
     return {"max_abs_err": worst, **rec, "library_ms": None}
+
+
+def check_decode_stream(gen, kind: str) -> dict:
+    """K11a (``"hbm2"``) or K11b (``"hbm3"``) at K2's check shapes with one
+    decode end for every lane (as the plain loop passes it), against K2's
+    plain version in float32 (atol 2e-2 + rtol 2e-2, as K2)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm2 as h2
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm3 as h3
+
+    fn = h2.decode_attention_hbm2 if kind == "hbm2" else h3.decode_attention_hbm3
+    label = "K11a decode_attention_hbm2" if kind == "hbm2" else "K11b decode_attention_hbm3"
+    L, hq, hkv, D, pb, layer = 2, 16, 8, 128, 512, 1
+    worst, times = 0.0, []
+    for B in (1, 8, 96):
+        for S in (640, 2560):
+            kall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+            vall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+            q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
+            k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+            v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+            plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
+            if B > 1:
+                plen[-1] = 0               # a lane with no prompt rows
+            dend = pb + (S - pb) // 2
+            block_k = h2.tile_block_k(S, pb, 512)
+            out = fn(q, kall, vall, k_new, v_new, layer, plen, dend, pb)
+            torch.cuda.synchronize()
+            ref = h2.scalar_end_plain(q.float(), kall.float(), vall.float(), k_new.float(),
+                                      v_new.float(), layer, plen, dend, pb, D ** -0.5)
+            err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
+            ms = cuda_ms(lambda: fn(q, kall, vall, k_new, v_new, layer, plen, dend, pb))
+            plain_ms = cuda_ms(lambda: h2.scalar_end_plain(
+                q, kall, vall, k_new, v_new, layer, plen, dend, pb, D ** -0.5))
+            k2_ms = cuda_ms(lambda: da.decode_attention(
+                q, kall, vall, k_new, v_new, layer, plen, torch.full_like(plen, dend), pb))
+            # As K2: the valid rows' K and V, q, the fresh rows and the output.
+            rows = int(plen.sum()) + B * (dend - pb)
+            b = bound(rows * hkv * D * 2 * 2 + B * (2 * hq + 2 * hkv) * D * 2,
+                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
+            gbps = rows * hkv * D * 2 * 2 / (ms * 1e-3) / 1e9
+            print(f"{label} B={B} pb={pb} S={S} dend={dend} block_k={block_k}: "
+                  f"max_abs_err={err:.3e} kernel {ms:.4f} ms, K2 {k2_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  f"{rows} valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+            worst = max(worst, err)
+            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
+            del kall, vall
+    # No one PyTorch call computes it (as K2).
+    rec = next(t for B, S, t in times if B == 8 and S == 640)
+    return {"max_abs_err": worst, **rec, "library_ms": None}
+
+
+#: The stem convs K11e takes at the smoke batch (8 clips in the 3200-frame
+#: bucket = 256 chunks): conv2 (64 x 50 -> 32 x 25) and conv3 (-> 16 x 13).
+STEM_CONVS = (("conv2", 256, 64, 50, 480), ("conv3", 256, 32, 25, 480))
+
+
+def check_conv_stem(gen) -> dict:
+    """K11e at conv2's and conv3's shapes against its plain version (f32
+    tap sum + bias, rounded to bf16, then the exact GELU): atol 2e-2 + rtol
+    2e-2 (one bf16 ulp of the rounded conv output where the two f32 sums
+    round apart).  Library call: ``F.conv2d`` with bias on the same
+    channels-last data (cuDNN), the GELU being one more call."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import conv_stem as cs
+
+    worst, parts = 0.0, []
+    for name, N, H, W, C in STEM_CONVS:
+        x = torch.randn(N, H, W, C, generator=gen, device="cuda").bfloat16()
+        w = (0.02 * torch.randn(3, 3, C, C, generator=gen, device="cuda")).bfloat16()
+        b = 0.1 * torch.randn(C, generator=gen, device="cuda")
+        out = cs.conv_s2_gelu(x, w, b)
+        torch.cuda.synchronize()
+        ref = cs.conv_s2_gelu_plain(x, w, b)
+        err = _close(f"K11e {name}", out, ref, 2e-2, 2e-2)
+        ms = cuda_ms(lambda: cs.conv_s2_gelu(x, w, b), iters=10)
+        plain_ms = cuda_ms(lambda: cs.conv_s2_gelu_plain(x, w, b), iters=5)
+        x_cl = x.permute(0, 3, 1, 2)               # NCHW view, channels-last strides
+        w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b16 = b.bfloat16()
+        lib = F.conv2d(x_cl, w_cl, b16, stride=2, padding=1)
+        lib_err = (lib.permute(0, 2, 3, 1).float()
+                   - cs.conv2d_s2_taps_f32(x, w) - b).abs().max().item()
+        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, b16, stride=2, padding=1), iters=10)
+        Ho, Wo = out.shape[1], out.shape[2]
+        flops = 2 * N * Ho * Wo * C * 9 * C
+        bnd = bound(x.numel() * 2 + w.numel() * 2 + C * 4 + out.numel() * 2, flops,
+                    PEAK_BF16_TFLOPS * 1e12)
+        tflops = flops / (ms * 1e-3) / 1e12
+        print(f"K11e conv_s2_gelu {name} N={N} {H}x{W}x{C} -> {Ho}x{Wo}x{C}: "
+              f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d+bias "
+              f"{library_ms:.4f} ms (layout {'channels-last' if lib.is_contiguous(memory_format=torch.channels_last) else 'NCHW'}, "
+              f"max |conv2d - f32 taps| {lib_err:.3e}), bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}); {tflops:.1f} TFLOP/s = {tflops / PEAK_BF16_TFLOPS:.1%} "
+              f"of the bf16 peak")
+        worst = max(worst, err)
+        parts.append((ms, plain_ms, bnd, library_ms))
+        del x, out, ref, lib
+    # The record: one encoder call's conv2 + conv3.
+    return {"max_abs_err": worst, "ms": sum(p[0] for p in parts),
+            "plain_ms": sum(p[1] for p in parts), **_sum_bounds([p[2] for p in parts]),
+            "library_ms": sum(p[3] for p in parts)}
 
 
 def check_kv_write_q8(gen) -> dict:
@@ -757,20 +890,29 @@ def _params_to(tree, device, dtype):
     return tree.to(device, dtype)
 
 
+#: The decode modes whose split step runs its own kernel with a shared write
+#: slot, and that kernel's launch counter.
+DECODE_MODES = (("auto", "decode_attention"), ("3", "decode_attention_hbm2"),
+                ("4", "decode_attention_hbm3"))
+
+
 def reference_check(quantized: bool) -> None:
     """Kernels (GPU) against the plain path (float32, CPU) on one small
     decoder: prefill logits, one split-decode step and, on the bf16 cache,
     one verify-split forward (T=4 per lane at per-lane write slots, one
-    lane's span running past the cache end).  ``quantized``: int8 weights,
-    W8A8 prefill and the int8 cache on both sides (no verify: the int8 cache
-    never speculates)."""
+    lane's span running past the cache end); on the bf16 cache once under
+    each of :data:`DECODE_MODES`.  ``quantized``: int8 weights, W8A8 prefill
+    and the int8 cache on both sides (no verify: the int8 cache never
+    speculates)."""
     import torch
 
     from qwen3_asr_tpu_torch.config import RuntimeConfig, TextDecoderConfig
+    from qwen3_asr_tpu_torch.models import decoder as dec_mod
     from qwen3_asr_tpu_torch.models.decoder import (
         decoder_forward, decoder_logits, embed_tokens, fuse_decoder_params,
         init_decoder_params,
     )
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
     from qwen3_asr_tpu_torch.ops.quant import quantize_decoder_params
     from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv_cache
     from qwen3_asr_tpu_torch.runtime.generate import Generator
@@ -831,16 +973,27 @@ def reference_check(quantized: bool) -> None:
         return logits.float().cpu(), step_logits.float().cpu(), verify_logits.float().cpu()
 
     ref = run(ref_params, "cpu")
-    out = run(gpu_params, "cuda")
-    what = "int8 decoder, GPU kernels vs f32 CPU plain" if quantized else \
-        "bf16 GPU kernels vs f32 CPU plain"
     labels = ("prefill logits", "decode-step logits", "verify-split logits (T=4)")
-    for i, label in enumerate(labels[: len(ref)]):
-        rel = ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item()
-        print(f"reference check ({label}, {what}): "
-              f"max abs err / max |ref| = {rel:.3e}")
-        if not rel < 5e-2:
-            raise AssertionError(f"{label}: relative error {rel:.3e} >= 5e-2")
+    # The bf16 step runs once per decode mode with a shared slot: K2
+    # ("auto"), K11a ("3"), K11b ("4"); the f32 CPU reference is one function.
+    modes = (("auto", "decode_attention_q8"),) if quantized else DECODE_MODES
+    for mode, kernel in modes:
+        what = "int8 decoder, GPU kernels vs f32 CPU plain" if quantized else \
+            f"bf16 GPU kernels, decode mode {mode!r}, vs f32 CPU plain"
+        saved, dec_mod.DECODE_KERNEL_MODE = dec_mod.DECODE_KERNEL_MODE, mode
+        before = LAUNCHES[kernel]
+        try:
+            out = run(gpu_params, "cuda")
+        finally:
+            dec_mod.DECODE_KERNEL_MODE = saved
+        if LAUNCHES[kernel] - before < cfg.num_hidden_layers:
+            raise AssertionError(f"reference check, decode mode {mode!r}: {kernel} not launched")
+        for i, label in enumerate(labels[: len(ref)]):
+            rel = ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item()
+            print(f"reference check ({label}, {what}): "
+                  f"max abs err / max |ref| = {rel:.3e}")
+            if not rel < 5e-2:
+                raise AssertionError(f"{label}: relative error {rel:.3e} >= 5e-2")
 
 
 def reference_check_paged() -> None:
@@ -1329,6 +1482,56 @@ def hold_to_plain(label: str, base, model, clips, teacher=None, penalty: float =
     return stream, P, accepted, full
 
 
+def hold_loop_to_plain(label: str, base, clips, rows, stream) -> None:
+    """Every token of a plain-loop ``transcribe_batch`` stream that ran
+    under a kernel mode (its penalized rows ``rows``) held to the default
+    modes' row on the same prefix: the default loop of ``base`` forced
+    along the stream, then per token |mode row - default row| <= LOGIT_TOL
+    of max |default row|, the token is the mode row's argmax, and the
+    default argmax unless the default top two lie within NEAR_TIE of max
+    |logit|."""
+    import torch
+
+    with Choices(forced=padded(stream)) as plain:
+        base.transcribe_batch(clips, max_tokens=64)
+    if plain.streams[-1] != stream:
+        raise AssertionError(f"{label}: the forced default run left the mode's stream")
+    n = max(len(s) for s in stream)
+    if min(len(rows), len(plain.rows)) < n:
+        raise AssertionError(f"{label}: {len(rows)} / {len(plain.rows)} rows for {n} tokens")
+    per = []
+    with torch.inference_mode():
+        for m_row, p_row in zip(rows[:n], plain.rows[:n]):
+            top2 = p_row.topk(2, dim=-1).values
+            per.append(torch.stack([
+                (m_row - p_row).abs().amax(-1), p_row.abs().amax(-1),
+                top2[:, 0] - top2[:, 1], p_row.argmax(-1).float(), m_row.argmax(-1).float(),
+            ]))
+    per = torch.stack(per).cpu()                       # (n, 5, B)
+    rels, flips = [], []
+    for b, lane in enumerate(stream):
+        for i, tok in enumerate(lane):
+            diff, top, gap, p_arg, m_arg = per[i, :, b].tolist()
+            if tok != int(m_arg):
+                raise AssertionError(f"{label} lane {b} token {i}: not the mode row's argmax")
+            rels.append(diff / top)
+            if diff > LOGIT_TOL * top:
+                raise AssertionError(f"{label} lane {b} token {i}: the mode's row differs from "
+                                     f"the default row by {diff / top:.2e} of max |logit|")
+            if tok != int(p_arg):
+                flips.append(gap / top)
+                if gap > NEAR_TIE * top:
+                    raise AssertionError(
+                        f"{label} lane {b} token {i}: the mode chose otherwise than the "
+                        f"default step at a top-two gap of {gap / top:.2e} of max |logit|")
+    rels.sort()
+    print(f"{label}: {len(rels)} tokens held to the forced default step's row: row diff / max "
+          f"|logit| median {rels[len(rels) // 2]:.2e}, p99 {rels[int(len(rels) * 0.99)]:.2e}, "
+          f"max {rels[-1]:.2e} (limit {LOGIT_TOL:g}); {len(flips)} choices apart from the "
+          f"default argmax, at top-two gaps up to {max(flips, default=0.0):.2e} of max |logit| "
+          f"(limit {NEAR_TIE:g})")
+
+
 def teacher_lists(teacher) -> list[list[int]]:
     stream, lens = teacher
     return [row[:n] for row, n in zip(stream.tolist(), lens.tolist())]
@@ -1479,6 +1682,148 @@ def speculative_phase(card: str, base, off: dict) -> dict:
     return spec["launches"]
 
 
+class EncoderCalls:
+    """Records, while active, each ``encoder_forward`` call of the API: its
+    mel and valid frames, and the features it returned."""
+
+    def __enter__(self):
+        from qwen3_asr_tpu_torch import api
+
+        self.api, self.real, self.calls = api, api.encoder_forward, []
+
+        def forward(params, cfg, mel, n_valid):
+            out = self.real(params, cfg, mel, n_valid)
+            self.calls.append((mel, n_valid, out[0]))
+            return out
+
+        api.encoder_forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.api.encoder_forward = self.real
+
+
+#: The encoder features of the "pallas" stem against the "conv" stem's, bf16
+#: at 1.7B from random weights: the largest allowed max |difference| over
+#: max |feature|, the repository's bound for bf16 against f32
+#: (reference_check).  K11e rounds conv2/conv3 otherwise (f32 until conv +
+#: bias, where cuDNN rounds the conv and the bias add), and 24 layers carry
+#: that on.
+STEM_TOL = 5e-2
+
+
+def modes_phase(card: str, base, off: dict) -> dict:
+    """The JAX package's kernel modes on the plain run's model (``"off"``):
+    ``transcribe_batch`` of the smoke clips under decode modes "3" (K11a)
+    and "4" (K11b) -- K2 never launched, the mode's kernel 28 x steps --
+    and under the "pallas" stem (K11e twice per encoder call), each stream
+    held to the plain ("auto", "conv") stream by the near-tie rule and each
+    of its tokens to the default modes' row on the same prefix; then the
+    encoder features of every stem mode held to the "conv" stem's.  Returns
+    the launches of K11a, K11b and K11e, each from its own run."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models import decoder as dec_mod
+    from qwen3_asr_tpu_torch.models import encoder as enc_mod
+    from qwen3_asr_tpu_torch.models.encoder import encoder_forward
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    clips = smoke_clips()
+    vocab = base._config.text_decoder.vocab_size
+    n_layers = base._config.text_decoder.num_hidden_layers
+    launches = {}
+    runs = (("decode mode 3", dec_mod, "DECODE_KERNEL_MODE", "3", "decode_attention_hbm2"),
+            ("decode mode 4", dec_mod, "DECODE_KERNEL_MODE", "4", "decode_attention_hbm3"),
+            ("stem pallas", enc_mod, "CONV_STEM_MODE", "pallas", "conv_s2_gelu"))
+    pallas_calls = None
+    for label, module, attr, mode, kernel in runs:
+        saved = getattr(module, attr)
+        setattr(module, attr, mode)
+        try:
+            with Watch() as watch, EncoderCalls() as enc, Choices() as rec:
+                LAUNCHES.clear()
+                ids = _ids(base.transcribe_batch(clips, max_tokens=64))
+                got = dict(LAUNCHES)
+                if bool(watch.nan_seen):
+                    raise AssertionError(f"{label}: NaN logits")
+        finally:
+            setattr(module, attr, saved)
+        st = base.last_stats
+        check_ids(label, ids, vocab)
+        if kernel == "conv_s2_gelu":
+            want = 2 * len(enc.calls)
+            pallas_calls = enc.calls
+            check_launches(label, got, ("flash_attention_causal", "decode_attention", kernel))
+        else:
+            want = n_layers * st.n_decode_steps
+            check_launches(label, got, ("flash_attention_causal", "kv_write_rows", kernel),
+                           ("decode_attention", "kv_write_span_batch"))
+        if got[kernel] != want:
+            raise AssertionError(f"{label}: {kernel} launched {got[kernel]} times, want {want}")
+        print_stats(f"transcribe_batch B=8 {label}", card, st)
+        compare_streams(f"{label} vs auto, transcribe_batch B=8", off["ids"][0], ids,
+                        off["gaps"][0])
+        hold_loop_to_plain(f"{label} held to the default modes, B=8", base, clips, rec.rows, ids)
+        del rec
+        launches[kernel] = got[kernel]
+
+    # Encoder features of each stem mode against the "conv" stem on the
+    # smoke batch's mel; each stem's own output against the float32 stem
+    # (cuDNN's TF32 off); the encoder's device time under "conv" and
+    # "pallas" in turns.
+    mel, n_valid, pallas_feats = pallas_calls[0]
+    params, cfg = base._encoder_params, base._config.audio_encoder
+    B, n_mels, T = mel.shape
+    n_chunks = T // cfg.chunk_frames
+    chunks = mel.reshape(B, n_mels, n_chunks, cfg.chunk_frames).permute(0, 2, 1, 3)
+    chunks = chunks.reshape(B * n_chunks, 1, n_mels, cfg.chunk_frames)
+    stem_params = {k: v for k, v in params.items() if k != "layers"}
+    stem32 = {k: v.float() for k, v in stem_params.items()}
+
+    def in_mode(mode, fn):
+        saved, enc_mod.CONV_STEM_MODE = enc_mod.CONV_STEM_MODE, mode
+        try:
+            return fn()
+        finally:
+            enc_mod.CONV_STEM_MODE = saved
+
+    tf32, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    try:
+        with torch.inference_mode():
+            ref, _ = encoder_forward(params, cfg, mel, n_valid)
+            top = ref.float().abs().max().item()
+            stem_ref = in_mode("conv", lambda: enc_mod.conv_stem(stem32, chunks.float()))
+            stem_top = stem_ref.abs().max().item()
+            for mode in ("conv", "pallas"):
+                stem = in_mode(mode, lambda: enc_mod.conv_stem(stem_params, chunks.bfloat16()))
+                diff = (stem.float() - stem_ref).abs()
+                print(f"stem {mode!r} output vs the f32 stem [{card}]: max abs diff / max "
+                      f"|output| {diff.max().item() / stem_top:.3e}, mean abs diff / mean "
+                      f"|output| {diff.mean().item() / stem_ref.abs().mean().item():.3e}")
+            rel = (pallas_feats.float() - ref.float()).abs().max().item() / top
+            print(f"encoder features, stem 'pallas' vs 'conv' [{card}]: max abs diff / "
+                  f"max |feature| = {rel:.3e} (limit {STEM_TOL:g}; {tuple(pallas_feats.shape)})")
+            if not (torch.isfinite(pallas_feats).all() and rel < STEM_TOL):
+                raise AssertionError(f"stem 'pallas': features differ by {rel:.3e} of max |feature|")
+            # The JAX package's TPU layout modes run the "conv" stem here.
+            for mode in ("taps", "merged", "c512", "merged512"):
+                feats = in_mode(mode, lambda: encoder_forward(params, cfg, mel, n_valid)[0])
+                if not torch.equal(feats, ref):
+                    raise AssertionError(f"stem {mode!r}: features differ from the 'conv' stem's")
+            print("encoder features, stems 'taps', 'merged', 'c512', 'merged512': "
+                  "equal to the 'conv' stem's")
+            turns = []
+            for mode in ("conv", "pallas", "pallas", "conv"):
+                turns.append(in_mode(mode, lambda: cuda_ms(
+                    lambda: encoder_forward(params, cfg, mel, n_valid), iters=5, warmup=1)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"encoder_forward of the smoke batch ({B} x {T} frames), CUDA-event ms in turns "
+          f"conv / pallas / pallas / conv [{card}]: "
+          f"{' / '.join(f'{t:.3f}' for t in turns)}")
+    return launches
+
+
 def server_run(card: str, model, label: str, paged: bool, path, never, plain) -> dict:
     """``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` on the
     smoke clips in two waves (the second submitted once the first chunk
@@ -1614,6 +1959,9 @@ def main() -> int:
         "decode_attention_paged_verify_q8": check_decode_paged(gen, 4, True),
         "kv_write_rows_paged": check_kv_write_paged(gen, False),
         "kv_write_rows_paged_q8": check_kv_write_paged(gen, True),
+        "decode_attention_hbm2": check_decode_stream(gen, "hbm2"),
+        "decode_attention_hbm3": check_decode_stream(gen, "hbm3"),
+        "conv_s2_gelu": check_conv_stem(gen),
     }
     torch.cuda.empty_cache()
     reference_check(quantized=False)
@@ -1625,6 +1973,7 @@ def main() -> int:
     off = slice_phase(card, base, off_rt, BF16_PATH, ("kv_write_span_batch",),
                       lm_head=True, record_gaps=True)
     launches = dict(off["launches"])
+    launches.update(modes_phase(card, base, off))
     spec_launches = speculative_phase(card, base, off)
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
     launches.update(server_phase(card, base, off))

@@ -9,8 +9,9 @@ transcription slices run:
     package builds the same cache by padding the stacked rows to S,
     ``decoder.py:816-845``);
   * **split decode** (``decode_ctx`` given, T == 1, ``decoder.py:534-731``):
-    attention runs over the PRE-step cache plus the fresh row (kernel K2),
-    and all layers' fresh rows are written by ONE post-loop K3 call at the
+    attention runs over the PRE-step cache plus the fresh row (kernel K2;
+    K11a or K11b under :data:`DECODE_KERNEL_MODE` "3" or "4" with a shared
+    slot), and all layers' fresh rows are written by ONE post-loop K3 call at the
     shared slot, or at per-lane slots for the continuous engine's flat
     cache;
   * **verify split** (``decode_ctx`` given, 1 < T <= 8, ``decoder.py:744-814``):
@@ -44,6 +45,8 @@ quantized and written by one K3-int8 launch per K and per V.
 
 from __future__ import annotations
 
+import os
+from functools import partial
 from typing import Any
 
 import torch
@@ -51,6 +54,8 @@ import torch.nn.functional as F
 
 from ..config import TextDecoderConfig
 from ..ops.kernels.decode_attention import decode_attention, decode_attention_q8
+from ..ops.kernels.experiments.decode_attention_hbm2 import decode_attention_hbm2
+from ..ops.kernels.experiments.decode_attention_hbm3 import decode_attention_hbm3
 from ..ops.kernels.flash_attention import flash_attention_causal
 from ..ops.kernels.decode_attention_paged import (
     decode_attention_paged,
@@ -68,10 +73,24 @@ from ..ops.kernels.kv_write import (
 )
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear
-from ..ops.quant_kv import is_quantized_kv
+from ..ops.quant_kv import is_quantized_kv, kv_seq_len
 from ..ops.rope import apply_rope, rope_cos_sin
 
 DecoderParams = dict[str, Any]
+
+#: Decode attention of the single-token split step, read from
+#: ``QWEN3_ASR_DECODE_KERNEL`` at import (the JAX package's modes,
+#: ``qwen3_asr_tpu/models/decoder.py:39-48``, dispatch :575-614): "auto" and
+#: "5" run K2; with a shared write slot (an int ``write_slots``, the plain
+#: decode loop) "3" runs K11a (``decode_attention_hbm2``) and "4" K11b
+#: (``decode_attention_hbm3``), both on the largest block of 1024/512/256/128
+#: rows that divides the cache length and the prompt bucket (ValueError if
+#: none does, where the JAX package raises StopIteration).  Per-lane slots
+#: (the flat engine) keep K2 and the int8 cache keeps K4 under every mode.
+#: "0" (the JAX package's XLA attention) and other modes raise: the port has
+#: no plain-path switch yet.
+DECODE_KERNEL_MODE = os.environ.get("QWEN3_ASR_DECODE_KERNEL", "auto")
+_PLAIN_SWITCHES_ITEM = "ROADMAP.md Queue 1 item 21 (plain-path switches)"
 
 
 def init_decoder_params(
@@ -226,8 +245,10 @@ def decoder_forward(
         plen, dend, pbucket = decode_ctx
         q8 = is_quantized_kv(keys)
         device = hidden.device
-        dend = _per_lane(dend, B, device)
-        attend = decode_attention_q8 if q8 else decode_attention
+        attend, dend = _split_step_attention(
+            q8, isinstance(write_slots, torch.Tensor), dend, B, device,
+            kv_seq_len(keys), pbucket,
+        )
         n_layers = len(params["layers"])
         k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=hidden.dtype, device=device)
         v_rows = torch.empty_like(k_rows)
@@ -264,6 +285,36 @@ def decoder_forward(
         "single-token split decode (decode_ctx, T == 1) and the verify split "
         "(decode_ctx, 1 < T <= 8) only"
     )
+
+
+def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int,
+                          pbucket: int):
+    """The split step's attention under :data:`DECODE_KERNEL_MODE` and the
+    decode end in the form it takes: K4 on the int8 cache, K2 for per-lane
+    slots and under "auto"/"5" (both with a (B,) decode end), K11a under "3"
+    and K11b under "4" (an int decode end), each with ``block_k`` the largest
+    of 1024/512/256/128 that divides S and the prompt bucket (JAX
+    ``decoder.py:601-610``)."""
+    mode = DECODE_KERNEL_MODE
+    if mode not in ("auto", "3", "4", "5"):
+        raise NotImplementedError(
+            f"QWEN3_ASR_DECODE_KERNEL={mode!r}: the port runs decode modes "
+            f"'auto', '3', '4' and '5' only; the plain (XLA) attention path "
+            f"is {_PLAIN_SWITCHES_ITEM}"
+        )
+    if q8:
+        return decode_attention_q8, _per_lane(dend, B, device)
+    if per_lane or mode in ("auto", "5"):
+        return decode_attention, _per_lane(dend, B, device)
+    block_k = next((bk for bk in (1024, 512, 256, 128)
+                    if S % bk == 0 and pbucket % bk == 0), None)
+    if block_k is None:
+        raise ValueError(
+            f"decode mode {mode!r}: no block size of 1024/512/256/128 divides "
+            f"both the cache length S={S} and the prompt bucket {pbucket}"
+        )
+    kernel = decode_attention_hbm2 if mode == "3" else decode_attention_hbm3
+    return partial(kernel, block_k=block_k), int(dend)
 
 
 def _per_lane(x, B: int, device) -> torch.Tensor:

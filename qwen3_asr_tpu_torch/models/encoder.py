@@ -1,11 +1,10 @@
 """Qwen3-ASR audio encoder (Whisper-style) in PyTorch.
 
-Counterpart of ``qwen3_asr_tpu/models/encoder.py:118-437`` with the default
-``"conv"`` stem:
+Counterpart of ``qwen3_asr_tpu/models/encoder.py:118-437``:
 
   * 3x Conv2D(k=3, s=2, p=1) + exact GELU over (mel=128, time=100) chunks,
     480 channels, then a channel-major flatten to (tokens, ch * freq') and
-    Linear(7680 -> 1024, no bias);
+    Linear(7680 -> 1024, no bias), lowered as :data:`CONV_STEM_MODE` says;
   * per-chunk sinusoidal positions restarting at 0 every chunk;
   * pre-norm LayerNorm (eps 1e-5) transformer layers with block-diagonal
     attention over 104-token windows; invalid (padding) tokens are masked
@@ -15,9 +14,10 @@ Counterpart of ``qwen3_asr_tpu/models/encoder.py:118-437`` with the default
 Parameters are a dict: conv weights OIHW (``F.conv2d``'s layout), linear
 weights (in, out) so every dense product is ``qlinear(x, w)``, and
 ``"layers"`` a list of per-layer dicts.  With bf16 weights no kernel of this
-repository runs here: the conv stem is ``F.conv2d``, dense products
-``torch.matmul``, attention plain sdpa (``ops/attention.py``), as the JAX
-package leaves them to XLA.  In the W8A8 prefill mode
+repository runs here under the default stem: the conv stem is
+``F.conv2d``, dense products ``torch.matmul``, attention plain sdpa
+(``ops/attention.py``), as the JAX package leaves them to XLA; the
+``"pallas"`` stem runs kernel K11e for conv2 and conv3.  In the W8A8 prefill mode
 (``act_quant="int8"``) the dense weights are int8 ``{"q", "s"}`` and the
 whole forward runs under the activation-quant gate with at least 256 rows
 (JAX ``encoder.py:337``, ``:368-371``), so its products run kernel K10 (K9
@@ -29,12 +29,15 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import Any
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import AudioEncoderConfig
 from ..ops.attention import windowed_self_attention
+from ..ops.kernels.experiments.conv_stem import conv_s2_gelu
 from ..ops.norms import layer_norm
 from ..ops.quant import act_quant_rows, is_quantized, qlinear
 
@@ -118,16 +121,50 @@ def valid_token_count(cfg: AudioEncoderConfig, n_valid_frames: torch.Tensor) -> 
     return full * cfg.tokens_per_chunk + rem
 
 
+#: Conv-stem lowering, read from ``QWEN3_ASR_CONV_STEM`` at import (the JAX
+#: package's modes, ``qwen3_asr_tpu/models/encoder.py:135-160``):
+#:   "conv"   -- default: ``F.conv2d`` per chunk (NCHW, OIHW weights);
+#:   "pallas" -- conv2/conv3 as kernel K11e (``conv_s2_gelu``, NHWC);
+#:               conv1 (one input channel) keeps ``F.conv2d``.
+#: The JAX package's other modes ("taps", "merged", "c512", "merged512")
+#: rewrite the same function for the TPU's layouts (tap slices for the MXU,
+#: guard-band merged images, channels padded to the 128-lane multiple 512);
+#: they are accepted here and run the "conv" stem.  Unlike the JAX package,
+#: which runs "pallas" only on a TPU and otherwise falls back to
+#: ``lax.conv``, "pallas" on CUDA tensors launches K11e or raises.
+CONV_STEM_MODE = os.environ.get("QWEN3_ASR_CONV_STEM", "conv")
+
+
 def conv_stem(params: EncoderParams, chunks: torch.Tensor) -> torch.Tensor:
-    """(N, 1, mel, chunk) -> (N, tokens_per_chunk, d_model)."""
-    x = chunks
-    for i in (1, 2, 3):
-        x = F.conv2d(x, params[f"conv{i}_w"], stride=2, padding=1)
-        x = F.gelu(x + params[f"conv{i}_b"][None, :, None, None], approximate="none")
+    """Mode-dispatched conv stem (:data:`CONV_STEM_MODE`): (B * n_chunks, 1,
+    mel, chunk) -> (B * n_chunks, tokens_per_chunk, d_model)."""
+    if CONV_STEM_MODE == "pallas":
+        x = _pallas_stem(params, chunks)
+    else:
+        x = chunks
+        for i in (1, 2, 3):
+            x = F.conv2d(x, params[f"conv{i}_w"], stride=2, padding=1)
+            x = F.gelu(x + params[f"conv{i}_b"][None, :, None, None], approximate="none")
     # (N, ch, freq', time') -> channel-major flatten (N, time', ch * freq').
     n, ch, freq, time = x.shape
     x = x.permute(0, 3, 1, 2).reshape(n, time, ch * freq)
     return qlinear(x, params["conv_out"])
+
+
+def _pallas_stem(params: EncoderParams, chunks: torch.Tensor) -> torch.Tensor:
+    """The "pallas" stem -> (N, ch, freq', time') as an NCHW view.  conv2 and
+    conv3 run channels-last: conv1's output is laid out NHWC once (asked of
+    ``F.conv2d`` through channels-last operands, made contiguous only if it
+    did not oblige)."""
+    last = torch.channels_last
+    w1 = params["conv1_w"].contiguous(memory_format=last)
+    x = F.conv2d(chunks.contiguous(memory_format=last), w1, stride=2, padding=1)
+    x = F.gelu(x + params["conv1_b"][None, :, None, None], approximate="none")
+    x = x.permute(0, 2, 3, 1).contiguous()                  # (N, freq, time, ch)
+    for i in (2, 3):
+        w = params[f"conv{i}_w"].permute(2, 3, 1, 0).contiguous()   # OIHW -> HWIO
+        x = conv_s2_gelu(x, w, params[f"conv{i}_b"])
+    return x.permute(0, 3, 1, 2)
 
 
 def encoder_forward(

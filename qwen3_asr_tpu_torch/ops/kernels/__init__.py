@@ -13,6 +13,9 @@
 | ``decode_attention_paged`` (``decode_attention_paged``, ``_q8``, K6) | ``ops/pallas/decode_attention_paged.py`` (same names) |
 | ``decode_attention_paged`` (``decode_attention_paged_verify``, ``_verify_q8``, K7) | ``ops/pallas/decode_attention_paged.py`` (same names) |
 | ``kv_write`` (``kv_write_rows_paged``, ``kv_write_rows_paged_q8``, K8) | ``ops/pallas/kv_write.py:kv_write_rows_paged`` |
+| ``experiments.conv_stem`` (``conv_s2_gelu``, K11e) | ``ops/pallas/experiments/conv_stem.py:conv_s2_gelu`` |
+| ``experiments.decode_attention_hbm2`` (``decode_attention_hbm2``, K11a) | ``ops/pallas/experiments/decode_attention_hbm2.py`` (same name) |
+| ``experiments.decode_attention_hbm3`` (``decode_attention_hbm3``, K11b) | ``ops/pallas/experiments/decode_attention_hbm3.py`` (same name) |
 
 Each wrapper runs its module's plain PyTorch version for CPU tensors and
 launches its kernel (built at first use by ``_build``) for CUDA tensors.

@@ -89,6 +89,17 @@ _SIGNATURES = {
     "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, sx, wq, ws, out, M, N, K, out_f32, stream
     "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w, b, out, N, H, W, C, O, stream
+    "conv_s2_gelu_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, kall, vall, k_new, v_new, prompt_len, out, layer, B, Hq, Hkv, S,
+    # prompt_bucket, decode_end, block_k, scale, stream
+    "decode_attention_hbm2_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # as decode_attention_hbm2_bf16, with n_blocks after block_k
+    "decode_attention_hbm3_bf16": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
 }
 
 _lock = threading.Lock()
