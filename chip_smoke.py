@@ -20,10 +20,15 @@ failure raises and the script exits non-zero):
      attention with one decode end for every lane, at K2's shapes: as K2;
      K11e, the stem's conv + bias + GELU at conv2's and conv3's shapes for
      the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
-     output), kernel, plain and
+     output; K11c and K11d, decode attention with per-lane decode ends and
+     an idle lane, at K2's shapes and B=6: as K2, with K2's time beside
+     theirs), kernel, plain and
      library-call times from CUDA events, the bound (bytes over 3.35 TB/s
      or operations over the peak of their type, whichever is larger), and
-     the share of the published peak;
+     the share of the published peak; then the ``kernelab`` section of
+     ``tools/torch_micro_bench.py`` (K2, K11d and K11c over 28 layers at
+     B=64, S=640, three decode depths), the path that launches K11c and
+     K11d: each arm 28 launches a pass and held to K2;
   4. small-width reference checks: the decoder's prefill logits, one
      decode step and (bf16) one verify-split forward (T=4, per-lane write
      slots) with the kernels on the GPU against the same weights on the
@@ -162,7 +167,18 @@ KERNELS = {
         "cuda", "qwen3_asr_tpu_torch/csrc/conv_stem.cu",
         "qwen3_asr_tpu/ops/pallas/experiments/conv_stem.py:82",
     ),
+    "decode_attention_hbm5": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_hbm5.cu",
+        "qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm5.py:268",
+    ),
+    "decode_attention_sched": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_sched.cu",
+        "qwen3_asr_tpu/ops/pallas/experiments/decode_attention_sched.py:280",
+    ),
 }
+#: The kernels the micro-bench's ``kernelab`` section A/Bs, 28 launches a
+#: pass each (the JAX package runs K11c and K11d from no other path).
+KERNELAB = ("decode_attention", "decode_attention_sched", "decode_attention_hbm5")
 #: The kernels each path must launch, and those it must not.
 BF16_PATH = ("flash_attention_causal", "decode_attention", "kv_write_rows")
 INT8_PATH = ("flash_attention_causal", "decode_attention_q8", "kv_write_rows_q8",
@@ -493,6 +509,106 @@ def check_decode_stream(gen, kind: str) -> dict:
     # No one PyTorch call computes it (as K2).
     rec = next(t for B, S, t in times if B == 8 and S == 640)
     return {"max_abs_err": worst, **rec, "library_ms": None}
+
+
+def check_decode_lanes(gen, kind: str) -> dict:
+    """K11c (``"hbm5"``) or K11d (``"sched"``) at K2's check shapes plus a
+    batch that is no multiple of K11c's 4-lane group, with per-lane decode
+    ends and an idle lane (prompt_len 0, clamped to 1 as the TPU kernels
+    do) where B > 1, against the module's plain version in float32 (atol
+    2e-2 + rtol 2e-2, as K2).  Times: the kernel (K11d with its schedule
+    built beforehand, as the micro-bench builds it once per pass), the plain
+    version and K2 on the same inputs and clamped prompt lengths."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5 as h5
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_sched as sc
+
+    label = {"hbm5": "K11c decode_attention_hbm5", "sched": "K11d decode_attention_sched"}[kind]
+    L, hq, hkv, D, pb, layer = 2, 16, 8, 128, 512, 1
+    scale = D ** -0.5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, times = 0.0, []
+    for B in (1, 6, 8, 96):
+        for S in (640, 2560):
+            kall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+            vall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+            q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
+            k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+            v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+            plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
+            dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
+            if B > 1:
+                plen[-1] = 0               # an idle lane
+                dend[-1] = pb
+            clamped = plen.clamp(1, pb)
+            if kind == "hbm5":
+                def kernel():
+                    return h5.decode_attention_hbm5(q, kall, vall, k_new, v_new, layer,
+                                                    plen, dend, pb)
+
+                def plain(*t):
+                    return da.decode_attention_plain(*t, layer, clamped, dend, pb, scale)
+                extra = f"block_p={h5.prompt_block(pb, S)}"
+            else:
+                cores, per_core = sc.schedule_geometry(B, hkv, sms)
+                sched = sc.build_decode_schedule(plen, dend, pb, S, cores, per_core, B)
+
+                def kernel():
+                    return sc.decode_attention_sched(q, kall, vall, k_new, v_new, layer, plen,
+                                                     dend, pb, schedule=sched)
+
+                def plain(*t):
+                    return sc.decode_attention_sched_plain(*t, layer, sched, scale)
+                build_ms = cuda_ms(lambda: sc.build_decode_schedule(
+                    plen, dend, pb, S, cores, per_core, B))
+                extra = f"cores={cores} per_core={per_core}, schedule build {build_ms:.4f} ms"
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = plain(q.float(), kall.float(), vall.float(), k_new.float(), v_new.float())
+            err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(lambda: plain(q, kall, vall, k_new, v_new))
+            k2_ms = cuda_ms(lambda: da.decode_attention(
+                q, kall, vall, k_new, v_new, layer, clamped, dend, pb))
+            # As K2: the valid rows' K and V, q, the fresh rows and the output.
+            rows = int(clamped.sum() + (dend - pb).sum())
+            b = bound(rows * hkv * D * 2 * 2 + B * (2 * hq + 2 * hkv) * D * 2,
+                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
+            gbps = rows * hkv * D * 2 * 2 / (ms * 1e-3) / 1e9
+            print(f"{label} B={B} pb={pb} S={S} per-lane ends ({extra}): "
+                  f"max_abs_err={err:.3e} kernel {ms:.4f} ms, K2 {k2_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  f"{rows} valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+            worst = max(worst, err)
+            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
+            del kall, vall
+    # No one PyTorch call computes it (as K2).
+    rec = next(t for B, S, t in times if B == 8 and S == 640)
+    return {"max_abs_err": worst, **rec, "library_ms": None}
+
+
+def kernelab_step() -> dict:
+    """The micro-bench's ``kernelab`` section (K2 against K11d and K11c over
+    28 layers, B=64, S=640), imported from ``tools/torch_micro_bench.py``:
+    the path that launches K11c and K11d, as the JAX package's micro-bench
+    launches K11d.  Every arm must launch 28 times a pass and agree with K2.
+    Returns the launch counts of that run."""
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from torch_micro_bench import bench_kernel_ab
+
+    _build.LAUNCHES.clear()
+    res = bench_kernel_ab(B=64, S=640, pb=512, L=28, iters=3, warmup=1)
+    launches = dict(_build.LAUNCHES)
+    for name in KERNELAB:
+        if launches.get(name, 0) != 28 * res["passes"]:
+            raise AssertionError(f"kernelab: {name} launched {launches.get(name, 0)} times, "
+                                 f"not 28 x {res['passes']} passes")
+    check_launches("kernelab (tools/torch_micro_bench.py)", launches, KERNELAB)
+    return launches
 
 
 #: The stem convs K11e takes at the smoke batch (8 clips in the 3200-frame
@@ -1962,7 +2078,11 @@ def main() -> int:
         "decode_attention_hbm2": check_decode_stream(gen, "hbm2"),
         "decode_attention_hbm3": check_decode_stream(gen, "hbm3"),
         "conv_s2_gelu": check_conv_stem(gen),
+        "decode_attention_hbm5": check_decode_lanes(gen, "hbm5"),
+        "decode_attention_sched": check_decode_lanes(gen, "sched"),
     }
+    torch.cuda.empty_cache()
+    kab_launches = kernelab_step()
     torch.cuda.empty_cache()
     reference_check(quantized=False)
     reference_check(quantized=True)
@@ -1984,6 +2104,7 @@ def main() -> int:
     int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH)["launches"]
     int8.close()
     launches.update({name: int8_launches[name] for name in INT8_PATH})
+    launches.update({name: kab_launches[name] for name in KERNELAB[1:]})
 
     rows = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -310,15 +310,37 @@ class Qwen3ASR:
         self,
         durations: tuple[float, ...] = (0.5,),
         batch_sizes: tuple[int, ...] = (1,),
-        max_tokens: int = 2,
+        max_tokens: int | tuple[int, ...] = 2,
+        deployment: dict | None = None,
     ) -> None:
-        """Run silent clips through every (batch, duration) pair once: builds
-        the CUDA kernels and warms PyTorch's allocator and library handles."""
-        for b in batch_sizes:
-            for d in durations:
-                clips = [np.zeros(max(1, int(d * SAMPLE_RATE)), dtype=np.float32)] * b
-                self.transcribe_batch(clips, max_tokens=max_tokens)
-        logger.info("warm_up complete: %d cells", len(batch_sizes) * len(durations))
+        """Run silent clips through every (batch, duration, token budget)
+        cell of a deployment once: builds the CUDA kernels and warms
+        PyTorch's allocator and library handles for the shapes it will see.
+        Pass the grid directly or as one ``deployment`` dict, as in the JAX
+        package:
+
+            model.warm_up(deployment={
+                "durations": (10.0, 30.0),
+                "batch_sizes": (1, 8, 48),
+                "max_tokens": (128, 1024),
+            })
+
+        Each cell is logged as it starts.  The JAX package ends with
+        ``wait_ready()`` for its background TPU compile, which is not
+        ported: here every cell has run when this returns.
+        """
+        if deployment is not None:
+            durations = tuple(deployment.get("durations", durations))
+            batch_sizes = tuple(deployment.get("batch_sizes", batch_sizes))
+            max_tokens = deployment.get("max_tokens", max_tokens)
+        budgets = (max_tokens,) if isinstance(max_tokens, int) else tuple(max_tokens)
+        cells = [(b, d, m) for b in batch_sizes for d in durations for m in budgets]
+        for i, (b, d, m) in enumerate(cells):
+            logger.info("warm_up %d/%d: batch=%d duration=%.1fs max_tokens=%d",
+                        i + 1, len(cells), b, d, m)
+            clips = [np.zeros(max(1, int(d * SAMPLE_RATE)), dtype=np.float32)] * b
+            self.transcribe_batch(clips, max_tokens=m)
+        logger.info("warm_up complete: %d program shapes compiled", len(cells))
 
     def close(self) -> None:
         """Release parameters (and cached device memory)."""

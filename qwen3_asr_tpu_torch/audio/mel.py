@@ -181,3 +181,38 @@ class MelFrontend:
             if n_frames <= b:
                 return b
         return self.frame_buckets[-1]
+
+
+def log_mel_spectrogram(audio: np.ndarray, device: torch.device | str = "cuda") -> torch.Tensor:
+    """Unbucketed mel of one clip on ``device``, (n_mels, len(audio) // hop)
+    float32 (at least one frame): the JAX package's API-parity convenience;
+    the pipeline uses :class:`MelFrontend`'s buckets and :func:`log_mel_batch`.
+    Float samples, or int16 PCM (scaled by 1/32768)."""
+    audio = np.asarray(audio)
+    if audio.dtype != np.int16:
+        audio = audio.astype(np.float32)
+    n_frames = max(1, len(audio) // HOP_LENGTH)
+    padded = torch.from_numpy(host_pad_batch([audio], n_frames, N_FFT, HOP_LENGTH)).to(device)
+    n_valid = torch.full((1,), n_frames, dtype=torch.long, device=padded.device)
+    return log_mel_batch(padded, n_valid, n_frames)[0]
+
+
+def log_mel_spectrogram_np(audio: np.ndarray) -> np.ndarray:
+    """Pure-numpy oracle of the reference pipeline (vectorized rFFT), the
+    JAX package's golden-test reference, (n_mels, frames) float32."""
+    audio = np.asarray(audio)
+    if audio.dtype == np.int16:
+        audio = audio.astype(np.float32) / 32768.0
+    audio = audio.astype(np.float32)
+    window = np.hanning(N_FFT).astype(np.float32)
+    pad = N_FFT // 2
+    x = np.pad(audio, pad, mode="reflect")
+    n_frames = 1 + (len(x) - N_FFT) // HOP_LENGTH
+    idx = np.arange(n_frames)[:, None] * HOP_LENGTH + np.arange(N_FFT)[None, :]
+    frames = x[idx] * window[None, :]
+    spec = np.fft.rfft(frames.astype(np.float32), n=N_FFT, axis=1).T  # (freq, T)
+    power = (np.abs(spec[:, :-1]) ** 2).astype(np.float32)
+    mel = mel_filterbank() @ power
+    log_spec = np.log10(np.maximum(mel, _LOG_FLOOR))
+    log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
+    return ((log_spec + 4.0) / 4.0).astype(np.float32)

@@ -1,7 +1,10 @@
 // The (lane, KV head) tile stream shared by K11a (decode_attention_hbm2.cu)
 // and K11b (decode_attention_hbm3.cu): one-token decode attention over the
 // layer-stacked cache with a scalar decode end, in one launch, with no split
-// of a lane's rows and no combine pass.
+// of a lane's rows and no combine pass.  K11c (decode_attention_hbm5.cu) and
+// K11d (decode_attention_sched.cu) walk the cache on their own geometry and
+// reuse the per-tile pieces: load_rows, start_pair, fold_tile (the tile's
+// online-softmax update under a caller-given row mask) and finish_pair.
 //
 // q (B, Hq, 128); kall/vall (L, B, Hkv, S, 128); k_new/v_new (B, Hkv, 1, 128),
 // all bf16; prompt_len (B,) int32; decode_end one int for every lane.  The
@@ -111,20 +114,29 @@ __device__ __forceinline__ int tile_row0(const Args& a, const Pair& p, int t) {
   return blk * a.block_k + (t - i * per_block) * kTile;
 }
 
-// Start the cp.async copies of tile t of pair p (32 contiguous K rows and
-// the matching V rows: 1024 16-byte chunks, 8 per thread).
-__device__ __forceinline__ void load_tile(const Args& a, const Pair& p, int t,
+// Start the cp.async copies of cache rows [row0, row0 + 32) of lane b, KV
+// head hk (32 contiguous K rows and the matching V rows: 1024 16-byte
+// chunks, 8 per thread); rows at or past S, a negative row0 and a lane
+// outside [0, B) are zero-filled instead of read.
+__device__ __forceinline__ void load_rows(const Args& a, int b, int hk, int row0,
                                           __nv_bfloat16* kbuf,
                                           __nv_bfloat16* vbuf) {
-  const int row0 = tile_row0(a, p, t);
+  const bool lane_ok = b >= 0 && b < a.B && row0 >= 0;
   const int64_t base =
-      ((((int64_t)a.layer * a.B + p.b) * a.Hkv + p.hk) * a.S + row0) * kD;
+      ((((int64_t)a.layer * a.B + b) * a.Hkv + hk) * a.S + row0) * kD;
   for (int c = threadIdx.x; c < kTileElems / 8; c += kThreads) {
-    const bool ok = row0 + c / (kD / 8) < a.S;
+    const bool ok = lane_ok && row0 + c / (kD / 8) < a.S;
     const int64_t off = ok ? base + c * 8 : 0;
     gemm::cp_async16(kbuf + c * 8, a.kall + off, ok);
     gemm::cp_async16(vbuf + c * 8, a.vall + off, ok);
   }
+}
+
+// Tile t of pair p.
+__device__ __forceinline__ void load_tile(const Args& a, const Pair& p, int t,
+                                          __nv_bfloat16* kbuf,
+                                          __nv_bfloat16* vbuf) {
+  load_rows(a, p.b, p.hk, tile_row0(a, p, t), kbuf, vbuf);
 }
 
 template <int G>
@@ -161,24 +173,25 @@ __device__ __forceinline__ void start_pair(const Args& a, const Pair& p,
   st.l = 0.f;
 }
 
-// Fold one 32-row tile (kbuf, vbuf in shared memory) into the pair's state.
-template <int G>
-__device__ __forceinline__ void consume_tile(const Args& a, const Pair& p,
-                                             int t, const __nv_bfloat16* kbuf,
-                                             const __nv_bfloat16* vbuf,
-                                             State<G>& st, Shared<G>& sh) {
+// Fold one 32-row tile (kbuf, vbuf in shared memory; cache rows row0 ..
+// row0 + 31) into a pair's state; valid(row) says which rows count, the
+// others score kMaskValue (selected, not added: a masked row may hold inf).
+// Every thread of the block calls it (it synchronizes).
+template <int G, typename Valid>
+__device__ __forceinline__ void fold_tile(int row0, Valid valid,
+                                          const __nv_bfloat16* kbuf,
+                                          const __nv_bfloat16* vbuf,
+                                          State<G>& st, Shared<G>& sh) {
   const int tid = threadIdx.x;
   const int sub = tid % kRowThreads;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int row0 = tile_row0(a, p, t);
 
   // Scores: 16 threads per row, 8 rows at a time.
   for (int r = tid / kRowThreads; r < kTile; r += kRowsInFlight) {
     float kf[kPerThread];
     unpack8(*reinterpret_cast<const uint4*>(kbuf + r * kD + sub * kPerThread), kf);
-    const int row = row0 + r;
-    const bool valid = row < p.plen || (row >= a.pb && row < a.dend);
+    const bool ok = valid(row0 + r);
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
       float part = 0.f;
@@ -188,7 +201,7 @@ __device__ __forceinline__ void consume_tile(const Args& a, const Pair& p,
       for (int o = kRowThreads / 2; o >= 1; o >>= 1) {
         part += __shfl_xor_sync(0xffffffffu, part, o);
       }
-      if (sub == 0) sh.s[gi][r] = valid ? part : kMaskValue;
+      if (sub == 0) sh.s[gi][r] = ok ? part : kMaskValue;
     }
   }
   __syncthreads();
@@ -224,6 +237,18 @@ __device__ __forceinline__ void consume_tile(const Args& a, const Pair& p,
   }
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) st.acc[gi] = st.acc[gi] * sh.alpha[gi] + pv[gi];
+}
+
+// Tile t of pair p under the two-interval mask of K11a/K11b.
+template <int G>
+__device__ __forceinline__ void consume_tile(const Args& a, const Pair& p,
+                                             int t, const __nv_bfloat16* kbuf,
+                                             const __nv_bfloat16* vbuf,
+                                             State<G>& st, Shared<G>& sh) {
+  fold_tile<G>(
+      tile_row0(a, p, t),
+      [&](int row) { return row < p.plen || (row >= a.pb && row < a.dend); },
+      kbuf, vbuf, st, sh);
 }
 
 // Self-term and 1 / l: write the pair's G output rows.

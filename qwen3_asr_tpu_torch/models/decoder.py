@@ -90,7 +90,7 @@ DecoderParams = dict[str, Any]
 #: "0" (the JAX package's XLA attention) and other modes raise: the port has
 #: no plain-path switch yet.
 DECODE_KERNEL_MODE = os.environ.get("QWEN3_ASR_DECODE_KERNEL", "auto")
-_PLAIN_SWITCHES_ITEM = "ROADMAP.md Queue 1 item 21 (plain-path switches)"
+_PLAIN_SWITCHES_ITEM = 'ROADMAP.md Queue 1, "Plain-path switches"'
 
 
 def init_decoder_params(

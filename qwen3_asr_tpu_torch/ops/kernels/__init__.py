@@ -16,6 +16,8 @@
 | ``experiments.conv_stem`` (``conv_s2_gelu``, K11e) | ``ops/pallas/experiments/conv_stem.py:conv_s2_gelu`` |
 | ``experiments.decode_attention_hbm2`` (``decode_attention_hbm2``, K11a) | ``ops/pallas/experiments/decode_attention_hbm2.py`` (same name) |
 | ``experiments.decode_attention_hbm3`` (``decode_attention_hbm3``, K11b) | ``ops/pallas/experiments/decode_attention_hbm3.py`` (same name) |
+| ``experiments.decode_attention_hbm5`` (``decode_attention_hbm5``, K11c) | ``ops/pallas/experiments/decode_attention_hbm5.py`` (same name) |
+| ``experiments.decode_attention_sched`` (``decode_attention_sched``, K11d; ``build_decode_schedule``) | ``ops/pallas/experiments/decode_attention_sched.py`` (same names) |
 
 Each wrapper runs its module's plain PyTorch version for CPU tensors and
 launches its kernel (built at first use by ``_build``) for CUDA tensors.

@@ -54,14 +54,28 @@ def decode_attention_plain(
     prompt_bucket: int,
     scale: float,
 ) -> torch.Tensor:
-    B, hq, D = q.shape
-    hkv, S = kall.shape[2], kall.shape[3]
-    group = hq // hkv
-    kcache, vcache = kall[layer], vall[layer]                  # (B, Hkv, S, D)
+    S = kall.shape[3]
     slot = torch.arange(S, device=q.device)
     mask = (slot[None, :] < prompt_len[:, None]) | (
         (slot[None, :] >= prompt_bucket) & (slot[None, :] < decode_end[:, None])
     )                                                           # (B, S)
+    return masked_attention_plain(q, kall[layer], vall[layer], k_new, v_new, mask, scale)
+
+
+def masked_attention_plain(
+    q: torch.Tensor,            # (B, Hq, D)
+    kcache: torch.Tensor,       # (B, Hkv, S, D): one layer of the cache
+    vcache: torch.Tensor,
+    k_new: torch.Tensor,        # (B, Hkv, 1, D)
+    v_new: torch.Tensor,
+    mask: torch.Tensor,         # (B, S) bool: the cache rows each lane attends
+    scale: float,
+) -> torch.Tensor:
+    """K2's plain math under any row mask: softmax over the masked scores
+    and the fresh row's self-term, in float32."""
+    B, hq, D = q.shape
+    hkv, S = kcache.shape[1], kcache.shape[2]
+    group = hq // hkv
     qg = q.reshape(B, hkv, group, D).float()
     logits = torch.einsum("bkgd,bkld->bkgl", qg, kcache.float()) * scale
     logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)

@@ -188,6 +188,8 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
         "flash_attention, kv_write, quantized_matmul, w8a8_matmul\n"
         "from qwen3_asr_tpu_torch.ops import sampling, speculative\n"
         "from qwen3_asr_tpu_torch.ops import quant, quant_kv\n"
+        "from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5, "
+        "decode_attention_sched\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'qwen3_asr_tpu.'))"
         " or m == 'qwen3_asr_tpu']\n"
         "assert not bad, bad\n"
@@ -206,3 +208,80 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_warm_up_deployment_grid(pair, caplog):
+    """Mirror of tests/test_api.py's test: the deployment dict's grid, one
+    log line per cell and the same closing line."""
+    import logging
+
+    _, port = pair
+    with caplog.at_level(logging.INFO, logger="qwen3_asr_tpu_torch"):
+        port.warm_up(deployment={
+            "durations": (0.5, 1.0),
+            "batch_sizes": (1, 2),
+            "max_tokens": (2,),
+        })
+    assert "warm_up 4/4" in caplog.text
+    assert "warm_up complete: 4 program shapes" in caplog.text
+
+
+def test_warm_up_tuple_max_tokens(pair, caplog, monkeypatch):
+    """A tuple of budgets warms each one: (batch, duration, budget) cells."""
+    import logging
+
+    _, port = pair
+    seen = []
+    real = port.transcribe_batch
+    monkeypatch.setattr(port, "transcribe_batch",
+                        lambda clips, max_tokens: seen.append((len(clips), max_tokens))
+                        or real(clips, max_tokens=max_tokens))
+    with caplog.at_level(logging.INFO, logger="qwen3_asr_tpu_torch"):
+        port.warm_up(durations=(0.3,), batch_sizes=(1, 3), max_tokens=(2, 3))
+    assert seen == [(1, 2), (1, 3), (3, 2), (3, 3)]
+    assert "warm_up 4/4: batch=3 duration=0.3s max_tokens=3" in caplog.text
+    assert "warm_up complete: 4 program shapes" in caplog.text
+
+
+#: Public names of the JAX package that later slices bring (ROADMAP Queue 1,
+#: "Multi-GPU" and "Streaming and incremental sessions").
+LATER_SLICES = {"ReplicatedTranscriptionServer", "IncrementalSession",
+                "StreamingTranscriber", "StreamSegment"}
+
+
+def test_root_exports_match_jax():
+    import qwen3_asr_tpu as jax_pkg
+
+    import qwen3_asr_tpu_torch as port_pkg
+
+    assert LATER_SLICES <= set(jax_pkg.__all__)
+    assert port_pkg.__all__ == [n for n in jax_pkg.__all__ if n not in LATER_SLICES]
+    namespace: dict = {}
+    exec("from qwen3_asr_tpu_torch import *", namespace)
+    assert set(port_pkg.__all__) - {"__version__"} <= set(namespace)
+
+
+def test_log_mel_spectrogram_matches_jax():
+    """The unbucketed mel against the JAX package's on the CPU (1e-4, as
+    tests/test_torch_modules.py holds the batched mel: a framed matmul
+    against JAX's strided convolution), float and int16 input."""
+    from qwen3_asr_tpu.audio.mel import log_mel_spectrogram as jax_mel
+
+    from qwen3_asr_tpu_torch import log_mel_spectrogram
+
+    for audio in (clips((1.3,), seed=8)[0], (clips((0.7,), seed=9)[0] * 30000).astype(np.int16),
+                  np.zeros(100, np.float32)):
+        out = log_mel_spectrogram(audio, device="cpu")
+        ref = np.asarray(jax_mel(audio))
+        assert out.shape == ref.shape == (128, max(1, len(audio) // 160))
+        assert out.device.type == "cpu" and out.dtype.is_floating_point
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_log_mel_spectrogram_np_equals_jax():
+    from qwen3_asr_tpu.audio.mel import log_mel_spectrogram_np as jax_np
+
+    from qwen3_asr_tpu_torch import log_mel_spectrogram_np
+
+    for audio in (clips((2.1,), seed=10)[0], (clips((0.9,), seed=11)[0] * 30000).astype(np.int16)):
+        np.testing.assert_array_equal(log_mel_spectrogram_np(audio), jax_np(audio))
