@@ -11,7 +11,8 @@ failure raises and the script exits non-zero):
   2. build the CUDA kernels from ``qwen3_asr_tpu_torch/csrc`` (seconds);
   3. each kernel against its plain PyTorch version at main-path shapes, on
      the card: max abs error vs the plain version computed in float32
-     (K1, K2, K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9: f32
+     (K1 at B=8, T = 64, 448, 1024, 1088, 77 and B=64, T=448; K1, K2,
+     K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9: f32
      tolerance, 1e-5 of the largest |value| + rtol 1e-5, against the f32
      product of the same int8 weights; K3, K3 int8, K5 and K10: exact, K5
      with overflow rows dropped; K6 and K7, the paged decode attention and
@@ -23,7 +24,10 @@ failure raises and the script exits non-zero):
      output; K11c and K11d, decode attention with per-lane decode ends and
      an idle lane, at K2's shapes and B=6: as K2, with K2's time beside
      theirs), kernel, plain and
-     library-call times from CUDA events, the bound (bytes over 3.35 TB/s
+     library-call times from CUDA events (K3, K3 int8, K5 and K8, which
+     launch-bound wrappers pace from the host: kernel and ``index_put_`` by
+     device time, a CUDA graph of 20 calls replayed between two events, the
+     host-paced readings printed beside), the bound (bytes over 3.35 TB/s
      or operations over the peak of their type, whichever is larger), and
      the share of the published peak; then the ``kernelab`` section of
      ``tools/torch_micro_bench.py`` (K2, K11d and K11c over 28 layers at
@@ -245,6 +249,52 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds per call with the host out of the reading:
+    ``iters`` calls captured in one CUDA graph, replayed ``replays`` times
+    between two CUDA events.  For launch-bound kernels, whose host-paced
+    ``cuda_ms`` shows the wrapper's Python cost per call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def write_times(label: str, kernel, plain, library=None) -> dict:
+    """A launch-bound write kernel's ms and library_ms by device time
+    (``graph_ms``), the host-paced ``cuda_ms`` readings printed beside; the
+    plain version's ms host-paced (some plain versions sync on the host,
+    which a graph cannot capture)."""
+    host = {"ms": cuda_ms(kernel), "library_ms": None if library is None else cuda_ms(library)}
+    dev = {"ms": graph_ms(kernel), "library_ms": None if library is None else graph_ms(library)}
+    plain_ms = cuda_ms(plain)
+
+    def fmt(t):
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        return f"kernel {t['ms']:.4f}, index_put_ {lib} ms"
+
+    print(f"{label}: device time (CUDA graph of 20 calls, 5 replays) {fmt(dev)}; "
+          f"host-paced (20 calls between events) {fmt(host)}, plain {plain_ms:.4f} ms")
+    return {**dev, "plain_ms": plain_ms}
+
+
 def bound(nbytes: float, ops: float, peak_ops_per_s: float) -> dict:
     """The least time the card could take for a call: the larger of its
     bytes (each input read once, each output written once) over the HBM
@@ -286,16 +336,16 @@ def check_flash(gen) -> dict:
 
     from qwen3_asr_tpu_torch.ops.kernels import flash_attention as fa
 
-    B, hq, hkv, D = 8, 16, 8, 128
+    hq, hkv, D = 16, 8, 128
     worst, times = 0.0, []
-    for T in (64, 448, 1024, 1088, 77):
+    for B, T in ((8, 64), (8, 448), (8, 1024), (8, 1088), (8, 77), (64, 448)):
         q = torch.randn(B, hq, T, D, generator=gen, device="cuda").bfloat16()
         k = torch.randn(B, hkv, T, D, generator=gen, device="cuda").bfloat16()
         v = torch.randn(B, hkv, T, D, generator=gen, device="cuda").bfloat16()
         out = fa.flash_attention_causal(q, k, v)
         torch.cuda.synchronize()
         ref = fa.flash_attention_causal_plain(q.float(), k.float(), v.float())
-        err = _close(f"K1 T={T}", out, ref, 2e-2, 2e-2)
+        err = _close(f"K1 B={B} T={T}", out, ref, 2e-2, 2e-2)
         ms = cuda_ms(lambda: fa.flash_attention_causal(q, k, v))
         plain_ms = cuda_ms(lambda: fa.flash_attention_causal_plain(q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -307,13 +357,15 @@ def check_flash(gen) -> dict:
         tflops = flops / (ms * 1e-3) / 1e12
         print(f"K1 flash_attention_causal B={B} T={T}: max_abs_err={err:.3e} "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); {tflops:.1f} TFLOP/s "
-              f"= {tflops / PEAK_BF16_TFLOPS:.1%} of the bf16 peak")
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) = {b['bound_ms'] / ms:.1%} "
+              f"of the kernel's time (sdpa {b['bound_ms'] / library_ms:.1%}); "
+              f"{tflops:.1f} TFLOP/s = {tflops / PEAK_BF16_TFLOPS:.1%} of the bf16 peak")
         worst = max(worst, err)
-        times.append((T, {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}))
-    # The record's time is the main path's largest smoke shape (T=448: the
-    # 30 s bucket's 64-aligned prefill run).
-    return {"max_abs_err": worst, **next(t for T, t in times if T == 448)}
+        times.append(((B, T), {"ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}))
+        del q, k, v, out, ref
+    # The record's time is the main path's largest smoke shape (B=8, T=448:
+    # the 30 s bucket's 64-aligned prefill run).
+    return {"max_abs_err": worst, **next(t for bt, t in times if bt == (8, 448))}
 
 
 def check_decode(gen) -> dict:
@@ -389,8 +441,7 @@ def check_kv_write(gen) -> dict:
             raise AssertionError(f"K3 {label}: differs from the plain version")
         print(f"K3 kv_write_rows {label}: bit-exact")
     work = cache.clone()
-    ms = cuda_ms(lambda: kw.kv_write_rows(work, rows, 600))
-    plain_ms = cuda_ms(lambda: kw.kv_write_rows_plain(work, rows, torch.full_like(slots, 600)))
+    shared = torch.full_like(slots, 600)
     # One index_put_ of the same rows at the same (lane, slot) pairs.
     lane = torch.arange(B, device="cuda")
     slot = torch.full((B,), 600, device="cuda")
@@ -399,12 +450,12 @@ def check_kv_write(gen) -> dict:
     def index_put():
         work[:, lane, :, slot] = vals
 
-    library_ms = cuda_ms(index_put)
+    t = write_times(f"K3 kv_write_rows L={L} B={B} S={S}",
+                    lambda: kw.kv_write_rows(work, rows, 600),
+                    lambda: kw.kv_write_rows_plain(work, rows, shared), index_put)
     b = bound(2 * L * B * hkv * D * 2, 0, 1.0)
-    print(f"K3 kv_write_rows L={L} B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_put_ {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms (bytes)")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": library_ms}
+    print(f"K3 bound {b['bound_ms']:.4f} ms (bytes)")
+    return {"max_abs_err": 0.0, **t, **b}
 
 
 def check_decode_q8(gen) -> dict:
@@ -654,8 +705,8 @@ def check_conv_stem(gen) -> dict:
               f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d+bias "
               f"{library_ms:.4f} ms (layout {'channels-last' if lib.is_contiguous(memory_format=torch.channels_last) else 'NCHW'}, "
               f"max |conv2d - f32 taps| {lib_err:.3e}), bound {bnd['bound_ms']:.4f} ms "
-              f"({bnd['bound_by']}); {tflops:.1f} TFLOP/s = {tflops / PEAK_BF16_TFLOPS:.1%} "
-              f"of the bf16 peak")
+              f"({bnd['bound_by']}) = {bnd['bound_ms'] / ms:.1%} of the kernel's time "
+              f"(cuDNN {bnd['bound_ms'] / library_ms:.1%}); {tflops:.1f} TFLOP/s")
         worst = max(worst, err)
         parts.append((ms, plain_ms, bnd, library_ms))
         del x, out, ref, lib
@@ -685,14 +736,14 @@ def check_kv_write_q8(gen) -> dict:
             raise AssertionError(f"K3 int8 {label}: differs from the plain version")
         print(f"K3 kv_write_rows_q8 {label}: bit-exact")
     work = {k: v.clone() for k, v in cache.items()}
-    ms = cuda_ms(lambda: kw.kv_write_rows_q8(work, rows, shared))
-    plain_ms = cuda_ms(lambda: kw.kv_write_rows_q8_plain(work, rows, shared))
+    # No one PyTorch call quantizes a row and stores it with its scale.
+    t = write_times(f"K3 kv_write_rows_q8 L={L} B={B} S={S}",
+                    lambda: kw.kv_write_rows_q8(work, rows, shared),
+                    lambda: kw.kv_write_rows_q8_plain(work, rows, shared))
     # bf16 rows in; int8 rows and f32 scales out.
     b = bound(L * B * hkv * (D * 2 + D + 4), 0, 1.0)
-    print(f"K3 kv_write_rows_q8 L={L} B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b['bound_ms']:.4f} ms (bytes)")
-    # No one PyTorch call quantizes a row and stores it with its scale.
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    print(f"K3 int8 bound {b['bound_ms']:.4f} ms (bytes)")
+    return {"max_abs_err": 0.0, **t, **b}
 
 
 #: Decoder (K, N) of every decode-time matmul (1.7B widths): fused QKV, o,
@@ -824,24 +875,22 @@ def check_kv_write_span(gen) -> dict:
     print(f"K5 kv_write_span_batch L={L} B={B} T={T} S={S}, slots {slots.tolist()}: "
           f"bit-exact, overflow rows dropped")
     work = cache.clone()
-    ms = cuda_ms(lambda: kw.kv_write_span_batch(work, rows, slots))
-    plain_ms = cuda_ms(lambda: kw.kv_write_span_batch_plain(work, rows, slots))
     lane, row, slot = kw.span_indices(slots, T, S)
     vals = rows[:, lane, :, row].contiguous()
 
     def index_put():
         work[:, lane, :, slot] = vals
 
-    library_ms = cuda_ms(index_put)
+    t = write_times("K5 kv_write_span_batch", lambda: kw.kv_write_span_batch(work, rows, slots),
+                    lambda: kw.kv_write_span_batch_plain(work, rows, slots), index_put)
     # The valid rows, read once and written once.
     nbytes = 2 * L * hkv * D * 2 * int(lane.numel())
     b = bound(nbytes, 0, 1.0)
-    gbps = nbytes / (ms * 1e-3) / 1e9
-    print(f"K5 kv_write_span_batch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_put_ {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms (bytes); "
-          f"{lane.numel()} valid span rows per layer and head, {gbps:.0f} GB/s = "
-          f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
+    gbps = nbytes / (t["ms"] * 1e-3) / 1e9
+    print(f"K5 bound {b['bound_ms']:.4f} ms (bytes); {lane.numel()} valid span rows per "
+          f"layer and head, {gbps:.0f} GB/s by device time = {gbps / PEAK_HBM_GBPS:.1%} of "
+          f"the HBM peak")
+    return {"max_abs_err": 0.0, **t, **b}
 
 
 def smoke_prompt_lens() -> list[int]:
@@ -972,9 +1021,7 @@ def check_kv_write_paged(gen, q8: bool) -> dict:
         print(f"{label} kv_write_rows_paged T={T}: bit-exact outside the trash page")
         if T == 1:
             work = clone(pool)
-            ms = cuda_ms(lambda: fn(work, rows, pages, offs))
-            plain_ms = cuda_ms(lambda: plain(work, rows, pages, offs))
-            library_ms = None
+            index_put = None
             if not q8:
                 keep, p, o = kw.paged_indices(pages, offs, n_pages, PS)
                 vals = rows.permute(1, 3, 0, 2, 4).reshape(B * T, L, hkv, D)[keep].contiguous()
@@ -982,15 +1029,14 @@ def check_kv_write_paged(gen, q8: bool) -> dict:
                 def index_put():
                     work[:, p, :, o] = vals
 
-                library_ms = cuda_ms(index_put)
-            # bf16 rows in; bf16 rows, or int8 rows and f32 scales, out.
-            b = bound(L * B * T * hkv * (D * 2 + ((D + 4) if q8 else D * 2)), 0, 1.0)
-            lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
-            print(f"{label} kv_write_rows_paged L={L} B={B} T=1: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, index_put_ {lib}, bound {b['bound_ms']:.4f} ms (bytes)")
             # int8: no one PyTorch call quantizes a row and stores it with its scale.
-            rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, **b,
-                   "library_ms": library_ms}
+            t = write_times(f"{label} kv_write_rows_paged L={L} B={B} T=1",
+                            lambda: fn(work, rows, pages, offs),
+                            lambda: plain(work, rows, pages, offs), index_put)
+            # bf16 rows in; bf16 rows, or int8 rows and f32 scales out.
+            b = bound(L * B * T * hkv * (D * 2 + ((D + 4) if q8 else D * 2)), 0, 1.0)
+            print(f"{label} bound {b['bound_ms']:.4f} ms (bytes)")
+            rec = {"max_abs_err": 0.0, **t, **b}
     return rec
 
 

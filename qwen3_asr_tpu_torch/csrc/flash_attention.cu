@@ -5,235 +5,476 @@
 // bf16 -> out (B, Hq, T, 128) bf16; query i attends keys j <= i; query head
 // h reads KV head h / (Hq / Hkv).
 //
-// Bound on the H100: tensor-core FLOPs at long prompts (4*T*T/2*D per head),
-// bytes at short ones.  Design: one block of 4 warps per (64-row query tile,
-// q head, batch element); each warp owns 16 query rows and keeps its Q
-// fragments and its 16x128 output accumulator in registers.  The block walks
-// 64-key K/V tiles only up to the diagonal, staging each tile in shared
-// memory (rows padded by 16 bytes so fragment loads hit 32 distinct banks),
-// and runs both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// f32 accumulate).  The online softmax runs in f32 with a finite mask value
-// (-0.7 * FLT_MAX, as the TPU kernel) and the l == 0 -> 1 guard; the ragged
-// edge (T not a multiple of 64) is masked here, so any T >= 1 works.  No
-// TMA, wgmma or pipelining yet: simple and correct first.
+// Bound on the H100: bytes at the main path's prompts (B=8, T=448: 44 MB of
+// q, k, v and out against 6.6 GFLOP, 13 us against 7 us), operations from
+// T ~ 1000 on.  Design, for Hopper:
+//   * a work item is one KV head's 64-key/value tiles shared by two 64-row
+//     query units: the two query heads of a GQA pair on the same 64 rows
+//     (Hq / Hkv >= 2; a lone last head of an odd group leaves its unit
+//     idle), or two neighbouring 64-row tiles of one head (Hq == Hkv), so
+//     every K/V tile is read once for both units;
+//   * a block of three warpgroups: a producer whose one thread keeps TMA
+//     loads in flight, and two consumers, one per query unit.  Q arrives by
+//     TMA per unit into one of two buffers (each refilled as soon as its
+//     unit's last Q K^T on it is done); K and V tiles by TMA into a 4-stage ring of 32 KB stages,
+//     synchronised by mbarriers (full: the TMA bytes; empty: the 256
+//     consumer threads).  All tiles use the 128-byte swizzle, loaded as
+//     64-column boxes of a 3-D map (B*H, T, 128), so rows past T inside a
+//     head load as zeros;
+//   * S = Q K^T by wgmma m64n64k16 (both operands K-major in shared
+//     memory); the online softmax in f32; P rounded to bf16 in registers
+//     is the A operand of O += P V, wgmma m64n128k16 with V as the
+//     MN-major B operand (the transpose bit), so P never touches shared
+//     memory;
+//   * each consumer issues tile t's Q K^T together with tile t-1's P V
+//     and runs tile t's softmax while that P V is on the tensor cores;
+//   * persistent blocks, one per SM, walk the items in chunks of KV heads
+//     whose K/V fit in L2 (24 MB), heaviest causal rows first inside a
+//     chunk, in a snake order (round r forwards when r is even, backwards
+//     when odd) that evens out the triangle's work.  The ring runs on
+//     across items and Q is double-buffered, so the next item's loads
+//     overlap this one's tail.
+// The mask value is finite (-0.7 * FLT_MAX, as the TPU kernel) and the
+// row sum l == 0 -> 1 guard stays; only a unit's diagonal tile is masked
+// (key > query); rows past T are computed on zeros and not stored.  The
+// arithmetic is that of the earlier mma.sync kernel, operation for
+// operation (s * scale, expf, the same summation orders), and its output
+// is bit-identical to that kernel's: an exp2f softmax with scale * log2(e)
+// folded in was 5-7% faster but moved bits, and with them the greedy
+// streams downstream.  Turn-taking between the two consumers (named
+// barriers, so that one's softmax runs under the other's products) was
+// 11-16% slower at T=448 and is not used.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kD = 128;
-constexpr int kBlockM = 64;          // query rows per block, 16 per warp
-constexpr int kBlockN = 64;          // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLds = kD + 8;         // padded shared-memory row, in bf16
+constexpr int kBM = 64;               // query rows per consumer warpgroup
+constexpr int kBN = 64;               // keys per K/V tile
+constexpr int kStages = 4;
+constexpr int kUnits = 2;             // consumer warpgroups
+constexpr int kThreads = (kUnits + 1) * 128;
+constexpr int kBox = 64 * 64 * 2;     // one 64-row x 64-column box: 8 KB
+constexpr int kTile = 2 * kBox;       // 64 rows x 128 head dims: 16 KB
+constexpr int kOffQ = 0;
+constexpr int kOffK = kOffQ + kUnits * 2 * kTile;   // Q double-buffered
+constexpr int kOffV = kOffK + kStages * kTile;
+constexpr int kOffBar = kOffV + kStages * kTile;
+constexpr int kBars = 2 * kStages + 4 * kUnits;
+constexpr int kSmem = kOffBar + 8 * kBars + 1024;   // + alignment slack
 constexpr float kMaskValue = -0.7f * FLT_MAX;
+constexpr int64_t kL2Budget = 24 << 20;   // K/V bytes a chunk of items keeps in L2
+
+struct Geometry {
+  int Hq, Hkv, T;
+  int group;      // Hq / Hkv
+  int pairs;      // head pairs per KV head (1 when group == 1)
+  int n_groups;   // B * Hkv * pairs
+  int n_qb;       // query blocks per head: 64 rows (group >= 2) or 128
+  int chunk;      // groups whose query blocks run together (K/V in L2)
+  int n_items;
+};
+
+// One item: its batch element, KV head and the two units' query heads,
+// first rows and tile counts (0 for an idle unit).
+struct Work {
+  int b, hkv, n_tiles;
+  int h[kUnits], q0[kUnits], tiles[kUnits];
+};
+
+__device__ __forceinline__ Work decode_item(const Geometry& g, int item) {
+  Work w;
+  // Items run chunk by chunk of g.chunk groups, so that the K/V rows every
+  // query block of a group re-reads stay in L2; inside a chunk the
+  // heaviest query blocks come first.
+  const int per_chunk = g.chunk * g.n_qb;
+  const int ci = item / per_chunk;
+  const int r = item - ci * per_chunk;
+  const int gc = min(g.chunk, g.n_groups - ci * g.chunk);
+  const int qb = g.n_qb - 1 - r / gc;
+  const int rest = ci * g.chunk + r % gc;
+  const int pair = rest % g.pairs;
+  w.hkv = (rest / g.pairs) % g.Hkv;
+  w.b = rest / (g.pairs * g.Hkv);
+  w.n_tiles = 0;
+#pragma unroll
+  for (int u = 0; u < kUnits; ++u) {
+    bool valid;
+    if (g.group >= 2) {
+      const int hi = 2 * pair + u;
+      valid = hi < g.group;
+      w.h[u] = w.hkv * g.group + min(hi, g.group - 1);
+      w.q0[u] = qb * kBM;
+    } else {
+      w.h[u] = w.hkv;
+      w.q0[u] = qb * 2 * kBM + u * kBM;
+      valid = w.q0[u] < g.T;
+    }
+    w.tiles[u] = valid ? w.q0[u] / kBN + 1 : 0;
+    w.n_tiles = max(w.n_tiles, w.tiles[u]);
+  }
+  return w;
+}
+
+// The item of round r for this block (snake order), or -1.
+__device__ __forceinline__ int item_of(const Geometry& g, int r) {
+  const int base = r * gridDim.x;
+  const int i = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return base + i < g.n_items ? base + i : -1;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int T,
-                     float scale) {
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * kLds];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockN * kLds];
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;             // fragment row group
-  const int tig = lane & 3;            // thread in group
-  const int q0 = blockIdx.x * kBlockM;
-  const int r0 = q0 + warp * 16 + g;   // this thread's two query rows
-  const int r1 = r0 + 8;
-  const int64_t q_base = ((int64_t)b * Hq + h) * T * kD;
-  const int64_t kv_base = ((int64_t)b * Hkv + hk) * T * kD;
-
-  // Q as mma A fragments: 8 k-steps of 16 head dims.
-  uint32_t qf[kD / 16][4];
+// S = Q K^T for one 64-key tile: eight k16 steps over the head dim, Q and K
+// both K-major (each a pair of 64-column boxes).  Issued, not committed.
+__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t sq, uint32_t sk) {
 #pragma unroll
   for (int ks = 0; ks < kD / 16; ++ks) {
-    const int c = ks * 16 + tig * 2;
-    qf[ks][0] = r0 < T ? load_pair(q + q_base + (int64_t)r0 * kD + c) : 0u;
-    qf[ks][1] = r1 < T ? load_pair(q + q_base + (int64_t)r1 * kD + c) : 0u;
-    qf[ks][2] = r0 < T ? load_pair(q + q_base + (int64_t)r0 * kD + c + 8) : 0u;
-    qf[ks][3] = r1 < T ? load_pair(q + q_base + (int64_t)r1 * kD + c + 8) : 0u;
+    const uint32_t off = (ks / 4) * kBox + (ks % 4) * 32;
+    hopper::wgmma_m64n64k16_ss<0>(s, hopper::desc_sw128(sq + off, 16, 1024),
+                                  hopper::desc_sw128(sk + off, 16, 1024), ks > 0);
   }
+}
 
-  float acc[kD / 8][4];
+// O += P V: P as the register A operand, V the MN-major B operand (its two
+// 64-column boxes LBO apart).  Issued, not committed.
+__device__ __forceinline__ void issue_pv(float (&o)[kD / 2], const uint32_t (&pa)[kBN / 16][4],
+                                         uint32_t sv) {
 #pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    hopper::wgmma_m64n128k16_rs<1>(o, pa[kk],
+                                   hopper::desc_sw128(sv + kk * 16 * 128, kBox, 1024), 1);
   }
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1
-  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+}
 
-  const int kv_end = min(T, q0 + kBlockM);   // causal: keys <= last row
-  for (int j0 = 0; j0 < kv_end; j0 += kBlockN) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBlockN * (kD / 8); i += kThreads) {
-      const int row = i / (kD / 8);
-      const int cv = (i % (kD / 8)) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + row < T) {
-        const int64_t off = kv_base + (int64_t)(j0 + row) * kD + cv;
-        kv4 = *reinterpret_cast<const uint4*>(k + off);
-        vv4 = *reinterpret_cast<const uint4*>(v + off);
+// Keeps P's registers live until the PV wgmma that reads them has completed.
+__device__ __forceinline__ void fence_p(uint32_t (&pa)[kBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+}
+
+// The online softmax of one tile: scales s, masks keys past
+// the diagonal (diag: the unit's last tile), folds the tile into the running
+// max m and sums l (this thread's share), leaves p = exp(s - m) in s and
+// returns the factors a by which the output must be rescaled.
+__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], float& m0, float& m1,
+                                             float& l0, float& l1, float& a0, float& a1,
+                                             bool diag, int j0, int r0, int tq,
+                                             float scale) {
+  float tmax0 = kMaskValue, tmax1 = kMaskValue;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e < 2 ? 0 : 8);
+      const int col = j0 + j * 8 + tq * 2 + (e & 1);
+      float x = s[4 * j + e] * scale;
+      if (diag && col > row) x = kMaskValue;
+      s[4 * j + e] = x;
+      if (e < 2) {
+        tmax0 = fmaxf(tmax0, x);
+      } else {
+        tmax1 = fmaxf(tmax1, x);
       }
-      *reinterpret_cast<uint4*>(&sK[row * kLds + cv]) = kv4;
-      *reinterpret_cast<uint4*>(&sV[row * kLds + cv]) = vv4;
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {   // the 4 threads sharing a row
+    tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, o2));
+    tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, o2));
+  }
+  const float mn0 = fmaxf(m0, tmax0);
+  const float mn1 = fmaxf(m1, tmax1);
+  a0 = expf(m0 - mn0);
+  a1 = expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    s[4 * j + 0] = expf(s[4 * j + 0] - mn0);
+    s[4 * j + 1] = expf(s[4 * j + 1] - mn0);
+    s[4 * j + 2] = expf(s[4 * j + 2] - mn1);
+    s[4 * j + 3] = expf(s[4 * j + 3] - mn1);
+    ps0 += s[4 * j + 0] + s[4 * j + 1];
+    ps1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * a0 + ps0;
+  l1 = l1 * a1 + ps1;
+}
 
-    // S = Q K^T over this tile: 8 n-tiles of 8 keys.
-    float s[kBlockN / 8][4];
+// P's accumulator layout is mma.sync's A fragment: k16 step kk takes the
+// column pairs j = 2kk (registers 8kk..8kk+3) and 2kk + 1.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBN / 16][4], const float (&s)[kBN / 2]) {
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ void scale_o(float (&o)[kD / 2], float a0, float a1) {
 #pragma unroll
-      for (int ks = 0; ks < kD / 16; ++ks) {
-        const __nv_bfloat16* kp = &sK[(nt * 8 + g) * kLds + ks * 16 + tig * 2];
-        mma_16816(s[nt], qf[ks], load_pair(kp), load_pair(kp + 8));
-      }
+  for (int j = 0; j < kD / 8; ++j) {
+    o[4 * j + 0] *= a0;
+    o[4 * j + 1] *= a0;
+    o[4 * j + 2] *= a1;
+    o[4 * j + 3] *= a1;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     __nv_bfloat16* __restrict__ out, const Geometry g,
+                     float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;      // [unit][buffer]
+  uint64_t* q_empty = q_full + kUnits * 2;
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kUnits * 128);
     }
+    for (int i = 0; i < kUnits * 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-    float tmax0 = kMaskValue, tmax1 = kMaskValue;
+  if (wg == kUnits) {
+    // Producer warpgroup: one thread issues every load.  Q of a block's
+    // c-th item goes to buffer c % 2, so it lands while item c - 1 runs.
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 0) {
+      hopper::prefetch_tensormap(&map_q);
+      hopper::prefetch_tensormap(&map_k);
+      hopper::prefetch_tensormap(&map_v);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = 0;; ++c) {
+        const int item = item_of(g, c);
+        if (item < 0) break;
+        const Work w = decode_item(g, item);
+        const int buf = c & 1;
+        const uint32_t q_phase = (c >> 1) & 1;
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = j0 + nt * 8 + tig * 2 + (e & 1);
-        const float x = (col <= row && col < T) ? s[nt][e] * scale : kMaskValue;
-        s[nt][e] = x;
-        if (e < 2) {
-          tmax0 = fmaxf(tmax0, x);
-        } else {
-          tmax1 = fmaxf(tmax1, x);
+        for (int u = 0; u < kUnits; ++u) {
+          uint64_t* qf = &q_full[u * 2 + buf];
+          hopper::mbar_wait(&q_empty[u * 2 + buf], q_phase ^ 1);
+          hopper::mbar_arrive_expect_tx(qf, kTile);
+          uint8_t* dst = smem + kOffQ + (u * 2 + buf) * kTile;
+          const int head = w.b * g.Hq + w.h[u];
+          hopper::tma_load_3d(dst, &map_q, qf, 0, w.q0[u], head);
+          hopper::tma_load_3d(dst + kBox, &map_q, qf, 64, w.q0[u], head);
+        }
+        const int head = w.b * g.Hkv + w.hkv;
+        for (int t = 0; t < w.n_tiles; ++t) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[stage], 2 * kTile);
+          uint8_t* dk = smem + kOffK + stage * kTile;
+          uint8_t* dv = smem + kOffV + stage * kTile;
+          hopper::tma_load_3d(dk, &map_k, &full[stage], 0, t * kBN, head);
+          hopper::tma_load_3d(dk + kBox, &map_k, &full[stage], 64, t * kBN, head);
+          hopper::tma_load_3d(dv, &map_v, &full[stage], 0, t * kBN, head);
+          hopper::tma_load_3d(dv + kBox, &map_v, &full[stage], 64, t * kBN, head);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-    // The four threads of a group share rows r0 and r1.
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, o));
-      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, o));
-    }
-    const float mn0 = fmaxf(m0, tmax0);
-    const float mn1 = fmaxf(m1, tmax1);
-    const float a0 = expf(m0 - mn0);
-    const float a1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
+  } else {
+    // Consumer warpgroup wg: query unit wg of every item.  Tile t's Q K^T
+    // is issued together with tile t-1's P V; the softmax of tile t runs
+    // while that P V is still on the tensor cores.
+    hopper::setmaxnreg_inc<232>();
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int gq = lane >> 2;        // accumulator row group
+    const int tq = lane & 3;         // thread in group
+    const uint32_t sk0 = hopper::smem_u32(smem + kOffK);
+    const uint32_t sv0 = hopper::smem_u32(smem + kOffV);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int c = 0;; ++c) {
+      const int item = item_of(g, c);
+      if (item < 0) break;
+      const Work w = decode_item(g, item);
+      const int my_tiles = wg == 0 ? w.tiles[0] : w.tiles[1];
+      const int q0 = wg == 0 ? w.q0[0] : w.q0[1];
+      const int h = wg == 0 ? w.h[0] : w.h[1];
+      const int r0 = q0 + warp * 16 + gq;     // this thread's rows r0, r0 + 8
+      const int qi = wg * 2 + (c & 1);
+      const uint32_t sq = hopper::smem_u32(smem + kOffQ + qi * kTile);
+      hopper::mbar_wait(&q_full[qi], (c >> 1) & 1);
 
-    float ps0 = 0.f, ps1 = 0.f;
+      float o[kD / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
+      for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY;  // running max
+      float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+      float a0, a1;
+      float s[kBN / 2];
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a0;
-      acc[dt][2] *= a1;
-      acc[dt][3] *= a1;
-    }
+      for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+      uint32_t pa[kBN / 16][4];
+      int prev = 0;                          // stage of the tile P belongs to
 
-    // O += P V: P's accumulator layout is reused as the A fragment.
+      for (int t = 0; t < my_tiles; ++t) {
+        hopper::mbar_wait(&full[stage], phase);
+        hopper::fence_regs(s);
+        hopper::fence_regs(o);
+        hopper::wgmma_fence();
+        issue_qk(s, sq, sk0 + stage * kTile);
+        hopper::wgmma_commit();
+        if (t > 0) {
+          issue_pv(o, pa, sv0 + prev * kTile);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();           // S of tile t is in
+        } else {
+          hopper::wgmma_wait<0>();
+        }
+        hopper::fence_regs(s);
+        if (t == my_tiles - 1) hopper::mbar_arrive(&q_empty[qi]);
+        softmax_tile(s, m0, m1, l0, l1, a0, a1, t == my_tiles - 1, t * kBN, r0, tq,
+                     scale);
+        if (t > 0) {
+          hopper::wgmma_wait<0>();           // P V of tile t - 1 is in
+          hopper::fence_regs(o);
+          fence_p(pa);
+          hopper::mbar_arrive(&empty[prev]);
+        }
+        scale_o(o, a0, a1);
+        pack_p(pa, s);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (my_tiles > 0) {
+        hopper::fence_regs(o);
+        hopper::wgmma_fence();
+        issue_pv(o, pa, sv0 + prev * kTile);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        fence_p(pa);
+        hopper::mbar_arrive(&empty[prev]);
+      } else {
+        hopper::mbar_arrive(&q_empty[qi]);
+      }
+      // Tiles the other unit needs and this one does not (an idle unit, or
+      // the lower query tile when Hq == Hkv).
+      for (int t = my_tiles; t < w.n_tiles; ++t) {
+        hopper::mbar_wait(&full[stage], phase);
+        hopper::mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (my_tiles == 0) continue;
+
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int key = kk * 16 + tig * 2;
+      for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+      }
+      const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+      const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+      const int r1 = r0 + 8;
+      __nv_bfloat16* base = out + ((int64_t)w.b * g.Hq + h) * g.T * kD;
 #pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        const int col = dt * 8 + g;
-        const uint32_t b0 =
-            pack_bf16_raw(sV[key * kLds + col], sV[(key + 1) * kLds + col]);
-        const uint32_t b1 = pack_bf16_raw(sV[(key + 8) * kLds + col],
-                                          sV[(key + 9) * kLds + col]);
-        mma_16816(acc[dt], pa, b0, b1);
+      for (int j = 0; j < kD / 8; ++j) {
+        const int col = j * 8 + tq * 2;
+        if (r0 < g.T) {
+          *reinterpret_cast<uint32_t*>(base + (int64_t)r0 * kD + col) =
+              pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+        }
+        if (r1 < g.T) {
+          *reinterpret_cast<uint32_t*>(base + (int64_t)r1 * kD + col) =
+              pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+        }
       }
     }
   }
+}
 
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    if (r0 < T) {
-      *reinterpret_cast<uint32_t*>(out + q_base + (int64_t)r0 * kD + col) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    }
-    if (r1 < T) {
-      *reinterpret_cast<uint32_t*>(out + q_base + (int64_t)r1 * kD + col) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    }
-  }
+// A (n_heads, T, 128) bf16 map, 64-row x 64-column boxes.
+cudaError_t head_map(CUtensorMap* map, const void* base, int n_heads, int T) {
+  const cuuint64_t dims[3] = {kD, (cuuint64_t)T, (cuuint64_t)n_heads};
+  const cuuint64_t strides[2] = {kD * 2, (cuuint64_t)T * kD * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return hopper::make_map_bf16(map, base, 3, dims, strides, box);
 }
 
 }  // namespace
 
 // q (B, Hq, T, 128), k/v (B, Hkv, T, 128), out (B, Hq, T, 128): bf16,
-// contiguous, on the device; Hq % Hkv == 0.  Returns the cudaError_t.
+// contiguous, 16-byte aligned, on the device; Hq % Hkv == 0.  Returns the
+// cudaError_t (of the tensor maps' encoding or of the launch).
 extern "C" int flash_attention_causal_bf16(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int Hq, int Hkv, int T, float scale,
                                            void* stream) {
   if (B == 0 || T == 0) return (int)cudaSuccess;
-  const dim3 grid((T + kBlockM - 1) / kBlockM, Hq, B);
-  flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Hq, Hkv, T, scale);
+  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v;
+  cudaError_t err = head_map(&map_q, q, B * Hq, T);
+  if (err == cudaSuccess) err = head_map(&map_k, k, B * Hkv, T);
+  if (err == cudaSuccess) err = head_map(&map_v, v, B * Hkv, T);
+  if (err != cudaSuccess) return (int)err;
+  static bool smem_ok = false;
+  if (!smem_ok) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  Geometry g;
+  g.Hq = Hq;
+  g.Hkv = Hkv;
+  g.T = T;
+  g.group = Hq / Hkv;
+  g.pairs = g.group >= 2 ? (g.group + 1) / 2 : 1;
+  g.n_groups = B * Hkv * g.pairs;
+  g.n_qb = g.group >= 2 ? (T + kBM - 1) / kBM : (T + 2 * kBM - 1) / (2 * kBM);
+  const int64_t kv_bytes = (int64_t)T * kD * 2 * 2;    // one KV head's K and V
+  const int64_t fit = kL2Budget / kv_bytes;
+  g.chunk = (int)(fit < 1 ? 1 : (fit > g.n_groups ? g.n_groups : fit));
+  g.n_items = g.n_groups * g.n_qb;
+  int sms = 0;
+  err = hopper::sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = g.n_items < sms ? g.n_items : sms;
+  flash_fwd_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), g,
+      scale);
   return (int)cudaGetLastError();
 }

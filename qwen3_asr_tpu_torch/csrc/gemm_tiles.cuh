@@ -1,8 +1,8 @@
 // Building blocks shared by the tensor-core kernels (quantized_matmul.cu,
-// K9; w8a8_matmul.cu, K10; conv_stem.cu, K11e) and the cp.async rings of
-// decode_stream.cuh (K11a, K11b): 16-byte cp.async copies into shared memory
-// with zero fill, the group commit/wait pair, ldmatrix, the two mma.sync
-// shapes, and the dynamic shared-memory opt-in.
+// K9; w8a8_matmul.cu, K10), the im2col gather of conv_stem.cu (K11e) and
+// the cp.async rings of decode_stream.cuh (K11a-K11d): 16-byte cp.async
+// copies into shared memory with zero fill, the group commit/wait pair, the
+// two mma.sync shapes, and the dynamic shared-memory opt-in.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16/k32"): in a
 // warp, lane = 4 * g + t (g = lane >> 2, t = lane & 3).  The accumulator
@@ -44,27 +44,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory; lanes 8j..8j+7 give the row
-// addresses of matrix j, and register j of lane 4g + t holds its row g,
-// columns 2t and 2t + 1.  The .trans form delivers the transposed matrices
-// (rows 2t and 2t + 1 of column g): the "col" B fragment of a row-major
-// (k, n) tile.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
 }
 
 // d += a (16x32, row) * b (32x8, col); int8 operands, int32 accumulator.

@@ -8,11 +8,12 @@ and conv3.
 
 Bound on the H100: operations (conv2 of the 1.7B encoder is 3.3 GFLOP per
 100-frame chunk on ~2.6 MB).  The CUDA kernel (``csrc/conv_stem.cu``) is an
-implicit GEMM on the tensor cores, M = N * H' * W', N = O, K = 9 * C: each
-tap's rows are read straight from the NHWC input at the stride-2 offsets
-(no padded or phase-separated copy, and no slicing of N, both of which the
-TPU kernel needed), ``mma.sync`` m16n8k16 in bf16 with f32 accumulation
-behind a 4-stage ``cp.async`` ring, and the bias and the exact GELU in the
+implicit GEMM for Hopper, M = N * H' * W', N = O, K = 9 * C: 128 x 240
+output tiles on ``wgmma`` (bf16 in, f32 accumulate) behind a 4-stage
+mbarrier ring, the weights by TMA and each tap's rows gathered by a producer
+warpgroup with ``cp.async`` straight from the NHWC input at the stride-2
+offsets (no padded or phase-separated copy, and no slicing of N, both of
+which the TPU kernel needed), and the bias and the exact GELU in the
 epilogue.  It takes C and O multiples of 8.
 
 Numerics follow the TPU kernel: conv + bias accumulate in f32 and round to
@@ -74,8 +75,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
     if C % 8 or O % 8:
         raise ValueError(f"C={C} and O={O} must be multiples of 8")
-    if N * ((H - 1) // 2 + 1) * ((W - 1) // 2 + 1) >= 2**31:
-        raise ValueError(f"{N} images of {H}x{W}: too many output pixels for one launch")
+    if N * H * W >= 2**31 or H >= 2**14 or W >= 2**14:
+        raise ValueError(f"{N} images of {H}x{W}: too many pixels for one launch")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"x and w must be bfloat16, got {x.dtype}, {w.dtype}")
     for name, t in (("w", w), ("b", b)):

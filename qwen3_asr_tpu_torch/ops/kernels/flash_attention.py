@@ -1,13 +1,17 @@
 """K1: causal GQA flash attention for the decoder's fresh prefill.
 
 Replaces ``qwen3_asr_tpu/ops/pallas/flash_attention.py:flash_attention_causal``.
-Bound on the H100: tensor-core FLOPs at long prompts (4 * T^2 / 2 * D per
-query head), bytes at short ones.  The CUDA kernel (``csrc/flash_attention.cu``)
-keeps each 64-row query tile's scores out of device memory: it walks 64-key
-K/V tiles up to the diagonal only, runs both products on the tensor cores
-(``mma.sync``, bf16 in, f32 accumulate) with an f32 online softmax, and masks
-the ragged edge itself, so any T >= 1 works (the TPU kernel's T % 64 / T % 256
-tiling rules do not apply).
+Bound on the H100: bytes at the main path's prompts (B=8, T=448), tensor-core
+FLOPs (4 * T^2 / 2 * D per query head) from T ~ 1000 on.  The CUDA kernel
+(``csrc/flash_attention.cu``) is built for Hopper: persistent blocks walk
+(KV head, 64-row query block) items heaviest first; a producer warp keeps
+TMA loads of K/V tiles in flight in an mbarrier ring, each tile read once for
+the two query heads of a GQA pair (or two query tiles when Hq == Hkv); both
+products run on ``wgmma`` (bf16 in, f32 accumulate), P straight from
+registers, with an f32 online softmax whose arithmetic is the earlier
+``mma.sync`` kernel's (its output is bit-identical).  TMA zero-fills rows past T,
+so any T >= 1 works (the TPU kernel's T % 64 / T % 256 tiling rules do not
+apply).
 
 On a CPU tensor the wrapper runs :func:`flash_attention_causal_plain`, the
 same function in plain PyTorch (sdpa with a causal mask).  On a CUDA tensor
@@ -49,8 +53,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise TypeError(f"{name} must be bfloat16, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def flash_attention_causal(

@@ -322,6 +322,18 @@ def test_wrapper_checks_reject_bad_inputs():
         da_mod._check(qd, cache.float(), cache, new, new, 0, i32, i32)
 
 
+def test_flash_check_rejects_misaligned_inputs():
+    """The kernel loads q, k and v by TMA, which needs 16-byte-aligned bases."""
+    bf = torch.bfloat16
+    kv = torch.zeros(1, 2, 8, 128, dtype=bf)
+    flat = torch.zeros(1 * 4 * 8 * 128 + 8, dtype=bf)
+    q = flat[1:1 + 4 * 8 * 128].view(1, 4, 8, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa_mod._check(q, kv, kv)
+    fa_mod._check(flat[8:].view(1, 4, 8, 128), kv, kv)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
@@ -349,18 +361,38 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 64, 77, 448, 1088])
-def test_cuda_flash_matches_plain(cuda, T):
-    g = torch.Generator(device=cuda).manual_seed(T)
-    q = torch.randn(2, 16, T, 128, generator=g, device=cuda).bfloat16()
-    k = torch.randn(2, 8, T, 128, generator=g, device=cuda).bfloat16()
-    v = torch.randn(2, 8, T, 128, generator=g, device=cuda).bfloat16()
+def _cuda_flash_case(cuda, B, hq, hkv, T):
+    g = torch.Generator(device=cuda).manual_seed(B * 1000 + T * 10 + hq // hkv)
+    q = torch.randn(B, hq, T, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(B, hkv, T, 128, generator=g, device=cuda).bfloat16()
+    v = torch.randn(B, hkv, T, 128, generator=g, device=cuda).bfloat16()
     before = LAUNCHES["flash_attention_causal"]
     out = flash_attention_causal(q, k, v)
+    torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_causal"] == before + 1
     ref = flash_attention_causal_plain(q.float(), k.float(), v.float())
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (8, 8)])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 77, 448, 1088])
+def test_cuda_flash_matches_plain(cuda, T, hq, hkv):
+    """Ragged T inside a 64-row tile and across tiles; a GQA pair per KV head
+    (Hq/Hkv = 2) and two query tiles per KV head (Hq == Hkv)."""
+    _cuda_flash_case(cuda, 2, hq, hkv, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hq,hkv,T", [
+    (64, 16, 8, 448),     # 3584 work items: every block walks ~27
+    (3, 6, 2, 200),       # Hq/Hkv = 3: the last pair's second unit idles
+    (5, 4, 4, 130),       # Hq == Hkv with an odd tile count: an idle unit
+])
+def test_cuda_flash_tile_loop_wraps(cuda, B, hq, hkv, T):
+    """More work items than blocks, so each persistent block's loop wraps
+    (snake order), with idle units in the mix."""
+    _cuda_flash_case(cuda, B, hq, hkv, T)
 
 
 @pytest.mark.cuda

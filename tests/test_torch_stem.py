@@ -173,8 +173,11 @@ def cuda():
 @pytest.mark.parametrize("N,H,W,C,O", [
     (3, 64, 50, 480, 480),        # conv2 of the 1.7B stem, N not a tile multiple
     (5, 32, 25, 480, 480),        # conv3: W = 25 -> 13
-    (2, 10, 9, 64, 72),           # odd sizes, O not a multiple of the 128 tile
+    (2, 10, 9, 64, 72),           # odd sizes, O not a multiple of the 240 tile
     (1, 7, 5, 8, 8),              # C = 8: one 16-byte chunk per tap
+    (2, 11, 13, 480, 96),         # O = 96: one partial column tile; odd H, W
+    (1, 15, 9, 480, 480),         # M = 40: one partial pixel tile
+    (7, 33, 27, 96, 480),         # M = 7 * 17 * 14 = 1666, not a multiple of 128
 ])
 def test_cuda_conv_s2_gelu_matches_plain(cuda, N, H, W, C, O):
     g = torch.Generator(device=cuda).manual_seed(N * H + W)
@@ -188,6 +191,30 @@ def test_cuda_conv_s2_gelu_matches_plain(cuda, N, H, W, C, O):
     ref = cs.conv_s2_gelu_plain(x, w, b)
     assert out.shape == ref.shape and out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_conv_s2_gelu_check_rejects_bad_inputs():
+    """The kernel's input limits: C and O multiples of 8, bf16, 16-byte
+    aligned, and pixel counts and image sides its int32 offsets and 16-bit
+    packed window corners hold."""
+    bf = torch.bfloat16
+    x = torch.zeros(1, 6, 5, 16, dtype=bf)
+    w = torch.zeros(3, 3, 16, 8, dtype=bf)
+    b = torch.zeros(8)
+    cs._check(x, w, b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cs._check(x[..., :12].contiguous(), w[:, :, :12].contiguous(), b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cs._check(x, w[..., :4].contiguous(), b[:4])
+    with pytest.raises(TypeError):
+        cs._check(x.float(), w, b)
+    with pytest.raises(ValueError, match="too many pixels"):
+        cs._check(torch.zeros(1, 2**14, 1, 8, dtype=bf), w[:, :, :8].contiguous(), b)
+    with pytest.raises(ValueError, match="too many pixels"):
+        cs._check(torch.zeros(1, 1, 2**14, 8, dtype=bf), w[:, :, :8].contiguous(), b)
+    flat = torch.zeros(6 * 5 * 16 + 8, dtype=bf)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cs._check(flat[1:1 + 6 * 5 * 16].view(1, 6, 5, 16), w, b)
 
 
 @pytest.mark.cuda
