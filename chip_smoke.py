@@ -12,10 +12,12 @@ failure raises and the script exits non-zero):
   3. each kernel against its plain PyTorch version at main-path shapes, on
      the card: max abs error vs the plain version computed in float32
      (K1 at B=8, T = 64, 448, 1024, 1088, 77 and B=64, T=448; K1, K2,
-     K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9: f32
-     tolerance, 1e-5 of the largest |value| + rtol 1e-5, against the f32
-     product of the same int8 weights; K3, K3 int8, K5 and K10: exact, K5
-     with overflow rows dropped; K6 and K7, the paged decode attention and
+     K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9, at decode M = 1,
+     8, 96 and at the int8-weights prefill's M = 448 and 3584: 1e-5 of the
+     largest |value| + rtol 8e-3 (bf16 out) or 1e-5 (f32 out) against the
+     f32 product of the same int8 weights, two calls bit-identical; K3, K3
+     int8, K5 and K10: exact, K10's row quantize also against
+     ``quantize_activations``, K5 with overflow rows dropped; K6 and K7, the paged decode attention and
      verify over bf16 and int8 pools: as K2; K8, the paged row write, bf16
      and int8: exact outside the trash page 0; K11a and K11b, decode
      attention with one decode end for every lane, at K2's shapes: as K2;
@@ -24,10 +26,12 @@ failure raises and the script exits non-zero):
      output; K11c and K11d, decode attention with per-lane decode ends and
      an idle lane, at K2's shapes and B=6: as K2, with K2's time beside
      theirs), kernel, plain and
-     library-call times from CUDA events (K3, K3 int8, K5 and K8, which
-     launch-bound wrappers pace from the host: kernel and ``index_put_`` by
-     device time, a CUDA graph of 20 calls replayed between two events, the
-     host-paced readings printed beside), the bound (bytes over 3.35 TB/s
+     library-call times from CUDA events (K3, K3 int8, K5, K8 and K9, which
+     launch-bound wrappers pace from the host: the kernel and
+     ``index_put_`` by device time, a CUDA graph of 20 calls replayed
+     between two events, the host-paced readings printed beside; K9 and
+     K10 with bf16 ``torch.matmul`` on the dequantized weights and
+     ``torch._int_mm`` beside), the bound (bytes over 3.35 TB/s
      or operations over the peak of their type, whichever is larger), and
      the share of the published peak; then the ``kernelab`` section of
      ``tools/torch_micro_bench.py`` (K2, K11d and K11c over 28 layers at
@@ -763,39 +767,78 @@ PREFILL_MATMULS = (
 )
 
 
+#: (M, K, N) of K9 at the int8-weights prefill (quantization="int8" without
+#: act_quant): one clip's 448-row prompt and the smoke batch's 8 x 448 rows,
+#: the decoder layer's four products.
+K9_PREFILL_MATMULS = tuple(
+    (f"prefill {name}", M, K, N)
+    for M in (448, 3584)
+    for name, K, N in DECODE_MATMULS if name != "lm_head"
+)
+
+
+def k_major_int8(gen, K: int, N: int):
+    """A random (K, N) int8 weight stored K-major, as quantize_weight
+    stores it (the transpose of a contiguous (N, K) tensor)."""
+    import torch
+
+    return torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8).t()
+
+
 def check_quantized_matmul(gen) -> dict:
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import quantized_matmul as qm
 
     worst, times = 0.0, []
-    for B in (1, 8, 96):
-        for name, K, N in DECODE_MATMULS:
-            out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
-            x = torch.randn(B, K, generator=gen, device="cuda").bfloat16()
-            wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
-            s = torch.rand(N, generator=gen, device="cuda") * 1e-3
-            out = qm.quantized_matmul(x, wq, s, out_dtype)
-            torch.cuda.synchronize()
-            ref = x.float() @ (wq.float() * s)
-            rtol = 1e-5 if out_dtype == torch.float32 else 8e-3
-            err = _close(f"K9 {name} M={B}", out, ref, 1e-5 * ref.abs().max().item(), rtol)
-            ms = cuda_ms(lambda: qm.quantized_matmul(x, wq, s, out_dtype))
-            plain_ms = cuda_ms(lambda: qm.quantized_matmul_plain(x, wq, s, out_dtype))
-            library_ms = weight_int8pack_ms(x, wq, s) if out_dtype == torch.bfloat16 else None
-            nbytes = K * N + B * K * 2 + B * N * out.element_size() + N * 4
-            b = bound(nbytes, 2 * B * K * N, PEAK_BF16_TFLOPS * 1e12)
-            gbps = nbytes / (ms * 1e-3) / 1e9
-            lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
-            print(f"K9 quantized_matmul {name} M={B} K={K} N={N}: max_abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, _weight_int8pack_mm {lib}, "
-                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
-                  f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
-            worst = max(worst, err)
-            times.append((B, name, ms, plain_ms, b, library_ms))
-            del wq
+    shapes = [(f"{name}", B, K, N) for B in (1, 8, 96) for name, K, N in DECODE_MATMULS]
+    for name, B, K, N in shapes + list(K9_PREFILL_MATMULS):
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        x = torch.randn(B, K, generator=gen, device="cuda").bfloat16()
+        wq = k_major_int8(gen, K, N)
+        s = torch.rand(N, generator=gen, device="cuda") * 1e-3
+        out = qm.quantized_matmul(x, wq, s, out_dtype)
+        again = qm.quantized_matmul(x, wq, s, out_dtype)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"K9 {name} M={B}: two identical calls differ")
+        ref = x.float() @ (wq.float() * s)
+        rtol = 1e-5 if out_dtype == torch.float32 else 8e-3
+        err = _close(f"K9 {name} M={B}", out, ref, 1e-5 * ref.abs().max().item(), rtol)
+        del ref, again
+        # Device time (a CUDA graph of 20 calls): at decode the host-paced
+        # reading is the wrapper's Python time, printed beside.
+        ms = graph_ms(lambda: qm.quantized_matmul(x, wq, s, out_dtype))
+        host_ms = cuda_ms(lambda: qm.quantized_matmul(x, wq, s, out_dtype))
+        plain_ms = cuda_ms(lambda: qm.quantized_matmul_plain(x, wq, s, out_dtype))
+        # _weight_int8pack_mm takes seconds over a run at the prefill shapes
+        # (tools/torch_kernel_ab.py times it there).
+        library_ms = (weight_int8pack_ms(x, wq, s)
+                      if out_dtype == torch.bfloat16 and B <= 96 else None)
+        w16 = (wq.float() * s).bfloat16()
+        bf16_ms = cuda_ms(lambda: torch.matmul(x, w16))
+        del w16
+        nbytes = K * N + B * K * 2 + B * N * out.element_size() + N * 4
+        b = bound(nbytes, 2 * B * K * N, PEAK_BF16_TFLOPS * 1e12)
+        gbps = nbytes / (ms * 1e-3) / 1e9
+        tflops = 2 * B * K * N / (ms * 1e-3) / 1e12
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        nb, splits, per = qm.split_k_plan(B, N, K, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+        print(f"K9 quantized_matmul {name} M={B} K={K} N={N} (row tile {nb}, {splits} k "
+              f"ranges): max_abs_err={err:.3e}, two calls bit-identical; kernel {ms:.4f} ms "
+              f"by device time ({host_ms:.4f} ms host-paced), "
+              f"plain {plain_ms:.4f} ms, _weight_int8pack_mm {lib}, bf16 torch.matmul "
+              f"(dequantized weights) {bf16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) = {b['bound_ms'] / ms:.1%} of the kernel's time; "
+              f"{gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak, "
+              f"{tflops:.1f} TFLOP/s = {tflops / PEAK_BF16_TFLOPS:.1%} of the bf16 peak")
+        worst = max(worst, err)
+        times.append((B, name, ms, plain_ms, b, library_ms))
+        del wq, out
+    torch.cuda.empty_cache()
     # The record: B=8 decode, summed over one layer's four matmuls.
-    layer = [t for t in times if t[0] == 8 and t[1] != "lm_head"]
+    layer = [t for t in times if t[0] == 8 and t[1] in ("wqkv", "wo", "wgu", "wd")]
     libs = [t[5] for t in layer]
     return {"max_abs_err": worst, "ms": sum(t[2] for t in layer),
             "plain_ms": sum(t[3] for t in layer), **_sum_bounds([t[4] for t in layer]),
@@ -810,29 +853,61 @@ def check_w8a8_matmul(gen) -> dict:
     times = []
     for name, M, K, N in PREFILL_MATMULS:
         x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
-        wq = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        x[1] = 0                                   # a zero row: sx = 1
+        wq = k_major_int8(gen, K, N)
         ws = torch.rand(N, generator=gen, device="cuda") * 1e-3
         out = w8.w8a8_matmul(x, wq, ws, torch.float32)
         ref = w8.w8a8_matmul_plain(x, wq, ws, torch.float32)
+        xq, sx = w8.quantize_rows(x)
+        rq, rs = w8.quantize_activations(x)
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             err = (out - ref).abs().max().item()
             raise AssertionError(f"K10 {name}: not bit-exact (max abs err {err:.3e})")
+        if not (torch.equal(xq, rq) and torch.equal(sx, rs)):
+            raise AssertionError(f"K10 quantize_rows {name}: not bit-exact to quantize_activations")
+        del out, ref, rq, rs
         ms = cuda_ms(lambda: w8.w8a8_matmul(x, wq, ws))
         plain_ms = cuda_ms(lambda: w8.w8a8_matmul_plain(x, wq, ws, torch.bfloat16))
+        quant_ms = cuda_ms(lambda: w8.quantize_rows(x))
+        int_mm_ms = int_mm_ms_or_none(xq, wq)
+        w16 = (wq.float() * ws).bfloat16()
+        bf16_ms = cuda_ms(lambda: torch.matmul(x, w16))
+        del w16
         b = bound(M * K * 2 + K * N + M * N * 2 + N * 4, 2 * M * N * K, PEAK_INT8_TOPS * 1e12)
         tops = 2 * M * N * K / (ms * 1e-3) / 1e12
-        print(f"K10 w8a8_matmul {name} M={M} K={K} N={N}: bit-exact (f32 out); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}); {tops:.1f} TOPS = {tops / PEAK_INT8_TOPS:.1%} of the int8 peak")
+        qb = bound(M * K * 3 + M * 4, 0, PEAK_INT8_TOPS * 1e12)
+        imm = "n/a" if int_mm_ms is None else f"{int_mm_ms:.4f} ms"
+        print(f"K10 w8a8_matmul {name} M={M} K={K} N={N}: bit-exact (f32 out), quantize_rows "
+              f"bit-exact to quantize_activations ({quant_ms:.4f} ms, bound "
+              f"{qb['bound_ms']:.4f} ms); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch._int_mm (int8 operands, no quantize or epilogue) {imm}, bf16 "
+              f"torch.matmul (dequantized weights) {bf16_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {tops:.1f} TOPS = "
+              f"{tops / PEAK_INT8_TOPS:.1%} of the int8 peak")
         times.append((name, ms, plain_ms, b))
-        del wq
+        del wq, xq, sx, x
+    torch.cuda.empty_cache()
     # The record: one decoder layer's four prefill matmuls.  No one PyTorch
     # call computes it (torch._int_mm takes int8 operands: the row quantize
     # and the scale epilogue are further calls).
     dec = [t for t in times if t[0].startswith("dec")]
     return {"max_abs_err": 0.0, "ms": sum(t[1] for t in dec), "plain_ms": sum(t[2] for t in dec),
             **_sum_bounds([t[3] for t in dec]), "library_ms": None}
+
+
+def int_mm_ms_or_none(xq, wq) -> float | None:
+    """CUDA-event ms of ``torch._int_mm`` (cuBLAS's int8 x int8 -> int32
+    product alone) on already quantized operands, or None where the card's
+    torch refuses the shapes."""
+    import torch
+
+    try:
+        torch._int_mm(xq, wq)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return cuda_ms(lambda: torch._int_mm(xq, wq))
 
 
 def weight_int8pack_ms(x, wq, s) -> float | None:

@@ -151,8 +151,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[kD / 2], const uint32_t (&pa
                                          uint32_t sv) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
-    hopper::wgmma_m64n128k16_rs<1>(o, pa[kk],
-                                   hopper::desc_sw128(sv + kk * 16 * 128, kBox, 1024), 1);
+    hopper::WgmmaRsBf16<128>::mma<1>(o, pa[kk],
+                                     hopper::desc_sw128(sv + kk * 16 * 128, kBox, 1024), 1);
   }
 }
 

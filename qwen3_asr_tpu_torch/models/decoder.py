@@ -164,7 +164,7 @@ def embed_tokens(params: DecoderParams, ids: torch.Tensor) -> torch.Tensor:
     emb = params["embedding"]
     ids = ids.long()
     if is_quantized(emb):
-        cols = emb["q"].index_select(1, ids.reshape(-1)).t()      # (n, H)
+        cols = emb["q"].t().index_select(0, ids.reshape(-1))      # (n, H)
         rows = cols.float() * emb["s"][ids.reshape(-1)][:, None]
         return rows.to(params["final_norm"].dtype).reshape(*ids.shape, -1)
     return emb[ids]

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..ops.quant import k_major
 from .decoder import init_decoder_params
 from .encoder import init_encoder_params
 
@@ -37,7 +38,7 @@ def _leaf(x, dtype, device):
     """A tensor, or a quantized ``{"q", "s"}`` weight whose int8 values and
     f32 scales keep their dtypes."""
     if _is_quantized(x):
-        return {k: _tensor(v, None, device) for k, v in x.items()}
+        return {"q": k_major(_tensor(x["q"], None, device)), "s": _tensor(x["s"], None, device)}
     return _tensor(x, dtype, device)
 
 
@@ -63,7 +64,8 @@ def params_from_jax(enc: Mapping, dec: Mapping, dtype=None, device=None):
     int8 ``{"q", "s"}`` weights (a stacked (L, in, out) int8 with (L, out)
     scales becomes one ``{"q", "s"}`` per layer; the transposed (H, V)
     quantized embedding and quantized top-level encoder linears carry over
-    as they are).  ``dtype`` None keeps each array's own dtype; quantized
+    with their values; every ``q`` is stored K-major, as
+    ``ops/quant.py:k_major``).  ``dtype`` None keeps each array's own dtype; quantized
     weights always keep theirs.
     """
     enc_t: dict = {}

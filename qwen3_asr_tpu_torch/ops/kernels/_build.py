@@ -85,10 +85,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # x, wq, s, out, M, N, K, out_f32, stream
-    "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, sx, wq, ws, out, M, N, K, out_f32, stream
-    "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, wq, s, out, partial, counters, M, N, K, out_f32, nb, splits, per,
+    # stream
+    "quantized_matmul_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, xq, sx, wq, ws, out, M, N, K, out_f32, stream
+    "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, xq, sx, M, K, stream
+    "quantize_rows_bf16": (_P, _P, _P, _I, _I, _P),
     # x, w, b, out, N, H, W, C, O, stream
     "conv_s2_gelu_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, kall, vall, k_new, v_new, prompt_len, out, layer, B, Hq, Hkv, S,

@@ -3,16 +3,24 @@
 Replaces ``qwen3_asr_tpu/ops/quant.py:quantized_matmul``.  x (M, K) bf16,
 wq (K, N) int8 in the (in, out) layout, s (N,) f32 per-output-channel
 scales; the result is bf16 or f32.  Bound on the H100: the int8 weight
-bytes (at decode M is the batch).  The CUDA kernel
-(``csrc/quantized_matmul.cu``) streams int8 weight tiles through a 4-stage
-``cp.async`` ring in shared memory, converts them to bf16 there (exact) and
-runs ``mma.sync`` m16n8k16 with f32 accumulation; the column scale is
-applied to the accumulator.  A decode batch pads to 16 rows inside the
-kernel, not by a copy.  It takes K a multiple of 128 and N of 16, any M.
+bytes at decode (M is the batch), bf16 tensor-core operations at prefill.
+
+The CUDA kernel (``csrc/quantized_matmul.cu``) computes ``out^T = wq^T
+x^T``: int8 weight tiles arrive by TMA into a ring of 5-8 stages, each
+thread converts its wgmma A fragment to bf16 in registers (exact) and runs
+``wgmma`` with the x tile as the B operand.  It needs wq stored K-major,
+the transpose of a contiguous (N, K) int8 tensor, as
+:func:`..quant.quantize_weight` stores it; it takes no other layout and
+copies none.  :func:`split_k_plan` picks the row tile (up to 256 rows in
+one tile, so each weight byte is read once) and splits K at decode, where
+the tiles alone would not fill the card; the partial sums are added in a
+fixed order, so two identical calls give identical bits.  It takes K a multiple of 128
+and N of 16, any M.
 
 On a CPU tensor the wrapper runs :func:`quantized_matmul_plain`, the JAX
 package's non-TPU lowering ``x @ dequantize_weight(w, x.dtype)``
-(``quant.py:251``); on a CUDA tensor it launches the kernel or raises.
+(``quant.py:251``), in any layout; on a CUDA tensor it launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -23,6 +31,20 @@ from . import _build
 
 NAME = "quantized_matmul"
 _BK = 128
+#: Row tiles (wgmma N) of the kernel; M above the largest walks row tiles.
+ROW_TILES = (8, 16, 32, 64, 128, 256)
+#: Output columns (weight rows) per block, and k per pipeline stage.
+COL_TILE = 128
+K_BLOCK = 64
+
+#: Per device index: the split-K workspace (f32) and the zeroed arrival
+#: counters (the kernel leaves them zeroed), shared by every call on the
+#: device's streams in order.  A split plan keeps at most one block per SM
+#: with row tiles of at most 64, so sms x 64 x 128 floats and sms counters
+#: always suffice; buffers are never freed, since plans keep their pointers.
+_scratch: dict[int | None, list[torch.Tensor]] = {}
+#: (M, N, K, device index) -> (nb, splits, per, workspace ptr, counters ptr).
+_plans: dict[tuple, tuple] = {}
 
 
 def quantized_matmul_plain(
@@ -31,6 +53,37 @@ def quantized_matmul_plain(
     """``x @ dequantize(wq, s)`` in x's dtype, cast to ``out_dtype``."""
     w = (wq.float() * s[None, :]).to(x.dtype)
     return (x @ w).to(out_dtype)
+
+
+def split_k_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int, int]:
+    """``(nb, splits, per)`` for an (M, K) x (K, N) call on a card of
+    ``sms`` SMs: the row tile nb and ``splits`` contiguous ranges of
+    ``per`` 64-deep k-blocks.
+
+    nb is M rounded up to a power of two from 8, 256 at most, so one tile
+    holds every row up to 256 and each weight byte is read once; from 128
+    on it is halved where the (row tile, 128-column tile) pairs would not
+    fill half the card.  Row tiles up to 64 (two blocks per SM) split K
+    into as many ranges as one block per SM allows, at least two k-blocks
+    a range; larger tiles do not split, since the sum of their partials
+    costs more than it saves (device times on the H100 from
+    tools/torch_k9_sweep.py)."""
+    nb = next(b for b in ROW_TILES if b >= min(M, ROW_TILES[-1]))
+    n_tiles = -(-N // COL_TILE)
+    if nb >= 128 and -(-M // nb) * n_tiles < sms // 2:
+        nb //= 2
+    k_blocks = K // K_BLOCK
+    splits = 1
+    if nb <= 64:
+        splits = max(1, min(sms // (-(-M // nb) * n_tiles), k_blocks // 2))
+    per = -(-k_blocks // splits)
+    return nb, -(-k_blocks // per), per
+
+
+def k_ranges(K: int, splits: int, per: int) -> list[range]:
+    """The k-blocks each split sums, in the order the kernel adds them."""
+    k_blocks = K // K_BLOCK
+    return [range(i * per, min((i + 1) * per, k_blocks)) for i in range(splits)]
 
 
 def _check(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor, out_dtype) -> None:
@@ -49,8 +102,41 @@ def _check(x: torch.Tensor, wq: torch.Tensor, s: torch.Tensor, out_dtype) -> Non
     for name, t in (("wq", wq), ("s", s)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if not (x.is_contiguous() and wq.is_contiguous() and s.is_contiguous()):
-        raise ValueError("x, wq and s must be contiguous")
+    if wq.stride() != (1, K) or wq.data_ptr() % 16:
+        check_k_major(wq)
+    if not (x.is_contiguous() and s.is_contiguous()):
+        raise ValueError("x and s must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+
+
+def check_k_major(wq: torch.Tensor) -> None:
+    """Raise unless the (K, N) int8 weight is stored K-major (the transpose
+    of a contiguous (N, K) tensor, 16-byte aligned): the layout the TMA
+    kernels K9 and K10 read, which they never copy into."""
+    if not wq.t().is_contiguous() or wq.data_ptr() % 16:
+        raise ValueError(
+            f"wq {tuple(wq.shape)} with strides {wq.stride()} is not K-major: the kernels "
+            "take the transpose of a contiguous (N, K) int8 tensor (quantize_weight stores it so)"
+        )
+
+
+def _plan(M: int, N: int, K: int, device: torch.device) -> tuple:
+    key = (M, N, K, device.index)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        nb, splits, per = split_k_plan(M, N, K, sms)
+        ptrs = (None, None)
+        if splits > 1:
+            bufs = _scratch.setdefault(device.index, [])
+            n_partial = max(splits * M * N, sms * 64 * COL_TILE)
+            if not bufs or bufs[-2].numel() < splits * M * N:
+                bufs += [torch.empty(n_partial, dtype=torch.float32, device=device),
+                         torch.zeros(max(sms, 4096), dtype=torch.int32, device=device)]
+            ptrs = (bufs[-2].data_ptr(), bufs[-1].data_ptr())
+        plan = _plans[key] = (nb, splits, per, *ptrs)
+    return plan
 
 
 def quantized_matmul(
@@ -68,9 +154,12 @@ def quantized_matmul(
     M, K = x.shape
     N = wq.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out
+    nb, splits, per, partial, counters = _plan(M, N, K, x.device)
     err = _build.library().quantized_matmul_bf16(
-        x.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr(), M, N, K,
-        int(out_dtype == torch.float32), _build.stream_ptr(x),
+        x.data_ptr(), wq.data_ptr(), s.data_ptr(), out.data_ptr(), partial, counters,
+        M, N, K, int(out_dtype == torch.float32), nb, splits, per, _build.stream_ptr(x),
     )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

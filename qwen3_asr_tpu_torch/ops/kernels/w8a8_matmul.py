@@ -1,19 +1,24 @@
-"""K10: W8A8 matmul, activation quantize fused into the kernel.
+"""K10: W8A8 matmul: per-row int8 quantize of the activations, then an
+int8 x int8 product.
 
 Replaces ``qwen3_asr_tpu/ops/pallas/w8a8_matmul.py:w8a8_matmul``.  x (M, K)
-bf16 is quantized per row to int8 against ``sx = max|x| / 127`` (the
-abs-max is taken here, outside the kernel, as in the TPU wrapper), the
+bf16 is quantized per row to int8 against ``sx = max|x| / 127``, the
 int8 x int8 product accumulates in int32, and the epilogue is
 ``float(acc) * sx * ws``.  Bound on the H100: int8 tensor-core operations
-at prefill shapes.  The CUDA kernel (``csrc/w8a8_matmul.cu``) stages bf16 x
-and int8 weight tiles through a 3-stage ``cp.async`` ring, quantizes each x
-tile once in shared memory (IEEE divide, round half to even, clip +-127)
-and runs ``mma.sync`` m16n8k32 s8 x s8 -> s32.  It takes K a multiple of
-64 and N of 16, any M.
+at prefill shapes.  The CUDA source (``csrc/w8a8_matmul.cu``) holds two
+kernels, launched by one C call: ``quantize_rows`` reads each bf16 row of
+x once and writes xq (M, K) int8 and sx (M,) f32 (IEEE divide, round half
+to even, clip +-127); the GEMM streams xq and weight tiles by TMA into a
+4-stage ring and runs ``wgmma`` m64n256k32 s8 x s8 -> s32 in two consumer
+warpgroups of a persistent grid.  Integer ``wgmma`` reads both operands
+K-major, so wq must be stored K-major, the transpose of a contiguous
+(N, K) int8 tensor, as :func:`..quant.quantize_weight` stores it; no
+other layout is taken or copied.  It takes K a multiple of 64 and N of 16,
+any M.
 
 On a CPU tensor the wrapper runs :func:`w8a8_matmul_plain`: the JAX
 package's W8A8 branch of ``qlinear`` (``quant.py:229-236``) with an exact
-int32 product; on a CUDA tensor it launches the kernel or raises.  Kernel
+int32 product; on a CUDA tensor it launches the kernels or raises.  Kernel
 and plain version compute the same function bit for bit.
 """
 
@@ -23,6 +28,7 @@ import torch
 
 from ..quant_kv import div127
 from . import _build
+from .quantized_matmul import check_k_major
 
 NAME = "w8a8_matmul"
 _BK = 64
@@ -41,6 +47,25 @@ def quantize_activations(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = activation_scales(x2)
     q = torch.clamp(torch.round(x2.float() / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_activations` of a (M, K) bf16 tensor; on the GPU K10's
+    own quantize kernel (one read of x), bit-identical to it.  A helper of
+    K10, whose launches count under :func:`w8a8_matmul`."""
+    if not x2.is_cuda:
+        return quantize_activations(x2)
+    if x2.dim() != 2 or x2.dtype != torch.bfloat16 or not x2.is_contiguous():
+        raise ValueError("x must be a contiguous (M, K) bf16 tensor")
+    M, K = x2.shape
+    if K % _BK or x2.data_ptr() % 16:
+        raise ValueError(f"K={K} must be a multiple of {_BK} and x 16-byte aligned")
+    xq = torch.empty((M, K), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
+    err = _build.library().quantize_rows_bf16(
+        x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), M, K, _build.stream_ptr(x2))
+    _build.check(err, NAME)
+    return xq, sx
 
 
 def w8a8_matmul_plain(
@@ -73,8 +98,11 @@ def _check(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype) -> No
     for name, t in (("wq", wq), ("ws", ws)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if not (x.is_contiguous() and wq.is_contiguous() and ws.is_contiguous()):
-        raise ValueError("x, wq and ws must be contiguous")
+    check_k_major(wq)
+    if not (x.is_contiguous() and ws.is_contiguous()):
+        raise ValueError("x and ws must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
 
 
 def w8a8_matmul(
@@ -91,11 +119,14 @@ def w8a8_matmul(
     _check(x, wq, ws, out_dtype)
     M, K = x.shape
     N = wq.shape[1]
-    sx = activation_scales(x)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if M == 0:
+        return out
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
     err = _build.library().w8a8_matmul_bf16(
-        x.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        M, N, K, int(out_dtype == torch.float32), _build.stream_ptr(x),
+        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), M, N, K, int(out_dtype == torch.float32), _build.stream_ptr(x),
     )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

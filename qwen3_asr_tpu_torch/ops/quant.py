@@ -3,7 +3,9 @@
 Counterpart of ``qwen3_asr_tpu/ops/quant.py``.  A quantized weight is a
 dict ``{"q": int8 (in, out), "s": f32 (out,)}``: symmetric per-output-
 channel abs-max over the last axis (``s = 1`` for an all-zero column),
-rounded half to even and clipped to +-127.
+rounded half to even and clipped to +-127.  ``q`` holds the JAX package's
+values in its (in, out) shape, stored K-major (the transpose of a
+contiguous (out, in) tensor), which the GPU kernels read without a copy.
 
 :func:`qlinear` computes ``x @ w`` for plain or quantized weights:
 
@@ -35,7 +37,7 @@ from .quant_kv import div127
 
 __all__ = [
     "DECODER_QUANT_KEYS", "ENCODER_QUANT_KEYS", "ENCODER_QUANT_TOP_KEYS",
-    "act_quant_rows", "dequantize_weight", "is_quantized", "qlinear",
+    "act_quant_rows", "dequantize_weight", "is_quantized", "k_major", "qlinear",
     "quantize_activations", "quantize_decoder_params", "quantize_encoder_params",
     "quantize_weight",
 ]
@@ -54,13 +56,22 @@ def act_quant_rows(min_rows: int | None):
         _ACT_QUANT_MIN_ROWS.reset(token)
 
 
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """The (in, out) int8 ``q`` stored K-major: the same (in, out) values as
+    the transpose of a contiguous (out, in) tensor, the layout the GPU
+    kernels K9 and K10 read (integer ``wgmma`` takes its operands K-major).
+    One storage of in x out bytes; ``q`` itself if already so."""
+    return q if q.t().is_contiguous() else q.t().contiguous().t()
+
+
 def quantize_weight(w: torch.Tensor) -> dict:
-    """Symmetric per-output-channel int8 over the last axis of (in, out)."""
+    """Symmetric per-output-channel int8 over the last axis of (in, out);
+    ``q`` is stored K-major (:func:`k_major`)."""
     wf = w.float()
     amax = wf.abs().amax(dim=0)
     scale = torch.where(amax > 0, div127(amax), torch.ones_like(amax))
     q = torch.clamp(torch.round(wf / scale[None, :]), -127, 127).to(torch.int8)
-    return {"q": q.contiguous(), "s": scale}
+    return {"q": k_major(q), "s": scale}
 
 
 def dequantize_weight(wq: dict, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:

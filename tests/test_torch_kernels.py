@@ -442,7 +442,8 @@ def test_cuda_quantized_matmul_matches_plain(cuda, M, K, N, out_dtype):
 
     g = torch.Generator(device=cuda).manual_seed(M * N + K)
     x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
-    wq = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    # K-major, as quantize_weight stores it: (N, K) contiguous, transposed.
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8).t()
     s = torch.rand(N, generator=g, device=cuda) * 1e-3
     before = LAUNCHES["quantized_matmul"]
     out = quantized_matmul(x, wq, s, out_dtype)
@@ -466,12 +467,82 @@ def test_cuda_w8a8_matmul_bit_exact_vs_plain(cuda, M, K, N, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
     x[1] = 0                                  # an all-zero row: scale 1, output 0
-    wq = torch.randint(-127, 128, (K, N), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8).t()
     ws = torch.rand(N, generator=g, device=cuda) * 1e-3
     out = w8a8_matmul(x, wq, ws, out_dtype)
     ref = w8a8_matmul_plain(x, wq, ws, out_dtype)
     assert torch.equal(out, ref)
     assert out[1].eq(0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 96, 128, 448])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantized_matmul_deterministic(cuda, M, out_dtype):
+    """Split K (wo and wd at decode) and the row tiles past 256 rows: within
+    the f32 product's tolerance, and two identical calls bit-identical
+    (the partial sums are added in a fixed order)."""
+    from qwen3_asr_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
+
+    for K, N in ((2048, 2048), (6144, 2048)):
+        g = torch.Generator(device=cuda).manual_seed(M + K)
+        x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+        wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8).t()
+        s = torch.rand(N, generator=g, device=cuda) * 1e-3
+        out = quantized_matmul(x, wq, s, out_dtype)
+        assert torch.equal(out, quantized_matmul(x, wq, s, out_dtype))
+        ref = x.float() @ (wq.float() * s)
+        rtol = 1e-5 if out_dtype == torch.float32 else 8e-3
+        torch.testing.assert_close(out.float(), ref, atol=1e-5 * ref.abs().max().item(),
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1, 64, 16), (77, 192, 272), (130, 320, 4112),
+                                   (513, 1088, 1040)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_w8a8_ragged_bit_exact(cuda, M, K, N, out_dtype):
+    """Ragged M with zero rows, a column edge (N % 256 != 0) and K a
+    multiple of 64 but not of 128: bit-exact against the plain version."""
+    from qwen3_asr_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul, w8a8_matmul_plain
+
+    g = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    x[::5] = 0
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda, dtype=torch.int8).t()
+    ws = torch.rand(N, generator=g, device=cuda) * 1e-3
+    out = w8a8_matmul(x, wq, ws, out_dtype)
+    assert torch.equal(out, w8a8_matmul_plain(x, wq, ws, out_dtype))
+    assert out[::5].eq(0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(1, 64), (300, 1024), (3584, 2048), (33, 7680)])
+def test_cuda_quantize_rows_bit_exact(cuda, M, K):
+    from qwen3_asr_tpu_torch.ops.kernels.w8a8_matmul import quantize_activations, quantize_rows
+
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 3).bfloat16()
+    x[M // 2] = 0
+    xq, sx = quantize_rows(x)
+    rq, rs = quantize_activations(x)
+    assert torch.equal(xq, rq) and torch.equal(sx, rs)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_wrappers_reject_row_major_weights(cuda):
+    """The TMA kernels take only the K-major layout and never copy a
+    weight: a (K, N) row-major int8 tensor raises."""
+    from qwen3_asr_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
+    from qwen3_asr_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul
+
+    x = torch.randn(8, 256, device=cuda).bfloat16()
+    wq = torch.zeros(256, 384, dtype=torch.int8, device=cuda)
+    s = torch.ones(384, device=cuda)
+    with pytest.raises(ValueError, match="K-major"):
+        quantized_matmul(x, wq, s)
+    with pytest.raises(ValueError, match="K-major"):
+        w8a8_matmul(x, wq, s)
 
 
 @pytest.mark.cuda

@@ -189,3 +189,77 @@ def test_quantize_encoder_params_matches_jax(jax_params):
     for k in ("conv_out", "proj1_w", "proj2_w"):
         assert is_quantized(port[k])
     assert not is_quantized(port["conv1_w"]) and not is_quantized(port["layers"][0]["bq"])
+
+
+def _quantized_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "s"}:
+            yield path, tree
+            return
+        for k, v in tree.items():
+            yield from _quantized_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _quantized_leaves(v, f"{path}[{i}]")
+
+
+def _assert_k_major(tree) -> int:
+    """Every int8 ``q`` is the transpose of a contiguous (out, in) tensor,
+    held in one storage of in x out bytes; returns how many there are."""
+    n = 0
+    for path, w in _quantized_leaves(tree):
+        q = w["q"]
+        assert q.dtype == torch.int8 and q.t().is_contiguous(), path
+        assert q.untyped_storage().nbytes() == q.numel(), path
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_weights_k_major_from_every_source(jax_params, fused):
+    """quantize_*_params, params_from_jax of the JAX package's quantized
+    trees and Qwen3ASR._transform_params all store ``q`` K-major with the
+    JAX package's values (torch.equal, so shape and values)."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from qwen3_asr_tpu.models.decoder import fuse_decoder_params as jax_fuse
+    from qwen3_asr_tpu.ops.quant import quantize_decoder_params as jax_qdec
+    from qwen3_asr_tpu.ops.quant import quantize_encoder_params as jax_qenc
+
+    from qwen3_asr_tpu_torch.api import Qwen3ASR
+    from qwen3_asr_tpu_torch.config import RuntimeConfig
+    from qwen3_asr_tpu_torch.ops.quant import quantize_decoder_params, quantize_encoder_params
+
+    _, _, enc, dec = jax_params
+    dec_j = jax.tree_util.tree_map(jnp.asarray, dec)
+    if fused:
+        dec_j = jax_fuse(dec_j)
+    ref_dec = jax.tree_util.tree_map(np.asarray, jax_qdec(dec_j))
+    ref_enc = jax.tree_util.tree_map(np.asarray, jax_qenc(jax.tree_util.tree_map(jnp.asarray, enc)))
+    enc_j, dec_jq = params_from_jax(ref_enc, ref_dec)
+    assert _assert_k_major(dec_jq) > 0 and _assert_k_major(enc_j) > 0
+    for path, w in _quantized_leaves(dec_jq):
+        assert w["q"].shape[0] * w["q"].shape[1] == w["q"].numel(), path
+
+    enc_t, dec_t = params_from_jax(enc, dec)
+    if fused:
+        dec_t = fuse_decoder_params(dec_t)
+    port_dec, port_enc = quantize_decoder_params(dec_t), quantize_encoder_params(enc_t)
+    assert _assert_k_major(port_dec) == _assert_k_major(dec_jq)
+    assert _assert_k_major(port_enc) == _assert_k_major(enc_j)
+    ref_leaves = dict(_quantized_leaves(dec_jq))
+    for pa, a in _quantized_leaves(port_dec):
+        assert torch.equal(a["q"], ref_leaves[pa]["q"]), pa
+        assert torch.equal(a["s"], ref_leaves[pa]["s"]), pa
+
+    host = types.SimpleNamespace(_runtime=RuntimeConfig(
+        quantization="int8", act_quant="int8", fuse_qkv=fused))
+    enc_x, dec_x = Qwen3ASR._transform_params(host, *params_from_jax(enc, dec))
+    assert _assert_k_major(dec_x) == _assert_k_major(port_dec)
+    assert _assert_k_major(enc_x) == _assert_k_major(port_enc)
+    port_leaves = dict(_quantized_leaves(port_dec))
+    for pa, a in _quantized_leaves(dec_x):
+        assert torch.equal(a["q"], port_leaves[pa]["q"]), pa

@@ -53,6 +53,84 @@ def test_quantize_weight_bit_exact(shape):
     assert np.all(np.abs(back - w) <= out["s"].numpy()[None, :] / 2 + 1e-6)
 
 
+@pytest.mark.parametrize("shape", [(64, 128), (256, 40), (7, 512)])
+def test_quantize_weight_k_major_one_storage(shape):
+    """``q`` keeps the JAX package's (in, out) shape and values, stored as
+    the transpose of a contiguous (out, in) tensor in one storage."""
+    from qwen3_asr_tpu.ops.quant import quantize_weight as jax_qw
+
+    w = _weights(sum(shape) + 1, shape)
+    q = tq.quantize_weight(torch.from_numpy(w))["q"]
+    assert q.shape == shape and q.t().is_contiguous()
+    assert q.untyped_storage().nbytes() == shape[0] * shape[1]
+    assert torch.equal(q, torch.from_numpy(np.array(jax_qw(w)["q"])))
+    assert tq.k_major(q) is q
+
+
+def test_qlinear_and_embedding_same_in_both_layouts():
+    """The K-major layout computes what the (in, out) row-major layout
+    computed: qlinear (weight-only and W8A8 plain versions) and the
+    quantized embedding's lookup, bit for bit."""
+    from qwen3_asr_tpu_torch.models.decoder import embed_tokens
+
+    w = tq.quantize_weight(torch.from_numpy(_weights(5, (256, 384))))
+    row_major = {"q": w["q"].contiguous(), "s": w["s"]}
+    assert not torch.equal(torch.tensor(w["q"].stride()), torch.tensor(row_major["q"].stride()))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((3, 7, 256)).astype(np.float32))
+    assert torch.equal(tq.qlinear(x, w), tq.qlinear(x, row_major))
+    with tq.act_quant_rows(1):
+        assert torch.equal(tq.qlinear(x, w), tq.qlinear(x, row_major))
+    emb = torch.from_numpy(_weights(7, (50, 256), zero_col=False))      # (V, H)
+    qe = tq.quantize_weight(emb.T)                                        # q (H, V)
+    params = {"embedding": qe, "final_norm": torch.ones(256)}
+    old = {"embedding": {"q": qe["q"].contiguous(), "s": qe["s"]}, "final_norm": torch.ones(256)}
+    ids = torch.tensor([[3, 0, 49], [7, 7, 12]])
+    assert torch.equal(embed_tokens(params, ids), embed_tokens(old, ids))
+
+
+def test_int8_wrappers_check_k_major():
+    """The GPU wrappers' input check (run here on CPU tensors) refuses a
+    row-major (K, N) weight and takes the K-major one without a copy."""
+    from qwen3_asr_tpu_torch.ops.kernels import quantized_matmul as qm
+    from qwen3_asr_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    x = torch.zeros(8, 256, dtype=torch.bfloat16)
+    w = tq.quantize_weight(torch.from_numpy(_weights(9, (256, 384))))
+    qm._check(x, w["q"], w["s"], torch.bfloat16)
+    w8._check(x, w["q"], w["s"], torch.float32)
+    for check in (qm._check, w8._check):
+        with pytest.raises(ValueError, match="K-major"):
+            check(x, w["q"].contiguous(), w["s"], torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 96, 128, 200, 448, 3584, 28672])
+@pytest.mark.parametrize("K,N", [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048),
+                                 (2048, 151936), (128, 16)])
+def test_split_k_plan_covers_every_k_block_once(M, K, N):
+    """K9's split-K plan: a row tile that holds all M <= 256 rows (or half
+    of them from 128 on, where the tiles would fill less than half the
+    card), ranges that cover every 64-deep k-block exactly once in
+    increasing order (the order the kernel adds the partials), none empty,
+    at least two blocks a range, and at most one block per SM."""
+    from qwen3_asr_tpu_torch.ops.kernels import quantized_matmul as qm
+
+    sms = 132
+    nb, splits, per = qm.split_k_plan(M, N, K, sms)
+    full = next(b for b in qm.ROW_TILES if b >= min(M, 256))
+    assert nb == full or (full >= 128 and nb == full // 2)
+    ranges = qm.k_ranges(K, splits, per)
+    flat = [k for r in ranges for k in r]
+    assert flat == list(range(K // qm.K_BLOCK))
+    assert all(len(r) > 0 for r in ranges)
+    units = -(-M // nb) * -(-N // qm.COL_TILE)
+    k_blocks = K // qm.K_BLOCK
+    if splits > 1:
+        assert nb <= 64 and units * splits <= sms         # one block per SM at most
+        assert all(len(r) >= 2 for r in ranges[:-1])
+    elif nb <= 64 and k_blocks >= 4:
+        assert 2 * units > sms                             # no room for a second range
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_activations_bit_exact(dtype):
     import jax.numpy as jnp

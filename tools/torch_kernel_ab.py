@@ -1,33 +1,48 @@
 #!/usr/bin/env python3
-"""A/B of the port's prefill kernels against an earlier version of their CUDA
-sources, on one CUDA GPU, in one process.
+"""A/B of the port's redesigned kernels against an earlier version of their
+CUDA sources, on one CUDA GPU, in one process.
 
-    python3 tools/torch_kernel_ab.py --parent DIR [--rounds N]
+    python3 tools/torch_kernel_ab.py --parent DIR [--rounds N] [--kernels K1,K11e,K9,K10]
 
-``DIR`` holds an earlier ``flash_attention.cu`` (K1) and ``conv_stem.cu``
-(K11e) with the headers they include, e.g. from
-``git show <commit>:qwen3_asr_tpu_torch/csrc/flash_attention.cu``.  The
-tool compiles them with the port's nvcc flags into a library of their own
-(in ``DIR``), binds the two C entry points, which keep their signatures,
+``DIR`` holds earlier ``flash_attention.cu`` (K1), ``conv_stem.cu`` (K11e),
+``quantized_matmul.cu`` (K9) and ``w8a8_matmul.cu`` (K10) with the headers
+they include, e.g. from ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
+The tool compiles the ones present with the port's nvcc flags into a
+library of their own (in ``DIR``), binds their C entry points with the
+signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the port's),
 and then, on the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
-    both to the plain PyTorch version (K1: f32 causal
-    attention, atol 2e-2 + rtol 2e-2; K11e: the f32 tap sum + bias rounded
-    to bf16, then the exact GELU, atol 2e-2 + rtol 2e-2);
+    both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
+    + rtol 2e-2; K11e: the f32 tap sum + bias rounded to bf16, then the
+    exact GELU, atol 2e-2 + rtol 2e-2; K9: the f32 product of the same int8
+    weights, atol 1e-5 max|ref| + rtol 8e-3 (bf16 out) or 1e-5 (f32 out);
+    K10: bit-exact);
   * times them in turns, parent, change, change, parent, per round, with
-    CUDA events (the mean over 20 calls, 10 for K11e, after a warm-up),
-    beside the library call (``scaled_dot_product_attention`` causal with
-    GQA; cuDNN's ``F.conv2d`` with bias on channels-last data) and the
-    bound (bytes over 3.35 TB/s or operations over 989 bf16 TFLOP/s,
-    whichever is larger).
+    CUDA events (the mean over 20 calls, 10 for K11e, after a warm-up; K9
+    by device time, 20 calls captured in a CUDA graph, with the wrapper's
+    host microseconds per call beside),
+    beside the library calls (``scaled_dot_product_attention`` causal with
+    GQA; cuDNN's ``F.conv2d`` with bias on channels-last data; for K9
+    ``torch._weight_int8pack_mm`` and bf16 ``torch.matmul`` of x with the
+    dequantized weights; for K10 ``torch._int_mm`` on already quantized
+    operands, cuBLAS's int8 product alone, and that bf16 ``torch.matmul``)
+    and the bound (bytes over 3.35 TB/s or operations over 989 bf16
+    TFLOP/s or 1979 int8 TOP/s, whichever is larger).  K10's times are the
+    wrapper's whole device work on both sides: the parent's row scales
+    (``activation_scales``) and fused-quantize kernel, the change's
+    quantize pass and GEMM.  The parent's K9 and K10 read the (K, N)
+    row-major weight, the change the K-major one; both copies are made
+    before the timing.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
-and conv3's shapes for the smoke's 256 chunks.  The first line is the
-card's ``nvidia-smi`` name and power limit; the last line one JSON object
-with every reading.  Needs a CUDA device and ``nvcc``; exits non-zero
-without them.
+and conv3's shapes for the smoke's 256 chunks; K9 at ``chip_smoke``'s
+``DECODE_MATMULS`` for M = 1, 8 and 96 and the decoder layer's four
+products at M = 448 and 3584; K10 at ``PREFILL_MATMULS``.  The first line
+is the card's ``nvidia-smi`` name and power limit; the last line one JSON
+object with every reading.  Needs a CUDA device and ``nvcc``; exits
+non-zero without them.
 """
 
 from __future__ import annotations
@@ -46,11 +61,28 @@ FLASH_SHAPES = ((8, 448), (64, 448))
 HQ, HKV, D = 16, 8, 128
 
 
-def parent_library(parent: Path) -> ctypes.CDLL:
-    """Compile the parent's two sources into ``parent/libparent.so``."""
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: C signatures of the earlier entry points (the sources of commit 34480f7,
+#: whose K9 and K10 read (K, N) row-major weights).
+PARENT_SIGNATURES = {
+    "flash_attention_causal_bf16": None,     # the port's own signature
+    "conv_s2_gelu_bf16": None,
+    # x, wq (K, N) row-major, s, out, M, N, K, out_f32, stream
+    "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, sx, wq (K, N) row-major, ws, out, M, N, K, out_f32, stream
+    "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
+           "K10": "w8a8_matmul.cu"}
+ENTRY = {"K1": "flash_attention_causal_bf16", "K11e": "conv_s2_gelu_bf16",
+         "K9": "quantized_matmul_bf16", "K10": "w8a8_matmul_bf16"}
+
+
+def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
+    """Compile the parent's sources of ``kernels`` into ``parent/libparent.so``."""
     from qwen3_asr_tpu_torch.ops.kernels import _build
 
-    sources = [parent / "flash_attention.cu", parent / "conv_stem.cu"]
+    sources = [parent / SOURCES[k] for k in kernels]
     for src in sources:
         if not src.is_file():
             raise SystemExit(f"torch_kernel_ab: {src} is missing")
@@ -62,9 +94,10 @@ def parent_library(parent: Path) -> ctypes.CDLL:
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
                       *map(str, objects)]])
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("flash_attention_causal_bf16", "conv_s2_gelu_bf16"):
+    for k in kernels:
+        name = ENTRY[k]
         fn = getattr(lib, name)
-        fn.argtypes = list(_build._SIGNATURES[name])
+        fn.argtypes = list(PARENT_SIGNATURES[name] or _build._SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib
 
@@ -99,17 +132,37 @@ def run_conv(lib, x, w, b):
     return out
 
 
-def in_turns(parent_fn, change_fn, rounds: int, iters: int) -> tuple[list, list]:
-    """Times of parent and change, parent, change, change, parent per round."""
+def in_turns(parent_fn, change_fn, rounds: int, iters: int, timer=None) -> tuple[list, list]:
+    """Times of parent and change, parent, change, change, parent per round
+    (``timer(fn, iters=...)``, by default ``chip_smoke.cuda_ms``)."""
     from chip_smoke import cuda_ms
 
+    timer = timer or cuda_ms
     p, c = [], []
     for _ in range(rounds):
-        p.append(cuda_ms(parent_fn, iters=iters))
-        c.append(cuda_ms(change_fn, iters=iters))
-        c.append(cuda_ms(change_fn, iters=iters))
-        p.append(cuda_ms(parent_fn, iters=iters))
+        p.append(timer(parent_fn, iters=iters))
+        c.append(timer(change_fn, iters=iters))
+        c.append(timer(change_fn, iters=iters))
+        p.append(timer(parent_fn, iters=iters))
     return p, c
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call of a wrapper whose device work is shorter
+    than its host work: wall time of ``iters`` calls, then one sync."""
+    import time
+
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def ab_flash(lib, gen, rounds: int) -> list[dict]:
@@ -193,12 +246,164 @@ def ab_conv(lib, gen, rounds: int) -> list[dict]:
     return rows
 
 
+def run_parent_qmm(lib, x, wq_rm, s, out_dtype):
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+
+    M, K = x.shape
+    N = wq_rm.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    err = lib.quantized_matmul_bf16(x.data_ptr(), wq_rm.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                    M, N, K, int(out_dtype == torch.float32),
+                                    _build.stream_ptr(x))
+    if err:
+        raise RuntimeError(f"parent quantized_matmul_bf16: CUDA error {err}")
+    return out
+
+
+def run_parent_w8a8(lib, x, wq_rm, ws, out_dtype):
+    """The parent wrapper's device work: the row scales, then the kernel."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+    from qwen3_asr_tpu_torch.ops.kernels.w8a8_matmul import activation_scales
+
+    M, K = x.shape
+    N = wq_rm.shape[1]
+    sx = activation_scales(x)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    err = lib.w8a8_matmul_bf16(x.data_ptr(), sx.data_ptr(), wq_rm.data_ptr(), ws.data_ptr(),
+                               out.data_ptr(), M, N, K, int(out_dtype == torch.float32),
+                               _build.stream_ptr(x))
+    if err:
+        raise RuntimeError(f"parent w8a8_matmul_bf16: CUDA error {err}")
+    return out
+
+
+def _ms_list(xs) -> list:
+    return [round(x, 4) for x in xs]
+
+
+def ab_qmm(lib, gen, rounds: int) -> list[dict]:
+    import torch
+
+    from chip_smoke import (DECODE_MATMULS, K9_PREFILL_MATMULS, PEAK_BF16_TFLOPS,
+                            PEAK_HBM_GBPS, _close, bound, cuda_ms, graph_ms, k_major_int8,
+                            weight_int8pack_ms)
+    from qwen3_asr_tpu_torch.ops.kernels import quantized_matmul as qm
+
+    shapes = [(name, B, K, N) for B in (1, 8, 96) for name, K, N in DECODE_MATMULS]
+    rows = []
+    for name, M, K, N in shapes + list(K9_PREFILL_MATMULS):
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        wq = k_major_int8(gen, K, N)
+        wq_rm = wq.contiguous()
+        s = torch.rand(N, generator=gen, device="cuda") * 1e-3
+        ref = x.float() @ (wq.float() * s)
+        rtol = 1e-5 if out_dtype == torch.float32 else 8e-3
+        atol = 1e-5 * ref.abs().max().item()
+        out = qm.quantized_matmul(x, wq, s, out_dtype)
+        pout = run_parent_qmm(lib, x, wq_rm, s, out_dtype)
+        err = _close(f"K9 {name} M={M}", out, ref, atol, rtol)
+        perr = _close(f"parent K9 {name} M={M}", pout, ref, atol, rtol)
+        same = torch.equal(out, pout)
+        del out, pout, ref
+        parent_fn = lambda: run_parent_qmm(lib, x, wq_rm, s, out_dtype)  # noqa: E731
+        change_fn = lambda: qm.quantized_matmul(x, wq, s, out_dtype)      # noqa: E731
+        # Device time: 20 calls in a CUDA graph (the host-paced reading of a
+        # decode product is the wrapper's Python time).
+        p, c = in_turns(parent_fn, change_fn, rounds, 20, timer=graph_ms)
+        p_host, c_host = host_us(parent_fn), host_us(change_fn)
+        pack_ms = weight_int8pack_ms(x, wq, s) if out_dtype == torch.bfloat16 else None
+        w16 = (wq.float() * s).bfloat16()
+        bf16_ms = cuda_ms(lambda: torch.matmul(x, w16))
+        del w16
+        nbytes = K * N + M * K * 2 + M * N * (4 if out_dtype == torch.float32 else 2) + N * 4
+        b = bound(nbytes, 2 * M * K * N, PEAK_BF16_TFLOPS * 1e12)
+        cm, pm = statistics.median(c), statistics.median(p)
+        gbps = nbytes / (cm * 1e-3) / 1e9
+        tflops = 2 * M * K * N / (cm * 1e-3) / 1e12
+        pk = "n/a" if pack_ms is None else f"{pack_ms:.4f} ms"
+        print(f"K9 {name} M={M} K={K} N={N}: change {cm:.4f} ms {_ms_list(c)}, parent "
+              f"{pm:.4f} ms {_ms_list(p)}, _weight_int8pack_mm {pk}, bf16 matmul "
+              f"{bf16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) = "
+              f"{b['bound_ms'] / cm:.1%} of the change's time ({gbps:.0f} GB/s = "
+              f"{gbps / PEAK_HBM_GBPS:.1%} of HBM, {tflops:.1f} TFLOP/s = "
+              f"{tflops / PEAK_BF16_TFLOPS:.1%} of bf16); host per call {c_host:.1f} us / "
+              f"parent {p_host:.1f} us; err {err:.3e} / parent {perr:.3e}; "
+              f"bit-identical: {same}")
+        rows.append({"kernel": "K9", "product": name, "M": M, "K": K, "N": N,
+                     "max_abs_err": err, "parent_max_abs_err": perr, "bit_identical": same,
+                     "ms": c, "parent_ms": p, "host_us": c_host, "parent_host_us": p_host,
+                     "weight_int8pack_ms": pack_ms,
+                     "bf16_matmul_ms": bf16_ms, **b})
+        del x, wq, wq_rm
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ab_w8a8(lib, gen, rounds: int) -> list[dict]:
+    import torch
+
+    from chip_smoke import (PEAK_INT8_TOPS, PREFILL_MATMULS, bound, cuda_ms,
+                            int_mm_ms_or_none, k_major_int8)
+    from qwen3_asr_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    rows = []
+    for name, M, K, N in PREFILL_MATMULS:
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        x[1] = 0
+        wq = k_major_int8(gen, K, N)
+        wq_rm = wq.contiguous()
+        ws = torch.rand(N, generator=gen, device="cuda") * 1e-3
+        for dt in (torch.float32, torch.bfloat16):
+            ref = w8.w8a8_matmul_plain(x, wq, ws, dt)
+            out = w8.w8a8_matmul(x, wq, ws, dt)
+            pout = run_parent_w8a8(lib, x, wq_rm, ws, dt)
+            if not (torch.equal(out, ref) and torch.equal(pout, ref)):
+                raise AssertionError(f"K10 {name} {dt}: change {torch.equal(out, ref)}, "
+                                     f"parent {torch.equal(pout, ref)} bit-exact to the plain")
+        del out, pout, ref
+        p, c = in_turns(lambda: run_parent_w8a8(lib, x, wq_rm, ws, torch.bfloat16),
+                        lambda: w8.w8a8_matmul(x, wq, ws, torch.bfloat16), rounds, 20)
+        xq, _ = w8.quantize_rows(x)
+        int_mm = int_mm_ms_or_none(xq, wq)
+        w16 = (wq.float() * ws).bfloat16()
+        bf16_ms = cuda_ms(lambda: torch.matmul(x, w16))
+        del w16, xq
+        b = bound(M * K * 2 + K * N + M * N * 2 + N * 4, 2 * M * N * K, PEAK_INT8_TOPS * 1e12)
+        cm, pm = statistics.median(c), statistics.median(p)
+        tops = 2 * M * N * K / (cm * 1e-3) / 1e12
+        im = "n/a" if int_mm is None else f"{int_mm:.4f} ms"
+        print(f"K10 {name} M={M} K={K} N={N}: change {cm:.4f} ms {_ms_list(c)}, parent "
+              f"{pm:.4f} ms {_ms_list(p)}, torch._int_mm {im}, bf16 matmul {bf16_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}); change {tops:.1f} TOPS = "
+              f"{tops / PEAK_INT8_TOPS:.1%} of the int8 peak; bit-exact to the plain version "
+              f"and to the parent (f32 and bf16 out)")
+        rows.append({"kernel": "K10", "product": name, "M": M, "K": K, "N": N,
+                     "max_abs_err": 0.0, "bit_identical": True, "ms": c, "parent_ms": p,
+                     "int_mm_ms": int_mm, "bf16_matmul_ms": bf16_ms, **b})
+        del x, wq, wq_rm
+        torch.cuda.empty_cache()
+    return rows
+
+
+AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
-                    help="directory with the earlier flash_attention.cu and conv_stem.cu")
+                    help="directory with the earlier sources of the kernels compared")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", default="K1,K11e,K9,K10",
+                    help="comma-separated subset of K1, K11e, K9, K10")
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if any(k not in AB for k in kernels):
+        ap.error(f"--kernels takes a subset of {', '.join(AB)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -211,9 +416,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     _build.library()
-    lib = parent_library(args.parent.resolve())
+    lib = parent_library(args.parent.resolve(), kernels)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = ab_flash(lib, gen, args.rounds) + ab_conv(lib, gen, args.rounds)
+    rows = [r for k in kernels for r in AB[k](lib, gen, args.rounds)]
     print(json.dumps({"device": torch.cuda.get_device_name(0), "ab": rows}))
     return 0
 
