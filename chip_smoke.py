@@ -29,7 +29,11 @@ failure raises and the script exits non-zero):
      library-call times from CUDA events (K3, K3 int8, K5, K8 and K9, which
      launch-bound wrappers pace from the host: the kernel and
      ``index_put_`` by device time, a CUDA graph of 20 calls replayed
-     between two events, the host-paced readings printed beside; K9 and
+     between two events, the host-paced readings printed beside; the decode
+     attention kernels K2, K4, K6, K7 and K11a-K11d by device time on a cold
+     cache, rotated over enough layers of one cache that the calls between
+     two on one layer read more than the 50 MB L2, the host-paced readings
+     printed beside; K9 and
      K10 with bf16 ``torch.matmul`` on the dequantized weights and
      ``torch._int_mm`` beside), the bound (bytes over 3.35 TB/s
      or operations over the peak of their type, whichever is larger), and
@@ -89,6 +93,7 @@ the package is not beside this script.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -372,55 +377,154 @@ def check_flash(gen) -> dict:
     return {"max_abs_err": worst, **next(t for bt, t in times if bt == (8, 448))}
 
 
-def check_decode(gen) -> dict:
+#: Bytes of other layers that the calls between two calls on one layer must
+#: read for the second to find the H100's 50 MB L2 cold, and the most layers
+#: a timing rotates over.
+COLD_BYTES = 64 * 2**20
+MAX_COLD_LAYERS = 64
+
+
+def cold_layers(call_bytes: int) -> int:
+    """Layers to rotate a decode attention kernel over so that between two
+    calls on one layer the others read more than ``COLD_BYTES`` (at least 2,
+    at most ``MAX_COLD_LAYERS``)."""
+    return min(MAX_COLD_LAYERS, max(2, -(-COLD_BYTES // max(call_bytes, 1)) + 1))
+
+
+def attention_ms(call, n_layers: int) -> tuple[float, float]:
+    """(device ms, host-paced ms) per call of ``call(layer)`` rotated over
+    ``n_layers`` layers of one cache, so that each call reads a cold cache:
+    by ``graph_ms`` (at least 20 calls, a multiple of ``n_layers``, in one
+    CUDA graph) and by ``cuda_ms`` over the same rotation."""
+    layers = itertools.cycle(range(n_layers))
+    iters = n_layers * -(-20 // n_layers)
+    fn = lambda: call(next(layers))   # noqa: E731
+    return graph_ms(fn, iters=iters), cuda_ms(fn, iters=iters)
+
+
+def cold_note(n_layers: int, call_bytes: int) -> str:
+    return (f"{n_layers} layers rotated, {(n_layers - 1) * call_bytes / 1e6:.1f} MB of other "
+            f"layers between two calls on one layer")
+
+
+#: K2/K4's check grid: (B, S) at prompt_bucket 512, Hq 16, Hkv 8.
+DECODE_GRID = tuple((B, S) for B in (1, 8, 96) for S in (640, 2560))
+
+
+def decode_case(gen, B: int, S: int, q8: bool, hq: int = 16, hkv: int = 8,
+                pb: int = 512) -> dict:
+    """K2/K4 inputs at (B, S): random prompt lengths in [1, pb] and decode
+    ends in [pb, S], one idle lane (prompt_len 0, decode_end == pb) where
+    B > 1, and a cache of ``cold_layers`` layers for the valid rows' bytes
+    (int8 rows plus one f32 scale each when ``q8``)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    D = 128
+    q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
+    k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+    v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+    plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
+    dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
+    if B > 1:                      # one idle lane
+        plen[-1] = 0
+        dend[-1] = pb
+    rows = int((plen + dend - pb).sum())
+    call_bytes = rows * hkv * ((D + 4) if q8 else D * 2) * 2
+    L = cold_layers(call_bytes)
+    caches = []
+    for _ in range(2):
+        x = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda")
+        caches.append(quantize_kv(x) if q8 else x.bfloat16())
+        del x
+    return dict(q=q, kall=caches[0], vall=caches[1], k_new=k_new, v_new=v_new, plen=plen,
+                dend=dend, pb=pb, L=L, rows=rows, call_bytes=call_bytes)
+
+
+def decode_layer(c: dict, layer: int) -> tuple:
+    """Layer ``layer`` of the case's caches alone, as a one-layer cache."""
+    if isinstance(c["kall"], dict):
+        return tuple({k: v[layer:layer + 1] for k, v in c[n].items()} for n in ("kall", "vall"))
+    return c["kall"][layer:layer + 1], c["vall"][layer:layer + 1]
+
+
+def decode_reference(c: dict, layer: int):
+    """K2's (K4's) plain version on one layer, in float32."""
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+
+    D = c["q"].shape[-1]
+    kl, vl = decode_layer(c, layer)
+    f32 = [t.float() for t in (c["q"], c["k_new"], c["v_new"])]
+    if isinstance(kl, dict):
+        return da.decode_attention_q8_plain(f32[0], kl, vl, *f32[1:], 0, c["plen"], c["dend"],
+                                            c["pb"], D ** -0.5)
+    return da.decode_attention_plain(f32[0], kl.float(), vl.float(), *f32[1:], 0, c["plen"],
+                                     c["dend"], c["pb"], D ** -0.5)
+
+
+def attention_bound(B: int, hq: int, hkv: int, rows: int, row_bytes: int,
+                    T: int = 1) -> tuple[dict, int]:
+    """(bound, the cache bytes a call reads) of decode attention over
+    ``rows`` valid rows of ``row_bytes`` (an int8 row's include its f32
+    scale): their K and V read once, plus q, the T fresh rows and the
+    output; QK and PV over the valid rows and the fresh block."""
+    D = 128
+    call_bytes = rows * hkv * row_bytes * 2
+    return bound(call_bytes + B * T * (2 * hq + 2 * hkv) * D * 2,
+                 4 * hq * T * D * (rows + B * T), PEAK_BF16_TFLOPS * 1e12), call_bytes
+
+
+def decode_bound(c: dict) -> dict:
+    """K2's (K4's) bound at the case's valid rows."""
+    B, hq, D = c["q"].shape
+    q8 = isinstance(c["kall"], dict)
+    return attention_bound(B, hq, c["k_new"].shape[1], c["rows"], D + 4 if q8 else 2 * D)[0]
+
+
+def check_decode(gen, q8: bool = False) -> dict:
+    """K2 (K4 when ``q8``) at ``DECODE_GRID`` against its plain version in
+    float32 (atol 2e-2 + rtol 2e-2; the idle lane's output is checked finite
+    and not compared, as the caller discards it), timed on a cold cache."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
 
-    L, hq, hkv, D, pb, layer = 2, 16, 8, 128, 512, 1
+    fn = da.decode_attention_q8 if q8 else da.decode_attention
+    label = "K4 decode_attention_q8" if q8 else "K2 decode_attention"
     worst, times = 0.0, []
-    for B in (1, 8, 96):
-        for S in (640, 2560):
-            kall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-            vall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-            q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
-            k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
-            dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
-            if B > 1:                      # one idle lane
-                plen[-1] = 0
-                dend[-1] = pb
-            out = da.decode_attention(q, kall, vall, k_new, v_new, layer, plen, dend, pb)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out.float()).all():
-                raise AssertionError(f"K2 B={B} S={S}: non-finite output")
-            ref = da.decode_attention_plain(
-                q.float(), kall.float(), vall.float(), k_new.float(), v_new.float(),
-                layer, plen, dend, pb, D ** -0.5,
-            )
-            live = slice(0, B - 1) if B > 1 else slice(0, 1)
-            err = _close(f"K2 B={B} S={S}", out[live], ref[live], 2e-2, 2e-2)
-            ms = cuda_ms(lambda: da.decode_attention(
-                q, kall, vall, k_new, v_new, layer, plen, dend, pb))
-            plain_ms = cuda_ms(lambda: da.decode_attention_plain(
-                q, kall, vall, k_new, v_new, layer, plen, dend, pb, D ** -0.5))
-            # The K and V bytes of the valid rows, each read once, plus q,
-            # the fresh rows and the output; QK and PV over the valid rows
-            # and the self-term.
-            rows = int((plen + dend - pb).sum())
-            b = bound(rows * hkv * D * 2 * 2 + B * (2 * hq + 2 * hkv) * D * 2,
-                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
-            gbps = rows * hkv * D * 2 * 2 / (ms * 1e-3) / 1e9
-            print(f"K2 decode_attention B={B} pb={pb} S={S}: max_abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {rows} valid rows, "
-                  f"{gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
-            worst = max(worst, err)
-            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
-            del kall, vall
+    for B, S in DECODE_GRID:
+        c = decode_case(gen, B, S, q8)
+        args = lambda layer: (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"],  # noqa: E731
+                              layer, c["plen"], c["dend"], c["pb"])
+        layer = c["L"] - 1
+        out = fn(*args(layer))
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{label} B={B} S={S}: non-finite output")
+        ref = decode_reference(c, layer)
+        live = slice(0, B - 1) if B > 1 else slice(0, 1)
+        err = _close(f"{label} B={B} S={S}", out[live], ref[live], 2e-2, 2e-2)
+        del out, ref
+        ms, host_ms = attention_ms(lambda layer: fn(*args(layer)), c["L"])
+        kl, vl = decode_layer(c, 0)
+        plain = da.decode_attention_q8_plain if q8 else da.decode_attention_plain
+        plain_ms = cuda_ms(lambda: plain(c["q"], kl, vl, c["k_new"], c["v_new"], 0, c["plen"],
+                                          c["dend"], c["pb"], 128 ** -0.5))
+        b = decode_bound(c)
+        gbps = c["call_bytes"] / (ms * 1e-3) / 1e9
+        print(f"{label} B={B} pb={c['pb']} S={S}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+              f"device time ({cold_note(c['L'], c['call_bytes'])}; host-paced {host_ms:.4f} "
+              f"ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+              f"{c['rows']} valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the "
+              f"HBM peak")
+        worst = max(worst, err)
+        times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
+        del c
+        torch.cuda.empty_cache()
     # No one PyTorch call computes it: two valid intervals plus the
-    # self-term of a row that is not in the cache.
+    # self-term of a row that is not in the cache (K4: over int8 rows and
+    # their scales).
     rec = next(t for B, S, t in times if B == 8 and S == 640)
     return {"max_abs_err": worst, **rec, "library_ms": None}
 
@@ -462,61 +566,30 @@ def check_kv_write(gen) -> dict:
     return {"max_abs_err": 0.0, **t, **b}
 
 
-def check_decode_q8(gen) -> dict:
+def stream_case(gen, B: int, S: int, pb: int = 512, hq: int = 16, hkv: int = 8) -> dict:
+    """Decode attention inputs at (B, S) for the kernels of decode modes
+    "3"/"4" and the per-lane stream kernels: random prompt lengths in [1, pb]
+    and a bf16 cache of ``cold_layers`` layers for about half the decode rows
+    (the rows of a lane's exact valid count follow from the kernel's own
+    lengths)."""
     import torch
 
-    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
-    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
-
-    L, hq, hkv, D, pb, layer = 2, 16, 8, 128, 512, 1
-    worst, times = 0.0, []
-    for B in (1, 8, 96):
-        for S in (640, 2560):
-            kall = quantize_kv(torch.randn(L, B, hkv, S, D, generator=gen, device="cuda"))
-            vall = quantize_kv(torch.randn(L, B, hkv, S, D, generator=gen, device="cuda"))
-            q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
-            k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
-            dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
-            if B > 1:                      # one idle lane
-                plen[-1] = 0
-                dend[-1] = pb
-            out = da.decode_attention_q8(q, kall, vall, k_new, v_new, layer, plen, dend, pb)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out.float()).all():
-                raise AssertionError(f"K4 B={B} S={S}: non-finite output")
-            ref = da.decode_attention_q8_plain(
-                q.float(), kall, vall, k_new.float(), v_new.float(),
-                layer, plen, dend, pb, D ** -0.5,
-            )
-            live = slice(0, B - 1) if B > 1 else slice(0, 1)
-            err = _close(f"K4 B={B} S={S}", out[live], ref[live], 2e-2, 2e-2)
-            ms = cuda_ms(lambda: da.decode_attention_q8(
-                q, kall, vall, k_new, v_new, layer, plen, dend, pb))
-            plain_ms = cuda_ms(lambda: da.decode_attention_q8_plain(
-                q, kall, vall, k_new, v_new, layer, plen, dend, pb, D ** -0.5))
-            # int8 K and V bytes plus one f32 scale each, per valid row.
-            rows = int((plen + dend - pb).sum())
-            b = bound(rows * hkv * (D + 4) * 2 + B * (2 * hq + 2 * hkv) * D * 2,
-                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
-            gbps = rows * hkv * (D + 4) * 2 / (ms * 1e-3) / 1e9
-            print(f"K4 decode_attention_q8 B={B} pb={pb} S={S}: max_abs_err={err:.3e} "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {rows} valid rows, "
-                  f"{gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
-            worst = max(worst, err)
-            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
-            del kall, vall
-    # No one PyTorch call: K2's intervals and self-term over int8 rows.
-    rec = next(t for B, S, t in times if B == 8 and S == 640)
-    return {"max_abs_err": worst, **rec, "library_ms": None}
+    D = 128
+    q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
+    k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+    v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
+    plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
+    L = cold_layers((int(plen.sum()) + B * (S - pb) // 2) * hkv * D * 2 * 2)
+    kall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+    vall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+    return dict(q=q, kall=kall, vall=vall, k_new=k_new, v_new=v_new, plen=plen, pb=pb, L=L)
 
 
 def check_decode_stream(gen, kind: str) -> dict:
     """K11a (``"hbm2"``) or K11b (``"hbm3"``) at K2's check shapes with one
     decode end for every lane (as the plain loop passes it), against K2's
-    plain version in float32 (atol 2e-2 + rtol 2e-2, as K2)."""
+    plain version in float32 (atol 2e-2 + rtol 2e-2, as K2); the kernel and
+    K2 on the same inputs timed on a cold cache."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
@@ -525,42 +598,42 @@ def check_decode_stream(gen, kind: str) -> dict:
 
     fn = h2.decode_attention_hbm2 if kind == "hbm2" else h3.decode_attention_hbm3
     label = "K11a decode_attention_hbm2" if kind == "hbm2" else "K11b decode_attention_hbm3"
-    L, hq, hkv, D, pb, layer = 2, 16, 8, 128, 512, 1
     worst, times = 0.0, []
-    for B in (1, 8, 96):
-        for S in (640, 2560):
-            kall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-            vall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-            q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
-            k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
-            if B > 1:
-                plen[-1] = 0               # a lane with no prompt rows
-            dend = pb + (S - pb) // 2
-            block_k = h2.tile_block_k(S, pb, 512)
-            out = fn(q, kall, vall, k_new, v_new, layer, plen, dend, pb)
-            torch.cuda.synchronize()
-            ref = h2.scalar_end_plain(q.float(), kall.float(), vall.float(), k_new.float(),
-                                      v_new.float(), layer, plen, dend, pb, D ** -0.5)
-            err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
-            ms = cuda_ms(lambda: fn(q, kall, vall, k_new, v_new, layer, plen, dend, pb))
-            plain_ms = cuda_ms(lambda: h2.scalar_end_plain(
-                q, kall, vall, k_new, v_new, layer, plen, dend, pb, D ** -0.5))
-            k2_ms = cuda_ms(lambda: da.decode_attention(
-                q, kall, vall, k_new, v_new, layer, plen, torch.full_like(plen, dend), pb))
-            # As K2: the valid rows' K and V, q, the fresh rows and the output.
-            rows = int(plen.sum()) + B * (dend - pb)
-            b = bound(rows * hkv * D * 2 * 2 + B * (2 * hq + 2 * hkv) * D * 2,
-                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
-            gbps = rows * hkv * D * 2 * 2 / (ms * 1e-3) / 1e9
-            print(f"{label} B={B} pb={pb} S={S} dend={dend} block_k={block_k}: "
-                  f"max_abs_err={err:.3e} kernel {ms:.4f} ms, K2 {k2_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-                  f"{rows} valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
-            worst = max(worst, err)
-            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
-            del kall, vall
+    for B, S in DECODE_GRID:
+        c = stream_case(gen, B, S)
+        pb, plen, D = c["pb"], c["plen"], 128
+        if B > 1:
+            plen[-1] = 0               # a lane with no prompt rows
+        dend = pb + (S - pb) // 2
+        block_k = h2.tile_block_k(S, pb, 512)
+        fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
+        layer = c["L"] - 1
+        out = fn(*fresh, layer, plen, dend, pb)
+        torch.cuda.synchronize()
+        one = (c["kall"][layer:layer + 1], c["vall"][layer:layer + 1])
+        ref = h2.scalar_end_plain(c["q"].float(), one[0].float(), one[1].float(),
+                                  c["k_new"].float(), c["v_new"].float(), 0, plen, dend, pb,
+                                  D ** -0.5)
+        err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
+        del out, ref
+        ms, host_ms = attention_ms(lambda layer: fn(*fresh, layer, plen, dend, pb), c["L"])
+        plain_ms = cuda_ms(lambda: h2.scalar_end_plain(
+            c["q"], *one, c["k_new"], c["v_new"], 0, plen, dend, pb, D ** -0.5))
+        ends = torch.full_like(plen, dend)
+        k2_ms, k2_host = attention_ms(
+            lambda layer: da.decode_attention(*fresh, layer, plen, ends, pb), c["L"])
+        b, call_bytes = attention_bound(B, 16, 8, int(plen.sum()) + B * (dend - pb), 2 * D)
+        gbps = call_bytes / (ms * 1e-3) / 1e9
+        print(f"{label} B={B} pb={pb} S={S} dend={dend} block_k={block_k}: "
+              f"max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
+              f"({cold_note(c['L'], call_bytes)}; host-paced {host_ms:.4f} ms), K2 {k2_ms:.4f} "
+              f"ms (host-paced {k2_host:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
+              f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+        worst = max(worst, err)
+        times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
+        del c, fresh, one
+        torch.cuda.empty_cache()
     # No one PyTorch call computes it (as K2).
     rec = next(t for B, S, t in times if B == 8 and S == 640)
     return {"max_abs_err": worst, **rec, "library_ms": None}
@@ -571,9 +644,10 @@ def check_decode_lanes(gen, kind: str) -> dict:
     batch that is no multiple of K11c's 4-lane group, with per-lane decode
     ends and an idle lane (prompt_len 0, clamped to 1 as the TPU kernels
     do) where B > 1, against the module's plain version in float32 (atol
-    2e-2 + rtol 2e-2, as K2).  Times: the kernel (K11d with its schedule
-    built beforehand, as the micro-bench builds it once per pass), the plain
-    version and K2 on the same inputs and clamped prompt lengths."""
+    2e-2 + rtol 2e-2, as K2).  Times on a cold cache: the kernel (K11d with
+    its schedule built beforehand, as the micro-bench builds it once per
+    pass) and K2 on the same inputs and clamped prompt lengths by device
+    time, the plain version host-paced."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
@@ -581,64 +655,65 @@ def check_decode_lanes(gen, kind: str) -> dict:
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_sched as sc
 
     label = {"hbm5": "K11c decode_attention_hbm5", "sched": "K11d decode_attention_sched"}[kind]
-    L, hq, hkv, D, pb, layer = 2, 16, 8, 128, 512, 1
+    D = 128
     scale = D ** -0.5
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst, times = 0.0, []
     for B in (1, 6, 8, 96):
         for S in (640, 2560):
-            kall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-            vall = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-            q = torch.randn(B, hq, D, generator=gen, device="cuda").bfloat16()
-            k_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            v_new = torch.randn(B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
-            plen = torch.randint(1, pb + 1, (B,), generator=gen, device="cuda").int()
+            c = stream_case(gen, B, S)
+            pb, plen = c["pb"], c["plen"]
             dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
             if B > 1:
                 plen[-1] = 0               # an idle lane
                 dend[-1] = pb
             clamped = plen.clamp(1, pb)
+            fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
             if kind == "hbm5":
-                def kernel():
-                    return h5.decode_attention_hbm5(q, kall, vall, k_new, v_new, layer,
-                                                    plen, dend, pb)
+                def kernel(layer):
+                    return h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
 
                 def plain(*t):
-                    return da.decode_attention_plain(*t, layer, clamped, dend, pb, scale)
+                    return da.decode_attention_plain(*t, 0, clamped, dend, pb, scale)
                 extra = f"block_p={h5.prompt_block(pb, S)}"
             else:
-                cores, per_core = sc.schedule_geometry(B, hkv, sms)
+                cores, per_core = sc.schedule_geometry(B, c["k_new"].shape[1], sms)
                 sched = sc.build_decode_schedule(plen, dend, pb, S, cores, per_core, B)
 
-                def kernel():
-                    return sc.decode_attention_sched(q, kall, vall, k_new, v_new, layer, plen,
-                                                     dend, pb, schedule=sched)
+                def kernel(layer):
+                    return sc.decode_attention_sched(*fresh, layer, plen, dend, pb,
+                                                     schedule=sched)
 
                 def plain(*t):
-                    return sc.decode_attention_sched_plain(*t, layer, sched, scale)
+                    return sc.decode_attention_sched_plain(*t, 0, sched, scale)
                 build_ms = cuda_ms(lambda: sc.build_decode_schedule(
                     plen, dend, pb, S, cores, per_core, B))
                 extra = f"cores={cores} per_core={per_core}, schedule build {build_ms:.4f} ms"
-            out = kernel()
+            layer = c["L"] - 1
+            out = kernel(layer)
             torch.cuda.synchronize()
-            ref = plain(q.float(), kall.float(), vall.float(), k_new.float(), v_new.float())
+            one = (c["kall"][layer:layer + 1], c["vall"][layer:layer + 1])
+            ref = plain(c["q"].float(), one[0].float(), one[1].float(), c["k_new"].float(),
+                        c["v_new"].float())
             err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
-            ms = cuda_ms(kernel)
-            plain_ms = cuda_ms(lambda: plain(q, kall, vall, k_new, v_new))
-            k2_ms = cuda_ms(lambda: da.decode_attention(
-                q, kall, vall, k_new, v_new, layer, clamped, dend, pb))
-            # As K2: the valid rows' K and V, q, the fresh rows and the output.
-            rows = int(clamped.sum() + (dend - pb).sum())
-            b = bound(rows * hkv * D * 2 * 2 + B * (2 * hq + 2 * hkv) * D * 2,
-                      4 * hq * D * (rows + B), PEAK_BF16_TFLOPS * 1e12)
-            gbps = rows * hkv * D * 2 * 2 / (ms * 1e-3) / 1e9
+            del out, ref
+            ms, host_ms = attention_ms(kernel, c["L"])
+            plain_ms = cuda_ms(lambda: plain(c["q"], *one, c["k_new"], c["v_new"]))
+            k2_ms, k2_host = attention_ms(
+                lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb), c["L"])
+            b, call_bytes = attention_bound(B, 16, 8, int(clamped.sum() + (dend - pb).sum()),
+                                            2 * D)
+            gbps = call_bytes / (ms * 1e-3) / 1e9
             print(f"{label} B={B} pb={pb} S={S} per-lane ends ({extra}): "
-                  f"max_abs_err={err:.3e} kernel {ms:.4f} ms, K2 {k2_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-                  f"{rows} valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+                  f"max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
+                  f"({cold_note(c['L'], call_bytes)}; host-paced {host_ms:.4f} ms), K2 "
+                  f"{k2_ms:.4f} ms (host-paced {k2_host:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
+                  f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
             worst = max(worst, err)
             times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
-            del kall, vall
+            del c, fresh, one
+            torch.cuda.empty_cache()
     # No one PyTorch call computes it (as K2).
     rec = next(t for B, S, t in times if B == 8 and S == 640)
     return {"max_abs_err": worst, **rec, "library_ms": None}
@@ -1019,12 +1094,14 @@ def paged_case(gen, T: int, q8: bool, L: int = 2) -> dict:
 def check_decode_paged(gen, T: int, q8: bool) -> dict:
     """K6 (T = 1) or K7 (T = 4, 8 query rows per KV head), bf16 or int8
     pool, against the plain version in float32 (atol 2e-2 + rtol 2e-2 of
-    the bf16 kernel, as K2)."""
+    the bf16 kernel, as K2), timed on a cold cache (``attention_ms``)."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention_paged as dap
 
-    c = paged_case(gen, T, q8)
+    rows = sum(smoke_prompt_lens()) + 8 * 64
+    L = cold_layers(rows * 8 * ((128 + 4) if q8 else 256) * 2)
+    c = paged_case(gen, T, q8, L=L)
     B, hq, _, D = c["q"].shape
     hkv = c["k_new"].shape[1]
     if T == 1:
@@ -1035,27 +1112,33 @@ def check_decode_paged(gen, T: int, q8: bool) -> dict:
         fn = dap.decode_attention_paged_verify_q8 if q8 else dap.decode_attention_paged_verify
         q = c["q"]
         label = "K7 decode_attention_paged_verify" + ("_q8" if q8 else "")
-    args = (c["kpool"], c["vpool"], c["k_new"], c["v_new"], 1, c["table"], c["plen"],
-            c["dcount"])
-    out = fn(q, *args)
+
+    def args(layer, kpool=c["kpool"], vpool=c["vpool"]):
+        return (kpool, vpool, c["k_new"], c["v_new"], layer, c["table"], c["plen"],
+                c["dcount"])
+
+    layer = L - 1
+    out = fn(q, *args(layer))
     torch.cuda.synchronize()
     plain = dap.paged_attention_q8_plain if q8 else dap.paged_attention_plain
-    f32 = (lambda p: p) if q8 else (lambda p: p.float())
-    ref = plain(c["q"].float(), f32(c["kpool"]), f32(c["vpool"]), c["k_new"].float(),
-                c["v_new"].float(), 1, c["table"], c["plen"], c["dcount"], D ** -0.5)
+    if q8:
+        one = tuple({k: v[layer:layer + 1] for k, v in c[n].items()} for n in ("kpool", "vpool"))
+        f32 = one
+    else:
+        one = (c["kpool"][layer:layer + 1], c["vpool"][layer:layer + 1])
+        f32 = tuple(p.float() for p in one)
+    ref = plain(c["q"].float(), *f32, c["k_new"].float(), c["v_new"].float(), 0, c["table"],
+                c["plen"], c["dcount"], D ** -0.5)
     err = _close(label, out if T > 1 else out[:, :, None], ref, 2e-2, 2e-2)
-    ms = cuda_ms(lambda: fn(q, *args))
-    plain_ms = cuda_ms(lambda: plain(c["q"], *args, D ** -0.5))
-    # The valid rows' K and V (int8 rows plus one f32 scale each), read once,
-    # plus q, the fresh rows and the output; QK and PV over the valid rows
-    # and the fresh block.
-    row_bytes = (D + 4) if q8 else D * 2
+    del out, ref
     rows = c["rows"]
-    b = bound(rows * hkv * row_bytes * 2 + B * T * (2 * hq + 2 * hkv) * D * 2,
-              4 * hq * T * D * (rows + B * T), PEAK_BF16_TFLOPS * 1e12)
-    gbps = rows * hkv * row_bytes * 2 / (ms * 1e-3) / 1e9
+    b, call_bytes = attention_bound(B, hq, hkv, rows, (D + 4) if q8 else D * 2, T)
+    ms, host_ms = attention_ms(lambda layer: fn(q, *args(layer)), L)
+    plain_ms = cuda_ms(lambda: plain(c["q"], *args(0, *one), D ** -0.5))
+    gbps = call_bytes / (ms * 1e-3) / 1e9
     print(f"{label} B={B} T={T} PS=256 plen={c['plen'].tolist()} dcount=64: "
-          f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"max_abs_err={err:.3e} kernel {ms:.4f} ms device time ({cold_note(L, call_bytes)}; "
+          f"host-paced {host_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {rows} valid rows, {gbps:.0f} GB/s = "
           f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
     # No one PyTorch call: a page-table gather, two masked intervals and a
@@ -2185,7 +2268,7 @@ def main() -> int:
         "flash_attention_causal": check_flash(gen),
         "decode_attention": check_decode(gen),
         "kv_write_rows": check_kv_write(gen),
-        "decode_attention_q8": check_decode_q8(gen),
+        "decode_attention_q8": check_decode(gen, q8=True),
         "kv_write_rows_q8": check_kv_write_q8(gen),
         "quantized_matmul": check_quantized_matmul(gen),
         "w8a8_matmul": check_w8a8_matmul(gen),

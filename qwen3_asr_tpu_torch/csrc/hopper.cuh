@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (flash_attention.cu, K1; conv_stem.cu, K11e; quantized_matmul.cu, K9;
-// w8a8_matmul.cu, K10):
+// w8a8_matmul.cu, K10) and the bulk-copy decode attention
+// (decode_attention.cu, K2/K4):
 //   * mbarrier init, arrive, arrive with an expected transaction count,
 //     parity wait, and the arrive that fires when a thread's cp.async
 //     copies land;
 //   * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) from a
-//     __grid_constant__ CUtensorMap, completing on an mbarrier;
+//     __grid_constant__ CUtensorMap, completing on an mbarrier, and 1-D
+//     bulk copies of contiguous bytes (cp.async.bulk; K2/K4,
+//     decode_attention.cu), which need no tensor map;
 //   * wgmma shared-memory descriptors for the 128-byte swizzle, and
 //     wgmma.mma_async bf16 -> f32 with A in shared memory (SS) or in
 //     registers (RS, at N = 8 .. 256 for K9), s8 x s8 -> s32 (SS, m64n256k32
@@ -130,6 +133,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` contiguous bytes from global `src` into shared
+// `dst`, completing on `bar` (no tensor map).  Both addresses and `bytes`
+// must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

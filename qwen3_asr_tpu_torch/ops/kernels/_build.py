@@ -51,17 +51,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, T, scale, stream
     "flash_attention_causal_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # q, kall, vall, k_new, v_new, prompt_len, decode_end, workspace, out,
-    # layer, B, Hq, Hkv, S, prompt_bucket, splits, scale, stream
+    # q, kall, vall, k_new, v_new, prompt_len, decode_end, workspace,
+    # counters, out, layer, B, Hq, Hkv, S, prompt_bucket, splits, scale, stream
     "decode_attention_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, kscale, vscale, k_new, v_new, prompt_len, decode_end,
-    # workspace, out, layer, B, Hq, Hkv, S, prompt_bucket, splits, scale,
-    # stream
+    # workspace, counters, out, layer, B, Hq, Hkv, S, prompt_bucket, splits,
+    # scale, stream
     "decode_attention_q8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # cache, rows, slots, L, B, H, T, S, stream

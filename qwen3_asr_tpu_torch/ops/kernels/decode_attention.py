@@ -10,20 +10,25 @@ rows only after the layer loop.
 Bound on the H100: bytes (every valid K/V row is read once per step, at
 about one FMA per byte).  The CUDA kernel (``csrc/decode_attention.cu``)
 reads only the valid rows, never the padded middle of the cache, and reads
-each row once for the whole GQA group; a split pass spreads a lane's rows
-over several blocks so that small batches fill the card, and a combine pass
+each row once for the whole GQA group, in one launch: blocks spread a
+lane's rows over ``splits`` chunks so that small batches fill the card, a
+producer thread streams each chunk by 1-D bulk copies into an ``mbarrier``
+ring in shared memory, and the last block of each (lane, KV head) to finish
 folds the partial softmaxes and the self-term.  The wrapper picks the split
-count and allocates the f32 workspace.  Any ``prompt_bucket`` and S work
-(no block-size divisibility).
+count, allocates the f32 workspace and hands over the device's zeroed
+arrival counters (:func:`arrival_counters`).  Any ``prompt_bucket`` and S
+work (no block-size divisibility); the int8 cache needs S % 4 == 0
+(:func:`check_bulk_copies`).
 
 On a CPU tensor the wrapper runs :func:`decode_attention_plain`, the masked
 two-interval softmax of ``qwen3_asr_tpu/models/decoder.py:534-657``; on a
 CUDA tensor it launches the kernels or raises.
 
 K4, :func:`decode_attention_q8`, replaces ``decode_attention_hbm4_q8``: the
-same kernels over the int8 cache ``{"q": int8 (L, B, Hkv, S, D), "s": f32
-(L, B, Hkv, S)}``, reading 128-byte rows plus one scale each and folding
-the scales into the scores and probabilities.  Its plain version is the
+same kernel over the int8 cache ``{"q": int8 (L, B, Hkv, S, D), "s": f32
+(L, B, Hkv, S)}``, reading 128-byte rows plus one scale each (each run of
+scales copied as its 16-byte aligned superset) and folding the scales into
+the scores and probabilities.  Its plain version is the
 JAX decoder's XLA fallback (``decoder.py:616-657``): dequantize the layer
 to q's dtype, then the same two-interval softmax.
 """
@@ -86,6 +91,42 @@ def masked_attention_plain(
         "bkgl,bkld->bkgd", w[..., :S].to(vcache.dtype).float(), vcache.float()
     ) + w[..., S:] * v_new[:, :, 0].float()[:, :, None, :]
     return out.reshape(B, hq, D).to(q.dtype)
+
+
+#: Per device index: zeroed int32 arrival counters, one per (lane, KV
+#: head), that the kernel leaves at zero, shared by every call on the
+#: device's streams in order.  Grown and never freed, since a captured CUDA
+#: graph keeps the pointer it was given.
+_counters: dict[int | None, list[torch.Tensor]] = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``, the same buffer
+    for every call that fits in it."""
+    bufs = _counters.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode_attention: the arrival counters for this batch are made on the "
+                "first call; make one call outside CUDA-graph capture first"
+            )
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=device))
+    return bufs[-1]
+
+
+def check_bulk_copies(cache_len: int, q8: bool, ptrs: tuple[int, ...]) -> None:
+    """Raise unless the kernel's bulk copies can read the cache: every cache
+    pointer (K and V, and the int8 cache's scales) 16-byte aligned, and for
+    the int8 cache ``cache_len % 4 == 0`` (a run of f32 scales is copied as
+    its 16-byte aligned superset, which stays inside the lane's S scales
+    only then)."""
+    if any(p % 16 for p in ptrs):
+        raise ValueError("the cache's tensors must be 16-byte aligned for the kernel's bulk copies")
+    if q8 and cache_len % 4:
+        raise ValueError(
+            f"the int8 cache's length S={cache_len} must be a multiple of 4: the kernel "
+            "copies each run of f32 scales as its 16-byte aligned superset"
+        )
 
 
 @lru_cache(maxsize=8)
@@ -194,16 +235,18 @@ def _launch(name, entry, q, cache_shape, cache_ptrs, k_new, v_new, layer,
     point ``entry`` (K2 or K4) on the cache pointers ``cache_ptrs``."""
     B, hq, D = q.shape
     hkv, S = cache_shape[2], cache_shape[3]
+    check_bulk_copies(S, name == NAME_Q8, cache_ptrs)
     splits = split_count(B, hkv, S, _sm_count(q.device))
     ws = torch.empty(
         (B, hkv, splits, hq // hkv, D + 2), dtype=torch.float32, device=q.device
     )
+    counters = arrival_counters(q.device, B * hkv)
     out = torch.empty_like(q)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), *cache_ptrs, k_new.data_ptr(), v_new.data_ptr(),
         prompt_len.data_ptr(), decode_end.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), int(layer), B, hq, hkv, S, int(prompt_bucket), splits,
-        float(scale), _build.stream_ptr(q),
+        counters.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, S,
+        int(prompt_bucket), splits, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, name)
     _build.LAUNCHES[name] += 1

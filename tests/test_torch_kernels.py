@@ -116,26 +116,61 @@ def _plain_decode(q, kall, vall, k_new, v_new, layer, plen, dend, pb):
     ).numpy()
 
 
-@pytest.mark.parametrize("dend_off", [0, 1, 37, 128])
-def test_decode_plain_matches_pallas_exact_weights(dend_off):
+#: The valid-row edge cases of the GPU kernel's bulk-copy tiles (32 rows),
+#: at _decode_inputs' S = 384 and prompt_bucket 256: (prompt_len, decode_end
+#: - prompt_bucket) per lane.  An idle lane (prompt_len 0, decode_end ==
+#: prompt_bucket); runs shorter than one tile; run lengths that are no
+#: multiple of a tile, with decode_end == S.
+DECODE_EDGE_CASES = {
+    "idle-lane": ([0, 250, 37], [0, 37, 1]),
+    "short-runs": ([3, 1, 5], [2, 1, 0]),
+    "ragged-runs": ([77, 33, 250], [45, 101, 128]),
+}
+
+
+def _decode_case(case, pb):
+    """(prompt_len, decode_end) of a parametrised case: an int is the
+    decode_end offset of every lane at prompt lengths 100, 250, 37."""
+    if isinstance(case, int):
+        return [100, 250, 37], [pb + case] * 3
+    plen, offs = DECODE_EDGE_CASES[case]
+    return plen, [pb + o for o in offs]
+
+
+def _hold_decode(out, ref, plen, dend, pb, v_new, atol):
+    """Live lanes against the Pallas kernel; an idle lane attends its fresh
+    row alone (the Pallas kernel reads one clamped row there, and the caller
+    discards that lane)."""
+    idle = [b for b, (p, e) in enumerate(zip(plen, dend)) if p == 0 and e == pb]
+    live = [b for b in range(len(plen)) if b not in idle]
+    np.testing.assert_allclose(out[live], ref[live], atol=atol, rtol=0)
+    for b in idle:
+        group = out.shape[1] // v_new.shape[1]
+        np.testing.assert_allclose(out[b], np.repeat(v_new[b, :, 0], group, axis=0), atol=1e-6)
+
+
+@pytest.mark.parametrize("case", [0, 1, 37, 128, *DECODE_EDGE_CASES])
+def test_decode_plain_matches_pallas_exact_weights(case):
     pb = 256
-    inputs = _decode_inputs(dend_off, zero_q=True)
-    plen = [100, 250, 37]
-    dend = [pb + dend_off] * 3
+    inputs = _decode_inputs(case if isinstance(case, int) else len(case), zero_q=True)
+    plen, dend = _decode_case(case, pb)
     ref = _pallas_decode(*inputs, 1, plen, dend, pb)
     out = _plain_decode(*inputs, 1, plen, dend, pb)
-    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    _hold_decode(out, ref, plen, dend, pb, inputs[4], 1e-5)
 
 
-@pytest.mark.parametrize("dend_off", [1, 100])
-def test_decode_plain_matches_pallas_random_queries(dend_off):
+@pytest.mark.parametrize("case", [1, 100, *DECODE_EDGE_CASES])
+def test_decode_plain_matches_pallas_random_queries(case):
     pb = 256
-    inputs = _decode_inputs(10 + dend_off)
-    plen = [100, 250, 37]
-    dend = [pb + dend_off, pb + dend_off // 2, pb]
+    if isinstance(case, int):
+        inputs = _decode_inputs(10 + case)
+        plen, dend = [100, 250, 37], [pb + case, pb + case // 2, pb]
+    else:
+        inputs = _decode_inputs(20 + len(case))
+        plen, dend = _decode_case(case, pb)
     ref = _pallas_decode(*inputs, 0, plen, dend, pb)
     out = _plain_decode(*inputs, 0, plen, dend, pb)
-    np.testing.assert_allclose(out, ref, atol=5e-3, rtol=0)
+    _hold_decode(out, ref, plen, dend, pb, inputs[4], 5e-3)
 
 
 def test_decode_plain_ignores_invalid_rows():
@@ -161,6 +196,39 @@ def test_decode_idle_lane_is_finite():
     out = _plain_decode(q, kall, vall, k_new, v_new, 0, [0, 17], [pb, pb + 3], pb)
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out[0], np.repeat(v_new[0, :, 0], 2, axis=0), atol=1e-6)
+
+
+def test_arrival_counters_are_cached_and_grown():
+    """The kernel's ticket counters: one zeroed buffer per device, handed to
+    every call that fits, grown (the old one kept alive) when a batch needs
+    more."""
+    da_mod._counters.pop(None, None)
+    cpu = torch.device("cpu")
+    a = da_mod.arrival_counters(cpu, 8 * 8)
+    assert a.dtype == torch.int32 and a.numel() >= 64 and not a.any()
+    assert da_mod.arrival_counters(cpu, 96 * 8) is a
+    big = da_mod.arrival_counters(cpu, a.numel() + 1)
+    assert big.numel() > a.numel() and not big.any()
+    assert da_mod.arrival_counters(cpu, 1) is big
+    assert da_mod._counters[None] == [a, big]
+    da_mod._counters.pop(None)
+
+
+@pytest.mark.parametrize("S,q8,ptrs,ok", [
+    (640, True, (0, 256, 512, 1024), True),
+    (700, True, (0, 16, 32, 48), True),    # 700 % 4 == 0
+    (642, False, (0, 4096), True),         # the bf16 cache takes any S
+    (642, True, (0, 16, 32, 48), False),   # a scale run's aligned superset leaves the lane
+    (641, True, (0, 16, 32, 48), False),
+    (640, False, (0, 8), False),           # a bulk copy needs 16-byte addresses
+    (640, True, (0, 16, 4, 48), False),
+])
+def test_check_bulk_copies(S, q8, ptrs, ok):
+    if ok:
+        da_mod.check_bulk_copies(S, q8, ptrs)
+    else:
+        with pytest.raises(ValueError):
+            da_mod.check_bulk_copies(S, q8, ptrs)
 
 
 def test_decode_split_count():
@@ -572,6 +640,91 @@ def test_cuda_decode_q8_matches_plain(cuda, B, S):
     )
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+#: (B, S, prompt_len, decode_end - 512) at prompt_bucket 512 for K2/K4's
+#: bulk-copy tiles of 32 rows; None: random lengths.
+CUDA_DECODE_EDGES = {
+    "idle-lane": (3, 640, [0, 100, 0], [0, 88, 0]),
+    "short-runs": (2, 640, [5, 0], [3, 1]),            # fewer rows than one tile
+    "ragged-runs": (3, 640, [77, 333, 511], [45, 101, 127]),
+    "dend-is-S": (2, 2560, [512, 1], [2048, 2048]),
+    "B96-S2560": (96, 2560, None, None),
+}
+
+
+def _cuda_decode_edge(cuda, case, q8):
+    from qwen3_asr_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_q8,
+        decode_attention_q8_plain,
+    )
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    B, S, plen, offs = CUDA_DECODE_EDGES[case]
+    pb = 512
+    g = torch.Generator(device=cuda).manual_seed(B * S + q8)
+    shape = (2, B, 8, S, 128)
+    k32 = torch.randn(shape, generator=g, device=cuda)
+    v32 = torch.randn(shape, generator=g, device=cuda)
+    kall, vall = (quantize_kv(k32), quantize_kv(v32)) if q8 else (k32.bfloat16(), v32.bfloat16())
+    del k32, v32
+    q = torch.randn(B, 16, 128, generator=g, device=cuda).bfloat16()
+    k_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    v_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    if plen is None:
+        plen = torch.randint(0, pb + 1, (B,), generator=g, device=cuda).int()
+        dend = torch.randint(pb, S + 1, (B,), generator=g, device=cuda).int()
+    else:
+        plen = torch.tensor(plen, dtype=torch.int32, device=cuda)
+        dend = pb + torch.tensor(offs, dtype=torch.int32, device=cuda)
+    name = "decode_attention_q8" if q8 else "decode_attention"
+    fn = decode_attention_q8 if q8 else decode_attention
+    before = LAUNCHES[name]
+    out = fn(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    assert LAUNCHES[name] == before + 1
+    again = fn(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    assert LAUNCHES[name] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    if q8:
+        ref = decode_attention_q8_plain(q.float(), kall, vall, k_new.float(), v_new.float(),
+                                        1, plen, dend, pb, 128 ** -0.5)
+    else:
+        ref = decode_attention_plain(q.float(), kall[1:].float(), vall[1:].float(),
+                                     k_new.float(), v_new.float(), 0, plen, dend, pb,
+                                     128 ** -0.5)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_DECODE_EDGES))
+def test_cuda_decode_edge_cases(cuda, case):
+    """K2 at the ring's edge cases: held to the plain version, two identical
+    calls bit-identical, one launch a call."""
+    _cuda_decode_edge(cuda, case, q8=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_DECODE_EDGES))
+def test_cuda_decode_q8_edge_cases(cuda, case):
+    """K4 as test_cuda_decode_edge_cases, with the scale runs' aligned
+    supersets starting and ending mid-lane."""
+    _cuda_decode_edge(cuda, case, q8=True)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_q8_rejects_unaligned_cache_len(cuda):
+    from qwen3_asr_tpu_torch.ops.kernels.decode_attention import decode_attention_q8
+    from qwen3_asr_tpu_torch.ops.quant_kv import quantize_kv
+
+    S = 642
+    kall = quantize_kv(torch.randn(1, 1, 8, S, 128, device=cuda))
+    q = torch.randn(1, 16, 128, device=cuda).bfloat16()
+    new = torch.randn(1, 8, 1, 128, device=cuda).bfloat16()
+    ends = torch.tensor([512], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        decode_attention_q8(q, kall, kall, new, new, 0, ends - 500, ends, 512)
 
 
 @pytest.mark.cuda

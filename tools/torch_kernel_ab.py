@@ -2,15 +2,17 @@
 """A/B of the port's redesigned kernels against an earlier version of their
 CUDA sources, on one CUDA GPU, in one process.
 
-    python3 tools/torch_kernel_ab.py --parent DIR [--rounds N] [--kernels K1,K11e,K9,K10]
+    python3 tools/torch_kernel_ab.py --parent DIR [--rounds N] [--kernels K1,K11e,K9,K10,K2,K4]
 
 ``DIR`` holds earlier ``flash_attention.cu`` (K1), ``conv_stem.cu`` (K11e),
-``quantized_matmul.cu`` (K9) and ``w8a8_matmul.cu`` (K10) with the headers
-they include, e.g. from ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
-The tool compiles the ones present with the port's nvcc flags into a
-library of their own (in ``DIR``), binds their C entry points with the
-signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the port's),
-and then, on the same inputs:
+``quantized_matmul.cu`` (K9), ``w8a8_matmul.cu`` (K10) and
+``decode_attention.cu`` (K2 and K4) with the headers they include, e.g. from
+``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
+The tool compiles the ones that ``--kernels`` names with the port's nvcc
+flags into a library of their own (in ``DIR``), binds their C entry points
+with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
+port's; K2's and K4's are the two-kernel version's, without arrival
+counters), and then, on the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -33,13 +35,21 @@ and then, on the same inputs:
     (``activation_scales``) and fused-quantize kernel, the change's
     quantize pass and GEMM.  The parent's K9 and K10 read the (K, N)
     row-major weight, the change the K-major one; both copies are made
-    before the timing.
+    before the timing.  K2 and K4 (decode attention over the bf16 and the
+    int8 cache) are held to their plain versions (atol 2e-2 + rtol 2e-2)
+    and to the parent bit for bit, and timed in turns by device time on a
+    cold cache (``chip_smoke.attention_ms``: CUDA graphs of calls rotated
+    over enough layers of one cache that the calls between two on one layer
+    read more than the 50 MB L2), the host-paced ms, the bound and the share
+    of the HBM peak beside; medians over the rounds.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
 and conv3's shapes for the smoke's 256 chunks; K9 at ``chip_smoke``'s
 ``DECODE_MATMULS`` for M = 1, 8 and 96 and the decoder layer's four
-products at M = 448 and 3584; K10 at ``PREFILL_MATMULS``.  The first line
+products at M = 448 and 3584; K10 at ``PREFILL_MATMULS``; K2 and K4 at
+``chip_smoke``'s ``DECODE_GRID`` (B = 1, 8, 96 x S = 640, 2560, prompt
+bucket 512, Hq 16, Hkv 8, random lengths, an idle lane).  The first line
 is the card's ``nvidia-smi`` name and power limit; the last line one JSON
 object with every reading.  Needs a CUDA device and ``nvcc``; exits
 non-zero without them.
@@ -71,18 +81,26 @@ PARENT_SIGNATURES = {
     "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, sx, wq (K, N) row-major, ws, out, M, N, K, out_f32, stream
     "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # The two-kernel K2/K4 of commit 4c91d10 (split pass + combine pass), no
+    # arrival counters: q, kall, vall, k_new, v_new, prompt_len, decode_end,
+    # ws, out, layer, B, Hq, Hkv, S, prompt_bucket, splits, scale, stream
+    "decode_attention_bf16": (_P,) * 9 + (_I,) * 7 + (ctypes.c_float, _P),
+    # q, kall, vall, kscale, vscale, k_new, v_new, prompt_len, decode_end, ws,
+    # out, then as decode_attention_bf16
+    "decode_attention_q8": (_P,) * 11 + (_I,) * 7 + (ctypes.c_float, _P),
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
-           "K10": "w8a8_matmul.cu"}
+           "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu"}
 ENTRY = {"K1": "flash_attention_causal_bf16", "K11e": "conv_s2_gelu_bf16",
-         "K9": "quantized_matmul_bf16", "K10": "w8a8_matmul_bf16"}
+         "K9": "quantized_matmul_bf16", "K10": "w8a8_matmul_bf16",
+         "K2": "decode_attention_bf16", "K4": "decode_attention_q8"}
 
 
 def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
     """Compile the parent's sources of ``kernels`` into ``parent/libparent.so``."""
     from qwen3_asr_tpu_torch.ops.kernels import _build
 
-    sources = [parent / SOURCES[k] for k in kernels]
+    sources = sorted({parent / SOURCES[k] for k in kernels})
     for src in sources:
         if not src.is_file():
             raise SystemExit(f"torch_kernel_ab: {src} is missing")
@@ -390,7 +408,102 @@ def ab_w8a8(lib, gen, rounds: int) -> list[dict]:
     return rows
 
 
-AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8}
+def run_parent_decode(lib, c: dict, layer: int):
+    """The parent's K2 (K4 on an int8 cache) as its wrapper ran it: the
+    input checks, its split workspace, then its split and combine kernels."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+
+    q = c["q"]
+    B, hq, D = q.shape
+    q8 = isinstance(c["kall"], dict)
+    kq = c["kall"]["q"] if q8 else c["kall"]
+    vq = c["vall"]["q"] if q8 else c["vall"]
+    da._check(q, kq, vq, c["k_new"], c["v_new"], layer, c["plen"], c["dend"],
+              cache_dtype=kq.dtype)
+    if q8:
+        da._check_scales(c["kall"], c["vall"])
+    hkv, S = kq.shape[2], kq.shape[3]
+    splits = da.split_count(B, hkv, S, da._sm_count(q.device))
+    ws = torch.empty((B, hkv, splits, hq // hkv, D + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    cache = ((kq.data_ptr(), c["vall"]["q"].data_ptr(), c["kall"]["s"].data_ptr(),
+              c["vall"]["s"].data_ptr()) if q8 else (kq.data_ptr(), c["vall"].data_ptr()))
+    entry = lib.decode_attention_q8 if q8 else lib.decode_attention_bf16
+    err = entry(q.data_ptr(), *cache, c["k_new"].data_ptr(), c["v_new"].data_ptr(),
+                c["plen"].data_ptr(), c["dend"].data_ptr(), ws.data_ptr(), out.data_ptr(),
+                int(layer), B, hq, hkv, S, c["pb"], splits, float(D ** -0.5),
+                _build.stream_ptr(q))
+    if err:
+        raise RuntimeError(f"parent decode attention: CUDA error {err}")
+    return out
+
+
+def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
+    """K2 (K4) at chip_smoke's ``DECODE_GRID``: parent and change held to the
+    plain version and to each other bit for bit, then timed in turns by
+    device time on a cold cache (``chip_smoke.attention_ms``: the calls
+    rotated over enough layers that those between two on one layer read
+    more than the 50 MB L2), the host-paced ms beside."""
+    import torch
+
+    from chip_smoke import (DECODE_GRID, PEAK_HBM_GBPS, _close, attention_ms, cold_note,
+                            decode_bound, decode_case, decode_reference)
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+
+    name = "K4" if q8 else "K2"
+    fn = da.decode_attention_q8 if q8 else da.decode_attention
+    rows = []
+    for B, S in DECODE_GRID:
+        c = decode_case(gen, B, S, q8)
+
+        def change(layer):
+            return fn(c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"], layer, c["plen"],
+                      c["dend"], c["pb"])
+
+        def parent(layer):
+            return run_parent_decode(lib, c, layer)
+
+        layer = c["L"] - 1
+        out, pout = change(layer), parent(layer)
+        ref = decode_reference(c, layer)
+        live = slice(0, B - 1) if B > 1 else slice(0, 1)
+        err = _close(f"{name} B={B} S={S}", out[live], ref[live], 2e-2, 2e-2)
+        perr = _close(f"parent {name} B={B} S={S}", pout[live], ref[live], 2e-2, 2e-2)
+        same = torch.equal(out, pout)
+        diff = (out.float() - pout.float()).abs().max().item()
+        del out, pout, ref
+        times = {"parent": ([], []), "change": ([], [])}
+        for _ in range(rounds):
+            for arm in ("parent", "change", "change", "parent"):
+                dev, host = attention_ms(parent if arm == "parent" else change, c["L"])
+                times[arm][0].append(dev)
+                times[arm][1].append(host)
+        (p, ph), (ch, chh) = times["parent"], times["change"]
+        b = decode_bound(c)
+        cm, pm = statistics.median(ch), statistics.median(p)
+        print(f"{name} B={B} S={S} ({c['rows']} valid rows; {cold_note(c['L'], c['call_bytes'])}):"
+              f" change {cm:.4f} ms {_ms_list(ch)}, parent {pm:.4f} ms {_ms_list(p)} device "
+              f"time; host-paced change {statistics.median(chh):.4f} / parent "
+              f"{statistics.median(ph):.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+              f"HBM peak share change {c['call_bytes'] / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, "
+              f"parent {c['call_bytes'] / (pm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}; change/parent "
+              f"{cm / pm:.3f}; err {err:.3e} / parent {perr:.3e}; bit-identical: {same} (max "
+              f"|diff| {diff:.3e})")
+        rows.append({"kernel": name, "B": B, "S": S, "rows": c["rows"], "layers": c["L"],
+                     "max_abs_err": err, "parent_max_abs_err": perr, "bit_identical": same,
+                     "max_diff_vs_parent": diff, "ms": ch, "parent_ms": p, "host_ms": chh,
+                     "parent_host_ms": ph, **b})
+        del c
+        torch.cuda.empty_cache()
+    return rows
+
+
+AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8,
+      "K2": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, False),
+      "K4": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, True)}
 
 
 def main() -> int:
@@ -398,8 +511,8 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, required=True,
                     help="directory with the earlier sources of the kernels compared")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--kernels", default="K1,K11e,K9,K10",
-                    help="comma-separated subset of K1, K11e, K9, K10")
+    ap.add_argument("--kernels", default=",".join(AB),
+                    help=f"comma-separated subset of {', '.join(AB)}")
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(",") if k]
     if any(k not in AB for k in kernels):
