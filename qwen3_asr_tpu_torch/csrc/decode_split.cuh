@@ -1,0 +1,427 @@
+// The split decode attention shared by K2/K4 (decode_attention.cu, the
+// contiguous cache) and K6/K7 (decode_attention_paged.cu, the paged pool).
+//
+// One launch, blocks per (KV head, lane) that take one split each (K6/K7:
+// or several, one after the other): one or two consumer groups of kThreads
+// threads (four warps, as eight 16-thread workers) and one producer warp.
+// A lane's valid rows are numbered densely and cut into `splits` chunks;
+// the producer streams a block's chunks in tiles of
+// kTileRows rows by 1-D bulk copies into a kStages-deep mbarrier ring, and
+// worker w of each group takes the chunk's rows w, w + 8, ...: it dots each
+// with the group's query rows of the KV head (f32, shuffles across the
+// half-warp) and keeps an online softmax (max, sum, 128-wide accumulator)
+// per query row in registers.  A second group takes the other half of the
+// query rows from the same tiles, so that each row is still read once.  The
+// workers merge through shared memory into one partial (m, l, acc) per
+// query row; the last block of each (lane, KV head) to finish, counted by
+// an acq_rel ticket that it resets to zero, folds the fresh rows' terms and
+// the partials, in split order, into the output.
+//
+// This header holds what both kernels share: the ring's layout and barrier
+// protocol, a tile's consumer work, the workers' merge, the partial's store,
+// the ticket and the split fold.  After the ring's setup only the consumers
+// synchronise (a named barrier), so that the producer warp may run ahead.
+// The arithmetic (row assignment, fmaf order, shuffle tree, softmax update,
+// worker merge, split fold) is that of the port's earlier two-kernel
+// versions, so both kernels give those versions' outputs bit for bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <float.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace decode_split {
+
+constexpr int kD = 128;
+constexpr int kThreads = 128;                     // consumer threads of a group
+constexpr int kRowThreads = 16;                   // threads per cache row
+constexpr int kWorkers = kThreads / kRowThreads;  // 16-thread workers
+constexpr int kPerThread = kD / kRowThreads;      // 8 elements
+constexpr float kMaskValue = -0.7f * FLT_MAX;
+constexpr int kTileRows = 32;                     // rows per ring stage
+constexpr int kStages = 4;
+constexpr int kRounds = kTileRows / kWorkers;     // a worker's rows per tile
+// f32 slots of one run of scales: the 16-byte aligned superset of at most
+// kTileRows rows starts up to 3 rows early and ends up to 3 rows late.
+constexpr int kScaleSlots = kTileRows + 8;
+static_assert(kTileRows % kWorkers == 0, "a tile holds whole rounds of workers");
+
+// Shared memory: kStages stages of [K rows | V rows | (Q8) K scale runs |
+// V scale runs | kMeta ints], then the full and empty barriers.  kRuns is
+// the most runs of rows a tile copies, R the query rows per KV head; the
+// workers' merge takes kMerge bytes (in the ring once every tile is
+// consumed; K6/K7 merge a block's earlier splits in a buffer of their own).
+template <int R, bool Q8, int kRuns, int kMeta = 0>
+struct Ring {
+  static constexpr int kRowBytes = Q8 ? kD : kD * 2;
+  static constexpr int kRows = kTileRows * kRowBytes;
+  static constexpr int kScales = kRuns * kScaleSlots;  // f32 per K or V
+  static constexpr int kStage = 2 * kRows + (Q8 ? (2 * kScales + kMeta) * 4 : 0);
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int kBytes = kBars + 2 * kStages * 8;
+  static constexpr int kMerge = kWorkers * R * (kD + 2) * 4;
+  static_assert(kMerge <= kBars, "the merge fits in the ring");
+  static_assert(kStage % 16 == 0 && kRowBytes % 16 == 0, "bulk copies need 16 B");
+};
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void unpack8_i8(const uint2& raw, float (&out)[8]) {
+  const int8_t* p = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(p[i]);
+}
+
+// atom.add.acq_rel.gpu: adds n, returns the old value of *ticket.
+__device__ __forceinline__ int ticket_add(int* ticket, int n) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(ticket), "r"(n)
+               : "memory");
+  return old;
+}
+
+// A barrier of the block's kConsumers consumer threads alone (named barrier
+// 1), so that the producer warp may still be issuing, or gone.
+template <int kConsumers>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// -- the ring ------------------------------------------------------------------
+// Tile t lives in stage t % kStages.  full[s] takes the producer's one
+// arrival and the tile's bytes; empty[s] one arrival per consumer warp.
+
+// One thread, before the block's first barrier.
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int consumer_warps) {
+  for (int s = 0; s < kStages; ++s) {
+    hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init(&empty[s], consumer_warps);
+  }
+  hopper::fence_barrier_init();
+}
+
+// Producer: wait until tile t's stage is free (tile t - kStages consumed).
+__device__ __forceinline__ void ring_reserve(uint64_t* empty, int t) {
+  if (t >= kStages) hopper::mbar_wait(&empty[t % kStages], ((t / kStages) + 1) & 1);
+}
+
+// Consumers: wait for tile t's bytes.
+__device__ __forceinline__ void ring_wait(uint64_t* full, int t) {
+  hopper::mbar_wait(&full[t % kStages], (t / kStages) & 1);
+}
+
+// A consumer warp is done reading tile t's stage.
+__device__ __forceinline__ void ring_release(uint64_t* empty, int t) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&empty[t % kStages]);
+}
+
+// -- the consumers -------------------------------------------------------------
+
+// A consumer thread's share of the tile of rows [ta, tb) in `stage` (row j
+// at stage row j - ta), tile t of its block, for its group's R query rows:
+// the warp's two half-warps take rows j0 and j0 + 1, j0 = ta + 2 warp + 8 i
+// (warp of the group), for the tile's kRounds rounds
+// i.  Branch-free, so that the rounds' shuffle trees and exponentials
+// overlap: kBatch rounds' scores first (all 32 lanes take part; a row past
+// the tile reads the tile's first row and counts nothing), then their
+// online-softmax updates in row order, where a dead row leaves the state as
+// it is (mn = m, alpha = expf(0) = 1, p = 0, v = 0).  A worker's 16 lanes
+// hold the same scores and state, so each of a row's 2 R exponentials is
+// taken once, on its own lane, and broadcast by a shuffle.  The stage is
+// released once its last round is read.  With Q8, `slot(j)` is row j's
+// slot in the stage's K scale runs (its V scale sits kScales slots later).
+template <int R, bool Q8, int kRuns, int kMeta, class Slot>
+__device__ __forceinline__ void consume_tile(const uint8_t* stage, int ta, int tb, int t,
+                                             uint64_t* empty, const float (&qv)[R][kPerThread],
+                                             float (&m)[R], float (&l)[R],
+                                             float (&acc)[R][kPerThread], Slot slot) {
+  using Rg = Ring<R, Q8, kRuns, kMeta>;
+  static_assert(2 * R <= kRowThreads, "a worker's exponentials fit its lanes");
+  // Rounds to a batch: all of a tile's for up to 4 query rows, fewer for
+  // more rows, whose scores would not fit the registers.
+  constexpr int kBatch = R <= 4 ? kRounds : (8 / R >= 2 ? 2 : 1);
+  const int warp = threadIdx.x % kThreads / 32;
+  const int half = (threadIdx.x / kRowThreads) & 1;
+  const int sub = threadIdx.x % kRowThreads;
+  const float* sc = reinterpret_cast<const float*>(stage + 2 * Rg::kRows);
+#pragma unroll
+  for (int i0 = 0; i0 < kRounds; i0 += kBatch) {
+    float sr[kBatch][R], vf[kBatch][kPerThread], vs[kBatch];
+    bool live[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int jl = ta + warp * 2 + (i0 + k) * kWorkers + half;
+      live[k] = jl < tb;
+      const int j = live[k] ? jl : ta;
+      const int off = (j - ta) * Rg::kRowBytes + sub * kPerThread * (Q8 ? 1 : 2);
+      float kf[kPerThread];
+      float ks = 1.f;
+      vs[k] = 1.f;
+      if constexpr (Q8) {
+        unpack8_i8(*reinterpret_cast<const uint2*>(stage + off), kf);
+        unpack8_i8(*reinterpret_cast<const uint2*>(stage + Rg::kRows + off), vf[k]);
+        const int s = slot(j);
+        ks = sc[s];
+        vs[k] = sc[Rg::kScales + s];
+      } else {
+        unpack8(*reinterpret_cast<const uint4*>(stage + off), kf);
+        unpack8(*reinterpret_cast<const uint4*>(stage + Rg::kRows + off), vf[k]);
+      }
+#pragma unroll
+      for (int e = 0; e < kPerThread; ++e) vf[k][e] = live[k] ? vf[k][e] : 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < kPerThread; ++e) part = fmaf(qv[r][e], kf[e], part);
+#pragma unroll
+        for (int o = kRowThreads / 2; o >= 1; o >>= 1) {
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        }
+        sr[k][r] = Q8 ? part * ks : part;
+      }
+    }
+    if (i0 + kBatch == kRounds) ring_release(empty, t);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      float mn[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) mn[r] = live[k] ? fmaxf(m[r], sr[k][r]) : m[r];
+      // Lane r of the worker takes alpha_r = expf(m_r - mn_r), lane R + r
+      // takes expf(s_r - mn_r).
+      float x = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        x = sub == r ? m[r] - mn[r] : x;
+        x = sub == R + r ? sr[k][r] - mn[r] : x;
+      }
+      const float ex = expf(x);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float alpha = __shfl_sync(0xffffffffu, ex, r, kRowThreads);
+        const float pe = __shfl_sync(0xffffffffu, ex, R + r, kRowThreads);
+        const float p = live[k] ? pe : 0.f;
+        l[r] = l[r] * alpha + p;
+        const float pv = Q8 ? p * vs[k] : p;
+#pragma unroll
+        for (int e = 0; e < kPerThread; ++e) {
+          acc[r][e] = fmaf(pv, vf[k][e], acc[r][e] * alpha);
+        }
+        m[r] = mn[r];
+      }
+    }
+  }
+}
+
+// -- the merge, the ticket and the fold ----------------------------------------
+
+// The consumers, once every one is done with `buf` (a barrier of theirs
+// first): the workers' states merge through shared memory `buf` into the
+// block's partial (pm, pl, pa[d]) per query row of the thread's group,
+// thread d = threadIdx.x % kThreads of the group's; group g holds rows
+// [g R, g R + R) of the block's kGroups * R.  Each worker weight
+// expf(m_w - M) is taken once a warp, on its own lane, and broadcast by a
+// shuffle.
+template <int R, int kGroups>
+__device__ __forceinline__ void merge_workers(float* buf, const float (&m)[R],
+                                              const float (&l)[R],
+                                              const float (&acc)[R][kPerThread],
+                                              float (&pm)[R], float (&pl)[R], float (&pa)[R]) {
+  constexpr int kRowsAll = kGroups * R;
+  const int r0 = threadIdx.x / kThreads * R;
+  const int worker = threadIdx.x % kThreads / kRowThreads;
+  const int sub = threadIdx.x % kRowThreads;
+  float* sm_m = buf;                          // [kWorkers][kRowsAll]
+  float* sm_l = sm_m + kWorkers * kRowsAll;   // [kWorkers][kRowsAll]
+  float* sm_acc = sm_l + kWorkers * kRowsAll; // [kWorkers][kRowsAll][kD]
+  consumer_sync<kGroups * kThreads>();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = worker * kRowsAll + r0 + r;
+    if (sub == 0) {
+      sm_m[row] = m[r];
+      sm_l[row] = l[r];
+    }
+#pragma unroll
+    for (int e = 0; e < kPerThread; ++e) sm_acc[row * kD + sub * kPerThread + e] = acc[r][e];
+  }
+  consumer_sync<kGroups * kThreads>();
+
+  const int d = threadIdx.x % kThreads;  // kThreads == kD
+  constexpr int kPairs = R * kWorkers;   // (row, worker) weights
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    pm[r] = kMaskValue;
+#pragma unroll
+    for (int w = 0; w < kWorkers; ++w) pm[r] = fmaxf(pm[r], sm_m[w * kRowsAll + r0 + r]);
+    pl[r] = 0.f;
+    pa[r] = 0.f;
+  }
+  // Pairs [c, c + 32): lane i takes pair c + i's weight; the sums run per
+  // row in worker order.
+#pragma unroll
+  for (int c = 0; c < kPairs; c += 32) {
+    const int pr = min(c + d % 32, kPairs - 1);
+    float Mp = pm[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) Mp = pr / kWorkers == r ? pm[r] : Mp;
+    const float ex = expf(sm_m[pr % kWorkers * kRowsAll + r0 + pr / kWorkers] - Mp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (c + i < kPairs) {
+        const int r = (c + i) / kWorkers;
+        const int row = (c + i) % kWorkers * kRowsAll + r0 + r;
+        const float wt = __shfl_sync(0xffffffffu, ex, i);
+        pl[r] = fmaf(sm_l[row], wt, pl[r]);
+        pa[r] = fmaf(sm_acc[row * kD + d], wt, pa[r]);
+      }
+    }
+  }
+}
+
+// A consumer's share of the block's partial to `part` (the block's rows,
+// kD + 2 floats each: A[0..kD), M, L).
+template <int R>
+__device__ __forceinline__ void store_partial(float* part, const float (&pm)[R],
+                                              const float (&pl)[R], const float (&pa)[R]) {
+  const int r0 = threadIdx.x / kThreads * R;
+  const int d = threadIdx.x % kThreads;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float* dst = part + (r0 + r) * (kD + 2);
+    dst[d] = pa[r];
+    if (d == 0) {
+      dst[kD] = pm[r];
+      dst[kD + 1] = pl[r];
+    }
+  }
+}
+
+// The consumers, after storing the partials of n of a (lane, KV head)'s
+// `total` splits: whether this block is the last to arrive.  Thread 0 takes
+// the ticket with an acq_rel atomic at gpu scope, after the barrier that
+// orders the block's partial stores before it: the release publishes the
+// partials, and the last block acquires every other one's (the barrier
+// after it hands them to the block's threads); the last block resets the
+// ticket to zero.
+template <int kConsumers>
+__device__ __forceinline__ bool take_ticket(int* ticket, int total, int n) {
+  __shared__ bool last;
+  consumer_sync<kConsumers>();
+  if (threadIdx.x == 0) {
+    last = ticket_add(ticket, n) == total - n;
+    if (last) *ticket = 0;
+  }
+  consumer_sync<kConsumers>();
+  return last;
+}
+
+// The fold of a group's R query rows, rows r0.. of the block's kRowsAll
+// (thread d = threadIdx.x % kThreads): M[r] arrives holding the max of the
+// row's fresh scores; `fresh(r, M, L, A)` sets L and A to the fresh terms'
+// sum and weighted V under the final max M.  Then the partials join in
+// split order: from registers (pm, pl, pa) when splits == 1, else from
+// `base`, row r0 + r of split sp at (sp * kRowsAll + r0 + r) (kD + 2)
+// floats, the group's items i = sp * R + r read kChunk to a round of loads,
+// a round ahead (lane u of each warp loads item u's M and L, each thread its
+// own A values).  M is a max, exact in any order; the L and A sums run in split
+// order, on values broadcast by shuffles; each item's weight expf(M_i - M)
+// is taken once, on the lane that loaded the item.
+template <int R, int kRowsAll, class Fresh>
+__device__ __forceinline__ void fold_splits(const float* base, int splits, int r0,
+                                            const float (&pm)[R], const float (&pl)[R],
+                                            const float (&pa)[R], float (&M)[R], float (&L)[R],
+                                            float (&A)[R], Fresh fresh) {
+  if (splits == 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      M[r] = fmaxf(M[r], pm[r]);
+      fresh(r, M[r], L[r], A[r]);
+      const float wt = expf(pm[r] - M[r]);
+      L[r] = fmaf(pl[r], wt, L[r]);
+      A[r] = fmaf(pa[r], wt, A[r]);
+    }
+    return;
+  }
+  constexpr int kChunk = 32 / R * R;  // whole rows' items to a round
+  const int d = threadIdx.x % kThreads;
+  const int lane = d % 32;
+  const int items = splits * R;
+  // Item i: row r0 + i % R of split i / R.
+  auto item = [&](int i) {
+    return base + ((int64_t)(i / R) * kRowsAll + r0 + i % R) * (kD + 2);
+  };
+  // Items [c, c + kChunk) into one of two buffers: M and L of item c + lane,
+  // this thread's A values.  A round's loads are issued a round ahead.
+  float mc0, lc0, v0[kChunk], mc1, lc1, v1[kChunk];
+  auto load = [&](int c, float& mc, float& lc, float (&v)[kChunk]) {
+    const bool mine = lane < kChunk && c + lane < items;
+    const float* p = item(mine ? c + lane : 0);
+    mc = mine ? __ldcg(p + kD) : kMaskValue;
+    lc = mine ? __ldcg(p + kD + 1) : 0.f;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      if (c + u < items) v[u] = __ldcg(item(c + u) + d);
+    }
+  };
+  load(0, mc0, lc0, v0);
+  if (kChunk < items) load(kChunk, mc1, lc1, v1);
+  float mx = mc0;
+  for (int c = kChunk; c < items; c += kChunk) {
+    if (lane < kChunk && c + lane < items) mx = fmaxf(mx, __ldcg(item(c + lane) + kD));
+  }
+  if constexpr ((R & (R - 1)) == 0) {
+    // Lane r ends with the max over the lanes of row r (lane % R == r).
+#pragma unroll
+    for (int o = 16; o >= R; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+#pragma unroll
+    for (int r = 0; r < R; ++r) M[r] = fmaxf(M[r], __shfl_sync(0xffffffffu, mx, r));
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int u = r; u < kChunk; u += R) M[r] = fmaxf(M[r], __shfl_sync(0xffffffffu, mx, u));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) fresh(r, M[r], L[r], A[r]);
+  float Mlane = M[0];  // the max of the row of this lane's items
+#pragma unroll
+  for (int r = 1; r < R; ++r) Mlane = lane % R == r ? M[r] : Mlane;
+  auto step = [&](int c, float mc, float lc, const float (&v)[kChunk]) {
+    const float wl = expf(mc - Mlane);
+#pragma unroll
+    for (int u = 0; u < kChunk; u += R) {
+      if (c + u >= items) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float wt = __shfl_sync(0xffffffffu, wl, u + r);
+        L[r] = fmaf(__shfl_sync(0xffffffffu, lc, u + r), wt, L[r]);
+        A[r] = fmaf(v[u + r], wt, A[r]);
+      }
+    }
+  };
+  for (int c = 0; c < items; c += 2 * kChunk) {
+    step(c, mc0, lc0, v0);
+    if (c + kChunk >= items) break;
+    if (c + 2 * kChunk < items) load(c + 2 * kChunk, mc0, lc0, v0);
+    step(c + kChunk, mc1, lc1, v1);
+    if (c + 3 * kChunk < items) load(c + 3 * kChunk, mc1, lc1, v1);
+  }
+}
+
+}  // namespace decode_split

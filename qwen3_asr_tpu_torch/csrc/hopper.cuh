@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (flash_attention.cu, K1; conv_stem.cu, K11e; quantized_matmul.cu, K9;
 // w8a8_matmul.cu, K10) and the bulk-copy decode attention
-// (decode_attention.cu, K2/K4):
+// (decode_split.cuh: decode_attention.cu, K2/K4, and
+// decode_attention_paged.cu, K6/K7):
 //   * mbarrier init, arrive, arrive with an expected transaction count,
 //     parity wait, and the arrive that fires when a thread's cp.async
 //     copies land;
 //   * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) from a
 //     __grid_constant__ CUtensorMap, completing on an mbarrier, and 1-D
-//     bulk copies of contiguous bytes (cp.async.bulk; K2/K4,
-//     decode_attention.cu), which need no tensor map;
+//     bulk copies of contiguous bytes (cp.async.bulk; K2/K4 and K6/K7),
+//     which need no tensor map;
 //   * wgmma shared-memory descriptors for the 128-byte swizzle, and
 //     wgmma.mma_async bf16 -> f32 with A in shared memory (SS) or in
 //     registers (RS, at N = 8 .. 256 for K9), s8 x s8 -> s32 (SS, m64n256k32

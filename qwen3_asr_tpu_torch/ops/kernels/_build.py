@@ -73,16 +73,17 @@ _SIGNATURES = {
     # pool_q, pool_s, rows, pages, offs, L, B, H, T, n_pages, PS, stream
     "kv_write_rows_paged_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, kpool, vpool, k_new, v_new, table, prompt_len, decode_count,
-    # workspace, out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages, splits,
-    # scale, stream
+    # workspace, counters, out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages,
+    # splits, scale, stream
     "decode_attention_paged_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kpool, vpool, kscale, vscale, k_new, v_new, table, prompt_len,
-    # decode_count, workspace, out, then as decode_attention_paged_bf16
+    # decode_count, workspace, counters, out, then as
+    # decode_attention_paged_bf16
     "decode_attention_paged_q8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # x, wq, s, out, partial, counters, M, N, K, out_f32, nb, splits, per,

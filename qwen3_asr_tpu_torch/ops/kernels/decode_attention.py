@@ -118,14 +118,14 @@ def check_bulk_copies(cache_len: int, q8: bool, ptrs: tuple[int, ...]) -> None:
     """Raise unless the kernel's bulk copies can read the cache: every cache
     pointer (K and V, and the int8 cache's scales) 16-byte aligned, and for
     the int8 cache ``cache_len % 4 == 0`` (a run of f32 scales is copied as
-    its 16-byte aligned superset, which stays inside the lane's S scales
-    only then)."""
+    its 16-byte aligned superset, which stays inside the lane's S scales,
+    or the page's PS for K6/K7, only then)."""
     if any(p % 16 for p in ptrs):
         raise ValueError("the cache's tensors must be 16-byte aligned for the kernel's bulk copies")
     if q8 and cache_len % 4:
         raise ValueError(
-            f"the int8 cache's length S={cache_len} must be a multiple of 4: the kernel "
-            "copies each run of f32 scales as its 16-byte aligned superset"
+            f"the int8 cache's rows per lane or page ({cache_len}) must be a multiple of 4: "
+            "the kernel copies each run of f32 scales as its 16-byte aligned superset"
         )
 
 

@@ -13,12 +13,20 @@ fresh rows ``k_new``/``v_new`` (B, Hkv, T, D), which every query position t
 attends causally (fresh column u iff u <= t).
 
 Bound on the H100: bytes (each valid K and V row read once per layer).  The
-CUDA kernel (``csrc/decode_attention_paged.cu``) is K2's design with page
-addressing: a split pass over each lane's densely numbered valid rows, every
-row resolved through the table, all T x group query rows of a KV head read
-each row once; a combine pass folds the partials and the causal fresh
-block.  Its largest T x group is :data:`MAX_QUERY_ROWS` (8, the JAX kernel's
-sublane pad); the engine's speculative gate reads this constant.
+CUDA kernel (``csrc/decode_attention_paged.cu``) is K2's one-launch design
+(``csrc/decode_split.cuh``) with page addressing: each lane's densely
+numbered valid rows are cut into ``splits`` chunks, taken by as many blocks
+as fit on the card at once, a producer warp reads the lane's table row once
+and streams each 32-row tile as runs of pool rows (one per page and
+interval, at most three) by 1-D bulk copies into an ``mbarrier`` ring, all
+T x group query rows of a KV head read each row once, and the last block of
+each (lane, KV head) to finish folds the partials and the causal fresh
+block.  The wrapper picks the split count (K2's
+:func:`~.decode_attention.split_count`), allocates the f32 workspace and
+hands over K2's zeroed arrival counters; the pool must suit the bulk copies
+(:func:`check_pool`).  Its largest T x group is
+:data:`MAX_QUERY_ROWS` (8, the JAX kernel's sublane pad); the engine's
+speculative gate reads this constant.
 
 On a CPU tensor each wrapper runs :func:`paged_attention_plain`, the JAX
 decoder's gather-and-mask path (``decoder.py:924-989``, ``:1078-1149``): the
@@ -33,7 +41,7 @@ import torch
 
 from ..attention import NEG_INF
 from . import _build
-from .decode_attention import _sm_count, split_count
+from .decode_attention import _sm_count, arrival_counters, check_bulk_copies, split_count
 
 NAME = "decode_attention_paged"
 NAME_Q8 = "decode_attention_paged_q8"
@@ -42,6 +50,8 @@ NAME_VERIFY_Q8 = "decode_attention_paged_verify_q8"
 
 #: The most query rows (T x GQA group) per KV head that K7 takes.
 MAX_QUERY_ROWS = 8
+#: Rows of one tile of the kernel's ring.
+TILE_ROWS = 32
 
 
 def _gather(pool: torch.Tensor, layer: int, table: torch.Tensor) -> torch.Tensor:
@@ -138,11 +148,25 @@ def _check(q, kpool, vpool, k_new, v_new, layer, table, prompt_len, decode_count
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table.dim() != 2 or table.shape[0] != B:
-        raise ValueError("table must be (B, max_pages)")
+    if table.dim() != 2 or table.shape[0] != B or table.shape[1] < 1:
+        raise ValueError("table must be (B, max_pages), max_pages >= 1")
     for name, t in (("prompt_len", prompt_len), ("decode_count", decode_count)):
         if tuple(t.shape) != (B,):
             raise ValueError(f"{name} must be (B,)")
+
+
+def check_pool(page_size: int, q8: bool, ptrs: tuple[int, ...]) -> None:
+    """Raise unless the kernel's bulk copies can read the pool
+    (:func:`~.decode_attention.check_bulk_copies` with the page as the
+    lane's rows: 16-byte aligned pointers, ``page_size % 4 == 0`` for the
+    int8 pool) and a tile spans at most three runs of pool rows: pages of
+    at least :data:`TILE_ROWS` rows."""
+    check_bulk_copies(page_size, q8, ptrs)
+    if page_size < TILE_ROWS:
+        raise ValueError(
+            f"page_size={page_size} must be at least {TILE_ROWS}: a tile of the kernel's "
+            "ring spans at most three runs of pool rows only then"
+        )
 
 
 def _launch(name, entry, q, pool_shape, pool_ptrs, k_new, v_new, layer, table,
@@ -150,17 +174,19 @@ def _launch(name, entry, q, pool_shape, pool_ptrs, k_new, v_new, layer, table,
     """Allocate the split workspace and the output; launch ``entry``."""
     B, hq, T, D = q.shape
     _, n_pages, hkv, PS, _ = pool_shape
+    check_pool(PS, entry == "decode_attention_paged_q8", pool_ptrs)
     max_pages = table.shape[1]
     splits = split_count(B, hkv, max_pages * PS, _sm_count(q.device))
     ws = torch.empty(
         (B, hkv, splits, T * hq // hkv, D + 2), dtype=torch.float32, device=q.device
     )
+    counters = arrival_counters(q.device, B * hkv)
     out = torch.empty_like(q)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), *pool_ptrs, k_new.data_ptr(), v_new.data_ptr(),
         table.data_ptr(), prompt_len.data_ptr(), decode_count.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T, n_pages, PS,
-        max_pages, splits, float(scale), _build.stream_ptr(q),
+        ws.data_ptr(), counters.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T,
+        n_pages, PS, max_pages, splits, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, name)
     _build.LAUNCHES[name] += 1

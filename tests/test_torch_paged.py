@@ -20,7 +20,15 @@ On the CPU each wrapper runs its plain PyTorch version:
   rows may share; a page past the pool is clipped, a row sent to page 0
   lands there.
 
-Tests marked ``cuda`` hold each CUDA kernel to its plain version on the GPU.
+* the producer's run planning of the K6/K7 CUDA kernel, modelled by
+  :func:`tile_runs`: every valid row of every split's chunk copied exactly
+  once, each run inside one page and one interval, at most three runs a
+  tile, and each run's 16-byte aligned superset of scales inside its page;
+  the wrapper's check of the pool (alignment, page size).
+
+Tests marked ``cuda`` hold each CUDA kernel to its plain version on the GPU
+(K6/K7 also: repeatable bit for bit, arrival counters left at zero, a CUDA
+graph's replay equal to the eager call).
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from torch_parity import configs, numpy_params
 
 from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
 from qwen3_asr_tpu_torch.ops.kernels import decode_attention_paged as dap
+from qwen3_asr_tpu_torch.ops.kernels.decode_attention import arrival_counters, split_count
 from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
 
 L, HQ, HKV, D = 2, 4, 2, 128
@@ -206,6 +215,89 @@ def test_paged_attention_rejects_too_many_query_rows():
                    _t(c["dcount"]), torch.bfloat16)
 
 
+# -- the CUDA kernel's run planning -----------------------------------------------------
+
+
+def tile_runs(ta: int, tb: int, plen: int, page_size: int) -> list[tuple[int, int, int, int]]:
+    """The runs (j0, n, entry, off) of the tile of compact rows [ta, tb) of a
+    lane with ``plen`` prompt rows, as ``plan_tile`` in
+    ``csrc/decode_attention_paged.cu`` cuts them: n rows from compact row j0
+    at offset ``off`` of table entry ``entry``, breaking at every page
+    boundary and at the switch from prompt to decode rows (the kernel keeps
+    the first three; the test shows there are never more)."""
+    pp = -(-plen // page_size)
+    runs, j = [], ta
+    while j < tb:
+        if j < plen:
+            entry, off = divmod(j, page_size)
+            room = min(page_size - off, plen - j)
+        else:
+            e, off = divmod(j - plen, page_size)
+            entry, room = pp + e, page_size - off
+        runs.append((j, min(room, tb - j), entry, off))
+        j += runs[-1][1]
+    return runs
+
+
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("PS", [128, 256])
+def test_tile_runs_cover_each_valid_row_once(PS, B):
+    """Every split of ``split_count``'s chunks (132 SMs, 8 KV heads), cut
+    into 32-row tiles: the runs copy each valid row once, at the (entry,
+    offset) of the plain version's gathered view (``compact_mask``), each
+    run inside one page and one interval, at most three runs a tile, and a
+    run's aligned superset of f32 scales inside its page and its slots."""
+    rng = np.random.default_rng(PS + B)
+    plen = rng.integers(0, 3 * PS, B)
+    dcount = rng.integers(0, 3 * PS, B)
+    plen[0], dcount[0] = 0, 0                      # an idle lane
+    if B > 1:
+        plen[1], dcount[1] = PS + 5, 0             # prompt rows only
+    max_pages = int((-(-plen // PS) + -(-dcount // PS)).max())
+    table = np.tile(np.arange(max_pages, dtype=np.int32), (B, 1))
+    mask = dap.compact_mask(torch.from_numpy(table), PS, torch.from_numpy(plen),
+                            torch.from_numpy(dcount)).numpy()
+    splits = split_count(B, 8, max_pages * PS, 132)
+    for b in range(B):
+        n_valid = int(plen[b] + dcount[b])
+        chunk = -(-n_valid // splits)
+        cols = []
+        for split in range(splits):
+            start = min(n_valid, split * chunk)
+            end = min(n_valid, start + chunk)
+            for ta in range(start, end, dap.TILE_ROWS):
+                tb = min(end, ta + dap.TILE_ROWS)
+                runs = tile_runs(ta, tb, int(plen[b]), PS)
+                assert 1 <= len(runs) <= 3
+                assert runs[0][0] == ta and sum(n for _, n, _, _ in runs) == tb - ta
+                for j0, n, entry, off in runs:
+                    assert n >= 1 and off + n <= PS
+                    prompt = entry < -(-int(plen[b]) // PS)
+                    assert (j0 + n <= plen[b]) if prompt else (j0 >= plen[b])
+                    lo, hi = off & ~3, (off + n + 3) & ~3
+                    assert hi <= PS and hi - lo <= dap.TILE_ROWS + 8
+                    cols.extend(entry * PS + off + i for i in range(n))
+        assert sorted(cols) == np.flatnonzero(mask[b]).tolist()
+
+
+@pytest.mark.parametrize("PS,q8,ptrs,ok", [
+    (256, True, (0, 256, 512, 1024), True),
+    (128, False, (0, 4096), True),
+    (36, True, (0, 16, 32, 48), True),     # 36 >= 32, 36 % 4 == 0
+    (34, False, (0, 16), True),            # the bf16 pool takes any page of 32 rows or more
+    (34, True, (0, 16, 32, 48), False),    # a scale run's aligned superset leaves the page
+    (16, False, (0, 16), False),           # a 32-row tile would span more than three runs
+    (256, False, (0, 8), False),           # a bulk copy needs 16-byte addresses
+    (256, True, (0, 16, 4, 48), False),
+])
+def test_paged_check_pool(PS, q8, ptrs, ok):
+    if ok:
+        dap.check_pool(PS, q8, ptrs)
+    else:
+        with pytest.raises(ValueError):
+            dap.check_pool(PS, q8, ptrs)
+
+
 # -- K8 against the JAX decoder's scatter ----------------------------------------------
 
 
@@ -361,21 +453,28 @@ def _gpu_case(cuda, B, T, PS, q8, seed):
     return q, kpool, vpool, k_new, v_new, to(table), to(plen), to(dcount)
 
 
+def _gpu_attend(q, kpool, vpool, k_new, v_new, table, plen, dcount, q8):
+    """K6 (T = 1) or K7 on layer 1, as (B, Hq, T, D)."""
+    if q.shape[2] == 1:
+        fn = dap.decode_attention_paged_q8 if q8 else dap.decode_attention_paged
+        return fn(q[:, :, 0], kpool, vpool, k_new, v_new, 1, table, plen, dcount)[:, :, None]
+    fn = dap.decode_attention_paged_verify_q8 if q8 else dap.decode_attention_paged_verify
+    return fn(q, kpool, vpool, k_new, v_new, 1, table, plen, dcount)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("B,T,PS", [(8, 1, 256), (3, 1, 128), (8, 4, 256), (5, 2, 128)])
+@pytest.mark.parametrize("B,T,PS", [(8, 1, 256), (3, 1, 128), (8, 4, 256), (5, 2, 128),
+                                    (64, 1, 256), (64, 4, 128)])
 def test_cuda_paged_attention_matches_plain(cuda, B, T, PS, q8):
-    q, kpool, vpool, k_new, v_new, table, plen, dcount = _gpu_case(cuda, B, T, PS, q8, B * T + PS)
-    if T == 1:
-        fn = dap.decode_attention_paged_q8 if q8 else dap.decode_attention_paged
-        name = dap.NAME_Q8 if q8 else dap.NAME
-        before = LAUNCHES[name]
-        out = fn(q[:, :, 0], kpool, vpool, k_new, v_new, 1, table, plen, dcount)[:, :, None]
-    else:
-        fn = dap.decode_attention_paged_verify_q8 if q8 else dap.decode_attention_paged_verify
-        name = dap.NAME_VERIFY_Q8 if q8 else dap.NAME_VERIFY
-        before = LAUNCHES[name]
-        out = fn(q, kpool, vpool, k_new, v_new, 1, table, plen, dcount)
+    """K6/K7 against the plain version in float32, one launch a call; the
+    last lane is idle (no prompt or decode rows)."""
+    case = _gpu_case(cuda, B, T, PS, q8, B * T + PS)
+    q, kpool, vpool, k_new, v_new, table, plen, dcount = case
+    name = (dap.NAME_Q8 if q8 else dap.NAME) if T == 1 else (
+        dap.NAME_VERIFY_Q8 if q8 else dap.NAME_VERIFY)
+    before = LAUNCHES[name]
+    out = _gpu_attend(*case, q8)
     assert LAUNCHES[name] == before + 1
     torch.cuda.synchronize()
     f32 = (lambda p: {k: v for k, v in p.items()}) if q8 else (lambda p: p.float())
@@ -384,6 +483,43 @@ def test_cuda_paged_attention_matches_plain(cuda, B, T, PS, q8):
                 plen, dcount, 128 ** -0.5)
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,T,PS", [(1, 1, 256), (8, 4, 128), (64, 4, 256)])
+def test_cuda_paged_attention_repeatable(cuda, B, T, PS, q8):
+    """Two calls give the same bits (the last block folds the splits in
+    order), and the arrival counters are back at zero after each."""
+    case = _gpu_case(cuda, B, T, PS, q8, 7 * B + T)
+    out = _gpu_attend(*case, q8)
+    again = _gpu_attend(*case, q8)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert not arrival_counters(cuda, B * 8)[:B * 8].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("T", [1, 4])
+def test_cuda_paged_attention_graph_replay(cuda, T, q8):
+    """A CUDA graph of the call (its workspace allocated in the graph's
+    pool, the counters from the shared zeroed buffer) replays to the eager
+    call's bits."""
+    case = _gpu_case(cuda, 8, T, 256, q8, 11 + T)
+    eager = _gpu_attend(*case, q8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _gpu_attend(*case, q8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _gpu_attend(*case, q8)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda

@@ -2,17 +2,19 @@
 """A/B of the port's redesigned kernels against an earlier version of their
 CUDA sources, on one CUDA GPU, in one process.
 
-    python3 tools/torch_kernel_ab.py --parent DIR [--rounds N] [--kernels K1,K11e,K9,K10,K2,K4]
+    python3 tools/torch_kernel_ab.py --parent DIR [--rounds N]
+        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7]
 
 ``DIR`` holds earlier ``flash_attention.cu`` (K1), ``conv_stem.cu`` (K11e),
-``quantized_matmul.cu`` (K9), ``w8a8_matmul.cu`` (K10) and
-``decode_attention.cu`` (K2 and K4) with the headers they include, e.g. from
+``quantized_matmul.cu`` (K9), ``w8a8_matmul.cu`` (K10),
+``decode_attention.cu`` (K2 and K4) and ``decode_attention_paged.cu`` (K6
+and K7) with the headers they include, e.g. from
 ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
 The tool compiles the ones that ``--kernels`` names with the port's nvcc
 flags into a library of their own (in ``DIR``), binds their C entry points
-with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
-port's; K2's and K4's are the two-kernel version's, without arrival
-counters), and then, on the same inputs:
+with the signatures of :data:`PARENT_SIGNATURES` (K1's, K11e's, K2's and
+K4's are the port's; K6's and K7's are the two-kernel version's of commit
+ce9a940, without arrival counters), and then, on the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -36,12 +38,16 @@ counters), and then, on the same inputs:
     quantize pass and GEMM.  The parent's K9 and K10 read the (K, N)
     row-major weight, the change the K-major one; both copies are made
     before the timing.  K2 and K4 (decode attention over the bf16 and the
-    int8 cache) are held to their plain versions (atol 2e-2 + rtol 2e-2)
-    and to the parent bit for bit, and timed in turns by device time on a
-    cold cache (``chip_smoke.attention_ms``: CUDA graphs of calls rotated
-    over enough layers of one cache that the calls between two on one layer
-    read more than the 50 MB L2), the host-paced ms, the bound and the share
-    of the HBM peak beside; medians over the rounds.
+    int8 cache) and K6 and K7 (the paged step and verify, each over the
+    bf16 and the int8 pool) are held to their plain versions (atol 2e-2 +
+    rtol 2e-2) and to the parent bit for bit, and timed in turns by device
+    time on a cold cache (``chip_smoke.attention_ms``: CUDA graphs of calls
+    rotated over enough layers of one cache that the calls between two on
+    one layer read more than the 50 MB L2), the host-paced ms, the bound and
+    the share of the HBM peak beside; medians over the rounds.  For K6 and
+    K7 ``torch.profiler`` also counts the kernels a call runs on the card
+    (the parent's split and combine kernels, the change's one), at
+    ``chip_smoke.PAGED_ROW``.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
@@ -49,7 +55,10 @@ and conv3's shapes for the smoke's 256 chunks; K9 at ``chip_smoke``'s
 ``DECODE_MATMULS`` for M = 1, 8 and 96 and the decoder layer's four
 products at M = 448 and 3584; K10 at ``PREFILL_MATMULS``; K2 and K4 at
 ``chip_smoke``'s ``DECODE_GRID`` (B = 1, 8, 96 x S = 640, 2560, prompt
-bucket 512, Hq 16, Hkv 8, random lengths, an idle lane).  The first line
+bucket 512, Hq 16, Hkv 8, random lengths, an idle lane); K6 (T = 1) and K7
+(T = 4) at ``chip_smoke``'s ``PAGED_GRID`` (B = 1, 8, 64 x dcount 64, 1024
+at PS 256, and B=8 dcount 64 at PS 128; the smoke clips' prompt lengths,
+an idle lane, shuffled pages).  The first line
 is the card's ``nvidia-smi`` name and power limit; the last line one JSON
 object with every reading.  Needs a CUDA device and ``nvcc``; exits
 non-zero without them.
@@ -72,8 +81,8 @@ HQ, HKV, D = 16, 8, 128
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signatures of the earlier entry points (the sources of commit 34480f7,
-#: whose K9 and K10 read (K, N) row-major weights).
+#: C signatures of the earlier entry points (K9 and K10: the sources of
+#: commit 34480f7, which read (K, N) row-major weights).
 PARENT_SIGNATURES = {
     "flash_attention_causal_bf16": None,     # the port's own signature
     "conv_s2_gelu_bf16": None,
@@ -81,19 +90,26 @@ PARENT_SIGNATURES = {
     "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, sx, wq (K, N) row-major, ws, out, M, N, K, out_f32, stream
     "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # The two-kernel K2/K4 of commit 4c91d10 (split pass + combine pass), no
-    # arrival counters: q, kall, vall, k_new, v_new, prompt_len, decode_end,
-    # ws, out, layer, B, Hq, Hkv, S, prompt_bucket, splits, scale, stream
-    "decode_attention_bf16": (_P,) * 9 + (_I,) * 7 + (ctypes.c_float, _P),
-    # q, kall, vall, kscale, vscale, k_new, v_new, prompt_len, decode_end, ws,
-    # out, then as decode_attention_bf16
-    "decode_attention_q8": (_P,) * 11 + (_I,) * 7 + (ctypes.c_float, _P),
+    # K2/K4 of commit ce9a940 (one launch, arrival counters): the port's own
+    "decode_attention_bf16": None,
+    "decode_attention_q8": None,
+    # The two-kernel K6/K7 of commit ce9a940 (split pass + combine pass), no
+    # arrival counters: q, kpool, vpool, k_new, v_new, table, prompt_len,
+    # decode_count, ws, out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages,
+    # splits, scale, stream
+    "decode_attention_paged_bf16": (_P,) * 10 + (_I,) * 9 + (ctypes.c_float, _P),
+    # q, kpool, vpool, kscale, vscale, k_new, v_new, table, prompt_len,
+    # decode_count, ws, out, then as decode_attention_paged_bf16
+    "decode_attention_paged_q8": (_P,) * 12 + (_I,) * 9 + (ctypes.c_float, _P),
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
-           "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu"}
-ENTRY = {"K1": "flash_attention_causal_bf16", "K11e": "conv_s2_gelu_bf16",
-         "K9": "quantized_matmul_bf16", "K10": "w8a8_matmul_bf16",
-         "K2": "decode_attention_bf16", "K4": "decode_attention_q8"}
+           "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu",
+           "K6": "decode_attention_paged.cu", "K7": "decode_attention_paged.cu"}
+PAGED_ENTRIES = ("decode_attention_paged_bf16", "decode_attention_paged_q8")
+ENTRIES = {"K1": ("flash_attention_causal_bf16",), "K11e": ("conv_s2_gelu_bf16",),
+           "K9": ("quantized_matmul_bf16",), "K10": ("w8a8_matmul_bf16",),
+           "K2": ("decode_attention_bf16",), "K4": ("decode_attention_q8",),
+           "K6": PAGED_ENTRIES, "K7": PAGED_ENTRIES}
 
 
 def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
@@ -112,8 +128,7 @@ def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
     _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(lib_path),
                       *map(str, objects)]])
     lib = ctypes.CDLL(str(lib_path))
-    for k in kernels:
-        name = ENTRY[k]
+    for name in {n for k in kernels for n in ENTRIES[k]}:
         fn = getattr(lib, name)
         fn.argtypes = list(PARENT_SIGNATURES[name] or _build._SIGNATURES[name])
         fn.restype = ctypes.c_int
@@ -410,7 +425,8 @@ def ab_w8a8(lib, gen, rounds: int) -> list[dict]:
 
 def run_parent_decode(lib, c: dict, layer: int):
     """The parent's K2 (K4 on an int8 cache) as its wrapper ran it: the
-    input checks, its split workspace, then its split and combine kernels."""
+    input checks, its split workspace and the arrival counters, then its
+    kernel."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import _build
@@ -428,14 +444,15 @@ def run_parent_decode(lib, c: dict, layer: int):
     hkv, S = kq.shape[2], kq.shape[3]
     splits = da.split_count(B, hkv, S, da._sm_count(q.device))
     ws = torch.empty((B, hkv, splits, hq // hkv, D + 2), dtype=torch.float32, device=q.device)
+    counters = da.arrival_counters(q.device, B * hkv)
     out = torch.empty_like(q)
     cache = ((kq.data_ptr(), c["vall"]["q"].data_ptr(), c["kall"]["s"].data_ptr(),
               c["vall"]["s"].data_ptr()) if q8 else (kq.data_ptr(), c["vall"].data_ptr()))
     entry = lib.decode_attention_q8 if q8 else lib.decode_attention_bf16
     err = entry(q.data_ptr(), *cache, c["k_new"].data_ptr(), c["v_new"].data_ptr(),
-                c["plen"].data_ptr(), c["dend"].data_ptr(), ws.data_ptr(), out.data_ptr(),
-                int(layer), B, hq, hkv, S, c["pb"], splits, float(D ** -0.5),
-                _build.stream_ptr(q))
+                c["plen"].data_ptr(), c["dend"].data_ptr(), ws.data_ptr(),
+                counters.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, S, c["pb"],
+                splits, float(D ** -0.5), _build.stream_ptr(q))
     if err:
         raise RuntimeError(f"parent decode attention: CUDA error {err}")
     return out
@@ -501,9 +518,133 @@ def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
     return rows
 
 
+def run_parent_paged(lib, c: dict, layer: int):
+    """The parent's K6/K7 (bf16 or int8 pool) as its wrapper ran it: the
+    input checks, its split workspace, then its split and combine kernels;
+    (B, Hq, T, D) as ``chip_smoke.paged_call``."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention_paged as dap
+
+    q = c["q"]
+    B, hq, T, D = q.shape
+    q8 = isinstance(c["kpool"], dict)
+    kq = c["kpool"]["q"] if q8 else c["kpool"]
+    vq = c["vpool"]["q"] if q8 else c["vpool"]
+    dap._check(q, kq, vq, c["k_new"], c["v_new"], layer, c["table"], c["plen"], c["dcount"],
+               kq.dtype)
+    _, n_pages, hkv, PS, _ = kq.shape
+    max_pages = c["table"].shape[1]
+    splits = dap.split_count(B, hkv, max_pages * PS, dap._sm_count(q.device))
+    ws = torch.empty((B, hkv, splits, T * hq // hkv, D + 2), dtype=torch.float32,
+                     device=q.device)
+    out = torch.empty_like(q)
+    pool = ((kq.data_ptr(), vq.data_ptr(), c["kpool"]["s"].data_ptr(),
+             c["vpool"]["s"].data_ptr()) if q8 else (kq.data_ptr(), vq.data_ptr()))
+    entry = lib.decode_attention_paged_q8 if q8 else lib.decode_attention_paged_bf16
+    err = entry(q.data_ptr(), *pool, c["k_new"].data_ptr(), c["v_new"].data_ptr(),
+                c["table"].data_ptr(), c["plen"].data_ptr(), c["dcount"].data_ptr(),
+                ws.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T, n_pages, PS,
+                max_pages, splits, float(D ** -0.5), _build.stream_ptr(q))
+    if err:
+        raise RuntimeError(f"parent paged decode attention: CUDA error {err}")
+    return out
+
+
+def kernels_per_call(call, n_layers: int, calls: int = 8) -> tuple[float, list[str]]:
+    """(kernels a call of ``call(layer)`` runs on the card, their names),
+    from ``torch.profiler``'s device events over ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call(0)
+    torch.cuda.synchronize()
+    for _ in range(2):             # the first session warms the profiler up
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                call(i % n_layers)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    short = {n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+             for n in names}
+    return len(names) / calls, sorted(short)
+
+
+def ab_paged(lib, gen, rounds: int, T: int) -> list[dict]:
+    """K6 (T = 1) or K7 (T = 4), over the bf16 and the int8 pool, at
+    chip_smoke's ``PAGED_GRID``: parent and change held to the plain version
+    and to each other bit for bit, timed in turns by device time on a cold
+    cache, the host-paced ms beside; kernels per call counted at
+    ``PAGED_ROW``."""
+    import torch
+
+    from chip_smoke import (PAGED_GRID, PAGED_ROW, PEAK_HBM_GBPS, attention_ms, cold_note,
+                            paged_call, paged_case, paged_hold, paged_kernel)
+
+    rows = []
+    for q8 in (False, True):
+        _, label = paged_kernel(T, q8)
+        name = ("K6" if T == 1 else "K7") + (" q8" if q8 else " bf16")
+        for B, dcount, PS in PAGED_GRID:
+            c = paged_case(gen, B, T, q8, dcount, PS)
+
+            def change(layer):
+                return paged_call(c, layer)
+
+            def parent(layer):
+                return run_parent_paged(lib, c, layer)
+
+            layer = c["L"] - 1
+            out, pout = change(layer), parent(layer)
+            shape = f"B={B} T={T} PS={PS} dcount={dcount}"
+            err = paged_hold(f"{label} {shape}", c, out)
+            perr = paged_hold(f"parent {label} {shape}", c, pout)
+            same = torch.equal(out, pout)
+            diff = (out.float() - pout.float()).abs().max().item()
+            del out, pout
+            times = {"parent": ([], []), "change": ([], [])}
+            for _ in range(rounds):
+                for arm in ("parent", "change", "change", "parent"):
+                    dev, host = attention_ms(parent if arm == "parent" else change, c["L"])
+                    times[arm][0].append(dev)
+                    times[arm][1].append(host)
+            (p, ph), (ch, chh) = times["parent"], times["change"]
+            b = c["bound"]
+            cm, pm = statistics.median(ch), statistics.median(p)
+            counts = {}
+            if (B, dcount, PS) == PAGED_ROW:
+                counts = {"kernels_per_call": kernels_per_call(change, c["L"]),
+                          "parent_kernels_per_call": kernels_per_call(parent, c["L"])}
+            count_note = "".join(
+                f"; {arm.replace('_', ' ')} {n:g} ({', '.join(names)})"
+                for arm, (n, names) in counts.items())
+            print(f"{name} {shape} ({c['rows']} valid rows; "
+                  f"{cold_note(c['L'], c['call_bytes'])}): change {cm:.4f} ms {_ms_list(ch)}, "
+                  f"parent {pm:.4f} ms {_ms_list(p)} device time; host-paced change "
+                  f"{statistics.median(chh):.4f} / parent {statistics.median(ph):.4f} ms; bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); HBM peak share change "
+                  f"{c['call_bytes'] / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, parent "
+                  f"{c['call_bytes'] / (pm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}; change/parent "
+                  f"{cm / pm:.3f}; err {err:.3e} / parent {perr:.3e}; bit-identical: {same} "
+                  f"(max |diff| {diff:.3e}){count_note}")
+            rows.append({"kernel": name, "B": B, "T": T, "PS": PS, "dcount": dcount,
+                         "rows": c["rows"], "layers": c["L"], "max_abs_err": err,
+                         "parent_max_abs_err": perr, "bit_identical": same,
+                         "max_diff_vs_parent": diff, "ms": ch, "parent_ms": p, "host_ms": chh,
+                         "parent_host_ms": ph, **counts, **b})
+            del c
+            torch.cuda.empty_cache()
+    return rows
+
+
 AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8,
       "K2": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, False),
-      "K4": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, True)}
+      "K4": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, True),
+      "K6": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 1),
+      "K7": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 4)}
 
 
 def main() -> int:
