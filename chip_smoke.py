@@ -27,7 +27,14 @@ failure raises and the script exits non-zero):
      the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
      output; K11c and K11d, decode attention with per-lane decode ends and
      an idle lane, at K2's shapes and B=6: as K2, with K2's time beside
-     theirs), kernel, plain and
+     theirs; the fused stores, K3 and K3-int8 in K2/K4 and K8 in K6/K7 (a
+     call with a write target), at every ``DECODE_GRID`` and
+     ``PAGED_GRID`` shape and at the clamp case (every decode end S, write
+     slot S - 1): the output bit-identical to the call without the store,
+     the whole cache or pool (int8 rows and scales) bit-identical to that
+     call followed by the standalone writer, the layer to the plain writer;
+     the call's device time with and without the store in turns), kernel,
+     plain and
      library-call times from CUDA events (K3, K3 int8, K5, K8 and K9, which
      launch-bound wrappers pace from the host: the kernel and
      ``index_put_`` by device time, a CUDA graph of 20 calls replayed
@@ -50,16 +57,18 @@ failure raises and the script exits non-zero):
      "auto" (K2), "3" (K11a) and "4" (K11b) in turn, and the int8
      decoder (int8 weights, W8A8 prefill, int8 cache) against the same
      quantized weights in float32; then one paged step and one paged
-     verify forward (K6, K7, K8) over shuffled pages, bf16 against float32;
+     verify forward (K6, K7, each with K8 fused) over shuffled pages, bf16
+     against float32;
   5. the full-width 1.7B paths from random weights (seed 0), each with the
      launch counters set to 0 just before it and read just after: greedy
      ``transcribe_batch`` of 8 synthetic clips of 4-30 s
      (``max_tokens=64``) twice and one ``transcribe`` under
-     ``speculative="off"`` (K1-K3; the bf16 lm head must keep its f32
-     accumulator); on the same model ``transcribe_batch`` under decode
-     modes "3" (K11a) and "4" (K11b), K2 never launched and the mode's
-     kernel 28 x steps, and under the "pallas" stem (K11e twice per encoder
-     call), each stream held to the plain one by the near-tie rule below,
+     ``speculative="off"`` (K1, K2 with K3 fused, no standalone writer;
+     the bf16 lm head must keep its f32 accumulator); on the same model
+     ``transcribe_batch`` under decode modes "3" (K11a) and "4" (K11b), K2
+     never launched, the mode's kernel 28 x steps and the standalone K3 2 x
+     steps, and under the "pallas" stem (K11e twice per encoder call), each
+     stream held to the plain one by the near-tie rule below,
      every token of the three streams held to the default modes' logits
      on the same prefix (the default loop forced along the stream),
      the encoder features of the "pallas" stem held to the "conv" stem's
@@ -77,16 +86,21 @@ failure raises and the script exits non-zero):
      chunks (one clip, and two pooled into one group); the
      ``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` on the
      smoke clips in two waves (the second admitted mid-decode): paged under
-     ``spec_engine="off"`` (K6, K8) and the default ``"auto"`` (K7, K8),
-     the int8 pool under both (q8 K6/K7, int8 K8), never a contiguous-cache
-     kernel, and the flat engine (K2, per-lane K3), every stream held to
+     ``spec_engine="off"`` (K6) and the default ``"auto"`` (K7), each with
+     K8 fused, the int8 pool under both (q8 K6/K7, int8 K8 fused), never a
+     contiguous-cache kernel or a standalone writer, and the flat engine
+     (K2 with per-lane K3 fused), every stream held to
      the plain ``transcribe_batch`` stream by the near-tie rule, with ms per
      chunk iteration, engine counters and each request's TTFT; then a
      second 1.7B model with ``RuntimeConfig(quantization="int8",
-     act_quant="int8", kv_cache_dtype="int8")``.  Token ids must be <
+     act_quant="int8", kv_cache_dtype="int8")`` (K4 with K3-int8 fused).
+     Token ids must be <
      vocab, logits never NaN, repeated runs identical, every kernel of a
      path launched;
-  6. ``{"kernels": [...]}`` JSON, then the last line
+  6. ``{"kernels": [...]}`` JSON, one entry for every kernel a path
+     launches, the fused stores included (the standalone K3-int8 and K8,
+     which no path launches any more, are held in phase 3 and left out),
+     then the last line
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
@@ -190,41 +204,74 @@ KERNELS = {
         "cuda", "qwen3_asr_tpu_torch/csrc/decode_attention_sched.cu",
         "qwen3_asr_tpu/ops/pallas/experiments/decode_attention_sched.py:280",
     ),
+    # K3 and K8 fused into the decode attention's fold block: a launch of
+    # K2, K4, K6 or K7 with a write target (the same launch counted twice,
+    # under the attention's name and the store's).
+    "kv_write_rows_fused": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_split.cuh",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:260",
+    ),
+    "kv_write_rows_q8_fused": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_split.cuh",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:260",
+    ),
+    "kv_write_rows_paged_fused": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_split.cuh",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:219",
+    ),
+    "kv_write_rows_paged_q8_fused": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/decode_split.cuh",
+        "qwen3_asr_tpu/ops/pallas/kv_write.py:219",
+    ),
 }
 #: The kernels the micro-bench's ``kernelab`` section A/Bs, 28 launches a
 #: pass each (the JAX package runs K11c and K11d from no other path).
 KERNELAB = ("decode_attention", "decode_attention_sched", "decode_attention_hbm5")
+#: The standalone row writers that no default path launches: the decode
+#: attention stores the fresh rows itself (the ``*_fused`` names).  Only
+#: decode modes "3"/"4" launch ``kv_write_rows``; the others launch on no
+#: path (:data:`ORACLES`).
+STANDALONE_WRITERS = ("kv_write_rows", "kv_write_rows_q8", "kv_write_rows_paged",
+                      "kv_write_rows_paged_q8")
+#: Kernels that no path launches: held to their plain versions in phase 3
+#: and used there as their fused stores' oracles, left out of the kernels
+#: line, whose TPU sites the fused entries carry.
+ORACLES = ("kv_write_rows_q8", "kv_write_rows_paged", "kv_write_rows_paged_q8")
 #: The kernels each path must launch, and those it must not.
-BF16_PATH = ("flash_attention_causal", "decode_attention", "kv_write_rows")
-INT8_PATH = ("flash_attention_causal", "decode_attention_q8", "kv_write_rows_q8",
+BF16_PATH = ("flash_attention_causal", "decode_attention", "kv_write_rows_fused")
+INT8_PATH = ("flash_attention_causal", "decode_attention_q8", "kv_write_rows_q8_fused",
              "quantized_matmul", "w8a8_matmul")
 SPEC_PATH = ("flash_attention_causal", "kv_write_span_batch")
-SPEC_NEVER = ("decode_attention", "kv_write_rows")
+SPEC_NEVER = ("decode_attention", "kv_write_rows_fused") + STANDALONE_WRITERS
 SPEC_W8_PATH = ("flash_attention_causal", "kv_write_span_batch", "quantized_matmul")
 #: The continuous server's paths: the paged engine never launches a
-#: contiguous-cache kernel; the flat engine runs K2 and per-lane K3.
-CONTIGUOUS = ("decode_attention", "decode_attention_q8", "kv_write_rows", "kv_write_rows_q8",
-              "kv_write_span_batch")
+#: contiguous-cache kernel; the flat engine runs K2 with its fused store.
+CONTIGUOUS = ("decode_attention", "decode_attention_q8", "kv_write_rows_fused",
+              "kv_write_rows_q8_fused", "kv_write_span_batch")
 PAGED = ("decode_attention_paged", "decode_attention_paged_q8", "decode_attention_paged_verify",
-         "decode_attention_paged_verify_q8", "kv_write_rows_paged", "kv_write_rows_paged_q8")
+         "decode_attention_paged_verify_q8", "kv_write_rows_paged_fused",
+         "kv_write_rows_paged_q8_fused")
 SERVER_PATHS = {
     # (runtime, paged): (kernels the run must launch, kernels it must not)
     "paged, spec_engine off": ({"spec_engine": "off"}, True,
                                ("flash_attention_causal", "decode_attention_paged",
-                                "kv_write_rows_paged"), CONTIGUOUS),
+                                "kv_write_rows_paged_fused"), CONTIGUOUS + STANDALONE_WRITERS),
     "paged, spec_engine auto": ({}, True,
                                 ("flash_attention_causal", "decode_attention_paged_verify",
-                                 "kv_write_rows_paged"), CONTIGUOUS),
+                                 "kv_write_rows_paged_fused"), CONTIGUOUS + STANDALONE_WRITERS),
     "paged int8 pool, spec_engine off": ({"kv_cache_dtype": "int8", "spec_engine": "off"}, True,
                                          ("flash_attention_causal", "decode_attention_paged_q8",
-                                          "kv_write_rows_paged_q8"), CONTIGUOUS),
+                                          "kv_write_rows_paged_q8_fused"),
+                                         CONTIGUOUS + STANDALONE_WRITERS),
     "paged int8 pool, spec_engine auto": ({"kv_cache_dtype": "int8"}, True,
                                           ("flash_attention_causal",
                                            "decode_attention_paged_verify_q8",
-                                           "kv_write_rows_paged_q8"), CONTIGUOUS),
+                                           "kv_write_rows_paged_q8_fused"),
+                                          CONTIGUOUS + STANDALONE_WRITERS),
     "flat, spec_engine off": ({"spec_engine": "off"}, False,
-                              ("flash_attention_causal", "decode_attention", "kv_write_rows"),
-                              PAGED + ("kv_write_span_batch",)),
+                              ("flash_attention_causal", "decode_attention",
+                               "kv_write_rows_fused"),
+                              PAGED + ("kv_write_span_batch",) + STANDALONE_WRITERS),
 }
 #: bf16 speculative vs plain rows of one prefix at 1.7B: the largest allowed
 #: max |difference| over max |logit|, 1.5x what the plain loop's own rows of
@@ -466,34 +513,124 @@ def decode_reference(c: dict, layer: int):
 
 
 def attention_bound(B: int, hq: int, hkv: int, rows: int, row_bytes: int,
-                    T: int = 1) -> tuple[dict, int]:
+                    T: int = 1, store: bool = False) -> tuple[dict, int]:
     """(bound, the cache bytes a call reads) of decode attention over
     ``rows`` valid rows of ``row_bytes`` (an int8 row's include its f32
     scale): their K and V read once, plus q, the T fresh rows and the
-    output; QK and PV over the valid rows and the fresh block."""
+    output; QK and PV over the valid rows and the fresh block.  ``store``:
+    the call also writes the T fresh K and V rows of each lane into the
+    cache (the fused store)."""
     D = 128
     call_bytes = rows * hkv * row_bytes * 2
-    return bound(call_bytes + B * T * (2 * hq + 2 * hkv) * D * 2,
+    stored = B * T * hkv * row_bytes * 2 if store else 0
+    return bound(call_bytes + B * T * (2 * hq + 2 * hkv) * D * 2 + stored,
                  4 * hq * T * D * (rows + B * T), PEAK_BF16_TFLOPS * 1e12), call_bytes
 
 
-def decode_bound(c: dict) -> dict:
-    """K2's (K4's) bound at the case's valid rows."""
+def decode_bound(c: dict, store: bool = False) -> dict:
+    """K2's (K4's) bound at the case's valid rows (``store``: with the
+    fresh rows' store)."""
     B, hq, D = c["q"].shape
     q8 = isinstance(c["kall"], dict)
-    return attention_bound(B, hq, c["k_new"].shape[1], c["rows"], D + 4 if q8 else 2 * D)[0]
+    return attention_bound(B, hq, c["k_new"].shape[1], c["rows"], D + 4 if q8 else 2 * D,
+                           store=store)[0]
 
 
-def check_decode(gen, q8: bool = False) -> dict:
-    """K2 (K4 when ``q8``) at ``DECODE_GRID`` against its plain version in
-    float32 (atol 2e-2 + rtol 2e-2; the idle lane's output is checked finite
-    and not compared, as the caller discards it), timed on a cold cache."""
+def clone_cache(c):
+    """A copy of a bf16 cache or pool, or of an int8 ``{"q", "s"}`` one."""
+    return {k: v.clone() for k, v in c.items()} if isinstance(c, dict) else c.clone()
+
+
+def layer_of(c, layer: int):
+    """Layer ``layer`` of a cache or pool as a one-layer view (writes reach
+    the whole)."""
+    return {k: v[layer:layer + 1] for k, v in c.items()} if isinstance(c, dict) \
+        else c[layer:layer + 1]
+
+
+def same_cache(a, b) -> bool:
+    """Bit-identical bf16 caches, or int8 caches' rows and scales."""
+    import torch
+
+    if isinstance(a, dict):
+        return all(torch.equal(a[k], b[k]) for k in ("q", "s"))
+    return torch.equal(a, b)
+
+
+def decode_write_slots(c: dict):
+    """The fused store's slots at a ``DECODE_GRID`` case: each lane's decode
+    end (the flat engine writes the lane's next row there), S - 1 where that
+    is S; the int8 cache's scale runs read as 16-byte supersets cover the
+    slot, so the store lands beside rows the attention reads."""
+    S = (c["kall"]["q"] if isinstance(c["kall"], dict) else c["kall"]).shape[3]
+    return c["dend"].clamp(max=S - 1).contiguous()
+
+
+def hold_fused_decode(label: str, c: dict, layer: int, slots) -> None:
+    """K2 (K4) with ``write_slots`` on the case's cache against the call
+    without them on a copy followed by the standalone K3 (K3-int8) on the
+    layer: the output and the whole cache (int8 rows and scales) bit for
+    bit; the layer also against the plain writer.  Raises otherwise."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
+
+    q8 = isinstance(c["kall"], dict)
+    fn = da.decode_attention_q8 if q8 else da.decode_attention
+    write = kw.kv_write_rows_q8 if q8 else kw.kv_write_rows_batch
+    write_plain = kw.kv_write_rows_q8_plain if q8 else kw.kv_write_rows_plain
+    tail = (layer, c["plen"], c["dend"], c["pb"])
+    ref_k, ref_v = clone_cache(c["kall"]), clone_cache(c["vall"])
+    plain_k = clone_cache(layer_of(c["kall"], layer))
+    ref = fn(c["q"], ref_k, ref_v, c["k_new"], c["v_new"], *tail)
+    write(layer_of(ref_k, layer), c["k_new"][None], slots)
+    write(layer_of(ref_v, layer), c["v_new"][None], slots)
+    write_plain(plain_k, c["k_new"][None], slots)
+    out = fn(c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"], *tail, write_slots=slots)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{label}: output differs from the call without the store")
+    if not (same_cache(c["kall"], ref_k) and same_cache(c["vall"], ref_v)):
+        raise AssertionError(f"{label}: cache differs from the attention, then the standalone "
+                             "writer")
+    if not same_cache(layer_of(c["kall"], layer), plain_k):
+        raise AssertionError(f"{label}: cache differs from the plain writer's")
+    del ref_k, ref_v, plain_k
+
+
+def fused_turns(call, n_layers: int) -> dict:
+    """Device and host-paced ms of ``call(layer, fused)`` on a cold cache
+    (``attention_ms``) in turns without, with, with, without the store:
+    the means of each arm's two readings."""
+    arms = {False: [], True: []}
+    for fused in (False, True, True, False):
+        arms[fused].append(attention_ms(lambda layer: call(layer, fused), n_layers))
+    mean = lambda xs: sum(xs) / len(xs)   # noqa: E731
+    return {"ms": mean([d for d, _ in arms[False]]), "host_ms": mean([h for _, h in arms[False]]),
+            "fused_ms": mean([d for d, _ in arms[True]]),
+            "fused_host_ms": mean([h for _, h in arms[True]])}
+
+
+def check_decode(gen, q8: bool = False) -> tuple[dict, dict]:
+    """K2 (K4 when ``q8``) at ``DECODE_GRID`` against its plain version in
+    float32 (atol 2e-2 + rtol 2e-2; the idle lane's output is checked finite
+    and not compared, as the caller discards it); the call with its fused
+    store (``write_slots``, :func:`decode_write_slots`) held to the call
+    without it followed by the standalone K3 (:func:`hold_fused_decode`) at
+    every shape and at the clamp case (every decode end S, slot S - 1);
+    timed on a cold cache without and with the store in turns.  Returns the
+    records of K2 (K4) and of its fused store."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
 
     fn = da.decode_attention_q8 if q8 else da.decode_attention
     label = "K4 decode_attention_q8" if q8 else "K2 decode_attention"
+    store = "K3-int8 fused into K4" if q8 else "K3 fused into K2"
+    plain = da.decode_attention_q8_plain if q8 else da.decode_attention_plain
+    write_plain = kw.kv_write_rows_q8_plain if q8 else kw.kv_write_rows_plain
     worst, times = 0.0, []
     for B, S in DECODE_GRID:
         c = decode_case(gen, B, S, q8)
@@ -508,27 +645,53 @@ def check_decode(gen, q8: bool = False) -> dict:
         live = slice(0, B - 1) if B > 1 else slice(0, 1)
         err = _close(f"{label} B={B} S={S}", out[live], ref[live], 2e-2, 2e-2)
         del out, ref
-        ms, host_ms = attention_ms(lambda layer: fn(*args(layer)), c["L"])
+        slots = decode_write_slots(c)
+        hold_fused_decode(f"{store} B={B} S={S}", c, layer, slots)
+        t = fused_turns(lambda layer, fused: fn(*args(layer),
+                                                write_slots=slots if fused else None), c["L"])
+        ms = t["ms"]
         kl, vl = decode_layer(c, 0)
-        plain = da.decode_attention_q8_plain if q8 else da.decode_attention_plain
         plain_ms = cuda_ms(lambda: plain(c["q"], kl, vl, c["k_new"], c["v_new"], 0, c["plen"],
                                           c["dend"], c["pb"], 128 ** -0.5))
-        b = decode_bound(c)
+        fused_plain_ms = cuda_ms(lambda: (
+            plain(c["q"], kl, vl, c["k_new"], c["v_new"], 0, c["plen"], c["dend"], c["pb"],
+                  128 ** -0.5),
+            write_plain(kl, c["k_new"][None], slots), write_plain(vl, c["v_new"][None], slots)))
+        b, bf = decode_bound(c), decode_bound(c, store=True)
         gbps = c["call_bytes"] / (ms * 1e-3) / 1e9
         print(f"{label} B={B} pb={c['pb']} S={S}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
-              f"device time ({cold_note(c['L'], c['call_bytes'])}; host-paced {host_ms:.4f} "
-              f"ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-              f"{c['rows']} valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the "
-              f"HBM peak")
+              f"device time ({cold_note(c['L'], c['call_bytes'])}; host-paced "
+              f"{t['host_ms']:.4f} ms), plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); {c['rows']} valid rows, {gbps:.0f} GB/s = "
+              f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+        print(f"{store} B={B} S={S}: output and cache bit-identical to the attention, then "
+              f"the standalone writer; with the store {t['fused_ms']:.4f} ms device time "
+              f"against {ms:.4f} without ({t['fused_ms'] - ms:+.4f} ms; host-paced "
+              f"{t['fused_host_ms']:.4f} / {t['host_ms']:.4f} ms), plain attention + writer "
+              f"{fused_plain_ms:.4f} ms, bound {bf['bound_ms']:.4f} ms (the store's "
+              f"{(bf['bound_ms'] - b['bound_ms']) * 1e3:.4f} us)")
         worst = max(worst, err)
-        times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
+        times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b},
+                      {"ms": t["fused_ms"], "plain_ms": fused_plain_ms, **bf}))
         del c
         torch.cuda.empty_cache()
+    # The clamp case: the plain loop's last step writes slot S - 1 while
+    # every lane's decode end is S, so the store replaces a row that the
+    # same launch reads.
+    c = decode_case(gen, 8, 640, q8)
+    c["dend"].fill_(640)
+    hold_fused_decode(f"{store} clamp case B=8 S=640 (slot S - 1, decode end S)", c,
+                      c["L"] - 1, torch.full_like(c["dend"], 639))
+    print(f"{store} clamp case B=8 S=640: output and cache bit-identical to the attention, "
+          "then the standalone writer")
+    del c
+    torch.cuda.empty_cache()
     # No one PyTorch call computes it: two valid intervals plus the
     # self-term of a row that is not in the cache (K4: over int8 rows and
     # their scales).
-    rec = next(t for B, S, t in times if B == 8 and S == 640)
-    return {"max_abs_err": worst, **rec, "library_ms": None}
+    rec, fused = next((t, f) for B, S, t, f in times if B == 8 and S == 640)
+    return ({"max_abs_err": worst, **rec, "library_ms": None},
+            {"max_abs_err": worst, **fused, "library_ms": None})
 
 
 def check_kv_write(gen) -> dict:
@@ -782,9 +945,10 @@ def check_conv_stem(gen) -> dict:
         bnd = bound(x.numel() * 2 + w.numel() * 2 + C * 4 + out.numel() * 2, flops,
                     PEAK_BF16_TFLOPS * 1e12)
         tflops = flops / (ms * 1e-3) / 1e12
+        layout = "channels-last" if lib.is_contiguous(memory_format=torch.channels_last) else "NCHW"
         print(f"K11e conv_s2_gelu {name} N={N} {H}x{W}x{C} -> {Ho}x{Wo}x{C}: "
               f"max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d+bias "
-              f"{library_ms:.4f} ms (layout {'channels-last' if lib.is_contiguous(memory_format=torch.channels_last) else 'NCHW'}, "
+              f"{library_ms:.4f} ms (layout {layout}, "
               f"max |conv2d - f32 taps| {lib_err:.3e}), bound {bnd['bound_ms']:.4f} ms "
               f"({bnd['bound_by']}) = {bnd['bound_ms'] / ms:.1%} of the kernel's time "
               f"(cuDNN {bnd['bound_ms'] / library_ms:.1%}); {tflops:.1f} TFLOP/s")
@@ -1091,6 +1255,17 @@ def paged_case(gen, B: int, T: int, q8: bool, dcount: int, PS: int) -> dict:
         table[b, :need] = [free.pop() for _ in range(need)]
     rows = int((plen + dc).sum())
     b_, call_bytes = attention_bound(B, hq, hkv, rows, (D + 4) if q8 else D * 2, T)
+    bf, _ = attention_bound(B, hq, hkv, rows, (D + 4) if q8 else D * 2, T, store=True)
+    # The fused store's targets: the T rows after each lane's decode rows,
+    # on the page the engine plans for them, or on the lane's last page at
+    # its first offsets where that page is full (dcount 1024: the store
+    # replaces rows the launch reads); the idle lane's on the trash page 0.
+    pp = -(-plen // PS)
+    need = pp + -(-dc // PS)
+    wrow = dc[:, None] + np.arange(T)[None, :]
+    entry = np.minimum(pp[:, None] + wrow // PS, np.maximum(need - 1, 0)[:, None])
+    wpages = table[np.arange(B)[:, None], entry]
+    woffs = (wrow % PS).astype(np.int32)
     L = cold_layers(call_bytes)
     pools = []
     for _ in range(2):
@@ -1104,7 +1279,8 @@ def paged_case(gen, B: int, T: int, q8: bool, dcount: int, PS: int) -> dict:
         k_new=torch.randn(B, hkv, T, D, generator=gen, device="cuda").bfloat16(),
         v_new=torch.randn(B, hkv, T, D, generator=gen, device="cuda").bfloat16(),
         table=to(table), plen=to(plen), dcount=to(dc), rows=rows, L=L, PS=PS,
-        call_bytes=call_bytes, bound=b_,
+        call_bytes=call_bytes, bound=b_, store_bound=bf,
+        wpages=to(np.ascontiguousarray(wpages)), woffs=to(woffs),
     )
 
 
@@ -1119,13 +1295,48 @@ def paged_kernel(T: int, q8: bool):
             "K7 decode_attention_paged_verify" + ("_q8" if q8 else ""))
 
 
-def paged_call(c: dict, layer: int):
-    """The case's K6/K7 call on ``layer`` through its wrapper, as (B, Hq, T, D)."""
+def paged_call(c: dict, layer: int, pools=None, write: bool = False):
+    """The case's K6/K7 call on ``layer`` through its wrapper, as (B, Hq,
+    T, D), on the case's pools or ``pools``; ``write``: with the fused
+    store at the case's write targets."""
     T = c["q"].shape[2]
     fn, _ = paged_kernel(T, isinstance(c["kpool"], dict))
-    args = (c["kpool"], c["vpool"], c["k_new"], c["v_new"], layer, c["table"], c["plen"],
-            c["dcount"])
-    return fn(c["q"], *args) if T > 1 else fn(c["q"][:, :, 0], *args)[:, :, None]
+    kp, vp = pools or (c["kpool"], c["vpool"])
+    target = dict(write_pages=c["wpages"], write_offsets=c["woffs"]) if write else {}
+    args = (kp, vp, c["k_new"], c["v_new"], layer, c["table"], c["plen"], c["dcount"])
+    if T > 1:
+        return fn(c["q"], *args, **target)
+    return fn(c["q"][:, :, 0], *args, **target)[:, :, None]
+
+
+def hold_fused_paged(label: str, c: dict, layer: int) -> None:
+    """K6/K7 with the fused store on the case's pools against the call
+    without it on copies followed by the standalone K8 on the layer: the
+    output and the whole pool (int8 rows and scales) bit for bit; the layer
+    also against the plain writer.  Raises otherwise."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
+
+    q8 = isinstance(c["kpool"], dict)
+    write = kw.kv_write_rows_paged_q8 if q8 else kw.kv_write_rows_paged
+    write_plain = kw.kv_write_rows_paged_q8_plain if q8 else kw.kv_write_rows_paged_plain
+    ref_k, ref_v = clone_cache(c["kpool"]), clone_cache(c["vpool"])
+    plain_k = clone_cache(layer_of(c["kpool"], layer))
+    ref = paged_call(c, layer, (ref_k, ref_v))
+    write(layer_of(ref_k, layer), c["k_new"][None], c["wpages"], c["woffs"])
+    write(layer_of(ref_v, layer), c["v_new"][None], c["wpages"], c["woffs"])
+    write_plain(plain_k, c["k_new"][None], c["wpages"], c["woffs"])
+    out = paged_call(c, layer, write=True)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{label}: output differs from the call without the store")
+    if not (same_cache(c["kpool"], ref_k) and same_cache(c["vpool"], ref_v)):
+        raise AssertionError(f"{label}: pool differs from the attention, then the standalone "
+                             "writer")
+    if not same_cache(layer_of(c["kpool"], layer), plain_k):
+        raise AssertionError(f"{label}: pool differs from the plain writer's")
+    del ref_k, ref_v, plain_k
 
 
 def paged_layer(c: dict, layer: int) -> tuple:
@@ -1152,27 +1363,36 @@ def paged_plain(c: dict, layer: int, f32: bool = True):
                  q.shape[-1] ** -0.5)
 
 
-def paged_hold(label: str, c: dict, out) -> float:
-    """Max abs error of a K6/K7 output against the plain version in float32
-    (atol 2e-2 + rtol 2e-2 of the bf16 kernel, as K2), the idle lane checked
+def paged_hold(label: str, c: dict, out, ref=None) -> float:
+    """Max abs error of a K6/K7 output on the last layer against the plain
+    version in float32 (``ref``, or computed from the pools as they are;
+    atol 2e-2 + rtol 2e-2 of the bf16 kernel, as K2), the idle lane checked
     finite and not compared, as the engine discards it."""
     import torch
 
     B = out.shape[0]
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{label}: non-finite output")
-    ref = paged_plain(c, c["L"] - 1)
+    if ref is None:
+        ref = paged_plain(c, c["L"] - 1)
     live = slice(0, B - 1) if B > 1 else slice(0, 1)
     return _close(label, out[live], ref[live], 2e-2, 2e-2)
 
 
-def check_decode_paged(gen, T: int, q8: bool) -> dict:
+def check_decode_paged(gen, T: int, q8: bool) -> tuple[dict, dict]:
     """K6 (T = 1) or K7 (T = 4, 8 query rows per KV head), bf16 or int8
     pool, at ``PAGED_GRID`` against the plain version in float32
-    (``paged_hold``), timed on a cold cache (``attention_ms``)."""
+    (``paged_hold``); with its fused store (the case's write targets) held
+    to the call without it followed by the standalone K8
+    (:func:`hold_fused_paged`); timed on a cold cache without and with the
+    store in turns.  Returns the records of the kernel and of its store."""
     import torch
 
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
+
     _, label = paged_kernel(T, q8)
+    store = "K8-int8" if q8 else "K8"
+    write_plain = kw.kv_write_rows_paged_q8_plain if q8 else kw.kv_write_rows_paged_plain
     worst, row = 0.0, None
     for B, dcount, PS in PAGED_GRID:
         c = paged_case(gen, B, T, q8, dcount, PS)
@@ -1181,22 +1401,37 @@ def check_decode_paged(gen, T: int, q8: bool) -> dict:
         torch.cuda.synchronize()
         err = paged_hold(name, c, out)
         del out
-        ms, host_ms = attention_ms(lambda layer: paged_call(c, layer), c["L"])
+        hold_fused_paged(f"{store} fused into {name}", c, c["L"] - 1)
+        t = fused_turns(lambda layer, fused: paged_call(c, layer, write=fused), c["L"])
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: paged_plain(c, 0, f32=False))
-        b = c["bound"]
+        kl, vl = paged_layer(c, 0)
+        fused_plain_ms = cuda_ms(lambda: (
+            paged_plain(c, 0, f32=False),
+            write_plain(kl, c["k_new"][None], c["wpages"], c["woffs"]),
+            write_plain(vl, c["v_new"][None], c["wpages"], c["woffs"])))
+        b, bf = c["bound"], c["store_bound"]
         gbps = c["call_bytes"] / (ms * 1e-3) / 1e9
         print(f"{name}: max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
-              f"({cold_note(c['L'], c['call_bytes'])}; host-paced {host_ms:.4f} ms), plain "
+              f"({cold_note(c['L'], c['call_bytes'])}; host-paced {t['host_ms']:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); {c['rows']} "
               f"valid rows, {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+        print(f"{store} fused into {name}: output and pool bit-identical to the attention, "
+              f"then the standalone writer; with the store {t['fused_ms']:.4f} ms device time "
+              f"against {ms:.4f} without ({t['fused_ms'] - ms:+.4f} ms; host-paced "
+              f"{t['fused_host_ms']:.4f} / {t['host_ms']:.4f} ms), plain attention + writer "
+              f"{fused_plain_ms:.4f} ms, bound {bf['bound_ms']:.4f} ms (the store's "
+              f"{(bf['bound_ms'] - b['bound_ms']) * 1e3:.4f} us)")
         worst = max(worst, err)
         if (B, dcount, PS) == PAGED_ROW:
-            row = {"ms": ms, "plain_ms": plain_ms, **b}
+            row = ({"ms": ms, "plain_ms": plain_ms, **b},
+                   {"ms": t["fused_ms"], "plain_ms": fused_plain_ms, **bf})
         del c
         torch.cuda.empty_cache()
     # No one PyTorch call: a page-table gather, two masked intervals and a
     # fresh (causal) block of rows not in the pool.
-    return {"max_abs_err": worst, **row, "library_ms": None}
+    return ({"max_abs_err": worst, **row[0], "library_ms": None},
+            {"max_abs_err": worst, **row[1], "library_ms": None})
 
 
 def check_kv_write_paged(gen, q8: bool) -> dict:
@@ -1372,8 +1607,8 @@ def reference_check(quantized: bool) -> None:
 def reference_check_paged() -> None:
     """Kernels (GPU, bf16) against the plain path (CPU, float32) on one small
     decoder, through the paged pool: a prefill's rows scattered into
-    shuffled pages (PS=128), then one paged step (K6, K8) and one paged
-    verify (K7 at T=4, K8) on the rows the step wrote."""
+    shuffled pages (PS=128), then one paged step (K6, K8 fused) and one
+    paged verify (K7 at T=4, K8 fused) on the rows the step wrote."""
     import numpy as np
     import torch
 
@@ -1445,8 +1680,8 @@ def reference_check_paged() -> None:
 
     ref = run(ref_params, "cpu")
     out = run(gpu_params, "cuda")
-    for label, o, r in zip(("paged step logits (K6, K8)", "paged verify logits (K7 T=4, K8)"),
-                           out, ref):
+    for label, o, r in zip(("paged step logits (K6, K8 fused)",
+                            "paged verify logits (K7 T=4, K8 fused)"), out, ref):
         rel = ((o - r).abs().max() / r.abs().max()).item()
         print(f"reference check ({label}, bf16 GPU kernels vs f32 CPU plain): "
               f"max abs err / max |ref| = {rel:.3e}")
@@ -1982,7 +2217,8 @@ def speculative_phase(card: str, base, off: dict) -> dict:
     if runs[0] != runs[1]:
         raise AssertionError("sampled runs with one seed gave different tokens")
     check_ids("sampled", runs[0], vocab)
-    check_launches("sampled B=8", dict(LAUNCHES), BF16_PATH, ("kv_write_span_batch",))
+    check_launches("sampled B=8", dict(LAUNCHES), BF16_PATH,
+                   ("kv_write_span_batch",) + STANDALONE_WRITERS)
 
     # Sampled and speculative (rejection-sampling verification).
     spec_sampling = build_model({"spec_sampling": True}, base)
@@ -2093,7 +2329,8 @@ def modes_phase(card: str, base, off: dict) -> dict:
     held to the plain ("auto", "conv") stream by the near-tie rule and each
     of its tokens to the default modes' row on the same prefix; then the
     encoder features of every stem mode held to the "conv" stem's.  Returns
-    the launches of K11a, K11b and K11e, each from its own run."""
+    the launches of K11a, K11b and K11e, each from its own run, and of the
+    standalone K3 from mode "3"'s (the one path that still launches it)."""
     import torch
 
     from qwen3_asr_tpu_torch.models import decoder as dec_mod
@@ -2126,11 +2363,18 @@ def modes_phase(card: str, base, off: dict) -> dict:
         if kernel == "conv_s2_gelu":
             want = 2 * len(enc.calls)
             pallas_calls = enc.calls
-            check_launches(label, got, ("flash_attention_causal", "decode_attention", kernel))
+            check_launches(label, got, ("flash_attention_causal", "decode_attention",
+                                        "kv_write_rows_fused", kernel), STANDALONE_WRITERS)
         else:
+            # The stream kernels take no write target: the standalone K3
+            # writes after the layer loop.
             want = n_layers * st.n_decode_steps
             check_launches(label, got, ("flash_attention_causal", "kv_write_rows", kernel),
-                           ("decode_attention", "kv_write_span_batch"))
+                           ("decode_attention", "kv_write_rows_fused", "kv_write_span_batch"))
+            if got["kv_write_rows"] != 2 * st.n_decode_steps:
+                raise AssertionError(f"{label}: kv_write_rows launched {got['kv_write_rows']} "
+                                     f"times, want 2 x {st.n_decode_steps} steps")
+            launches.setdefault("kv_write_rows", got["kv_write_rows"])
         if got[kernel] != want:
             raise AssertionError(f"{label}: {kernel} launched {got[kernel]} times, want {want}")
         print_stats(f"transcribe_batch B=8 {label}", card, st)
@@ -2264,8 +2508,9 @@ def server_run(card: str, model, label: str, paged: bool, path, never, plain) ->
 
 def server_phase(card: str, base, off: dict) -> dict:
     """The continuous server at 1.7B on the plain run's weights: paged
-    (K6, K8), paged speculative (K7, K8), the int8 pool plain and
-    speculative (q8 K6/K7, int8 K8), and the flat engine (K2, per-lane K3).
+    (K6), paged speculative (K7), the int8 pool plain and speculative (q8
+    K6/K7), each with K8 fused, and the flat engine (K2, per-lane K3
+    fused).
     Returns the launches of the paged kernels, each from its own path."""
     import torch
 
@@ -2317,19 +2562,24 @@ def main() -> int:
           f"{_build.library_path().relative_to(ROOT)}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    measured = {
-        "flash_attention_causal": check_flash(gen),
-        "decode_attention": check_decode(gen),
-        "kv_write_rows": check_kv_write(gen),
-        "decode_attention_q8": check_decode(gen, q8=True),
+    measured = {"flash_attention_causal": check_flash(gen)}
+    measured["decode_attention"], measured["kv_write_rows_fused"] = check_decode(gen)
+    measured["kv_write_rows"] = check_kv_write(gen)
+    measured["decode_attention_q8"], measured["kv_write_rows_q8_fused"] = check_decode(gen, True)
+    measured.update({
         "kv_write_rows_q8": check_kv_write_q8(gen),
         "quantized_matmul": check_quantized_matmul(gen),
         "w8a8_matmul": check_w8a8_matmul(gen),
         "kv_write_span_batch": check_kv_write_span(gen),
-        "decode_attention_paged": check_decode_paged(gen, 1, False),
-        "decode_attention_paged_q8": check_decode_paged(gen, 1, True),
-        "decode_attention_paged_verify": check_decode_paged(gen, 4, False),
-        "decode_attention_paged_verify_q8": check_decode_paged(gen, 4, True),
+    })
+    # The fused paged stores' records: K6's (the paged step's) at PAGED_ROW.
+    measured["decode_attention_paged"], measured["kv_write_rows_paged_fused"] = \
+        check_decode_paged(gen, 1, False)
+    measured["decode_attention_paged_q8"], measured["kv_write_rows_paged_q8_fused"] = \
+        check_decode_paged(gen, 1, True)
+    measured["decode_attention_paged_verify"] = check_decode_paged(gen, 4, False)[0]
+    measured["decode_attention_paged_verify_q8"] = check_decode_paged(gen, 4, True)[0]
+    measured.update({
         "kv_write_rows_paged": check_kv_write_paged(gen, False),
         "kv_write_rows_paged_q8": check_kv_write_paged(gen, True),
         "decode_attention_hbm2": check_decode_stream(gen, "hbm2"),
@@ -2337,7 +2587,7 @@ def main() -> int:
         "conv_s2_gelu": check_conv_stem(gen),
         "decode_attention_hbm5": check_decode_lanes(gen, "hbm5"),
         "decode_attention_sched": check_decode_lanes(gen, "sched"),
-    }
+    })
     torch.cuda.empty_cache()
     kab_launches = kernelab_step()
     torch.cuda.empty_cache()
@@ -2347,7 +2597,7 @@ def main() -> int:
     # Each kernel's launch count comes from the run of its own path.
     off_rt = {"speculative": "off"}
     base = build_model(off_rt)
-    off = slice_phase(card, base, off_rt, BF16_PATH, ("kv_write_span_batch",),
+    off = slice_phase(card, base, off_rt, BF16_PATH, ("kv_write_span_batch",) + STANDALONE_WRITERS,
                       lm_head=True, record_gaps=True)
     launches = dict(off["launches"])
     launches.update(modes_phase(card, base, off))
@@ -2358,13 +2608,19 @@ def main() -> int:
     del base
     torch.cuda.empty_cache()
     int8 = build_model(INT8_RUNTIME)
-    int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH)["launches"]
+    int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH,
+                                STANDALONE_WRITERS)["launches"]
     int8.close()
     launches.update({name: int8_launches[name] for name in INT8_PATH})
     launches.update({name: kab_launches[name] for name in KERNELAB[1:]})
 
     rows = []
     for name, (route, source, replaces) in KERNELS.items():
+        if name in ORACLES:
+            print(f"{name}: held in phase 3 (the oracle of its fused store); no path launches it")
+            continue
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was launched on no path")
         rows.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name], **measured[name],

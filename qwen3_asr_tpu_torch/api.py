@@ -10,7 +10,7 @@ buckets, so both packages emit the same greedy token ids.  The decode is
 the JAX package's default dispatch: under ``speculative="auto"`` greedy
 requests of at most ``spec_auto_max_batch`` (padded) clips run the n-gram
 speculative loop (verify forward + kernel K5), larger batches and
-``"off"`` the plain loop (K2, K3); ``temperature > 0`` samples (top-k,
+``"off"`` the plain loop (K2 with K3 fused); ``temperature > 0`` samples (top-k,
 top-p, seeded ``torch.Generator``), speculatively only with
 ``spec_sampling``.  Clips longer than ``chunk_duration`` split at
 low-energy points into chunks that run in pooled batches sized by the KV
@@ -22,7 +22,7 @@ Int8 runs as in the JAX package, in every combination it allows:
 (decode matmuls and the lm head run kernel K9), ``act_quant="int8"`` on top
 of it also quantizes the encoder and runs the prefill and encoder matmuls
 as W8A8 (kernel K10), and ``kv_cache_dtype="int8"`` keeps the decode loop's
-cache in int8 (kernels K4 and K3-int8).  On CPU tensors every kernel
+cache in int8 (kernel K4 with K3-int8 fused).  On CPU tensors every kernel
 wrapper runs its plain PyTorch version.
 
 The continuous-batching hooks ``make_engine`` (flat or paged

@@ -5,8 +5,13 @@
 // q (B, Hq, 128); kall/vall (L, B, Hkv, S, 128); k_new/v_new (B, Hkv, 1, 128),
 // all bf16; prompt_len and decode_end (B,) int32.  Cache row s of lane b is
 // valid when s < prompt_len[b] or prompt_bucket <= s < decode_end[b]; the
-// step's own k_new/v_new row is always attended (the self-term), because the
-// decode loop writes the step's rows into the cache only after all layers.
+// step's own k_new/v_new row is always attended (the self-term): it is not
+// in the cache yet.  With write_slots (B,) int32, the kernel also stores
+// that row at slot write_slots[b] of the layer (K3's work,
+// qwen3_asr_tpu/ops/pallas/kv_write.py:kv_write_rows :260 and
+// kv_write_rows_batch :85, fused; a slot outside [0, S) is dropped), after
+// every read of the lane's rows: the JAX decode loop's order (attention over
+// the pre-step cache, then the write), one launch instead of three.
 //
 // Bound on the H100: bytes.  Each step reads every valid K and V row once
 // (2 * 256 B per row and KV head) and does 2 * group FMAs per element read,
@@ -37,10 +42,15 @@
 //     ticket (one acq_rel atomic) that it resets to zero, folds the partials
 //     in split order and the self-term into the output, 32 partials to a
 //     round of loads (with one split the block folds its own partial from
-//     registers, without the workspace).
-// The ring, a tile's consumer work, the merge, the ticket and the fold are
-// decode_split.cuh's, shared with K6/K7 (decode_attention_paged.cu); this
-// file holds K2's tiles (at most two runs of cache rows) and its self-term.
+//     registers, without the workspace), then stores the fresh row into the
+//     cache when given a write slot (decode_split.cuh's fresh rows' store:
+//     the slot resolved and, for int8, the row's abs-max reduced while the
+//     ring fills; 256 B of K and V a (lane, KV head) against the launch and
+//     the staging copies the standalone K3 cost).
+// The ring, a tile's consumer work, the merge, the ticket, the fold and the
+// fresh rows' store are decode_split.cuh's, shared with K6/K7
+// (decode_attention_paged.cu); this file holds K2's tiles (at most two runs
+// of cache rows) and its self-term.
 // The arithmetic (row assignment, fmaf order, shuffle tree, softmax update,
 // worker merge, split fold) is that of the earlier two-kernel version, so
 // the output is bit-identical to it.  Masking is by construction (only valid
@@ -58,7 +68,8 @@
 // quantities, as in ops/quant_kv.py:20-23: the row's score is (q . k8) * ks
 // and its probability p weighs v8 as (p * vs) . v8, while the softmax sum
 // takes p itself.  Half the K/V bytes of the bf16 cache, plus 8 bytes of
-// scales per row; k_new/v_new stay bf16.
+// scales per row; k_new/v_new stay bf16 (the fused store quantizes the
+// fresh row as kv_write.cu's kv_write_rows_q8 does, bit for bit).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -126,21 +137,25 @@ __device__ __forceinline__ void issue_tile(uint8_t* stage, uint64_t* bar, const 
 }
 
 // Q8: kall/vall are int8 rows with per-row scales kscale/vscale; otherwise
-// bf16 rows and the scale pointers are unused.
+// bf16 rows and the scale pointers are unused.  The cache is read by bulk
+// copies and written only by the fresh row's store (write_slots non-null).
 template <int G, bool Q8>
 __global__ void __launch_bounds__(kBlockThreads)
-    decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kall,
-                  const void* __restrict__ vall, const float* __restrict__ kscale,
-                  const float* __restrict__ vscale, const __nv_bfloat16* __restrict__ k_new,
+    decode_kernel(const __nv_bfloat16* __restrict__ q, void* __restrict__ kall,
+                  void* __restrict__ vall, float* __restrict__ kscale,
+                  float* __restrict__ vscale, const __nv_bfloat16* __restrict__ k_new,
                   const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ prompt_len,
-                  const int* __restrict__ decode_end, float* __restrict__ ws,
-                  int* __restrict__ counters, __nv_bfloat16* __restrict__ out, int layer,
-                  int B, int Hkv, int S, int pb, int splits, float scale) {
+                  const int* __restrict__ decode_end, const int* __restrict__ write_slots,
+                  float* __restrict__ ws, int* __restrict__ counters,
+                  __nv_bfloat16* __restrict__ out, int layer, int B, int Hkv, int S, int pb,
+                  int splits, float scale) {
   using Rg = Ring<G, Q8, kRuns>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Rg::kBars);
   uint64_t* empty = full + kStages;
   __shared__ float self_sums[G][kThreads / 32];
+  __shared__ FreshStore<1> fresh;
+  const bool write = write_slots != nullptr;
 
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
@@ -162,7 +177,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   __syncthreads();
 
   float m[G], l[G], acc[G][kPerThread];
-  float v_self;  // v_new[d], the fresh V row's element of this thread
+  float k_self, v_self;  // k_new[d], v_new[d]: the fresh row's elements of this thread
   if (!consumer) {
     if (threadIdx.x == kThreads) {
       const uint8_t* kbase = static_cast<const uint8_t*>(kall) + lane_row0 * Rg::kRowBytes;
@@ -189,18 +204,28 @@ __global__ void __launch_bounds__(kBlockThreads)
     // block; the last one to finish folds it in).
     {
       const int d = threadIdx.x;
-      const float kd = __bfloat162float(k_new[((int64_t)b * Hkv + hk) * kD + d]);
+      k_self = __bfloat162float(k_new[((int64_t)b * Hkv + hk) * kD + d]);
       v_self = __bfloat162float(v_new[((int64_t)b * Hkv + hk) * kD + d]);
+      const int slot = write && d == 0 ? write_slots[b] : 0;  // consumed below
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         const float qd =
             __bfloat162float(q[((int64_t)b * Hq + hk * G + gi) * kD + d]) * scale;
-        float part = qd * kd;
+        float part = qd * k_self;
 #pragma unroll
         for (int o = 16; o >= 1; o >>= 1) {
           part += __shfl_xor_sync(0xffffffffu, part, o);
         }
         if (d % 32 == 0) self_sums[gi][d / 32] = part;
+      }
+      // The fresh row's store, prepared from values loaded with the
+      // self-term's, once it is reduced (visible after the merge's barrier).
+      if (write) {
+        if (d == 0) fresh.dst[0] = slot >= 0 && slot < S ? lane_row0 + slot : -1;
+        if (Q8) {
+          warp_absmax(k_self, &fresh.amax[0][0][d / 32]);
+          warp_absmax(v_self, &fresh.amax[0][1][d / 32]);
+        }
       }
     }
 #pragma unroll
@@ -251,13 +276,15 @@ __global__ void __launch_bounds__(kBlockThreads)
   for (int gi = 0; gi < G; ++gi) {
     out[((int64_t)b * Hq + hk * G + gi) * kD + d] = __float2bfloat16(A[gi] / L[gi]);
   }
+  if (write) store_fresh_row<Q8, 1>(fresh, 0, k_self, v_self, kall, vall, kscale, vscale);
 }
 
 template <int G, bool Q8>
-int launch(const void* q, const void* kall, const void* vall, const void* kscale,
-           const void* vscale, const void* k_new, const void* v_new, const void* prompt_len,
-           const void* decode_end, void* ws, void* counters, void* out, int layer, int B,
-           int Hkv, int S, int pb, int splits, float scale, cudaStream_t stream) {
+int launch(const void* q, void* kall, void* vall, void* kscale, void* vscale,
+           const void* k_new, const void* v_new, const void* prompt_len,
+           const void* decode_end, const void* write_slots, void* ws, void* counters,
+           void* out, int layer, int B, int Hkv, int S, int pb, int splits, float scale,
+           cudaStream_t stream) {
   using Rg = Ring<G, Q8, kRuns>;
   auto kernel = decode_kernel<G, Q8>;
   static bool smem_ok = false;
@@ -269,36 +296,37 @@ int launch(const void* q, const void* kall, const void* vall, const void* kscale
   }
   const dim3 grid(splits, Hkv, B);
   kernel<<<grid, kBlockThreads, Rg::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), kall, vall, static_cast<const float*>(kscale),
-      static_cast<const float*>(vscale), static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(q), kall, vall, static_cast<float*>(kscale),
+      static_cast<float*>(vscale), static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), static_cast<const int*>(prompt_len),
-      static_cast<const int*>(decode_end), static_cast<float*>(ws),
-      static_cast<int*>(counters), static_cast<__nv_bfloat16*>(out), layer, B, Hkv, S, pb,
-      splits, scale);
+      static_cast<const int*>(decode_end), static_cast<const int*>(write_slots),
+      static_cast<float*>(ws), static_cast<int*>(counters), static_cast<__nv_bfloat16*>(out),
+      layer, B, Hkv, S, pb, splits, scale);
   return (int)cudaGetLastError();
 }
 
 template <bool Q8>
-int dispatch(const void* q, const void* kall, const void* vall, const void* kscale,
-             const void* vscale, const void* k_new, const void* v_new, const void* prompt_len,
-             const void* decode_end, void* ws, void* counters, void* out, int layer, int B,
-             int Hq, int Hkv, int S, int pb, int splits, float scale, void* stream) {
+int dispatch(const void* q, void* kall, void* vall, void* kscale, void* vscale,
+             const void* k_new, const void* v_new, const void* prompt_len,
+             const void* decode_end, const void* write_slots, void* ws, void* counters,
+             void* out, int layer, int B, int Hq, int Hkv, int S, int pb, int splits,
+             float scale, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if ((Q8 && S % 4) || splits < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (Hq / Hkv) {
     case 1:
       return launch<1, Q8>(q, kall, vall, kscale, vscale, k_new, v_new, prompt_len,
-                           decode_end, ws, counters, out, layer, B, Hkv, S, pb, splits,
-                           scale, st);
+                           decode_end, write_slots, ws, counters, out, layer, B, Hkv, S, pb,
+                           splits, scale, st);
     case 2:
       return launch<2, Q8>(q, kall, vall, kscale, vscale, k_new, v_new, prompt_len,
-                           decode_end, ws, counters, out, layer, B, Hkv, S, pb, splits,
-                           scale, st);
+                           decode_end, write_slots, ws, counters, out, layer, B, Hkv, S, pb,
+                           splits, scale, st);
     case 4:
       return launch<4, Q8>(q, kall, vall, kscale, vscale, k_new, v_new, prompt_len,
-                           decode_end, ws, counters, out, layer, B, Hkv, S, pb, splits,
-                           scale, st);
+                           decode_end, write_slots, ws, counters, out, layer, B, Hkv, S, pb,
+                           splits, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -306,29 +334,30 @@ int dispatch(const void* q, const void* kall, const void* vall, const void* ksca
 
 }  // namespace
 
-// Shapes as in the header comment; ws is f32 (B, Hkv, splits, Hq/Hkv, 130),
-// counters int32 (B * Hkv,), zero on entry and left zero.  Hq / Hkv must be
-// 1, 2 or 4; every pointer 16-byte aligned.  Returns the cudaError_t of the
-// launch.
-extern "C" int decode_attention_bf16(const void* q, const void* kall, const void* vall,
-                                     const void* k_new, const void* v_new,
-                                     const void* prompt_len, const void* decode_end, void* ws,
+// Shapes as in the header comment; write_slots (B,) int32 or null (no
+// store); ws is f32 (B, Hkv, splits, Hq/Hkv, 130), counters int32
+// (B * Hkv,), zero on entry and left zero.  Hq / Hkv must be 1, 2 or 4;
+// every pointer 16-byte aligned.  Returns the cudaError_t of the launch.
+extern "C" int decode_attention_bf16(const void* q, void* kall, void* vall, const void* k_new,
+                                     const void* v_new, const void* prompt_len,
+                                     const void* decode_end, const void* write_slots, void* ws,
                                      void* counters, void* out, int layer, int B, int Hq,
                                      int Hkv, int S, int pb, int splits, float scale,
                                      void* stream) {
   return dispatch<false>(q, kall, vall, nullptr, nullptr, k_new, v_new, prompt_len,
-                         decode_end, ws, counters, out, layer, B, Hq, Hkv, S, pb, splits,
-                         scale, stream);
+                         decode_end, write_slots, ws, counters, out, layer, B, Hq, Hkv, S, pb,
+                         splits, scale, stream);
 }
 
 // K4: kall/vall int8 (L, B, Hkv, S, 128), kscale/vscale f32 (L, B, Hkv, S)
 // with S % 4 == 0; everything else as decode_attention_bf16.
-extern "C" int decode_attention_q8(const void* q, const void* kall, const void* vall,
-                                   const void* kscale, const void* vscale, const void* k_new,
-                                   const void* v_new, const void* prompt_len,
-                                   const void* decode_end, void* ws, void* counters,
+extern "C" int decode_attention_q8(const void* q, void* kall, void* vall, void* kscale,
+                                   void* vscale, const void* k_new, const void* v_new,
+                                   const void* prompt_len, const void* decode_end,
+                                   const void* write_slots, void* ws, void* counters,
                                    void* out, int layer, int B, int Hq, int Hkv, int S,
                                    int pb, int splits, float scale, void* stream) {
   return dispatch<true>(q, kall, vall, kscale, vscale, k_new, v_new, prompt_len, decode_end,
-                        ws, counters, out, layer, B, Hq, Hkv, S, pb, splits, scale, stream);
+                        write_slots, ws, counters, out, layer, B, Hq, Hkv, S, pb, splits, scale,
+                        stream);
 }

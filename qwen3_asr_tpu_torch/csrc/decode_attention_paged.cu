@@ -13,7 +13,13 @@
 // entry pp; decode_count excludes the T fresh rows.  Table entries are
 // clipped into [0, n_pages) (the TPU wrapper's clip, :386-389).  Every
 // query row attends the same history; the fresh T x T block is causal
-// (query position t sees fresh column u iff u <= t, :303-308).
+// (query position t sees fresh column u iff u <= t, :303-308).  With
+// write_pages and write_offsets (B, T) int32, the kernel also stores fresh
+// row t of lane b at pool[layer, clip(write_pages[b, t], 0, n_pages - 1),
+// hk, write_offsets[b, t]] (K8's work, qwen3_asr_tpu/ops/pallas/kv_write.py:
+// kv_write_rows_paged :219, fused; an offset outside [0, PS) is dropped),
+// after every read of the lane's pages: the JAX decoder's order (attention
+// over the pre-step pool, then the write), one launch instead of three.
 //
 // Bound on the H100: bytes.  A forward reads each valid K and V row once
 // (2 * 256 B per row and KV head, bf16) and does 2 * R FMAs per element,
@@ -44,7 +50,11 @@
 //     per query row, and the last block of the (lane, kv head) to finish (an
 //     acq_rel ticket in the arrival counters, left at zero) folds the causal
 //     fresh block, reduced by every block while its first tile lands, and
-//     the partials in split order into the output.
+//     the partials in split order into the output, then stores the fresh
+//     rows into the pool when given a write target (decode_split.cuh's
+//     fresh rows' store: each row's pool row resolved and, for int8, its
+//     abs-max reduced while the first tile lands; the groups take the T
+//     rows in turn).
 // The arithmetic is that of the two-kernel version (a split pass and a
 // combine pass) it replaces, so the output is bit-identical to it.
 // Masking is by construction (only valid rows are visited); the running max
@@ -184,13 +194,16 @@ __device__ __forceinline__ void issue_tile(uint8_t* stage, uint64_t* bar, int ta
 // template parameter so that the causal fresh block's loops are static.
 // Q8: int8 pools with per-row scales; otherwise bf16 pools and the scale
 // pointers unused.
+// The pools are read by bulk copies and written only by the fresh rows'
+// store (write_pages and write_offsets non-null).
 template <int R, int T, bool Q8>
 __global__ void __launch_bounds__(Groups<R>::kBlockThreads)
-    paged_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kpool,
-                 const void* __restrict__ vpool, const float* __restrict__ kscale,
-                 const float* __restrict__ vscale, const __nv_bfloat16* __restrict__ k_new,
+    paged_kernel(const __nv_bfloat16* __restrict__ q, void* __restrict__ kpool,
+                 void* __restrict__ vpool, float* __restrict__ kscale,
+                 float* __restrict__ vscale, const __nv_bfloat16* __restrict__ k_new,
                  const __nv_bfloat16* __restrict__ v_new, const int* __restrict__ table,
                  const int* __restrict__ prompt_len, const int* __restrict__ decode_count,
+                 const int* __restrict__ write_pages, const int* __restrict__ write_offsets,
                  float* __restrict__ ws, int* __restrict__ counters,
                  __nv_bfloat16* __restrict__ out, int layer, int Hkv, int n_pages,
                  int PS, int max_pages, int splits, float scale) {
@@ -207,13 +220,16 @@ __global__ void __launch_bounds__(Groups<R>::kBlockThreads)
   int* pages = reinterpret_cast<int*>(smem + Rg::kBytes + (many ? Rg::kMerge : 0));
   // The fresh scores q_r . k_new[u], u <= t, per warp of a group.
   __shared__ float fresh_sums[R][T][kThreads / 32];
+  __shared__ FreshStore<T> fresh;
+  const bool write = write_pages != nullptr;
 
   const int nb = gridDim.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int sub = threadIdx.x % kRowThreads;
   const bool consumer = threadIdx.x < Gr::kConsumers;
-  const int r0 = threadIdx.x / kThreads * RG;  // the group's first query row
+  const int grp = threadIdx.x / kThreads;      // a consumer's group
+  const int r0 = grp * RG;                     // the group's first query row
   const int d = threadIdx.x % kThreads;        // a consumer's element of a row
 
   const int plen = max(prompt_len[b], 0);
@@ -280,6 +296,21 @@ __global__ void __launch_bounds__(Groups<R>::kBlockThreads)
     }
 #pragma unroll
     for (int u = 0; u < T; ++u) kn[u] = __bfloat162float(k_new[(fresh0 + u) * kD + d]);
+    // The fresh rows' store's inputs, loaded beside them and consumed once
+    // the scores are reduced: thread t's row t position, and for int8 the
+    // V elements of the group's rows.
+    int wpage = 0, woff = -1;
+    if (write && threadIdx.x < T) {
+      wpage = write_pages[b * T + threadIdx.x];
+      woff = write_offsets[b * T + threadIdx.x];
+    }
+    float vq[T];
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      vq[u] = Q8 && write && u % Gr::kCount == grp
+                  ? __bfloat162float(v_new[(fresh0 + u) * kD + d])
+                  : 0.f;
+    }
 #pragma unroll
     for (int u = 0; u < T; ++u) {
 #pragma unroll
@@ -288,6 +319,26 @@ __global__ void __launch_bounds__(Groups<R>::kBlockThreads)
 #pragma unroll
         for (int o = 16; o >= 1; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
         if (d % 32 == 0) fresh_sums[r0 + r][u][d / 32] = part;
+      }
+    }
+    // The store, prepared (visible after the merge's barrier): row t's pool
+    // row by thread t, its int8 abs-maxima by its group.
+    if (write) {
+      if (threadIdx.x < T) {
+        const int page = min(max(wpage, 0), n_pages - 1);
+        fresh.dst[threadIdx.x] =
+            woff >= 0 && woff < PS
+                ? (((int64_t)layer * n_pages + page) * Hkv + hk) * PS + woff
+                : -1;
+      }
+      if (Q8) {
+#pragma unroll
+        for (int u = 0; u < T; ++u) {
+          if (u % Gr::kCount == grp) {
+            warp_absmax(kn[u], &fresh.amax[u][0][d / 32]);
+            warp_absmax(vq[u], &fresh.amax[u][1][d / 32]);
+          }
+        }
       }
     }
   }
@@ -345,9 +396,13 @@ __global__ void __launch_bounds__(Groups<R>::kBlockThreads)
       !take_ticket<Gr::kConsumers>(counters + (int64_t)b * Hkv + hk, splits, n_mine)) {
     return;
   }
-  float vn[T];
+  float vn[T], kw[T];  // kw: the K elements of the group's fresh rows, for the store
 #pragma unroll
-  for (int u = 0; u < T; ++u) vn[u] = __bfloat162float(v_new[(fresh0 + u) * kD + d]);
+  for (int u = 0; u < T; ++u) {
+    vn[u] = __bfloat162float(v_new[(fresh0 + u) * kD + d]);
+    kw[u] = write && u % Gr::kCount == grp ? __bfloat162float(k_new[(fresh0 + u) * kD + d])
+                                           : 0.f;
+  }
   // Fresh score (r, u) of the group's row r: the four warps' sums in order.
   auto fresh_score = [&](int r, int u) {
     float sc = 0.f;
@@ -378,19 +433,29 @@ __global__ void __launch_bounds__(Groups<R>::kBlockThreads)
   for (int r = 0; r < RG; ++r) {
     out[(lane_head + r0 + r) * kD + d] = __float2bfloat16(A[r] / L[r]);
   }
+  if (write) {
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      if (u % Gr::kCount == grp) {
+        store_fresh_row<Q8, T>(fresh, u, kw[u], vn[u], kpool, vpool, kscale, vscale);
+      }
+    }
+  }
 }
 
 struct Args {
   const void* q;
-  const void* kpool;
-  const void* vpool;
-  const void* kscale;
-  const void* vscale;
+  void* kpool;
+  void* vpool;
+  void* kscale;
+  void* vscale;
   const void* k_new;
   const void* v_new;
   const void* table;
   const void* prompt_len;
   const void* decode_count;
+  const void* write_pages;
+  const void* write_offsets;
   void* ws;
   void* counters;
   void* out;
@@ -435,11 +500,12 @@ int launch(const Args& a) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, a.Hkv, a.B);
   kernel<<<grid, kThreadsAll, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), a.kpool, a.vpool,
-      static_cast<const float*>(a.kscale), static_cast<const float*>(a.vscale),
-      static_cast<const __nv_bfloat16*>(a.k_new), static_cast<const __nv_bfloat16*>(a.v_new),
-      static_cast<const int*>(a.table), static_cast<const int*>(a.prompt_len),
-      static_cast<const int*>(a.decode_count), static_cast<float*>(a.ws),
+      static_cast<const __nv_bfloat16*>(a.q), a.kpool, a.vpool, static_cast<float*>(a.kscale),
+      static_cast<float*>(a.vscale), static_cast<const __nv_bfloat16*>(a.k_new),
+      static_cast<const __nv_bfloat16*>(a.v_new), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.prompt_len), static_cast<const int*>(a.decode_count),
+      static_cast<const int*>(a.write_pages), static_cast<const int*>(a.write_offsets),
+      static_cast<float*>(a.ws),
       static_cast<int*>(a.counters), static_cast<__nv_bfloat16*>(a.out), a.layer, a.Hkv,
       a.n_pages, a.PS, a.max_pages, a.splits, a.scale);
   return (int)cudaGetLastError();
@@ -482,19 +548,21 @@ int dispatch(const Args& a, int Hq) {
 
 }  // namespace
 
-// Shapes as in the header comment; ws is f32 (B, Hkv, splits, T * Hq / Hkv,
+// Shapes as in the header comment; write_pages and write_offsets (B, T)
+// int32, both null for no store; ws is f32 (B, Hkv, splits, T * Hq / Hkv,
 // 130), counters int32 (B * Hkv,), zero on entry and left zero.
 // T * Hq / Hkv must be at most 8, PS at least 32; every pool pointer
 // 16-byte aligned.  Returns the cudaError_t of the launch.
 extern "C" int decode_attention_paged_bf16(
-    const void* q, const void* kpool, const void* vpool, const void* k_new,
-    const void* v_new, const void* table, const void* prompt_len,
-    const void* decode_count, void* ws, void* counters, void* out, int layer, int B,
-    int Hq, int Hkv, int T, int n_pages, int PS, int max_pages, int splits, float scale,
-    void* stream) {
+    const void* q, void* kpool, void* vpool, const void* k_new, const void* v_new,
+    const void* table, const void* prompt_len, const void* decode_count,
+    const void* write_pages, const void* write_offsets, void* ws, void* counters, void* out,
+    int layer, int B, int Hq, int Hkv, int T, int n_pages, int PS, int max_pages, int splits,
+    float scale, void* stream) {
+  if ((write_pages == nullptr) != (write_offsets == nullptr)) return (int)cudaErrorInvalidValue;
   const Args a{q, kpool, vpool, nullptr, nullptr, k_new, v_new, table, prompt_len,
-               decode_count, ws, counters, out, layer, B, Hkv, T, n_pages, PS, max_pages,
-               splits, scale, (cudaStream_t)stream};
+               decode_count, write_pages, write_offsets, ws, counters, out, layer, B, Hkv, T,
+               n_pages, PS, max_pages, splits, scale, (cudaStream_t)stream};
   return dispatch<false>(a, Hq);
 }
 
@@ -502,13 +570,14 @@ extern "C" int decode_attention_paged_bf16(
 // f32 (L, n_pages, Hkv, PS) with PS % 4 == 0; everything else as
 // decode_attention_paged_bf16.
 extern "C" int decode_attention_paged_q8(
-    const void* q, const void* kpool, const void* vpool, const void* kscale,
-    const void* vscale, const void* k_new, const void* v_new, const void* table,
-    const void* prompt_len, const void* decode_count, void* ws, void* counters, void* out,
+    const void* q, void* kpool, void* vpool, void* kscale, void* vscale, const void* k_new,
+    const void* v_new, const void* table, const void* prompt_len, const void* decode_count,
+    const void* write_pages, const void* write_offsets, void* ws, void* counters, void* out,
     int layer, int B, int Hq, int Hkv, int T, int n_pages, int PS, int max_pages, int splits,
     float scale, void* stream) {
+  if ((write_pages == nullptr) != (write_offsets == nullptr)) return (int)cudaErrorInvalidValue;
   const Args a{q, kpool, vpool, kscale, vscale, k_new, v_new, table, prompt_len,
-               decode_count, ws, counters, out, layer, B, Hkv, T, n_pages, PS, max_pages,
-               splits, scale, (cudaStream_t)stream};
+               decode_count, write_pages, write_offsets, ws, counters, out, layer, B, Hkv, T,
+               n_pages, PS, max_pages, splits, scale, (cudaStream_t)stream};
   return dispatch<true>(a, Hq);
 }

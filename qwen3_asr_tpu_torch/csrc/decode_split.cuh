@@ -17,10 +17,15 @@
 // an acq_rel ticket that it resets to zero, folds the fresh rows' terms and
 // the partials, in split order, into the output.
 //
+// With a write target the fold block also stores the lane's fresh K and V
+// rows of the KV head into the cache or pool (K3's and K8's work, fused; see
+// "the fresh rows' store" below), after every read of that (lane, KV head).
+//
 // This header holds what both kernels share: the ring's layout and barrier
 // protocol, a tile's consumer work, the workers' merge, the partial's store,
-// the ticket and the split fold.  After the ring's setup only the consumers
-// synchronise (a named barrier), so that the producer warp may run ahead.
+// the ticket, the split fold and the fresh rows' store.  After the ring's
+// setup only the consumers synchronise (a named barrier), so that the
+// producer warp may run ahead.
 // The arithmetic (row assignment, fmaf order, shuffle tree, softmax update,
 // worker merge, split fold) is that of the port's earlier two-kernel
 // versions, so both kernels give those versions' outputs bit for bit.
@@ -421,6 +426,87 @@ __device__ __forceinline__ void fold_splits(const float* base, int splits, int r
     if (c + 2 * kChunk < items) load(c + 2 * kChunk, mc0, lc0, v0);
     step(c + kChunk, mc1, lc1, v1);
     if (c + 3 * kChunk < items) load(c + 3 * kChunk, mc1, lc1, v1);
+  }
+}
+
+// -- the fresh rows' store -----------------------------------------------------
+// The fold block of a (lane, KV head) stores the lane's T fresh K and V rows
+// of the KV head (the step's or the verify's, the rows the attention took
+// from k_new/v_new) into the cache or pool, once it has written the output.
+// Consumer group g stores rows t with t % kGroups == g, thread d of the
+// group element d.  Every block prepares the shared FreshStore before its
+// first consumer barrier (the workers' merge opens with one): each row's
+// destination row of the cache or pool, -1 when the row is dropped, and for
+// int8 rows each consumer warp's max |x| of its 32 elements of the K and of
+// the V row, reduced while the ring fills.  So the fold block's store reads
+// shared memory and its own registers: no global load and one barrier
+// fewer on the path to the block's end.
+//
+// Int8 rows are quantized as kv_write.cu's writers do, bit for bit: s =
+// max|x| / 127 by __fdiv_rn, or 1 for an all-zero row; q =
+// clip(__float2int_rn(__fdiv_rn(x, s)), -127, 127).  A max is exact in any
+// order, so the four warps' maxima give the writer's half-warp tree's value.
+//
+// Why the store needs no other synchronisation:
+//   * Every read of the (lane, KV head)'s cache or pool rows in this launch
+//     is a bulk copy (the async proxy) by one of its blocks, whose
+//     completion a consumer of that block observed on a full barrier before
+//     the block's ticket (splits == 1: before this block's merge).  The
+//     fold block's ticket acquires every other block's release, and the
+//     completion of a bulk copy is followed by an implicit generic-async
+//     proxy fence (PTX ISA, the async proxy), so these generic stores are
+//     ordered after all of those reads, the clamp case's too (a write slot
+//     inside the interval being read).  No fence.proxy.async is needed: that
+//     fence orders generic writes before later async-proxy reads, and no
+//     bulk copy of this launch reads a stored row; the next launch's do, in
+//     stream order.
+//   * Blocks of other (lane, KV head) pairs read other rows: a lane's cache
+//     rows are its own, and the engine gives each sequence pages of its own.
+//     Only the trash page 0, which no lane reads as a valid row, may take
+//     stores of several idle lanes at one offset; those race, as in K8.
+
+template <int T>
+struct FreshStore {
+  int64_t dst[T];                   // destination row of fresh row t; -1: dropped
+  float amax[T][2][kThreads / 32];  // int8: per-warp max |K| ([0]) and |V| ([1])
+};
+
+// The warp's max |x| over its 32 threads' elements, to *slot (lane 0), as
+// the writers' fmaxf tree from 0 gives it (a NaN element is passed over):
+// one redux.sync on the bit patterns, whose unsigned order is the order of
+// non-negative floats.
+__device__ __forceinline__ void warp_absmax(float x, float* slot) {
+  const unsigned a = __reduce_max_sync(0xffffffffu, __float_as_uint(fmaxf(0.f, fabsf(x))));
+  if (threadIdx.x % 32 == 0) *slot = __uint_as_float(a);
+}
+
+// Thread d of the group that owns fresh row t: element d of its K value xk
+// and V value xv to row fs.dst[t] of kc / vc (bf16 rows, or int8 rows with
+// their f32 scales in ks / vs).  After a consumer barrier that followed the
+// FreshStore's preparation.
+template <bool Q8, int T>
+__device__ __forceinline__ void store_fresh_row(const FreshStore<T>& fs, int t, float xk,
+                                                float xv, void* kc, void* vc, float* ks,
+                                                float* vs) {
+  const int64_t row = fs.dst[t];
+  if (row < 0) return;
+  const int d = threadIdx.x % kThreads;
+  if constexpr (Q8) {
+    const float x[2] = {xk, xv};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) a = fmaxf(a, fs.amax[t][c][w]);
+      const float s = a == 0.f ? 1.f : __fdiv_rn(a, 127.f);
+      const int q = max(-127, min(127, __float2int_rn(__fdiv_rn(x[c], s))));
+      static_cast<int8_t*>(c ? vc : kc)[row * kD + d] = static_cast<int8_t>(q);
+      if (d == 0) (c ? vs : ks)[row] = s;
+    }
+  } else {
+    // xk, xv are bf16 values widened to f32: the round trip is exact.
+    static_cast<__nv_bfloat16*>(kc)[row * kD + d] = __float2bfloat16(xk);
+    static_cast<__nv_bfloat16*>(vc)[row * kD + d] = __float2bfloat16(xv);
   }
 }
 

@@ -1,5 +1,12 @@
 // K3 and K5: KV-cache row writes, in place.
 //
+// On the default decode paths K3 and K8 no longer run as kernels of their
+// own: the decode attention (K2/K4, K6/K7) stores the fresh rows from its
+// fold block (decode_split.cuh, "the fresh rows' store"), with the int8
+// rule below, bit for bit.  The standalone K3 serves decode modes "3"/"4",
+// whose attention kernels take no write target; K3-int8 and K8 stay as
+// the fused stores' oracles.
+//
 // One bf16 kernel (kv_write_rows_bf16) serves both.  It writes
 // rows[l, b, h, t, :] to cache[l, b, h, slots[b] + t, :] for every
 // (l, b, h) and t < T, and drops rows whose slot lies outside [0, S).

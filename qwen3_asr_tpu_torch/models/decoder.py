@@ -9,11 +9,16 @@ transcription slices run:
     package builds the same cache by padding the stacked rows to S,
     ``decoder.py:816-845``);
   * **split decode** (``decode_ctx`` given, T == 1, ``decoder.py:534-731``):
-    attention runs over the PRE-step cache plus the fresh row (kernel K2;
-    K11a or K11b under :data:`DECODE_KERNEL_MODE` "3" or "4" with a shared
-    slot), and all layers' fresh rows are written by ONE post-loop K3 call at the
-    shared slot, or at per-lane slots for the continuous engine's flat
-    cache;
+    attention runs over the PRE-step cache plus the fresh row (kernel K2),
+    and the same launch then stores the layer's fresh row at the shared
+    slot, or at per-lane slots for the continuous engine's flat cache (K3
+    fused into K2's fold).  Under :data:`DECODE_KERNEL_MODE` "3" or "4"
+    with a shared slot, K11a or K11b attend, and all layers' fresh rows
+    are written by ONE post-loop K3 call.  Either way a layer's rows land
+    after that layer's attention has read the cache, the JAX package's
+    order (it writes after the layer loop because an in-loop update made
+    XLA copy the whole cache, ``decoder.py:680-684``; the card has no such
+    hazard);
   * **verify split** (``decode_ctx`` given, 1 < T <= 8, ``decoder.py:744-814``):
     the speculative loop's T positions per lane against the read-only
     cache plus a T x T causal block of the fresh rows, in plain PyTorch
@@ -23,8 +28,8 @@ transcription slices run:
 The continuous engine's paged pool (``decoder_paged_step``, JAX
 ``decoder.py:881-1033``, and ``decoder_paged_verify``, ``:1036-1201``) runs
 the same split form through a page table: attention is kernel K6 (or K7
-for the T-position verify), and all layers' fresh rows land after the loop
-in one K8 launch each for K and V.
+for the T-position verify), whose launch also stores the layer's fresh
+rows (K8 fused into the fold).
 
 Per layer: RMSNorm -> fused QKV -> per-head Q/K RMSNorm BEFORE RoPE
 (non-interleaved, theta 1e6) -> attention -> o_proj -> RMSNorm -> SwiGLU.
@@ -39,8 +44,8 @@ quantized ``{"q", "s"}`` weights run kernel K9 (or K10 inside the
 activation-quant gate); a quantized embedding is stored transposed (H, V),
 so the lookup gathers columns and the lm head is ``qlinear`` with f32
 output.  The split decode step also takes the int8 cache ``{"q": int8,
-"s": f32}`` pair: attention runs K4 and the step's fresh bf16 rows are
-quantized and written by one K3-int8 launch per K and per V.
+"s": f32}`` pair: attention runs K4, whose launch also quantizes the
+step's fresh bf16 rows and stores them (K3-int8 fused), under every mode.
 """
 
 from __future__ import annotations
@@ -63,14 +68,7 @@ from ..ops.kernels.decode_attention_paged import (
     decode_attention_paged_verify,
     decode_attention_paged_verify_q8,
 )
-from ..ops.kernels.kv_write import (
-    kv_write_rows,
-    kv_write_rows_batch,
-    kv_write_rows_paged,
-    kv_write_rows_paged_q8,
-    kv_write_rows_q8,
-    kv_write_span_batch,
-)
+from ..ops.kernels.kv_write import kv_write_rows, kv_write_span_batch
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear
 from ..ops.quant_kv import is_quantized_kv, kv_seq_len
@@ -243,12 +241,21 @@ def decoder_forward(
 
     if decode_ctx is not None and T == 1 and write_slots is not None:
         plen, dend, pbucket = decode_ctx
-        q8 = is_quantized_kv(keys)
         device = hidden.device
-        attend, dend = _split_step_attention(
-            q8, isinstance(write_slots, torch.Tensor), dend, B, device,
+        attend, dend, fused = _split_step_attention(
+            is_quantized_kv(keys), isinstance(write_slots, torch.Tensor), dend, B, device,
             kv_seq_len(keys), pbucket,
         )
+        if fused:
+            # K2/K4 store each layer's fresh row from the attention's launch.
+            slots = _per_lane(write_slots, B, device)
+            for layer, lp in enumerate(params["layers"]):
+                q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+                attn = attend(q[:, :, 0, :], keys, values, k_new, v_new, layer, plen, dend,
+                              pbucket, scale=scale, write_slots=slots)
+                h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
+                h = _mlp_block(h, lp, eps)
+            return h, (keys, values)
         n_layers = len(params["layers"])
         k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=hidden.dtype, device=device)
         v_rows = torch.empty_like(k_rows)
@@ -262,17 +269,8 @@ def decoder_forward(
             v_rows[layer] = v_new
             h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
             h = _mlp_block(h, lp, eps)
-        if q8:
-            slots = _per_lane(write_slots, B, device)
-            kv_write_rows_q8(keys, k_rows, slots)
-            kv_write_rows_q8(values, v_rows, slots)
-        elif isinstance(write_slots, torch.Tensor):
-            slots = _per_lane(write_slots, B, device)
-            kv_write_rows_batch(keys, k_rows, slots)
-            kv_write_rows_batch(values, v_rows, slots)
-        else:
-            kv_write_rows(keys, k_rows, write_slots)
-            kv_write_rows(values, v_rows, write_slots)
+        kv_write_rows(keys, k_rows, write_slots)
+        kv_write_rows(values, v_rows, write_slots)
         return h, (keys, values)
 
     if decode_ctx is not None and 1 < T <= 8 and write_slots is not None:
@@ -289,11 +287,12 @@ def decoder_forward(
 
 def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int,
                           pbucket: int):
-    """The split step's attention under :data:`DECODE_KERNEL_MODE` and the
-    decode end in the form it takes: K4 on the int8 cache, K2 for per-lane
-    slots and under "auto"/"5" (both with a (B,) decode end), K11a under "3"
-    and K11b under "4" (an int decode end), each with ``block_k`` the largest
-    of 1024/512/256/128 that divides S and the prompt bucket (JAX
+    """(attention, decode end, fused) of the split step under
+    :data:`DECODE_KERNEL_MODE`: K4 on the int8 cache, K2 for per-lane slots
+    and under "auto"/"5" (both with a (B,) decode end, and ``fused``: the
+    call takes ``write_slots`` and stores the fresh row), K11a under "3" and
+    K11b under "4" (an int decode end; not fused), each with ``block_k`` the
+    largest of 1024/512/256/128 that divides S and the prompt bucket (JAX
     ``decoder.py:601-610``)."""
     mode = DECODE_KERNEL_MODE
     if mode not in ("auto", "3", "4", "5"):
@@ -303,9 +302,9 @@ def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int
             f"is {_PLAIN_SWITCHES_ITEM}"
         )
     if q8:
-        return decode_attention_q8, _per_lane(dend, B, device)
+        return decode_attention_q8, _per_lane(dend, B, device), True
     if per_lane or mode in ("auto", "5"):
-        return decode_attention, _per_lane(dend, B, device)
+        return decode_attention, _per_lane(dend, B, device), True
     block_k = next((bk for bk in (1024, 512, 256, 128)
                     if S % bk == 0 and pbucket % bk == 0), None)
     if block_k is None:
@@ -314,7 +313,7 @@ def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int
             f"both the cache length S={S} and the prompt bucket {pbucket}"
         )
     kernel = decode_attention_hbm2 if mode == "3" else decode_attention_hbm3
-    return partial(kernel, block_k=block_k), int(dend)
+    return partial(kernel, block_k=block_k), int(dend), False
 
 
 def _per_lane(x, B: int, device) -> torch.Tensor:
@@ -403,10 +402,10 @@ def decoder_paged_step(
     write_offsets: torch.Tensor,   # (B,) row offset inside that page
 ):
     """One decode step over the paged pool (JAX ``decoder.py:881-1033``):
-    attention over the read-only pre-step pages with the fresh token's
-    self-term (K6, or its int8 form on the ``{"q", "s"}`` pool), then all
-    layers' rows written by one K8 launch each for K and V.  The pools are
-    updated in place.  Returns (pre-final-norm hidden (B, 1, H), pools)."""
+    attention over the pre-step pages with the fresh token's self-term (K6,
+    or its int8 form on the ``{"q", "s"}`` pool), whose launch then stores
+    the layer's row (K8 fused).  The pools are updated in place.  Returns
+    (pre-final-norm hidden (B, 1, H), pools)."""
     return _paged_forward(
         params, cfg, hidden, positions, kv_pages, page_table, prompt_len,
         decode_count, write_pages[:, None], write_offsets[:, None],
@@ -428,9 +427,9 @@ def decoder_paged_verify(
     """The speculative verify forward over the paged pool (JAX
     ``decoder.py:1036-1201``): T positions per lane in one forward, history
     through K7 (every position reads each page once), the fresh rows
-    causally inside the kernel; all T rows of every layer land in one K8
-    launch each for K and V (the JAX package calls its writer T times).
-    Returns (hidden (B, T, H), pools)."""
+    causally inside the kernel; the same launch then stores the layer's T
+    rows (K8 fused; the JAX package calls its writer T times after the
+    layer loop).  Returns (hidden (B, T, H), pools)."""
     return _paged_forward(
         params, cfg, hidden, positions, kv_pages, page_table, prompt_len,
         decode_count, write_pages, write_offsets,
@@ -443,37 +442,31 @@ def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_
     :func:`decoder_paged_verify`."""
     keys, values = kv_pages
     B, T, _ = h.shape
-    nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    nq, D = cfg.num_attention_heads, cfg.head_dim
     device = h.device
     q8 = is_quantized_kv(keys)
     if T == 1:
         attend = decode_attention_paged_q8 if q8 else decode_attention_paged
     else:
         attend = decode_attention_paged_verify_q8 if q8 else decode_attention_paged_verify
-    write = kv_write_rows_paged_q8 if q8 else kv_write_rows_paged
     table = page_table.to(device=device, dtype=torch.int32).contiguous()
     plen = _per_lane(prompt_len, B, device)
     dcount = _per_lane(decode_count, B, device)
+    target = dict(
+        write_pages=write_pages.to(device=device, dtype=torch.int32).contiguous(),
+        write_offsets=write_offsets.to(device=device, dtype=torch.int32).contiguous(),
+    )
     cos, sin = rope_cos_sin(positions[:, None, :], D, cfg.rope_theta)
-    n_layers = len(params["layers"])
-    k_rows = torch.empty((n_layers, B, nkv, T, D), dtype=h.dtype, device=device)
-    v_rows = torch.empty_like(k_rows)
     for layer, lp in enumerate(params["layers"]):
         q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
         if T == 1:
             attn = attend(q[:, :, 0], keys, values, k_new, v_new, layer, table,
-                          plen, dcount, scale=D ** -0.5)[:, :, None]
+                          plen, dcount, scale=D ** -0.5, **target)[:, :, None]
         else:
             attn = attend(q, keys, values, k_new, v_new, layer, table, plen,
-                          dcount, scale=D ** -0.5)
-        k_rows[layer] = k_new
-        v_rows[layer] = v_new
+                          dcount, scale=D ** -0.5, **target)
         h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
         h = _mlp_block(h, lp, cfg.rms_norm_eps)
-    pages = write_pages.to(device=device, dtype=torch.int32).contiguous()
-    offsets = write_offsets.to(device=device, dtype=torch.int32).contiguous()
-    write(keys, k_rows, pages, offsets)
-    write(values, v_rows, pages, offsets)
     return h, (keys, values)
 
 

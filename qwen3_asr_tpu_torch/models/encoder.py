@@ -230,5 +230,6 @@ def _encoder_forward(params, cfg, mel, n_valid_frames):
     h = layer_norm(h, params["ln_post_w"], params["ln_post_b"], _LN_EPS)
     h = F.gelu(qlinear(h, params["proj1_w"]) + params["proj1_b"], approximate="none")
     features = qlinear(h, params["proj2_w"]) + params["proj2_b"]
-    features = torch.where(token_valid[:, :, None], features, torch.zeros((), dtype=features.dtype, device=features.device))
+    zero = torch.zeros((), dtype=features.dtype, device=features.device)
+    features = torch.where(token_valid[:, :, None], features, zero)
     return features, n_tokens

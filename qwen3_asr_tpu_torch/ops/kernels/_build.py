@@ -51,17 +51,18 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, T, scale, stream
     "flash_attention_causal_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # q, kall, vall, k_new, v_new, prompt_len, decode_end, workspace,
-    # counters, out, layer, B, Hq, Hkv, S, prompt_bucket, splits, scale, stream
+    # q, kall, vall, k_new, v_new, prompt_len, decode_end, write_slots (or
+    # null), workspace, counters, out, layer, B, Hq, Hkv, S, prompt_bucket,
+    # splits, scale, stream
     "decode_attention_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, kscale, vscale, k_new, v_new, prompt_len, decode_end,
-    # workspace, counters, out, layer, B, Hq, Hkv, S, prompt_bucket, splits,
-    # scale, stream
+    # write_slots, workspace, counters, out, layer, B, Hq, Hkv, S,
+    # prompt_bucket, splits, scale, stream
     "decode_attention_q8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # cache, rows, slots, L, B, H, T, S, stream
@@ -73,17 +74,17 @@ _SIGNATURES = {
     # pool_q, pool_s, rows, pages, offs, L, B, H, T, n_pages, PS, stream
     "kv_write_rows_paged_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, kpool, vpool, k_new, v_new, table, prompt_len, decode_count,
-    # workspace, counters, out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages,
-    # splits, scale, stream
+    # write_pages, write_offsets (both null: no store), workspace, counters,
+    # out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages, splits, scale, stream
     "decode_attention_paged_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kpool, vpool, kscale, vscale, k_new, v_new, table, prompt_len,
-    # decode_count, workspace, counters, out, then as
-    # decode_attention_paged_bf16
+    # decode_count, write_pages, write_offsets, workspace, counters, out,
+    # then as decode_attention_paged_bf16
     "decode_attention_paged_q8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # x, wq, s, out, partial, counters, M, N, K, out_f32, nb, splits, per,

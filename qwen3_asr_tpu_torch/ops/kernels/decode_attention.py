@@ -4,8 +4,15 @@ Replaces ``qwen3_asr_tpu/ops/pallas/decode_attention_hbm4.py:
 decode_attention_hbm4``.  Cache row s of lane b is valid when
 ``s < prompt_len[b]`` or ``prompt_bucket <= s < decode_end[b]`` (the cache
 is ``[prompt 0..pb) | decode pb..S)``); the step's fresh ``k_new``/``v_new``
-row is folded in as a self-term, since the decode loop writes the step's
-rows only after the layer loop.
+row is folded in as a self-term: it is not in the cache yet.
+
+With ``write_slots`` (an int shared by every lane, or (B,) int32) the call
+also stores that fresh row into the layer's cache at lane b's slot, a slot
+outside ``[0, S)`` dropped: K3's work (``kv_write_rows``,
+``kv_write_rows_batch``, ``kv_write_rows_q8``) fused into the same launch,
+after the attention has read the cache, as the JAX decode loop orders them.
+The decoder's split step passes it, so a decode iteration runs neither the
+standalone writer nor the copies that staged its rows.
 
 Bound on the H100: bytes (every valid K/V row is read once per step, at
 about one FMA per byte).  The CUDA kernel (``csrc/decode_attention.cu``)
@@ -14,15 +21,18 @@ each row once for the whole GQA group, in one launch: blocks spread a
 lane's rows over ``splits`` chunks so that small batches fill the card, a
 producer thread streams each chunk by 1-D bulk copies into an ``mbarrier``
 ring in shared memory, and the last block of each (lane, KV head) to finish
-folds the partial softmaxes and the self-term.  The wrapper picks the split
-count, allocates the f32 workspace and hands over the device's zeroed
+folds the partial softmaxes and the self-term, then stores the fresh row
+when given a write slot (``csrc/decode_split.cuh``).  The wrapper picks the
+split count, allocates the f32 workspace and hands over the device's zeroed
 arrival counters (:func:`arrival_counters`).  Any ``prompt_bucket`` and S
 work (no block-size divisibility); the int8 cache needs S % 4 == 0
 (:func:`check_bulk_copies`).
 
 On a CPU tensor the wrapper runs :func:`decode_attention_plain`, the masked
-two-interval softmax of ``qwen3_asr_tpu/models/decoder.py:534-657``; on a
-CUDA tensor it launches the kernels or raises.
+two-interval softmax of ``qwen3_asr_tpu/models/decoder.py:534-657``, then,
+with a write slot, :func:`~.kv_write.kv_write_rows_plain` on the layer's
+slice; on a CUDA tensor it launches the kernel or raises.  A launch with a
+write slot also counts under :data:`NAME_WRITE` (:data:`NAME_Q8_WRITE`).
 
 K4, :func:`decode_attention_q8`, replaces ``decode_attention_hbm4_q8``: the
 same kernel over the int8 cache ``{"q": int8 (L, B, Hkv, S, D), "s": f32
@@ -30,7 +40,9 @@ same kernel over the int8 cache ``{"q": int8 (L, B, Hkv, S, D), "s": f32
 scales copied as its 16-byte aligned superset) and folding the scales into
 the scores and probabilities.  Its plain version is the
 JAX decoder's XLA fallback (``decoder.py:616-657``): dequantize the layer
-to q's dtype, then the same two-interval softmax.
+to q's dtype, then the same two-interval softmax; with a write slot, then
+:func:`~.kv_write.kv_write_rows_q8_plain` on the layer's slice (the kernel
+quantizes the fresh row by the same rule, bit for bit).
 """
 
 from __future__ import annotations
@@ -42,9 +54,13 @@ import torch
 from ..attention import NEG_INF
 from ..quant_kv import dequantize_kv
 from . import _build
+from .kv_write import kv_write_rows_plain, kv_write_rows_q8_plain
 
 NAME = "decode_attention"
 NAME_Q8 = "decode_attention_q8"
+#: Launches that also stored the fresh row (K3 and K3-int8, fused).
+NAME_WRITE = "kv_write_rows_fused"
+NAME_Q8_WRITE = "kv_write_rows_q8_fused"
 
 
 def decode_attention_plain(
@@ -163,6 +179,28 @@ def decode_attention_q8_plain(
     )
 
 
+def write_slot_tensor(write_slots, B: int, device) -> torch.Tensor:
+    """``write_slots`` as int32 (B,) on ``device``: an int is every lane's
+    slot; a tensor must already be int32 (B,), contiguous, on ``device``."""
+    if not isinstance(write_slots, torch.Tensor):
+        return torch.full((B,), int(write_slots), dtype=torch.int32, device=device)
+    if write_slots.dtype != torch.int32 or tuple(write_slots.shape) != (B,):
+        raise ValueError(f"write_slots must be int32 ({B},)")
+    if write_slots.device != device or not write_slots.is_contiguous():
+        raise ValueError(f"write_slots must be contiguous on {device}")
+    return write_slots
+
+
+def _write_plain(cache, rows, layer: int, slots: torch.Tensor) -> None:
+    """The plain writer of the layer's slice (bf16 cache, or the int8
+    ``{"q", "s"}`` one): ``rows`` (B, Hkv, 1, D) at ``slots``."""
+    if isinstance(cache, dict):
+        layer_cache = {k: v[layer : layer + 1] for k, v in cache.items()}
+        kv_write_rows_q8_plain(layer_cache, rows[None], slots)
+    else:
+        kv_write_rows_plain(cache[layer : layer + 1], rows[None], slots)
+
+
 def _check(q, kall, vall, k_new, v_new, layer, prompt_len, decode_end,
            cache_dtype=torch.bfloat16) -> None:
     if q.dim() != 3 or kall.dim() != 5:
@@ -210,29 +248,38 @@ def decode_attention(
     decode_end: torch.Tensor,
     prompt_bucket: int,
     scale: float | None = None,
+    write_slots: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One-token attention of q (B, Hq, D) over layer ``layer`` of the
     stacked cache plus the fresh row; ``prompt_len`` and ``decode_end`` are
-    (B,) int32.  Returns (B, Hq, D)."""
+    (B,) int32.  With ``write_slots`` (an int, or (B,) int32) the fresh row
+    then lands in layer ``layer`` of the cache at lane b's slot (dropped
+    outside [0, S)), in place.  Returns (B, Hq, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    slots = None if write_slots is None else write_slot_tensor(write_slots, q.shape[0], q.device)
     if not q.is_cuda:
-        return decode_attention_plain(
+        out = decode_attention_plain(
             q, kall, vall, k_new, v_new, layer, prompt_len, decode_end,
             prompt_bucket, scale,
         )
+        if slots is not None:
+            _write_plain(kall, k_new, layer, slots)
+            _write_plain(vall, v_new, layer, slots)
+        return out
     _check(q, kall, vall, k_new, v_new, layer, prompt_len, decode_end)
     return _launch(
         NAME, "decode_attention_bf16", q, kall.shape,
         (kall.data_ptr(), vall.data_ptr()), k_new, v_new, layer, prompt_len,
-        decode_end, prompt_bucket, scale,
+        decode_end, prompt_bucket, scale, slots,
     )
 
 
 def _launch(name, entry, q, cache_shape, cache_ptrs, k_new, v_new, layer,
-            prompt_len, decode_end, prompt_bucket, scale) -> torch.Tensor:
+            prompt_len, decode_end, prompt_bucket, scale, slots) -> torch.Tensor:
     """Allocate the split workspace and the output, and launch the C entry
-    point ``entry`` (K2 or K4) on the cache pointers ``cache_ptrs``."""
+    point ``entry`` (K2 or K4) on the cache pointers ``cache_ptrs``, with
+    the fresh row's store when ``slots`` is given."""
     B, hq, D = q.shape
     hkv, S = cache_shape[2], cache_shape[3]
     check_bulk_copies(S, name == NAME_Q8, cache_ptrs)
@@ -244,12 +291,15 @@ def _launch(name, entry, q, cache_shape, cache_ptrs, k_new, v_new, layer,
     out = torch.empty_like(q)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), *cache_ptrs, k_new.data_ptr(), v_new.data_ptr(),
-        prompt_len.data_ptr(), decode_end.data_ptr(), ws.data_ptr(),
+        prompt_len.data_ptr(), decode_end.data_ptr(),
+        None if slots is None else slots.data_ptr(), ws.data_ptr(),
         counters.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, S,
         int(prompt_bucket), splits, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
+    if slots is not None:
+        _build.LAUNCHES[NAME_Q8_WRITE if name == NAME_Q8 else NAME_WRITE] += 1
     return out
 
 
@@ -273,16 +323,23 @@ def decode_attention_q8(
     decode_end: torch.Tensor,
     prompt_bucket: int,
     scale: float | None = None,
+    write_slots: int | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`decode_attention` over the int8 cache ``{"q", "s"}``; the
-    fresh ``k_new``/``v_new`` rows stay bf16.  Returns (B, Hq, D)."""
+    fresh ``k_new``/``v_new`` rows stay bf16, and with ``write_slots`` they
+    are quantized per row into the cache.  Returns (B, Hq, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    slots = None if write_slots is None else write_slot_tensor(write_slots, q.shape[0], q.device)
     if not q.is_cuda:
-        return decode_attention_q8_plain(
+        out = decode_attention_q8_plain(
             q, kall, vall, k_new, v_new, layer, prompt_len, decode_end,
             prompt_bucket, scale,
         )
+        if slots is not None:
+            _write_plain(kall, k_new, layer, slots)
+            _write_plain(vall, v_new, layer, slots)
+        return out
     _check(q, kall["q"], vall["q"], k_new, v_new, layer, prompt_len, decode_end,
            cache_dtype=torch.int8)
     _check_scales(kall, vall)
@@ -290,5 +347,5 @@ def decode_attention_q8(
             vall["s"].data_ptr())
     return _launch(
         NAME_Q8, "decode_attention_q8", q, kall["q"].shape, ptrs, k_new, v_new,
-        layer, prompt_len, decode_end, prompt_bucket, scale,
+        layer, prompt_len, decode_end, prompt_bucket, scale, slots,
     )

@@ -12,6 +12,14 @@ arithmetic), table entries clipped into the pool.  ``dcount`` excludes the
 fresh rows ``k_new``/``v_new`` (B, Hkv, T, D), which every query position t
 attends causally (fresh column u iff u <= t).
 
+With ``write_pages`` and ``write_offsets`` ((B, T) int32, or (B,) for
+T = 1) the call also stores fresh row t of lane b into the layer's pool at
+``(clip(write_pages[b, t], 0, n_pages - 1), write_offsets[b, t])``, rows
+whose offset lies outside ``[0, PS)`` dropped: K8's work
+(``kv_write_rows_paged``, ``kv_write_rows_paged_q8``) fused into the same
+launch, after the attention has read the pool, as the JAX decoder orders
+them.  The decoder's paged step and verify pass it.
+
 Bound on the H100: bytes (each valid K and V row read once per layer).  The
 CUDA kernel (``csrc/decode_attention_paged.cu``) is K2's one-launch design
 (``csrc/decode_split.cuh``) with page addressing: each lane's densely
@@ -21,10 +29,10 @@ and streams each 32-row tile as runs of pool rows (one per page and
 interval, at most three) by 1-D bulk copies into an ``mbarrier`` ring, all
 T x group query rows of a KV head read each row once, and the last block of
 each (lane, KV head) to finish folds the partials and the causal fresh
-block.  The wrapper picks the split count (K2's
-:func:`~.decode_attention.split_count`), allocates the f32 workspace and
-hands over K2's zeroed arrival counters; the pool must suit the bulk copies
-(:func:`check_pool`).  Its largest T x group is
+block, then stores the fresh rows when given a write target.  The wrapper
+picks the split count (K2's :func:`~.decode_attention.split_count`),
+allocates the f32 workspace and hands over K2's zeroed arrival counters; the
+pool must suit the bulk copies (:func:`check_pool`).  Its largest T x group is
 :data:`MAX_QUERY_ROWS` (8, the JAX kernel's sublane pad); the engine's
 speculative gate reads this constant.
 
@@ -32,7 +40,10 @@ On a CPU tensor each wrapper runs :func:`paged_attention_plain`, the JAX
 decoder's gather-and-mask path (``decoder.py:924-989``, ``:1078-1149``): the
 lane's pages gathered into one compact view, the two masked intervals, the
 causal fresh block, one softmax; the int8 pool is dequantized to q's dtype
-first.  On a CUDA tensor it launches the kernels or raises.
+first; with a write target, then :func:`~.kv_write.kv_write_rows_paged_plain`
+(``_q8_plain``) on the layer's slice.  On a CUDA tensor it launches the
+kernel or raises.  A launch with a write target also counts under
+:data:`NAME_WRITE` (:data:`NAME_Q8_WRITE` on the int8 pool).
 """
 
 from __future__ import annotations
@@ -42,11 +53,15 @@ import torch
 from ..attention import NEG_INF
 from . import _build
 from .decode_attention import _sm_count, arrival_counters, check_bulk_copies, split_count
+from .kv_write import kv_write_rows_paged_plain, kv_write_rows_paged_q8_plain
 
 NAME = "decode_attention_paged"
 NAME_Q8 = "decode_attention_paged_q8"
 NAME_VERIFY = "decode_attention_paged_verify"
 NAME_VERIFY_Q8 = "decode_attention_paged_verify_q8"
+#: Launches (K6 or K7) that also stored the fresh rows (K8, fused).
+NAME_WRITE = "kv_write_rows_paged_fused"
+NAME_Q8_WRITE = "kv_write_rows_paged_q8_fused"
 
 #: The most query rows (T x GQA group) per KV head that K7 takes.
 MAX_QUERY_ROWS = 8
@@ -170,8 +185,9 @@ def check_pool(page_size: int, q8: bool, ptrs: tuple[int, ...]) -> None:
 
 
 def _launch(name, entry, q, pool_shape, pool_ptrs, k_new, v_new, layer, table,
-            prompt_len, decode_count, scale) -> torch.Tensor:
-    """Allocate the split workspace and the output; launch ``entry``."""
+            prompt_len, decode_count, scale, target) -> torch.Tensor:
+    """Allocate the split workspace and the output; launch ``entry``, with
+    the fresh rows' store when ``target`` (pages, offsets) is given."""
     B, hq, T, D = q.shape
     _, n_pages, hkv, PS, _ = pool_shape
     check_pool(PS, entry == "decode_attention_paged_q8", pool_ptrs)
@@ -182,27 +198,59 @@ def _launch(name, entry, q, pool_shape, pool_ptrs, k_new, v_new, layer, table,
     )
     counters = arrival_counters(q.device, B * hkv)
     out = torch.empty_like(q)
+    pages, offsets = (None, None) if target is None else (t.data_ptr() for t in target)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), *pool_ptrs, k_new.data_ptr(), v_new.data_ptr(),
-        table.data_ptr(), prompt_len.data_ptr(), decode_count.data_ptr(),
+        table.data_ptr(), prompt_len.data_ptr(), decode_count.data_ptr(), pages, offsets,
         ws.data_ptr(), counters.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T,
         n_pages, PS, max_pages, splits, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
+    if target is not None:
+        _build.LAUNCHES[NAME_Q8_WRITE if entry.endswith("q8") else NAME_WRITE] += 1
     return out
 
 
+def write_target(write_pages, write_offsets, B: int, T: int, device):
+    """(pages, offsets) as int32 (B, T) on ``device``, or None when both are
+    None; (B,) tensors are taken as (B, 1).  Raises on anything else."""
+    if write_pages is None and write_offsets is None:
+        return None
+    out = []
+    for name, t in (("write_pages", write_pages), ("write_offsets", write_offsets)):
+        if not isinstance(t, torch.Tensor) or t.numel() != B * T or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be an int32 tensor of {B} x {T}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
+        out.append(t.reshape(B, T))
+    return tuple(out)
+
+
+def _write_plain(pool, rows, layer, target) -> None:
+    """The plain writer of the layer's slice: ``rows`` (B, Hkv, T, D)."""
+    if isinstance(pool, dict):
+        layer_pool = {k: v[layer : layer + 1] for k, v in pool.items()}
+        kv_write_rows_paged_q8_plain(layer_pool, rows[None], *target)
+    else:
+        kv_write_rows_paged_plain(pool[layer : layer + 1], rows[None], *target)
+
+
 def _attend(name, q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
-            decode_count, scale):
+            decode_count, scale, write_pages, write_offsets):
     """Shared body of the four wrappers; ``q`` is (B, Hq, T, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     q8 = isinstance(kpool, dict)
+    target = write_target(write_pages, write_offsets, q.shape[0], q.shape[2], q.device)
     if not q.is_cuda:
         plain = paged_attention_q8_plain if q8 else paged_attention_plain
-        return plain(q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
-                     decode_count, scale)
+        out = plain(q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
+                    decode_count, scale)
+        if target is not None:
+            _write_plain(kpool, k_new, layer, target)
+            _write_plain(vpool, v_new, layer, target)
+        return out
     if q8:
         _check(q, kpool["q"], vpool["q"], k_new, v_new, layer, table, prompt_len,
                decode_count, torch.int8)
@@ -215,44 +263,50 @@ def _attend(name, q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
         ptrs = (kpool["q"].data_ptr(), vpool["q"].data_ptr(), kpool["s"].data_ptr(),
                 vpool["s"].data_ptr())
         return _launch(name, "decode_attention_paged_q8", q, kpool["q"].shape, ptrs,
-                       k_new, v_new, layer, table, prompt_len, decode_count, scale)
+                       k_new, v_new, layer, table, prompt_len, decode_count, scale, target)
     _check(q, kpool, vpool, k_new, v_new, layer, table, prompt_len, decode_count,
            torch.bfloat16)
     return _launch(name, "decode_attention_paged_bf16", q, kpool.shape,
                    (kpool.data_ptr(), vpool.data_ptr()), k_new, v_new, layer, table,
-                   prompt_len, decode_count, scale)
+                   prompt_len, decode_count, scale, target)
 
 
 def decode_attention_paged(q, kpool, vpool, k_new, v_new, layer, table, prompt_len,
-                           decode_count, scale=None) -> torch.Tensor:
+                           decode_count, scale=None, write_pages=None,
+                           write_offsets=None) -> torch.Tensor:
     """K6: one-token attention of q (B, Hq, D) over layer ``layer`` of the
     bf16 pool plus the fresh row k_new/v_new (B, Hkv, 1, D); ``table``
-    (B, max_pages), ``prompt_len`` and ``decode_count`` (B,) int32.
-    Returns (B, Hq, D)."""
+    (B, max_pages), ``prompt_len`` and ``decode_count`` (B,) int32.  With
+    ``write_pages``/``write_offsets`` (B,) int32 the fresh row then lands in
+    the layer's pool there, in place.  Returns (B, Hq, D)."""
     return _attend(NAME, q[:, :, None], kpool, vpool, k_new, v_new, layer, table,
-                   prompt_len, decode_count, scale)[:, :, 0]
+                   prompt_len, decode_count, scale, write_pages, write_offsets)[:, :, 0]
 
 
 def decode_attention_paged_q8(q, kpool: dict, vpool: dict, k_new, v_new, layer, table,
-                              prompt_len, decode_count, scale=None) -> torch.Tensor:
-    """K6 over the int8 pool ``{"q", "s"}``; the fresh rows stay bf16."""
+                              prompt_len, decode_count, scale=None, write_pages=None,
+                              write_offsets=None) -> torch.Tensor:
+    """K6 over the int8 pool ``{"q", "s"}``; the fresh rows stay bf16 and
+    are quantized per row when written."""
     return _attend(NAME_Q8, q[:, :, None], kpool, vpool, k_new, v_new, layer, table,
-                   prompt_len, decode_count, scale)[:, :, 0]
+                   prompt_len, decode_count, scale, write_pages, write_offsets)[:, :, 0]
 
 
 def decode_attention_paged_verify(q, kpool, vpool, k_new, v_new, layer, table,
-                                  prompt_len, decode_count, scale=None) -> torch.Tensor:
+                                  prompt_len, decode_count, scale=None, write_pages=None,
+                                  write_offsets=None) -> torch.Tensor:
     """K7: T positions per lane, q (B, Hq, T, D), k_new/v_new (B, Hkv, T, D),
     T x group <= :data:`MAX_QUERY_ROWS`; every position attends the same
     history (``decode_count`` excludes the T fresh rows) and the fresh rows
-    causally.  Returns (B, Hq, T, D)."""
+    causally; with ``write_pages``/``write_offsets`` (B, T) int32 the fresh
+    rows then land in the layer's pool there.  Returns (B, Hq, T, D)."""
     return _attend(NAME_VERIFY, q, kpool, vpool, k_new, v_new, layer, table,
-                   prompt_len, decode_count, scale)
+                   prompt_len, decode_count, scale, write_pages, write_offsets)
 
 
 def decode_attention_paged_verify_q8(q, kpool: dict, vpool: dict, k_new, v_new, layer,
-                                     table, prompt_len, decode_count,
-                                     scale=None) -> torch.Tensor:
+                                     table, prompt_len, decode_count, scale=None,
+                                     write_pages=None, write_offsets=None) -> torch.Tensor:
     """K7 over the int8 pool ``{"q", "s"}``."""
     return _attend(NAME_VERIFY_Q8, q, kpool, vpool, k_new, v_new, layer, table,
-                   prompt_len, decode_count, scale)
+                   prompt_len, decode_count, scale, write_pages, write_offsets)

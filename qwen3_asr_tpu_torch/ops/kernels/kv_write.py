@@ -14,9 +14,18 @@ and T = ``rows.shape[3]`` for K5; each wrapper counts its launches under
 its own name.  The TPU kernels' read-modify-write tiles exist only for the
 TPU's memory tiling and are not carried over.
 
-On a CPU tensor the wrappers run the plain versions (``index_copy_`` for
-K3, one ``index_put_`` for K5); on a CUDA tensor they launch the kernel or
-raise.  All update ``cache`` in place and return it.
+On a CPU tensor the wrappers run the plain versions (one ``index_put_``
+each, rows whose slot lies outside ``[0, S)`` dropped as the kernel drops
+them); on a CUDA tensor they launch the kernel or raise.  All update
+``cache`` in place and return it.
+
+The decoder's default decode paths no longer call K3 or K8: K2/K4 and
+K6/K7 store the fresh rows from the same launch (``write_slots``,
+``write_pages``/``write_offsets`` of ``decode_attention*``), and their plain
+versions call the plain writers here on the layer's slice.  The standalone
+kernels stay as those stores' oracles on the card, and ``kv_write_rows``
+serves the decode modes "3"/"4", whose attention kernels take no write
+target.
 
 The int8 cache ``{"q", "s"}`` takes the step's bf16 rows through
 :func:`kv_write_rows_q8`: one launch quantizes each 128-wide row with
@@ -50,10 +59,9 @@ NAME_SPAN = "kv_write_span_batch"
 def kv_write_rows_plain(
     cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor
 ) -> torch.Tensor:
-    """cache[:, b, :, slots[b], :] = rows[:, b, :, 0, :] for every lane b."""
-    for b in range(cache.shape[1]):
-        cache[:, b].index_copy_(2, slots[b : b + 1].long(), rows[:, b])
-    return cache
+    """cache[:, b, :, slots[b], :] = rows[:, b, :, 0, :] for every lane b
+    whose slot lies in [0, S); the others are dropped."""
+    return kv_write_span_batch_plain(cache, rows, slots)
 
 
 def _check(

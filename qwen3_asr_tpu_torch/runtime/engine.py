@@ -13,10 +13,11 @@ interleave at chunk boundaries:
     stopping the batch.
 
 The cache is flat, (L, n_slots, Hkv, prompt_bucket + token_bucket, D) with
-per-lane write slots (kernels K2/K3, K4/K3-int8 on the int8 cache, K5 for
-speculative chunks), or paged (``paged=True``): a pool of ``page_size``-row
-pages (L, n_pages, Hkv, PS, D) that each slot owns only as far as its prompt
-and transcript reach, through a per-slot page table (kernels K6, K7, K8).
+per-lane write slots (kernel K2 storing the rows itself, K3 fused; K4 with
+K3-int8 fused on the int8 cache; K5 for speculative chunks), or paged
+(``paged=True``): a pool of ``page_size``-row pages (L, n_pages, Hkv, PS, D)
+that each slot owns only as far as its prompt and transcript reach, through
+a per-slot page table (kernels K6, K7, each with K8 fused).
 Physical page 0 is a reserved trash page that no table entry owns: idle
 lanes and rows past a slot's table write there.  All-greedy chunks on narrow
 engines run speculative verify iterations (``RuntimeConfig.spec_engine``)

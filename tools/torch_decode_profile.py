@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
 """Device busy share and launches per iteration of the PyTorch port's decode
-loops on one CUDA GPU.
+loops and continuous engine on one CUDA GPU.
 
-    python3 tools/torch_decode_profile.py [--runs 2] [--out DIR]
+    python3 tools/torch_decode_profile.py [--runs 2] [--out DIR] [--no-engine]
 
 Builds the 1.7B model from random weights (seed 0, bf16), and for the plain
-loop (``speculative="off"``) and the default speculative loop (``"auto"``)
-runs greedy ``transcribe_batch`` of the smoke batch (8 clips of 4-30 s,
+loop (``speculative="off"``), the default speculative loop (``"auto"``) and
+the plain loop over the int8 KV cache (``"off-int8"``) runs greedy
+``transcribe_batch`` of the smoke batch (8 clips of 4-30 s,
 ``max_tokens=64``) and ``transcribe`` of its 30 s clip: once to warm up,
-``--runs`` times unprofiled in turns (off, auto, auto, off; decode ms per
-iteration and per emitted token), then ``--runs`` times under
-``torch.profiler``.  From each Chrome trace it takes the host window of the
-``qwen3_asr/decode`` span and the device kernels that start inside it, and
-prints per run: decode wall ms, iterations, kernels per iteration, kernel
-ms per iteration, busy share (kernel time over the window) and the top
-kernels by time.  Needs a CUDA device; imports nothing of JAX.
+``--runs`` times unprofiled in turns (off, auto, off-int8, off-int8, auto,
+off; decode ms per iteration and per emitted token), then ``--runs`` times
+under ``torch.profiler``.  From each Chrome trace it takes the host window
+of the ``qwen3_asr/decode`` span and the device kernels that start inside
+it, and prints per run: decode wall ms, iterations, kernels and device
+copies and fills (memcpy and memset nodes) per iteration, kernel ms per
+iteration, busy share (kernel time over the window) and the top kernels by
+time; the device events per iteration by name go to ``counts_*.json`` in
+``--out``.
+
+Then (unless ``--no-engine``) the continuous engine on the same weights, as
+the smoke's server runs it (8 slots, 16-step chunks, 30 s clips, 512-token
+transcripts): paged bf16 and int8 pools under ``spec_engine`` "off" (paged
+steps) and "auto" (paged verify iterations), and the flat bf16 engine; the
+smoke batch admitted at once (64-token budgets), once unprofiled to warm
+up, then ``--runs`` times under ``torch.profiler`` over its chunks to the
+last retirement: chunk iterations, device kernels and copies and fills per
+iteration (the chunks' own, such as the status fetch, included), kernel ms per
+iteration, the wall ms per iteration of the profiled run and the top
+kernels (``tools/torch_streams.py`` compares two trees' token streams).
+Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -23,7 +38,9 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from collections import Counter
+from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -33,24 +50,129 @@ from chip_smoke import StubTokenizer, smoke_clips  # noqa: E402
 
 
 def decode_window(trace: dict) -> dict:
-    """Kernel count, kernel time and busy share inside the decode span."""
+    """Kernel count, kernel time and busy share inside the decode span, and
+    the device copies and fills (``cudaMemcpyAsync``/``cudaMemsetAsync``
+    nodes, which are not kernels: a same-dtype ``copy_`` of contiguous
+    tensors is one) that start inside it."""
     events = trace["traceEvents"]
     span = next(e for e in events
                 if e.get("cat") == "user_annotation" and e.get("name") == "qwen3_asr/decode")
     lo, hi = span["ts"], span["ts"] + span["dur"]
     kernels = [e for e in events if e.get("cat") == "kernel" and lo <= e["ts"] < hi]
+    copies = [e for e in events
+              if e.get("cat") in ("gpu_memcpy", "gpu_memset") and lo <= e["ts"] < hi]
     by_name = Counter()
     for k in kernels:
         by_name[k["name"][:60]] += k["dur"]
     busy = sum(k["dur"] for k in kernels)
-    return {"wall_us": span["dur"], "kernels": len(kernels), "kernel_us": busy,
-            "busy": busy / span["dur"], "top": by_name.most_common(5)}
+    counts = Counter(short_name(e["name"]) for e in kernels + copies)
+    return {"wall_us": span["dur"], "kernels": len(kernels), "copies": len(copies),
+            "kernel_us": busy, "busy": busy / span["dur"], "top": by_name.most_common(5),
+            "counts": counts}
+
+
+def short_name(name: str) -> str:
+    """A device event's name without its argument list and namespaces."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:80]
+
+
+def write_counts(path: Path, counts: Counter, iterations: int) -> None:
+    """Device events per iteration by name, as JSON (for comparing trees)."""
+    path.write_text(json.dumps({k: v / max(iterations, 1) for k, v in sorted(counts.items())}))
+
+
+#: The engine configurations: (runtime, paged).
+ENGINES = {
+    "paged bf16, spec_engine off": ({"spec_engine": "off"}, True),
+    "paged bf16, spec_engine auto": ({}, True),
+    "paged int8, spec_engine off": ({"kv_cache_dtype": "int8", "spec_engine": "off"}, True),
+    "paged int8, spec_engine auto": ({"kv_cache_dtype": "int8"}, True),
+    "flat bf16, spec_engine off": ({"spec_engine": "off"}, False),
+}
+
+
+def device_kernels(prof) -> tuple[int, int, float, Counter, Counter]:
+    """(kernels, device copies and fills, kernels' total us, us by kernel
+    name, events by short name) of a profile's device events."""
+    from torch.autograd import DeviceType
+
+    by_name, counts = Counter(), Counter()
+    n, copies, total = 0, 0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith("qwen3_asr/"):
+            continue
+        counts[short_name(e.name)] += 1
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+            continue
+        n += 1
+        total += e.time_range.elapsed_us()
+        by_name[e.name[:60]] += e.time_range.elapsed_us()
+    return n, copies, total, by_name, counts
+
+
+def engine_run(model, paged: bool, clips, prof=None) -> tuple[dict, list]:
+    """The smoke batch through a fresh engine, all admitted at once, chunks
+    until the last retirement (profiled when ``prof`` is a profiler
+    context).  Returns (engine stats, per-clip tokens)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.runtime.engine import SlotRequest
+
+    engine = model.make_engine(n_slots=8, max_duration=30.0, max_new_tokens=512,
+                               chunk_steps=16, paged=paged)
+    kv, logits, prompts = model.prefill_group(clips, ["English"] * len(clips))
+    reqs = [SlotRequest(samples=c, prompt=p, max_new=64, meta=i)
+            for i, (c, p) in enumerate(zip(clips, prompts))]
+    engine.admit(kv, logits, engine.free_slots(), reqs)
+    torch.cuda.synchronize()
+    out = {}
+    t0 = time.perf_counter()
+    with prof if prof is not None else nullcontext():
+        while len(out) < len(clips):
+            engine.step()
+            for req, toks in engine.retire():
+                out[req.meta] = [int(t) for t in toks]
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = engine.stats
+    return {"iterations": st.iterations, "chunks": st.chunks, "wall_s": wall}, \
+        [out[i] for i in range(len(clips))]
+
+
+def engine_profile(card: str, base, clips, runs: int, out: Path) -> None:
+    import torch
+
+    from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for label, (runtime, paged) in ENGINES.items():
+        model = Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
+                         base._tokenizer, RuntimeConfig(**runtime))
+        engine_run(model, paged, clips)                        # warm-up
+        for run in range(runs):
+            prof = torch.profiler.profile(activities=acts)
+            st, _ = engine_run(model, paged, clips, prof)
+            n, copies, us, by_name, counts = device_kernels(prof)
+            it = max(st["iterations"], 1)
+            tag = label.replace(", ", "_").replace(" ", "-")
+            write_counts(out / f"counts_engine_{tag}_{run}.json", counts, it)
+            print(f"[{card}] engine {label} run {run}: {st['chunks']} chunks, "
+                  f"{st['iterations']} chunk iterations, {n / it:.1f} kernels, "
+                  f"{copies / it:.1f} device copies and fills, "
+                  f"{us / 1e3 / it:.3f} kernel-ms per iteration; profiled wall "
+                  f"{st['wall_s'] * 1e3 / it:.2f} ms per iteration; top kernels (us): "
+                  + ", ".join(f"{k} {d:.0f}" for k, d in by_name.most_common(5)))
+        del model
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    ap.add_argument("--no-engine", action="store_true",
+                    help="profile the decode loops only, not the continuous engine")
     args = ap.parse_args()
 
     import torch
@@ -74,25 +196,28 @@ def main() -> int:
         "off": base,
         "auto": Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
                          base._tokenizer, RuntimeConfig()),
+        "off-int8": Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
+                             base._tokenizer,
+                             RuntimeConfig(speculative="off", kv_cache_dtype="int8")),
     }
     clips = smoke_clips()
     calls = {
         "B=8": lambda m: m.transcribe_batch(clips, max_tokens=64),
-        "B=1": lambda m: m.transcribe(clips[-1], max_tokens=64),
+        "B=1": lambda m: [m.transcribe(clips[-1], max_tokens=64)],
     }
     for m in models.values():
         for call in calls.values():
             call(m)
     torch.cuda.synchronize()
-    # Unprofiled decode times, the loops in turns (off, auto, auto, off).
+    # Unprofiled decode times, the loops in turns.
     for run in range(args.runs):
         for label, call in calls.items():
-            for name in ("off", "auto", "auto", "off"):
+            for name in ("off", "auto", "off-int8", "off-int8", "auto", "off"):
                 m = models[name]
                 call(m)
                 st = m.last_stats
                 ms = st.stages["decode"] * 1e3
-                print(f"[{card}] {label} speculative={m._runtime.speculative!r} unprofiled: "
+                print(f"[{card}] {label} {name} unprofiled: "
                       f"decode {ms:.1f} ms over {st.n_decode_steps} iterations = "
                       f"{ms / max(st.n_decode_steps, 1):.2f} ms/iteration, "
                       f"{ms / st.n_generated_tokens:.3f} ms per emitted token")
@@ -108,13 +233,17 @@ def main() -> int:
                 w = decode_window(json.loads(path.read_text()))
                 st = m.last_stats
                 it = max(st.n_decode_steps, 1)
-                print(f"[{card}] {label} speculative={m._runtime.speculative!r} run {run}: "
+                write_counts(out / f"counts_{name}_{label}_{run}.json", w["counts"], it)
+                print(f"[{card}] {label} {name} run {run}: "
                       f"decode {w['wall_us'] / 1e3:.1f} ms (profiled) over {st.n_decode_steps} "
                       f"iterations, {st.n_generated_tokens} tokens; {w['kernels'] / it:.0f} "
-                      f"kernels and {w['kernel_us'] / 1e3 / it:.3f} kernel-ms per iteration; "
+                      f"kernels, {w['copies'] / it:.1f} device copies and fills, and "
+                      f"{w['kernel_us'] / 1e3 / it:.3f} kernel-ms per iteration; "
                       f"device busy {w['busy']:.1%}; top kernels (us): "
                       + ", ".join(f"{n} {d:.0f}" for n, d in w["top"]))
                 path.unlink()
+    if not args.no_engine:
+        engine_profile(card, base, clips, args.runs, out)
     return 0
 
 

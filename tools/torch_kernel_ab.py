@@ -12,9 +12,9 @@ and K7) with the headers they include, e.g. from
 ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
 The tool compiles the ones that ``--kernels`` names with the port's nvcc
 flags into a library of their own (in ``DIR``), binds their C entry points
-with the signatures of :data:`PARENT_SIGNATURES` (K1's, K11e's, K2's and
-K4's are the port's; K6's and K7's are the two-kernel version's of commit
-ce9a940, without arrival counters), and then, on the same inputs:
+with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
+port's; K2's, K4's, K6's and K7's are those of commit 76a5270, whose decode
+attention takes no write target), and then, on the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -44,10 +44,15 @@ ce9a940, without arrival counters), and then, on the same inputs:
     time on a cold cache (``chip_smoke.attention_ms``: CUDA graphs of calls
     rotated over enough layers of one cache that the calls between two on
     one layer read more than the 50 MB L2), the host-paced ms, the bound and
-    the share of the HBM peak beside; medians over the rounds.  For K6 and
-    K7 ``torch.profiler`` also counts the kernels a call runs on the card
-    (the parent's split and combine kernels, the change's one), at
-    ``chip_smoke.PAGED_ROW``.
+    the share of the HBM peak beside; medians over the rounds.  The change's
+    K2/K4/K6/K7 run with their fused store (``write_slots``, or
+    ``write_pages``/``write_offsets``, at ``chip_smoke``'s write targets:
+    ``decode_write_slots``, ``paged_case``), the parent's without one, so
+    the difference is the store's cost inside the launch; the outputs are
+    held bit for bit; the wrappers' host microseconds per call (the
+    change's with and without its store, the parent's) are printed beside.
+    For K6 and K7 ``torch.profiler`` also counts the kernels a call runs
+    on the card, at ``chip_smoke.PAGED_ROW``.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
@@ -90,17 +95,19 @@ PARENT_SIGNATURES = {
     "quantized_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, sx, wq (K, N) row-major, ws, out, M, N, K, out_f32, stream
     "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # K2/K4 of commit ce9a940 (one launch, arrival counters): the port's own
-    "decode_attention_bf16": None,
-    "decode_attention_q8": None,
-    # The two-kernel K6/K7 of commit ce9a940 (split pass + combine pass), no
-    # arrival counters: q, kpool, vpool, k_new, v_new, table, prompt_len,
-    # decode_count, ws, out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages,
-    # splits, scale, stream
-    "decode_attention_paged_bf16": (_P,) * 10 + (_I,) * 9 + (ctypes.c_float, _P),
-    # q, kpool, vpool, kscale, vscale, k_new, v_new, table, prompt_len,
-    # decode_count, ws, out, then as decode_attention_paged_bf16
-    "decode_attention_paged_q8": (_P,) * 12 + (_I,) * 9 + (ctypes.c_float, _P),
+    # K2/K4 of commit 76a5270 (one launch, no write target): q, kall, vall,
+    # k_new, v_new, prompt_len, decode_end, ws, counters, out, layer, B, Hq,
+    # Hkv, S, prompt_bucket, splits, scale, stream
+    "decode_attention_bf16": (_P,) * 10 + (_I,) * 7 + (ctypes.c_float, _P),
+    # q, kall, vall, kscale, vscale, then as decode_attention_bf16
+    "decode_attention_q8": (_P,) * 12 + (_I,) * 7 + (ctypes.c_float, _P),
+    # K6/K7 of commit 76a5270 (one launch, no write target): q, kpool,
+    # vpool, k_new, v_new, table, prompt_len, decode_count, ws, counters,
+    # out, layer, B, Hq, Hkv, T, n_pages, PS, max_pages, splits, scale,
+    # stream
+    "decode_attention_paged_bf16": (_P,) * 11 + (_I,) * 9 + (ctypes.c_float, _P),
+    # q, kpool, vpool, kscale, vscale, then as decode_attention_paged_bf16
+    "decode_attention_paged_q8": (_P,) * 13 + (_I,) * 9 + (ctypes.c_float, _P),
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
            "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu",
@@ -423,6 +430,26 @@ def ab_w8a8(lib, gen, rounds: int) -> list[dict]:
     return rows
 
 
+def wrapper_host_us(parent, change, unfused, n_layers: int) -> dict:
+    """Host microseconds per call (``host_us``, 200 calls rotated over the
+    layers) of the parent's call, the change's with its fused store and the
+    change's without a write target, in turns (parent, change, unfused,
+    unfused, change, parent); the means of each arm's two readings."""
+    import itertools
+
+    arms = {"parent": parent, "change": change, "unfused": unfused}
+    got = {k: [] for k in arms}
+    for arm in ("parent", "change", "unfused", "unfused", "change", "parent"):
+        layers = itertools.cycle(range(n_layers))
+        got[arm].append(host_us(lambda: arms[arm](next(layers))))
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
+def host_note(host: dict) -> str:
+    return (f"wrapper host us per call: change {host['change']:.1f} (without the store "
+            f"{host['unfused']:.1f}), parent {host['parent']:.1f}")
+
+
 def run_parent_decode(lib, c: dict, layer: int):
     """The parent's K2 (K4 on an int8 cache) as its wrapper ran it: the
     input checks, its split workspace and the arrival counters, then its
@@ -467,7 +494,7 @@ def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
     import torch
 
     from chip_smoke import (DECODE_GRID, PEAK_HBM_GBPS, _close, attention_ms, cold_note,
-                            decode_bound, decode_case, decode_reference)
+                            decode_bound, decode_case, decode_reference, decode_write_slots)
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
 
     name = "K4" if q8 else "K2"
@@ -475,17 +502,19 @@ def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
     rows = []
     for B, S in DECODE_GRID:
         c = decode_case(gen, B, S, q8)
+        slots = decode_write_slots(c)
 
         def change(layer):
             return fn(c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"], layer, c["plen"],
-                      c["dend"], c["pb"])
+                      c["dend"], c["pb"], write_slots=slots)
 
         def parent(layer):
             return run_parent_decode(lib, c, layer)
 
         layer = c["L"] - 1
-        out, pout = change(layer), parent(layer)
+        pout = parent(layer)
         ref = decode_reference(c, layer)
+        out = change(layer)
         live = slice(0, B - 1) if B > 1 else slice(0, 1)
         err = _close(f"{name} B={B} S={S}", out[live], ref[live], 2e-2, 2e-2)
         perr = _close(f"parent {name} B={B} S={S}", pout[live], ref[live], 2e-2, 2e-2)
@@ -499,6 +528,9 @@ def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
                 times[arm][0].append(dev)
                 times[arm][1].append(host)
         (p, ph), (ch, chh) = times["parent"], times["change"]
+        host = wrapper_host_us(parent, change, lambda layer: fn(
+            c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"], layer, c["plen"], c["dend"],
+            c["pb"]), c["L"])
         b = decode_bound(c)
         cm, pm = statistics.median(ch), statistics.median(p)
         print(f"{name} B={B} S={S} ({c['rows']} valid rows; {cold_note(c['L'], c['call_bytes'])}):"
@@ -508,11 +540,11 @@ def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
               f"HBM peak share change {c['call_bytes'] / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, "
               f"parent {c['call_bytes'] / (pm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}; change/parent "
               f"{cm / pm:.3f}; err {err:.3e} / parent {perr:.3e}; bit-identical: {same} (max "
-              f"|diff| {diff:.3e})")
+              f"|diff| {diff:.3e}); {host_note(host)}")
         rows.append({"kernel": name, "B": B, "S": S, "rows": c["rows"], "layers": c["L"],
                      "max_abs_err": err, "parent_max_abs_err": perr, "bit_identical": same,
                      "max_diff_vs_parent": diff, "ms": ch, "parent_ms": p, "host_ms": chh,
-                     "parent_host_ms": ph, **b})
+                     "parent_host_ms": ph, "wrapper_host_us": host, **b})
         del c
         torch.cuda.empty_cache()
     return rows
@@ -520,8 +552,8 @@ def ab_decode(lib, gen, rounds: int, q8: bool) -> list[dict]:
 
 def run_parent_paged(lib, c: dict, layer: int):
     """The parent's K6/K7 (bf16 or int8 pool) as its wrapper ran it: the
-    input checks, its split workspace, then its split and combine kernels;
-    (B, Hq, T, D) as ``chip_smoke.paged_call``."""
+    input checks, its split workspace and the arrival counters, then its
+    kernel; (B, Hq, T, D) as ``chip_smoke.paged_call``."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import _build
@@ -539,14 +571,15 @@ def run_parent_paged(lib, c: dict, layer: int):
     splits = dap.split_count(B, hkv, max_pages * PS, dap._sm_count(q.device))
     ws = torch.empty((B, hkv, splits, T * hq // hkv, D + 2), dtype=torch.float32,
                      device=q.device)
+    counters = dap.arrival_counters(q.device, B * hkv)
     out = torch.empty_like(q)
     pool = ((kq.data_ptr(), vq.data_ptr(), c["kpool"]["s"].data_ptr(),
              c["vpool"]["s"].data_ptr()) if q8 else (kq.data_ptr(), vq.data_ptr()))
     entry = lib.decode_attention_paged_q8 if q8 else lib.decode_attention_paged_bf16
     err = entry(q.data_ptr(), *pool, c["k_new"].data_ptr(), c["v_new"].data_ptr(),
                 c["table"].data_ptr(), c["plen"].data_ptr(), c["dcount"].data_ptr(),
-                ws.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T, n_pages, PS,
-                max_pages, splits, float(D ** -0.5), _build.stream_ptr(q))
+                ws.data_ptr(), counters.data_ptr(), out.data_ptr(), int(layer), B, hq, hkv, T,
+                n_pages, PS, max_pages, splits, float(D ** -0.5), _build.stream_ptr(q))
     if err:
         raise RuntimeError(f"parent paged decode attention: CUDA error {err}")
     return out
@@ -582,7 +615,7 @@ def ab_paged(lib, gen, rounds: int, T: int) -> list[dict]:
     import torch
 
     from chip_smoke import (PAGED_GRID, PAGED_ROW, PEAK_HBM_GBPS, attention_ms, cold_note,
-                            paged_call, paged_case, paged_hold, paged_kernel)
+                            paged_call, paged_case, paged_hold, paged_kernel, paged_plain)
 
     rows = []
     for q8 in (False, True):
@@ -592,16 +625,18 @@ def ab_paged(lib, gen, rounds: int, T: int) -> list[dict]:
             c = paged_case(gen, B, T, q8, dcount, PS)
 
             def change(layer):
-                return paged_call(c, layer)
+                return paged_call(c, layer, write=True)
 
             def parent(layer):
                 return run_parent_paged(lib, c, layer)
 
             layer = c["L"] - 1
-            out, pout = change(layer), parent(layer)
+            ref = paged_plain(c, layer)         # before the change's store
+            pout = parent(layer)
+            out = change(layer)
             shape = f"B={B} T={T} PS={PS} dcount={dcount}"
-            err = paged_hold(f"{label} {shape}", c, out)
-            perr = paged_hold(f"parent {label} {shape}", c, pout)
+            err = paged_hold(f"{label} {shape}", c, out, ref)
+            perr = paged_hold(f"parent {label} {shape}", c, pout, ref)
             same = torch.equal(out, pout)
             diff = (out.float() - pout.float()).abs().max().item()
             del out, pout
@@ -612,6 +647,7 @@ def ab_paged(lib, gen, rounds: int, T: int) -> list[dict]:
                     times[arm][0].append(dev)
                     times[arm][1].append(host)
             (p, ph), (ch, chh) = times["parent"], times["change"]
+            host = wrapper_host_us(parent, change, lambda layer: paged_call(c, layer), c["L"])
             b = c["bound"]
             cm, pm = statistics.median(ch), statistics.median(p)
             counts = {}
@@ -629,12 +665,12 @@ def ab_paged(lib, gen, rounds: int, T: int) -> list[dict]:
                   f"{c['call_bytes'] / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, parent "
                   f"{c['call_bytes'] / (pm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}; change/parent "
                   f"{cm / pm:.3f}; err {err:.3e} / parent {perr:.3e}; bit-identical: {same} "
-                  f"(max |diff| {diff:.3e}){count_note}")
+                  f"(max |diff| {diff:.3e}){count_note}; {host_note(host)}")
             rows.append({"kernel": name, "B": B, "T": T, "PS": PS, "dcount": dcount,
                          "rows": c["rows"], "layers": c["L"], "max_abs_err": err,
                          "parent_max_abs_err": perr, "bit_identical": same,
                          "max_diff_vs_parent": diff, "ms": ch, "parent_ms": p, "host_ms": chh,
-                         "parent_host_ms": ph, **counts, **b})
+                         "parent_host_ms": ph, "wrapper_host_us": host, **counts, **b})
             del c
             torch.cuda.empty_cache()
     return rows
