@@ -17,12 +17,17 @@ failure raises and the script exits non-zero):
      largest |value| + rtol 8e-3 (bf16 out) or 1e-5 (f32 out) against the
      f32 product of the same int8 weights, two calls bit-identical; K3, K3
      int8, K5 and K10: exact, K10's row quantize also against
-     ``quantize_activations``, K5 with overflow rows dropped; K6 and K7, the paged decode attention and
+     ``quantize_activations``, K5 (both caches in one launch, and its
+     single-cache oracle) with overflow rows and a lane past S dropped, its
+     one launch timed against the two single-cache launches in turns; K6
+     and K7, the paged decode attention and
      verify over bf16 and int8 pools, at ``PAGED_GRID`` (B = 1, 8, 64 x
      dcount 64, 1024 at PS 256, and B=8 dcount 64 at PS 128, the smoke
      clips' prompt lengths, an idle lane): as K2; K8, the paged row write, bf16
      and int8: exact outside the trash page 0; K11a and K11b, decode
-     attention with one decode end for every lane, at K2's shapes: as K2;
+     attention with one decode end for every lane, at K2's shapes (K11b
+     also at B=6 with its decode end at the prompt bucket and an idle
+     lane): as K2;
      K11e, the stem's conv + bias + GELU at conv2's and conv3's shapes for
      the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
      output; K11c and K11d, decode attention with per-lane decode ends and
@@ -75,7 +80,8 @@ failure raises and the script exits non-zero):
      (5e-2 of max |feature|) and those of "taps", "merged", "c512" and
      "merged512" (the "conv" stem here) equal to them;
      then the same runs on the same weights under the
-     default ``"auto"`` (the speculative loop: K5, no K2/K3), each lane's
+     default ``"auto"`` (the speculative loop: K5 once per verify
+     iteration, no K2/K3), each lane's
      stream equal to the plain one or first differing at a near-tie of the
      plain run's penalized logits, and every token of the B=8 stream held
      to the plain step's logits on the same prefix (the plain loop forced
@@ -750,11 +756,18 @@ def stream_case(gen, B: int, S: int, pb: int = 512, hq: int = 16, hkv: int = 8) 
     return dict(q=q, kall=kall, vall=vall, k_new=k_new, v_new=v_new, plen=plen, pb=pb, L=L)
 
 
+#: K11b's shapes beyond ``DECODE_GRID``: ``check_decode_lanes``' B=6, with
+#: the decode end at the prompt bucket, so that the lane with no prompt row
+#: is idle (its output the self-term alone).
+STREAM_EXTRA = ((6, 640), (6, 2560))
+
+
 def check_decode_stream(gen, kind: str) -> dict:
-    """K11a (``"hbm2"``) or K11b (``"hbm3"``) at K2's check shapes with one
-    decode end for every lane (as the plain loop passes it), against K2's
-    plain version in float32 (atol 2e-2 + rtol 2e-2, as K2); the kernel and
-    K2 on the same inputs timed on a cold cache."""
+    """K11a (``"hbm2"``) or K11b (``"hbm3"``, also at ``STREAM_EXTRA``) at
+    K2's check shapes with one decode end for every lane (as the plain loop
+    passes it), against K2's plain version in float32 (atol 2e-2 + rtol
+    2e-2, as K2); the kernel and K2 on the same inputs timed on a cold
+    cache."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
@@ -764,12 +777,12 @@ def check_decode_stream(gen, kind: str) -> dict:
     fn = h2.decode_attention_hbm2 if kind == "hbm2" else h3.decode_attention_hbm3
     label = "K11a decode_attention_hbm2" if kind == "hbm2" else "K11b decode_attention_hbm3"
     worst, times = 0.0, []
-    for B, S in DECODE_GRID:
+    for B, S in DECODE_GRID + (STREAM_EXTRA if kind == "hbm3" else ()):
         c = stream_case(gen, B, S)
         pb, plen, D = c["pb"], c["plen"], 128
         if B > 1:
             plen[-1] = 0               # a lane with no prompt rows
-        dend = pb + (S - pb) // 2
+        dend = pb if (B, S) in STREAM_EXTRA else pb + (S - pb) // 2
         block_k = h2.tile_block_k(S, pb, 512)
         fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
         layer = c["L"] - 1
@@ -1168,45 +1181,76 @@ def weight_int8pack_ms(x, wq, s) -> float | None:
 
 
 def check_kv_write_span(gen) -> dict:
-    """K5 at the verify pass's shapes: lane b's T=4 rows at per-lane slots,
-    one lane with slot + T > S (its overflow rows dropped) and one wholly
-    past S; bit-exact against the plain version."""
+    """K5 at the verify pass's shapes: lane b's T=4 K and V rows at per-lane
+    slots, one lane with slot + T > S (its overflow rows dropped) and one
+    wholly past S; the two-cache launch (``kv_write_span_pair``, the
+    decoder's) and the single-cache one (its oracle, the TPU kernel's
+    signature) bit-exact against the plain version.  Device time of the one
+    launch against the two single-cache launches it replaces, in turns."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
 
     L, B, hkv, T, S, D = 28, 8, 8, 4, 640, 128
-    cache = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
-    rows = torch.randn(L, B, hkv, T, D, generator=gen, device="cuda").bfloat16()
+    caches = [torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
+              for _ in range(2)]
+    rows = [torch.randn(L, B, hkv, T, D, generator=gen, device="cuda").bfloat16()
+            for _ in range(2)]
     slots = torch.tensor([512, 515, 531, 560, 600, 617, S - 2, S + 5],
                          dtype=torch.int32, device="cuda")
-    out = kw.kv_write_span_batch(cache.clone(), rows, slots)
-    ref = kw.kv_write_span_batch_plain(cache.clone(), rows, slots)
+    pair = kw.kv_write_span_pair(*(c.clone() for c in caches), *rows, slots)
+    single = [kw.kv_write_span_batch(c.clone(), r, slots) for c, r in zip(caches, rows)]
+    ref = kw.kv_write_span_pair_plain(*(c.clone() for c in caches), *rows, slots)
     torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("K5: differs from the plain version")
-    if not (torch.equal(out[:, 6, :, : S - 2], cache[:, 6, :, : S - 2])
-            and torch.equal(out[:, 7], cache[:, 7])):
-        raise AssertionError("K5: rows past the cache end were not dropped")
-    print(f"K5 kv_write_span_batch L={L} B={B} T={T} S={S}, slots {slots.tolist()}: "
-          f"bit-exact, overflow rows dropped")
-    work = cache.clone()
+    for name, out in (("pair", pair), ("single-cache", single)):
+        for o, r, c in zip(out, ref, caches):
+            if not torch.equal(o, r):
+                raise AssertionError(f"K5 {name}: differs from the plain version")
+            if not (torch.equal(o[:, 6, :, : S - 2], c[:, 6, :, : S - 2])
+                    and torch.equal(o[:, 7], c[:, 7])):
+                raise AssertionError(f"K5 {name}: rows past the cache end were not dropped")
+    print(f"K5 kv_write_span_pair (K and V, one launch) and kv_write_span_batch (one cache) "
+          f"L={L} B={B} T={T} S={S}, slots {slots.tolist()}: bit-exact, overflow rows dropped")
+    work = [c.clone() for c in caches]
     lane, row, slot = kw.span_indices(slots, T, S)
-    vals = rows[:, lane, :, row].contiguous()
+    vals = [r[:, lane, :, row].contiguous() for r in rows]
 
     def index_put():
-        work[:, lane, :, slot] = vals
+        for w, v in zip(work, vals):
+            w[:, lane, :, slot] = v
 
-    t = write_times("K5 kv_write_span_batch", lambda: kw.kv_write_span_batch(work, rows, slots),
-                    lambda: kw.kv_write_span_batch_plain(work, rows, slots), index_put)
-    # The valid rows, read once and written once.
-    nbytes = 2 * L * hkv * D * 2 * int(lane.numel())
+    t = write_times("K5 kv_write_span_pair", lambda: kw.kv_write_span_pair(*work, *rows, slots),
+                    lambda: kw.kv_write_span_pair_plain(*work, *rows, slots), index_put)
+    turns = []
+    for arm in ("two", "pair", "pair", "two"):
+        if arm == "pair":
+            turns.append(graph_ms(lambda: kw.kv_write_span_pair(*work, *rows, slots)))
+        else:
+            turns.append(graph_ms(lambda: [kw.kv_write_span_batch(w, r, slots)
+                                           for w, r in zip(work, rows)]))
+    # The valid rows of both caches, read once and written once.
+    nbytes = 2 * 2 * L * hkv * D * 2 * int(lane.numel())
     b = bound(nbytes, 0, 1.0)
     gbps = nbytes / (t["ms"] * 1e-3) / 1e9
-    print(f"K5 bound {b['bound_ms']:.4f} ms (bytes); {lane.numel()} valid span rows per "
-          f"layer and head, {gbps:.0f} GB/s by device time = {gbps / PEAK_HBM_GBPS:.1%} of "
-          f"the HBM peak")
-    return {"max_abs_err": 0.0, **t, **b}
+    print(f"K5 device time in turns, two single-cache launches / the pair / the pair / two "
+          f"launches: {' / '.join(f'{x:.4f}' for x in turns)} ms (index_put_ above: one call "
+          f"per cache)")
+    print(f"K5 bound {b['bound_ms']:.4f} ms (bytes, both caches); {lane.numel()} valid span "
+          f"rows per layer and head, {gbps:.0f} GB/s by device time = "
+          f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak, {b['bound_ms'] / t['ms']:.1%} of the bound")
+    # No one PyTorch call writes both caches (index_put_ takes one tensor).
+    return {"max_abs_err": 0.0, **t, **b, "library_ms": None}
+
+
+def check_one_span_write(label: str, launches: dict, stats) -> None:
+    """The speculative loop writes both caches' span rows with one K5 launch
+    per verify iteration."""
+    want = sum(st.n_decode_steps for st in stats)
+    got = launches.get("kv_write_span_batch", 0)
+    if got != want:
+        raise AssertionError(f"{label}: kv_write_span_batch launched {got} times, want one "
+                             f"per verify iteration ({want})")
+    print(f"{label}: one K5 launch per verify iteration ({got})")
 
 
 def smoke_prompt_lens() -> list[int]:
@@ -2174,6 +2218,7 @@ def speculative_phase(card: str, base, off: dict) -> dict:
     vocab = base._config.text_decoder.vocab_size
     model = build_model({}, base)
     spec = slice_phase(card, model, {}, SPEC_PATH, SPEC_NEVER)
+    check_one_span_write("speculative path", spec["launches"], spec["stats"])
     compare_streams("spec vs plain, transcribe_batch B=8", off["ids"][0], spec["ids"][0],
                     off["gaps"][0])
     compare_streams("spec vs plain, transcribe B=1", [off["ids"][1]], [spec["ids"][1]],
@@ -2227,6 +2272,7 @@ def speculative_phase(card: str, base, off: dict) -> dict:
     print_stats("sampled speculative transcribe B=1", card, spec_sampling.last_stats)
     check_ids("sampled speculative", _ids([res]), vocab)
     check_launches("sampled speculative B=1", dict(LAUNCHES), SPEC_PATH, SPEC_NEVER)
+    check_one_span_write("sampled speculative B=1", dict(LAUNCHES), [spec_sampling.last_stats])
 
     # Int8 weights with the bf16 cache: the verify forward's products run K9.
     w8 = build_model({"quantization": "int8"}, base)
@@ -2235,6 +2281,7 @@ def speculative_phase(card: str, base, off: dict) -> dict:
     print_stats("int8-weights speculative transcribe B=1", card, w8.last_stats)
     check_ids("int8-weights speculative", _ids([res]), vocab)
     check_launches("int8-weights speculative B=1", dict(LAUNCHES), SPEC_W8_PATH, SPEC_NEVER)
+    check_one_span_write("int8-weights speculative B=1", dict(LAUNCHES), [w8.last_stats])
     w8.close()
     del w8
     torch.cuda.empty_cache()

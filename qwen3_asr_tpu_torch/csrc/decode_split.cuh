@@ -106,32 +106,38 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // -- the ring ------------------------------------------------------------------
-// Tile t lives in stage t % kStages.  full[s] takes the producer's one
-// arrival and the tile's bytes; empty[s] one arrival per consumer warp.
+// Tile t lives in stage t % NS (NS = kStages here; K11b's stream,
+// decode_attention_hbm3.cu, runs a deeper ring on the same protocol).
+// full[s] takes the producer's one arrival and the tile's bytes; empty[s]
+// one arrival per consumer warp.
 
 // One thread, before the block's first barrier.
+template <int NS = kStages>
 __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int consumer_warps) {
-  for (int s = 0; s < kStages; ++s) {
+  for (int s = 0; s < NS; ++s) {
     hopper::mbar_init(&full[s], 1);
     hopper::mbar_init(&empty[s], consumer_warps);
   }
   hopper::fence_barrier_init();
 }
 
-// Producer: wait until tile t's stage is free (tile t - kStages consumed).
+// Producer: wait until tile t's stage is free (tile t - NS consumed).
+template <int NS = kStages>
 __device__ __forceinline__ void ring_reserve(uint64_t* empty, int t) {
-  if (t >= kStages) hopper::mbar_wait(&empty[t % kStages], ((t / kStages) + 1) & 1);
+  if (t >= NS) hopper::mbar_wait(&empty[t % NS], ((t / NS) + 1) & 1);
 }
 
 // Consumers: wait for tile t's bytes.
+template <int NS = kStages>
 __device__ __forceinline__ void ring_wait(uint64_t* full, int t) {
-  hopper::mbar_wait(&full[t % kStages], (t / kStages) & 1);
+  hopper::mbar_wait(&full[t % NS], (t / NS) & 1);
 }
 
 // A consumer warp is done reading tile t's stage.
+template <int NS = kStages>
 __device__ __forceinline__ void ring_release(uint64_t* empty, int t) {
   __syncwarp();
-  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&empty[t % kStages]);
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&empty[t % NS]);
 }
 
 // -- the consumers -------------------------------------------------------------

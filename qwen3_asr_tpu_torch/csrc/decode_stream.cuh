@@ -1,10 +1,13 @@
-// The (lane, KV head) tile stream shared by K11a (decode_attention_hbm2.cu)
-// and K11b (decode_attention_hbm3.cu): one-token decode attention over the
-// layer-stacked cache with a scalar decode end, in one launch, with no split
-// of a lane's rows and no combine pass.  K11c (decode_attention_hbm5.cu) and
-// K11d (decode_attention_sched.cu) walk the cache on their own geometry and
-// reuse the per-tile pieces: load_rows, start_pair, fold_tile (the tile's
-// online-softmax update under a caller-given row mask) and finish_pair.
+// The (lane, KV head) tile stream of K11a (decode_attention_hbm2.cu):
+// one-token decode attention over the layer-stacked cache with a scalar
+// decode end, in one launch, with no split of a lane's rows and no combine
+// pass.  K11c (decode_attention_hbm5.cu) and K11d (decode_attention_sched.cu)
+// walk the cache on their own geometry and reuse the per-tile pieces:
+// load_rows, start_pair, fold_tile (the tile's online-softmax update under a
+// caller-given row mask) and finish_pair.  K11b (decode_attention_hbm3.cu)
+// keeps this file's function, walk and per-tile arithmetic on a schedule of
+// its own (bulk copies, warps that take whole tiles); it shares Args,
+// make_args, valid_tiling and the element helpers.
 //
 // q (B, Hq, 128); kall/vall (L, B, Hkv, S, 128); k_new/v_new (B, Hkv, 1, 128),
 // all bf16; prompt_len (B,) int32; decode_end one int for every lane.  The
@@ -19,9 +22,8 @@
 // One CUDA block of 4 warps owns one (lane, KV head) pair at a time and
 // keeps its state in registers and shared memory; the caller's kernel picks
 // which pairs a block walks and how deep its cp.async ring is (K11a: one
-// pair per block, 2 stages; K11b: a contiguous range of pairs per block, 4
-// stages, prefetching across pair boundaries).  A pair is finalized
-// (self-term, 1 / l) as its last tile drains.
+// pair per block, 2 stages).  A pair is finalized (self-term, 1 / l) as its
+// last tile drains.
 //
 // Numerics follow the TPU kernels, not K2 (decode_attention_hbm2.py
 // :160, :65, :79-126):

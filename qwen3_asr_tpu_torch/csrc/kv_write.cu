@@ -7,23 +7,34 @@
 // whose attention kernels take no write target; K3-int8 and K8 stay as
 // the fused stores' oracles.
 //
-// One bf16 kernel (kv_write_rows_bf16) serves both.  It writes
-// rows[l, b, h, t, :] to cache[l, b, h, slots[b] + t, :] for every
-// (l, b, h) and t < T, and drops rows whose slot lies outside [0, S).
-//   * K3 (T = 1) replaces qwen3_asr_tpu/ops/pallas/kv_write.py:
-//     kv_write_rows (:260) and kv_write_rows_batch (:85): one decode step's
-//     fresh K (or V) rows of all layers after the layer loop.
-//   * K5 (T <= 8) replaces kv_write_span_batch (:156): the speculative
-//     verify pass's T rows per lane, the overflow past S dropped.
-//
-// Bound on the H100: bytes.  A call moves L*B*Hkv*T*D*2 bytes in and the
-// same out (459 KB at L=28, B=8, T=1; 3.7 MB at T=4): a few microseconds
-// at HBM rate, so launch latency dominates.  Design: one thread per 16-byte
+// One bf16 kernel (kv_write_rows_bf16) writes rows[l, b, h, t, :] to
+// cache[l, b, h, slots[b] + t, :] for every (l, b, h) and t < T, and drops
+// rows whose slot lies outside [0, S).  K3 (T = 1) replaces
+// qwen3_asr_tpu/ops/pallas/kv_write.py: kv_write_rows (:260) and
+// kv_write_rows_batch (:85): one decode step's fresh K (or V) rows of all
+// layers after the layer loop.  Bound on the H100: bytes (459 KB in and out
+// at L=28, B=8, T=1), so launch latency.  Design: one thread per 16-byte
 // vector (8 bf16), neighbouring threads on neighbouring addresses, so each
 // 256-byte target row is stored by 16 neighbouring threads and exactly the
 // target rows are touched.  The TPU kernels' read-modify-write tiles (8
 // rows for K3, a two-tile window per (layer, lane) for K5) exist only
 // because of the TPU's (8, 128) memory tiling and are not carried over.
+// The same kernel at T rows is K5's single-cache oracle.
+//
+// K5 (kv_write_span_pair_bf16) replaces kv_write_span_batch (:156,
+// pallas_call :185): the speculative verify pass's T <= 8 rows per lane,
+// row t of lane b at slot slots[b] + t, rows outside [0, S) dropped, for
+// the K and the V cache in ONE launch (two calls of the TPU kernel).
+// Bound: bytes, both caches' landing rows read once and written once (3.7
+// MB at L=28, B=8, Hkv=8, T=4: about 1.1 us at the HBM rate), so what
+// counts is having all of it in flight at once and one launch, not two.
+// Design: one block per (layer, lane) and cache; the block reads its lane's
+// slot, computes the rows that land [t0, t1) and returns at once when none
+// does (a lane wholly past S reads nothing); each thread then issues
+// kSpanVec 16-byte loads of those rows before any of its stores, so a block
+// keeps up to 16 KB in flight and the grid's 2 L B blocks are resident
+// together.  Every target run (one head's landing rows) is contiguous in
+// both the rows and the cache.
 //
 // The int8 cache (kv_write_rows_q8): the same rows arrive in bf16 and are
 // quantized on the way in, with ops/quant_kv.py:quantize_kv's rule per
@@ -113,6 +124,49 @@ __global__ void kv_write_rows_q8_kernel(int8_t* __restrict__ cache_q,
   const int64_t dst = row * S + slot;
   reinterpret_cast<uint2*>(cache_q + dst * kD)[v] = make_uint2(packed[0], packed[1]);
   if (v == 0) cache_s[dst] = scale;
+}
+
+// K5: block (l * B + b, cache) copies lane b's landing rows of layer l
+// into the K (blockIdx.y == 0) or V cache.
+constexpr int kSpanThreads = 128;
+constexpr int kSpanVec = 8;   // 16-byte vectors a thread keeps in flight
+
+__global__ void __launch_bounds__(kSpanThreads)
+    kv_write_span_kernel(__nv_bfloat16* __restrict__ kcache, __nv_bfloat16* __restrict__ vcache,
+                         const __nv_bfloat16* __restrict__ krows,
+                         const __nv_bfloat16* __restrict__ vrows,
+                         const int* __restrict__ slots, int B, int H, int T, int S) {
+  const int lb = blockIdx.x;
+  const int64_t slot = slots[lb % B];
+  const int64_t lo = slot < 0 ? -slot : 0;
+  const int64_t hi = S - slot < T ? S - slot : T;   // rows [lo, hi) land
+  if (hi <= lo) return;
+  const int t0 = (int)lo, t1 = (int)hi;
+  const uint4* src = reinterpret_cast<const uint4*>((blockIdx.y ? vrows : krows) +
+                                                    (int64_t)lb * H * T * kD);
+  uint4* dst = reinterpret_cast<uint4*>((blockIdx.y ? vcache : kcache) +
+                                        ((int64_t)lb * H * S + slot + t0) * kD);
+  const int per_head = (t1 - t0) * kVecPerRow;    // one head's landing vectors
+  const int n = H * per_head;
+  for (int base = 0; base < n; base += kSpanThreads * kSpanVec) {
+    uint4 val[kSpanVec];
+    int64_t to[kSpanVec];
+#pragma unroll
+    for (int u = 0; u < kSpanVec; ++u) {
+      const int k = base + u * kSpanThreads + threadIdx.x;
+      to[u] = -1;
+      if (k < n) {
+        const int h = k / per_head;
+        const int rem = k - h * per_head;
+        to[u] = (int64_t)h * S * kVecPerRow + rem;
+        val[u] = src[(h * T + t0) * kVecPerRow + rem];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSpanVec; ++u) {
+      if (to[u] >= 0) dst[to[u]] = val[u];
+    }
+  }
 }
 
 // Rows (L, B, H, T, 128), flat in that order; pages and offs (B, T).
@@ -234,6 +288,20 @@ extern "C" int kv_write_rows_bf16(void* cache, const void* rows,
       static_cast<__nv_bfloat16*>(cache),
       static_cast<const __nv_bfloat16*>(rows), static_cast<const int*>(slots),
       B, H, T, S, n_vec);
+  return (int)cudaGetLastError();
+}
+
+// K5: kcache/vcache (L, B, H, S, 128) bf16; krows/vrows (L, B, H, T, 128)
+// bf16; slots (B,) int32 (lane b's first slot); all on the device and
+// contiguous.  Returns the launch's cudaError_t.
+extern "C" int kv_write_span_pair_bf16(void* kcache, void* vcache, const void* krows,
+                                       const void* vrows, const void* slots, int L, int B,
+                                       int H, int T, int S, void* stream) {
+  if ((int64_t)L * B * H * T == 0) return (int)cudaSuccess;
+  kv_write_span_kernel<<<dim3(L * B, 2), kSpanThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<__nv_bfloat16*>(kcache), static_cast<__nv_bfloat16*>(vcache),
+      static_cast<const __nv_bfloat16*>(krows), static_cast<const __nv_bfloat16*>(vrows),
+      static_cast<const int*>(slots), B, H, T, S);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,8 @@ transcription slices run:
     the speculative loop's T positions per lane against the read-only
     cache plus a T x T causal block of the fresh rows, in plain PyTorch
     products (the JAX package uses XLA einsums here too), and one post-loop
-    K5 call each for K and V at the per-lane write slots.
+    K5 launch for K and V at the per-lane write slots; each layer's
+    projection writes its rows straight into the buffers K5 reads.
 
 The continuous engine's paged pool (``decoder_paged_step``, JAX
 ``decoder.py:881-1033``, and ``decoder_paged_verify``, ``:1036-1201``) runs
@@ -68,7 +69,7 @@ from ..ops.kernels.decode_attention_paged import (
     decode_attention_paged_verify,
     decode_attention_paged_verify_q8,
 )
-from ..ops.kernels.kv_write import kv_write_rows, kv_write_span_batch
+from ..ops.kernels.kv_write import kv_write_rows, kv_write_span_pair
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear
 from ..ops.quant_kv import is_quantized_kv, kv_seq_len
@@ -168,10 +169,13 @@ def embed_tokens(params: DecoderParams, ids: torch.Tensor) -> torch.Tensor:
     return emb[ids]
 
 
-def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin):
+def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None):
     """ln1 -> fused-or-split QKV -> per-head QK RMSNorm -> RoPE at the
     angles (cos, sin) (B, 1, T, D/2).
-    Returns q (B, nq, T, D), k, v (B, nkv, T, D), contiguous."""
+    Returns q (B, nq, T, D), k, v (B, nkv, T, D), contiguous.  Given
+    contiguous (B, nkv, T, D) ``k_out``/``v_out``, k and v are those: the
+    RoPE's rounding and v's transpose copy write them there, the same ops
+    with the same results, so no copy into a row buffer follows."""
     B, T, _ = h.shape
     nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
@@ -182,9 +186,10 @@ def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin):
         q, k, v = qlinear(x, lp["wq"]), qlinear(x, lp["wk"]), qlinear(x, lp["wv"])
     q = rms_norm(q.reshape(B, T, nq, D), lp["q_norm"], eps).transpose(1, 2)
     k = rms_norm(k.reshape(B, T, nkv, D), lp["k_norm"], eps).transpose(1, 2)
-    v = v.reshape(B, T, nkv, D).transpose(1, 2).contiguous()
+    v = v.reshape(B, T, nkv, D).transpose(1, 2)
+    v = v.contiguous() if v_out is None else v_out.copy_(v)
     q = apply_rope(q, cos, sin).contiguous()
-    k = apply_rope(k, cos, sin).contiguous()
+    k = apply_rope(k, cos, sin, out=k_out).contiguous()
     return q, k, v
 
 
@@ -260,13 +265,11 @@ def decoder_forward(
         k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=hidden.dtype, device=device)
         v_rows = torch.empty_like(k_rows)
         for layer, lp in enumerate(params["layers"]):
-            q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+            q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, k_rows[layer], v_rows[layer])
             attn = attend(
                 q[:, :, 0, :], keys, values, k_new, v_new, layer, plen, dend,
                 pbucket, scale=scale,
             )
-            k_rows[layer] = k_new
-            v_rows[layer] = v_new
             h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
             h = _mlp_block(h, lp, eps)
         kv_write_rows(keys, k_rows, write_slots)
@@ -342,8 +345,9 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
     each other through a T x T causal block; masked scores take the finite
     ``f32.min / 2``.  Scores and P·V accumulate in f32; the cache-side
     probabilities are rounded to the cache dtype before their product, as
-    the JAX package does.  All layers' T rows are written after the loop by
-    one K5 launch for K and one for V at slots ``ws .. ws + T - 1``."""
+    the JAX package does.  Each layer's projection writes its T rows
+    straight into the row buffers, and all layers' rows land after the loop
+    by one K5 launch for K and V at slots ``ws .. ws + T - 1``."""
     plen, ws, pbucket = decode_ctx
     B, T, _ = h.shape
     nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -365,7 +369,7 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
     k_rows = torch.empty((n_layers, B, nkv, T, D), dtype=h.dtype, device=device)
     v_rows = torch.empty_like(k_rows)
     for layer, lp in enumerate(params["layers"]):
-        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, k_rows[layer], v_rows[layer])
         # Query rows (g, t) of each KV head: (B*nkv, G*T, D).
         qg = q.reshape(B * nkv, G * T, D)
         kc = keys[layer].reshape(B * nkv, S, D)
@@ -380,12 +384,9 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
         w_self = w[..., S:].reshape(B * nkv, G * T, T)
         out = _bmm_f32(w_cache, vc) + torch.bmm(w_self, v_new.reshape(B * nkv, T, D).float())
         attn = out.reshape(B, nq, T, D).to(h.dtype)
-        k_rows[layer] = k_new
-        v_rows[layer] = v_new
         h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
         h = _mlp_block(h, lp, cfg.rms_norm_eps)
-    kv_write_span_batch(keys, k_rows, ws)
-    kv_write_span_batch(values, v_rows, ws)
+    kv_write_span_pair(keys, values, k_rows, v_rows, ws)
     return h, (keys, values)
 
 

@@ -16,7 +16,8 @@ Module (wrapper, kernel): the TPU kernel it replaces, under
 * ``kv_write`` (``kv_write_rows_q8``, K3 on the int8 cache):
   ``pallas/kv_write.py`` on int8 rows, with ``quantize_kv``; fused into K4
   on every decode path.
-* ``kv_write`` (``kv_write_span_batch``, K5):
+* ``kv_write`` (``kv_write_span_pair``, K5 on both caches in one launch;
+  ``kv_write_span_batch``, its one-cache oracle):
   ``pallas/kv_write.py:kv_write_span_batch``.
 * ``decode_attention_paged`` (``decode_attention_paged``, ``_q8``, K6):
   ``pallas/decode_attention_paged.py`` (same names).

@@ -67,6 +67,8 @@ _SIGNATURES = {
     ),
     # cache, rows, slots, L, B, H, T, S, stream
     "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # kcache, vcache, krows, vrows, slots, L, B, H, T, S, stream
+    "kv_write_span_pair_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # cache_q, cache_s, rows, slots, L, B, H, S, stream
     "kv_write_rows_q8": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # pool, rows, pages, offs, L, B, H, T, n_pages, PS, stream
@@ -101,7 +103,7 @@ _SIGNATURES = {
     "decode_attention_hbm2_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # as decode_attention_hbm2_bf16, with n_blocks after block_k
+    # as decode_attention_hbm2_bf16, with per (pairs per block) after block_k
     "decode_attention_hbm3_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),

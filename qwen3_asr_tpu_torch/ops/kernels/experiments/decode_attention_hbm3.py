@@ -4,13 +4,15 @@ Replaces ``qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm3.py:
 decode_attention_hbm3``: the function, arguments, tiling rule and numerics
 of K11a (:mod:`.decode_attention_hbm2`), on another schedule.
 
-Bound on the H100: bytes.  The CUDA kernel (``csrc/decode_attention_hbm3.cu``
-over ``csrc/decode_stream.cuh``) runs a fixed grid of at most one block per
-SM and at most half the (lane, KV head) pairs; block i owns a contiguous
-range of at least two pairs and walks all their 32-row tiles as one stream
-through a 4-stage ``cp.async`` ring whose producer keeps prefetching across
-pair boundaries, finalizing each pair (self-term, 1 / l) as its last tile
-drains.  One launch, no combine pass.
+Bound on the H100: bytes.  The CUDA kernel (``csrc/decode_attention_hbm3.cu``)
+runs up to one block per SM (:func:`stream_grid`); block i owns a
+contiguous range of (lane, KV head) pairs, and a producer warp streams all
+their 32-row tiles, across pair boundaries, by bulk copies into a deep
+``mbarrier`` ring, skipping the tiles whose rows are all masked.  Eight
+consumer warps take the tiles in turn and hand only the online softmax's
+running values from tile to tile, so a pair's tiles overlap; the per-tile
+arithmetic is the earlier ``cp.async`` version's, so the output is the same
+bit for bit.  One launch, no combine pass.
 
 Its plain version is K2's, as K11a's; it runs on CPU tensors.  On a CUDA
 tensor the wrapper launches the kernel or raises.
@@ -24,6 +26,14 @@ from ..decode_attention import _sm_count
 from .decode_attention_hbm2 import check, launch, scalar_end_plain, tile_block_k
 
 NAME = "decode_attention_hbm3"
+
+
+def stream_grid(pairs: int, sm_count: int) -> tuple[int, int]:
+    """(blocks, pairs per block) of the stream over ``pairs`` (lane, KV head)
+    pairs: up to one block per SM, each owning ``per`` contiguous pairs
+    (the last block fewer)."""
+    per = -(-pairs // max(1, min(pairs, sm_count)))
+    return -(-pairs // per), per
 
 
 def decode_attention_hbm3(
@@ -48,10 +58,6 @@ def decode_attention_hbm3(
         return scalar_end_plain(q, kall, vall, k_new, v_new, layer, prompt_len,
                                 decode_end, prompt_bucket, scale)
     check(q, kall, vall, k_new, v_new, layer, prompt_len, block_k)
-    # At least two pairs per block, as the TPU's two cores each own half the
-    # batch, so that every block's ring runs across a pair boundary.
-    pairs = q.shape[0] * kall.shape[2]
-    n_blocks = max(1, min(pairs // 2, _sm_count(q.device)))
+    _, per = stream_grid(q.shape[0] * kall.shape[2], _sm_count(q.device))
     return launch(NAME, "decode_attention_hbm3_bf16", q, kall, vall, k_new, v_new,
-                  layer, prompt_len, decode_end, prompt_bucket, scale, block_k,
-                  n_blocks)
+                  layer, prompt_len, decode_end, prompt_bucket, scale, block_k, per)

@@ -6,13 +6,17 @@ slot shared by every lane, the decode loop's case),
 ``kv_write_span_batch`` (the speculative verify pass's T <= 8 rows per lane
 at ``slots[b] .. slots[b] + T - 1``, rows past the cache end dropped, as
 the JAX package's ``mode="drop"`` scatter).  Bound on the H100: bytes, and
-at these sizes (459 KB per step at B=8) launch latency.  One CUDA kernel
-(``csrc/kv_write.cu``) serves all three: it stores exactly rows
-``[l, b, :, slots[b] + t, :]`` with one thread per 16-byte vector, at
-T = 1 for K3 (the shared-slot wrapper broadcasts its slot to every lane)
-and T = ``rows.shape[3]`` for K5; each wrapper counts its launches under
-its own name.  The TPU kernels' read-modify-write tiles exist only for the
-TPU's memory tiling and are not carried over.
+at these sizes (459 KB per step at B=8) launch latency.  K3's CUDA kernel
+(``csrc/kv_write.cu``) stores exactly rows ``[l, b, :, slots[b] + t, :]``
+with one thread per 16-byte vector (the shared-slot wrapper broadcasts its
+slot to every lane).  The TPU kernels' read-modify-write tiles exist only
+for the TPU's memory tiling and are not carried over.
+
+The verify pass writes its K and V spans with :func:`kv_write_span_pair`:
+one launch for both caches, each thread several 16-byte vectors in flight,
+lanes and rows that land nowhere skipped on the device.  The single-cache
+:func:`kv_write_span_batch` (K3's kernel at T rows) stays as its oracle on
+the card; both count under ``kv_write_span_batch``.
 
 On a CPU tensor the wrappers run the plain versions (one ``index_put_``
 each, rows whose slot lies outside ``[0, S)`` dropped as the kernel drops
@@ -146,16 +150,54 @@ def kv_write_span_batch_plain(
 def kv_write_span_batch(
     cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor
 ) -> torch.Tensor:
-    """K5: write lane b's ``T`` <= 8 rows ``rows`` (L, B, Hkv, T, D) into
-    ``cache`` (L, B, Hkv, S, D) at ``slots[b] .. slots[b] + T - 1`` (int32
-    ``slots`` (B,)), dropping rows past the cache end; in place, returns
-    ``cache``."""
+    """K5 on one cache, the TPU kernel's signature (the decoder writes both
+    caches with :func:`kv_write_span_pair`): lane b's ``T`` <= 8 rows
+    ``rows`` (L, B, Hkv, T, D) into ``cache`` (L, B, Hkv, S, D) at
+    ``slots[b] .. slots[b] + T - 1`` (int32 ``slots`` (B,)), dropping rows
+    past the cache end; in place, returns ``cache``."""
     T = rows.shape[3]
     if T > 8:
         raise ValueError(f"span writer takes at most 8 rows, got {T}")
     if not cache.is_cuda:
         return kv_write_span_batch_plain(cache, rows, slots)
     return _launch(NAME_SPAN, cache, rows, slots, T)
+
+
+def kv_write_span_pair_plain(
+    keys: torch.Tensor, values: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+    slots: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kv_write_span_batch_plain` of the K rows into ``keys``, then of
+    the V rows into ``values``."""
+    return (kv_write_span_batch_plain(keys, k_rows, slots),
+            kv_write_span_batch_plain(values, v_rows, slots))
+
+
+def kv_write_span_pair(
+    keys: torch.Tensor, values: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+    slots: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 for both caches in one launch: lane b's ``T`` <= 8 rows of
+    ``k_rows`` and ``v_rows`` (L, B, Hkv, T, D) into ``keys`` and ``values``
+    (L, B, Hkv, S, D) at ``slots[b] .. slots[b] + T - 1`` (int32 (B,)),
+    dropping rows outside [0, S); in place, returns (keys, values)."""
+    T = k_rows.shape[3]
+    if T > 8:
+        raise ValueError(f"span writer takes at most 8 rows, got {T}")
+    if not keys.is_cuda:
+        return kv_write_span_pair_plain(keys, values, k_rows, v_rows, slots)
+    if values.shape != keys.shape:
+        raise ValueError(f"values {tuple(values.shape)} and keys {tuple(keys.shape)} differ")
+    _check(keys, k_rows, slots, T)
+    _check(values, v_rows, slots, T)
+    L, B, H, S, _ = keys.shape
+    err = _build.library().kv_write_span_pair_bf16(
+        keys.data_ptr(), values.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+        slots.data_ptr(), L, B, H, T, S, _build.stream_ptr(keys),
+    )
+    _build.check(err, NAME_SPAN)
+    _build.LAUNCHES[NAME_SPAN] += 1
+    return keys, values
 
 
 def kv_write_rows_q8_plain(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> dict:

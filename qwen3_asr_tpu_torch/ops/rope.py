@@ -37,14 +37,17 @@ def rope_cos_sin(
     return torch.cos(angles), torch.sin(angles)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+def apply_rope(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """Rotate ``x`` (..., T, head_dim) by angles broadcastable to
-    (..., T, head_dim // 2); returns x's dtype."""
+    (..., T, head_dim // 2); returns x's dtype, rounded into ``out`` when
+    given (the same rounding, in place of a new tensor)."""
     half = x.shape[-1] // 2
     x1 = x[..., :half].float()
     x2 = x[..., half:].float()
     rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return rotated.to(x.dtype)
+    return rotated.to(x.dtype) if out is None else out.copy_(rotated)
 
 
 def rope_rotate(

@@ -12,6 +12,8 @@ On the CPU:
     holds the kernel to against that oracle);
   * the tiling rule's ValueError (as the JAX wrappers raise it) and an idle
     lane's output (the self-term alone: v_new);
+  * K11b's grid rule (``stream_grid``): up to one block per SM, each a
+    contiguous run of (lane, KV head) pairs, at B = 1, 8, 40, 96;
   * one split decode step under modes "3" and "4" against the JAX decoder
     (which runs its XLA attention on the CPU), 1e-4 as
     tests/test_torch_modules.py; per-lane write slots keep K2 under both
@@ -45,6 +47,7 @@ from qwen3_asr_tpu_torch.ops.kernels.experiments.decode_attention_hbm2 import (
 )
 from qwen3_asr_tpu_torch.ops.kernels.experiments.decode_attention_hbm3 import (
     decode_attention_hbm3,
+    stream_grid,
 )
 
 PORT = {"hbm2": decode_attention_hbm2, "hbm3": decode_attention_hbm3}
@@ -294,6 +297,17 @@ def test_transcribe_batch_token_identical_per_mode(monkeypatch, mode):
     assert len({t for seq in out for t in seq}) > 3
 
 
+@pytest.mark.parametrize("B,want", [(1, (8, 1)), (8, (64, 1)), (40, (107, 3)), (96, (128, 6))])
+def test_stream_grid_uses_every_sm(B, want):
+    """Hkv = 8 on a 132-SM card: a block per pair up to the SM count, then
+    contiguous runs of ``per`` pairs that cover every pair once."""
+    pairs, sms = 8 * B, 132
+    blocks, per = stream_grid(pairs, sms)
+    assert (blocks, per) == want
+    assert blocks <= sms and (blocks - 1) * per < pairs <= blocks * per
+    assert stream_grid(pairs, 2 * pairs) == (pairs, 1)
+
+
 # -- on the GPU: K11a and K11b against their plain version ----------------------------
 
 
@@ -306,17 +320,20 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["hbm2", "hbm3"])
-@pytest.mark.parametrize("B,S,pb,dend_off,block_k", [
-    (1, 640, 512, 1, 512),        # block_k halves to 128
-    (8, 640, 512, 64, 128),       # the smoke's decode shape; K11b: 32 blocks of 2 pairs
-    (40, 2560, 512, 700, 512),    # 320 pairs: K11b's 132 blocks own 2-3 pairs each
-    (5, 1024, 512, 0, 256),       # no decode row yet
+@pytest.mark.parametrize("B,S,pb,dend_off,block_k,G", [
+    (1, 640, 512, 1, 512, 2),        # block_k halves to 128
+    (8, 640, 512, 64, 128, 2),       # the smoke's decode shape; K11b: 64 blocks of 1 pair
+    (40, 2560, 512, 700, 512, 2),    # 320 pairs: K11b's 107 blocks of 3 pairs
+    (5, 1024, 512, 0, 256, 2),       # no decode row yet
+    (96, 2560, 512, 1024, 512, 1),   # 768 pairs: K11b's 128 blocks of 6 pairs
+    (96, 2560, 512, 1024, 512, 2),
+    (96, 2560, 512, 1024, 512, 4),
 ])
-def test_cuda_matches_plain(cuda, kind, B, S, pb, dend_off, block_k):
-    g = torch.Generator(device=cuda).manual_seed(B * S + dend_off)
+def test_cuda_matches_plain(cuda, kind, B, S, pb, dend_off, block_k, G):
+    g = torch.Generator(device=cuda).manual_seed(B * S + dend_off + G)
     kall = torch.randn(2, B, 8, S, 128, generator=g, device=cuda).bfloat16()
     vall = torch.randn(2, B, 8, S, 128, generator=g, device=cuda).bfloat16()
-    q = torch.randn(B, 16, 128, generator=g, device=cuda).bfloat16()
+    q = torch.randn(B, 8 * G, 128, generator=g, device=cuda).bfloat16()
     k_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
     v_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
     plen = torch.randint(1, pb + 1, (B,), generator=g, device=cuda).int()

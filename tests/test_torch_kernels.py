@@ -767,3 +767,31 @@ def test_cuda_kv_write_span_bit_exact_vs_plain(cuda, T):
     ref = kv_write_span_batch_plain(cache.clone(), rows, slots)
     assert torch.equal(out, ref)
     assert torch.equal(out[:, 7], cache[:, 7])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_cuda_kv_write_span_pair_bit_exact_vs_plain(cuda, T):
+    """K5 on both caches in one launch, at the verify pass's shapes: lanes
+    inside, two whose span runs past S and one wholly past the end; each
+    cache bit-exact against the plain version, dropped rows untouched."""
+    from qwen3_asr_tpu_torch.ops.kernels.kv_write import (
+        kv_write_span_pair,
+        kv_write_span_pair_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(10 + T)
+    L, B, H, S = 28, 8, 8, 640
+    caches = [torch.randn(L, B, H, S, 128, generator=g, device=cuda).bfloat16()
+              for _ in range(2)]
+    rows = [torch.randn(L, B, H, T, 128, generator=g, device=cuda).bfloat16() for _ in range(2)]
+    slots = torch.tensor([512, 513, 530, 600, 601, S - T + 1, S - 1, S + 3],
+                         dtype=torch.int32, device=cuda)
+    before = LAUNCHES["kv_write_span_batch"]
+    out = kv_write_span_pair(*(c.clone() for c in caches), *rows, slots)
+    assert LAUNCHES["kv_write_span_batch"] == before + 1
+    ref = kv_write_span_pair_plain(*(c.clone() for c in caches), *rows, slots)
+    for o, r, c in zip(out, ref, caches):
+        assert torch.equal(o, r)
+        assert torch.equal(o[:, 7], c[:, 7])
+        assert torch.equal(o[:, 6, :, : S - 1], c[:, 6, :, : S - 1])

@@ -13,7 +13,12 @@ into K6/K7), on the CPU.
 * A spy on the decoder: under decode mode "auto" and on the int8 cache the
   split step and the paged step and verify pass a write target to the
   attention and call no standalone writer; under "3"/"4" the step calls
-  ``kv_write_rows`` after the layer loop.
+  ``kv_write_rows`` after the layer loop.  The speculative verify calls
+  K5's two-cache ``kv_write_span_pair`` once, and there and under "3"/"4"
+  each layer's projection writes its K and V rows straight into the
+  buffers the writer reads: no copy of the projected rows follows (an
+  ``aten.copy_`` log); ``_project_qkv`` into those buffers gives the same
+  bits as without them, f32 and bf16.
 * One decode step of the tiny float32 model in the clamp case, against the
   JAX decoder (as ``tests/test_torch_engine.py`` runs it): the same
   greedy tokens and the same cache.
@@ -24,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from torch_parity import configs, numpy_params
 
@@ -213,7 +219,7 @@ def tiny():
 
 
 WRITERS = ("kv_write_rows", "kv_write_rows_batch", "kv_write_rows_q8", "kv_write_rows_paged",
-           "kv_write_rows_paged_q8")
+           "kv_write_rows_paged_q8", "kv_write_span_pair")
 
 
 class Spy:
@@ -225,7 +231,7 @@ class Spy:
                  "decode_attention_paged_verify_q8")
 
     def __init__(self, monkeypatch):
-        self.attention, self.writes = [], []
+        self.attention, self.writes, self.write_args = [], [], []
         for name in self.ATTENTION:
             real = getattr(tdec, name)
             monkeypatch.setattr(tdec, name, self._attend(name, real))
@@ -245,6 +251,7 @@ class Spy:
     def _write(self, name, real):
         def call(*a, **k):
             self.writes.append(name)
+            self.write_args.append(a)
             return real(*a, **k)
         return call
 
@@ -301,6 +308,87 @@ def test_stream_modes_keep_the_standalone_writer(tiny, monkeypatch, mode):
     _split_step(tc, params, np.random.default_rng(4), False, 132)
     assert spy.attention == []
     assert spy.writes == ["kv_write_rows", "kv_write_rows"]
+
+
+class CopySources(TorchDispatchMode):
+    """Records the source pointer of every ``aten.copy_`` while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.sources = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.copy_.default:
+            self.sources.append(args[1].data_ptr())
+        return func(*args, **(kwargs or {}))
+
+
+def _verify_pass(tc, params, rng, B=3, T=4, pb=128, S=160):
+    shape = (tc.num_hidden_layers, B, tc.num_key_value_heads, S, tc.head_dim)
+    kv = tuple(_t(rng.standard_normal(shape).astype(np.float32)) for _ in range(2))
+    x = _t(rng.standard_normal((B, T, tc.hidden_size)).astype(np.float32))
+    plen = _t(np.array([100, 128, 5], np.int32))
+    ws = _t(np.array([pb + 3, pb + 19, S - 2], np.int32))   # lane 2 overflows S
+    pos = (plen.long() + 3)[:, None] + torch.arange(T)[None, :]
+    return tdec.decoder_forward(params, tc, x, pos, kv, write_slots=ws,
+                                decode_ctx=(plen, ws, pb))
+
+
+@pytest.mark.parametrize("path", ["verify", "3", "4"])
+def test_rows_land_in_the_writer_buffers_from_the_projection(tiny, monkeypatch, path):
+    """One K5 launch a verify pass (two K3 calls a mode "3"/"4" step), each
+    layer's projected K and V rows already in the buffers those writers read,
+    and no copy of them into a staging buffer."""
+    _, tc, _, params = tiny
+    monkeypatch.setattr(tdec, "DECODE_KERNEL_MODE", "auto" if path == "verify" else path)
+    spy = Spy(monkeypatch)
+    projected = []
+    real = tdec._project_qkv
+
+    def project(*a, **k):
+        q, k_new, v_new = real(*a, **k)
+        projected.append((k_new, v_new))
+        return q, k_new, v_new
+
+    monkeypatch.setattr(tdec, "_project_qkv", project)
+    with CopySources() as log:
+        if path == "verify":
+            _verify_pass(tc, params, np.random.default_rng(6))
+        else:
+            _split_step(tc, params, np.random.default_rng(6), False, 132)
+    if path == "verify":
+        assert spy.writes == ["kv_write_span_pair"]
+        k_rows, v_rows = spy.write_args[0][2:4]
+    else:
+        assert spy.writes == ["kv_write_rows", "kv_write_rows"]
+        k_rows, v_rows = (a[1] for a in spy.write_args)
+    assert len(projected) == tc.num_hidden_layers
+    for layer, (k_new, v_new) in enumerate(projected):
+        assert k_new.data_ptr() == k_rows[layer].data_ptr()
+        assert v_new.data_ptr() == v_rows[layer].data_ptr()
+    rows = {t.data_ptr() for pair in projected for t in pair}
+    assert not rows & set(log.sources)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_project_qkv_into_buffers_is_bit_identical(tiny, dtype):
+    from qwen3_asr_tpu_torch.ops.rope import rope_cos_sin
+
+    _, tc, _, params = tiny
+    lp = {k: v.to(dtype) for k, v in params["layers"][1].items()}
+    rng = np.random.default_rng(8)
+    B, T, nkv = 3, 4, tc.num_key_value_heads
+    h = _t(rng.standard_normal((B, T, tc.hidden_size)).astype(np.float32)).to(dtype)
+    pos = torch.arange(T)[None, :] + torch.tensor([[5], [40], [77]])
+    cos, sin = rope_cos_sin(pos[:, None, :], tc.head_dim, tc.rope_theta)
+    q, k, v = tdec._project_qkv(h, lp, tc, cos, sin)
+    bufs = [torch.full((2, B, nkv, T, tc.head_dim), float("nan"), dtype=dtype) for _ in range(2)]
+    q2, k2, v2 = tdec._project_qkv(h, lp, tc, cos, sin, bufs[0][1], bufs[1][1])
+    assert k2.data_ptr() == bufs[0][1].data_ptr() and v2.data_ptr() == bufs[1][1].data_ptr()
+    assert k2.dtype == dtype and v2.dtype == dtype
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert torch.equal(a, b)
+    assert torch.isnan(bufs[0][0]).all() and torch.isnan(bufs[1][0]).all()
 
 
 # -- the clamp case against the JAX decoder -------------------------------------------------

@@ -4,7 +4,8 @@
   random, repetitive and constant token buffers, for several (n, gamma);
 * K5's plain version (``kv_write_span_batch`` on CPU tensors) is bit-exact
   against the Pallas kernel in interpret mode, dropped overflow rows
-  included;
+  included, and so is the two-cache ``kv_write_span_pair`` against two
+  calls of it (K and V) at T = 2, 4, 8;
 * the verify-split ``decoder_forward`` matches the JAX verify path within
   atol 1e-5 + rtol 1e-5 (hidden states and the written cache), and matches
   T sequential split-decode steps of the port itself;
@@ -24,7 +25,7 @@ from torch_parity import clips, configs, ids_of, models, numpy_params
 
 from qwen3_asr_tpu_torch.models import decoder as tdec
 from qwen3_asr_tpu_torch.models.params import params_from_jax
-from qwen3_asr_tpu_torch.ops.kernels.kv_write import kv_write_span_batch
+from qwen3_asr_tpu_torch.ops.kernels.kv_write import kv_write_span_batch, kv_write_span_pair
 from qwen3_asr_tpu_torch.ops.speculative import ngram_draft
 
 
@@ -67,30 +68,44 @@ def test_ngram_draft_matches_jax(n, gamma):
 # -- K5: span write -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("slots", [[0, 9, 30], [61, 62, 63], [60, 64, 100]])
-def test_kv_write_span_bit_exact_vs_pallas(slots):
-    """T = 4 rows per lane, including lanes whose span runs past S = 64
-    (rows there are dropped) and a lane wholly past the end."""
+@pytest.mark.parametrize("slots,T,pair", [
+    pytest.param([0, 9, 30], 4, False, id="slots0"),
+    pytest.param([61, 62, 63], 4, False, id="slots1"),
+    pytest.param([60, 64, 100], 4, False, id="slots2"),
+    # Both caches in one call: a lane inside, one whose span overflows S by
+    # one row, one wholly past S.
+    pytest.param([5, 62, 100], 2, True, id="pair-T2"),
+    pytest.param([5, 61, 100], 4, True, id="pair-T4"),
+    pytest.param([5, 57, 100], 8, True, id="pair-T8"),
+])
+def test_kv_write_span_bit_exact_vs_pallas(slots, T, pair):
+    """T rows per lane, including lanes whose span runs past S = 64 (rows
+    there are dropped) and a lane wholly past the end; the pair writes K and
+    V as two calls of the Pallas kernel do."""
     import jax.numpy as jnp
 
     from qwen3_asr_tpu.ops.pallas.kv_write import kv_write_span_batch as pallas_span
 
-    rng = np.random.default_rng(sum(slots))
-    cache = rng.standard_normal((2, 3, 2, 64, 128)).astype(np.float32)
-    rows = rng.standard_normal((2, 3, 2, 4, 128)).astype(np.float32)
+    rng = np.random.default_rng(sum(slots) + T)
+    caches = [rng.standard_normal((2, 3, 2, 64, 128)).astype(np.float32) for _ in range(2)]
+    rows = [rng.standard_normal((2, 3, 2, T, 128)).astype(np.float32) for _ in range(2)]
     slots = np.array(slots, np.int32)
-    ref = np.asarray(pallas_span(
-        jnp.asarray(cache), jnp.asarray(rows), jnp.asarray(slots), interpret=True
-    ))
-    work = torch.from_numpy(cache.copy())
-    out = kv_write_span_batch(work, torch.from_numpy(rows), torch.from_numpy(slots))
-    assert out is work
-    np.testing.assert_array_equal(out.numpy(), ref)
-    written = (out.numpy() != cache).any(axis=(0, 2, 4))        # (B, S)
-    for b, s in enumerate(slots):
-        want = np.zeros(64, bool)
-        want[s : min(s + 4, 64)] = True
-        np.testing.assert_array_equal(written[b], want)
+    refs = [np.asarray(pallas_span(jnp.asarray(c), jnp.asarray(r), jnp.asarray(slots),
+                                   interpret=True)) for c, r in zip(caches, rows)]
+    work = [torch.from_numpy(c.copy()) for c in caches]
+    if pair:
+        outs = kv_write_span_pair(*work, *map(torch.from_numpy, rows), torch.from_numpy(slots))
+    else:
+        outs = (kv_write_span_batch(work[0], torch.from_numpy(rows[0]),
+                                    torch.from_numpy(slots)),)
+    for out, w, ref, cache in zip(outs, work, refs, caches):
+        assert out is w
+        np.testing.assert_array_equal(out.numpy(), ref)
+        written = (out.numpy() != cache).any(axis=(0, 2, 4))        # (B, S)
+        for b, s in enumerate(slots):
+            want = np.zeros(64, bool)
+            want[s : min(s + T, 64)] = True
+            np.testing.assert_array_equal(written[b], want)
 
 
 def test_kv_write_span_rejects_long_spans():
@@ -258,8 +273,8 @@ def test_int8_cache_ngram_runs_the_plain_loop(monkeypatch):
     the plain loop, calls no K5, and matches the JAX package."""
     jax_model, port = models(seed=0, runtime=dict(speculative="ngram", kv_cache_dtype="int8"))
     calls = []
-    real = tdec.kv_write_span_batch
-    monkeypatch.setattr(tdec, "kv_write_span_batch",
+    real = tdec.kv_write_span_pair
+    monkeypatch.setattr(tdec, "kv_write_span_pair",
                         lambda *a: calls.append(1) or real(*a))
     audio = clips((1.0, 2.3), seed=5)
     ref = jax_model.transcribe_batch(audio, max_tokens=10)

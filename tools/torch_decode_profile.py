@@ -5,19 +5,20 @@ loops and continuous engine on one CUDA GPU.
     python3 tools/torch_decode_profile.py [--runs 2] [--out DIR] [--no-engine]
 
 Builds the 1.7B model from random weights (seed 0, bf16), and for the plain
-loop (``speculative="off"``), the default speculative loop (``"auto"``) and
-the plain loop over the int8 KV cache (``"off-int8"``) runs greedy
+loop (``speculative="off"``), the default speculative loop (``"auto"``),
+the plain loop over the int8 KV cache (``"off-int8"``) and the plain loop
+under decode mode "4" (``"mode4"``: K11b and the standalone K3) runs greedy
 ``transcribe_batch`` of the smoke batch (8 clips of 4-30 s,
 ``max_tokens=64``) and ``transcribe`` of its 30 s clip: once to warm up,
-``--runs`` times unprofiled in turns (off, auto, off-int8, off-int8, auto,
-off; decode ms per iteration and per emitted token), then ``--runs`` times
-under ``torch.profiler``.  From each Chrome trace it takes the host window
-of the ``qwen3_asr/decode`` span and the device kernels that start inside
-it, and prints per run: decode wall ms, iterations, kernels and device
-copies and fills (memcpy and memset nodes) per iteration, kernel ms per
-iteration, busy share (kernel time over the window) and the top kernels by
-time; the device events per iteration by name go to ``counts_*.json`` in
-``--out``.
+``--runs`` times unprofiled in turns (off, auto, off-int8, mode4, mode4,
+off-int8, auto, off; decode ms per iteration and per emitted token), then
+``--runs`` times under ``torch.profiler``.  From each Chrome trace it takes
+the host window of the ``qwen3_asr/decode`` span and the device kernels
+that start inside it, and prints per run: decode wall ms, iterations,
+kernels, device copies (memcpy nodes) and fills (memset nodes) per
+iteration, kernel ms per iteration, busy share (kernel time over the
+window) and the top kernels by time; the device events per iteration by
+name go to ``counts_*.json`` in ``--out``.
 
 Then (unless ``--no-engine``) the continuous engine on the same weights, as
 the smoke's server runs it (8 slots, 16-step chunks, 30 s clips, 512-token
@@ -26,7 +27,8 @@ steps) and "auto" (paged verify iterations), and the flat bf16 engine; the
 smoke batch admitted at once (64-token budgets), once unprofiled to warm
 up, then ``--runs`` times under ``torch.profiler`` over its chunks to the
 last retirement: chunk iterations, device kernels and copies and fills per
-iteration (the chunks' own, such as the status fetch, included), kernel ms per
+iteration (the chunks' own, such as the status fetch, included; copies and
+fills apart), kernel ms per
 iteration, the wall ms per iteration of the profiled run and the top
 kernels (``tools/torch_streams.py`` compares two trees' token streams).
 Needs a CUDA device; imports nothing of JAX.
@@ -53,20 +55,21 @@ def decode_window(trace: dict) -> dict:
     """Kernel count, kernel time and busy share inside the decode span, and
     the device copies and fills (``cudaMemcpyAsync``/``cudaMemsetAsync``
     nodes, which are not kernels: a same-dtype ``copy_`` of contiguous
-    tensors is one) that start inside it."""
+    tensors is a copy) that start inside it, counted apart."""
     events = trace["traceEvents"]
     span = next(e for e in events
                 if e.get("cat") == "user_annotation" and e.get("name") == "qwen3_asr/decode")
     lo, hi = span["ts"], span["ts"] + span["dur"]
     kernels = [e for e in events if e.get("cat") == "kernel" and lo <= e["ts"] < hi]
-    copies = [e for e in events
-              if e.get("cat") in ("gpu_memcpy", "gpu_memset") and lo <= e["ts"] < hi]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and lo <= e["ts"] < hi]
+    fills = [e for e in events if e.get("cat") == "gpu_memset" and lo <= e["ts"] < hi]
     by_name = Counter()
     for k in kernels:
         by_name[k["name"][:60]] += k["dur"]
     busy = sum(k["dur"] for k in kernels)
-    counts = Counter(short_name(e["name"]) for e in kernels + copies)
+    counts = Counter(short_name(e["name"]) for e in kernels + copies + fills)
     return {"wall_us": span["dur"], "kernels": len(kernels), "copies": len(copies),
+            "fills": len(fills),
             "kernel_us": busy, "busy": busy / span["dur"], "top": by_name.most_common(5),
             "counts": counts}
 
@@ -91,24 +94,25 @@ ENGINES = {
 }
 
 
-def device_kernels(prof) -> tuple[int, int, float, Counter, Counter]:
-    """(kernels, device copies and fills, kernels' total us, us by kernel
-    name, events by short name) of a profile's device events."""
+def device_kernels(prof) -> tuple[int, int, int, float, Counter, Counter]:
+    """(kernels, device copies, device fills, kernels' total us, us by
+    kernel name, events by short name) of a profile's device events."""
     from torch.autograd import DeviceType
 
     by_name, counts = Counter(), Counter()
-    n, copies, total = 0, 0, 0.0
+    n, copies, fills, total = 0, 0, 0, 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or e.name.startswith("qwen3_asr/"):
             continue
         counts[short_name(e.name)] += 1
         if e.name.startswith(("Memcpy", "Memset")):
-            copies += 1
+            copies += e.name.startswith("Memcpy")
+            fills += e.name.startswith("Memset")
             continue
         n += 1
         total += e.time_range.elapsed_us()
         by_name[e.name[:60]] += e.time_range.elapsed_us()
-    return n, copies, total, by_name, counts
+    return n, copies, fills, total, by_name, counts
 
 
 def engine_run(model, paged: bool, clips, prof=None) -> tuple[dict, list]:
@@ -153,13 +157,13 @@ def engine_profile(card: str, base, clips, runs: int, out: Path) -> None:
         for run in range(runs):
             prof = torch.profiler.profile(activities=acts)
             st, _ = engine_run(model, paged, clips, prof)
-            n, copies, us, by_name, counts = device_kernels(prof)
+            n, copies, fills, us, by_name, counts = device_kernels(prof)
             it = max(st["iterations"], 1)
             tag = label.replace(", ", "_").replace(" ", "-")
             write_counts(out / f"counts_engine_{tag}_{run}.json", counts, it)
             print(f"[{card}] engine {label} run {run}: {st['chunks']} chunks, "
                   f"{st['iterations']} chunk iterations, {n / it:.1f} kernels, "
-                  f"{copies / it:.1f} device copies and fills, "
+                  f"{copies / it:.1f} device copies and {fills / it:.1f} fills, "
                   f"{us / 1e3 / it:.3f} kernel-ms per iteration; profiled wall "
                   f"{st['wall_s'] * 1e3 / it:.2f} ms per iteration; top kernels (us): "
                   + ", ".join(f"{k} {d:.0f}" for k, d in by_name.most_common(5)))
@@ -181,6 +185,7 @@ def main() -> int:
         print("torch_decode_profile.py: no CUDA device", file=sys.stderr)
         return 1
     from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig
+    from qwen3_asr_tpu_torch.models import decoder
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -199,22 +204,34 @@ def main() -> int:
         "off-int8": Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
                              base._tokenizer,
                              RuntimeConfig(speculative="off", kv_cache_dtype="int8")),
+        "mode4": base,
     }
+    #: The decode kernel mode each loop runs under (decoder.DECODE_KERNEL_MODE).
+    modes = {"mode4": "4"}
     clips = smoke_clips()
     calls = {
         "B=8": lambda m: m.transcribe_batch(clips, max_tokens=64),
         "B=1": lambda m: [m.transcribe(clips[-1], max_tokens=64)],
     }
-    for m in models.values():
+
+    def run_loop(name, call):
+        saved = decoder.DECODE_KERNEL_MODE
+        decoder.DECODE_KERNEL_MODE = modes.get(name, saved)
+        try:
+            call(models[name])
+        finally:
+            decoder.DECODE_KERNEL_MODE = saved
+
+    for name in models:
         for call in calls.values():
-            call(m)
+            run_loop(name, call)
     torch.cuda.synchronize()
     # Unprofiled decode times, the loops in turns.
     for run in range(args.runs):
         for label, call in calls.items():
-            for name in ("off", "auto", "off-int8", "off-int8", "auto", "off"):
+            for name in ("off", "auto", "off-int8", "mode4", "mode4", "off-int8", "auto", "off"):
                 m = models[name]
-                call(m)
+                run_loop(name, call)
                 st = m.last_stats
                 ms = st.stages["decode"] * 1e3
                 print(f"[{card}] {label} {name} unprofiled: "
@@ -226,7 +243,7 @@ def main() -> int:
         for label, call in calls.items():
             for name, m in models.items():
                 with torch.profiler.profile(activities=acts) as prof:
-                    call(m)
+                    run_loop(name, call)
                     torch.cuda.synchronize()
                 path = out / f"{name}_{label}_{run}.json"
                 prof.export_chrome_trace(str(path))
@@ -237,7 +254,8 @@ def main() -> int:
                 print(f"[{card}] {label} {name} run {run}: "
                       f"decode {w['wall_us'] / 1e3:.1f} ms (profiled) over {st.n_decode_steps} "
                       f"iterations, {st.n_generated_tokens} tokens; {w['kernels'] / it:.0f} "
-                      f"kernels, {w['copies'] / it:.1f} device copies and fills, and "
+                      f"kernels, {w['copies'] / it:.1f} device copies (memcpy), "
+                      f"{w['fills'] / it:.1f} fills (memset), and "
                       f"{w['kernel_us'] / 1e3 / it:.3f} kernel-ms per iteration; "
                       f"device busy {w['busy']:.1%}; top kernels (us): "
                       + ", ".join(f"{n} {d:.0f}" for n, d in w["top"]))

@@ -3,18 +3,20 @@
 CUDA sources, on one CUDA GPU, in one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR [--rounds N]
-        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7]
+        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7,K5,K11b]
 
 ``DIR`` holds earlier ``flash_attention.cu`` (K1), ``conv_stem.cu`` (K11e),
 ``quantized_matmul.cu`` (K9), ``w8a8_matmul.cu`` (K10),
-``decode_attention.cu`` (K2 and K4) and ``decode_attention_paged.cu`` (K6
-and K7) with the headers they include, e.g. from
+``decode_attention.cu`` (K2 and K4), ``decode_attention_paged.cu`` (K6
+and K7), ``kv_write.cu`` (K5) and ``decode_attention_hbm3.cu`` (K11b) with
+the headers they include, e.g. from
 ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
 The tool compiles the ones that ``--kernels`` names with the port's nvcc
 flags into a library of their own (in ``DIR``), binds their C entry points
 with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
 port's; K2's, K4's, K6's and K7's are those of commit 76a5270, whose decode
-attention takes no write target), and then, on the same inputs:
+attention takes no write target; K5's and K11b's those of commit f57a6e0),
+and then, on the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -52,7 +54,18 @@ attention takes no write target), and then, on the same inputs:
     held bit for bit; the wrappers' host microseconds per call (the
     change's with and without its store, the parent's) are printed beside.
     For K6 and K7 ``torch.profiler`` also counts the kernels a call runs
-    on the card, at ``chip_smoke.PAGED_ROW``.
+    on the card, at ``chip_smoke.PAGED_ROW``.  K5: the parent's
+    single-cache span writer launched twice (K, then V) against the
+    change's one ``kv_write_span_pair`` launch at ``chip_smoke``'s verify
+    shape (L=28, B=8, T=4, S=640, an overflow lane and a lane wholly past
+    S), both caches held bit for bit to each other and to the plain
+    version, device time in CUDA graphs of 20 calls in turns.  K11b: the
+    parent (with its grid rule, min(pairs / 2, SMs) blocks) and the change
+    at ``chip_smoke``'s ``DECODE_GRID`` and ``STREAM_EXTRA`` on
+    ``stream_case`` inputs, bit identity or the max |difference|, both held
+    to the plain version (atol 2e-2 + rtol 2e-2), device time on a cold
+    cache in turns with K2 on the same inputs beside, the bound and the
+    HBM share.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
@@ -108,15 +121,24 @@ PARENT_SIGNATURES = {
     "decode_attention_paged_bf16": (_P,) * 11 + (_I,) * 9 + (ctypes.c_float, _P),
     # q, kpool, vpool, kscale, vscale, then as decode_attention_paged_bf16
     "decode_attention_paged_q8": (_P,) * 13 + (_I,) * 9 + (ctypes.c_float, _P),
+    # K5 of commit f57a6e0 (one cache a launch): cache, rows, slots, L, B,
+    # H, T, S, stream
+    "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # K11b of commit f57a6e0: q, kall, vall, k_new, v_new, prompt_len, out,
+    # layer, B, Hq, Hkv, S, prompt_bucket, decode_end, block_k, n_blocks,
+    # scale, stream
+    "decode_attention_hbm3_bf16": (_P,) * 7 + (_I,) * 9 + (ctypes.c_float, _P),
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
            "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu",
-           "K6": "decode_attention_paged.cu", "K7": "decode_attention_paged.cu"}
+           "K6": "decode_attention_paged.cu", "K7": "decode_attention_paged.cu",
+           "K5": "kv_write.cu", "K11b": "decode_attention_hbm3.cu"}
 PAGED_ENTRIES = ("decode_attention_paged_bf16", "decode_attention_paged_q8")
 ENTRIES = {"K1": ("flash_attention_causal_bf16",), "K11e": ("conv_s2_gelu_bf16",),
            "K9": ("quantized_matmul_bf16",), "K10": ("w8a8_matmul_bf16",),
            "K2": ("decode_attention_bf16",), "K4": ("decode_attention_q8",),
-           "K6": PAGED_ENTRIES, "K7": PAGED_ENTRIES}
+           "K6": PAGED_ENTRIES, "K7": PAGED_ENTRIES, "K5": ("kv_write_rows_bf16",),
+           "K11b": ("decode_attention_hbm3_bf16",)}
 
 
 def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
@@ -676,11 +698,144 @@ def ab_paged(lib, gen, rounds: int, T: int) -> list[dict]:
     return rows
 
 
+def ab_span(lib, gen, rounds: int) -> list[dict]:
+    """K5: the parent's two single-cache launches against the change's one
+    two-cache launch, bit for bit, device time in turns."""
+    import torch
+
+    from chip_smoke import PEAK_HBM_GBPS, bound, graph_ms
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+    from qwen3_asr_tpu_torch.ops.kernels import kv_write as kw
+
+    L, B, H, T, S = 28, 8, 8, 4, 640
+    caches = [torch.randn(L, B, H, S, D, generator=gen, device="cuda").bfloat16()
+              for _ in range(2)]
+    rows = [torch.randn(L, B, H, T, D, generator=gen, device="cuda").bfloat16()
+            for _ in range(2)]
+    slots = torch.tensor([512, 515, 531, 560, 600, 617, S - 2, S + 5],
+                         dtype=torch.int32, device="cuda")
+
+    def parent(kc, vc):
+        for cache, r in ((kc, rows[0]), (vc, rows[1])):
+            err = lib.kv_write_rows_bf16(cache.data_ptr(), r.data_ptr(), slots.data_ptr(),
+                                         L, B, H, T, S, _build.stream_ptr(cache))
+            if err:
+                raise RuntimeError(f"parent kv_write_rows_bf16: CUDA error {err}")
+        return kc, vc
+
+    out = kw.kv_write_span_pair(*(c.clone() for c in caches), *rows, slots)
+    pout = parent(*(c.clone() for c in caches))
+    ref = kw.kv_write_span_pair_plain(*(c.clone() for c in caches), *rows, slots)
+    same = all(torch.equal(o, p) for o, p in zip(out, pout))
+    exact = all(torch.equal(o, r) for o, r in zip(out, ref))
+    if not (same and exact):
+        raise AssertionError(f"K5: change == parent {same}, change == plain {exact}")
+    del out, pout, ref
+    work = [c.clone() for c in caches]
+    p, c = in_turns(lambda: parent(*work), lambda: kw.kv_write_span_pair(*work, *rows, slots),
+                    rounds, 20, timer=graph_ms)
+    n_rows = int(kw.span_indices(slots, T, S)[0].numel())
+    nbytes = 2 * 2 * L * H * D * 2 * n_rows
+    b = bound(nbytes, 0, 1.0)
+    cm, pm = statistics.median(c), statistics.median(p)
+    print(f"K5 L={L} B={B} H={H} T={T} S={S} (K and V, {n_rows} landing rows a layer and "
+          f"head): change (one launch) {cm:.4f} ms {_ms_list(c)}, parent (two launches) "
+          f"{pm:.4f} ms {_ms_list(p)} device time; bound {b['bound_ms']:.4f} ms (bytes) = "
+          f"{b['bound_ms'] / cm:.1%} of the change's time, {b['bound_ms'] / pm:.1%} of the "
+          f"parent's; {nbytes / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%} of the HBM peak; "
+          f"change/parent {cm / pm:.3f}; both caches bit-identical to the parent and to the "
+          f"plain version")
+    return [{"kernel": "K5", "L": L, "B": B, "T": T, "S": S, "bit_identical": True,
+             "ms": c, "parent_ms": p, **b}]
+
+
+def ab_stream(lib, gen, rounds: int) -> list[dict]:
+    """K11b at chip_smoke's ``DECODE_GRID`` and ``STREAM_EXTRA``: parent and
+    change held to the plain version and compared bit for bit, timed in
+    turns by device time on a cold cache, with K2 on the same inputs."""
+    import torch
+
+    from chip_smoke import (DECODE_GRID, PEAK_HBM_GBPS, STREAM_EXTRA, _close, attention_bound,
+                            attention_ms, cold_note, stream_case)
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm2 as h2
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm3 as h3
+
+    rows = []
+    for B, S in DECODE_GRID + STREAM_EXTRA:
+        c = stream_case(gen, B, S)
+        pb, plen = c["pb"], c["plen"]
+        if B > 1:
+            plen[-1] = 0
+        dend = pb if (B, S) in STREAM_EXTRA else pb + (S - pb) // 2
+        block_k = h2.tile_block_k(S, pb, 512)
+        fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
+        scale = D ** -0.5
+        sms = da._sm_count(c["q"].device)
+        hq, hkv = c["q"].shape[1], c["kall"].shape[2]
+
+        def change(layer):
+            return h3.decode_attention_hbm3(*fresh, layer, plen, dend, pb)
+
+        def parent(layer):
+            out = torch.empty_like(c["q"])
+            err = lib.decode_attention_hbm3_bf16(
+                *(t.data_ptr() for t in fresh), plen.data_ptr(), out.data_ptr(), int(layer), B,
+                hq, hkv, S, pb, dend, block_k, max(1, min(B * hkv // 2, sms)), float(scale),
+                _build.stream_ptr(out))
+            if err:
+                raise RuntimeError(f"parent decode_attention_hbm3_bf16: CUDA error {err}")
+            return out
+
+        ends = torch.full_like(plen, dend)
+
+        def k2(layer):
+            return da.decode_attention(*fresh, layer, plen, ends, pb)
+
+        layer = c["L"] - 1
+        out, pout = change(layer), parent(layer)
+        ref = h2.scalar_end_plain(c["q"].float(), c["kall"][layer:layer + 1].float(),
+                                  c["vall"][layer:layer + 1].float(), c["k_new"].float(),
+                                  c["v_new"].float(), 0, plen, dend, pb, scale)
+        err = _close(f"K11b B={B} S={S}", out, ref, 2e-2, 2e-2)
+        perr = _close(f"parent K11b B={B} S={S}", pout, ref, 2e-2, 2e-2)
+        same = torch.equal(out, pout)
+        diff = (out.float() - pout.float()).abs().max().item()
+        del out, pout, ref
+        times = {"parent": [], "change": [], "k2": []}
+        for _ in range(rounds):
+            for arm, fn in (("parent", parent), ("change", change), ("k2", k2),
+                            ("k2", k2), ("change", change), ("parent", parent)):
+                times[arm].append(attention_ms(fn, c["L"])[0])
+        b, call_bytes = attention_bound(B, hq, hkv, int(plen.sum()) + B * (dend - pb), 2 * D)
+        cm, pm, km = (statistics.median(times[k]) for k in ("change", "parent", "k2"))
+        blocks, per = h3.stream_grid(B * hkv, sms)
+        print(f"K11b B={B} S={S} dend={dend} ({blocks} blocks of {per} pairs; "
+              f"{cold_note(c['L'], call_bytes)}): change {cm:.4f} ms {_ms_list(times['change'])}, "
+              f"parent {pm:.4f} ms {_ms_list(times['parent'])}, K2 {km:.4f} ms "
+              f"{_ms_list(times['k2'])} device time; parent/change {pm / cm:.2f}x, change/K2 "
+              f"{cm / km:.2f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); HBM peak share "
+              f"change {call_bytes / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, parent "
+              f"{call_bytes / (pm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, K2 "
+              f"{call_bytes / (km * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}; err {err:.3e} / parent "
+              f"{perr:.3e}; bit-identical: {same} (max |diff| {diff:.3e})")
+        rows.append({"kernel": "K11b", "B": B, "S": S, "dend": dend, "blocks": blocks,
+                     "per": per, "layers": c["L"], "max_abs_err": err,
+                     "parent_max_abs_err": perr, "bit_identical": same,
+                     "max_diff_vs_parent": diff, "ms": times["change"],
+                     "parent_ms": times["parent"], "k2_ms": times["k2"], **b})
+        del c, fresh
+        torch.cuda.empty_cache()
+    return rows
+
+
 AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8,
       "K2": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, False),
       "K4": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, True),
       "K6": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 1),
-      "K7": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 4)}
+      "K7": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 4),
+      "K5": ab_span, "K11b": ab_stream}
 
 
 def main() -> int:
