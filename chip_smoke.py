@@ -25,14 +25,16 @@ failure raises and the script exits non-zero):
      dcount 64, 1024 at PS 256, and B=8 dcount 64 at PS 128, the smoke
      clips' prompt lengths, an idle lane): as K2; K8, the paged row write, bf16
      and int8: exact outside the trash page 0; K11a and K11b, decode
-     attention with one decode end for every lane, at K2's shapes (K11b
-     also at B=6 with its decode end at the prompt bucket and an idle
-     lane): as K2;
+     attention with one decode end for every lane, at K2's shapes and at
+     B=6 with the decode end at the prompt bucket and an idle lane: as K2,
+     and K11a bit-identical to K11b;
      K11e, the stem's conv + bias + GELU at conv2's and conv3's shapes for
      the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
      output; K11c and K11d, decode attention with per-lane decode ends and
-     an idle lane, at K2's shapes and B=6: as K2, with K2's time beside
-     theirs; the fused stores, K3 and K3-int8 in K2/K4 and K8 in K6/K7 (a
+     an idle lane, at K2's shapes and B=6, and at B=96 with one lane at S:
+     as K2, with K2's time beside theirs, K11c's tile-balanced ranges
+     bit-identical to equal runs of pairs and, at one end for every lane,
+     to K11b; the fused stores, K3 and K3-int8 in K2/K4 and K8 in K6/K7 (a
      call with a write target), at every ``DECODE_GRID`` and
      ``PAGED_GRID`` shape and at the clamp case (every decode end S, write
      slot S - 1): the output bit-identical to the call without the store,
@@ -756,17 +758,41 @@ def stream_case(gen, B: int, S: int, pb: int = 512, hq: int = 16, hkv: int = 8) 
     return dict(q=q, kall=kall, vall=vall, k_new=k_new, v_new=v_new, plen=plen, pb=pb, L=L)
 
 
-#: K11b's shapes beyond ``DECODE_GRID``: ``check_decode_lanes``' B=6, with
-#: the decode end at the prompt bucket, so that the lane with no prompt row
-#: is idle (its output the self-term alone).
+#: K11a's and K11b's shapes beyond ``DECODE_GRID``: ``check_decode_lanes``'
+#: B=6, with the decode end at the prompt bucket, so that the lane with no
+#: prompt row is idle (its output the self-term alone).
 STREAM_EXTRA = ((6, 640), (6, 2560))
+#: K11c's and K11d's check shapes (B, S, skew): per-lane ends drawn from
+#: [pb, S] and an idle lane; skewed: lane 0's end at S, the others' at pb,
+#: so that one lane holds most tiles.
+LANES_GRID = tuple((B, S, False) for B in (1, 6, 8, 96) for S in (640, 2560)) + (
+    (96, 2560, True),)
+
+
+def lanes_case(gen, B: int, S: int, skew: bool) -> tuple[dict, object, object]:
+    """(``stream_case`` inputs, prompt lengths, per-lane ends) of a
+    ``LANES_GRID`` shape: where B > 1 the last lane is idle (prompt_len 0,
+    which K11c and K11d clamp to 1, and its end at pb)."""
+    import torch
+
+    c = stream_case(gen, B, S)
+    pb, plen = c["pb"], c["plen"]
+    dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
+    if skew:
+        dend[:] = pb
+        dend[0] = S
+    if B > 1:
+        plen[-1] = 0
+        dend[-1] = pb
+    return c, plen, dend
 
 
 def check_decode_stream(gen, kind: str) -> dict:
-    """K11a (``"hbm2"``) or K11b (``"hbm3"``, also at ``STREAM_EXTRA``) at
-    K2's check shapes with one decode end for every lane (as the plain loop
+    """K11a (``"hbm2"``) or K11b (``"hbm3"``) at K2's check shapes and
+    ``STREAM_EXTRA`` with one decode end for every lane (as the plain loop
     passes it), against K2's plain version in float32 (atol 2e-2 + rtol
-    2e-2, as K2); the kernel and K2 on the same inputs timed on a cold
+    2e-2, as K2), K11a also bit for bit against K11b (one stream under two
+    kernel names); the kernel and K2 on the same inputs timed on a cold
     cache."""
     import torch
 
@@ -776,8 +802,9 @@ def check_decode_stream(gen, kind: str) -> dict:
 
     fn = h2.decode_attention_hbm2 if kind == "hbm2" else h3.decode_attention_hbm3
     label = "K11a decode_attention_hbm2" if kind == "hbm2" else "K11b decode_attention_hbm3"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst, times = 0.0, []
-    for B, S in DECODE_GRID + (STREAM_EXTRA if kind == "hbm3" else ()):
+    for B, S in DECODE_GRID + STREAM_EXTRA:
         c = stream_case(gen, B, S)
         pb, plen, D = c["pb"], c["plen"], 128
         if B > 1:
@@ -793,6 +820,9 @@ def check_decode_stream(gen, kind: str) -> dict:
                                   c["k_new"].float(), c["v_new"].float(), 0, plen, dend, pb,
                                   D ** -0.5)
         err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
+        if kind == "hbm2" and not torch.equal(out, h3.decode_attention_hbm3(
+                *fresh, layer, plen, dend, pb)):
+            raise AssertionError(f"{label} B={B} S={S}: not bit-identical to K11b")
         del out, ref
         ms, host_ms = attention_ms(lambda layer: fn(*fresh, layer, plen, dend, pb), c["L"])
         plain_ms = cuda_ms(lambda: h2.scalar_end_plain(
@@ -802,12 +832,15 @@ def check_decode_stream(gen, kind: str) -> dict:
             lambda layer: da.decode_attention(*fresh, layer, plen, ends, pb), c["L"])
         b, call_bytes = attention_bound(B, 16, 8, int(plen.sum()) + B * (dend - pb), 2 * D)
         gbps = call_bytes / (ms * 1e-3) / 1e9
-        print(f"{label} B={B} pb={pb} S={S} dend={dend} block_k={block_k}: "
-              f"max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
+        blocks, per = h2.stream_grid(B * 8, sms)
+        same = ", bit-identical to K11b" if kind == "hbm2" else ""
+        print(f"{label} B={B} pb={pb} S={S} dend={dend} block_k={block_k} ({blocks} blocks of "
+              f"{per} pairs{same}): max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
               f"({cold_note(c['L'], call_bytes)}; host-paced {host_ms:.4f} ms), K2 {k2_ms:.4f} "
               f"ms (host-paced {k2_host:.4f}), plain {plain_ms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
-              f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
+              f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak (K2 "
+              f"{call_bytes / (k2_ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%})")
         worst = max(worst, err)
         times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
         del c, fresh, one
@@ -818,17 +851,20 @@ def check_decode_stream(gen, kind: str) -> dict:
 
 
 def check_decode_lanes(gen, kind: str) -> dict:
-    """K11c (``"hbm5"``) or K11d (``"sched"``) at K2's check shapes plus a
-    batch that is no multiple of K11c's 4-lane group, with per-lane decode
-    ends and an idle lane (prompt_len 0, clamped to 1 as the TPU kernels
-    do) where B > 1, against the module's plain version in float32 (atol
-    2e-2 + rtol 2e-2, as K2).  Times on a cold cache: the kernel (K11d with
-    its schedule built beforehand, as the micro-bench builds it once per
-    pass) and K2 on the same inputs and clamped prompt lengths by device
-    time, the plain version host-paced."""
+    """K11c (``"hbm5"``) or K11d (``"sched"``) at ``LANES_GRID``: K2's check
+    shapes plus B=6, with per-lane decode ends and an idle lane (prompt_len
+    0, clamped to 1 as the TPU kernels do) where B > 1, and B=96 with one
+    lane at S, against the module's plain version in float32 (atol 2e-2 +
+    rtol 2e-2, as K2).  K11c also bit for bit: its tile-balanced ranges
+    against equal runs of pairs, and, with every end set to one value and
+    the prompt lengths clamped to >= 1, against K11b.  Times on a cold
+    cache: the kernel (K11d with its schedule built beforehand, as the
+    micro-bench builds it once per pass) and K2 on the same inputs and
+    clamped prompt lengths by device time, the plain version host-paced."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm3 as h3
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5 as h5
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_sched as sc
 
@@ -837,61 +873,78 @@ def check_decode_lanes(gen, kind: str) -> dict:
     scale = D ** -0.5
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst, times = 0.0, []
-    for B in (1, 6, 8, 96):
-        for S in (640, 2560):
-            c = stream_case(gen, B, S)
-            pb, plen = c["pb"], c["plen"]
-            dend = torch.randint(pb, S + 1, (B,), generator=gen, device="cuda").int()
-            if B > 1:
-                plen[-1] = 0               # an idle lane
-                dend[-1] = pb
-            clamped = plen.clamp(1, pb)
-            fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
-            if kind == "hbm5":
-                def kernel(layer):
-                    return h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
+    for B, S, skew in LANES_GRID:
+        c, plen, dend = lanes_case(gen, B, S, skew)
+        pb = c["pb"]
+        clamped = plen.clamp(1, pb)
+        fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
+        layer = c["L"] - 1
+        if kind == "hbm5":
+            def kernel(layer):
+                return h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
 
-                def plain(*t):
-                    return da.decode_attention_plain(*t, 0, clamped, dend, pb, scale)
-                extra = f"block_p={h5.prompt_block(pb, S)}"
-            else:
-                cores, per_core = sc.schedule_geometry(B, c["k_new"].shape[1], sms)
-                sched = sc.build_decode_schedule(plen, dend, pb, S, cores, per_core, B)
+            def plain(*t):
+                return da.decode_attention_plain(*t, 0, clamped, dend, pb, scale)
+            blocks = min(B * 8, sms)
+            lane_tiles = h5.lane_tiles(plen, dend, pb, S)
+            ranges = h5.tile_ranges(lane_tiles, 8, blocks)
+            per = [e - b for b, e in ranges]
+            tiles = [t for t in lane_tiles for _ in range(8)]
+            loads = [sum(tiles[b:e]) for b, e in ranges]
+            equal = h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb, balanced=False)
+            mid = pb + (S - pb) // 2
+            same_end = (h5.decode_attention_hbm5(*fresh, layer, clamped,
+                                                 torch.full_like(plen, mid), pb),
+                        h3.decode_attention_hbm3(*fresh, layer, clamped, mid, pb))
+            extra = (f"block_p={h5.prompt_block(pb, S)}, {blocks} blocks of {min(per)}-{max(per)}"
+                     f" pairs, tiles a block max {max(loads)} / mean "
+                     f"{sum(loads) / blocks:.1f}; balanced = equal runs and equal ends = K11b "
+                     f"bit for bit")
+            if not torch.equal(kernel(layer), equal):
+                raise AssertionError(f"{label} B={B} S={S}: balanced ranges differ from equal "
+                                     f"runs of pairs")
+            if not torch.equal(*same_end):
+                raise AssertionError(f"{label} B={B} S={S}: equal ends not bit-identical to "
+                                     f"K11b")
+            del equal, same_end
+        else:
+            cores, per_core = sc.schedule_geometry(B, c["k_new"].shape[1], sms)
+            sched = sc.build_decode_schedule(plen, dend, pb, S, cores, per_core, B)
 
-                def kernel(layer):
-                    return sc.decode_attention_sched(*fresh, layer, plen, dend, pb,
-                                                     schedule=sched)
+            def kernel(layer):
+                return sc.decode_attention_sched(*fresh, layer, plen, dend, pb,
+                                                 schedule=sched)
 
-                def plain(*t):
-                    return sc.decode_attention_sched_plain(*t, 0, sched, scale)
-                build_ms = cuda_ms(lambda: sc.build_decode_schedule(
-                    plen, dend, pb, S, cores, per_core, B))
-                extra = f"cores={cores} per_core={per_core}, schedule build {build_ms:.4f} ms"
-            layer = c["L"] - 1
-            out = kernel(layer)
-            torch.cuda.synchronize()
-            one = (c["kall"][layer:layer + 1], c["vall"][layer:layer + 1])
-            ref = plain(c["q"].float(), one[0].float(), one[1].float(), c["k_new"].float(),
-                        c["v_new"].float())
-            err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
-            del out, ref
-            ms, host_ms = attention_ms(kernel, c["L"])
-            plain_ms = cuda_ms(lambda: plain(c["q"], *one, c["k_new"], c["v_new"]))
-            k2_ms, k2_host = attention_ms(
-                lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb), c["L"])
-            b, call_bytes = attention_bound(B, 16, 8, int(clamped.sum() + (dend - pb).sum()),
-                                            2 * D)
-            gbps = call_bytes / (ms * 1e-3) / 1e9
-            print(f"{label} B={B} pb={pb} S={S} per-lane ends ({extra}): "
-                  f"max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
-                  f"({cold_note(c['L'], call_bytes)}; host-paced {host_ms:.4f} ms), K2 "
-                  f"{k2_ms:.4f} ms (host-paced {k2_host:.4f}), plain {plain_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
-                  f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak")
-            worst = max(worst, err)
-            times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
-            del c, fresh, one
-            torch.cuda.empty_cache()
+            def plain(*t):
+                return sc.decode_attention_sched_plain(*t, 0, sched, scale)
+            build_ms = cuda_ms(lambda: sc.build_decode_schedule(
+                plen, dend, pb, S, cores, per_core, B))
+            extra = f"cores={cores} per_core={per_core}, schedule build {build_ms:.4f} ms"
+        out = kernel(layer)
+        torch.cuda.synchronize()
+        one = (c["kall"][layer:layer + 1], c["vall"][layer:layer + 1])
+        ref = plain(c["q"].float(), one[0].float(), one[1].float(), c["k_new"].float(),
+                    c["v_new"].float())
+        err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
+        del out, ref
+        ms, host_ms = attention_ms(kernel, c["L"])
+        plain_ms = cuda_ms(lambda: plain(c["q"], *one, c["k_new"], c["v_new"]))
+        k2_ms, k2_host = attention_ms(
+            lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb), c["L"])
+        b, call_bytes = attention_bound(B, 16, 8, int(clamped.sum() + (dend - pb).sum()),
+                                        2 * D)
+        gbps = call_bytes / (ms * 1e-3) / 1e9
+        print(f"{label} B={B} pb={pb} S={S} {'one lane at S' if skew else 'per-lane ends'} "
+              f"({extra}): max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
+              f"({cold_note(c['L'], call_bytes)}; host-paced {host_ms:.4f} ms), K2 "
+              f"{k2_ms:.4f} ms (host-paced {k2_host:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
+              f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak (K2 "
+              f"{call_bytes / (k2_ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%})")
+        worst = max(worst, err)
+        times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
+        del c, fresh, one
+        torch.cuda.empty_cache()
     # No one PyTorch call computes it (as K2).
     rec = next(t for B, S, t in times if B == 8 and S == 640)
     return {"max_abs_err": worst, **rec, "library_ms": None}

@@ -1,43 +1,42 @@
-// K11a: one-token decode attention, whole-lane cells, one launch.
+// K11a: one-token decode attention with whole-lane cells, one launch (decode
+// mode "3").
 //
 // Replaces qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm2.py:
 // decode_attention_hbm2 (:134; kernel _kernel :23, pallas_call :181).
-// Shapes, masking and numerics: decode_stream.cuh.
+// Shapes, masking and numerics: decode_pair_stream.cuh (one decode end for
+// every lane, prompt lengths clamped to [0, pb]).
 //
-// Schedule: the TPU kernel gives each lane one grid cell that walks all
-// its KV heads' blocks of block_k rows with a double-buffered DMA, with no
-// split of the rows and no combine pass.  Its (Hkv, block_k, 128) K and V
-// blocks (512 KB at block_k = 128) do not fit in an SM's shared memory, so
-// here each (lane, KV head) pair is its own CUDA block (grid B * Hkv), which
-// walks the pair's blocks as 32-row tiles through a 2-stage cp.async ring
-// and writes the pair's G output rows itself.
+// The TPU kernel gives each lane one grid cell that walks all its KV heads'
+// blocks of block_k rows with a double-buffered DMA, with no split of the
+// rows and no combine pass.  The card runs the same function as
+// decode_pair_stream.cuh's persistent stream, as K11b does: up to one block
+// per SM, each owning `per` contiguous (lane, KV head) pairs (the wrapper's
+// stream_grid); a producer warp streams the pairs' 32-row tiles by bulk
+// copies into a 12-stage mbarrier ring, skipping the tiles whose rows are
+// all masked, and eight consumer warps take whole tiles, passing only the
+// online softmax's running values from tile to tile.  Still no split of a
+// pair's rows and no combine pass, and each pair's G output rows are
+// written by the warp that folds its last tile.  The kernel has a name of
+// its own, so that a profile tells K11a from K11b; its output is K11b's bit
+// for bit.
 //
-// Bound on the H100: bytes.  With B * Hkv blocks (64 at B = 8) it fills
-// half of the card's 132 SMs and keeps one tile per block in flight, so it
-// is expected to run well below K2 (which splits a lane's rows over ~2
-// blocks per SM): the TPU schedule, measured as it is.
-#include "decode_stream.cuh"
+// Bound on the H100: bytes.  At B = 8 every one of the 64 pairs has an SM,
+// and a pair's tiles are in flight together.
+#include "decode_pair_stream.cuh"
 
 namespace {
 
-constexpr int kStages = 2;
-
 template <int G>
-__global__ void __launch_bounds__(dstream::kThreads)
-    decode_hbm2_kernel(dstream::Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  dstream::run_pairs<G, kStages>(a, blockIdx.x, blockIdx.x + 1,
-                                 reinterpret_cast<__nv_bfloat16*>(smem));
+__global__ void __launch_bounds__(pstream::kBlockThreads)
+    decode_hbm2_kernel(dstream::Args a, int per) {
+  pstream::run_stream<G, false>(a, nullptr, per, false);
 }
 
 template <int G>
-int launch(const dstream::Args& a, cudaStream_t stream) {
-  constexpr int bytes = dstream::ring_bytes(kStages);
+int launch(const dstream::Args& a, int per, cudaStream_t stream) {
   static bool smem_ok = false;
-  cudaError_t err = gemm::allow_smem(decode_hbm2_kernel<G>, bytes, smem_ok);
-  if (err != cudaSuccess) return (int)err;
-  decode_hbm2_kernel<G><<<a.B * a.Hkv, dstream::kThreads, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+  return pstream::launch(decode_hbm2_kernel<G>, smem_ok, (a.B * a.Hkv + per - 1) / per, stream,
+                         a, per);
 }
 
 }  // namespace
@@ -45,25 +44,25 @@ int launch(const dstream::Args& a, cudaStream_t stream) {
 // q (B, Hq, 128), kall/vall (L, B, Hkv, S, 128), k_new/v_new (B, Hkv, 1,
 // 128), out (B, Hq, 128) bf16; prompt_len (B,) int32; all contiguous on the
 // device.  decode_end is one int for every lane; block_k divides S and pb
-// and is a multiple of 32; Hq / Hkv is 1, 2 or 4.  Returns the launch's
-// cudaError_t.
+// and is a multiple of 32; Hq / Hkv is 1, 2 or 4; per >= 1 is the pairs
+// each block streams (the wrapper's stream_grid: cdiv(B Hkv, min(B Hkv, SM
+// count))).  Returns the launch's cudaError_t.
 extern "C" int decode_attention_hbm2_bf16(
     const void* q, const void* kall, const void* vall, const void* k_new,
     const void* v_new, const void* prompt_len, void* out, int layer, int B,
-    int Hq, int Hkv, int S, int pb, int decode_end, int block_k, float scale,
-    void* stream) {
+    int Hq, int Hkv, int S, int pb, int decode_end, int block_k, int per,
+    float scale, void* stream) {
   if (B == 0) return (int)cudaSuccess;
-  if (Hkv <= 0 || Hq % Hkv || !dstream::valid_tiling(S, pb, block_k)) {
+  if (Hkv <= 0 || Hq % Hkv || per < 1 || !pstream::valid_tiling(S, pb, block_k)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dstream::Args a = dstream::make_args(q, kall, vall, k_new, v_new, prompt_len,
-                                             out, layer, B, Hkv, S, pb, decode_end,
-                                             block_k, scale);
+  const dstream::Args a = dstream::make_args(q, kall, vall, k_new, v_new, prompt_len, out,
+                                             layer, B, Hkv, S, pb, decode_end, scale);
   cudaStream_t st = (cudaStream_t)stream;
   switch (Hq / Hkv) {
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 4: return launch<4>(a, st);
+    case 1: return launch<1>(a, per, st);
+    case 2: return launch<2>(a, per, st);
+    case 4: return launch<4>(a, per, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,29 +1,15 @@
-// The (lane, KV head) tile stream of K11a (decode_attention_hbm2.cu):
-// one-token decode attention over the layer-stacked cache with a scalar
-// decode end, in one launch, with no split of a lane's rows and no combine
-// pass.  K11c (decode_attention_hbm5.cu) and K11d (decode_attention_sched.cu)
-// walk the cache on their own geometry and reuse the per-tile pieces:
-// load_rows, start_pair, fold_tile (the tile's online-softmax update under a
-// caller-given row mask) and finish_pair.  K11b (decode_attention_hbm3.cu)
-// keeps this file's function, walk and per-tile arithmetic on a schedule of
-// its own (bulk copies, warps that take whole tiles); it shares Args,
-// make_args, valid_tiling and the element helpers.
+// The cp.async per-tile pieces of K11d (decode_attention_sched.cu), which
+// walks the cache on a precomputed block schedule: load_rows, start_pair,
+// fold_tile (a 32-row tile's online-softmax update under a caller-given row
+// mask) and finish_pair (self-term and 1 / l).  The persistent stream of
+// K11a-K11c (decode_pair_stream.cuh) repeats fold_tile's and finish_pair's
+// arithmetic operation for operation and shares Args, make_args and the
+// element helpers.
 //
 // q (B, Hq, 128); kall/vall (L, B, Hkv, S, 128); k_new/v_new (B, Hkv, 1, 128),
-// all bf16; prompt_len (B,) int32; decode_end one int for every lane.  The
-// cache is walked as the TPU kernels walk it: each lane visits
-// cdiv(prompt_len, block_k) prompt blocks of block_k rows from row 0, then
-// cdiv(decode_end - pb, block_k) decode blocks from row pb, and masks the
-// rows of a visited block outside [0, prompt_len) and [pb, decode_end)
-// (read and masked, not skipped).  A block of block_k rows (up to 1024, a
-// 256 KB K+V tile per KV head) does not fit in shared memory, so it is
-// streamed as block_k / 32 tiles of 32 rows.
-//
-// One CUDA block of 4 warps owns one (lane, KV head) pair at a time and
-// keeps its state in registers and shared memory; the caller's kernel picks
-// which pairs a block walks and how deep its cp.async ring is (K11a: one
-// pair per block, 2 stages).  A pair is finalized (self-term, 1 / l) as its
-// last tile drains.
+// all bf16.  One CUDA block of 4 warps folds one (lane, KV head) pair at a
+// time and keeps its state in registers and shared memory; the caller's
+// kernel picks the tiles, their masks and how deep its cp.async ring is.
 //
 // Numerics follow the TPU kernels, not K2 (decode_attention_hbm2.py
 // :160, :65, :79-126):
@@ -34,13 +20,8 @@
 //     is rounded to bf16 before P.V (f32 accumulation);
 //   * the self-term score is the bf16-rounded elementwise product q * k_new
 //     summed in f32; l == 0 -> 1; the output is rounded once to bf16.
-// The first visited tile always holds a valid row (row 0 < prompt_len, or
-// row pb < decode_end), so m is finite from then on and masked rows weigh
-// exactly 0; an idle lane (prompt_len 0, decode_end == pb) visits no tile
-// and yields v_new.
-//
-// Bound on the H100: bytes, as K2 (one FMA per byte read); these schedules
-// also read the masked rows of partly valid blocks.
+// The caller's first tile of a pair must hold a valid row, so that m is
+// finite from then on and masked rows weigh exactly 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,7 +51,7 @@ struct Args {
   const __nv_bfloat16* v_new;
   const int* prompt_len;
   __nv_bfloat16* out;
-  int layer, B, Hkv, S, pb, dend, block_k;
+  int layer, B, Hkv, S, pb, dend;
   float scale;
 };
 
@@ -91,30 +72,10 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
   }
 }
 
-// One (lane, KV head) pair: its lane, head, clamped prompt length, number of
-// prompt blocks and number of 32-row tiles to visit.
+// One (lane, KV head) pair.
 struct Pair {
-  int b, hk, plen, n_prompt, n_tiles;
+  int b, hk;
 };
-
-__device__ __forceinline__ Pair pair_of(const Args& a, int pair) {
-  Pair p;
-  p.b = pair / a.Hkv;
-  p.hk = pair - p.b * a.Hkv;
-  p.plen = min(max(a.prompt_len[p.b], 0), a.pb);
-  p.n_prompt = (p.plen + a.block_k - 1) / a.block_k;
-  const int n_decode = (a.dend - a.pb + a.block_k - 1) / a.block_k;
-  p.n_tiles = (p.n_prompt + n_decode) * (a.block_k / kTile);
-  return p;
-}
-
-// First cache row of tile t of pair p.
-__device__ __forceinline__ int tile_row0(const Args& a, const Pair& p, int t) {
-  const int per_block = a.block_k / kTile;
-  const int i = t / per_block;
-  const int blk = i < p.n_prompt ? i : a.pb / a.block_k + (i - p.n_prompt);
-  return blk * a.block_k + (t - i * per_block) * kTile;
-}
 
 // Start the cp.async copies of cache rows [row0, row0 + 32) of lane b, KV
 // head hk (32 contiguous K rows and the matching V rows: 1024 16-byte
@@ -132,13 +93,6 @@ __device__ __forceinline__ void load_rows(const Args& a, int b, int hk, int row0
     gemm::cp_async16(kbuf + c * 8, a.kall + off, ok);
     gemm::cp_async16(vbuf + c * 8, a.vall + off, ok);
   }
-}
-
-// Tile t of pair p.
-__device__ __forceinline__ void load_tile(const Args& a, const Pair& p, int t,
-                                          __nv_bfloat16* kbuf,
-                                          __nv_bfloat16* vbuf) {
-  load_rows(a, p.b, p.hk, tile_row0(a, p, t), kbuf, vbuf);
 }
 
 template <int G>
@@ -241,18 +195,6 @@ __device__ __forceinline__ void fold_tile(int row0, Valid valid,
   for (int gi = 0; gi < G; ++gi) st.acc[gi] = st.acc[gi] * sh.alpha[gi] + pv[gi];
 }
 
-// Tile t of pair p under the two-interval mask of K11a/K11b.
-template <int G>
-__device__ __forceinline__ void consume_tile(const Args& a, const Pair& p,
-                                             int t, const __nv_bfloat16* kbuf,
-                                             const __nv_bfloat16* vbuf,
-                                             State<G>& st, Shared<G>& sh) {
-  fold_tile<G>(
-      tile_row0(a, p, t),
-      [&](int row) { return row < p.plen || (row >= a.pb && row < a.dend); },
-      kbuf, vbuf, st, sh);
-}
-
 // Self-term and 1 / l: write the pair's G output rows.
 template <int G>
 __device__ __forceinline__ void finish_pair(const Args& a, const Pair& p,
@@ -296,66 +238,12 @@ __device__ __forceinline__ void finish_pair(const Args& a, const Pair& p,
   __syncthreads();   // sh.red / sh.m / sh.l are reused by the next pair
 }
 
-// Walk pairs [p_begin, p_end) as one stream of tiles through an NBUF-stage
-// cp.async ring: NBUF - 1 tiles stay in flight, and the producer runs ahead
-// across pair boundaries (skipping pairs with no tile), so the next pair's
-// first tiles load while this pair's last ones are consumed.
-template <int G, int NBUF>
-__device__ void run_pairs(const Args& a, int p_begin, int p_end,
-                          __nv_bfloat16* ring) {
-  __shared__ Shared<G> sh;
-  auto kbuf = [&](int stage) { return ring + stage * 2 * kTileElems; };
-  auto vbuf = [&](int stage) { return ring + stage * 2 * kTileElems + kTileElems; };
-
-  // Producer cursor: pair lp, tile lt.
-  int lp = p_begin, lt = 0;
-  Pair lpair;
-  auto settle = [&]() {   // move lp to the next pair that has a tile
-    while (lp < p_end) {
-      lpair = pair_of(a, lp);
-      if (lpair.n_tiles > 0) break;
-      ++lp;
-    }
-  };
-  auto issue = [&](int stage) {
-    if (lp < p_end) {
-      load_tile(a, lpair, lt, kbuf(stage), vbuf(stage));
-      if (++lt == lpair.n_tiles) {
-        lt = 0;
-        ++lp;
-        settle();
-      }
-    }
-    gemm::cp_async_commit();
-  };
-  settle();
-#pragma unroll
-  for (int s = 0; s < NBUF - 1; ++s) issue(s);
-
-  State<G> st;
-  int consumed = 0;
-  for (int pi = p_begin; pi < p_end; ++pi) {
-    const Pair p = pair_of(a, pi);
-    start_pair<G>(a, p, st);
-    for (int t = 0; t < p.n_tiles; ++t, ++consumed) {
-      gemm::cp_async_wait<NBUF - 2>();
-      __syncthreads();
-      issue((consumed + NBUF - 1) % NBUF);
-      const int stage = consumed % NBUF;
-      consume_tile<G>(a, p, t, kbuf(stage), vbuf(stage), st, sh);
-    }
-    finish_pair<G>(a, p, st, sh);
-  }
-  gemm::cp_async_wait<0>();
-}
-
 // Clamp the launch arguments as K2 does (prompt rows inside the prompt
 // bucket, the decode end inside [pb, S]).
 inline Args make_args(const void* q, const void* kall, const void* vall,
                       const void* k_new, const void* v_new,
                       const void* prompt_len, void* out, int layer, int B,
-                      int Hkv, int S, int pb, int dend, int block_k,
-                      float scale) {
+                      int Hkv, int S, int pb, int dend, float scale) {
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.kall = static_cast<const __nv_bfloat16*>(kall);
@@ -370,16 +258,8 @@ inline Args make_args(const void* q, const void* kall, const void* vall,
   a.S = S;
   a.pb = pb;
   a.dend = dend < pb ? pb : (dend > S ? S : dend);
-  a.block_k = block_k;
   a.scale = scale;
   return a;
-}
-
-// The shapes a launch takes: head_dim 128 (checked by the wrapper), block_k
-// a positive multiple of the 32-row tile dividing S and pb.
-inline bool valid_tiling(int S, int pb, int block_k) {
-  return block_k > 0 && block_k % kTile == 0 && S % block_k == 0 &&
-         pb % block_k == 0 && pb <= S;
 }
 
 }  // namespace dstream

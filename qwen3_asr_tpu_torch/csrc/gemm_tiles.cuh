@@ -1,5 +1,5 @@
 // Building blocks shared by the cp.async kernels: the im2col gather of
-// conv_stem.cu (K11e) and the rings of decode_stream.cuh (K11a-K11d):
+// conv_stem.cu (K11e) and the ring of decode_stream.cuh (K11d):
 // 16-byte cp.async copies into shared memory with zero fill, the group
 // commit/wait pair, and the dynamic shared-memory opt-in.
 #pragma once

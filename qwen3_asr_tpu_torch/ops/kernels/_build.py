@@ -99,18 +99,18 @@ _SIGNATURES = {
     # x, w, b, out, N, H, W, C, O, stream
     "conv_s2_gelu_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, kall, vall, k_new, v_new, prompt_len, out, layer, B, Hq, Hkv, S,
-    # prompt_bucket, decode_end, block_k, scale, stream
+    # prompt_bucket, decode_end, block_k, per (pairs per block), scale, stream
     "decode_attention_hbm2_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # as decode_attention_hbm2_bf16, with per (pairs per block) after block_k
+    # as decode_attention_hbm2_bf16
     "decode_attention_hbm3_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, k_new, v_new, prompt_len, decode_end, out, layer, B, Hq,
-    # Hkv, S, prompt_bucket, block_p, scale, stream
+    # Hkv, S, prompt_bucket, block_p, blocks, balanced, scale, stream
     "decode_attention_hbm5_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, k_new, v_new, totals, bl, off, lim, flags, out, layer, B,
     # Hq, Hkv, S, cores, per_core, J, scale, stream

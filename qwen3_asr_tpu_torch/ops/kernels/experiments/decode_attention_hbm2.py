@@ -1,21 +1,24 @@
-"""K11a: one-token decode attention with whole-lane cells (decode mode "3").
+"""K11a: one-token decode attention, one decode end for every lane (decode mode "3").
 
 Replaces ``qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm2.py:
 decode_attention_hbm2``.  K2's function with one ``decode_end`` for every
 lane: cache row s of lane b is valid when ``s < prompt_len[b]`` or
 ``prompt_bucket <= s < decode_end``, and the step's fresh ``k_new``/``v_new``
-row is folded in as a self-term.  The cache is walked in blocks of
+row is folded in as a self-term.  The TPU walks the cache in blocks of
 ``block_k`` rows (halved from the requested size until it divides S and the
-prompt bucket; :func:`tile_block_k`).
+prompt bucket; :func:`tile_block_k`), which here decides only the input
+check.  Its numerics are the TPU kernel's (q * scale rounded to bf16, bf16
+P.V operands, a bf16-rounded self-term product), which K2 does not copy.
 
 Bound on the H100: bytes, as K2.  The CUDA kernel
-(``csrc/decode_attention_hbm2.cu`` over ``csrc/decode_stream.cuh``) keeps the
-TPU schedule: one launch, no split of a lane's rows and no combine pass;
-each (lane, KV head) pair is one block that walks the lane's prompt blocks
-and then its decode blocks as 32-row tiles through a double-buffered
-``cp.async`` ring, masking the invalid rows of each visited block.  Its
-numerics are the TPU kernel's (q * scale rounded to bf16, bf16 P.V
-operands, a bf16-rounded self-term product), which K2 does not copy.
+(``csrc/decode_attention_hbm2.cu`` over ``csrc/decode_pair_stream.cuh``) is
+K11b's persistent stream under a name of its own: up to one block per SM
+(:func:`stream_grid`), each owning a contiguous range of (lane, KV head)
+pairs; a producer warp streams their 32-row tiles by bulk copies into a deep
+``mbarrier`` ring, skipping the tiles whose rows are all masked, and eight
+consumer warps take whole tiles, handing only the online softmax's running
+values from tile to tile.  One launch, no split of a pair's rows and no
+combine pass; the output is K11b's bit for bit.
 
 Its plain version is K2's :func:`~..decode_attention.decode_attention_plain`
 with the scalar decode end broadcast to every lane, behind this wrapper's
@@ -28,11 +31,19 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..decode_attention import decode_attention_plain
+from ..decode_attention import _sm_count, decode_attention_plain
 
 NAME = "decode_attention_hbm2"
 #: Cache rows per stage of the kernels' ring: ``block_k`` must be a multiple.
 TILE_ROWS = 32
+
+
+def stream_grid(pairs: int, sm_count: int) -> tuple[int, int]:
+    """(blocks, pairs per block) of the stream over ``pairs`` (lane, KV head)
+    pairs: up to one block per SM, each owning ``per`` contiguous pairs
+    (the last block fewer)."""
+    per = -(-pairs // max(1, min(pairs, sm_count)))
+    return -(-pairs // per), per
 
 
 def tile_block_k(S: int, prompt_bucket: int, block_k: int) -> int:
@@ -94,18 +105,27 @@ def check(q, kall, vall, k_new, v_new, layer, prompt_len, block_k: int) -> None:
         raise ValueError(f"block_k={block_k} must be a multiple of {TILE_ROWS}")
 
 
-def launch(name: str, entry: str, q, kall, vall, k_new, v_new, layer, prompt_len,
-           decode_end: int, prompt_bucket: int, scale: float, block_k: int,
-           *extra: int) -> torch.Tensor:
-    """Launch the C entry point ``entry`` (K11a or K11b; ``extra``: its
-    further int arguments) and count it under ``name``."""
+def scalar_end_stream(name: str, entry: str, q, kall, vall, k_new, v_new, layer: int,
+                      prompt_len, decode_end: int, prompt_bucket: int, scale: float | None,
+                      block_k: int) -> torch.Tensor:
+    """K11a or K11b: the plain version on CPU tensors; on CUDA tensors the
+    checks, then the stream kernel of C entry point ``entry``, counted under
+    ``name``."""
+    block_k = tile_block_k(kall.shape[3], prompt_bucket, block_k)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return scalar_end_plain(q, kall, vall, k_new, v_new, layer, prompt_len,
+                                decode_end, prompt_bucket, scale)
+    check(q, kall, vall, k_new, v_new, layer, prompt_len, block_k)
     B, hq, _ = q.shape
     hkv, S = kall.shape[2], kall.shape[3]
+    _, per = stream_grid(B * hkv, _sm_count(q.device))
     out = torch.empty_like(q)
     err = getattr(_build.library(), entry)(
         q.data_ptr(), kall.data_ptr(), vall.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), prompt_len.data_ptr(), out.data_ptr(), int(layer), B, hq,
-        hkv, S, int(prompt_bucket), int(decode_end), block_k, *extra, float(scale),
+        hkv, S, int(prompt_bucket), int(decode_end), block_k, per, float(scale),
         _build.stream_ptr(q),
     )
     _build.check(err, name)
@@ -128,12 +148,5 @@ def decode_attention_hbm2(
 ) -> torch.Tensor:
     """One-token attention of q over layer ``layer`` of the stacked cache plus
     the fresh row, with one ``decode_end`` for every lane.  Returns (B, Hq, D)."""
-    block_k = tile_block_k(kall.shape[3], prompt_bucket, block_k)
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if not q.is_cuda:
-        return scalar_end_plain(q, kall, vall, k_new, v_new, layer, prompt_len,
-                                decode_end, prompt_bucket, scale)
-    check(q, kall, vall, k_new, v_new, layer, prompt_len, block_k)
-    return launch(NAME, "decode_attention_hbm2_bf16", q, kall, vall, k_new, v_new,
-                  layer, prompt_len, decode_end, prompt_bucket, scale, block_k)
+    return scalar_end_stream(NAME, "decode_attention_hbm2_bf16", q, kall, vall, k_new, v_new,
+                             layer, prompt_len, decode_end, prompt_bucket, scale, block_k)

@@ -1,11 +1,12 @@
-"""K11c: one-token decode attention with lane-grouped reads.
+"""K11c: one-token decode attention with per-lane decode ends.
 
 Replaces ``qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm5.py:
 decode_attention_hbm5``.  K2's function with per-lane decode ends: cache row
 s of lane b is valid when ``s < prompt_len[b]`` or ``prompt_bucket <= s <
 decode_end[b]``, and the step's fresh ``k_new``/``v_new`` row is folded in
-as a self-term.  Prompt blocks have ``block_p`` rows (the first of 512, 256
-and 128 that divides the prompt bucket), decode blocks 128.
+as a self-term.  The TPU walks prompt blocks of ``block_p`` rows (the first
+of 512, 256 and 128 that divides the prompt bucket) and decode blocks of
+128, 4 lanes to a read; here those decide only the input check.
 
 Idle lanes: ``prompt_len`` is clamped to ``[1, prompt_bucket]`` (the TPU
 wrapper clamps it to at least 1, :324-327, so that every lane owns a block),
@@ -14,12 +15,13 @@ row.  K2 and K11a/K11b give such a lane its fresh row alone; the kernel,
 the plain version and the Pallas kernel here agree with each other.
 
 Bound on the H100: bytes.  The CUDA kernel (``csrc/decode_attention_hbm5.cu``
-over ``csrc/decode_stream.cuh``) keeps the TPU design: 4 lanes share every
-read.  One block per (group of 4 lanes, KV head) walks the group's largest
-geometry as 32-row tiles; each stage of its 3-deep ``cp.async`` ring holds
-the tile of all 4 lanes (64 KB), and each lane keeps its own softmax state
-and two-interval mask.  The cache is not padded to whole groups: the last
-group skips lanes past B.
+over ``csrc/decode_pair_stream.cuh``) is K11b's persistent stream with
+per-lane ends, which it clamps itself: up to one block per SM, each
+(lane, KV head) pair walking its own lane's tiles (the TPU group's extra
+tiles are all masked for the lane, so the output is the group walk's bit
+for bit), and, with more pairs than blocks, ranges of pairs balanced by
+tiles, which each block computes on the device (:func:`tile_ranges` is
+their plain mirror).
 
 Its plain version is K2's on the clamped prompt lengths and per-lane ends;
 it runs on CPU tensors.  On a CUDA tensor the wrapper launches the kernel
@@ -28,11 +30,14 @@ or raises.
 
 from __future__ import annotations
 
+import bisect
+import itertools
+
 import torch
 
 from .. import _build
-from ..decode_attention import decode_attention_plain
-from .decode_attention_hbm2 import check
+from ..decode_attention import _sm_count, decode_attention_plain
+from .decode_attention_hbm2 import TILE_ROWS, check
 from .decode_attention_sched import check_ends, lane_ends
 
 NAME = "decode_attention_hbm5"
@@ -55,6 +60,33 @@ def prompt_block(prompt_bucket: int, S: int, block_p: int | None = None) -> int:
     return block_p
 
 
+def lane_tiles(prompt_len: torch.Tensor, decode_end: torch.Tensor, prompt_bucket: int,
+               S: int) -> list[int]:
+    """The 32-row tiles each lane's (lane, KV head) pairs visit: the prompt
+    length clamped to [1, pb] and the decode end to [pb, S], as the kernel
+    clamps them."""
+    plen = prompt_len.clamp(1, prompt_bucket)
+    dend = decode_end.clamp(prompt_bucket, S)
+    n = -(-plen // TILE_ROWS) + -(-(dend - prompt_bucket) // TILE_ROWS)
+    return [int(t) for t in n.tolist()]
+
+
+def tile_ranges(tiles: list[int], hkv: int, blocks: int) -> list[tuple[int, int]]:
+    """The kernel's ranges of pairs, in plain Python.  With no more pairs
+    than blocks, one pair a block.  Else balanced by tiles: pair p = b Hkv +
+    hk visits ``tiles[b]`` tiles and starts at tile P_p of the stream (pairs
+    in order, T tiles in all); block i takes the pairs with i T <= P_p
+    blocks < (i + 1) T, the last block every pair left.  Returns ``blocks``
+    contiguous (begin, end) ranges that cover every pair once."""
+    pairs = len(tiles) * hkv
+    if pairs <= blocks:
+        return [(min(i, pairs), min(i + 1, pairs)) for i in range(blocks)]
+    starts = list(itertools.accumulate((t for t in tiles for _ in range(hkv)), initial=0))
+    total, starts = starts[-1], starts[:-1]
+    bounds = [bisect.bisect_left(starts, -(-i * total // blocks)) for i in range(blocks)]
+    return list(zip(bounds, bounds[1:] + [pairs]))
+
+
 def decode_attention_hbm5(
     q: torch.Tensor,            # (B, Hq, D)
     kall: torch.Tensor,         # (L, B, Hkv, S, D)
@@ -67,27 +99,30 @@ def decode_attention_hbm5(
     prompt_bucket: int,
     scale: float | None = None,
     block_p: int | None = None,
+    balanced: bool = True,
 ) -> torch.Tensor:
     """One-token attention of q over layer ``layer`` of the stacked cache plus
-    the fresh row, 4 lanes to a read.  Returns (B, Hq, D)."""
+    the fresh row.  ``balanced``: the kernel's ranges of pairs balanced by
+    tiles (else equal runs of pairs; the two give the same bits).  Returns
+    (B, Hq, D)."""
     B, hq, D = q.shape
     hkv, S = kall.shape[2], kall.shape[3]
     block_p = prompt_block(prompt_bucket, S, block_p)
     if scale is None:
         scale = D ** -0.5
     dend = lane_ends(decode_end, B, q.device)
-    if q.is_cuda:
-        check(q, kall, vall, k_new, v_new, layer, prompt_len, block_p)
-        check_ends(dend, q)
-    plen = prompt_len.clamp(1, prompt_bucket)
     if not q.is_cuda:
-        return decode_attention_plain(q, kall, vall, k_new, v_new, layer, plen, dend,
+        return decode_attention_plain(q, kall, vall, k_new, v_new, layer,
+                                      prompt_len.clamp(1, prompt_bucket), dend,
                                       prompt_bucket, scale)
+    check(q, kall, vall, k_new, v_new, layer, prompt_len, block_p)
+    check_ends(dend, q)
     out = torch.empty_like(q)
     err = _build.library().decode_attention_hbm5_bf16(
         q.data_ptr(), kall.data_ptr(), vall.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), plen.data_ptr(), dend.data_ptr(), out.data_ptr(),
-        int(layer), B, hq, hkv, S, int(prompt_bucket), block_p, float(scale),
+        v_new.data_ptr(), prompt_len.data_ptr(), dend.data_ptr(), out.data_ptr(),
+        int(layer), B, hq, hkv, S, int(prompt_bucket), block_p,
+        min(B * hkv, _sm_count(q.device)), int(balanced), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(err, NAME)

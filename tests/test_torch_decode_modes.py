@@ -25,8 +25,8 @@ On the CPU:
 Tests marked ``cuda`` hold each kernel against its plain version on the GPU
 (bf16 against the plain version in float32 over the same bf16 inputs: atol
 2e-2 + rtol 2e-2, K2's bound; the kernels round q * scale, p and the
-self-term products to bf16 where the plain version keeps f32) and skip
-without one.
+self-term products to bf16 where the plain version keeps f32) and K11a to
+K11b bit for bit (one stream under two names), and skip without one.
 """
 
 from __future__ import annotations
@@ -43,11 +43,11 @@ from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
 from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
 from qwen3_asr_tpu_torch.ops.kernels.experiments.decode_attention_hbm2 import (
     decode_attention_hbm2,
+    stream_grid,
     tile_block_k,
 )
 from qwen3_asr_tpu_torch.ops.kernels.experiments.decode_attention_hbm3 import (
     decode_attention_hbm3,
-    stream_grid,
 )
 
 PORT = {"hbm2": decode_attention_hbm2, "hbm3": decode_attention_hbm3}
@@ -351,3 +351,27 @@ def test_cuda_matches_plain(cuda, kind, B, S, pb, dend_off, block_k, G):
     )
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,dend_off,G", [
+    (1, 640, 64, 2), (6, 640, 0, 2), (8, 640, 64, 2), (8, 2560, 1024, 4),
+    (96, 2560, 1024, 1), (96, 640, 64, 2),
+])
+def test_cuda_hbm2_equals_hbm3(cuda, B, S, dend_off, G):
+    """K11a and K11b run one stream under two kernel names: bit-identical,
+    an idle lane (prompt_len 0 at dend_off 0) included."""
+    pb = 512
+    g = torch.Generator(device=cuda).manual_seed(B + S + G)
+    kall = torch.randn(2, B, 8, S, 128, generator=g, device=cuda).bfloat16()
+    vall = torch.randn(2, B, 8, S, 128, generator=g, device=cuda).bfloat16()
+    q = torch.randn(B, 8 * G, 128, generator=g, device=cuda).bfloat16()
+    k_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    v_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    plen = torch.randint(1, pb + 1, (B,), generator=g, device=cuda).int()
+    if B > 1:
+        plen[-1] = 0
+    args = (q, kall, vall, k_new, v_new, 1, plen, pb + dend_off, pb)
+    a, b = decode_attention_hbm2(*args), decode_attention_hbm3(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -17,11 +17,15 @@ On the CPU:
     garbage (inf in dead K rows, finite values in dead V rows) does not leak
     into either plain version;
   * untileable shapes raise ValueError as in JAX, and the wrappers' input
-    checks reject bad types, shapes and devices.
+    checks reject bad types, shapes and devices;
+  * K11c's tile-balanced ranges (``tile_ranges``, the plain mirror of the
+    kernel's): contiguous, every pair once, no block above the mean plus
+    one pair's tiles.
 
 Tests marked ``cuda`` hold each kernel against its plain version on the GPU
 (bf16 against the plain version in float32 over the same bf16 inputs: atol
-2e-2 + rtol 2e-2, K2's bound) and skip without one.
+2e-2 + rtol 2e-2, K2's bound), K11c's balanced and equal ranges and K11b
+at equal ends bit for bit, and skip without one.
 """
 
 from __future__ import annotations
@@ -302,6 +306,40 @@ def test_decode_end_check_rejects():
     assert sc.lane_ends(torch.tensor(5, dtype=torch.int32), 2, "cpu").tolist() == [5, 5]
 
 
+@pytest.mark.parametrize("B,blocks,skew", [
+    (1, 8, False), (6, 48, False), (8, 64, False), (40, 132, False), (96, 132, False),
+    (96, 132, True), (300, 132, False), (5, 3, True),
+])
+def test_tile_ranges_cover_pairs_balanced(B, blocks, skew):
+    """The balanced split: ``blocks`` contiguous ranges covering every pair
+    once, in order; a block's tiles at most the mean plus one pair's."""
+    hkv, pb, S = 8, 512, 2560
+    rng = np.random.default_rng(B + blocks)
+    plen = torch.from_numpy(rng.integers(0, pb + 1, B).astype(np.int32))
+    dend = torch.from_numpy(rng.integers(pb, S + 1, B).astype(np.int32))
+    if skew:                                   # one lane holds most tiles
+        plen[:], dend[:] = pb, pb
+        dend[0] = S
+    tiles = h5.lane_tiles(plen, dend, pb, S)
+    assert min(tiles) >= 1                     # the clamp to prompt_len >= 1
+    ranges = h5.tile_ranges(tiles, hkv, blocks)
+    assert len(ranges) == blocks
+    assert ranges[0][0] == 0 and ranges[-1][1] == B * hkv
+    assert all(e == b2 for (_, e), (b2, _) in zip(ranges, ranges[1:]))
+    assert all(b <= e for b, e in ranges)
+    pair_tiles = [t for t in tiles for _ in range(hkv)]
+    load = [sum(pair_tiles[b:e]) for b, e in ranges]
+    assert sum(load) == sum(pair_tiles)
+    assert max(load) <= sum(pair_tiles) / blocks + max(pair_tiles)
+
+
+def test_lane_tiles_clamp():
+    pb, S = 512, 640
+    plen = torch.tensor([0, 1, 32, 33, 600], dtype=torch.int32)
+    dend = torch.tensor([0, 512, 513, 640, 9999], dtype=torch.int32)
+    assert h5.lane_tiles(plen, dend, pb, S) == [1, 1, 1 + 1, 2 + 4, 16 + 4]
+
+
 # -- on the GPU: K11c and K11d against their plain versions --------------------------
 
 
@@ -335,7 +373,7 @@ def _plain_ref(q, kall, vall, k_new, v_new, layer, plen, dend, pb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["hbm5", "sched"])
 @pytest.mark.parametrize("B,S,pb", [(1, 640, 512), (6, 640, 512), (8, 640, 512),
-                                    (40, 2560, 512)])
+                                    (40, 2560, 512), (96, 2560, 512)])
 def test_cuda_matches_plain(cuda, kind, B, S, pb):
     q, kall, vall, k_new, v_new, plen, dend = _cuda_case(cuda, B, S, pb, B * S)
     name = f"decode_attention_{kind}"
@@ -387,3 +425,50 @@ def test_cuda_sched_schedule_passed_in(cuda):
                                             k_new.float(), v_new.float(), 0, sched,
                                             128 ** -0.5)
     torch.testing.assert_close(given.float(), plain, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,skew", [(1, 640, False), (6, 640, False), (8, 640, False),
+                                      (96, 2560, False), (96, 2560, True), (8, 2560, True)])
+def test_cuda_hbm5_ranges_and_plain(cuda, B, S, skew):
+    """K11c with per-lane ends and an idle lane (or one lane at S and the
+    rest at the prompt bucket): against its plain version, and its
+    tile-balanced ranges bit-identical to equal runs of pairs."""
+    pb = 512
+    q, kall, vall, k_new, v_new, plen, dend = _cuda_case(cuda, B, S, pb, 7 * B + S)
+    if skew:
+        dend[:] = pb
+        dend[0] = S
+    balanced = h5.decode_attention_hbm5(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    equal = h5.decode_attention_hbm5(q, kall, vall, k_new, v_new, 1, plen, dend, pb,
+                                     balanced=False)
+    torch.cuda.synchronize()
+    assert torch.equal(balanced, equal)
+    ref = _plain_ref(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    torch.testing.assert_close(balanced.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,G", [(1, 640, 2), (6, 640, 2), (8, 640, 2), (96, 2560, 1),
+                                   (96, 2560, 2), (96, 2560, 4)])
+def test_cuda_hbm5_equals_hbm3_at_equal_ends(cuda, B, S, G):
+    """Every lane's end equal and every prompt length >= 1: K11c is K11b
+    bit for bit (the same stream, the same tiles, the same folds)."""
+    from qwen3_asr_tpu_torch.ops.kernels.experiments.decode_attention_hbm3 import (
+        decode_attention_hbm3,
+    )
+
+    pb = 512
+    g = torch.Generator(device=cuda).manual_seed(B * S + G)
+    kall = torch.randn(2, B, 8, S, 128, generator=g, device=cuda).bfloat16()
+    vall = torch.randn(2, B, 8, S, 128, generator=g, device=cuda).bfloat16()
+    q = torch.randn(B, 8 * G, 128, generator=g, device=cuda).bfloat16()
+    k_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    v_new = torch.randn(B, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    plen = torch.randint(1, pb + 1, (B,), generator=g, device=cuda).int()
+    dend = pb + (S - pb) // 2
+    ends = torch.full_like(plen, dend)
+    lanes = h5.decode_attention_hbm5(q, kall, vall, k_new, v_new, 1, plen, ends, pb)
+    shared = decode_attention_hbm3(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(lanes, shared)

@@ -3,20 +3,21 @@
 CUDA sources, on one CUDA GPU, in one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR [--rounds N]
-        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7,K5,K11b]
+        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7,K5,K11a,K11b,K11c]
 
 ``DIR`` holds earlier ``flash_attention.cu`` (K1), ``conv_stem.cu`` (K11e),
 ``quantized_matmul.cu`` (K9), ``w8a8_matmul.cu`` (K10),
 ``decode_attention.cu`` (K2 and K4), ``decode_attention_paged.cu`` (K6
-and K7), ``kv_write.cu`` (K5) and ``decode_attention_hbm3.cu`` (K11b) with
-the headers they include, e.g. from
+and K7), ``kv_write.cu`` (K5), ``decode_attention_hbm2.cu`` (K11a),
+``decode_attention_hbm3.cu`` (K11b) and ``decode_attention_hbm5.cu``
+(K11c) with the headers they include, e.g. from
 ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
 The tool compiles the ones that ``--kernels`` names with the port's nvcc
 flags into a library of their own (in ``DIR``), binds their C entry points
 with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
 port's; K2's, K4's, K6's and K7's are those of commit 76a5270, whose decode
-attention takes no write target; K5's and K11b's those of commit f57a6e0),
-and then, on the same inputs:
+attention takes no write target; K5's that of commit f57a6e0; K11a's,
+K11b's and K11c's those of commit 7ae24f8), and then, on the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -59,13 +60,17 @@ and then, on the same inputs:
     change's one ``kv_write_span_pair`` launch at ``chip_smoke``'s verify
     shape (L=28, B=8, T=4, S=640, an overflow lane and a lane wholly past
     S), both caches held bit for bit to each other and to the plain
-    version, device time in CUDA graphs of 20 calls in turns.  K11b: the
-    parent (with its grid rule, min(pairs / 2, SMs) blocks) and the change
-    at ``chip_smoke``'s ``DECODE_GRID`` and ``STREAM_EXTRA`` on
-    ``stream_case`` inputs, bit identity or the max |difference|, both held
-    to the plain version (atol 2e-2 + rtol 2e-2), device time on a cold
-    cache in turns with K2 on the same inputs beside, the bound and the
-    HBM share.
+    version, device time in CUDA graphs of 20 calls in turns.  K11a and
+    K11b: the parent (with its wrapper's arguments) and the change at
+    ``chip_smoke``'s ``DECODE_GRID`` and ``STREAM_EXTRA`` on
+    ``stream_case`` inputs, bit identity or the max |difference| (and the
+    change's K11a against K11b), both held to the plain version (atol 2e-2
+    + rtol 2e-2), device time on a cold cache in turns with K2 on the same
+    inputs beside, the bound and the HBM share.  K11c: the same at
+    ``chip_smoke.LANES_GRID`` (per-lane ends, an idle lane, and one lane at
+    S with the rest at the prompt bucket), the change twice -- its
+    tile-balanced ranges and equal runs of pairs, bit for bit and timed in
+    the same turns -- with each range rule's most tiles a block beside.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
@@ -124,21 +129,28 @@ PARENT_SIGNATURES = {
     # K5 of commit f57a6e0 (one cache a launch): cache, rows, slots, L, B,
     # H, T, S, stream
     "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # K11b of commit f57a6e0: q, kall, vall, k_new, v_new, prompt_len, out,
-    # layer, B, Hq, Hkv, S, prompt_bucket, decode_end, block_k, n_blocks,
-    # scale, stream
+    # K11a of commit 7ae24f8: q, kall, vall, k_new, v_new, prompt_len, out,
+    # layer, B, Hq, Hkv, S, prompt_bucket, decode_end, block_k, scale, stream
+    "decode_attention_hbm2_bf16": (_P,) * 7 + (_I,) * 8 + (ctypes.c_float, _P),
+    # K11b of commit 7ae24f8: as K11a, then per (pairs a block)
     "decode_attention_hbm3_bf16": (_P,) * 7 + (_I,) * 9 + (ctypes.c_float, _P),
+    # K11c of commit 7ae24f8: q, kall, vall, k_new, v_new, prompt_len,
+    # decode_end, out, layer, B, Hq, Hkv, S, prompt_bucket, block_p, scale,
+    # stream
+    "decode_attention_hbm5_bf16": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P),
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
            "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu",
            "K6": "decode_attention_paged.cu", "K7": "decode_attention_paged.cu",
-           "K5": "kv_write.cu", "K11b": "decode_attention_hbm3.cu"}
+           "K5": "kv_write.cu", "K11a": "decode_attention_hbm2.cu",
+           "K11b": "decode_attention_hbm3.cu", "K11c": "decode_attention_hbm5.cu"}
 PAGED_ENTRIES = ("decode_attention_paged_bf16", "decode_attention_paged_q8")
 ENTRIES = {"K1": ("flash_attention_causal_bf16",), "K11e": ("conv_s2_gelu_bf16",),
            "K9": ("quantized_matmul_bf16",), "K10": ("w8a8_matmul_bf16",),
            "K2": ("decode_attention_bf16",), "K4": ("decode_attention_q8",),
            "K6": PAGED_ENTRIES, "K7": PAGED_ENTRIES, "K5": ("kv_write_rows_bf16",),
-           "K11b": ("decode_attention_hbm3_bf16",)}
+           "K11a": ("decode_attention_hbm2_bf16",), "K11b": ("decode_attention_hbm3_bf16",),
+           "K11c": ("decode_attention_hbm5_bf16",)}
 
 
 def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
@@ -749,19 +761,57 @@ def ab_span(lib, gen, rounds: int) -> list[dict]:
              "ms": c, "parent_ms": p, **b}]
 
 
-def ab_stream(lib, gen, rounds: int) -> list[dict]:
-    """K11b at chip_smoke's ``DECODE_GRID`` and ``STREAM_EXTRA``: parent and
-    change held to the plain version and compared bit for bit, timed in
-    turns by device time on a cold cache, with K2 on the same inputs."""
+def run_parent_stream(lib, kernel: str, fresh, plen, out, layer: int, B: int, S: int, pb: int,
+                      dend, block: int, per: int) -> None:
+    """The 7ae24f8 kernel of K11a, K11b or K11c into ``out``, with the
+    arguments its wrapper gave it (K11a: no ``per``; K11c: the prompt
+    lengths clamped to [1, pb] by the wrapper, ``block`` = block_p)."""
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+
+    hq, hkv = fresh[0].shape[1], fresh[1].shape[2]
+    ptrs = [t.data_ptr() for t in fresh]
+    scale, st = float(D ** -0.5), _build.stream_ptr(out)
+    if kernel == "K11a":
+        err = lib.decode_attention_hbm2_bf16(*ptrs, plen.data_ptr(), out.data_ptr(), layer, B,
+                                             hq, hkv, S, pb, dend, block, scale, st)
+    elif kernel == "K11b":
+        err = lib.decode_attention_hbm3_bf16(*ptrs, plen.data_ptr(), out.data_ptr(), layer, B,
+                                             hq, hkv, S, pb, dend, block, per, scale, st)
+    else:
+        err = lib.decode_attention_hbm5_bf16(*ptrs, plen.data_ptr(), dend.data_ptr(),
+                                             out.data_ptr(), layer, B, hq, hkv, S, pb, block,
+                                             scale, st)
+    if err:
+        raise RuntimeError(f"parent {kernel}: CUDA error {err}")
+
+
+def stream_turns(arms: dict, n_layers: int, rounds: int) -> dict:
+    """Device times on a cold cache (``chip_smoke.attention_ms``) of every
+    arm, in turns: the arms in order, then in reverse, per round."""
+    from chip_smoke import attention_ms
+
+    times = {name: [] for name in arms}
+    order = list(arms) + list(arms)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            times[name].append(attention_ms(arms[name], n_layers)[0])
+    return times
+
+
+def ab_stream(lib, gen, rounds: int, kernel: str) -> list[dict]:
+    """K11a or K11b at chip_smoke's ``DECODE_GRID`` and ``STREAM_EXTRA``:
+    parent and change held to the plain version and compared bit for bit
+    (K11a also to K11b), timed in turns by device time on a cold cache,
+    with K2 on the same inputs."""
     import torch
 
     from chip_smoke import (DECODE_GRID, PEAK_HBM_GBPS, STREAM_EXTRA, _close, attention_bound,
-                            attention_ms, cold_note, stream_case)
-    from qwen3_asr_tpu_torch.ops.kernels import _build
+                            cold_note, stream_case)
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm2 as h2
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm3 as h3
 
+    fn = h2.decode_attention_hbm2 if kernel == "K11a" else h3.decode_attention_hbm3
     rows = []
     for B, S in DECODE_GRID + STREAM_EXTRA:
         c = stream_case(gen, B, S)
@@ -771,59 +821,130 @@ def ab_stream(lib, gen, rounds: int) -> list[dict]:
         dend = pb if (B, S) in STREAM_EXTRA else pb + (S - pb) // 2
         block_k = h2.tile_block_k(S, pb, 512)
         fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
-        scale = D ** -0.5
-        sms = da._sm_count(c["q"].device)
         hq, hkv = c["q"].shape[1], c["kall"].shape[2]
-
-        def change(layer):
-            return h3.decode_attention_hbm3(*fresh, layer, plen, dend, pb)
+        blocks, per = h2.stream_grid(B * hkv, da._sm_count(c["q"].device))
 
         def parent(layer):
             out = torch.empty_like(c["q"])
-            err = lib.decode_attention_hbm3_bf16(
-                *(t.data_ptr() for t in fresh), plen.data_ptr(), out.data_ptr(), int(layer), B,
-                hq, hkv, S, pb, dend, block_k, max(1, min(B * hkv // 2, sms)), float(scale),
-                _build.stream_ptr(out))
-            if err:
-                raise RuntimeError(f"parent decode_attention_hbm3_bf16: CUDA error {err}")
+            run_parent_stream(lib, kernel, fresh, plen, out, layer, B, S, pb, dend, block_k,
+                              per)
             return out
 
         ends = torch.full_like(plen, dend)
-
-        def k2(layer):
-            return da.decode_attention(*fresh, layer, plen, ends, pb)
-
+        arms = {"parent": parent, "change": lambda layer: fn(*fresh, layer, plen, dend, pb),
+                "k2": lambda layer: da.decode_attention(*fresh, layer, plen, ends, pb)}
         layer = c["L"] - 1
-        out, pout = change(layer), parent(layer)
+        out, pout = arms["change"](layer), parent(layer)
+        k11b = h3.decode_attention_hbm3(*fresh, layer, plen, dend, pb)
         ref = h2.scalar_end_plain(c["q"].float(), c["kall"][layer:layer + 1].float(),
                                   c["vall"][layer:layer + 1].float(), c["k_new"].float(),
-                                  c["v_new"].float(), 0, plen, dend, pb, scale)
-        err = _close(f"K11b B={B} S={S}", out, ref, 2e-2, 2e-2)
-        perr = _close(f"parent K11b B={B} S={S}", pout, ref, 2e-2, 2e-2)
-        same = torch.equal(out, pout)
+                                  c["v_new"].float(), 0, plen, dend, pb, D ** -0.5)
+        err = _close(f"{kernel} B={B} S={S}", out, ref, 2e-2, 2e-2)
+        perr = _close(f"parent {kernel} B={B} S={S}", pout, ref, 2e-2, 2e-2)
+        same, same_b = torch.equal(out, pout), torch.equal(out, k11b)
         diff = (out.float() - pout.float()).abs().max().item()
-        del out, pout, ref
-        times = {"parent": [], "change": [], "k2": []}
-        for _ in range(rounds):
-            for arm, fn in (("parent", parent), ("change", change), ("k2", k2),
-                            ("k2", k2), ("change", change), ("parent", parent)):
-                times[arm].append(attention_ms(fn, c["L"])[0])
+        del out, pout, ref, k11b
+        times = stream_turns(arms, c["L"], rounds)
         b, call_bytes = attention_bound(B, hq, hkv, int(plen.sum()) + B * (dend - pb), 2 * D)
         cm, pm, km = (statistics.median(times[k]) for k in ("change", "parent", "k2"))
-        blocks, per = h3.stream_grid(B * hkv, sms)
-        print(f"K11b B={B} S={S} dend={dend} ({blocks} blocks of {per} pairs; "
+
+        def share(ms):
+            return f"{call_bytes / (ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}"
+
+        print(f"{kernel} B={B} S={S} dend={dend} ({blocks} blocks of {per} pairs; "
               f"{cold_note(c['L'], call_bytes)}): change {cm:.4f} ms {_ms_list(times['change'])}, "
               f"parent {pm:.4f} ms {_ms_list(times['parent'])}, K2 {km:.4f} ms "
               f"{_ms_list(times['k2'])} device time; parent/change {pm / cm:.2f}x, change/K2 "
               f"{cm / km:.2f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); HBM peak share "
-              f"change {call_bytes / (cm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, parent "
-              f"{call_bytes / (pm * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}, K2 "
-              f"{call_bytes / (km * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}; err {err:.3e} / parent "
-              f"{perr:.3e}; bit-identical: {same} (max |diff| {diff:.3e})")
-        rows.append({"kernel": "K11b", "B": B, "S": S, "dend": dend, "blocks": blocks,
+              f"change {share(cm)}, parent {share(pm)}, K2 {share(km)}; err {err:.3e} / parent "
+              f"{perr:.3e}; bit-identical to the parent: {same} (max |diff| {diff:.3e}), to "
+              f"K11b: {same_b}")
+        rows.append({"kernel": kernel, "B": B, "S": S, "dend": dend, "blocks": blocks,
                      "per": per, "layers": c["L"], "max_abs_err": err,
                      "parent_max_abs_err": perr, "bit_identical": same,
-                     "max_diff_vs_parent": diff, "ms": times["change"],
+                     "bit_identical_to_k11b": same_b, "max_diff_vs_parent": diff,
+                     "ms": times["change"], "parent_ms": times["parent"], "k2_ms": times["k2"],
+                     **b})
+        del c, fresh
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ab_lanes(lib, gen, rounds: int) -> list[dict]:
+    """K11c at ``chip_smoke.LANES_GRID`` (per-lane ends, an idle lane; the
+    skewed case one lane at S and the rest at the prompt bucket): parent and
+    change (tile-balanced ranges, and equal runs of pairs) held to the plain
+    version and compared bit for bit, timed in turns by device time on a
+    cold cache, with K2 on the same inputs and clamped prompt lengths."""
+    import torch
+
+    from chip_smoke import (LANES_GRID, PEAK_HBM_GBPS, _close, attention_bound, cold_note,
+                            lanes_case)
+    from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5 as h5
+
+    rows = []
+    for B, S, skew in LANES_GRID:
+        c, plen, dend = lanes_case(gen, B, S, skew)
+        pb = c["pb"]
+        clamped = plen.clamp(1, pb)
+        fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
+        hq, hkv = c["q"].shape[1], c["kall"].shape[2]
+        block_p = h5.prompt_block(pb, S)
+        blocks = min(B * hkv, da._sm_count(c["q"].device))
+        tiles = [t for t in h5.lane_tiles(plen, dend, pb, S) for _ in range(hkv)]
+        loads = [sum(tiles[b:e]) for b, e in h5.tile_ranges(tiles[::hkv], hkv, blocks)]
+
+        def parent(layer):
+            out = torch.empty_like(c["q"])
+            run_parent_stream(lib, "K11c", fresh, clamped, out, layer, B, S, pb, dend, block_p,
+                              0)
+            return out
+
+        arms = {
+            "parent": parent,
+            "change": lambda layer: h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb),
+            "equal": lambda layer: h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb,
+                                                            balanced=False),
+            "k2": lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb),
+        }
+        layer = c["L"] - 1
+        out, eout, pout = arms["change"](layer), arms["equal"](layer), parent(layer)
+        ref = da.decode_attention_plain(
+            c["q"].float(), c["kall"][layer:layer + 1].float(),
+            c["vall"][layer:layer + 1].float(), c["k_new"].float(), c["v_new"].float(), 0,
+            clamped, dend, pb, D ** -0.5)
+        err = _close(f"K11c B={B} S={S}", out, ref, 2e-2, 2e-2)
+        perr = _close(f"parent K11c B={B} S={S}", pout, ref, 2e-2, 2e-2)
+        same, same_eq = torch.equal(out, pout), torch.equal(out, eout)
+        diff = (out.float() - pout.float()).abs().max().item()
+        del out, eout, pout, ref
+        times = stream_turns(arms, c["L"], rounds)
+        b, call_bytes = attention_bound(B, hq, hkv, int(clamped.sum() + (dend - pb).sum()),
+                                        2 * D)
+        cm, em, pm, km = (statistics.median(times[k]) for k in ("change", "equal", "parent", "k2"))
+
+        def share(ms):
+            return f"{call_bytes / (ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}"
+
+        per = -(-B * hkv // blocks)
+        print(f"K11c B={B} S={S} {'one lane at S' if skew else 'random ends'} ({blocks} blocks; "
+              f"balanced: tiles a block max {max(loads)} / mean {sum(loads) / blocks:.1f}, "
+              f"equal runs of "
+              f"{per} pairs: max {max(sum(tiles[i:i + per]) for i in range(0, len(tiles), per))}; "
+              f"{cold_note(c['L'], call_bytes)}): change {cm:.4f} ms {_ms_list(times['change'])}, "
+              f"equal runs {em:.4f} ms {_ms_list(times['equal'])}, parent {pm:.4f} ms "
+              f"{_ms_list(times['parent'])}, K2 {km:.4f} ms {_ms_list(times['k2'])} device time; "
+              f"parent/change {pm / cm:.2f}x, equal/balanced {em / cm:.3f}, change/K2 "
+              f"{cm / km:.2f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); HBM peak share "
+              f"change {share(cm)}, equal {share(em)}, parent {share(pm)}, K2 {share(km)}; err "
+              f"{err:.3e} / parent {perr:.3e}; bit-identical to the parent: {same} (max |diff| "
+              f"{diff:.3e}), balanced to equal: {same_eq}")
+        rows.append({"kernel": "K11c", "B": B, "S": S, "skew": skew, "blocks": blocks,
+                     "max_tiles_a_block": max(loads), "layers": c["L"], "max_abs_err": err,
+                     "parent_max_abs_err": perr, "bit_identical": same,
+                     "balanced_equals_equal": same_eq, "max_diff_vs_parent": diff,
+                     "ms": times["change"], "equal_ms": times["equal"],
                      "parent_ms": times["parent"], "k2_ms": times["k2"], **b})
         del c, fresh
         torch.cuda.empty_cache()
@@ -835,7 +956,10 @@ AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8,
       "K4": lambda lib, gen, rounds: ab_decode(lib, gen, rounds, True),
       "K6": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 1),
       "K7": lambda lib, gen, rounds: ab_paged(lib, gen, rounds, 4),
-      "K5": ab_span, "K11b": ab_stream}
+      "K5": ab_span,
+      "K11a": lambda lib, gen, rounds: ab_stream(lib, gen, rounds, "K11a"),
+      "K11b": lambda lib, gen, rounds: ab_stream(lib, gen, rounds, "K11b"),
+      "K11c": ab_lanes}
 
 
 def main() -> int:
