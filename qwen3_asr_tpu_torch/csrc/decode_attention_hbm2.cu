@@ -29,7 +29,7 @@ namespace {
 template <int G>
 __global__ void __launch_bounds__(pstream::kBlockThreads)
     decode_hbm2_kernel(dstream::Args a, int per) {
-  pstream::run_stream<G, false>(a, nullptr, per, false);
+  pstream::run_stream<G, false>(a, nullptr, per);
 }
 
 template <int G>

@@ -20,8 +20,7 @@
 // pairs than blocks each block takes a range balanced by tiles
 // (block_range: each block scans the lanes' tile counts on the device; no
 // host sync, no host-built schedule; a pair is never split, which would move
-// bits).  `balanced` 0 gives equal runs of cdiv(B Hkv, blocks) pairs
-// instead, for the A/B.
+// bits).  With no more pairs than blocks, each block takes one pair.
 //
 // Bound on the H100: bytes (the valid rows' K and V, read once).
 #include "decode_pair_stream.cuh"
@@ -32,19 +31,14 @@ constexpr int kDecodeBlock = 128;
 
 template <int G>
 __global__ void __launch_bounds__(pstream::kBlockThreads)
-    decode_hbm5_kernel(dstream::Args a, const int* decode_end, int per, bool balanced) {
-  pstream::run_stream<G, true>(a, decode_end, per, balanced);
+    decode_hbm5_kernel(dstream::Args a, const int* decode_end) {
+  pstream::run_stream<G, true>(a, decode_end, 1);
 }
 
 template <int G>
-int launch(const dstream::Args& a, const int* decode_end, int blocks, bool balanced,
-           cudaStream_t stream) {
+int launch(const dstream::Args& a, const int* decode_end, int blocks, cudaStream_t stream) {
   static bool smem_ok = false;
-  const int pairs = a.B * a.Hkv;
-  const int per = (pairs + blocks - 1) / blocks;
-  return pstream::launch(decode_hbm5_kernel<G>, smem_ok,
-                         balanced ? blocks : (pairs + per - 1) / per, stream, a, decode_end,
-                         per, balanced);
+  return pstream::launch(decode_hbm5_kernel<G>, smem_ok, blocks, stream, a, decode_end);
 }
 
 }  // namespace
@@ -53,13 +47,12 @@ int launch(const dstream::Args& a, const int* decode_end, int blocks, bool balan
 // 128), out (B, Hq, 128) bf16; prompt_len and decode_end (B,) int32; all
 // contiguous on the device.  block_p is 128, 256 or 512 and divides pb;
 // S - pb is a multiple of 128; Hq / Hkv is 1, 2 or 4; blocks >= 1 (the
-// wrapper's: min(B Hkv, SM count)); balanced: tile-balanced ranges (else
-// equal runs of pairs).  Returns the launch's cudaError_t.
+// wrapper's: min(B Hkv, SM count)).  Returns the launch's cudaError_t.
 extern "C" int decode_attention_hbm5_bf16(
     const void* q, const void* kall, const void* vall, const void* k_new,
     const void* v_new, const void* prompt_len, const void* decode_end, void* out,
     int layer, int B, int Hq, int Hkv, int S, int pb, int block_p, int blocks,
-    int balanced, float scale, void* stream) {
+    float scale, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv || blocks < 1 ||
       (block_p != 128 && block_p != 256 && block_p != 512) || pb < 0 || pb > S ||
@@ -71,9 +64,9 @@ extern "C" int decode_attention_hbm5_bf16(
   const int* dend = static_cast<const int*>(decode_end);
   cudaStream_t st = (cudaStream_t)stream;
   switch (Hq / Hkv) {
-    case 1: return launch<1>(a, dend, blocks, balanced != 0, st);
-    case 2: return launch<2>(a, dend, blocks, balanced != 0, st);
-    case 4: return launch<4>(a, dend, blocks, balanced != 0, st);
+    case 1: return launch<1>(a, dend, blocks, st);
+    case 2: return launch<2>(a, dend, blocks, st);
+    case 4: return launch<4>(a, dend, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

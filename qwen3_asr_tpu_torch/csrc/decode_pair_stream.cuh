@@ -33,8 +33,8 @@
 // Schedule (the card's, not the TPU grid's):
 //   * the grid is up to one block per SM, and each block owns a contiguous
 //     range of pairs (pair = b Hkv + hk): `per` pairs each (the wrappers'
-//     stream_grid), or, for per-lane ends with more pairs than blocks,
-//     ranges balanced by tiles (block_range below);
+//     stream_grid; per-lane launches pass 1), or, for per-lane ends with
+//     more pairs than blocks, a range balanced by tiles (block_range below);
 //   * a producer warp streams the block's tiles, across pair boundaries, by
 //     1-D bulk copies (a tile's 32 K rows and 32 V rows are contiguous) into
 //     a kStages-deep mbarrier ring (decode_split.cuh's ring protocol);
@@ -149,8 +149,7 @@ __device__ __forceinline__ int pairs_below(int64_t first, int t, int Hkv, int nb
 // block takes the pairs whose first tile lies in its share, [blk T / nblk,
 // (blk + 1) T / nblk).  Pairs stay whole and in order, so a block's tiles are
 // at most its share plus one pair's.  One warp: the lanes' tile counts are
-// summed, then scanned 32 lanes at a time.  decode_attention_hbm5.py's
-// tile_ranges is the plain mirror.
+// summed, then scanned 32 lanes at a time.
 __device__ __forceinline__ int2 block_range(const Args& a, const int* ends, int blk,
                                             int nblk) {
   const int lane = threadIdx.x % 32;
@@ -238,11 +237,10 @@ __device__ __forceinline__ void finish(const Args& a, const Span& s, const float
 
 // The body of each entry point's kernel (kBlockThreads threads, kRingBytes
 // of dynamic shared memory).  Block blockIdx.x streams pairs [blockIdx.x
-// per, + per), or, when `balanced` (per-lane ends only) and there are more
-// pairs than blocks, its block_range.
+// per, + per), or, with per-lane ends and more pairs than blocks, its
+// block_range.
 template <int G, bool kLane>
-__device__ __forceinline__ void run_stream(const Args& a, const int* ends, int per,
-                                           bool balanced) {
+__device__ __forceinline__ void run_stream(const Args& a, const int* ends, int per) {
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ uint64_t full[kStages], empty[kStages];
   // The tile-to-tile hand-offs: slot j % 2 holds tile j's values; m_bar[j %
@@ -263,7 +261,7 @@ __device__ __forceinline__ void run_stream(const Args& a, const int* ends, int p
   const int sub = lane % dstream::kRowThreads;
   int begin = min((int)blockIdx.x * per, pairs);
   int end = min(begin + per, pairs);
-  if constexpr (kLane) balanced = balanced && pairs > (int)gridDim.x;
+  const bool balanced = kLane && pairs > (int)gridDim.x;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kWarps; ++i) {

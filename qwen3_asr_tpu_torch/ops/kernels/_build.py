@@ -108,9 +108,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, k_new, v_new, prompt_len, decode_end, out, layer, B, Hq,
-    # Hkv, S, prompt_bucket, block_p, blocks, balanced, scale, stream
+    # Hkv, S, prompt_bucket, block_p, blocks, scale, stream
     "decode_attention_hbm5_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, k_new, v_new, totals, bl, off, lim, flags, out, layer, B,
     # Hq, Hkv, S, cores, per_core, J, scale, stream

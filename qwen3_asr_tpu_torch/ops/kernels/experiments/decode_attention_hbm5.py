@@ -20,8 +20,7 @@ per-lane ends, which it clamps itself: up to one block per SM, each
 (lane, KV head) pair walking its own lane's tiles (the TPU group's extra
 tiles are all masked for the lane, so the output is the group walk's bit
 for bit), and, with more pairs than blocks, ranges of pairs balanced by
-tiles, which each block computes on the device (:func:`tile_ranges` is
-their plain mirror).
+tiles, which each block computes on the device.
 
 Its plain version is K2's on the clamped prompt lengths and per-lane ends;
 it runs on CPU tensors.  On a CUDA tensor the wrapper launches the kernel
@@ -30,14 +29,11 @@ or raises.
 
 from __future__ import annotations
 
-import bisect
-import itertools
-
 import torch
 
 from .. import _build
 from ..decode_attention import _sm_count, decode_attention_plain
-from .decode_attention_hbm2 import TILE_ROWS, check
+from .decode_attention_hbm2 import check
 from .decode_attention_sched import check_ends, lane_ends
 
 NAME = "decode_attention_hbm5"
@@ -60,33 +56,6 @@ def prompt_block(prompt_bucket: int, S: int, block_p: int | None = None) -> int:
     return block_p
 
 
-def lane_tiles(prompt_len: torch.Tensor, decode_end: torch.Tensor, prompt_bucket: int,
-               S: int) -> list[int]:
-    """The 32-row tiles each lane's (lane, KV head) pairs visit: the prompt
-    length clamped to [1, pb] and the decode end to [pb, S], as the kernel
-    clamps them."""
-    plen = prompt_len.clamp(1, prompt_bucket)
-    dend = decode_end.clamp(prompt_bucket, S)
-    n = -(-plen // TILE_ROWS) + -(-(dend - prompt_bucket) // TILE_ROWS)
-    return [int(t) for t in n.tolist()]
-
-
-def tile_ranges(tiles: list[int], hkv: int, blocks: int) -> list[tuple[int, int]]:
-    """The kernel's ranges of pairs, in plain Python.  With no more pairs
-    than blocks, one pair a block.  Else balanced by tiles: pair p = b Hkv +
-    hk visits ``tiles[b]`` tiles and starts at tile P_p of the stream (pairs
-    in order, T tiles in all); block i takes the pairs with i T <= P_p
-    blocks < (i + 1) T, the last block every pair left.  Returns ``blocks``
-    contiguous (begin, end) ranges that cover every pair once."""
-    pairs = len(tiles) * hkv
-    if pairs <= blocks:
-        return [(min(i, pairs), min(i + 1, pairs)) for i in range(blocks)]
-    starts = list(itertools.accumulate((t for t in tiles for _ in range(hkv)), initial=0))
-    total, starts = starts[-1], starts[:-1]
-    bounds = [bisect.bisect_left(starts, -(-i * total // blocks)) for i in range(blocks)]
-    return list(zip(bounds, bounds[1:] + [pairs]))
-
-
 def decode_attention_hbm5(
     q: torch.Tensor,            # (B, Hq, D)
     kall: torch.Tensor,         # (L, B, Hkv, S, D)
@@ -99,12 +68,9 @@ def decode_attention_hbm5(
     prompt_bucket: int,
     scale: float | None = None,
     block_p: int | None = None,
-    balanced: bool = True,
 ) -> torch.Tensor:
     """One-token attention of q over layer ``layer`` of the stacked cache plus
-    the fresh row.  ``balanced``: the kernel's ranges of pairs balanced by
-    tiles (else equal runs of pairs; the two give the same bits).  Returns
-    (B, Hq, D)."""
+    the fresh row.  Returns (B, Hq, D)."""
     B, hq, D = q.shape
     hkv, S = kall.shape[2], kall.shape[3]
     block_p = prompt_block(prompt_bucket, S, block_p)
@@ -122,7 +88,7 @@ def decode_attention_hbm5(
         q.data_ptr(), kall.data_ptr(), vall.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), prompt_len.data_ptr(), dend.data_ptr(), out.data_ptr(),
         int(layer), B, hq, hkv, S, int(prompt_bucket), block_p,
-        min(B * hkv, _sm_count(q.device)), int(balanced), float(scale),
+        min(B * hkv, _sm_count(q.device)), float(scale),
         _build.stream_ptr(q),
     )
     _build.check(err, NAME)

@@ -3,21 +3,22 @@
 CUDA sources, on one CUDA GPU, in one process.
 
     python3 tools/torch_kernel_ab.py --parent DIR [--rounds N]
-        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7,K5,K11a,K11b,K11c]
+        [--kernels K1,K11e,K9,K10,K2,K4,K6,K7,K5,K11a,K11b,K11c,K11d]
 
 ``DIR`` holds earlier ``flash_attention.cu`` (K1), ``conv_stem.cu`` (K11e),
 ``quantized_matmul.cu`` (K9), ``w8a8_matmul.cu`` (K10),
 ``decode_attention.cu`` (K2 and K4), ``decode_attention_paged.cu`` (K6
 and K7), ``kv_write.cu`` (K5), ``decode_attention_hbm2.cu`` (K11a),
-``decode_attention_hbm3.cu`` (K11b) and ``decode_attention_hbm5.cu``
-(K11c) with the headers they include, e.g. from
+``decode_attention_hbm3.cu`` (K11b), ``decode_attention_hbm5.cu``
+(K11c) and ``decode_attention_sched.cu`` (K11d) with the headers they include, e.g. from
 ``git show <commit>:qwen3_asr_tpu_torch/csrc/<file>``.
 The tool compiles the ones that ``--kernels`` names with the port's nvcc
 flags into a library of their own (in ``DIR``), binds their C entry points
 with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
 port's; K2's, K4's, K6's and K7's are those of commit 76a5270, whose decode
 attention takes no write target; K5's that of commit f57a6e0; K11a's,
-K11b's and K11c's those of commit 7ae24f8), and then, on the same inputs:
+K11b's and K11c's those of commit 7ae24f8; K11d's the port's), and then, on
+the same inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -68,9 +69,8 @@ K11b's and K11c's those of commit 7ae24f8), and then, on the same inputs:
     + rtol 2e-2), device time on a cold cache in turns with K2 on the same
     inputs beside, the bound and the HBM share.  K11c: the same at
     ``chip_smoke.LANES_GRID`` (per-lane ends, an idle lane, and one lane at
-    S with the rest at the prompt bucket), the change twice -- its
-    tile-balanced ranges and equal runs of pairs, bit for bit and timed in
-    the same turns -- with each range rule's most tiles a block beside.
+    S with the rest at the prompt bucket); K11d the same, on a schedule
+    built beforehand.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
@@ -138,19 +138,21 @@ PARENT_SIGNATURES = {
     # decode_end, out, layer, B, Hq, Hkv, S, prompt_bucket, block_p, scale,
     # stream
     "decode_attention_hbm5_bf16": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P),
+    "decode_attention_sched_bf16": None,
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
            "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu",
            "K6": "decode_attention_paged.cu", "K7": "decode_attention_paged.cu",
            "K5": "kv_write.cu", "K11a": "decode_attention_hbm2.cu",
-           "K11b": "decode_attention_hbm3.cu", "K11c": "decode_attention_hbm5.cu"}
+           "K11b": "decode_attention_hbm3.cu", "K11c": "decode_attention_hbm5.cu",
+           "K11d": "decode_attention_sched.cu"}
 PAGED_ENTRIES = ("decode_attention_paged_bf16", "decode_attention_paged_q8")
 ENTRIES = {"K1": ("flash_attention_causal_bf16",), "K11e": ("conv_s2_gelu_bf16",),
            "K9": ("quantized_matmul_bf16",), "K10": ("w8a8_matmul_bf16",),
            "K2": ("decode_attention_bf16",), "K4": ("decode_attention_q8",),
            "K6": PAGED_ENTRIES, "K7": PAGED_ENTRIES, "K5": ("kv_write_rows_bf16",),
            "K11a": ("decode_attention_hbm2_bf16",), "K11b": ("decode_attention_hbm3_bf16",),
-           "K11c": ("decode_attention_hbm5_bf16",)}
+           "K11c": ("decode_attention_hbm5_bf16",), "K11d": ("decode_attention_sched_bf16",)}
 
 
 def parent_library(parent: Path, kernels: list[str]) -> ctypes.CDLL:
@@ -870,18 +872,36 @@ def ab_stream(lib, gen, rounds: int, kernel: str) -> list[dict]:
     return rows
 
 
-def ab_lanes(lib, gen, rounds: int) -> list[dict]:
-    """K11c at ``chip_smoke.LANES_GRID`` (per-lane ends, an idle lane; the
-    skewed case one lane at S and the rest at the prompt bucket): parent and
-    change (tile-balanced ranges, and equal runs of pairs) held to the plain
-    version and compared bit for bit, timed in turns by device time on a
-    cold cache, with K2 on the same inputs and clamped prompt lengths."""
+def run_parent_sched(lib, fresh, sched, out, layer: int, B: int, S: int) -> None:
+    """The 7ae24f8 kernel of K11d into ``out``, with its wrapper's arguments
+    (the same C entry point as the change's)."""
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_sched as sc
+
+    hq, hkv = fresh[0].shape[1], fresh[1].shape[2]
+    cores, J = sc._check_schedule(sched, out.device, S)
+    err = lib.decode_attention_sched_bf16(
+        *(t.data_ptr() for t in fresh), *(t.data_ptr() for t in sched), out.data_ptr(),
+        layer, B, hq, hkv, S, cores, sc._per_core(sched, S), J, float(D ** -0.5),
+        _build.stream_ptr(out))
+    if err:
+        raise RuntimeError(f"parent K11d: CUDA error {err}")
+
+
+def ab_lanes(lib, gen, rounds: int, kernel: str) -> list[dict]:
+    """K11c or K11d at ``chip_smoke.LANES_GRID`` (per-lane ends, an idle
+    lane; the skewed case one lane at S and the rest at the prompt bucket):
+    parent and change held to the plain version and compared bit for bit,
+    timed in turns by device time on a cold cache, with K2 on the same
+    inputs and clamped prompt lengths.  K11d runs its schedule built
+    beforehand, as the micro-bench builds it once per pass."""
     import torch
 
     from chip_smoke import (LANES_GRID, PEAK_HBM_GBPS, _close, attention_bound, cold_note,
                             lanes_case)
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5 as h5
+    from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_sched as sc
 
     rows = []
     for B, S, skew in LANES_GRID:
@@ -890,61 +910,65 @@ def ab_lanes(lib, gen, rounds: int) -> list[dict]:
         clamped = plen.clamp(1, pb)
         fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
         hq, hkv = c["q"].shape[1], c["kall"].shape[2]
-        block_p = h5.prompt_block(pb, S)
-        blocks = min(B * hkv, da._sm_count(c["q"].device))
-        tiles = [t for t in h5.lane_tiles(plen, dend, pb, S) for _ in range(hkv)]
-        loads = [sum(tiles[b:e]) for b, e in h5.tile_ranges(tiles[::hkv], hkv, blocks)]
+        sms = da._sm_count(c["q"].device)
+        if kernel == "K11c":
+            block_p = h5.prompt_block(pb, S)
+            blocks = min(B * hkv, sms)
+            grid = f"{blocks} blocks, {B * hkv / blocks:.2f} pairs a block"
 
-        def parent(layer):
-            out = torch.empty_like(c["q"])
-            run_parent_stream(lib, "K11c", fresh, clamped, out, layer, B, S, pb, dend, block_p,
-                              0)
-            return out
+            def parent(layer):
+                out = torch.empty_like(c["q"])
+                run_parent_stream(lib, "K11c", fresh, clamped, out, layer, B, S, pb, dend,
+                                  block_p, 0)
+                return out
 
-        arms = {
-            "parent": parent,
-            "change": lambda layer: h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb),
-            "equal": lambda layer: h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb,
-                                                            balanced=False),
-            "k2": lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb),
-        }
+            def change(layer):
+                return h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
+        else:
+            cores, per_core = sc.schedule_geometry(B, hkv, sms)
+            sched = sc.build_decode_schedule(plen, dend, pb, S, cores, per_core, B)
+            grid = f"cores={cores} per_core={per_core}"
+
+            def parent(layer):
+                out = torch.empty_like(c["q"])
+                run_parent_sched(lib, fresh, sched, out, layer, B, S)
+                return out
+
+            def change(layer):
+                return sc.decode_attention_sched(*fresh, layer, plen, dend, pb,
+                                                 schedule=sched)
+
+        arms = {"parent": parent, "change": change,
+                "k2": lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb)}
         layer = c["L"] - 1
-        out, eout, pout = arms["change"](layer), arms["equal"](layer), parent(layer)
+        out, pout = change(layer), parent(layer)
         ref = da.decode_attention_plain(
             c["q"].float(), c["kall"][layer:layer + 1].float(),
             c["vall"][layer:layer + 1].float(), c["k_new"].float(), c["v_new"].float(), 0,
             clamped, dend, pb, D ** -0.5)
-        err = _close(f"K11c B={B} S={S}", out, ref, 2e-2, 2e-2)
-        perr = _close(f"parent K11c B={B} S={S}", pout, ref, 2e-2, 2e-2)
-        same, same_eq = torch.equal(out, pout), torch.equal(out, eout)
+        err = _close(f"{kernel} B={B} S={S}", out, ref, 2e-2, 2e-2)
+        perr = _close(f"parent {kernel} B={B} S={S}", pout, ref, 2e-2, 2e-2)
+        same = torch.equal(out, pout)
         diff = (out.float() - pout.float()).abs().max().item()
-        del out, eout, pout, ref
+        del out, pout, ref
         times = stream_turns(arms, c["L"], rounds)
         b, call_bytes = attention_bound(B, hq, hkv, int(clamped.sum() + (dend - pb).sum()),
                                         2 * D)
-        cm, em, pm, km = (statistics.median(times[k]) for k in ("change", "equal", "parent", "k2"))
+        cm, pm, km = (statistics.median(times[k]) for k in ("change", "parent", "k2"))
 
         def share(ms):
             return f"{call_bytes / (ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}"
 
-        per = -(-B * hkv // blocks)
-        print(f"K11c B={B} S={S} {'one lane at S' if skew else 'random ends'} ({blocks} blocks; "
-              f"balanced: tiles a block max {max(loads)} / mean {sum(loads) / blocks:.1f}, "
-              f"equal runs of "
-              f"{per} pairs: max {max(sum(tiles[i:i + per]) for i in range(0, len(tiles), per))}; "
+        print(f"{kernel} B={B} S={S} {'one lane at S' if skew else 'random ends'} ({grid}; "
               f"{cold_note(c['L'], call_bytes)}): change {cm:.4f} ms {_ms_list(times['change'])}, "
-              f"equal runs {em:.4f} ms {_ms_list(times['equal'])}, parent {pm:.4f} ms "
-              f"{_ms_list(times['parent'])}, K2 {km:.4f} ms {_ms_list(times['k2'])} device time; "
-              f"parent/change {pm / cm:.2f}x, equal/balanced {em / cm:.3f}, change/K2 "
+              f"parent {pm:.4f} ms {_ms_list(times['parent'])}, K2 {km:.4f} ms "
+              f"{_ms_list(times['k2'])} device time; parent/change {pm / cm:.2f}x, change/K2 "
               f"{cm / km:.2f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); HBM peak share "
-              f"change {share(cm)}, equal {share(em)}, parent {share(pm)}, K2 {share(km)}; err "
-              f"{err:.3e} / parent {perr:.3e}; bit-identical to the parent: {same} (max |diff| "
-              f"{diff:.3e}), balanced to equal: {same_eq}")
-        rows.append({"kernel": "K11c", "B": B, "S": S, "skew": skew, "blocks": blocks,
-                     "max_tiles_a_block": max(loads), "layers": c["L"], "max_abs_err": err,
-                     "parent_max_abs_err": perr, "bit_identical": same,
-                     "balanced_equals_equal": same_eq, "max_diff_vs_parent": diff,
-                     "ms": times["change"], "equal_ms": times["equal"],
+              f"change {share(cm)}, parent {share(pm)}, K2 {share(km)}; err {err:.3e} / parent "
+              f"{perr:.3e}; bit-identical to the parent: {same} (max |diff| {diff:.3e})")
+        rows.append({"kernel": kernel, "B": B, "S": S, "skew": skew, "layers": c["L"],
+                     "max_abs_err": err, "parent_max_abs_err": perr, "bit_identical": same,
+                     "max_diff_vs_parent": diff, "ms": times["change"],
                      "parent_ms": times["parent"], "k2_ms": times["k2"], **b})
         del c, fresh
         torch.cuda.empty_cache()
@@ -959,7 +983,8 @@ AB = {"K1": ab_flash, "K11e": ab_conv, "K9": ab_qmm, "K10": ab_w8a8,
       "K5": ab_span,
       "K11a": lambda lib, gen, rounds: ab_stream(lib, gen, rounds, "K11a"),
       "K11b": lambda lib, gen, rounds: ab_stream(lib, gen, rounds, "K11b"),
-      "K11c": ab_lanes}
+      "K11c": lambda lib, gen, rounds: ab_lanes(lib, gen, rounds, "K11c"),
+      "K11d": lambda lib, gen, rounds: ab_lanes(lib, gen, rounds, "K11d")}
 
 
 def main() -> int:
