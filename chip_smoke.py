@@ -32,8 +32,9 @@ failure raises and the script exits non-zero):
      the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
      output; K11c and K11d, decode attention with per-lane decode ends and
      an idle lane, at K2's shapes and B=6, and at B=96 with one lane at S:
-     as K2, with K2's time beside theirs, and K11c, at one end for every
-     lane, bit-identical to K11b; the fused stores, K3 and K3-int8 in
+     as K2, with K2's time beside theirs, K11c, at one end for every
+     lane, bit-identical to K11b, and K11d bit-identical to K11c on the
+     same inputs, with K11c's time beside; the fused stores, K3 and K3-int8 in
      K2/K4 and K8 in K6/K7 (a call with a write target), at every
      ``DECODE_GRID`` and ``PAGED_GRID`` shape and at the clamp case (every
      decode end S, write slot S - 1): the output bit-identical to the call
@@ -855,11 +856,13 @@ def check_decode_lanes(gen, kind: str) -> dict:
     shapes plus B=6, with per-lane decode ends and an idle lane (prompt_len
     0, clamped to 1 as the TPU kernels do) where B > 1, and B=96 with one
     lane at S, against the module's plain version in float32 (atol 2e-2 +
-    rtol 2e-2, as K2).  K11c also bit for bit: with every end set to one
-    value and the prompt lengths clamped to >= 1, against K11b.  Times on a
-    cold cache: the kernel (K11d with its schedule built beforehand, as the
-    micro-bench builds it once per pass) and K2 on the same inputs and
-    clamped prompt lengths by device time, the plain version host-paced."""
+    rtol 2e-2, as K2).  Also bit for bit: K11c, with every end set to one
+    value and the prompt lengths clamped to >= 1, against K11b; K11d against
+    K11c on the same inputs (one stream, the same tiles).  Times on a cold
+    cache: the kernel (K11d with its schedule built beforehand, as the
+    micro-bench builds it once per pass), K2 on the same inputs and clamped
+    prompt lengths (and K11c beside K11d) by device time, the plain version
+    host-paced; the bound's share of the kernel's time."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import decode_attention as da
@@ -878,20 +881,20 @@ def check_decode_lanes(gen, kind: str) -> dict:
         clamped = plen.clamp(1, pb)
         fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
         layer = c["L"] - 1
+        blocks = min(B * 8, sms)
+        ranges = "tile-balanced ranges" if B * 8 > blocks else "one pair each"
         if kind == "hbm5":
             def kernel(layer):
                 return h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
 
             def plain(*t):
                 return da.decode_attention_plain(*t, 0, clamped, dend, pb, scale)
-            blocks = min(B * 8, sms)
             mid = pb + (S - pb) // 2
             same_end = (h5.decode_attention_hbm5(*fresh, layer, clamped,
                                                  torch.full_like(plen, mid), pb),
                         h3.decode_attention_hbm3(*fresh, layer, clamped, mid, pb))
             extra = (f"block_p={h5.prompt_block(pb, S)}, {blocks} blocks, "
-                     f"{B * 8 / blocks:.2f} pairs a block "
-                     f"({'tile-balanced ranges' if B * 8 > blocks else 'one pair each'}); "
+                     f"{B * 8 / blocks:.2f} pairs a block ({ranges}); "
                      f"equal ends = K11b bit for bit")
             if not torch.equal(*same_end):
                 raise AssertionError(f"{label} B={B} S={S}: equal ends not bit-identical to "
@@ -907,11 +910,18 @@ def check_decode_lanes(gen, kind: str) -> dict:
 
             def plain(*t):
                 return sc.decode_attention_sched_plain(*t, 0, sched, scale)
+
+            def k11c(layer):
+                return h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
             build_ms = cuda_ms(lambda: sc.build_decode_schedule(
                 plen, dend, pb, S, cores, per_core, B))
-            extra = f"cores={cores} per_core={per_core}, schedule build {build_ms:.4f} ms"
+            k11c_ms = attention_ms(k11c, c["L"])[0]
+            extra = (f"cores={cores} per_core={per_core}, {blocks} blocks ({ranges}), "
+                     f"schedule build {build_ms:.4f} ms; K11c bit for bit, {k11c_ms:.4f} ms")
         out = kernel(layer)
         torch.cuda.synchronize()
+        if kind == "sched" and not torch.equal(out, k11c(layer)):
+            raise AssertionError(f"{label} B={B} S={S}: not bit-identical to K11c")
         one = (c["kall"][layer:layer + 1], c["vall"][layer:layer + 1])
         ref = plain(c["q"].float(), one[0].float(), one[1].float(), c["k_new"].float(),
                     c["v_new"].float())
@@ -928,9 +938,9 @@ def check_decode_lanes(gen, kind: str) -> dict:
               f"({extra}): max_abs_err={err:.3e} kernel {ms:.4f} ms device time "
               f"({cold_note(c['L'], call_bytes)}; host-paced {host_ms:.4f} ms), K2 "
               f"{k2_ms:.4f} ms (host-paced {k2_host:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {gbps:.0f} GB/s = "
-              f"{gbps / PEAK_HBM_GBPS:.1%} of the HBM peak (K2 "
-              f"{call_bytes / (k2_ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%})")
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) = {b['bound_ms'] / ms:.1%} of the "
+              f"kernel's time; {gbps:.0f} GB/s = {gbps / PEAK_HBM_GBPS:.1%} of the HBM peak "
+              f"(K2 {call_bytes / (k2_ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%})")
         worst = max(worst, err)
         times.append((B, S, {"ms": ms, "plain_ms": plain_ms, **b}))
         del c, fresh, one

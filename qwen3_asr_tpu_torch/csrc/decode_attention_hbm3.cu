@@ -22,7 +22,7 @@ namespace {
 template <int G>
 __global__ void __launch_bounds__(pstream::kBlockThreads)
     decode_hbm3_kernel(dstream::Args a, int per) {
-  pstream::run_stream<G, false>(a, nullptr, per);
+  pstream::run_stream<G, false, const int*>(a, nullptr, per);
 }
 
 template <int G>

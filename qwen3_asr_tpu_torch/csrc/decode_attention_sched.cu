@@ -2,37 +2,43 @@
 //
 // Replaces qwen3_asr_tpu/ops/pallas/experiments/decode_attention_sched.py:
 // decode_attention_sched (:280; kernel _kernel :146, pallas_call :360).
-// Tile loads, online softmax, self-term and numerics: decode_stream.cuh.
+// Shapes, masking, tiles and numerics: decode_pair_stream.cuh, with each
+// lane's geometry read from the schedule.
 //
 // The schedule (build_decode_schedule, :70, ported in plain torch) lists for
 // each "core" c its 128-row blocks in lane order: entry j < totals[c] is
 // lane c * per_core + bl[c, j], cache rows [off, off + 128), valid while
-// row < lim, with first/last-of-lane flags.  The TPU kernel walks that list
-// in ONE loop with no on-the-fly discovery: prefetch entry j + NBUF - 1, wait
-// entry j, one tile update, reset the carry on FIRST, finalize on LAST.
+// row < lim, with first/last-of-lane flags.  A lane's entries are two runs:
+// its prompt blocks from row 0, each with lim = prompt_len (clamped to [1,
+// pb]), then its decode blocks from row pb, each with lim = decode_end
+// (clamped to [pb, S]).  The TPU kernel walks the list in ONE loop with no
+// on-the-fly discovery; its grid is the cores.
 //
-// Here one CUDA block owns one (core, KV head) and walks the same list as
-// four 32-row tiles per entry through a 6-stage cp.async ring (the TPU ring
-// is 6 deep, :61; a stage is a 32-row K + V tile, 16 KB, so 96 KB a block
-// and two blocks per SM).  A 32-row tile never straddles two entries, so the
-// mask is the single compare row < lim of the tile's entry; the state is
-// reset on the FIRST entry's first tile and finalized (self-term, 1 / l) as
-// the LAST entry's last tile drains.  A lane never straddles two blocks, so
-// there is no combine pass.  How many cores share the list is the wrapper's
-// choice for the H100 (enough (core, KV head) blocks to fill the SMs), not
-// the TPU's 2.
+// Here the grid is the card's: up to one block per SM, the (lane, KV head)
+// pairs balanced over the blocks by tiles, as K11c (decode_pair_stream.cuh's
+// persistent stream; cores and per_core only say how the list is laid
+// out).  Each block first reads every lane's two runs from the list into
+// shared memory (read_runs: one pass over the entries by all threads, no
+// host sync): the prompt run below the lim of the lane's FIRST entry, and
+// the decode run from the off of the one entry whose lim differs from its
+// predecessor's (the decode end exceeds the prompt bucket, which bounds the
+// prompt length) below that lim.  The stream then walks cdiv(plen, 32)
+// prompt tiles from row 0 and cdiv(dend - pb, 32) decode tiles from pb: the
+// 32-row tiles of the lane's entries whose first row is below the entry's
+// lim, the same tiles in the same order, so the output is bit for bit that
+// of a walk over every tile of every entry (masked tiles weigh exactly 0),
+// and K11c's on the schedule's lengths.  A lane no FIRST entry names gets
+// its fresh row alone.  The runs are clamped into [0, S) and to whole
+// tiles, so a malformed list reads no row outside the lane's cache.
 //
-// Bound on the H100: bytes (the valid rows' K and V, read once).  The walk
-// also reads the masked tail of each lane's last prompt and decode block.
-#include "decode_stream.cuh"
+// Bound on the H100: bytes (the valid rows' K and V, read once).
+#include "decode_pair_stream.cuh"
 
 namespace {
 
-constexpr int kStages = 6;
-constexpr int kBlock = 128;                               // rows per entry
-constexpr int kTilesPerEntry = kBlock / dstream::kTile;   // 4
+constexpr int kBlock = 128;      // rows per entry
+constexpr int kMaxLanes = 1024;  // lanes whose runs fit the block's table
 constexpr int kFirst = 1;
-constexpr int kLast = 2;
 
 struct Schedule {
   const int* totals;   // (cores,)
@@ -40,71 +46,52 @@ struct Schedule {
   const int* off;
   const int* lim;
   const int* flags;
-  int J, per_core;
+  int cores, J, per_core;
 };
 
-template <int G>
-__global__ void __launch_bounds__(dstream::kThreads)
-    decode_sched_kernel(dstream::Args a, Schedule s) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ dstream::Shared<G> sh;
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto kbuf = [&](int stage) { return ring + stage * 2 * dstream::kTileElems; };
-  auto vbuf = [&](int stage) {
-    return ring + stage * 2 * dstream::kTileElems + dstream::kTileElems;
-  };
-
-  const int core = blockIdx.x / a.Hkv;
-  const int hk = blockIdx.x - core * a.Hkv;
-  const int64_t e0 = (int64_t)core * s.J;           // this core's row of entries
-  const int n_tiles = min(max(s.totals[core], 0), s.J) * kTilesPerEntry;
-  auto lane_of = [&](int t) { return core * s.per_core + s.bl[e0 + t / kTilesPerEntry]; };
-  auto row_of = [&](int t) {
-    return s.off[e0 + t / kTilesPerEntry] + (t % kTilesPerEntry) * dstream::kTile;
-  };
-  auto issue = [&](int t) {
-    if (t < n_tiles) {
-      const int stage = t % kStages;
-      dstream::load_rows(a, lane_of(t), hk, row_of(t), kbuf(stage), vbuf(stage));
-    }
-    gemm::cp_async_commit();
-  };
-
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) issue(t);
-
-  dstream::State<G> st;
-  for (int t = 0; t < n_tiles; ++t) {
-    gemm::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    issue(t + kStages - 1);   // the stage consumed at t - 1: all threads are past it
-    const int e = t / kTilesPerEntry;
-    const int sub = t - e * kTilesPerEntry;
-    const int flags = s.flags[e0 + e];
-    const int lim = s.lim[e0 + e];
-    dstream::Pair p;
-    p.b = lane_of(t);
-    p.hk = hk;
-    const bool live = p.b >= 0 && p.b < a.B;
-    if (sub == 0 && (flags & kFirst) && live) dstream::start_pair<G>(a, p, st);
-    const int stage = t % kStages;
-    dstream::fold_tile<G>(row_of(t), [&](int row) { return row < lim; }, kbuf(stage),
-                          vbuf(stage), st, sh);
-    if (sub == kTilesPerEntry - 1 && (flags & kLast) && live) {
-      dstream::finish_pair<G>(a, p, st, sh);
+// Every lane's runs from the schedule's live entries, into runs[0, B); all
+// threads of the block.
+__device__ __forceinline__ void read_runs(const dstream::Args& a, const Schedule& s,
+                                          pstream::LaneRuns* runs) {
+  for (int b = threadIdx.x; b < a.B; b += blockDim.x) {
+    runs[b] = pstream::LaneRuns{0, a.S, a.S};
+  }
+  __syncthreads();
+  const int n = s.cores * s.J;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int c = i / s.J;
+    const int j = i - c * s.J;
+    const int total = s.totals[c];
+    const int bl = s.bl[i];
+    const int flags = s.flags[i];
+    const int lim = s.lim[i];
+    const int prev = s.lim[i - (j > 0)];
+    const int off = s.off[i];
+    const int b = c * s.per_core + bl;
+    if (j >= total || bl < 0 || bl >= s.per_core || b >= a.B) continue;
+    if (flags & kFirst) {
+      runs[b].plen = min(max(lim, 0), a.S);
+    } else if (j > 0 && lim != prev) {
+      const int pb = min(max(off, 0), a.S) / dstream::kTile * dstream::kTile;
+      runs[b].pb = pb;
+      runs[b].dend = min(max(lim, pb), a.S);
     }
   }
-  gemm::cp_async_wait<0>();
+  __syncthreads();
 }
 
 template <int G>
-int launch(const dstream::Args& a, const Schedule& s, int cores, cudaStream_t stream) {
-  constexpr int bytes = dstream::ring_bytes(kStages);
+__global__ void __launch_bounds__(pstream::kBlockThreads)
+    decode_sched_kernel(dstream::Args a, Schedule s) {
+  __shared__ pstream::LaneRuns runs[kMaxLanes];
+  read_runs(a, s, runs);
+  pstream::run_stream<G, true, const pstream::LaneRuns*>(a, runs, 1);
+}
+
+template <int G>
+int launch(const dstream::Args& a, const Schedule& s, int blocks, cudaStream_t stream) {
   static bool smem_ok = false;
-  cudaError_t err = gemm::allow_smem(decode_sched_kernel<G>, bytes, smem_ok);
-  if (err != cudaSuccess) return (int)err;
-  decode_sched_kernel<G><<<cores * a.Hkv, dstream::kThreads, bytes, stream>>>(a, s);
-  return (int)cudaGetLastError();
+  return pstream::launch(decode_sched_kernel<G>, smem_ok, blocks, stream, a, s);
 }
 
 }  // namespace
@@ -113,15 +100,17 @@ int launch(const dstream::Args& a, const Schedule& s, int cores, cudaStream_t st
 // 128), out (B, Hq, 128) bf16; the schedule's totals (cores,) and bl, off,
 // lim, flags (cores, J) int32, built for this S and per_core lanes a core;
 // all contiguous on the device.  S is a multiple of 128; Hq / Hkv is 1, 2
-// or 4.  Lanes no entry names keep whatever out held.  Returns the launch's
-// cudaError_t.
+// or 4; B <= 1024; blocks >= 1 (the wrapper's: min(B Hkv, SM count)).
+// Returns the launch's cudaError_t.
 extern "C" int decode_attention_sched_bf16(
     const void* q, const void* kall, const void* vall, const void* k_new,
     const void* v_new, const void* totals, const void* bl, const void* off,
     const void* lim, const void* flags, void* out, int layer, int B, int Hq,
-    int Hkv, int S, int cores, int per_core, int J, float scale, void* stream) {
-  if (B == 0 || cores == 0) return (int)cudaSuccess;
-  if (Hkv <= 0 || Hq % Hkv || S % kBlock || cores < 0 || per_core < 1 || J < 0) {
+    int Hkv, int S, int cores, int per_core, int J, int blocks, float scale,
+    void* stream) {
+  if (B == 0) return (int)cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv || S % kBlock || B > kMaxLanes || cores < 0 || per_core < 1 ||
+      J < 0 || blocks < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const dstream::Args a = dstream::make_args(q, kall, vall, k_new, v_new, nullptr, out,
@@ -132,13 +121,14 @@ extern "C" int decode_attention_sched_bf16(
   s.off = static_cast<const int*>(off);
   s.lim = static_cast<const int*>(lim);
   s.flags = static_cast<const int*>(flags);
+  s.cores = cores;
   s.J = J;
   s.per_core = per_core;
   cudaStream_t st = (cudaStream_t)stream;
   switch (Hq / Hkv) {
-    case 1: return launch<1>(a, s, cores, st);
-    case 2: return launch<2>(a, s, cores, st);
-    case 4: return launch<4>(a, s, cores, st);
+    case 1: return launch<1>(a, s, blocks, st);
+    case 2: return launch<2>(a, s, blocks, st);
+    case 4: return launch<4>(a, s, blocks, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,40 +1,50 @@
 // The persistent (lane, KV head) stream of one-token decode attention over
 // the layer-stacked cache: K11a (decode_attention_hbm2.cu), K11b
-// (decode_attention_hbm3.cu) and K11c (decode_attention_hbm5.cu) each launch
-// a kernel of their own that runs run_stream below.
+// (decode_attention_hbm3.cu), K11c (decode_attention_hbm5.cu) and K11d
+// (decode_attention_sched.cu) each launch a kernel of their own that runs
+// run_stream below.
 //
 // Function.  q (B, Hq, 128); kall/vall (L, B, Hkv, S, 128); k_new/v_new (B,
-// Hkv, 1, 128), all bf16; prompt_len (B,) int32.  Cache row s of lane b is
-// valid when s < plen[b] or pb <= s < dend[b], and the fresh row is folded
-// in as a self-term.  Two kinds of ends (kLane):
-//   * one decode end for every lane (Args::dend, K11a and K11b), prompt
-//     lengths clamped to [0, pb]: a lane with prompt_len 0 and dend == pb
-//     has no valid row and yields v_new;
-//   * per-lane ends (K11c), each clamped to [pb, S], and prompt lengths
-//     clamped to [1, pb], as the TPU kernel clamps them so that every lane
-//     owns a block: an idle lane attends row 0 and its fresh row.
+// Hkv, 1, 128), all bf16.  Cache row s of lane b is valid when s < plen[b]
+// or pb <= s < dend[b], and the fresh row is folded in as a self-term.  Each
+// entry point says where a pair finds its lane's geometry (the stream's
+// kLane and ends arguments, span_of below):
+//   * one decode end for every lane (Args::dend; K11a and K11b), prompt
+//     lengths (Args::prompt_len) and Args::pb: prompt lengths clamped to
+//     [0, pb], so a lane with prompt_len 0 and dend == pb has no valid row
+//     and yields v_new;
+//   * per-lane ends (kLane, ends the (B,) decode ends; K11c), each clamped
+//     to [pb, S], and prompt lengths clamped to [1, pb], as the TPU kernel
+//     clamps them so that every lane owns a block: an idle lane attends row
+//     0 and its fresh row;
+//   * per-lane runs (kLane, ends a table of LaneRuns; K11d): each lane's
+//     plen, pb and dend as K11d reads them from its block schedule
+//     (decode_attention_sched.cu).
 //
 // Numerics follow the TPU kernels, not K2 (decode_attention_hbm2.py :160,
-// :65, :79-126), and every tile's arithmetic is decode_stream.cuh's fold_tile
-// operation for operation, so that the output is bit-identical to the
-// port's earlier cp.async kernels: the same 32-row tiles; q * scale rounded
-// to bf16; the score of a row as 16 fmaf chains of 8 elements summed by the
-// xor tree 8, 4, 2, 1, masked to -0.7 * FLT_MAX (selected, not added); the
+// :65, :79-126), and every tile's arithmetic is that of the port's cp.async
+// kernels of commit f0ebdf1 (decode_stream.cuh's fold_tile and finish_pair
+// there), operation for operation, so that the output is bit-identical to
+// theirs: 32-row tiles; q * scale rounded to bf16; the score of a row as 16
+// fmaf chains of 8 elements summed by the xor tree 8, 4, 2, 1, masked to
+// -0.7 * FLT_MAX (selected, not added: a masked row may hold inf); the
 // tile's max, exponentials and the xor-tree sum 16 .. 1 over its 32 rows; p
 // rounded to bf16 before P.V, one fmaf chain over the tile's rows in order
 // per output element; then l = alpha l + sum and acc = acc alpha + pv, tile
-// after tile; the self-term score the bf16-rounded products q * k_new summed
-// in f32; l == 0 -> 1; the output rounded once to bf16.  The folds are
-// written as the fused products the cp.async kernels' compiler formed from
-// their a * b + c (for the self-term's acc alpha + p_self vn: p_self vn
-// fused, acc alpha rounded), so that the bits do not hang on which product
-// a compiler chooses to fuse.
+// after tile; the self-term score the bf16-rounded products q * k_new,
+// reduced over four groups of 32 elements by the xor tree 16 .. 1 and the
+// four sums added in order from 0, in f32; l == 0 -> 1; the output rounded
+// once to bf16.  The folds are written as the fused products that commit's
+// compiler formed from their a * b + c (for the self-term's acc alpha +
+// p_self vn: p_self vn fused, acc alpha rounded), so that the bits do not
+// hang on which product a compiler chooses to fuse.
 //
 // Schedule (the card's, not the TPU grid's):
 //   * the grid is up to one block per SM, and each block owns a contiguous
 //     range of pairs (pair = b Hkv + hk): `per` pairs each (the wrappers'
-//     stream_grid; per-lane launches pass 1), or, for per-lane ends with
-//     more pairs than blocks, a range balanced by tiles (block_range below);
+//     stream_grid; per-lane launches pass 1), or, for per-lane geometry
+//     with more pairs than blocks, a range balanced by tiles (block_range
+//     below);
 //   * a producer warp streams the block's tiles, across pair boundaries, by
 //     1-D bulk copies (a tile's 32 K rows and 32 V rows are contiguous) into
 //     a kStages-deep mbarrier ring (decode_split.cuh's ring protocol);
@@ -52,8 +62,9 @@
 //     scores would all be the mask value, weigh expf(mask - m) = 0 and leave
 //     l, acc and m as they were, so skipping leaves the output bit for bit
 //     that of a walk over whole blocks (the TPU's block_k / block_p, which
-//     then decide nothing but the input check) or over a group's largest
-//     geometry (K11c's TPU walk).
+//     then decide nothing but the input check), over a group's largest
+//     geometry (K11c's TPU walk) or over every tile of a schedule's 128-row
+//     entries (K11d's).
 //
 // Bound on the H100: bytes (one FMA per element read for each of the G
 // heads).  A tile is 16 KB; the ring keeps up to kStages of them in flight
@@ -62,6 +73,7 @@
 
 #include "decode_split.cuh"
 #include "decode_stream.cuh"
+#include "gemm_tiles.cuh"
 
 namespace pstream {
 
@@ -91,6 +103,13 @@ struct Span {
   int b, hk, plen, dend, n_prompt, n;
 };
 
+// A lane's geometry as K11d reads it from its block schedule
+// (decode_attention_sched.cu): prompt rows [0, plen), decode rows [pb,
+// dend), each already clamped.
+struct LaneRuns {
+  int plen, pb, dend;
+};
+
 // ends: the (B,) per-lane decode ends when kLane, else unused.
 template <bool kLane>
 __device__ __forceinline__ Span span_of(const Args& a, const int* ends, int pair) {
@@ -104,21 +123,42 @@ __device__ __forceinline__ Span span_of(const Args& a, const int* ends, int pair
   return s;
 }
 
-__device__ __forceinline__ int row0_of(const Args& a, const Span& s, int t) {
-  return t < s.n_prompt ? t * kTile : a.pb + (t - s.n_prompt) * kTile;
+// runs: the block's table of every lane's runs (kLane).
+template <bool kLane>
+__device__ __forceinline__ Span span_of(const Args& a, const LaneRuns* runs, int pair) {
+  Span s;
+  s.b = pair / a.Hkv;
+  s.hk = pair - s.b * a.Hkv;
+  const LaneRuns r = runs[s.b];
+  s.plen = r.plen;
+  s.dend = r.dend;
+  s.n_prompt = (s.plen + kTile - 1) / kTile;
+  s.n = s.n_prompt + (s.dend - r.pb + kTile - 1) / kTile;
+  return s;
+}
+
+// The first decode row of a pair's lane: the launch's, or its own run's.
+__device__ __forceinline__ int pb_of(const Args& a, const int*, const Span&) { return a.pb; }
+__device__ __forceinline__ int pb_of(const Args&, const LaneRuns* runs, const Span& s) {
+  return runs[s.b].pb;
+}
+
+template <typename Ends>
+__device__ __forceinline__ int row0_of(const Args& a, Ends ends, const Span& s, int t) {
+  return t < s.n_prompt ? t * kTile : pb_of(a, ends, s) + (t - s.n_prompt) * kTile;
 }
 
 // Tile t of pair `pair` of the block's stream [.., end).
-template <bool kLane>
+template <bool kLane, typename Ends>
 struct Cursor {
   int pair, t;
   Span s;
-  __device__ Cursor(const Args& a, const int* ends, int begin, int end, int skip)
+  __device__ Cursor(const Args& a, Ends ends, int begin, int end, int skip)
       : pair(begin), t(0) {
     if (pair < end) s = span_of<kLane>(a, ends, pair);
     advance(a, ends, end, skip);
   }
-  __device__ void advance(const Args& a, const int* ends, int end, int n) {
+  __device__ void advance(const Args& a, Ends ends, int end, int n) {
     t += n;
     while (pair < end && t >= s.n) {
       t -= s.n;
@@ -144,14 +184,15 @@ __device__ __forceinline__ int pairs_below(int64_t first, int t, int Hkv, int nb
   return (int)min((int64_t)Hkv, (r + step - 1) / step);
 }
 
-// The tile-balanced range [begin, end) of block blk of nblk (per-lane ends):
+// The tile-balanced range [begin, end) of block blk of nblk (per-lane ends
+// or runs):
 // the stream's T tiles, pairs in order, cut into nblk equal shares, and the
 // block takes the pairs whose first tile lies in its share, [blk T / nblk,
 // (blk + 1) T / nblk).  Pairs stay whole and in order, so a block's tiles are
 // at most its share plus one pair's.  One warp: the lanes' tile counts are
 // summed, then scanned 32 lanes at a time.
-__device__ __forceinline__ int2 block_range(const Args& a, const int* ends, int blk,
-                                            int nblk) {
+template <typename Ends>
+__device__ __forceinline__ int2 block_range(const Args& a, Ends ends, int blk, int nblk) {
   const int lane = threadIdx.x % 32;
   int total = 0;
   for (int b = lane; b < a.B; b += 32) total += span_of<true>(a, ends, b * a.Hkv).n;
@@ -192,9 +233,9 @@ __device__ __forceinline__ void unpack4(const uint2& raw, float (&out)[4]) {
 
 // The pair's G output rows from its running state (m, l, and acc of the
 // lane's elements 4 lane .. 4 lane + 3): the self-term q . k_new, reduced as
-// decode_stream.cuh's finish_pair reduces it (four warps of 32 elements,
-// each by the xor tree, then summed in warp order from 0), folded in, then
-// 1 / l.  One warp.
+// in the header's numerics (four groups of 32 elements, each by the xor
+// tree, then summed in order from group 0), folded in, then 1 / l.  One
+// warp.
 template <int G>
 __device__ __forceinline__ void finish(const Args& a, const Span& s, const float (&m)[G],
                                        const float (&l)[G], const float (&acc)[G][4]) {
@@ -237,10 +278,10 @@ __device__ __forceinline__ void finish(const Args& a, const Span& s, const float
 
 // The body of each entry point's kernel (kBlockThreads threads, kRingBytes
 // of dynamic shared memory).  Block blockIdx.x streams pairs [blockIdx.x
-// per, + per), or, with per-lane ends and more pairs than blocks, its
-// block_range.
-template <int G, bool kLane>
-__device__ __forceinline__ void run_stream(const Args& a, const int* ends, int per) {
+// per, + per), or, with per-lane ends or runs and more pairs than blocks,
+// its block_range.
+template <int G, bool kLane, typename Ends>
+__device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ uint64_t full[kStages], empty[kStages];
   // The tile-to-tile hand-offs: slot j % 2 holds tile j's values; m_bar[j %
@@ -286,12 +327,12 @@ __device__ __forceinline__ void run_stream(const Args& a, const int* ends, int p
 
   if (warp == kWarps) {
     if (lane == 0) {
-      Cursor<kLane> c(a, ends, begin, end, 0);
+      Cursor<kLane, Ends> c(a, ends, begin, end, 0);
       for (int j = 0; c.pair < end; ++j, c.advance(a, ends, end, 1)) {
         decode_split::ring_reserve<kStages>(empty, j);
         uint8_t* stage = ring + (j % kStages) * kStageBytes;
         const int64_t row0 =
-            (((int64_t)a.layer * a.B + c.s.b) * a.Hkv + c.s.hk) * a.S + row0_of(a, c.s, c.t);
+            (((int64_t)a.layer * a.B + c.s.b) * a.Hkv + c.s.hk) * a.S + row0_of(a, ends, c.s, c.t);
         hopper::mbar_arrive_expect_tx(&full[j % kStages], kStageBytes);
         hopper::bulk_load(stage, a.kall + row0 * kD, kTileBytes, &full[j % kStages]);
         hopper::bulk_load(stage + kTileBytes, a.vall + row0 * kD, kTileBytes,
@@ -319,7 +360,7 @@ __device__ __forceinline__ void run_stream(const Args& a, const int* ends, int p
 
   float qf[G][dstream::kPerThread];   // bf16(q * scale), elements sub * 8 .. + 7
   int q_pair = -1;
-  Cursor<kLane> c(a, ends, begin, end, warp);
+  Cursor<kLane, Ends> c(a, ends, begin, end, warp);
   for (int j = warp; c.pair < end; j += kWarps, c.advance(a, ends, end, kWarps)) {
     const Span& s = c.s;
     if (c.pair != q_pair) {
@@ -335,7 +376,7 @@ __device__ __forceinline__ void run_stream(const Args& a, const int* ends, int p
     }
     const bool first = c.t == 0;
     const bool last = c.t == s.n - 1;
-    const int row0 = row0_of(a, s, c.t);
+    const int row0 = row0_of(a, ends, s, c.t);
     const uint8_t* kb = ring + (j % kStages) * kStageBytes;
     const uint8_t* vb = kb + kTileBytes;
     decode_split::ring_wait<kStages>(full, j);
@@ -349,7 +390,8 @@ __device__ __forceinline__ void run_stream(const Args& a, const int* ends, int p
       float kf[dstream::kPerThread];
       dstream::unpack8(*reinterpret_cast<const uint4*>(kb + r * kD * 2 + sub * 16), kf);
       const int row = row0 + r;
-      const bool ok = row < s.plen || (row >= a.pb && row < (kLane ? s.dend : a.dend));
+      const bool ok =
+          row < s.plen || (row >= pb_of(a, ends, s) && row < (kLane ? s.dend : a.dend));
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         float part = 0.f;

@@ -1,7 +1,7 @@
-// Building blocks shared by the cp.async kernels: the im2col gather of
-// conv_stem.cu (K11e) and the ring of decode_stream.cuh (K11d):
-// 16-byte cp.async copies into shared memory with zero fill, the group
-// commit/wait pair, and the dynamic shared-memory opt-in.
+// Small building blocks: for the im2col gather of conv_stem.cu (K11e),
+// 16-byte cp.async copies into shared memory with zero fill (completed on an
+// mbarrier); for K11e and the decode stream (decode_pair_stream.cuh,
+// K11a-K11d), the dynamic shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,16 +18,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Allow a kernel more than 48 KB of dynamic shared memory (once per kernel;

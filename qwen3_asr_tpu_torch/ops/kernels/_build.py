@@ -113,10 +113,10 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
     # q, kall, vall, k_new, v_new, totals, bl, off, lim, flags, out, layer, B,
-    # Hq, Hkv, S, cores, per_core, J, scale, stream
+    # Hq, Hkv, S, cores, per_core, J, blocks, scale, stream
     "decode_attention_sched_bf16": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
 }
 

@@ -21,11 +21,17 @@ K11a/K11b give such a lane its fresh row alone; the kernel, the plain
 version and the Pallas kernel here agree with each other.
 
 Bound on the H100: bytes.  The CUDA kernel (``csrc/decode_attention_sched.cu``
-over ``csrc/decode_stream.cuh``) gives each (core, KV head) one block that
-walks its core's list as 32-row tiles through a 6-stage ``cp.async`` ring,
-resetting the softmax state on a lane's first block and finalizing it on
-its last; the mask is the one compare ``row < lim``.  The number of cores is
-the H100's choice (:func:`schedule_geometry`), not the TPU's 2.
+over ``csrc/decode_pair_stream.cuh``) runs K11c's persistent stream, up to
+one block per SM with the (lane, KV head) pairs balanced over the blocks by
+tiles, and takes each lane's geometry from the schedule alone: every block
+first reads each lane's two runs from the live entries (prompt rows below
+the lim of its first entry, decode rows from the off of the entry whose lim
+differs from its predecessor's, below that lim), then walks their 32-row
+tiles, which are the tiles of the lane's entries whose first row is below
+the entry's lim.  So the output is K11c's, bit for bit, on the schedule's
+lengths.  ``cores`` and ``per_core`` (:func:`schedule_geometry`) say how the
+list is laid out, not the grid; the kernel's table of runs holds
+:data:`MAX_LANES` lanes.
 
 The plain version rebuilds each lane's validity mask from the schedule's
 live entries (rows ``[off, off + 128)`` of lane ``bl``, valid while ``row <
@@ -49,6 +55,8 @@ F_FIRST = 1
 F_LAST = 2
 #: SMs assumed for the schedule geometry of a CPU tensor (an H100's).
 H100_SMS = 132
+#: Lanes the CUDA kernel's shared table of runs holds.
+MAX_LANES = 1024
 
 
 def schedule_geometry(B: int, hkv: int, sm_count: int) -> tuple[int, int]:
@@ -214,6 +222,8 @@ def decode_attention_sched(
         scale = D ** -0.5
     if q.is_cuda:
         check(q, kall, vall, k_new, v_new, layer, prompt_len, BLOCK)
+        if B > MAX_LANES:
+            raise ValueError(f"batch {B} exceeds the kernel's {MAX_LANES} lanes")
     if schedule is None:
         sms = _sm_count(q.device) if q.is_cuda else H100_SMS
         cores, per_core = schedule_geometry(B, hkv, sms)
@@ -230,8 +240,8 @@ def decode_attention_sched(
     err = _build.library().decode_attention_sched_bf16(
         q.data_ptr(), kall.data_ptr(), vall.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), *(t.data_ptr() for t in schedule), out.data_ptr(),
-        int(layer), B, q.shape[1], hkv, S, cores, per_core, J, float(scale),
-        _build.stream_ptr(q),
+        int(layer), B, q.shape[1], hkv, S, cores, per_core, J,
+        min(B * hkv, _sm_count(q.device)), float(scale), _build.stream_ptr(q),
     )
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

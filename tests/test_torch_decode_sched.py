@@ -17,12 +17,20 @@ On the CPU:
     garbage (inf in dead K rows, finite values in dead V rows) does not leak
     into either plain version;
   * untileable shapes raise ValueError as in JAX, and the wrappers' input
-    checks reject bad types, shapes and devices.
+    checks reject bad types, shapes and devices;
+  * the schedule names exactly the tiles K11c's stream walks: for each lane,
+    the 32-row tiles of its entries whose first row is below the entry's
+    lim are cdiv(plen, 32) prompt tiles from row 0 and cdiv(dend - pb, 32)
+    decode tiles from pb (plen and dend clamped as K11c clamps them), and
+    the runs the CUDA kernel reads from the entries (its read_runs, mirrored
+    here) give the same tiles; a schedule built for other lengths decides
+    the plain version's output.
 
 Tests marked ``cuda`` hold each kernel against its plain version on the GPU
 (bf16 against the plain version in float32 over the same bf16 inputs: atol
 2e-2 + rtol 2e-2, K2's bound), K11c and K11b at equal ends bit for bit,
-and skip without one.
+K11d and K11c on the same inputs bit for bit (also on a schedule built for
+other lengths than the ones passed), and skip without one.
 """
 
 from __future__ import annotations
@@ -162,6 +170,99 @@ def test_schedule_mask_is_the_clamped_two_interval_mask():
     totals, bl, off, lim, flags = (t.clone() for t in sched)
     totals[1] -= 1
     assert not torch.equal(sc.schedule_mask((totals, bl, off, lim, flags), B, S), want)
+
+
+def _entry_tiles(schedule, B: int, S: int) -> list[list[int]]:
+    """Each lane's first rows of the 32-row tiles its live entries name, in
+    entry order: tile k of an entry counts when off + 32 k < lim."""
+    totals, bl, off, lim, _ = (t.numpy() for t in schedule)
+    per_core = sc._per_core(schedule, S)
+    tiles = [[] for _ in range(B)]
+    for c in range(bl.shape[0]):
+        for j in range(totals[c]):
+            b = c * per_core + bl[c, j]
+            tiles[b] += [off[c, j] + 32 * k for k in range(sc.BLOCK // 32)
+                         if off[c, j] + 32 * k < lim[c, j]]
+    return tiles
+
+
+def _kernel_runs(schedule, B: int, S: int) -> list[tuple[int, int, int]]:
+    """The (plen, pb, dend) of each lane as the CUDA kernel's read_runs
+    takes them from the live entries: plen the lim of the lane's FIRST
+    entry; pb and dend the off (down to a whole tile) and lim of the entry
+    whose lim differs from its predecessor's; (0, S, S) where none does."""
+    totals, bl, off, lim, flags = (t.numpy() for t in schedule)
+    per_core = sc._per_core(schedule, S)
+    runs = [[0, S, S] for _ in range(B)]
+    for c in range(bl.shape[0]):
+        for j in range(min(totals[c], bl.shape[1])):
+            b = c * per_core + bl[c, j]
+            if flags[c, j] & sc.F_FIRST:
+                runs[b][0] = min(max(lim[c, j], 0), S)
+            elif j > 0 and lim[c, j] != lim[c, j - 1]:
+                pb = min(max(off[c, j], 0), S) // 32 * 32
+                runs[b][1:] = [pb, min(max(lim[c, j], pb), S)]
+    return [tuple(r) for r in runs]
+
+
+def _stream_tiles(plen: int, pb: int, dend: int) -> list[int]:
+    """The tiles the stream walks for one lane: cdiv(plen, 32) from row 0,
+    then cdiv(dend - pb, 32) from pb."""
+    return [32 * i for i in range(-(-plen // 32))] + [pb + 32 * i
+                                                     for i in range(-(-(dend - pb) // 32))]
+
+
+@pytest.mark.parametrize("case", ["random", "skew"])
+@pytest.mark.parametrize("S,pb", [(640, 512), (5120, 4096)])
+@pytest.mark.parametrize("B", [1, 6, 8, 64])
+def test_schedule_names_the_stream_tiles(B, S, pb, case):
+    """At the port's geometry (and the JAX test's, cores 2 x 3 lanes where
+    B = 6): random per-lane ends with the last lane idle (prompt_len 0, end
+    at the bucket), or one lane at S and the rest at the bucket.  Each
+    lane's entries name exactly K11c's tiles on the clamped lengths, and
+    the kernel's runs read from the entries walk the same tiles."""
+    rng = np.random.default_rng(B * 7 + S + len(case))
+    plen = rng.integers(0, pb + 1, B)
+    dend = pb + rng.integers(0, S - pb + 1, B)
+    if case == "skew":
+        dend[:] = pb
+        dend[0] = S
+    elif B > 1:
+        plen[-1], dend[-1] = 0, pb
+    geometries = [sc.schedule_geometry(B, 8, sc.H100_SMS)]
+    if B == 6:
+        geometries.append((2, 3))
+    for cores, per_core in geometries:
+        sched = sc.build_decode_schedule(torch.from_numpy(plen.astype(np.int32)),
+                                         torch.from_numpy(dend.astype(np.int32)), pb, S,
+                                         cores, per_core, B)
+        named = _entry_tiles(sched, B, S)
+        runs = _kernel_runs(sched, B, S)
+        for b in range(B):
+            p = min(max(int(plen[b]), 1), pb)
+            d = min(max(int(dend[b]), pb), S)
+            want = _stream_tiles(p, pb, d)
+            assert named[b] == want, (cores, per_core, b)
+            assert _stream_tiles(*runs[b]) == want, (cores, per_core, b)
+            assert runs[b][0] == p
+            if d > pb:
+                assert runs[b][1:] == (pb, d)
+
+
+def test_sched_plain_follows_its_schedule():
+    """A schedule built for other lengths than the ones passed decides the
+    output: K11c's plain version on the schedule's lengths."""
+    pb, S, B = 256, 640, 4
+    t = [_bf16(a) for a in _inputs(2, B, 4, 2, S, seed=13)]
+    plen = torch.tensor([90, 0, 256, 17], dtype=torch.int32)
+    dend = torch.tensor([pb + 40, pb, S, pb + 300], dtype=torch.int32)
+    plen2 = torch.tensor([3, 200, 128, 255], dtype=torch.int32)
+    dend2 = torch.tensor([S, pb + 1, pb, pb + 129], dtype=torch.int32)
+    sched = sc.build_decode_schedule(plen2, dend2, pb, S, 2, 2, B)
+    out = sc.decode_attention_sched(*t, 1, plen, dend, pb, schedule=sched)
+    want = h5.decode_attention_hbm5(*t, 1, plen2, dend2, pb)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6, rtol=0)
+    assert not torch.allclose(out, sc.decode_attention_sched(*t, 1, plen, dend, pb))
 
 
 # -- plain versions against the Pallas kernels --------------------------------------
@@ -457,3 +558,85 @@ def test_cuda_hbm5_equals_hbm3_at_equal_ends(cuda, B, S, G):
     shared = decode_attention_hbm3(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
     torch.cuda.synchronize()
     assert torch.equal(lanes, shared)
+
+
+def _sched_call(device, fresh, layer, plen, dend, pb, S, schedule_lengths=None):
+    """K11d on the port's schedule geometry, its schedule built beforehand
+    (for ``schedule_lengths`` = (plen, dend) when given)."""
+    B, hkv = fresh[0].shape[0], fresh[1].shape[2]
+    cores, per_core = sc.schedule_geometry(
+        B, hkv, torch.cuda.get_device_properties(device).multi_processor_count)
+    sp, sd = schedule_lengths or (plen, dend)
+    sched = sc.build_decode_schedule(sp, sd, pb, S, cores, per_core, B)
+    return sc.decode_attention_sched(*fresh, layer, plen, dend, pb, schedule=sched)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,skew,G", [
+    (1, 640, False, 2), (1, 2560, False, 2), (6, 640, False, 2), (6, 2560, False, 2),
+    (8, 640, False, 2), (8, 2560, False, 2), (96, 640, False, 2), (96, 2560, False, 2),
+    (96, 2560, True, 2), (96, 2560, False, 1), (96, 2560, False, 4), (8, 640, False, 4),
+])
+def test_cuda_sched_equals_hbm5(cuda, B, S, skew, G):
+    """K11d and K11c on the same inputs bit for bit, at chip_smoke's
+    LANES_GRID (random per-lane ends and an idle lane, or one lane at S and
+    the rest at the prompt bucket) and at G = 1 and 4: one stream, the same
+    tiles of each lane, the same folds."""
+    pb = 512
+    q, kall, vall, k_new, v_new, plen, dend = _cuda_case(cuda, B, S, pb, 3 * B + S + G)
+    if G != 2:
+        q = torch.randn(B, 8 * G, 128, device=cuda).bfloat16()
+    if skew:
+        dend[:] = pb
+        dend[0] = S
+    if B > 1:
+        dend[-1] = pb
+    fresh = (q, kall, vall, k_new, v_new)
+    before = LAUNCHES["decode_attention_sched"]
+    out = _sched_call(cuda, fresh, 1, plen, dend, pb, S)
+    lanes = h5.decode_attention_hbm5(*fresh, 1, plen, dend, pb)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention_sched"] == before + 1
+    assert torch.equal(out, lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(8, 640), (96, 2560)])
+def test_cuda_sched_follows_its_schedule(cuda, B, S):
+    """A schedule built for other prompt lengths and ends than the ones
+    passed decides the walk: K11c's output on the schedule's lengths."""
+    pb = 512
+    q, kall, vall, k_new, v_new, plen, dend = _cuda_case(cuda, B, S, pb, 17 * B)
+    g = torch.Generator(device=cuda).manual_seed(B + 1)
+    plen2 = torch.randint(1, pb + 1, (B,), generator=g, device=cuda).int()
+    dend2 = torch.randint(pb, S + 1, (B,), generator=g, device=cuda).int()
+    fresh = (q, kall, vall, k_new, v_new)
+    out = _sched_call(cuda, fresh, 0, plen, dend, pb, S, schedule_lengths=(plen2, dend2))
+    want = h5.decode_attention_hbm5(*fresh, 0, plen2, dend2, pb)
+    other = h5.decode_attention_hbm5(*fresh, 0, plen, dend, pb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not torch.equal(out, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [
+    lambda s: (s[0].long(), *s[1:]),                          # int64 totals
+    lambda s: (s[0], s[1][:, :-1].contiguous(), *s[2:]),      # ragged rows
+    lambda s: (s[0], s[1], s[2].t(), *s[3:]),                 # not (cores, J)
+    lambda s: s[:4],                                          # four tensors
+    lambda s: (s[0].cpu(), *s[1:]),                           # another device
+    lambda s: (s[0][:1].contiguous(), s[1][:1].contiguous(), s[2][:1].contiguous(),
+               s[3][:1].contiguous(), s[4][:1].contiguous()),  # too few lanes
+])
+def test_cuda_sched_refuses_malformed_schedule(cuda, bad):
+    """The wrapper's _check_schedule (and the lane count) still refuse a
+    malformed schedule on the card, before any launch."""
+    pb, S, B = 512, 640, 4
+    q, kall, vall, k_new, v_new, plen, dend = _cuda_case(cuda, B, S, pb, 23)
+    sched = sc.build_decode_schedule(plen, dend, pb, S, 2, 2, B)
+    before = LAUNCHES["decode_attention_sched"]
+    with pytest.raises(ValueError):
+        sc.decode_attention_sched(q, kall, vall, k_new, v_new, 0, plen, dend, pb,
+                                  schedule=bad(sched))
+    assert LAUNCHES["decode_attention_sched"] == before

@@ -17,8 +17,9 @@ flags into a library of their own (in ``DIR``), binds their C entry points
 with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
 port's; K2's, K4's, K6's and K7's are those of commit 76a5270, whose decode
 attention takes no write target; K5's that of commit f57a6e0; K11a's,
-K11b's and K11c's those of commit 7ae24f8; K11d's the port's), and then, on
-the same inputs:
+K11b's and K11c's the port's, as in commit f0ebdf1; K11d's that of commit
+f0ebdf1, whose grid was the schedule's cores), and then, on the same
+inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
     both to the plain PyTorch version (K1: f32 causal attention, atol 2e-2
@@ -70,7 +71,8 @@ the same inputs:
     inputs beside, the bound and the HBM share.  K11c: the same at
     ``chip_smoke.LANES_GRID`` (per-lane ends, an idle lane, and one lane at
     S with the rest at the prompt bucket); K11d the same, on a schedule
-    built beforehand.
+    built beforehand, with K11c on the same inputs in the same turns and
+    the change held to it bit for bit.
 
 Shapes: K1 at B=8 and B=64 (Hq 16, Hkv 8, D 128), T=448, the main path's
 largest smoke prefill and the micro-bench's ``prefill64``; K11e at conv2's
@@ -129,16 +131,14 @@ PARENT_SIGNATURES = {
     # K5 of commit f57a6e0 (one cache a launch): cache, rows, slots, L, B,
     # H, T, S, stream
     "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # K11a of commit 7ae24f8: q, kall, vall, k_new, v_new, prompt_len, out,
-    # layer, B, Hq, Hkv, S, prompt_bucket, decode_end, block_k, scale, stream
-    "decode_attention_hbm2_bf16": (_P,) * 7 + (_I,) * 8 + (ctypes.c_float, _P),
-    # K11b of commit 7ae24f8: as K11a, then per (pairs a block)
-    "decode_attention_hbm3_bf16": (_P,) * 7 + (_I,) * 9 + (ctypes.c_float, _P),
-    # K11c of commit 7ae24f8: q, kall, vall, k_new, v_new, prompt_len,
-    # decode_end, out, layer, B, Hq, Hkv, S, prompt_bucket, block_p, scale,
-    # stream
-    "decode_attention_hbm5_bf16": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P),
-    "decode_attention_sched_bf16": None,
+    # K11a, K11b, K11c: the port's signatures (commit f0ebdf1's)
+    "decode_attention_hbm2_bf16": None,
+    "decode_attention_hbm3_bf16": None,
+    "decode_attention_hbm5_bf16": None,
+    # K11d of commit f0ebdf1 (a block per core and KV head): q, kall, vall,
+    # k_new, v_new, totals, bl, off, lim, flags, out, layer, B, Hq, Hkv, S,
+    # cores, per_core, J, scale, stream
+    "decode_attention_sched_bf16": (_P,) * 11 + (_I,) * 8 + (ctypes.c_float, _P),
 }
 SOURCES = {"K1": "flash_attention.cu", "K11e": "conv_stem.cu", "K9": "quantized_matmul.cu",
            "K10": "w8a8_matmul.cu", "K2": "decode_attention.cu", "K4": "decode_attention.cu",
@@ -765,24 +765,22 @@ def ab_span(lib, gen, rounds: int) -> list[dict]:
 
 def run_parent_stream(lib, kernel: str, fresh, plen, out, layer: int, B: int, S: int, pb: int,
                       dend, block: int, per: int) -> None:
-    """The 7ae24f8 kernel of K11a, K11b or K11c into ``out``, with the
-    arguments its wrapper gave it (K11a: no ``per``; K11c: the prompt
-    lengths clamped to [1, pb] by the wrapper, ``block`` = block_p)."""
+    """The parent's kernel of K11a, K11b or K11c into ``out``, with the
+    arguments its wrapper gives it (K11a and K11b: ``per`` pairs a block;
+    K11c: ``block`` = block_p and ``per`` = its blocks)."""
     from qwen3_asr_tpu_torch.ops.kernels import _build
 
     hq, hkv = fresh[0].shape[1], fresh[1].shape[2]
     ptrs = [t.data_ptr() for t in fresh]
     scale, st = float(D ** -0.5), _build.stream_ptr(out)
-    if kernel == "K11a":
-        err = lib.decode_attention_hbm2_bf16(*ptrs, plen.data_ptr(), out.data_ptr(), layer, B,
-                                             hq, hkv, S, pb, dend, block, scale, st)
-    elif kernel == "K11b":
-        err = lib.decode_attention_hbm3_bf16(*ptrs, plen.data_ptr(), out.data_ptr(), layer, B,
-                                             hq, hkv, S, pb, dend, block, per, scale, st)
+    if kernel in ("K11a", "K11b"):
+        fn = lib.decode_attention_hbm2_bf16 if kernel == "K11a" else lib.decode_attention_hbm3_bf16
+        err = fn(*ptrs, plen.data_ptr(), out.data_ptr(), layer, B, hq, hkv, S, pb, dend, block,
+                 per, scale, st)
     else:
         err = lib.decode_attention_hbm5_bf16(*ptrs, plen.data_ptr(), dend.data_ptr(),
                                              out.data_ptr(), layer, B, hq, hkv, S, pb, block,
-                                             scale, st)
+                                             per, scale, st)
     if err:
         raise RuntimeError(f"parent {kernel}: CUDA error {err}")
 
@@ -873,8 +871,8 @@ def ab_stream(lib, gen, rounds: int, kernel: str) -> list[dict]:
 
 
 def run_parent_sched(lib, fresh, sched, out, layer: int, B: int, S: int) -> None:
-    """The 7ae24f8 kernel of K11d into ``out``, with its wrapper's arguments
-    (the same C entry point as the change's)."""
+    """The f0ebdf1 kernel of K11d into ``out``, with its wrapper's
+    arguments (a block per core and KV head: no grid argument)."""
     from qwen3_asr_tpu_torch.ops.kernels import _build
     from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_sched as sc
 
@@ -894,7 +892,8 @@ def ab_lanes(lib, gen, rounds: int, kernel: str) -> list[dict]:
     parent and change held to the plain version and compared bit for bit,
     timed in turns by device time on a cold cache, with K2 on the same
     inputs and clamped prompt lengths.  K11d runs its schedule built
-    beforehand, as the micro-bench builds it once per pass."""
+    beforehand, as the micro-bench builds it once per pass, with K11c on the
+    same inputs in the same turns and held to it bit for bit."""
     import torch
 
     from chip_smoke import (LANES_GRID, PEAK_HBM_GBPS, _close, attention_bound, cold_note,
@@ -918,8 +917,8 @@ def ab_lanes(lib, gen, rounds: int, kernel: str) -> list[dict]:
 
             def parent(layer):
                 out = torch.empty_like(c["q"])
-                run_parent_stream(lib, "K11c", fresh, clamped, out, layer, B, S, pb, dend,
-                                  block_p, 0)
+                run_parent_stream(lib, "K11c", fresh, plen, out, layer, B, S, pb, dend,
+                                  block_p, blocks)
                 return out
 
             def change(layer):
@@ -927,7 +926,9 @@ def ab_lanes(lib, gen, rounds: int, kernel: str) -> list[dict]:
         else:
             cores, per_core = sc.schedule_geometry(B, hkv, sms)
             sched = sc.build_decode_schedule(plen, dend, pb, S, cores, per_core, B)
-            grid = f"cores={cores} per_core={per_core}"
+            blocks = min(B * hkv, sms)
+            grid = (f"cores={cores} per_core={per_core}; change {blocks} blocks, "
+                    f"{B * hkv / blocks:.2f} pairs a block")
 
             def parent(layer):
                 out = torch.empty_like(c["q"])
@@ -940,8 +941,11 @@ def ab_lanes(lib, gen, rounds: int, kernel: str) -> list[dict]:
 
         arms = {"parent": parent, "change": change,
                 "k2": lambda layer: da.decode_attention(*fresh, layer, clamped, dend, pb)}
+        if kernel == "K11d":
+            arms["k11c"] = lambda layer: h5.decode_attention_hbm5(*fresh, layer, plen, dend, pb)
         layer = c["L"] - 1
         out, pout = change(layer), parent(layer)
+        same_c = kernel != "K11d" or torch.equal(out, arms["k11c"](layer))
         ref = da.decode_attention_plain(
             c["q"].float(), c["kall"][layer:layer + 1].float(),
             c["vall"][layer:layer + 1].float(), c["k_new"].float(), c["v_new"].float(), 0,
@@ -959,17 +963,24 @@ def ab_lanes(lib, gen, rounds: int, kernel: str) -> list[dict]:
         def share(ms):
             return f"{call_bytes / (ms * 1e-3) / 1e9 / PEAK_HBM_GBPS:.1%}"
 
+        k11c = ""
+        if kernel == "K11d":
+            k11c_m = statistics.median(times["k11c"])
+            k11c = (f"; K11c {k11c_m:.4f} ms {_ms_list(times['k11c'])}, change/K11c "
+                    f"{cm / k11c_m:.2f}, bit-identical to K11c: {same_c}")
         print(f"{kernel} B={B} S={S} {'one lane at S' if skew else 'random ends'} ({grid}; "
               f"{cold_note(c['L'], call_bytes)}): change {cm:.4f} ms {_ms_list(times['change'])}, "
               f"parent {pm:.4f} ms {_ms_list(times['parent'])}, K2 {km:.4f} ms "
               f"{_ms_list(times['k2'])} device time; parent/change {pm / cm:.2f}x, change/K2 "
-              f"{cm / km:.2f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); HBM peak share "
-              f"change {share(cm)}, parent {share(pm)}, K2 {share(km)}; err {err:.3e} / parent "
-              f"{perr:.3e}; bit-identical to the parent: {same} (max |diff| {diff:.3e})")
+              f"{cm / km:.2f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']}) = "
+              f"{b['bound_ms'] / cm:.1%} of the change's time; HBM peak share change "
+              f"{share(cm)}, parent {share(pm)}, K2 {share(km)}; err {err:.3e} / parent "
+              f"{perr:.3e}; bit-identical to the parent: {same} (max |diff| {diff:.3e}){k11c}")
         rows.append({"kernel": kernel, "B": B, "S": S, "skew": skew, "layers": c["L"],
                      "max_abs_err": err, "parent_max_abs_err": perr, "bit_identical": same,
                      "max_diff_vs_parent": diff, "ms": times["change"],
-                     "parent_ms": times["parent"], "k2_ms": times["k2"], **b})
+                     "parent_ms": times["parent"], "k2_ms": times["k2"],
+                     "k11c_ms": times.get("k11c"), "bit_identical_to_k11c": same_c, **b})
         del c, fresh
         torch.cuda.empty_cache()
     return rows
