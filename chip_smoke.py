@@ -68,12 +68,18 @@ failure raises and the script exits non-zero):
      verify forward (K6, K7, each with K8 fused) over shuffled pages, bf16
      against float32;
   5. the full-width 1.7B paths from random weights (seed 0), each with the
-     launch counters set to 0 just before it and read just after: greedy
+     launch counters set to 0 just before it and read just after.  The
+     offline decode loops run as CUDA graphs (``runtime/graphs.py``): each
+     path's ``warm_up`` captures its buckets first, and the counted runs
+     replay them; the checks that hook a decode step in Python (the choice
+     rows of the near-tie and forced-stream holds) run the eager loop,
+     whose tokens must equal the graphed loop's.  Greedy
      ``transcribe_batch`` of 8 synthetic clips of 4-30 s
      (``max_tokens=64``) twice and one ``transcribe`` under
      ``speculative="off"`` (K1, K2 with K3 fused, no standalone writer;
      the bf16 lm head must keep its f32 accumulator); on the same model
-     ``transcribe_batch`` under decode modes "3" (K11a) and "4" (K11b), K2
+     ``transcribe_batch`` under decode modes "3" (K11a) and "4" (K11b; both
+     eager: their kernels take the decode end as a host int), K2
      never launched, the mode's kernel 28 x steps and the standalone K3 2 x
      steps, and under the "pallas" stem (K11e twice per encoder call), each
      stream held to the plain one by the near-tie rule below,
@@ -84,7 +90,8 @@ failure raises and the script exits non-zero):
      "merged512" (the "conv" stem here) equal to them;
      then the same runs on the same weights under the
      default ``"auto"`` (the speculative loop: K5 once per verify
-     iteration, no K2/K3), each lane's
+     iteration run, the no-op replays after the last lane finished
+     included; no K2/K3), each lane's
      stream equal to the plain one or first differing at a near-tie of the
      plain run's penalized logits, and every token of the B=8 stream held
      to the plain step's logits on the same prefix (the plain loop forced
@@ -100,7 +107,14 @@ failure raises and the script exits non-zero):
      contiguous-cache kernel or a standalone writer, and the flat engine
      (K2 with per-lane K3 fused), every stream held to
      the plain ``transcribe_batch`` stream by the near-tie rule, with ms per
-     chunk iteration, engine counters and each request's TTFT; then a
+     chunk iteration, engine counters and each request's TTFT; the graphed
+     loops against the eager loop (:func:`graphs_phase`: plain B=1, 8 and
+     96 (W8A8), the int8 cache at B=8, sampled B=8, speculative B=1 and 8,
+     sampled speculative B=1, int8-weights speculative B=1; from one
+     prefill, five decodes of each loop in turns: tokens bit-identical,
+     launches = the eager count plus the no-op replays', no re-capture for
+     new sampling values; ms per live iteration, capture ms, device busy
+     share, replays and host syncs per decode, peak memory); then a
      second 1.7B model with ``RuntimeConfig(quantization="int8",
      act_quant="int8", kv_cache_dtype="int8")`` (K4 with K3-int8 fused).
      Token ids must be <
@@ -123,7 +137,6 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1297,13 +1310,15 @@ def check_kv_write_span(gen) -> dict:
 
 def check_one_span_write(label: str, launches: dict, stats) -> None:
     """The speculative loop writes both caches' span rows with one K5 launch
-    per verify iteration."""
-    want = sum(st.n_decode_steps for st in stats)
+    per verify iteration run (a graph replay, the no-op ones after the last
+    lane finished included)."""
+    want = sum(st.n_decode_replays for st in stats)
     got = launches.get("kv_write_span_batch", 0)
     if got != want:
         raise AssertionError(f"{label}: kv_write_span_batch launched {got} times, want one "
-                             f"per verify iteration ({want})")
-    print(f"{label}: one K5 launch per verify iteration ({got})")
+                             f"per verify iteration run ({want})")
+    print(f"{label}: one K5 launch per verify iteration run ({got}; "
+          f"{sum(st.n_decode_steps for st in stats)} of them live)")
 
 
 def smoke_prompt_lens() -> list[int]:
@@ -1873,10 +1888,17 @@ def build_model(runtime: dict | None, base=None):
     return model
 
 
+#: The device flag every :class:`Watch` sets on NaN logits: one tensor, so a
+#: decode graph captured under one Watch sets it when replayed under another.
+_NAN_SEEN = []
+
+
 class Watch:
     """Wraps the decode loop's logits function while active (``module``'s
     ``decoder_logits``: the generator's, or the engine's): one device flag
-    for NaN logits (no sync per step) and the first lm-head input."""
+    for NaN logits (no sync per step; a decode step captured as a graph
+    while a Watch is active keeps the check) and the first lm-head input
+    that an eager step computes."""
 
     def __init__(self, module=None):
         import torch
@@ -1884,12 +1906,15 @@ class Watch:
         from qwen3_asr_tpu_torch.runtime import generate
 
         self.generate = module or generate
-        self.nan_seen = torch.zeros((), dtype=torch.bool, device="cuda")
+        if not _NAN_SEEN:
+            _NAN_SEEN.append(torch.zeros((), dtype=torch.bool, device="cuda"))
+        self.nan_seen = _NAN_SEEN[0]
         self.first_hidden = []
 
     def __enter__(self):
         import torch
 
+        self.nan_seen.zero_()
         real_logits = self.real_logits = self.generate.decoder_logits
 
         def logits(params, cfg, hidden):
@@ -1944,7 +1969,8 @@ def print_stats(label: str, card: str, st) -> None:
         f"{label} [{card}]: audio {st.audio_seconds:.1f} s, prepare "
         f"{st.stages['prepare'] * 1e3:.1f} ms, mel+encoder+prefill "
         f"{st.stages['prefill'] * 1e3:.1f} ms, decode {decode_ms:.1f} ms over "
-        f"{st.n_decode_steps} {kind} = {decode_ms / steps:.2f} ms/iteration, "
+        f"{st.n_decode_steps} {kind} ({st.n_decode_replays} run, {st.n_host_syncs} host "
+        f"syncs) = {decode_ms / steps:.2f} ms/iteration, "
         f"{st.n_generated_tokens} tokens = {decode_ms / max(st.n_generated_tokens, 1):.3f} "
         f"ms per emitted token{spec}, RTFx {st.rtfx:.1f}"
     )
@@ -1952,11 +1978,15 @@ def print_stats(label: str, card: str, st) -> None:
 
 def slice_phase(card: str, model, runtime: dict | None, path, never=(),
                 lm_head: bool = False, record_gaps: bool = False) -> dict:
-    """The 1.7B path through the entry points: a warm-up, then greedy
-    ``transcribe_batch`` of the smoke batch (``max_tokens=64``) twice and one
-    ``transcribe`` of the 30 s clip, with the launch counters set to 0 just
-    before and read just after.  Checks ids, NaN, run-to-run identity and
-    the path's launches."""
+    """The 1.7B path through the entry points: a warm-up that captures the
+    path's decode graphs (B=8 and B=1 at the smoke batch's bucket), then
+    greedy ``transcribe_batch`` of the smoke batch (``max_tokens=64``) twice
+    and one ``transcribe`` of the 30 s clip, graphed, with the launch
+    counters set to 0 just before and read just after.  Checks ids, NaN,
+    run-to-run identity and the path's launches.  With ``record_gaps`` the
+    same calls then run the eager loop under :class:`Choices`, which must
+    give the graphed tokens bit for bit, recording each choice's top-two
+    gap."""
     from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
 
     vocab = model._config.text_decoder.vocab_size
@@ -1964,25 +1994,34 @@ def slice_phase(card: str, model, runtime: dict | None, path, never=(),
     clips = smoke_clips()
     out = {"gaps": []}
     with Watch() as watch:
-        model.warm_up(durations=(4.0,), batch_sizes=(8,), max_tokens=4)
-        watch.first_hidden.clear()
+        model.warm_up(durations=(30.0,), batch_sizes=(8, 1), max_tokens=64)
+        graphs = model._generator.graphs
+        captures = graphs.captures
         LAUNCHES.clear()
-        runs = []
-        for i in range(2):
-            with Choices() if record_gaps and i == 0 else nullcontext() as rec:
-                runs.append((_ids(model.transcribe_batch(clips, max_tokens=64)), model.last_stats))
-            if rec is not None:
-                out["gaps"].append(top_two_gaps(rec.rows))
-        with Choices() if record_gaps else nullcontext() as rec:
-            single = model.transcribe(clips[-1], max_tokens=64)
-        if rec is not None:
-            out["gaps"].append(top_two_gaps(rec.rows))
-        del rec
+        runs = [(_ids(model.transcribe_batch(clips, max_tokens=64)), model.last_stats)
+                for _ in range(2)]
+        single = model.transcribe(clips[-1], max_tokens=64)
+        single_stats = model.last_stats
         launches = dict(LAUNCHES)
+        if graphs.captures != captures:
+            raise AssertionError(f"{tag}: the warm-up left a bucket of the path uncaptured")
         if bool(watch.nan_seen):
             raise AssertionError(f"{tag}: NaN logits on the path")
-        if lm_head:
-            check_lm_head_f32(model, watch.first_hidden[0])
+        if record_gaps:
+            watch.first_hidden.clear()
+            eager = []
+            for call in (lambda: model.transcribe_batch(clips, max_tokens=64),
+                         lambda: [model.transcribe(clips[-1], max_tokens=64)]):
+                with Choices() as rec:
+                    eager.append(_ids(call()))
+                out["gaps"].append(top_two_gaps(rec.rows))
+            del rec
+            if eager != [runs[0][0], _ids([single])]:
+                raise AssertionError(f"{tag}: the eager loop's tokens differ from the graphed")
+            print(f"{tag}: eager loop (transcribe_batch B=8, transcribe B=1) token-identical "
+                  f"to the graphed loop")
+            if lm_head:
+                check_lm_head_f32(model, watch.first_hidden[0])
     (ids_a, stats_a), (ids_b, stats_b) = runs
     if ids_a != ids_b:
         raise AssertionError(f"{tag}: two greedy transcribe_batch runs gave different tokens")
@@ -1990,10 +2029,10 @@ def slice_phase(card: str, model, runtime: dict | None, path, never=(),
     check_launches(f"path {tag}", launches, path, never)
     for label, st in (("transcribe_batch B=8 run 1", stats_a),
                       ("transcribe_batch B=8 run 2", stats_b),
-                      ("transcribe B=1", model.last_stats)):
+                      ("transcribe B=1", single_stats)):
         print_stats(f"{label} {tag}", card, st)
     out.update(launches=launches, ids=(ids_a, _ids([single])[0]),
-               stats=(stats_a, stats_b, model.last_stats))
+               stats=(stats_a, stats_b, single_stats))
     return out
 
 
@@ -2037,7 +2076,9 @@ class Choices:
     each verify iteration, and each decode call's token lists.  ``drafts``
     (B, n) replaces the n-gram draft with each lane's next ``gamma`` tokens
     of that stream (teacher forcing); ``forced`` (B, n) makes the loop emit
-    that stream whatever its own choice."""
+    that stream whatever its own choice.  The hooks run in Python at every
+    step, so the decode calls made while active run the eager loop
+    (``decode(eager=True)``), never a captured graph."""
 
     def __init__(self, drafts=None, forced=None):
         from qwen3_asr_tpu_torch.runtime import generate
@@ -2076,7 +2117,7 @@ class Choices:
             return self.forced[0][:, j]
 
         def decode(gen, *args, **kwargs):
-            out = real_decode(gen, *args, **kwargs)
+            out = real_decode(gen, *args, eager=True, **kwargs)
             self.streams.append(out)
             return out
 
@@ -2320,6 +2361,7 @@ def speculative_phase(card: str, base, off: dict) -> dict:
 
     # Sampled and speculative (rejection-sampling verification).
     spec_sampling = build_model({"spec_sampling": True}, base)
+    spec_sampling.transcribe(clips[-1], **sample_kw)         # captures the bucket
     LAUNCHES.clear()
     res = spec_sampling.transcribe(clips[-1], **sample_kw)
     print_stats("sampled speculative transcribe B=1", card, spec_sampling.last_stats)
@@ -2329,6 +2371,7 @@ def speculative_phase(card: str, base, off: dict) -> dict:
 
     # Int8 weights with the bf16 cache: the verify forward's products run K9.
     w8 = build_model({"quantization": "int8"}, base)
+    w8.transcribe(clips[-1], max_tokens=64)                  # captures the bucket
     LAUNCHES.clear()
     res = w8.transcribe(clips[-1], max_tokens=64)
     print_stats("int8-weights speculative transcribe B=1", card, w8.last_stats)
@@ -2636,6 +2679,175 @@ def server_phase(card: str, base, off: dict) -> dict:
     return launches
 
 
+#: The graphed loops' arms: (label, runtime, batch, sampling).  Each runs
+#: the eager and the graphed loop from one prefill.
+SAMPLING = dict(temperature=0.7, top_k=50, top_p=0.9, seed=1)
+GRAPH_ARMS = (
+    ("plain B=1", {"speculative": "off"}, 1, {}),
+    ("plain B=8", {"speculative": "off"}, 8, {}),
+    ("plain B=96 W8A8", {"quantization": "int8", "act_quant": "int8"}, 96, {}),
+    ("plain int8 cache B=8", {"speculative": "off", "kv_cache_dtype": "int8"}, 8, {}),
+    ("sampled B=8", {}, 8, SAMPLING),
+    ("speculative B=1", {}, 1, {}),
+    ("speculative B=8", {}, 8, {}),
+    ("sampled speculative B=1", {"spec_sampling": True}, 1, SAMPLING),
+    ("int8-weights speculative B=1", {"quantization": "int8"}, 1, {}),
+)
+#: Eager and graphed decodes per arm, taken in turns (E G G E E G G E E G).
+GRAPH_TURNS = "EGGEEGGEEG"
+
+
+def profiled_busy(call) -> tuple[int, float, float]:
+    """(device kernels, their summed ms, the call's host wall ms) of one
+    ``call`` under ``torch.profiler`` (device activity only): kernel time
+    over wall is the share of the call the device was busy.  The profiler
+    slows the replays somewhat, so the share is a lower bound."""
+    import torch
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset", "qwen3_asr/"))]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall
+
+
+#: Token budget of the profiled decodes of the graphed phase (a window of
+#: the same loop; a whole 64-token eager decode is ~120k kernel events).
+BUSY_TOKENS = 16
+
+
+def graphs_phase(card: str, base) -> None:
+    """The offline decode loops as CUDA graphs, arm by arm (:data:`GRAPH_ARMS`,
+    each on a model sharing ``base``'s weights): one ``transcribe_batch`` of
+    the arm's clips (``max_tokens=64``) captures the bucket's graph and
+    records the decode call's inputs; from that one prefill the eager loop
+    (``decode(eager=True)``, one host sync a step) and the graphed loop then
+    run in turns, five each.  Held: every run's tokens bit-identical to the
+    first eager run's (greedy and sampled: the sampled graph registers the
+    call's generator, whose Philox offsets advance as in the eager loop;
+    were they not to match, two graphed runs at one seed must agree, and the
+    arm says so); every eager run's launches = live steps x the captured
+    step's launches, every graphed run's = the eager count + the no-op
+    replays' launches; new sampling values reuse the bucket's graph (no new
+    capture).  Printed beside the card: ms per live iteration (median of
+    five, each loop), capture ms, device busy share of one run of each loop
+    (``torch.profiler``), replays, live steps and host syncs per decode, and
+    peak device memory of each loop."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.runtime import graphs as graphs_mod
+    from qwen3_asr_tpu_torch.runtime.generate import Generator
+
+    clips8 = smoke_clips()
+    vocab = base._config.text_decoder.vocab_size
+    for label, runtime, B, sampling in GRAPH_ARMS:
+        clips = [clips8[-1]] if B == 1 else (clips8 * (B // 8))
+        model = build_model(runtime, base)
+        gen = model._generator
+        seen = {}
+        real = Generator.decode
+
+        def spy(self, *args, **kwargs):
+            seen.update(args=args, kwargs=kwargs)
+            return real(self, *args, **kwargs)
+
+        Generator.decode = spy
+        try:
+            with Watch():
+                model.transcribe_batch(clips, max_tokens=64, **sampling)
+        finally:
+            Generator.decode = real
+        dg = gen.graphs
+        capture_ms, captures = dg.last_capture_ms, dg.captures
+        if captures != 1:
+            raise AssertionError(f"graphs {label}: {captures} captures, want 1")
+        args, kwargs = seen["args"], seen["kwargs"]
+
+        def decode(eager: bool, budget: int | None = None) -> dict:
+            call = args if budget is None else (
+                *args[:3], [min(m, budget) for m in args[3]], *args[4:])
+            LAUNCHES.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            toks = gen.decode(*call, eager=eager, **kwargs)
+            torch.cuda.synchronize()
+            return {"toks": toks, "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": dict(LAUNCHES), "steps": gen.last_decode_steps,
+                    "replays": gen.last_replays, "syncs": gen.last_host_syncs,
+                    "peak": torch.cuda.max_memory_allocated() / 2**30}
+
+        with Watch() as watch, torch.inference_mode():
+            runs = {"E": [], "G": []}
+            for turn in GRAPH_TURNS:
+                runs[turn].append(decode(turn == "E"))
+            peak = {turn: max(r["peak"] for r in runs[turn]) for turn in "EG"}
+            busy = {turn: profiled_busy(lambda: decode(turn == "E", BUSY_TOKENS))
+                    for turn in "EG"}
+            if sampling:
+                for other in (dict(temperature=0.5, top_k=7, top_p=0.8, seed=2),
+                              dict(temperature=1.1, top_k=200, top_p=0.97, seed=3,
+                                   repetition_penalty=1.05, repetition_context_size=40)):
+                    gen.decode(*args, **dict(kwargs, **other))
+                if dg.captures != captures:
+                    raise AssertionError(f"graphs {label}: new sampling values re-captured")
+            if bool(watch.nan_seen):
+                raise AssertionError(f"graphs {label}: NaN logits")
+        eager, graphed = runs["E"], runs["G"]
+        ref = eager[0]["toks"]
+        check_ids(f"graphs {label}", ref, vocab)
+        if any(r["toks"] != ref for r in eager):
+            raise AssertionError(f"graphs {label}: two eager runs at one seed differ")
+        if any(r["toks"] != ref for r in graphed):
+            if not sampling or any(r["toks"] != graphed[0]["toks"] for r in graphed):
+                raise AssertionError(f"graphs {label}: the graphed loop's tokens differ")
+            print(f"graphs {label}: the graphed sampled stream differs from the eager one "
+                  f"(the graph's Philox offsets); the graphed runs agree at one seed")
+            same = "graphed runs identical at one seed"
+        else:
+            same = "graphed tokens bit-identical to eager"
+        per = dg.get(gen.last_bucket)[1].launches
+        steps = ref_steps = eager[0]["steps"]
+        for r in eager + graphed:
+            if r["steps"] != ref_steps:
+                raise AssertionError(f"graphs {label}: {r['steps']} live steps, want {ref_steps}")
+        for r in eager:
+            want = {k: v * steps for k, v in per.items()}
+            if r["launches"] != want:
+                raise AssertionError(f"graphs {label}: eager launches {r['launches']}, want "
+                                     f"{want} ({steps} steps x the captured step's {dict(per)})")
+        for r in graphed:
+            want = {k: v * r["replays"] for k, v in per.items()}
+            if r["launches"] != want:
+                raise AssertionError(f"graphs {label}: graphed launches {r['launches']}, want "
+                                     f"{want} ({r['replays']} replays)")
+        e_ms = sorted(r["ms"] / steps for r in eager)
+        g_ms = sorted(r["ms"] / steps for r in graphed)
+        g = graphed[0]
+        print(f"graphs {label} [{card}]: {same}; {steps} live steps, {g['replays']} replays "
+              f"(blocks of {graphs_mod.BLOCK}), "
+              f"{g['syncs']} host syncs per graphed decode against {eager[0]['syncs']} eager; "
+              f"ms per live iteration eager {e_ms[len(e_ms) // 2]:.3f} (min {e_ms[0]:.3f}, max "
+              f"{e_ms[-1]:.3f}), graphed {g_ms[len(g_ms) // 2]:.3f} (min {g_ms[0]:.3f}, max "
+              f"{g_ms[-1]:.3f}) = {e_ms[len(e_ms) // 2] / g_ms[len(g_ms) // 2]:.2f}x; capture "
+              f"{capture_ms:.1f} ms ({captures} capture{'s' if captures > 1 else ''}"
+              f"{', none for new sampling values' if sampling else ''}); device busy over a "
+              f"{BUSY_TOKENS}-token decode under the profiler, eager "
+              f"{busy['E'][1] / busy['E'][2]:.1%} ({busy['E'][0]} kernels, {busy['E'][1]:.1f} of "
+              f"{busy['E'][2]:.1f} ms), graphed {busy['G'][1] / busy['G'][2]:.1%} "
+              f"({busy['G'][0]} kernels, {busy['G'][1]:.1f} of {busy['G'][2]:.1f} ms); peak "
+              f"memory eager {peak['E']:.2f} GiB, graphed {peak['G']:.2f} GiB; launches per "
+              f"step {dict(per)}")
+        model.close()
+        del model, gen, dg
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -2704,6 +2916,7 @@ def main() -> int:
     spec_launches = speculative_phase(card, base, off)
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
     launches.update(server_phase(card, base, off))
+    graphs_phase(card, base)
     base.close()
     del base
     torch.cuda.empty_cache()

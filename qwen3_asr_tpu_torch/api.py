@@ -314,10 +314,13 @@ class Qwen3ASR:
         deployment: dict | None = None,
     ) -> None:
         """Run silent clips through every (batch, duration, token budget)
-        cell of a deployment once: builds the CUDA kernels and warms
-        PyTorch's allocator and library handles for the shapes it will see.
-        Pass the grid directly or as one ``deployment`` dict, as in the JAX
-        package:
+        cell of a deployment once: builds the CUDA kernels, warms PyTorch's
+        allocator and library handles for the shapes it will see, and on
+        CUDA captures each cell's greedy decode graph and sizes the graphs'
+        cache arena for the largest cell (when a later cell grows the
+        arena, which drops the graphs, the cells run once more), so a first
+        request pays no capture.  Pass the grid directly or as one
+        ``deployment`` dict, as in the JAX package:
 
             model.warm_up(deployment={
                 "durations": (10.0, 30.0),
@@ -335,18 +338,31 @@ class Qwen3ASR:
             max_tokens = deployment.get("max_tokens", max_tokens)
         budgets = (max_tokens,) if isinstance(max_tokens, int) else tuple(max_tokens)
         cells = [(b, d, m) for b in batch_sizes for d in durations for m in budgets]
-        for i, (b, d, m) in enumerate(cells):
-            logger.info("warm_up %d/%d: batch=%d duration=%.1fs max_tokens=%d",
-                        i + 1, len(cells), b, d, m)
-            clips = [np.zeros(max(1, int(d * SAMPLE_RATE)), dtype=np.float32)] * b
-            self.transcribe_batch(clips, max_tokens=m)
+
+        def growths() -> int:
+            graphs = self._generator.graphs
+            return graphs.growths if graphs is not None else 0
+
+        for _ in range(2):
+            before = growths()
+            for i, (b, d, m) in enumerate(cells):
+                logger.info("warm_up %d/%d: batch=%d duration=%.1fs max_tokens=%d",
+                            i + 1, len(cells), b, d, m)
+                clips = [np.zeros(max(1, int(d * SAMPLE_RATE)), dtype=np.float32)] * b
+                self.transcribe_batch(clips, max_tokens=m)
+                if i == 0:
+                    before = growths()
+            if growths() == before:
+                break
         logger.info("warm_up complete: %d program shapes compiled", len(cells))
 
     def close(self) -> None:
-        """Release parameters (and cached device memory)."""
+        """Release parameters, the decode graphs and their cache arena (and
+        cached device memory)."""
         self._encoder_params = None
         self._decoder_params = None
         if self._generator is not None:
+            self._generator.close()
             self._generator.params = None
         self._generator = None
         gc.collect()
@@ -493,7 +509,7 @@ class Qwen3ASR:
                     torch.from_numpy(ids).to(device),
                     torch.tensor(n_audio, dtype=torch.long, device=device),
                     torch.tensor(prompt_lens, dtype=torch.long, device=device),
-                    cache_len,
+                    cache_len, arena=True,
                 )
                 if device.type == "cuda":
                     # Stage times then hold the device work; the decode
@@ -509,6 +525,8 @@ class Qwen3ASR:
         token_lists = token_lists[:n_real]
         stats.n_generated_tokens = sum(len(t) for t in token_lists)
         stats.n_decode_steps = gen.last_decode_steps
+        stats.n_decode_replays = gen.last_replays
+        stats.n_host_syncs = gen.last_host_syncs
         # Lane-forwards: every verify iteration computes one row per lane.
         stats.n_spec_forwards = gen.last_spec_forwards * n_real
         logger.debug("transcribe stats (batch=%d): %s", B, stats.as_dict())

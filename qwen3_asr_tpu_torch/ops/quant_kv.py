@@ -46,17 +46,20 @@ def dequantize_kv(cache: dict, dtype: torch.dtype = torch.bfloat16) -> torch.Ten
     return (cache["q"].float() * cache["s"][..., None]).to(dtype)
 
 
-def quantize_kv_cache(kv: tuple[torch.Tensor, torch.Tensor]) -> tuple[dict, dict]:
+def quantize_kv_cache(kv: tuple[torch.Tensor, torch.Tensor], out=None) -> tuple[dict, dict]:
     """Quantize a freshly prefilled (keys, values) pair, one layer at a time
-    so the f32 temporaries stay one layer large.  The caller drops the bf16
-    pair afterwards."""
-    out = []
-    for cache in kv:
-        q = torch.empty(cache.shape, dtype=torch.int8, device=cache.device)
-        s = torch.empty(cache.shape[:-1], dtype=torch.float32, device=cache.device)
+    so the f32 temporaries stay one layer large, into new tensors or into
+    the ``{"q", "s"}`` pair ``out`` (the decode graphs' arena).  The caller
+    drops the bf16 pair afterwards."""
+    if out is None:
+        out = tuple(
+            {"q": torch.empty(c.shape, dtype=torch.int8, device=c.device),
+             "s": torch.empty(c.shape[:-1], dtype=torch.float32, device=c.device)}
+            for c in kv
+        )
+    for cache, dst in zip(kv, out):
         for layer in range(cache.shape[0]):
             ql = quantize_kv(cache[layer])
-            q[layer] = ql["q"]
-            s[layer] = ql["s"]
-        out.append({"q": q, "s": s})
+            dst["q"][layer] = ql["q"]
+            dst["s"][layer] = ql["s"]
     return out[0], out[1]

@@ -11,8 +11,17 @@ full-vocabulary probabilities (the softmax denominator is a logsumexp over
 every logit) -> draw.  Draws are Gumbel-max over uniforms from an explicit
 ``torch.Generator`` on the lanes' device (``jax.random.categorical`` is
 Gumbel-max too); the two packages' random streams differ, so they agree in
-distribution, not draw for draw.  ``temperature`` and the filters are host
-scalars, so the greedy case (``temperature == 0``) is a Python branch.
+distribution, not draw for draw.
+
+``temperature``, ``top_k``, ``top_p``, the repetition penalty and the live
+``repetition_context_size`` are values on the device, as the JAX package
+traces them: each takes a Python number, a 0-d tensor or a per-lane (B,)
+tensor, and the filters are masks, never host branches on those values, so
+a captured CUDA graph of the decode step serves every value.  Only the
+static sizes (``rep_window``, ``k_subset``) shape the work.  The greedy
+case of :func:`sample_logits` and :func:`spec_verify_sample` (a Python
+``temperature == 0``) is the one host branch; the decode loops choose it by
+their static mode and never reach it with a tensor.
 """
 
 from __future__ import annotations
@@ -32,11 +41,11 @@ def apply_repetition_penalty(
 ) -> torch.Tensor:
     """Penalize, per row, the tokens present in ``recent_tokens`` (B, W):
     positive logits are divided by ``penalty``, negative ones multiplied.
-    ``penalty`` is one float or a (B,) tensor (the continuous engine's
-    per-slot penalties; a row at 1.0 is unchanged).  Sentinel slots (ids
+    ``penalty`` is one float, a 0-d tensor or a (B,) tensor (the
+    continuous engine's per-slot penalties; a row at 1.0 is unchanged).  Sentinel slots (ids
     >= vocab) are ignored."""
     if isinstance(penalty, torch.Tensor):
-        penalty = penalty.to(logits.dtype)[:, None]
+        penalty = penalty.to(logits.dtype).reshape(-1, 1)
     elif penalty == 1.0:
         return logits
     B, vocab = logits.shape
@@ -49,7 +58,7 @@ def apply_repetition_penalty(
 def recent_token_window(
     tokens: torch.Tensor,     # (B, token_bucket) generated ids
     counts: torch.Tensor,     # (B,) tokens generated so far
-    rep_ctx,                  # live repetition_context_size: int, or (B,) tensor
+    rep_ctx,                  # live repetition_context_size: int, 0-d or (B,) tensor
     rep_window: int,          # static gather width
     token_bucket: int,
 ) -> torch.Tensor:
@@ -58,8 +67,8 @@ def recent_token_window(
     idx = counts[:, None] - rep_window + torch.arange(rep_window, device=tokens.device)
     vals = torch.gather(tokens, 1, idx.clamp(0, token_bucket - 1))
     if isinstance(rep_ctx, torch.Tensor):
-        rep_ctx_c = rep_ctx.to(counts.dtype).clamp(max=rep_window)
-        in_ctx = (idx >= 0) & (idx >= (counts - rep_ctx_c)[:, None]) & (rep_ctx_c > 0)[:, None]
+        rep_ctx_c = rep_ctx.to(counts.dtype).clamp(max=rep_window).reshape(-1, 1)
+        in_ctx = (idx >= 0) & (idx >= counts[:, None] - rep_ctx_c) & (rep_ctx_c > 0)
         return torch.where(in_ctx, vals, torch.full_like(vals, RECENT_PAD_ID))
     rep_ctx_c = min(max(rep_ctx, 0), rep_window)
     in_ctx = (idx >= 0) & (idx >= (counts - rep_ctx_c)[:, None])
@@ -68,44 +77,55 @@ def recent_token_window(
     return torch.where(in_ctx, vals, torch.full_like(vals, RECENT_PAD_ID))
 
 
-def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Keep logits >= the k-th largest of their row (ties kept); k <= 0
-    disables."""
-    if k <= 0:
-        return logits
+def _param(x, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A sampling parameter as a ``dtype`` column that broadcasts over the
+    rows of ``like``: a number or 0-d tensor -> (1, 1), a (B,) tensor ->
+    (B, 1)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((1, 1), x, dtype=dtype, device=like.device)
+    return x.to(dtype).reshape(-1, 1)
+
+
+def _kth_mask(vals_desc: torch.Tensor, values: torch.Tensor, k) -> torch.Tensor:
+    """True where ``values`` >= the k-th largest of its row, read from the
+    descending ``vals_desc`` (ties kept); every entry where k <= 0."""
+    k = _param(k, vals_desc, torch.long)
+    idx = (k.clamp(1, vals_desc.shape[-1]) - 1).expand(vals_desc.shape[0], 1)
+    return (values >= vals_desc.gather(-1, idx)) | (k <= 0)
+
+
+def top_k_mask(logits: torch.Tensor, k) -> torch.Tensor:
+    """Keep logits (B, V) >= the k-th largest of their row (ties kept);
+    k <= 0 disables."""
     sorted_desc = torch.sort(logits, dim=-1, descending=True).values
-    kth = sorted_desc[..., min(k, logits.shape[-1]) - 1 : min(k, logits.shape[-1])]
-    return torch.where(logits >= kth, logits, torch.full_like(logits, float("-inf")))
+    keep = _kth_mask(sorted_desc, logits, k)
+    return torch.where(keep, logits, torch.full_like(logits, float("-inf")))
 
 
-def top_p_mask(logits: torch.Tensor, p: float) -> torch.Tensor:
-    """Nucleus filter per row: drop tokens whose exclusive cumulative
-    probability (descending order) is >= p; p >= 1 disables."""
-    if p >= 1.0:
-        return logits
+def top_p_mask(logits: torch.Tensor, p) -> torch.Tensor:
+    """Nucleus filter per row of (B, V): drop tokens whose exclusive
+    cumulative probability (descending order) is >= p; p >= 1 disables."""
+    p = _param(p, logits, torch.float32)
     probs = torch.softmax(logits, dim=-1)
     sorted_probs, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    keep_sorted = (torch.cumsum(sorted_probs, dim=-1) - sorted_probs) < p
+    keep_sorted = ((torch.cumsum(sorted_probs, dim=-1) - sorted_probs) < p) | (p >= 1.0)
     keep = torch.zeros_like(keep_sorted).scatter_(-1, order, keep_sorted)
     return torch.where(keep, logits, torch.full_like(logits, float("-inf")))
 
 
 def _filtered_pool(
-    logits: torch.Tensor, temperature: float, top_k: int, top_p: float, k_subset: int
+    logits: torch.Tensor, temperature, top_k, top_p, k_subset: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(masked values (B, k_sub) in descending order, vocab ids (B, k_sub))
     of the filtered candidate pool; filtered entries are -inf."""
-    scaled = logits / max(temperature, 1e-6)
+    scaled = logits / _param(temperature, logits, torch.float32).clamp_min(1e-6)
     k_sub = min(k_subset, scaled.shape[-1])
     vals, idx = torch.topk(scaled, k_sub, dim=-1)          # descending
-    keep = torch.ones_like(vals, dtype=torch.bool)
-    if top_k > 0:
-        kth = vals[:, min(top_k, k_sub) - 1 : min(top_k, k_sub)]
-        keep &= vals >= kth
-    if top_p < 1.0:
-        denom = torch.logsumexp(scaled, dim=-1, keepdim=True)
-        probs = torch.exp(vals - denom)
-        keep &= (torch.cumsum(probs, dim=-1) - probs) < top_p
+    keep = _kth_mask(vals, vals, top_k)
+    top_p = _param(top_p, logits, torch.float32)
+    denom = torch.logsumexp(scaled, dim=-1, keepdim=True)
+    probs = torch.exp(vals - denom)
+    keep &= ((torch.cumsum(probs, dim=-1) - probs) < top_p) | (top_p >= 1.0)
     masked = torch.where(keep, vals, torch.full_like(vals, float("-inf")))
     return masked, idx
 
@@ -118,20 +138,26 @@ def _gumbel_choice(masked: torch.Tensor, generator: torch.Generator) -> torch.Te
     return torch.argmax(masked + gumbel, dim=-1)
 
 
+def _is_zero(temperature) -> bool:
+    """The greedy case: a Python ``temperature == 0`` (a tensor never is:
+    the caller that holds one has chosen to sample)."""
+    return not isinstance(temperature, torch.Tensor) and temperature == 0.0
+
+
 def sample_logits(
     logits: torch.Tensor,          # (B, vocab)
-    temperature: float,
-    top_k: int,
-    top_p: float,
-    repetition_penalty: float,
+    temperature,                   # number, 0-d or (B,) tensor, as the filters
+    top_k,
+    top_p,
+    repetition_penalty,
     recent_tokens: torch.Tensor,   # (B, W)
     generator: torch.Generator | None,
     k_subset: int = TOP_K_SUBSET,
 ) -> torch.Tensor:
-    """One token id per lane (B,) int64: the penalized argmax at
+    """One token id per lane (B,) int64: the penalized argmax at a Python
     ``temperature == 0``, else a draw from the filtered distribution."""
     logits = apply_repetition_penalty(logits.float(), recent_tokens, repetition_penalty)
-    if temperature == 0.0:
+    if _is_zero(temperature):
         return logits.argmax(dim=-1)
     masked, idx = _filtered_pool(logits, temperature, top_k, top_p, k_subset)
     choice = _gumbel_choice(masked, generator)
@@ -141,10 +167,10 @@ def sample_logits(
 def spec_verify_sample(
     logits: torch.Tensor,          # (B, vocab)
     draft_id: torch.Tensor,        # (B,) int, < 0 = no proposal
-    temperature: float,
-    top_k: int,
-    top_p: float,
-    repetition_penalty: float,
+    temperature,                   # as sample_logits
+    top_k,
+    top_p,
+    repetition_penalty,
     recent_tokens: torch.Tensor,   # (B, W)
     generator: torch.Generator | None,
     k_subset: int = TOP_K_SUBSET,
@@ -160,7 +186,7 @@ def spec_verify_sample(
     whatever the outcome, so the stream consumed does not depend on it."""
     logits = apply_repetition_penalty(logits.float(), recent_tokens, repetition_penalty)
     draft_id = draft_id.long()
-    if temperature == 0.0:
+    if _is_zero(temperature):
         tok = logits.argmax(dim=-1)
         return tok == draft_id, tok
     masked, idx = _filtered_pool(logits, temperature, top_k, top_p, k_subset)

@@ -6,14 +6,29 @@ while-loop body ``_decode_machinery`` :326-409, the speculative body
 ``_spec_machinery`` :413-536, ``_plan_spec`` :693-713, and
 ``plan``/``pack_prompts``/``plan_statics``/``harvest``/``decode``
 :1083-1302).  The JAX package compiles each decode loop into one
-``lax.while_loop``; here each is a Python loop over eager PyTorch ops with
-one host sync per iteration (``done.all()``).  The cache layout, buckets
-and step semantics are the JAX package's, so greedy decoding produces the
-same tokens:
+``lax.while_loop``.  Here each loop is a step function of device state,
+:meth:`Generator._plain_step` and :meth:`Generator._spec_step`, which read
+and write only device tensors (the state ``tokens``, ``counts``, ``done``,
+``cur`` and the live-step counter, and the request's values, sampling
+parameters included), and a loop that runs it:
+
+  * on CUDA tensors under decode mode "auto" or "5", each step is captured
+    once per bucket as a CUDA graph and replayed in blocks, with one look
+    at ``done`` per block (``runtime/graphs.py``);
+  * on CPU tensors the same step runs eagerly in the same blocks: the
+    plain version of the graphed loop;
+  * decode modes "3" and "4" (K11a, K11b take the decode end as a host
+    int) and ``decode(eager=True)`` run one step per look at ``done``.
+
+The cache layout, buckets and step semantics are the JAX package's, so
+greedy decoding produces the same tokens:
 
   * cache ``[prompt slots 0..pb) | decode slots pb..S)``; in the plain loop
-    every live lane writes the SAME decode slot ``pb + step`` each step,
-    while its RoPE position is ``prompt_len + count - 1``;
+    every live lane writes the SAME decode slot ``min(pb + step, S - 1)``
+    each step (the attention reads up to ``min(pb + step, S)``), while its
+    RoPE position is ``prompt_len + count - 1``; ``step`` counts the live
+    steps, so a step taken after every lane is done changes no token,
+    count or flag and stays inside the cache;
   * the first token comes from the prefill logits with no repetition
     penalty; later tokens from the penalized logits over the
     ``recent_token_window`` (argmax, or ``sample_logits`` when
@@ -39,12 +54,13 @@ prefilled bf16 cache once before the loop (JAX ``:1230-1234``).
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
 from ..config import RuntimeConfig, TextDecoderConfig
+from ..models import decoder as _decoder
 from ..models.decoder import decoder_forward, decoder_logits, embed_tokens, init_kv_cache
 from ..ops.quant import act_quant_rows
 from ..ops.quant_kv import is_quantized_kv, kv_seq_len, quantize_kv_cache
@@ -59,28 +75,47 @@ from ..ops.sampling import (
 from ..ops.speculative import ngram_draft
 from ..tokenizer import EOS_TOKEN_IDS, PROMPT_PREFIX
 from ..utils.telemetry import logger
+from . import graphs as _graphs
 
 _AUDIO_OFFSET = len(PROMPT_PREFIX)  # audio features start at slot 9
 
 
+def _load(dst, src) -> None:
+    """Copy every tensor field of the dataclass ``src`` into ``dst``'s."""
+    for f in fields(dst):
+        a = getattr(dst, f.name)
+        if isinstance(a, torch.Tensor):
+            a.copy_(getattr(src, f.name))
+
+
+def _clone(obj, **changes):
+    """A copy of the dataclass ``obj`` with its tensor fields cloned."""
+    return replace(obj, **{
+        f.name: getattr(obj, f.name).clone() for f in fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)
+    }, **changes)
+
+
 @dataclass
 class _Request:
-    """Per-request constants of a decode call and the token choice they
-    define (greedy: penalized argmax; sample: ``sample_logits``)."""
+    """Per-request values of a decode call and the token choice they define
+    (greedy: penalized argmax; sample: ``sample_logits``).  ``mode``,
+    ``rep_window``, ``k_subset`` and ``token_bucket`` are static, as in the
+    JAX package; every other value is a device tensor, read by the step."""
 
     mode: str
-    temperature: float
-    top_k: int
-    top_p: float
-    penalty: float
-    rep_ctx: int
     rep_window: int
     k_subset: int
     token_bucket: int
     generator: torch.Generator | None
-    plen: torch.Tensor        # (B,) int32 prompt lengths
-    max_new: torch.Tensor     # (B,) int64 token budgets
-    eos: torch.Tensor         # (n_eos,) int64
+    plen: torch.Tensor         # (B,) int32 prompt lengths
+    max_new: torch.Tensor      # (B,) int64 token budgets
+    eos: torch.Tensor          # (n_eos,) int64
+    temperature: torch.Tensor  # 0-d float32
+    top_k: torch.Tensor        # 0-d int64
+    top_p: torch.Tensor        # 0-d float32
+    penalty: torch.Tensor      # 0-d float32
+    rep_ctx: torch.Tensor      # 0-d int64
 
     def is_eos(self, tok: torch.Tensor) -> torch.Tensor:
         return (tok[:, None] == self.eos[None, :]).any(dim=-1)
@@ -90,13 +125,24 @@ class _Request:
             tokens, counts, self.rep_ctx, self.rep_window, self.token_bucket
         )
 
-    def sample(self, logits: torch.Tensor, recent: torch.Tensor, penalty: float):
+    def sample(self, logits: torch.Tensor, recent: torch.Tensor, penalty):
         if self.mode == "greedy":
             return apply_repetition_penalty(logits.float(), recent, penalty).argmax(dim=-1)
         return sample_logits(
             logits, self.temperature, self.top_k, self.top_p, penalty, recent,
             self.generator, self.k_subset,
         )
+
+
+@dataclass
+class _State:
+    """The decode loops' state on the device, updated in place by a step."""
+
+    tokens: torch.Tensor       # (B, token_bucket) int64
+    counts: torch.Tensor       # (B,) int64 tokens emitted
+    done: torch.Tensor         # (B,) bool
+    cur: torch.Tensor          # (B,) int64 the token fed next
+    steps: torch.Tensor        # 0-d int64 live steps taken
 
 
 class Generator:
@@ -119,6 +165,17 @@ class Generator:
         #: Verify iterations of the last :meth:`decode` call, 0 when the
         #: plain loop served it.
         self.last_spec_forwards = 0
+        #: Steps the last :meth:`decode` ran (graph replays on CUDA, live
+        #: steps plus the no-op steps of its last blocks), and its looks at
+        #: ``done`` (host syncs before the result is read).
+        self.last_replays = 0
+        self.last_host_syncs = 0
+        #: The bucket of the last :meth:`decode` call: (B, S, token_bucket,
+        #: mode, rep_window, k_subset, cache dtype, spec (gamma, n) or None),
+        #: the key of its captured graph on CUDA.
+        self.last_bucket: tuple | None = None
+        #: The captured decode graphs and their cache arena (CUDA only).
+        self.graphs: _graphs.DecodeGraphs | None = None
 
     # -- planning ---------------------------------------------------------
 
@@ -215,10 +272,13 @@ class Generator:
 
     # -- prefill ----------------------------------------------------------
 
-    def prefill(self, features, ids, n_audio, prompt_len, cache_len: int):
+    def prefill(self, features, ids, n_audio, prompt_len, cache_len: int,
+                arena: bool = False):
         """Embed the prompt, inject audio features at slots [9, 9 + n_audio),
-        run the fresh-prefill forward into a new cache of ``cache_len``
-        slots, and take logits at ``prompt_len - 1``.
+        run the fresh-prefill forward into a zeroed cache of ``cache_len``
+        slots, and take logits at ``prompt_len - 1``.  With ``arena`` on CUDA
+        the cache is the decode graphs' arena view (valid until the next
+        such prefill), so the graphed decode takes it without a copy.
 
         features (B, Ta, H); ids (B, P) right-padded prompt ids; n_audio and
         prompt_len (B,).  Returns ((keys, values), first_logits (B, vocab))."""
@@ -232,7 +292,13 @@ class Generator:
         is_audio = (slot >= _AUDIO_OFFSET) & (slot < _AUDIO_OFFSET + n_audio[:, None])
         embeds = torch.where(is_audio[:, :, None], injected, embeds)
 
-        kv = init_kv_cache(cfg, B, cache_len, embeds.dtype, embeds.device)
+        if arena and embeds.is_cuda:
+            kv = tuple(v.zero_() for v in self._arena_kv(
+                (cfg.num_hidden_layers, B, cfg.num_key_value_heads, cache_len, cfg.head_dim),
+                embeds.dtype, embeds.device,
+            ))
+        else:
+            kv = init_kv_cache(cfg, B, cache_len, embeds.dtype, embeds.device)
         with self._act_quant_ctx():
             hidden, kv = decoder_forward(self.params, cfg, embeds, slot.expand(B, P), kv)
         last = hidden[torch.arange(B, device=ids.device), prompt_len.long() - 1]
@@ -240,6 +306,44 @@ class Generator:
         return kv, logits
 
     # -- decode -----------------------------------------------------------
+
+    def _graphs_on(self, device: torch.device) -> _graphs.DecodeGraphs:
+        if self.graphs is None or self.graphs.device != device:
+            self.graphs = _graphs.DecodeGraphs(device)
+        return self.graphs
+
+    def _arena_kv(self, shape, dtype, device, q8: bool = False):
+        """(keys, values) views of the arena: bf16/f32 tensors of ``shape``,
+        or with ``q8`` the int8 cache's ``{"q", "s"}`` pairs."""
+        g = self._graphs_on(device)
+        if not q8:
+            return g.view("k", shape, dtype), g.view("v", shape, dtype)
+        return tuple(
+            {"q": g.view(f"{n}q", shape, torch.int8),
+             "s": g.view(f"{n}s", shape[:-1], torch.float32)}
+            for n in "kv"
+        )
+
+    def _graph_cache(self, kv):
+        """The cache the graphed loop runs on: ``kv`` in the arena, quantized
+        there when ``kv_cache_dtype`` is int8, copied there when it lies
+        elsewhere (a prefill made without ``arena``)."""
+        q8 = is_quantized_kv(kv[0])
+        src = kv[0]["q"] if q8 else kv[0]
+        quantize = not q8 and self.runtime.kv_cache_dtype == "int8"
+        out = self._arena_kv(tuple(src.shape), src.dtype, src.device, q8 or quantize)
+        if quantize:
+            return quantize_kv_cache(kv, out=out)
+        if q8:
+            for o, c in zip(out, kv):
+                for part in "qs":
+                    if o[part].data_ptr() != c[part].data_ptr():
+                        o[part].copy_(c[part])
+        else:
+            for o, c in zip(out, kv):
+                if o.data_ptr() != c.data_ptr():
+                    o.copy_(c)
+        return out
 
     def decode(
         self,
@@ -254,104 +358,189 @@ class Generator:
         repetition_penalty: float = 1.0,
         repetition_context_size: int = 100,
         seed: int = 0,
+        eager: bool = False,
     ) -> list[list[int]]:
         """Decode every lane until EOS or its budget; returns the per-lane
         token lists (trailing EOS included).  Dispatch as JAX
         ``:1208-1302``: the speculative loop where :meth:`_plan_spec` says
-        so and the cache is not int8, else the plain loop."""
+        so and the cache is not int8, else the plain loop.
+
+        On CUDA tensors under decode mode "auto" or "5" the loop replays the
+        bucket's captured step graph (captured on first use) in blocks of
+        ``graphs.BLOCK`` steps; on CPU tensors the same step runs eagerly
+        in the same blocks.  Decode modes "3" and "4", whose kernels K11a
+        and K11b take the decode end as a host int, and ``eager=True`` (the
+        graphs' oracle on the card) run one eager step per look at
+        ``done``.  A failed capture or replay raises."""
         self.last_spec_forwards = 0
-        if self.runtime.kv_cache_dtype == "int8" and not is_quantized_kv(kv[0]):
-            kv = quantize_kv_cache(kv)      # the bf16 pair is freed on return
         mode, rep_window, k_subset = self.plan_statics(
             token_bucket, temperature, top_k, repetition_penalty,
             repetition_context_size,
         )
         device = first_logits.device
         B = first_logits.shape[0]
+        host_ends = _decoder.DECODE_KERNEL_MODE in ("3", "4")
+        graphed = device.type == "cuda" and not (eager or host_ends)
+        if graphed:
+            kv = self._graph_cache(kv)
+        elif self.runtime.kv_cache_dtype == "int8" and not is_quantized_kv(kv[0]):
+            kv = quantize_kv_cache(kv)      # the bf16 pair is freed on return
+        q8 = is_quantized_kv(kv[0])
+        spec = self._plan_spec(mode, B)
+        if q8:
+            spec = None
+        key = self.last_bucket = (
+            B, kv_seq_len(kv[0]), token_bucket, mode, rep_window, k_subset,
+            "int8" if q8 else kv[0].dtype, spec,
+        )
+        entry = self._graphs_on(device).get(key) if graphed else None
         generator = None
         if mode == "sample":
-            generator = torch.Generator(device=device)
-            generator.manual_seed(seed)
-        req = _Request(
-            mode=mode, temperature=temperature, top_k=top_k, top_p=top_p,
-            penalty=repetition_penalty, rep_ctx=repetition_context_size,
-            rep_window=rep_window, k_subset=k_subset, token_bucket=token_bucket,
-            generator=generator,
-            plen=torch.tensor(prompt_lens, dtype=torch.int32, device=device),
-            max_new=torch.tensor(
-                [min(m, token_bucket) for m in max_tokens], dtype=torch.long,
-                device=device,
-            ),
-            eos=torch.tensor(self._eos_ids, dtype=torch.long, device=device),
-        )
-        # First token: from the prefill logits with no repetition penalty.
-        no_recent = torch.full((B, 1), RECENT_PAD_ID, dtype=torch.long, device=device)
-        first = req.sample(first_logits, no_recent, 1.0)
-        tokens = torch.zeros((B, token_bucket), dtype=torch.long, device=device)
-        tokens[:, 0] = first
-        counts = torch.ones((B,), dtype=torch.long, device=device)
-        state = (tokens, counts, req.is_eos(first) | (counts >= req.max_new), first)
+            generator = entry[0][0].generator if entry else torch.Generator(device=device)
 
-        spec = self._plan_spec(mode, B)
-        if spec is not None and not is_quantized_kv(kv[0]):
-            tokens, counts, iters = self._spec_loop(kv, req, state, *spec)
-            self.last_spec_forwards = self.last_decode_steps = iters
-            counts_host = counts.cpu().numpy()
+        req = self._request(
+            (mode, rep_window, k_subset), token_bucket, generator, prompt_lens,
+            max_tokens, temperature, top_p, top_k, repetition_penalty,
+            repetition_context_size, device,
+        )
+        state = self._first_state(req, first_logits, seed)
+        if graphed:
+            if entry is None:
+                statics = (_clone(req), _clone(state))
+                step = self._step(kv, *statics, spec)
+                graph = self.graphs.capture(key, statics, lambda: step(0), generator)
+                logger.info("decode graph captured in %.1f ms: B=%d S=%d token_bucket=%d "
+                            "%s spec=%s", self.graphs.last_capture_ms, *key[:4], spec)
+                # The warm-up step drew numbers: draw the first token anew.
+                state = self._first_state(req, first_logits, seed)
+            else:
+                statics, graph = entry
+            _load(statics[0], req)
+            _load(statics[1], state)
+            state = statics[1]
+            self.last_replays, self.last_host_syncs = _graphs.run_blocks(
+                graph.replay, state.done, _graphs.BLOCK, ahead=True)
+        else:
+            block = 1 if eager or host_ends else _graphs.BLOCK
+            self.last_replays, self.last_host_syncs = _graphs.run_blocks(
+                self._step(kv, req, state, spec, host_ends), state.done, block)
+        steps = int(state.steps)
+        self.last_decode_steps = steps
+        logger.debug("decode: %d live steps, %d replays, %d looks at done (%s)",
+                     steps, self.last_replays, self.last_host_syncs,
+                     "graphed" if graphed else "eager")
+        if spec is not None:
+            self.last_spec_forwards = steps
+            counts_host = state.counts.cpu().numpy()
             logger.debug(
                 "speculative decode: %d tokens in %d verify iterations x %d "
                 "lanes (%.2f tokens/lane-forward)", int(counts_host.sum()),
-                iters, B, float(counts_host.sum()) / max(iters * B, 1),
+                steps, B, float(counts_host.sum()) / max(steps * B, 1),
             )
-            tokens_host = tokens.cpu().numpy()
+            tokens_host = state.tokens.cpu().numpy()
             return [
                 tokens_host[b, : counts_host[b]].tolist()
                 for b in range(len(prompt_lens))
             ]
-        tokens, counts, self.last_decode_steps = self._plain_loop(kv, req, state)
-        return self.harvest(tokens, counts, len(prompt_lens), max_tokens, token_bucket)
+        return self.harvest(state.tokens, state.counts, len(prompt_lens), max_tokens,
+                            token_bucket)
 
-    def _plain_loop(self, kv, req: "_Request", state):
-        """One token per live lane per step (JAX ``_decode_machinery``
-        :326-409): every lane writes the shared decode slot ``pb + step``
-        at RoPE position ``plen + count - 1``.  Returns (tokens, counts,
-        steps)."""
-        tokens, counts, done, cur = state
+    def _request(self, statics, token_bucket, generator, prompt_lens, max_tokens,
+                 temperature, top_p, top_k, repetition_penalty,
+                 repetition_context_size, device) -> _Request:
+        """A decode call's :class:`_Request`: ``statics`` = (mode,
+        rep_window, k_subset) from :meth:`plan_statics`, the rest as
+        :meth:`decode` takes them, made device tensors."""
+        mode, rep_window, k_subset = statics
+
+        def dev(value, dtype):
+            return torch.tensor(value, dtype=dtype, device=device)
+
+        return _Request(
+            mode=mode, rep_window=rep_window, k_subset=k_subset,
+            token_bucket=token_bucket, generator=generator,
+            plen=dev(prompt_lens, torch.int32),
+            max_new=dev([min(m, token_bucket) for m in max_tokens], torch.long),
+            eos=dev(self._eos_ids, torch.long),
+            temperature=dev(temperature, torch.float32), top_k=dev(top_k, torch.long),
+            top_p=dev(top_p, torch.float32), penalty=dev(repetition_penalty, torch.float32),
+            rep_ctx=dev(repetition_context_size, torch.long),
+        )
+
+    def _first_state(self, req: _Request, first_logits: torch.Tensor, seed: int) -> _State:
+        """The state after the first token, drawn from the prefill logits
+        with no repetition penalty (from ``req.generator`` seeded anew)."""
+        B = first_logits.shape[0]
+        device = first_logits.device
+        if req.generator is not None:
+            req.generator.manual_seed(seed)
+        no_recent = torch.full((B, 1), RECENT_PAD_ID, dtype=torch.long, device=device)
+        first = req.sample(first_logits, no_recent, 1.0)
+        tokens = torch.zeros((B, req.token_bucket), dtype=torch.long, device=device)
+        tokens[:, 0] = first
+        counts = torch.ones((B,), dtype=torch.long, device=device)
+        done = req.is_eos(first) | (counts >= req.max_new)
+        return _State(tokens, counts, done, first,
+                      torch.zeros((), dtype=torch.long, device=device))
+
+    def _step(self, kv, req: _Request, state: _State, spec, host_ends: bool = False):
+        """The loop's step as a function of the step index: the speculative
+        verify iteration, or the plain step (given the index as its host
+        step with ``host_ends``)."""
+        if spec is not None:
+            return lambda _i: self._spec_step(kv, req, state, *spec)
+        if host_ends:
+            return lambda i: self._plain_step(kv, req, state, host_step=i)
+        return lambda _i: self._plain_step(kv, req, state)
+
+    def _plain_step(self, kv, req: _Request, st: _State, host_step: int | None = None):
+        """One token per live lane (JAX ``_decode_machinery`` :326-409): every
+        lane writes the shared decode slot ``min(pb + step, S - 1)`` at RoPE
+        position ``plen + count - 1``, attending up to ``min(pb + step, S)``.
+        Slot and end are (B,) int32 tensors computed from the live-step
+        counter on the device (K2, or K4 on the int8 cache, with the fused
+        row store), or ints from ``host_step`` (the decode modes "3"/"4"
+        loop: K11a/K11b, then K3).  Updates ``st`` in place."""
         S = kv_seq_len(kv[0])
         tb = req.token_bucket
         prompt_bucket = S - tb
-        step = 0
-        while not bool(done.all()):
-            pos = req.plen.long() + counts - 1
-            embeds = embed_tokens(self.params, cur)[:, None, :]
-            slot_step = min(prompt_bucket + step, S - 1)
-            dend = min(prompt_bucket + step, S)
-            hidden, kv = decoder_forward(
-                self.params, self.cfg, embeds, pos[:, None], kv,
-                write_slots=slot_step, decode_ctx=(req.plen, dend, prompt_bucket),
-            )
-            logits = decoder_logits(self.params, self.cfg, hidden)[:, 0]
-            nxt = req.sample(logits, req.recent(tokens, counts), req.penalty)
+        B = st.counts.shape[0]
+        live = ~st.done
+        if host_step is None:
+            at = (st.steps + prompt_bucket).to(torch.int32).expand(B)
+            slot_step, dend = at.clamp(max=S - 1), at.clamp(max=S)
+        else:
+            slot_step = min(prompt_bucket + host_step, S - 1)
+            dend = min(prompt_bucket + host_step, S)
+        pos = req.plen.long() + st.counts - 1
+        embeds = embed_tokens(self.params, st.cur)[:, None, :]
+        hidden, kv = decoder_forward(
+            self.params, self.cfg, embeds, pos[:, None], kv,
+            write_slots=slot_step, decode_ctx=(req.plen, dend, prompt_bucket),
+        )
+        logits = decoder_logits(self.params, self.cfg, hidden)[:, 0]
+        nxt = req.sample(logits, req.recent(st.tokens, st.counts), req.penalty)
 
-            slot = counts.clamp(0, tb - 1)[:, None]
-            write = torch.where(done, tokens.gather(1, slot)[:, 0], nxt)
-            tokens.scatter_(1, slot, write[:, None])
-            counts = counts + (~done).long()
-            done = done | req.is_eos(nxt) | (counts >= req.max_new)
-            cur = torch.where(done, cur, nxt)
-            step += 1
-        return tokens, counts, step
+        slot = st.counts.clamp(0, tb - 1)[:, None]
+        write = torch.where(st.done, st.tokens.gather(1, slot)[:, 0], nxt)
+        st.tokens.scatter_(1, slot, write[:, None])
+        counts = st.counts + live.long()
+        done = st.done | req.is_eos(nxt) | (counts >= req.max_new)
+        st.cur.copy_(torch.where(done, st.cur, nxt))
+        st.counts.copy_(counts)
+        st.done.copy_(done)
+        st.steps.add_(live.any().long())
 
-    def _spec_loop(self, kv, req: "_Request", state, gamma: int, ngram_n: int):
-        """The speculative loop (JAX ``_spec_machinery`` :413-536): per
-        iteration an n-gram draft, ONE verify forward over ``gamma + 1``
+    def _spec_step(self, kv, req: _Request, st: _State, gamma: int, ngram_n: int):
+        """One iteration of the speculative loop (JAX ``_spec_machinery``
+        :413-536): an n-gram draft, ONE verify forward over ``gamma + 1``
         positions per lane, and an accept chain unrolled on the device
         that emits 1..gamma+1 tokens per lane.  Greedy: a position's
         choice is used only while every earlier draft matched, so the
         stream equals the plain greedy stream.  Sample: rejection-sampling
         verification, each emitted token an exact draw from the plain
-        sampler's distribution.  One host sync per iteration (``done``).
-        Returns (tokens, counts, iterations)."""
-        tokens, counts, done, cur = state
+        sampler's distribution.  Updates ``st`` in place."""
+        tokens, counts, done, cur = st.tokens, st.counts, st.done, st.cur
         S = kv_seq_len(kv[0])
         tb = req.token_bucket
         prompt_bucket = S - tb
@@ -359,50 +548,57 @@ class Generator:
         T = gamma + 1
         offs = torch.arange(T, device=tokens.device)
         no_draft = torch.full((B,), -1, dtype=torch.long, device=tokens.device)
-        step = 0
-        while not bool(done.all()):
-            draft, dvalid = ngram_draft(tokens, counts, n=ngram_n, gamma=gamma)
-            ids = torch.cat([cur[:, None], draft], dim=1)                # (B, T)
-            pos = (req.plen.long() + counts - 1)[:, None] + offs[None, :]
-            ws = (prompt_bucket + counts - 1).to(torch.int32)           # (B,)
-            hidden, kv = decoder_forward(
-                self.params, self.cfg, embed_tokens(self.params, ids), pos, kv,
-                write_slots=ws, decode_ctx=(req.plen, ws, prompt_bucket),
-            )
-            logits = decoder_logits(self.params, self.cfg, hidden)      # (B, T, V)
-            if req.mode == "sample":        # -1: no proposal at that position
-                proposals = torch.where(dvalid, draft, no_draft[:, None])
+        any_live = (~done).any()
+        draft, dvalid = ngram_draft(tokens, counts, n=ngram_n, gamma=gamma)
+        ids = torch.cat([cur[:, None], draft], dim=1)                # (B, T)
+        pos = (req.plen.long() + counts - 1)[:, None] + offs[None, :]
+        ws = (prompt_bucket + counts - 1).to(torch.int32)           # (B,)
+        hidden, kv = decoder_forward(
+            self.params, self.cfg, embed_tokens(self.params, ids), pos, kv,
+            write_slots=ws, decode_ctx=(req.plen, ws, prompt_bucket),
+        )
+        logits = decoder_logits(self.params, self.cfg, hidden)      # (B, T, V)
+        if req.mode == "sample":        # -1: no proposal at that position
+            proposals = torch.where(dvalid, draft, no_draft[:, None])
 
-            # Draft rows written at rejected positions sit at or past the
-            # lane's new write slot: masked (< ws) and overwritten next time.
-            chain = ~done
-            for t in range(T):
-                win = req.recent(tokens, counts)
+        # Draft rows written at rejected positions sit at or past the
+        # lane's new write slot: masked (< ws) and overwritten next time.
+        chain = ~done
+        for t in range(T):
+            win = req.recent(tokens, counts)
+            if req.mode == "greedy":
+                pen = apply_repetition_penalty(logits[:, t], win, req.penalty)
+                out_t = pen.argmax(dim=-1)
+            else:
+                d_t = proposals[:, t] if t < gamma else no_draft
+                acc_t, out_t = spec_verify_sample(
+                    logits[:, t], d_t, req.temperature, req.top_k, req.top_p,
+                    req.penalty, win, req.generator, req.k_subset,
+                )
+            emit = chain
+            slot = counts.clamp(0, tb - 1)[:, None]
+            keep = tokens.gather(1, slot)[:, 0]
+            tokens.scatter_(1, slot, torch.where(emit, out_t, keep)[:, None])
+            counts = counts + emit.long()
+            newly_done = emit & (req.is_eos(out_t) | (counts >= req.max_new))
+            done = done | newly_done
+            cur = torch.where(emit & ~done, out_t, cur)
+            if t < gamma:
                 if req.mode == "greedy":
-                    pen = apply_repetition_penalty(logits[:, t], win, req.penalty)
-                    out_t = pen.argmax(dim=-1)
+                    ok = dvalid[:, t] & (out_t == draft[:, t])
                 else:
-                    d_t = proposals[:, t] if t < gamma else no_draft
-                    acc_t, out_t = spec_verify_sample(
-                        logits[:, t], d_t, req.temperature, req.top_k, req.top_p,
-                        req.penalty, win, req.generator, req.k_subset,
-                    )
-                emit = chain
-                slot = counts.clamp(0, tb - 1)[:, None]
-                keep = tokens.gather(1, slot)[:, 0]
-                tokens.scatter_(1, slot, torch.where(emit, out_t, keep)[:, None])
-                counts = counts + emit.long()
-                newly_done = emit & (req.is_eos(out_t) | (counts >= req.max_new))
-                done = done | newly_done
-                cur = torch.where(emit & ~done, out_t, cur)
-                if t < gamma:
-                    if req.mode == "greedy":
-                        ok = dvalid[:, t] & (out_t == draft[:, t])
-                    else:
-                        ok = acc_t
-                    chain = emit & ~newly_done & ok
-            step += 1
-        return tokens, counts, step
+                    ok = acc_t
+                chain = emit & ~newly_done & ok
+        st.counts.copy_(counts)
+        st.done.copy_(done)
+        st.cur.copy_(cur)
+        st.steps.add_(any_live.long())
+
+    def close(self) -> None:
+        """Free the captured decode graphs and their cache arena."""
+        if self.graphs is not None:
+            self.graphs.close()
+            self.graphs = None
 
     def harvest(
         self, tokens, counts, n: int, max_tokens: list[int], token_bucket: int

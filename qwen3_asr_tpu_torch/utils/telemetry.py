@@ -30,6 +30,11 @@ class RequestStats:
     #: Decode-loop iterations (forward passes of the whole batch; verify
     #: iterations in the speculative loop).
     n_decode_steps: int = 0
+    #: Decode steps run, the no-op steps after the last lane finished
+    #: included (graph replays on CUDA), and the looks at the lanes' done
+    #: flags (host syncs) of the decode loop.
+    n_decode_replays: int = 0
+    n_host_syncs: int = 0
     #: Verify lane-forwards of the speculative loop (0 = plain decode):
     #: iterations x real lanes, since the batch runs in lockstep.  tokens /
     #: forwards is the realized tokens per lane-forward (ceiling gamma+1).
@@ -66,6 +71,8 @@ class RequestStats:
             "n_prompt_tokens": self.n_prompt_tokens,
             "n_generated_tokens": self.n_generated_tokens,
             "n_decode_steps": self.n_decode_steps,
+            "n_decode_replays": self.n_decode_replays,
+            "n_host_syncs": self.n_host_syncs,
             "total_seconds": round(self.total_seconds, 4),
             "rtfx": round(self.rtfx, 2),
             "decode_tokens_per_second": round(self.decode_tokens_per_second, 1),

@@ -3,22 +3,30 @@
 loops and continuous engine on one CUDA GPU.
 
     python3 tools/torch_decode_profile.py [--runs 2] [--out DIR] [--no-engine]
+                                          [--blocks 1,4,8,16]
 
 Builds the 1.7B model from random weights (seed 0, bf16), and for the plain
-loop (``speculative="off"``), the default speculative loop (``"auto"``),
-the plain loop over the int8 KV cache (``"off-int8"``) and the plain loop
-under decode mode "4" (``"mode4"``: K11b and the standalone K3) runs greedy
-``transcribe_batch`` of the smoke batch (8 clips of 4-30 s,
-``max_tokens=64``) and ``transcribe`` of its 30 s clip: once to warm up,
-``--runs`` times unprofiled in turns (off, auto, off-int8, mode4, mode4,
-off-int8, auto, off; decode ms per iteration and per emitted token), then
-``--runs`` times under ``torch.profiler``.  From each Chrome trace it takes
-the host window of the ``qwen3_asr/decode`` span and the device kernels
-that start inside it, and prints per run: decode wall ms, iterations,
-kernels, device copies (memcpy nodes) and fills (memset nodes) per
-iteration, kernel ms per iteration, busy share (kernel time over the
-window) and the top kernels by time; the device events per iteration by
-name go to ``counts_*.json`` in ``--out``.
+loop (``speculative="off"``), the default speculative loop (``"auto"``)
+and the plain loop over the int8 KV cache (``"off-int8"``), each graphed
+(the default on the card: the step replayed as a CUDA graph in blocks of
+``graphs.BLOCK``) and eager (``-eager``: ``decode(eager=True)``, one host
+sync a step), and the plain loop under decode mode "4" (``"mode4"``: K11b
+and the standalone K3, eager) runs greedy ``transcribe_batch`` of the smoke
+batch (8 clips of 4-30 s, ``max_tokens=64``) and ``transcribe`` of its
+30 s clip: once to warm up (and capture), ``--runs`` times unprofiled in
+turns (decode ms per live iteration and per emitted token, replays and
+host syncs), then ``--runs`` times under ``torch.profiler``.  From each
+Chrome trace it takes the host window of the ``qwen3_asr/decode`` span and
+the device kernels that start inside it, and prints per run: decode wall
+ms, iterations, kernels, device copies (memcpy nodes) and fills (memset
+nodes) per iteration, kernel ms per iteration, busy share (kernel time
+over the window) and the top kernels by time; the device events per
+iteration by name go to ``counts_*.json`` in ``--out``.
+
+With ``--blocks``, first the graphed plain and speculative loops at each
+block size given (``graphs.BLOCK`` set before each run), in turns, ``--runs``
+x 2 each: decode ms per live iteration, replays and host syncs per decode
+(how ``graphs.BLOCK`` was chosen).
 
 Then (unless ``--no-engine``) the continuous engine on the same weights, as
 the smoke's server runs it (8 slots, 16-step chunks, 30 s clips, 512-token
@@ -177,6 +185,8 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     ap.add_argument("--no-engine", action="store_true",
                     help="profile the decode loops only, not the continuous engine")
+    ap.add_argument("--blocks", default="",
+                    help="comma-separated graphs.BLOCK values to time the graphed loops at")
     args = ap.parse_args()
 
     import torch
@@ -184,8 +194,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_decode_profile.py: no CUDA device", file=sys.stderr)
         return 1
+    from functools import partialmethod
+
     from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig
     from qwen3_asr_tpu_torch.models import decoder
+    from qwen3_asr_tpu_torch.runtime import graphs
+    from qwen3_asr_tpu_torch.runtime.generate import Generator
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -197,14 +211,14 @@ def main() -> int:
     base = Qwen3ASR.from_random(ModelConfig(), tokenizer=StubTokenizer(),
                                 runtime=RuntimeConfig(speculative="off"),
                                 dtype=torch.bfloat16, seed=0, device="cuda")
+    def sharing(runtime):
+        return Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
+                        base._tokenizer, RuntimeConfig(**runtime))
+
+    auto, off_int8 = sharing({}), sharing(dict(speculative="off", kv_cache_dtype="int8"))
     models = {
-        "off": base,
-        "auto": Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
-                         base._tokenizer, RuntimeConfig()),
-        "off-int8": Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
-                             base._tokenizer,
-                             RuntimeConfig(speculative="off", kv_cache_dtype="int8")),
-        "mode4": base,
+        "off": base, "off-eager": base, "auto": auto, "auto-eager": auto,
+        "off-int8": off_int8, "off-int8-eager": off_int8, "mode4": base,
     }
     #: The decode kernel mode each loop runs under (decoder.DECODE_KERNEL_MODE).
     modes = {"mode4": "4"}
@@ -213,31 +227,47 @@ def main() -> int:
         "B=8": lambda m: m.transcribe_batch(clips, max_tokens=64),
         "B=1": lambda m: [m.transcribe(clips[-1], max_tokens=64)],
     }
+    real_decode = Generator.decode
 
-    def run_loop(name, call):
-        saved = decoder.DECODE_KERNEL_MODE
-        decoder.DECODE_KERNEL_MODE = modes.get(name, saved)
+    def run_loop(name, call, block=None):
+        saved = decoder.DECODE_KERNEL_MODE, graphs.BLOCK
+        decoder.DECODE_KERNEL_MODE = modes.get(name, saved[0])
+        graphs.BLOCK = block or saved[1]
+        if name.endswith("-eager"):
+            Generator.decode = partialmethod(real_decode, eager=True)
         try:
             call(models[name])
         finally:
-            decoder.DECODE_KERNEL_MODE = saved
+            decoder.DECODE_KERNEL_MODE, graphs.BLOCK = saved
+            Generator.decode = real_decode
+
+    def report(label, name, m, how="unprofiled"):
+        st = m.last_stats
+        ms = st.stages["decode"] * 1e3
+        print(f"[{card}] {label} {name} {how}: "
+              f"decode {ms:.1f} ms over {st.n_decode_steps} iterations "
+              f"({st.n_decode_replays} run, {st.n_host_syncs} host syncs) = "
+              f"{ms / max(st.n_decode_steps, 1):.3f} ms/iteration, "
+              f"{ms / st.n_generated_tokens:.3f} ms per emitted token")
 
     for name in models:
         for call in calls.values():
             run_loop(name, call)
     torch.cuda.synchronize()
+    blocks = [int(b) for b in args.blocks.split(",") if b]
+    for run in range(2 * args.runs):
+        for label, call in calls.items():
+            for name in ("off", "auto"):
+                for block in blocks if run % 2 == 0 else blocks[::-1]:
+                    run_loop(name, call, block)
+                    report(label, name, models[name], f"graphed, BLOCK={block}")
     # Unprofiled decode times, the loops in turns.
+    order = ("off", "off-eager", "auto", "auto-eager", "off-int8", "off-int8-eager", "mode4")
     for run in range(args.runs):
         for label, call in calls.items():
-            for name in ("off", "auto", "off-int8", "mode4", "mode4", "off-int8", "auto", "off"):
-                m = models[name]
+            for name in order + order[::-1]:
                 run_loop(name, call)
-                st = m.last_stats
-                ms = st.stages["decode"] * 1e3
-                print(f"[{card}] {label} {name} unprofiled: "
-                      f"decode {ms:.1f} ms over {st.n_decode_steps} iterations = "
-                      f"{ms / max(st.n_decode_steps, 1):.2f} ms/iteration, "
-                      f"{ms / st.n_generated_tokens:.3f} ms per emitted token")
+                report(label, name, models[name])
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for run in range(args.runs):
         for label, call in calls.items():
@@ -249,14 +279,14 @@ def main() -> int:
                 prof.export_chrome_trace(str(path))
                 w = decode_window(json.loads(path.read_text()))
                 st = m.last_stats
-                it = max(st.n_decode_steps, 1)
+                it = max(st.n_decode_replays, 1)        # steps run, no-op ones included
                 write_counts(out / f"counts_{name}_{label}_{run}.json", w["counts"], it)
                 print(f"[{card}] {label} {name} run {run}: "
                       f"decode {w['wall_us'] / 1e3:.1f} ms (profiled) over {st.n_decode_steps} "
-                      f"iterations, {st.n_generated_tokens} tokens; {w['kernels'] / it:.0f} "
-                      f"kernels, {w['copies'] / it:.1f} device copies (memcpy), "
-                      f"{w['fills'] / it:.1f} fills (memset), and "
-                      f"{w['kernel_us'] / 1e3 / it:.3f} kernel-ms per iteration; "
+                      f"iterations ({st.n_decode_replays} run), {st.n_generated_tokens} tokens; "
+                      f"{w['kernels'] / it:.0f} kernels, {w['copies'] / it:.1f} device copies "
+                      f"(memcpy), {w['fills'] / it:.1f} fills (memset), and "
+                      f"{w['kernel_us'] / 1e3 / it:.3f} kernel-ms per iteration run; "
                       f"device busy {w['busy']:.1%}; top kernels (us): "
                       + ", ".join(f"{n} {d:.0f}" for n, d in w["top"]))
                 path.unlink()
