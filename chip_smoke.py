@@ -13,7 +13,8 @@ failure raises and the script exits non-zero):
      the card: max abs error vs the plain version computed in float32
      (K1 at B=8, T = 64, 448, 1024, 1088, 77 and B=64, T=448; K1, K2,
      K4: atol 2e-2 + rtol 2e-2 of the bf16 kernel; K9, at decode M = 1,
-     8, 96 and at the int8-weights prefill's M = 448 and 3584: 1e-5 of the
+     8, 96, at an incremental session's advance M = 16 and 104 and at
+     the int8-weights prefill's M = 448 and 3584: 1e-5 of the
      largest |value| + rtol 8e-3 (bf16 out) or 1e-5 (f32 out) against the
      f32 product of the same int8 weights, two calls bit-identical; K3, K3
      int8, K5 and K10: exact, K10's row quantize also against
@@ -114,9 +115,25 @@ failure raises and the script exits non-zero):
      prefill, five decodes of each loop in turns: tokens bit-identical,
      launches = the eager count plus the no-op replays', no re-capture for
      new sampling values; ms per live iteration, capture ms, device busy
-     share, replays and host syncs per decode, peak memory); then a
+     share, replays and host syncs per decode, peak memory); the
+     live-stream path (:func:`live_phase`, on a model sharing the plain
+     run's weights): an ``IncrementalSession`` fed a 24 s clip whose first
+     window is near-silent in 1 s pieces, previewed at five prefixes, each
+     preview's tokens held to ``transcribe`` of the prefix by the near-tie
+     rule, K2 with K3 fused 28 x replays a preview and no K1, K5 or
+     standalone writer, one graph capture for the session's bucket, the
+     committed windows counted, the quiet window re-advanced once the
+     clamp floor rose, a ``transcribe`` of another clip between two
+     previews changing nothing (preview, transcribe, advance and decode ms
+     printed); a ``StreamingTranscriber`` over 60 s of gapped tones
+     (segments and one ``partial()`` held to ``transcribe``) and two
+     sessions streaming that audio through ``feed_nowait`` on the paged
+     continuous server (held to the model path); one preview on int8
+     weights over the bf16 cache (K9 in the advance and the decode); then a
      second 1.7B model with ``RuntimeConfig(quantization="int8",
-     act_quant="int8", kv_cache_dtype="int8")`` (K4 with K3-int8 fused).
+     act_quant="int8", kv_cache_dtype="int8")`` (K4 with K3-int8 fused),
+     on which a ``StreamingTranscriber`` opens no incremental session and
+     previews by re-transcription.
      Token ids must be <
      vocab, logits never NaN, repeated runs identical, every kernel of a
      path launched;
@@ -1095,6 +1112,13 @@ K9_PREFILL_MATMULS = tuple(
     for M in (448, 3584)
     for name, K, N in DECODE_MATMULS if name != "lm_head"
 )
+#: (M, K, N) of K9 in an incremental session's cached advance under int8
+#: weights: the 16-row prefix and suffix spans and a window's 104 rows.
+K9_ADVANCE_MATMULS = tuple(
+    (f"advance {name}", M, K, N)
+    for M in (16, 104)
+    for name, K, N in DECODE_MATMULS if name != "lm_head"
+)
 
 
 def k_major_int8(gen, K: int, N: int):
@@ -1112,7 +1136,7 @@ def check_quantized_matmul(gen) -> dict:
 
     worst, times = 0.0, []
     shapes = [(f"{name}", B, K, N) for B in (1, 8, 96) for name, K, N in DECODE_MATMULS]
-    for name, B, K, N in shapes + list(K9_PREFILL_MATMULS):
+    for name, B, K, N in shapes + list(K9_ADVANCE_MATMULS) + list(K9_PREFILL_MATMULS):
         out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
         x = torch.randn(B, K, generator=gen, device="cuda").bfloat16()
         wq = k_major_int8(gen, K, N)
@@ -2848,6 +2872,333 @@ def graphs_phase(card: str, base) -> None:
         torch.cuda.empty_cache()
 
 
+#: The live-stream phase's session and stream options.
+LIVE_OPTIONS = dict(max_tokens=64, language="English")
+#: Launches a preview may make: the graphed plain loop's K2 with K3 fused;
+#: never K1 (the advance attends over the cache in plain PyTorch), a
+#: standalone writer or K5.
+LIVE_NEVER = ("flash_attention_causal", "kv_write_span_batch") + STANDALONE_WRITERS
+
+
+def live_clip():
+    """~24 s of smoke-like audio (tone plus noise) whose first 9 s are
+    near-silent, so the first 8 s window is advanced under a low clamp
+    floor that the loud rest then lifts."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    t = np.arange(24 * 16000) / 16000.0
+    clip = 0.3 * np.sin(2 * np.pi * 310.0 * t) + 0.05 * rng.standard_normal(len(t))
+    clip[: 9 * 16000] *= 3e-4
+    return clip.astype(np.float32)
+
+
+def gapped_tones(seconds: float, gap_every: float, seed: int):
+    """Tones of changing pitch with a 0.4 s silence every ``gap_every``
+    seconds (the streaming split lands in one)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, step = int(seconds * 16000), int(gap_every * 16000)
+    out = np.zeros(n, np.float32)
+    for lo in range(0, n, step):
+        t = np.arange(min(step, n - lo)) / 16000.0
+        out[lo : lo + len(t)] = 0.3 * np.sin(2 * np.pi * rng.uniform(150, 800) * t)
+        out[lo : lo + int(0.4 * 16000)] = 0.0
+    return out + 0.02 * rng.standard_normal(n).astype(np.float32)
+
+
+def hold_to_transcribe(label: str, model, audio, ids: list[int]) -> list[int]:
+    """``ids`` equal to the greedy tokens of ``model.transcribe(audio)``, or
+    first apart where that run's top two penalized logits lie within
+    NEAR_TIE of max |logit| (then the offline run's rows come from its eager
+    loop, whose tokens must equal the graphed loop's).  Returns the offline
+    tokens."""
+    graphed = _ids([model.transcribe(audio, **LIVE_OPTIONS)])[0]
+    if ids == graphed:
+        print(f"{label}: {len(ids)} tokens identical to transcribe's")
+        return graphed
+    with Choices() as rec:
+        eager = _ids([model.transcribe(audio, **LIVE_OPTIONS)])[0]
+    if eager != graphed:
+        raise AssertionError(f"{label}: the offline eager loop's tokens differ from the graphed")
+    compare_streams(label, [graphed], [ids], top_two_gaps(rec.rows))
+    return graphed
+
+
+class StageTimes:
+    """While active, CUDA-synced wall ms of ``gen``'s ``advance`` calls and
+    of its ``decode`` calls (instance attributes over the class's methods;
+    the syncs add a few microseconds to a preview), and the first-token
+    logits each decode call was given."""
+
+    def __init__(self, gen):
+        self.gen = gen
+        self.advance_ms, self.decode_ms, self.advances = 0.0, 0.0, 0
+        self.first_logits = []
+
+    def _timed(self, fn, field: str):
+        import torch
+
+        def call(*args, **kwargs):
+            if field == "decode_ms":
+                self.first_logits.append(args[1].float().clone())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            setattr(self, field, getattr(self, field) + (time.perf_counter() - t0) * 1e3)
+            if field == "advance_ms":
+                self.advances += 1
+            return out
+        return call
+
+    def __enter__(self):
+        self.gen.advance = self._timed(type(self.gen).advance.__get__(self.gen), "advance_ms")
+        self.gen.decode = self._timed(type(self.gen).decode.__get__(self.gen), "decode_ms")
+        return self
+
+    def __exit__(self, *exc):
+        del self.gen.advance, self.gen.decode
+
+
+def timed_preview(sess) -> tuple[object, float, StageTimes]:
+    """(result, CUDA-synced wall ms, stage times) of one ``sess.preview()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    with StageTimes(sess._gen) as st:
+        t0 = time.perf_counter()
+        res = sess.preview()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return res, ms, st
+
+
+def timed_transcribe(model, audio, options=LIVE_OPTIONS) -> tuple[object, float, StageTimes]:
+    """(result, CUDA-synced wall ms, stage times) of one ``model.transcribe``."""
+    import torch
+
+    torch.cuda.synchronize()
+    with StageTimes(model._generator) as st:
+        t0 = time.perf_counter()
+        res = model.transcribe(audio, **options)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return res, ms, st
+
+
+def first_row_note(preview: StageTimes, offline: StageTimes) -> str:
+    """The preview's first-token logits (the suffix advance's) against the
+    offline prefill's: max |difference| and the offline top-two gap, each
+    over max |logit|."""
+    a, b = preview.first_logits[0][0], offline.first_logits[0][0]
+    top = b.abs().max().item()
+    top2 = b.topk(2).values
+    return (f"first-token row diff {(a - b).abs().max().item() / top:.2e} of max |logit|, "
+            f"offline top-two gap {(top2[0] - top2[1]).item() / top:.2e}")
+
+
+def live_int8_phase(int8) -> None:
+    """On the int8-cache model a ``StreamingTranscriber`` opens no
+    incremental session (the session refuses the int8 cache, the JAX
+    package's rule) and previews by re-transcribing its tail."""
+    from qwen3_asr_tpu_torch import StreamingTranscriber
+
+    stream = StreamingTranscriber(int8, segment_duration=20, search_duration=5,
+                                  **LIVE_OPTIONS)
+    if stream._inc is not None:
+        raise AssertionError("live: the int8-cache model opened an incremental session")
+    audio = gapped_tones(6.0, 2.0, SEED + 5)
+    stream.feed(audio)
+    if _ids([stream.partial()]) != _ids([int8.transcribe(audio, **LIVE_OPTIONS)]):
+        raise AssertionError("live: the int8-cache stream's preview is not the transcript")
+    print("live, int8 cache: StreamingTranscriber has no incremental session; partial() "
+          "re-transcribes the tail (token-identical to transcribe)")
+
+
+def live_phase(card: str, base) -> None:
+    """The live-stream path at 1.7B on ``base``'s weights (a fresh model,
+    so its decode graphs start empty).  An ``IncrementalSession``
+    (``max_duration=30``, :data:`LIVE_OPTIONS`) fed :func:`live_clip` in 1 s
+    pieces and previewed at five prefixes (inside window 1, window 1 + 40
+    samples, mid window 2, window 2 + 40 samples, the end): each preview's
+    tokens held to ``transcribe`` of the same prefix by the near-tie rule;
+    launches per preview K2 and its fused K3 28 x replays, never K1, K5 or
+    a standalone writer; one capture for the session's bucket, on the first
+    preview; the committed windows counted and the quiet window re-advanced
+    after the floor rose; a ``transcribe`` of another clip between two
+    previews of the same audio changes nothing.  Printed per preview:
+    preview ms, transcribe ms of the prefix, advance ms, decode ms per
+    iteration.  Then ``StreamingTranscriber``: 60 s of gapped tones in 1 s
+    pieces (``segment_duration=20``, ``search_duration=5``), each final
+    segment and one ``partial()`` held to ``transcribe`` of its audio; two
+    sessions streaming the same audio through ``feed_nowait`` on the paged
+    ``ContinuousTranscriptionServer``, their segments held to the model
+    path's; a session on int8 weights (:func:`live_int8_weights`).  On
+    the int8-cache model, a stream with no incremental session, previewing
+    by re-transcription (:func:`live_int8_phase`)."""
+    import torch
+
+    from qwen3_asr_tpu_torch import StreamingTranscriber
+    from qwen3_asr_tpu_torch.incremental import WINDOW_SAMPLES
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.serving import ContinuousTranscriptionServer
+
+    t_phase = time.perf_counter()
+    model = build_model({"speculative": "off"}, base)
+    gen = model._generator
+    vocab = model._config.text_decoder.vocab_size
+    layers = model._config.text_decoder.num_hidden_layers
+    clip = live_clip()
+    prefixes = (int(3.2 * 16000), WINDOW_SAMPLES + 40, int(12.5 * 16000),
+                2 * WINDOW_SAMPLES + 40, len(clip))
+    committed_want = (0, 1, 1, 2, 2)
+    with Watch() as watch:
+        sess = model.incremental_session(max_duration=30.0, **LIVE_OPTIONS)
+        advanced = []
+        real_window = sess._advance_window
+        sess._advance_window = lambda w, floor: (advanced.append(w), real_window(w, floor))
+        fed, floors, last = 0, [], None
+        for i, (cut, want) in enumerate(zip(prefixes, committed_want)):
+            while fed < cut:
+                sess.feed(clip[fed : min(fed + 16000, cut)])
+                fed = min(fed + 16000, cut)
+            captures = gen.graphs.captures if gen.graphs is not None else 0
+            LAUNCHES.clear()
+            res, prev_ms, st = timed_preview(sess)
+            launches = dict(LAUNCHES)
+            new_captures = gen.graphs.captures - captures
+            if new_captures != (1 if i == 0 else 0):
+                raise AssertionError(f"live preview {i}: {new_captures} captures")
+            replays = gen.last_replays
+            # A capture's warm-up step runs eagerly once, and counts.
+            for name in ("decode_attention", "kv_write_rows_fused"):
+                if launches.get(name) != layers * (replays + new_captures):
+                    raise AssertionError(f"live preview {i}: {name} launched "
+                                         f"{launches.get(name)} times, want {layers} x "
+                                         f"({replays} replays + {new_captures} capture)")
+            check_launches(f"live preview {i}", launches, (), LIVE_NEVER)
+            if sess._committed != want:
+                raise AssertionError(f"live preview {i}: {sess._committed} windows "
+                                     f"committed, want {want}")
+            floors.append(list(sess._win_floor))
+            ids = _ids([res])[0]
+            check_ids(f"live preview {i}", [ids], vocab)
+            off, off_ms, off_st = timed_transcribe(model, clip[:cut])
+            hold_to_transcribe(f"live preview {i} ({cut / 16000:.4f} s) vs transcribe",
+                               model, clip[:cut], ids)
+            steps = gen.last_decode_steps
+            print(f"live preview {i} [{card}]: {cut / 16000:.4f} s of audio, "
+                  f"{sess._committed} windows committed; preview {prev_ms:.1f} ms against "
+                  f"transcribe of the prefix {off_ms:.1f} ms; advance {st.advance_ms:.1f} ms "
+                  f"({st.advances} calls), decode {st.decode_ms:.1f} ms over {steps} live steps "
+                  f"= {st.decode_ms / max(steps, 1):.3f} ms per iteration ({replays} replays); "
+                  f"{len(ids)} tokens, offline tokens equal: {_ids([off])[0] == ids}; "
+                  f"{first_row_note(st, off_st)}")
+            last = ids
+        if advanced.count(0) < 2 or not floors[2][0] > floors[1][0]:
+            raise AssertionError(f"live: window 0 advanced {advanced.count(0)} times, floors "
+                                 f"{floors[1][0]} -> {floors[2][0]}: no re-advance after the "
+                                 "floor rose")
+        model.transcribe(smoke_clips()[0], **LIVE_OPTIONS)      # zeroes the arena
+        again = _ids([sess.preview()])[0]
+        if again != last:
+            raise AssertionError("live: a transcribe between two previews changed the preview")
+        print(f"live session: window 0 advanced {advanced.count(0)} times (clamp floor "
+              f"{floors[1][0]:.4f} -> {floors[2][0]:.4f}), windows advanced in order "
+              f"{advanced}; a transcribe of another clip between two previews of the same "
+              f"audio left the preview's tokens identical")
+
+        # StreamingTranscriber: final segments and one partial().
+        audio = gapped_tones(60.0, 3.7, SEED + 3)
+        stream = StreamingTranscriber(model, segment_duration=20, search_duration=5,
+                                      **LIVE_OPTIONS)
+        if stream._inc is None:
+            raise AssertionError("live: the bf16 stream has no incremental session")
+        segs, partial = [], None
+        for lo in range(0, len(audio), 16000):
+            segs += stream.feed(audio[lo : lo + 16000])
+            if partial is None and lo >= 30 * 16000:
+                tail = audio[stream._consumed : lo + 16000]
+                partial = (stream.partial(), tail)
+        segs += stream.flush()
+        if len(segs) < 3:
+            raise AssertionError(f"live stream: {len(segs)} segments of 60 s")
+        for k, g in enumerate(segs):
+            span = audio[round(g.start * 16000) : round(g.end * 16000)]
+            hold_to_transcribe(f"live stream segment {k} ({g.start:.2f}-{g.end:.2f} s)",
+                               model, span, _ids([g])[0])
+        hold_to_transcribe("live stream partial()", model, partial[1], _ids([partial[0]])[0])
+
+        # The server= path: two sessions streaming the same audio through
+        # feed_nowait, their segments held to the model path's above.
+        with ContinuousTranscriptionServer(model, n_slots=8, max_duration=30.0,
+                                           max_new_tokens=512, chunk_steps=16) as srv:
+            sessions = [StreamingTranscriber(model, segment_duration=20, search_duration=5,
+                                             server=srv, **LIVE_OPTIONS) for _ in range(2)]
+            futs = [[] for _ in sessions]
+            for lo in range(0, len(audio), 16000):
+                for k, s in enumerate(sessions):
+                    futs[k] += s.feed_nowait(audio[lo : lo + 16000])
+            for k, s in enumerate(sessions):
+                futs[k] += s.flush_nowait()
+            served = [[f.result(timeout=600) for f in fs] for fs in futs]
+        for k, got in enumerate(served):
+            if [(g.start, g.end) for g in got] != [(g.start, g.end) for g in segs]:
+                raise AssertionError(f"live server stream {k}: segment spans differ from the "
+                                     "model path's")
+            for j, (g, r) in enumerate(zip(got, segs)):
+                span = audio[round(g.start * 16000) : round(g.end * 16000)]
+                offline = hold_to_transcribe(f"live server stream {k} segment {j}", model,
+                                             span, _ids([g])[0])
+                if _ids([r])[0] != offline:
+                    raise AssertionError(f"live segment {j}: the model path is not the "
+                                         "transcript")
+        if bool(watch.nan_seen):
+            raise AssertionError("live: NaN logits")
+    live_int8_weights(card, base, clip[: prefixes[2]])
+    print(f"live streams [{card}]: {len(segs)} final segments and one partial() of a 60 s "
+          f"stream held to transcribe; 2 server streams of "
+          f"{[len(x) for x in served]} segments held to the model path's; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    model.close()
+    del model, gen, sess, stream
+    torch.cuda.empty_cache()
+
+
+def live_int8_weights(card: str, base, audio) -> None:
+    """One preview of ``audio`` by a session on int8 weights over the bf16
+    cache (``quantization="int8"``): the advance's products run K9 at its
+    16- and 104-row spans, the decode K9 at M = 1 with K2 and the fused K3;
+    the tokens held to ``transcribe`` of the same audio."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    model = build_model({"speculative": "off", "quantization": "int8"}, base)
+    sess = model.incremental_session(max_duration=30.0, **LIVE_OPTIONS)
+    for lo in range(0, len(audio), 16000):
+        sess.feed(audio[lo : lo + 16000])
+    sess.preview()                          # captures the bucket's graph
+    LAUNCHES.clear()
+    res, ms, st = timed_preview(sess)
+    launches = dict(LAUNCHES)
+    replays = model._generator.last_replays
+    check_launches("live preview, int8 weights", launches,
+                   ("quantized_matmul", "decode_attention", "kv_write_rows_fused"), LIVE_NEVER)
+    if launches["decode_attention"] != model._config.text_decoder.num_hidden_layers * replays:
+        raise AssertionError(f"live preview, int8 weights: K2 {launches['decode_attention']} "
+                             f"launches for {replays} replays")
+    hold_to_transcribe("live preview, int8 weights", model, audio, _ids([res])[0])
+    print(f"live preview, int8 weights [{card}]: {len(audio) / 16000:.4f} s, preview {ms:.1f} "
+          f"ms, advance {st.advance_ms:.1f} ms ({st.advances} calls), decode "
+          f"{st.decode_ms / max(model._generator.last_decode_steps, 1):.3f} ms per iteration")
+    model.close()
+    del model, sess
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -2917,12 +3268,14 @@ def main() -> int:
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
     launches.update(server_phase(card, base, off))
     graphs_phase(card, base)
+    live_phase(card, base)
     base.close()
     del base
     torch.cuda.empty_cache()
     int8 = build_model(INT8_RUNTIME)
     int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH,
                                 STANDALONE_WRITERS)["launches"]
+    live_int8_phase(int8)
     int8.close()
     launches.update({name: int8_launches[name] for name in INT8_PATH})
     launches.update({name: kab_launches[name] for name in KERNELAB[1:]})

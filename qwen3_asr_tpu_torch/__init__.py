@@ -1,14 +1,15 @@
 """qwen3_asr_tpu_torch — the PyTorch/CUDA port of ``qwen3_asr_tpu``.
 
 Transcription on an NVIDIA H100 (``Qwen3ASR``), the continuous-batching
-engine and its servers (``runtime/engine.py``, ``serving``), with
+engine and its servers (``runtime/engine.py``, ``serving``), live streams
+(``IncrementalSession``, ``StreamingTranscriber``) and the command line
+(``python -m qwen3_asr_tpu_torch``), with
 hand-written CUDA kernels for the decoder's hot path (``ops/kernels``,
 sources in ``csrc``).  Imports ``torch`` and
 never ``jax``; importing needs no GPU and no ``nvcc`` (kernels are built at
 first use on a CUDA tensor).  The root exports the JAX package's public
-names that the port has; ``ReplicatedTranscriptionServer``,
-``IncrementalSession``, ``StreamingTranscriber`` and ``StreamSegment`` are
-not ported yet.
+names that the port has; ``ReplicatedTranscriptionServer`` is not ported
+yet.
 """
 
 __version__ = "0.1.0"
@@ -29,6 +30,8 @@ from .models.params import load_checkpoint
 from .ops.sampling import sample_logits
 from .runtime.generate import Generator
 from .serving.server import ContinuousTranscriptionServer, TranscriptionServer
+from .incremental import IncrementalSession
+from .streaming import StreamingTranscriber, StreamSegment
 from .tokenizer import Tokenizer, build_detect_prompt, build_prompt, parse_output
 from .utils.telemetry import RequestStats
 
@@ -58,6 +61,9 @@ __all__ = [
     "Generator",
     "TranscriptionServer",
     "ContinuousTranscriptionServer",
+    "IncrementalSession",
+    "StreamingTranscriber",
+    "StreamSegment",
     "RequestStats",
     "Tokenizer",
     "build_prompt",

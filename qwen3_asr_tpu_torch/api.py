@@ -27,7 +27,8 @@ wrapper runs its plain PyTorch version.
 
 The continuous-batching hooks ``make_engine`` (flat or paged
 ``DecodeEngine``) and ``prefill_group`` feed ``serving/server.py``'s
-``ContinuousTranscriptionServer``.
+``ContinuousTranscriptionServer``; ``incremental_session`` opens a live
+stream's ``IncrementalSession`` (``incremental.py``).
 
 Not ported yet, and raising ``NotImplementedError``: multi-device meshes
 (``dp * tp > 1``).
@@ -532,7 +533,20 @@ class Qwen3ASR:
         logger.debug("transcribe stats (batch=%d): %s", B, stats.as_dict())
         return token_lists, stats
 
-    # -- continuous-batching engine hooks ------------------------------
+    # -- live streams and continuous-batching engine hooks ---------------
+
+    def incremental_session(self, **kwargs):
+        """Open an :class:`~qwen3_asr_tpu_torch.incremental.IncrementalSession`
+        on the model's device (JAX ``api.py:885-896``): live-stream
+        transcription whose completed 8 s encoder windows are encoded and
+        advanced into a decoder-prefix KV cache of the session's own once,
+        so ``preview()`` costs one tail-window encode, a short cached
+        advance and the decode loop instead of a prefill of the whole tail.
+        Each preview is token-identical to ``transcribe`` of the same
+        prefix in float32 (``incremental.py``)."""
+        from .incremental import IncrementalSession
+
+        return IncrementalSession(self, **kwargs)
 
     def make_engine(
         self,

@@ -1,7 +1,8 @@
 """Log-mel spectrogram frontend (Qwen3-ASR spec) in PyTorch.
 
-Counterpart of ``qwen3_asr_tpu/audio/mel.py`` (``_mel_core`` and the host
-padding it is fed by), with the same numerics contract:
+Counterpart of ``qwen3_asr_tpu/audio/mel.py`` (``_mel_raw``,
+``_mel_finalize`` and the host padding they are fed by), with the same
+numerics contract:
 
   1. STFT: n_fft=400, hop=160, symmetric Hann (``np.hanning``), reflect pad
      n_fft//2 (librosa center=True), final STFT frame dropped.
@@ -90,6 +91,48 @@ def _device_constants(n_fft: int, n_mels: int, device: torch.device):
     return basis, fb
 
 
+def _mel_raw(
+    padded: torch.Tensor,
+    n_fft: int = N_FFT,
+    hop: int = HOP_LENGTH,
+    n_mels: int = N_MELS,
+) -> torch.Tensor:
+    """UNCLAMPED log10 mel of a (B, L) batch of pre-padded signal buffers,
+    (B, n_mels, n_frames) float32 (JAX ``audio/mel.py`` ``_mel_raw``).
+
+    The raw stage shared by the offline pipeline (:func:`log_mel_batch`
+    applies the clip-global clamp at once) and the incremental sessions
+    (``incremental.py`` caches raw windows and clamps once the clip's max
+    is known).  int16 PCM rows are scaled by 1/32768 here."""
+    if padded.dtype == torch.int16:
+        padded = padded.to(torch.float32) * (1.0 / 32768.0)
+    basis, fb = _device_constants(n_fft, n_mels, padded.device)
+    frames = padded.unfold(-1, n_fft, hop)            # (B, n_frames, n_fft)
+    spec = frames @ basis.T                            # (B, n_frames, 2F)
+    n_freqs = n_fft // 2 + 1
+    real, imag = spec[..., :n_freqs], spec[..., n_freqs:]
+    power = real * real + imag * imag                  # (B, n_frames, F)
+    mel = (power @ fb.T).transpose(1, 2)               # (B, n_mels, n_frames)
+    return torch.log10(torch.clamp(mel, min=_LOG_FLOOR))
+
+
+def _valid_frames(n_valid: torch.Tensor, n_frames: int, device) -> torch.Tensor:
+    """(B, 1, n_frames) True where a frame carries real audio."""
+    frame_idx = torch.arange(n_frames, device=device)
+    return (frame_idx[None, :] < n_valid[:, None])[:, None, :]
+
+
+def _mel_finalize(
+    raw: torch.Tensor, n_valid: torch.Tensor, global_max: torch.Tensor
+) -> torch.Tensor:
+    """The clip-global half of the pipeline (JAX ``_mel_finalize``): clamp
+    each clip's raw (B, n_mels, T) log-mel at its ``global_max`` (B,) - 8,
+    then (x + 4) / 4, and zero the frames past ``n_valid`` (B,)."""
+    valid = _valid_frames(n_valid, raw.shape[-1], raw.device)
+    out = (torch.maximum(raw, global_max[:, None, None] - 8.0) + 4.0) / 4.0
+    return torch.where(valid, out, torch.zeros((), device=raw.device))
+
+
 def log_mel_batch(
     padded: torch.Tensor,
     n_valid: torch.Tensor,
@@ -104,25 +147,13 @@ def log_mel_batch(
     or int16 PCM scaled by 1/32768 here); ``n_valid`` (B,) counts the
     frames carrying real audio.  Returns (B, n_mels, n_frames) float32 with
     invalid frames zeroed; the dynamic-range clamp maxes over valid frames
-    only, per clip.
+    only, per clip.  :func:`_mel_raw` then :func:`_mel_finalize`.
     """
-    if padded.dtype == torch.int16:
-        padded = padded.to(torch.float32) * (1.0 / 32768.0)
-    basis, fb = _device_constants(n_fft, n_mels, padded.device)
-    frames = padded.unfold(-1, n_fft, hop)            # (B, n_frames, n_fft)
-    spec = frames @ basis.T                            # (B, n_frames, 2F)
-    n_freqs = n_fft // 2 + 1
-    real, imag = spec[..., :n_freqs], spec[..., n_freqs:]
-    power = real * real + imag * imag                  # (B, n_frames, F)
-    mel = (power @ fb.T).transpose(1, 2)               # (B, n_mels, n_frames)
-    log_spec = torch.log10(torch.clamp(mel, min=_LOG_FLOOR))
-
-    frame_idx = torch.arange(n_frames, device=padded.device)
-    valid = (frame_idx[None, :] < n_valid[:, None])[:, None, :]   # (B, 1, T)
-    neg_inf = torch.tensor(float("-inf"), device=padded.device)
-    global_max = torch.where(valid, log_spec, neg_inf).amax(dim=(1, 2))
-    out = (torch.maximum(log_spec, global_max[:, None, None] - 8.0) + 4.0) / 4.0
-    return torch.where(valid, out, torch.zeros((), device=padded.device))
+    raw = _mel_raw(padded, n_fft, hop, n_mels)
+    valid = _valid_frames(n_valid, n_frames, raw.device)
+    neg_inf = torch.tensor(float("-inf"), device=raw.device)
+    global_max = torch.where(valid, raw, neg_inf).amax(dim=(1, 2))
+    return _mel_finalize(raw, n_valid, global_max)
 
 
 def _host_pad_into(buf: np.ndarray, audio: np.ndarray, n_fft: int) -> None:

@@ -1,6 +1,6 @@
 """Qwen3 text decoder (GQA + QK-norm + RoPE + SwiGLU) in PyTorch.
 
-Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for the three paths the
+Counterpart of ``qwen3_asr_tpu/models/decoder.py`` for the four paths the
 transcription slices run:
 
   * **fresh prefill** (``write_slots is None``, T > 1): attention over the
@@ -24,7 +24,13 @@ transcription slices run:
     cache plus a T x T causal block of the fresh rows, in plain PyTorch
     products (the JAX package uses XLA einsums here too), and one post-loop
     K5 launch for K and V at the per-lane write slots; each layer's
-    projection writes its rows straight into the buffers K5 reads.
+    projection writes its rows straight into the buffers K5 reads;
+  * **cached forward** (``write_slots`` given, no ``decode_ctx``, T >= 1,
+    ``decoder.py:455-479``, ``:847-873``): the incremental sessions'
+    prefix advance.  Each layer writes its T fresh rows into the cache,
+    then attends over the whole cache under ``slot <= position`` with the
+    plain :func:`~..ops.attention.sdpa` (XLA's einsums in the JAX package,
+    no Pallas kernel there either).
 
 The continuous engine's paged pool (``decoder_paged_step``, JAX
 ``decoder.py:881-1033``, and ``decoder_paged_verify``, ``:1036-1201``) runs
@@ -69,6 +75,7 @@ from ..ops.kernels.decode_attention_paged import (
     decode_attention_paged_verify,
     decode_attention_paged_verify_q8,
 )
+from ..ops.attention import sdpa
 from ..ops.kernels.kv_write import kv_write_rows, kv_write_span_pair
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear
@@ -223,8 +230,11 @@ def decoder_forward(
     engine's lanes at their own depths, JAX ``engine.py:446-451``).  Verify split:
     ``decode_ctx = (prompt_len, ws, prompt_bucket)`` with ``ws`` (B,) the
     per-lane write slots (also passed as ``write_slots``) and 1 < T <= 8;
-    bf16 or f32 cache only.  Returns the pre-final-norm hidden (B, T, H) and
-    the (updated in place) cache.
+    bf16 or f32 cache only.  Cached forward: ``write_slots`` (an int shared
+    by every lane, or a (B,) tensor) and no ``decode_ctx``, T >= 1; the
+    rows land at ``write_slots .. write_slots + T`` and attend the cache up
+    to their own positions; bf16 or f32 cache only.  Returns the
+    pre-final-norm hidden (B, T, H) and the (updated in place) cache.
     """
     B, T, _ = hidden.shape
     nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -281,11 +291,57 @@ def decoder_forward(
             raise ValueError("the int8 KV cache takes single-token decode only")
         return _verify_split(params, cfg, h, cos, sin, keys, values, decode_ctx)
 
+    if decode_ctx is None and write_slots is not None:
+        if is_quantized_kv(keys):
+            raise ValueError("int8 KV caches support single-token decode only")
+        return _cached_forward(params, cfg, h, positions, cos, sin, keys, values,
+                               write_slots)
+
     raise NotImplementedError(
-        "the PyTorch port runs fresh prefill (T > 1, no write_slots), "
-        "single-token split decode (decode_ctx, T == 1) and the verify split "
-        "(decode_ctx, 1 < T <= 8) only"
+        "the PyTorch port runs fresh prefill (T > 1, no write_slots), the "
+        "cached forward (write_slots, no decode_ctx), single-token split "
+        "decode (decode_ctx, T == 1) and the verify split (decode_ctx, "
+        "1 < T <= 8) only"
     )
+
+
+def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys, values,
+                    write_slots):
+    """The general cached forward (JAX ``decoder.py:455-479``, ``:847-873``):
+    T >= 1 fresh positions per lane appended to an existing cache, as the
+    incremental sessions advance their decoder prefix.  Per layer the T
+    fresh K/V rows are written first, then the queries attend over the
+    layer's whole cache under ``slot <= position``, so each row sees
+    itself.  An int ``write_slots`` writes every lane at the same slots by
+    one slice copy, its start clamped so the T rows fit (the JAX package's
+    ``dynamic_update_slice``); a (B,) tensor writes each lane at its own
+    slots, and rows outside [0, S) are dropped (its ``mode="drop"``
+    scatter).  The attention is :func:`sdpa` in plain PyTorch on every
+    device: the JAX package runs it on XLA, not in a Pallas kernel."""
+    B, T, _ = h.shape
+    nq, D = cfg.num_attention_heads, cfg.head_dim
+    S = keys.shape[3]
+    device = h.device
+    mask = torch.arange(S, device=device)[None, None, None, :] <= positions[:, None, :, None]
+    if isinstance(write_slots, torch.Tensor):
+        rows = write_slots.to(device=device, dtype=torch.long).reshape(B, 1) + torch.arange(
+            T, device=device)[None, :]                            # (B, T)
+        lane, t = ((rows >= 0) & (rows < S)).nonzero(as_tuple=True)
+        slot = rows[lane, t]
+    else:
+        start = min(max(int(write_slots), 0), S - T)
+    for layer, lp in enumerate(params["layers"]):
+        q, k, v = _project_qkv(h, lp, cfg, cos, sin)
+        if isinstance(write_slots, torch.Tensor):
+            keys[layer, lane, :, slot] = k[lane, :, t].to(keys.dtype)
+            values[layer, lane, :, slot] = v[lane, :, t].to(values.dtype)
+        else:
+            keys[layer, :, :, start : start + T] = k
+            values[layer, :, :, start : start + T] = v
+        attn = sdpa(q, keys[layer], values[layer], mask=mask, scale=D ** -0.5)
+        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
+        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+    return h, (keys, values)
 
 
 def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int,

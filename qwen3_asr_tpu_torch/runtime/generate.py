@@ -3,9 +3,10 @@
 Counterpart of ``qwen3_asr_tpu/runtime/generate.py`` (``_prefill_impl``
 :220-248, the first token of ``_decode_setup`` :303-323, the plain
 while-loop body ``_decode_machinery`` :326-409, the speculative body
-``_spec_machinery`` :413-536, ``_plan_spec`` :693-713, and
+``_spec_machinery`` :413-536, ``_plan_spec`` :693-713,
 ``plan``/``pack_prompts``/``plan_statics``/``harvest``/``decode``
-:1083-1302).  The JAX package compiles each decode loop into one
+:1083-1302, and the live sessions' ``advance``/``embed_ids``
+:156-217).  The JAX package compiles each decode loop into one
 ``lax.while_loop``.  Here each loop is a step function of device state,
 :meth:`Generator._plain_step` and :meth:`Generator._spec_step`, which read
 and write only device tensors (the state ``tokens``, ``counts``, ``done``,
@@ -270,6 +271,31 @@ class Generator:
             return act_quant_rows(rt.act_quant_min_rows)
         return contextlib.nullcontext()
 
+    # -- incremental prompt advance (streaming sessions) -------------------
+
+    def advance(self, kv, embeds, positions, write_slot: int, last_index: int):
+        """Append T prompt tokens to an existing cache (the cached forward,
+        JAX ``generate.py:156-198``): K/V rows land at slots ``[write_slot,
+        write_slot + T)`` of ``kv``, updated in place, and the f32 logits
+        are taken at ``last_index`` within the new span, as :meth:`prefill`
+        takes them.  ``embeds`` (B, T, H); ``positions`` (B, T) RoPE
+        positions.  The incremental sessions (``incremental.py``) extend
+        their decoder prefix with it one encoder window at a time; the
+        offline paths never call it.  Returns (kv, logits (B, vocab))."""
+        positions = torch.as_tensor(positions, dtype=torch.long, device=embeds.device)
+        with self._act_quant_ctx():
+            hidden, kv = decoder_forward(self.params, self.cfg, embeds, positions, kv,
+                                         write_slots=int(write_slot))
+            logits = decoder_logits(self.params, self.cfg, hidden[:, last_index : last_index + 1])
+        return kv, logits[:, 0]
+
+    def embed_ids(self, ids) -> torch.Tensor:
+        """Embedded token ids (B, T) -> (B, T, H) on the parameters' device
+        (JAX ``generate.py:211-217``), for the sessions' prefix and suffix
+        spans."""
+        device = self.params["final_norm"].device
+        return embed_tokens(self.params, torch.as_tensor(ids, device=device))
+
     # -- prefill ----------------------------------------------------------
 
     def prefill(self, features, ids, n_audio, prompt_len, cache_len: int,
@@ -359,6 +385,7 @@ class Generator:
         repetition_context_size: int = 100,
         seed: int = 0,
         eager: bool = False,
+        plain: bool = False,
     ) -> list[list[int]]:
         """Decode every lane until EOS or its budget; returns the per-lane
         token lists (trailing EOS included).  Dispatch as JAX
@@ -371,7 +398,10 @@ class Generator:
         in the same blocks.  Decode modes "3" and "4", whose kernels K11a
         and K11b take the decode end as a host int, and ``eager=True`` (the
         graphs' oracle on the card) run one eager step per look at
-        ``done``.  A failed capture or replay raises."""
+        ``done``.  ``plain=True`` runs the plain loop whatever
+        :meth:`_plan_spec` says, as the JAX package's incremental sessions
+        call its plain ``_decode`` (JAX ``incremental.py:395-418``).  A
+        failed capture or replay raises."""
         self.last_spec_forwards = 0
         mode, rep_window, k_subset = self.plan_statics(
             token_bucket, temperature, top_k, repetition_penalty,
@@ -386,9 +416,7 @@ class Generator:
         elif self.runtime.kv_cache_dtype == "int8" and not is_quantized_kv(kv[0]):
             kv = quantize_kv_cache(kv)      # the bf16 pair is freed on return
         q8 = is_quantized_kv(kv[0])
-        spec = self._plan_spec(mode, B)
-        if q8:
-            spec = None
+        spec = None if q8 or plain else self._plan_spec(mode, B)
         key = self.last_bucket = (
             B, kv_seq_len(kv[0]), token_bucket, mode, rep_window, k_subset,
             "int8" if q8 else kv[0].dtype, spec,

@@ -183,7 +183,7 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
     code = (
         "import sys\n"
         "import qwen3_asr_tpu_torch\n"
-        "from qwen3_asr_tpu_torch import api, models, runtime\n"
+        "from qwen3_asr_tpu_torch import api, cli, incremental, models, runtime, streaming\n"
         "from qwen3_asr_tpu_torch.ops.kernels import _build, decode_attention, "
         "flash_attention, kv_write, quantized_matmul, w8a8_matmul\n"
         "from qwen3_asr_tpu_torch.ops import sampling, speculative\n"
@@ -244,9 +244,8 @@ def test_warm_up_tuple_max_tokens(pair, caplog, monkeypatch):
 
 
 #: Public names of the JAX package that later slices bring (ROADMAP Queue 1,
-#: "Multi-GPU" and "Streaming and incremental sessions").
-LATER_SLICES = {"ReplicatedTranscriptionServer", "IncrementalSession",
-                "StreamingTranscriber", "StreamSegment"}
+#: "Multi-GPU").
+LATER_SLICES = {"ReplicatedTranscriptionServer"}
 
 
 def test_root_exports_match_jax():

@@ -254,12 +254,16 @@ def test_decoder_decode_step_matches_jax(tiny):
 
 
 def test_decoder_rejects_unported_paths(tiny):
+    """A decode_ctx forward of more than the verify's 8 positions has no
+    port (the cached forward, write_slots without decode_ctx, is
+    tests/test_torch_incremental.py's)."""
     _, tcfg, _, _, _, tdec_p = tiny
     kv = tdec.init_kv_cache(tcfg.text_decoder, 1, 16, torch.float32)
-    x = torch.zeros(1, 2, tcfg.text_decoder.hidden_size)
+    x = torch.zeros(1, 9, tcfg.text_decoder.hidden_size)
+    plen = torch.tensor([4], dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        tdec.decoder_forward(tdec_p, tcfg.text_decoder, x, torch.zeros(1, 2).long(), kv,
-                             write_slots=3)
+        tdec.decoder_forward(tdec_p, tcfg.text_decoder, x, torch.zeros(1, 9).long(), kv,
+                             write_slots=torch.tensor([5]), decode_ctx=(plen, 5, 4))
 
 
 def test_generator_plan_matches_jax():
