@@ -133,7 +133,19 @@ failure raises and the script exits non-zero):
      second 1.7B model with ``RuntimeConfig(quantization="int8",
      act_quant="int8", kv_cache_dtype="int8")`` (K4 with K3-int8 fused),
      on which a ``StreamingTranscriber`` opens no incremental session and
-     previews by re-transcription.
+     previews by re-transcription; then, with that model closed, the
+     training path (:func:`training_phase`): one Adam step of the tiny
+     float32 config (``tests/test_training_checkpoint.py``'s) on the card
+     against the same step on the CPU (TF32 off; the loss within 1e-5
+     relative, every gradient leaf within 1e-4 x max |g| + 1e-7), whether
+     the bf16 lm head's ``torch.mm(..., out_dtype=float32)`` has a
+     derivative, and ``ModelConfig()`` from random weights (seed 0) in
+     float32 and in bf16, Adam at lr 1e-4 on two 30 s clips at P=512: a
+     warm step, three timed steps (CUDA events), one step under the sync
+     debug mode (no host sync), every loss finite and falling, every
+     parameter leaf's gradient finite and nonzero, ms a step against its
+     bound, peak memory, the global gradient norm, and no hand-written
+     kernel launched in the whole phase.
      Token ids must be <
      vocab, logits never NaN, repeated runs identical, every kernel of a
      path launched;
@@ -151,6 +163,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3199,6 +3212,282 @@ def live_int8_weights(card: str, base, audio) -> None:
     torch.cuda.empty_cache()
 
 
+#: The training phase's tiny model: ``tests/test_training_checkpoint.py``'s
+#: config (one encoder layer, head_dim 16), float32.
+TRAIN_TINY_ENCODER = dict(d_model=32, encoder_layers=1, encoder_attention_heads=4,
+                          encoder_ffn_dim=64, output_dim=64, downsample_hidden_size=8)
+TRAIN_TINY_DECODER = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                          num_key_value_heads=2, head_dim=16, intermediate_size=128,
+                          vocab_size=512)
+#: (B, mel frames, valid frames, audio tokens, prompt length P) of the
+#: full-width batch: two 30 s clips in the 3200-frame bucket, the JAX dry
+#: run's loss mask over [9 + n_audio, P).
+TRAIN_FULL = (2, 3200, 3000, 390, 512)
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 3
+#: Peak dense rates (NVIDIA's H100 SXM data sheet): float32 outside the
+#: tensor cores (the step runs with TF32 off) and bf16.
+PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+
+def train_batch(vocab: int, B: int, frames: int, valid: int, n_audio: int, P: int,
+                seed: int, device):
+    """A seeded training batch: uniform [-1, 1) log-mel (zero past ``valid``
+    frames), prompt ids and next-token labels drawn from the vocabulary,
+    the loss mask over [9 + n_audio, P)."""
+    import numpy as np
+    import torch
+
+    from qwen3_asr_tpu_torch.training.train import Batch
+
+    rng = np.random.default_rng(seed)
+    mel = rng.uniform(-1.0, 1.0, (B, 128, frames)).astype(np.float32)
+    mel[:, :, valid:] = 0.0
+    ids, labels = rng.integers(0, vocab, (B, P)), rng.integers(0, vocab, (B, P))
+    mask = np.broadcast_to(np.arange(P) >= 9 + n_audio, (B, P))
+    fields = (mel, np.full(B, valid), ids, np.full(B, n_audio), labels, mask)
+    return Batch(*(torch.from_numpy(np.ascontiguousarray(f)).to(device) for f in fields))
+
+
+def train_step_work(cfg, B: int, frames: int, P: int) -> tuple[float, float]:
+    """(FLOPs of one train step's forward and backward, FLOPs of the tied lm
+    head's share): 6 x multiply-adds of every dense product (the decoder's
+    B*P tokens, the encoder's B*frames/100*13), the conv stem, the decoder's
+    attention over the full P x P square (the plain sdpa computes it all) and
+    the encoder's 104-token windows.  The data-dependent parts (masking)
+    change no count."""
+    enc, dec = cfg.audio_encoder, cfg.text_decoder
+    tok_d, tok_e = B * P, B * frames // enc.chunk_frames * enc.tokens_per_chunk
+    H, D = dec.hidden_size, dec.head_dim
+    nq, nkv, inter = dec.num_attention_heads, dec.num_key_value_heads, dec.intermediate_size
+    per_layer_d = H * (nq + 2 * nkv) * D + nq * D * H + 3 * H * inter
+    head = dec.vocab_size * H
+    d = enc.d_model
+    per_layer_e = 4 * d * d + 2 * d * enc.encoder_ffn_dim
+    top_e = enc.downsample_hidden_size * enc.freq_after_conv * d + d * d + d * enc.output_dim
+    flops = 6.0 * (tok_d * (dec.num_hidden_layers * per_layer_d + head)
+                   + tok_e * (enc.encoder_layers * per_layer_e + top_e))
+    # Conv stem: multiply-adds per chunk of each 3x3 stride-2 conv.
+    n_chunks, ch = B * frames // enc.chunk_frames, enc.downsample_hidden_size
+    h, w, c_in, macs = enc.num_mel_bins, enc.chunk_frames, 1, 0.0
+    for _ in range(3):
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        macs += h * w * ch * c_in * 9
+        c_in = ch
+    flops += 6.0 * n_chunks * macs
+    # Attention: QK^T and PV, two products of 2 * rows * cols * head_dim each.
+    flops += 3 * dec.num_hidden_layers * 4.0 * B * nq * P * P * D
+    win = enc.window_tokens
+    flops += 3 * enc.encoder_layers * 4.0 * tok_e * win * d
+    return flops, 6.0 * tok_d * head
+
+
+def grad_report(state) -> tuple[list[str], list[str], float]:
+    """(leaves with a non-finite gradient, leaves with an all-zero or missing
+    gradient, global L2 norm), from one stacked read of the device."""
+    import torch
+
+    from qwen3_asr_tpu_torch.training.train import named_params
+
+    named = named_params(state.encoder, state.decoder)
+    stats = []
+    for _, t in named:
+        g = t.grad.detach().float() if t.grad is not None else torch.full((), float("nan"),
+                                                                         device=t.device)
+        stats.append(torch.stack([torch.isfinite(g).all().float(), g.abs().amax(),
+                                  torch.sum(g * g)]))
+    rows = torch.stack(stats).cpu()
+    bad = [n for (n, t), r in zip(named, rows) if t.grad is None or r[0] < 1]
+    zero = [n for (n, t), r in zip(named, rows) if t.grad is None or r[1] == 0]
+    return bad, zero, float(rows[:, 2].sum().sqrt())
+
+
+def train_parity(card: str) -> None:
+    """(a) The tiny config, float32 with TF32 off (cuDNN's conv uses it by
+    default): one Adam step on the card against the same step on CPU
+    tensors, the loss within 1e-5 relative and every gradient leaf within
+    1e-4 x max |CPU grad| + 1e-7 (``tests/test_torch_training.py``'s
+    tolerances)."""
+    import functools
+
+    import torch
+
+    from qwen3_asr_tpu_torch.config import AudioEncoderConfig, ModelConfig, TextDecoderConfig
+    from qwen3_asr_tpu_torch.models.params import random_params
+    from qwen3_asr_tpu_torch.training.train import init_train_state, make_train_step, named_params
+
+    cfg = ModelConfig(audio_encoder=AudioEncoderConfig(**TRAIN_TINY_ENCODER),
+                      text_decoder=TextDecoderConfig(**TRAIN_TINY_DECODER))
+    opt = functools.partial(torch.optim.Adam, lr=1e-3)
+    step = make_train_step(cfg)
+    cpu_params = random_params(cfg, seed=SEED, dtype=torch.float32)
+    gpu_params = tuple(_params_to(p, "cuda", torch.float32) for p in cpu_params)
+    out = []
+    for params, device in ((cpu_params, "cpu"), (gpu_params, "cuda")):
+        state = init_train_state(cfg, opt, *params)
+        batch = train_batch(cfg.text_decoder.vocab_size, 2, 800, 700, 91, 144, SEED, device)
+        state, loss = step(state, batch)
+        out.append((loss.item(), {n: t.grad.float().cpu()
+                                  for n, t in named_params(state.encoder, state.decoder)}))
+    (cpu_loss, cpu_g), (gpu_loss, gpu_g) = out
+    rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    if not rel <= 1e-5:
+        raise AssertionError(f"training parity: loss {gpu_loss} on the card, {cpu_loss} on the CPU")
+    worst, worst_name = -1.0, ""
+    for name, ref in cpu_g.items():
+        scale = ref.abs().max().item()
+        err = (gpu_g[name] - ref).abs().max().item()
+        if not err <= 1e-4 * scale + 1e-7:
+            raise AssertionError(f"training parity: {name} grad err {err:.3e}, max |g| {scale:.3e}")
+        if err / (1e-4 * scale + 1e-7) > worst:
+            worst, worst_name = err / (1e-4 * scale + 1e-7), f"{name} (err {err:.2e}, max |g| {scale:.2e})"
+    print(f"training parity (tiny f32 config, TF32 off, one Adam step): loss card {gpu_loss:.7f} "
+          f"CPU {cpu_loss:.7f} (rel {rel:.2e}); {len(cpu_g)} gradient leaves within 1e-4 x max |g| "
+          f"+ 1e-7, the closest at {worst:.1%} of its tolerance: {worst_name} ({card})")
+
+
+def train_arm(card: str, dtype, label: str) -> dict:
+    """(b)/(c) ``ModelConfig()`` from ``random_params(seed=0)`` in ``dtype``
+    on the card, Adam at lr 1e-4, the :data:`TRAIN_FULL` batch: one warm
+    step, :data:`TRAIN_STEPS` steps between two CUDA events, then one step
+    under ``torch.cuda.set_sync_debug_mode("warn")`` (a host sync inside a
+    step fails the arm).  (d) Every loss finite and the last below the
+    first, every parameter leaf's gradient (the last step's) finite and
+    nonzero."""
+    import functools
+    import warnings
+
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ModelConfig
+    from qwen3_asr_tpu_torch.models.params import random_params
+    from qwen3_asr_tpu_torch.training.train import init_train_state, make_train_step
+
+    cfg = ModelConfig()
+    B, frames, valid, n_audio, P = TRAIN_FULL
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, functools.partial(torch.optim.Adam, lr=TRAIN_LR),
+                             *random_params(cfg, seed=SEED, dtype=dtype, device="cuda"))
+    n_params = sum(t.numel() for t in state.optimizer.param_groups[0]["params"])
+    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, "cuda")
+    step = make_train_step(cfg)
+    t0 = time.perf_counter()
+    state, loss = step(state, batch)
+    losses = [loss]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, loss = step(state, batch)
+            losses.append(loss)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trajectory = torch.stack(losses).float().cpu().tolist()
+    bad, zero, gnorm = grad_report(state)
+    flops, head_flops = train_step_work(cfg, B, frames, P)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if dtype == torch.float32:
+        t_ops = flops / PEAK_F32_FLOPS
+    else:   # the differentiable lm head multiplies float32 copies
+        t_ops = (flops - head_flops) / PEAK_BF16_FLOPS + head_flops / PEAK_F32_FLOPS
+    # Adam reads the parameters, gradients and both moments, writes the
+    # parameters and moments: 7 tensors of the parameters' size.
+    t_bytes = 7 * n_params * itemsize / (PEAK_HBM_GBPS * 1e9)
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    print(f"training {label}: ModelConfig() ({n_params / 1e9:.3f}B parameters, {dtype}), "
+          f"B={B} x {frames} mel frames ({valid} valid, {n_audio} audio tokens), P={P}, Adam "
+          f"lr {TRAIN_LR}: losses {['%.6f' % x for x in trajectory]} (warm step, "
+          f"{TRAIN_STEPS} timed, one sync-checked); {ms:.1f} ms a step (CUDA events, mean of {TRAIN_STEPS}; warm "
+          f"step {warm_s:.2f} s host); bound {bound_ms:.1f} ms by "
+          f"{'operations' if t_ops >= t_bytes else 'bytes'} ({flops / 1e12:.2f} TFLOP, "
+          f"{bound_ms / ms:.1%} of it); peak memory {peak_gb:.2f} GB "
+          f"(max_memory_allocated); global grad norm {gnorm:.4e} (last step); host syncs "
+          f"in the checked step {len(syncs)} ({card})")
+    if syncs:
+        raise AssertionError(f"training {label}: host syncs inside a step: {syncs[:3]}")
+    if not all(map(math.isfinite, trajectory)):
+        raise AssertionError(f"training {label}: non-finite loss {trajectory}")
+    if not trajectory[-1] < trajectory[0]:
+        raise AssertionError(f"training {label}: loss did not fall {trajectory}")
+    if bad or zero:
+        raise AssertionError(f"training {label}: non-finite gradient {bad[:5]}, zero gradient "
+                             f"{zero[:5]}")
+    del state, batch, losses, loss
+    return {"ms": ms, "peak_gb": peak_gb, "losses": trajectory, "bound_ms": bound_ms}
+
+
+def lm_head_derivative(card: str) -> None:
+    """Whether ``torch.mm(..., out_dtype=float32)`` (the bf16 lm head of
+    inference) has a derivative here, and the differentiable route (an f32
+    product of the same bf16 operands) against it at full width, M=64."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig().text_decoder
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    h = torch.randn(64, cfg.hidden_size, generator=g, device="cuda").bfloat16()
+    emb = (0.02 * torch.randn(cfg.vocab_size, cfg.hidden_size, generator=g,
+                              device="cuda")).bfloat16()
+    a = h.clone().requires_grad_(True)
+    try:
+        torch.mm(a, emb.T, out_dtype=torch.float32).sum().backward()
+        derivative = "yes"
+    except RuntimeError as e:
+        derivative = f"none ({str(e).splitlines()[0]})"
+    with torch.no_grad():
+        ref = torch.mm(h, emb.T, out_dtype=torch.float32)
+        f32 = h.float() @ emb.float().T
+    err = (f32 - ref).abs().max().item()
+    print(f"lm head: torch.mm(bf16, bf16, out_dtype=float32) derivative on the card: "
+          f"{derivative}; the differentiable route's f32 product of the same operands "
+          f"against it, max abs err {err:.3e} of max |logit| {ref.abs().max().item():.3e} "
+          f"({card})")
+
+
+def training_phase(card: str) -> dict:
+    """The training path (``qwen3_asr_tpu_torch/training``): (a)
+    :func:`train_parity`; the lm head's derivative; (b) :func:`train_arm` in
+    float32 and (c) in bf16 at full width; (d) no hand-written kernel
+    launched in the whole phase (``LAUNCHES`` unchanged)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        train_parity(card)
+        lm_head_derivative(card)
+        arms = {}
+        for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            arms[label] = train_arm(card, dtype, label)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    if dict(LAUNCHES) != before:
+        changed = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES if LAUNCHES[k] != before.get(k, 0)}
+        raise AssertionError(f"training phase launched hand-written kernels: {changed}")
+    print(f"training phase: no hand-written kernel launched ({sum(before.values())} launches "
+          f"before, unchanged) ({card})")
+    return arms
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -3277,6 +3566,9 @@ def main() -> int:
                                 STANDALONE_WRITERS)["launches"]
     live_int8_phase(int8)
     int8.close()
+    del int8
+    torch.cuda.empty_cache()
+    training_phase(card)
     launches.update({name: int8_launches[name] for name in INT8_PATH})
     launches.update({name: kab_launches[name] for name in KERNELAB[1:]})
 

@@ -7,7 +7,10 @@ transcription slices run:
     fresh K/V with the causal flash kernel K1, and each layer's K/V rows
     written into the zero-initialized cache's first T slots (the JAX
     package builds the same cache by padding the stacked rows to S,
-    ``decoder.py:816-845``);
+    ``decoder.py:816-845``); under ``attn_impl="causal"`` (training, or
+    ``QWEN3_ASR_PREFILL_FLASH=0``) the plain :func:`~..ops.attention.sdpa`
+    instead, differentiable, returning the stacked rows as the JAX package
+    does;
   * **split decode** (``decode_ctx`` given, T == 1, ``decoder.py:534-731``):
     attention runs over the PRE-step cache plus the fresh row (kernel K2),
     and the same launch then stores the layer's fresh row at the shared
@@ -68,7 +71,7 @@ from ..config import TextDecoderConfig
 from ..ops.kernels.decode_attention import decode_attention, decode_attention_q8
 from ..ops.kernels.experiments.decode_attention_hbm2 import decode_attention_hbm2
 from ..ops.kernels.experiments.decode_attention_hbm3 import decode_attention_hbm3
-from ..ops.kernels.flash_attention import flash_attention_causal
+from ..ops.kernels.flash_attention import flash_attention_causal, flash_attention_causal_plain
 from ..ops.kernels.decode_attention_paged import (
     decode_attention_paged,
     decode_attention_paged_q8,
@@ -96,6 +99,12 @@ DecoderParams = dict[str, Any]
 #: "0" (the JAX package's XLA attention) and other modes raise: the port has
 #: no plain-path switch yet.
 DECODE_KERNEL_MODE = os.environ.get("QWEN3_ASR_DECODE_KERNEL", "auto")
+
+#: The fresh prefill's attention under ``attn_impl="auto"``, read from
+#: ``QWEN3_ASR_PREFILL_FLASH`` at import as the JAX package reads it
+#: (``qwen3_asr_tpu/models/decoder.py:51-55``): on (the default), kernel K1;
+#: "0" the plain causal :func:`sdpa` ("causal"), no kernel.
+PREFILL_FLASH_ENABLED = os.environ.get("QWEN3_ASR_PREFILL_FLASH", "1") != "0"
 _PLAIN_SWITCHES_ITEM = 'ROADMAP.md Queue 1, "Plain-path switches"'
 
 
@@ -215,9 +224,10 @@ def decoder_forward(
     cfg: TextDecoderConfig,
     hidden: torch.Tensor,
     positions: torch.Tensor,
-    kv_cache: tuple[torch.Tensor, torch.Tensor],
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     write_slots=None,
     decode_ctx: tuple[torch.Tensor, int, int] | None = None,
+    attn_impl: str = "auto",
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Run the layer stack over input embeddings ``hidden`` (B, T, H) at
     absolute RoPE ``positions`` (B, T).
@@ -235,16 +245,39 @@ def decoder_forward(
     rows land at ``write_slots .. write_slots + T`` and attend the cache up
     to their own positions; bf16 or f32 cache only.  Returns the
     pre-final-norm hidden (B, T, H) and the (updated in place) cache.
+
+    ``attn_impl`` chooses the fresh prefill's attention (JAX
+    ``decoder.py:351-434``): "flash" is kernel K1 with the rows written into
+    ``kv_cache`` in place; "causal" is the plain :func:`sdpa` under a causal
+    mask on every device, differentiable, and writes nothing in place: it
+    returns the stacked per-layer rows (L, B, Hkv, T, D), padded with zeros
+    to ``kv_cache``'s length and dtype when a cache is given (JAX
+    ``:862-868``), for any T >= 1; "auto" is "flash" for a fresh prefill of
+    T > 1 unless :data:`PREFILL_FLASH_ENABLED` is off, and leaves the other
+    paths as above.  Training runs "causal": K1 is a ``ctypes`` call that
+    autograd cannot see.
     """
     B, T, _ = hidden.shape
     nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     scale = D ** -0.5
-    keys, values = kv_cache
+    fresh = decode_ctx is None and write_slots is None
+    if attn_impl == "auto" and fresh and T > 1:
+        attn_impl = "flash" if PREFILL_FLASH_ENABLED else "causal"
+    if attn_impl not in ("auto", "flash", "causal"):
+        raise ValueError(f"attn_impl must be 'auto', 'flash' or 'causal', got {attn_impl!r}")
+    if attn_impl != "auto" and not fresh:
+        raise ValueError(f"attn_impl={attn_impl!r} is the fresh prefill's (no write_slots, "
+                         "no decode_ctx)")
     cos, sin = rope_cos_sin(positions[:, None, :], D, cfg.rope_theta)
+    if attn_impl == "causal":
+        return _causal_prefill(params, cfg, hidden, cos, sin, kv_cache)
+    if kv_cache is None:
+        raise ValueError("kv_cache is required except under attn_impl='causal'")
+    keys, values = kv_cache
     h = hidden
 
-    if decode_ctx is None and write_slots is None and T > 1:
+    if attn_impl == "flash":
         for layer, lp in enumerate(params["layers"]):
             q, k, v = _project_qkv(h, lp, cfg, cos, sin)
             keys[layer, :, :, :T] = k
@@ -303,6 +336,34 @@ def decoder_forward(
         "decode (decode_ctx, T == 1) and the verify split (decode_ctx, "
         "1 < T <= 8) only"
     )
+
+
+def _causal_prefill(params, cfg: TextDecoderConfig, h, cos, sin, kv_cache):
+    """The fresh prefill under ``attn_impl="causal"`` (JAX
+    ``decoder.py:816-845``): each layer attends over its own fresh K/V with
+    :func:`sdpa` under a causal mask (K1's plain version, on every device),
+    so autograd sees the whole forward.  Returns (hidden, (keys, values)): the
+    layers' rows stacked (L, B, Hkv, T, D), or with ``kv_cache`` padded to
+    its length S in its dtype (a new pair; the given cache is not
+    written)."""
+    B, T, _ = h.shape
+    nq, D = cfg.num_attention_heads, cfg.head_dim
+    ks, vs = [], []
+    for lp in params["layers"]:
+        q, k, v = _project_qkv(h, lp, cfg, cos, sin)
+        attn = flash_attention_causal_plain(q, k, v, scale=D ** -0.5)
+        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
+        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+        ks.append(k)
+        vs.append(v)
+    k_stack, v_stack = torch.stack(ks), torch.stack(vs)
+    if kv_cache is None:
+        return h, (k_stack, v_stack)
+    keys, values = kv_cache
+    if is_quantized_kv(keys):
+        raise ValueError("int8 KV caches support single-token decode only")
+    pad = (0, 0, 0, keys.shape[3] - T)
+    return h, (F.pad(k_stack.to(keys.dtype), pad), F.pad(v_stack.to(values.dtype), pad))
 
 
 def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys, values,
@@ -534,13 +595,19 @@ def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.
     (``preferred_element_type=float32``): bf16 weights on the GPU go
     through ``torch.mm(..., out_dtype=float32)``, so two logits closer than
     a bf16 ulp keep their order; a quantized (H, V) embedding is K9 with
-    f32 output; float32 weights (and the CPU) take the plain product."""
+    f32 output; float32 weights (and the CPU) take the plain product.
+    ``torch.mm``'s ``out_dtype`` form has no derivative, so a call that
+    autograd records (training) multiplies the same bf16 operands as f32
+    tensors instead: the same products, exact in f32, summed in f32."""
     h = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     emb = params["embedding"]
     if is_quantized(emb):
         return qlinear(h, emb, out_dtype=torch.float32)
     if h.is_cuda and emb.dtype == torch.bfloat16:
         h2 = h.reshape(-1, h.shape[-1])
-        logits = torch.mm(h2, emb.T, out_dtype=torch.float32)
+        if torch.is_grad_enabled() and (h2.requires_grad or emb.requires_grad):
+            logits = h2.float() @ emb.float().T
+        else:
+            logits = torch.mm(h2, emb.T, out_dtype=torch.float32)
         return logits.reshape(*h.shape[:-1], emb.shape[0])
     return (h @ emb.T).float()

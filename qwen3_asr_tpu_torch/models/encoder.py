@@ -66,6 +66,15 @@ def sinusoidal_positions(max_positions: int, d_model: int) -> np.ndarray:
     return table.astype(np.float32)
 
 
+@lru_cache(maxsize=8)
+def _device_positions(max_positions: int, d_model: int, rows: int, device: torch.device,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The first ``rows`` rows of the sinusoid table on ``device``, copied
+    once (a copy from host memory per forward would wait for the device)."""
+    table = sinusoidal_positions(max_positions, d_model)[:rows]
+    return torch.from_numpy(table).to(device=device, dtype=dtype)
+
+
 def init_encoder_params(
     cfg: AudioEncoderConfig,
     generator: torch.Generator | None,
@@ -197,8 +206,7 @@ def _encoder_forward(params, cfg, mel, n_valid_frames):
     chunks = mel.reshape(B, n_mels, n_chunks, chunk).permute(0, 2, 1, 3)
     chunks = chunks.reshape(B * n_chunks, 1, n_mels, chunk).to(dtype)
     x = conv_stem(params, chunks)                    # (B * n_chunks, tpc, d)
-    pe = torch.from_numpy(sinusoidal_positions(cfg.max_source_positions, cfg.d_model))
-    x = x + pe[:tpc].to(device=x.device, dtype=dtype)[None]
+    x = x + _device_positions(cfg.max_source_positions, cfg.d_model, tpc, x.device, dtype)[None]
 
     total = n_chunks * tpc
     h = x.reshape(B, total, cfg.d_model)

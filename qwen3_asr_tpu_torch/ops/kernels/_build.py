@@ -218,6 +218,25 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({text})")
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise if autograd would record this launch: a kernel bound with
+    ``ctypes`` returns a tensor with no ``grad_fn``, so a backward pass
+    through it would leave the inputs' gradients silently zero.  Wrappers
+    call this before launching on CUDA tensors; inference runs under
+    ``torch.inference_mode()``/``no_grad()`` or on tensors that need no
+    gradient, and training takes the plain routes (the decoder's
+    ``attn_impl="causal"``, split float weights, the "conv" stem)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name}: a hand-written CUDA kernel has no backward; call it under "
+            "torch.no_grad() or with inputs that do not require grad"
+        )
+
+
 def stream_ptr(tensor) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on the tensor's device."""
     import torch

@@ -92,6 +92,7 @@ def conv_s2_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     + (O,) -> (N, H', W', O) in x's dtype."""
     if not x.is_cuda:
         return conv_s2_gelu_plain(x, w, b)
+    _build.refuse_autograd(NAME, x, w, b)
     _check(x, w, b)
     N, H, W, C = x.shape
     O = w.shape[-1]

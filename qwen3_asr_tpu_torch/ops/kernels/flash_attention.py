@@ -64,6 +64,7 @@ def flash_attention_causal(
     query i attends keys j <= i."""
     if not q.is_cuda:
         return flash_attention_causal_plain(q, k, v, scale)
+    _build.refuse_autograd(NAME, q, k, v)
     _check(q, k, v)
     B, hq, T, D = q.shape
     if scale is None:

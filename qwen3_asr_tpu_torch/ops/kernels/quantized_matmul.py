@@ -150,6 +150,7 @@ def quantized_matmul(
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
         return quantized_matmul_plain(x, wq, s, out_dtype)
+    _build.refuse_autograd(NAME, x, wq, s)
     _check(x, wq, s, out_dtype)
     M, K = x.shape
     N = wq.shape[1]

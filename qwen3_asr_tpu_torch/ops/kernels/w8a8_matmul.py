@@ -116,6 +116,7 @@ def w8a8_matmul(
     out_dtype = out_dtype or x.dtype
     if not x.is_cuda:
         return w8a8_matmul_plain(x, wq, ws, out_dtype)
+    _build.refuse_autograd(NAME, x, wq, ws)
     _check(x, wq, ws, out_dtype)
     M, K = x.shape
     N = wq.shape[1]

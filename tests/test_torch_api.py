@@ -190,8 +190,9 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
         "from qwen3_asr_tpu_torch.ops import quant, quant_kv\n"
         "from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5, "
         "decode_attention_sched\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'qwen3_asr_tpu.'))"
-        " or m == 'qwen3_asr_tpu']\n"
+        "from qwen3_asr_tpu_torch.training import checkpoint, train\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'optax', 'orbax', 'qwen3_asr_tpu')]\n"
         "assert not bad, bad\n"
         "assert _build._lib is None\n"
         "print('ok')\n"

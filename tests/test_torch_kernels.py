@@ -419,6 +419,27 @@ def test_library_path_tracks_sources(monkeypatch, tmp_path):
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
+@pytest.mark.parametrize("grad_mode,requires,raises", [
+    ("enabled", True, True), ("no_grad", True, False), ("inference", True, False),
+    ("enabled", False, False),
+])
+def test_refuse_autograd(grad_mode, requires, raises):
+    """The guard the ctypes kernels' wrappers call before a launch: it raises
+    only where autograd would record the call (grad enabled and an input
+    requiring grad), since the kernel's output would carry no gradient."""
+    import contextlib
+
+    x = torch.ones(4, requires_grad=requires)
+    mode = {"enabled": contextlib.nullcontext(), "no_grad": torch.no_grad(),
+            "inference": torch.inference_mode()}[grad_mode]
+    with mode:
+        if raises:
+            with pytest.raises(RuntimeError, match="no backward"):
+                _build.refuse_autograd("k", torch.ones(2), x, None)
+        else:
+            _build.refuse_autograd("k", torch.ones(2), x, None)
+
+
 # -- on the GPU: each kernel against its plain version -----------------------------
 
 
@@ -595,6 +616,40 @@ def test_cuda_quantize_rows_bit_exact(cuda, M, K):
     xq, sx = quantize_rows(x)
     rq, rs = quantize_activations(x)
     assert torch.equal(xq, rq) and torch.equal(sx, rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "quantized_matmul", "w8a8_matmul", "conv_s2_gelu"])
+def test_cuda_wrappers_refuse_autograd(cuda, kernel):
+    """K1, K9, K10 and K11e raise on inputs that require grad (their output
+    would have no ``grad_fn``), launch nothing, and run under ``no_grad``."""
+    from qwen3_asr_tpu_torch.ops.kernels.experiments.conv_stem import conv_s2_gelu
+    from qwen3_asr_tpu_torch.ops.kernels.quantized_matmul import quantized_matmul
+    from qwen3_asr_tpu_torch.ops.kernels.w8a8_matmul import w8a8_matmul
+    from qwen3_asr_tpu_torch.ops.quant import quantize_weight
+
+    bf = torch.bfloat16
+    if kernel == "flash":
+        name, fn = "flash_attention_causal", flash_attention_causal
+        args = [torch.randn(1, 2, 64, 128, device=cuda, dtype=bf) for _ in range(3)]
+    elif kernel == "conv_s2_gelu":
+        name, fn = kernel, conv_s2_gelu
+        args = [torch.randn(2, 16, 16, 8, device=cuda, dtype=bf),
+                torch.randn(3, 3, 8, 16, device=cuda, dtype=bf), torch.zeros(16, device=cuda)]
+    else:
+        name = kernel
+        fn = quantized_matmul if kernel == "quantized_matmul" else w8a8_matmul
+        w = quantize_weight(torch.randn(256, 384, device=cuda))
+        args = [torch.randn(8, 256, device=cuda, dtype=bf), w["q"], w["s"]]
+    args[0].requires_grad_(True)
+    before = LAUNCHES[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    assert LAUNCHES[name] == before
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
 
 
 @pytest.mark.cuda
