@@ -145,7 +145,19 @@ failure raises and the script exits non-zero):
      debug mode (no host sync), every loss finite and falling, every
      parameter leaf's gradient finite and nonzero, ms a step against its
      bound, peak memory, the global gradient norm, and no hand-written
-     kernel launched in the whole phase.
+     kernel launched in the whole phase.  Before the int8 model, on the
+     plain run's model: :func:`replicated_phase` (a
+     ``ReplicatedTranscriptionServer`` of ``max(2, cards)`` replicas, two
+     on ``cuda:0`` on one card, 16 requests in two rounds, each result held
+     to the solo model's ``transcribe`` by the near-tie rule, every replica
+     serving, wall and RTFx against the solo model) and :func:`mesh_phase`
+     (spawned ranks holding ``ModelConfig()`` shards: (dp, tp) = (1, 2)
+     held to the plain streams by the near-tie rule and its prefill logits
+     within 5e-2 of max |logit|, (2, 1) bit-identical to one device on each
+     slice, and with four cards (2, 2); gloo on a shared card, NCCL with a
+     card a rank; a rank that fails or outlives its time fails the smoke).
+     With two cards or more, phase 3's checks also run on ``cuda:1``
+     (:func:`second_card_phase`).
      Token ids must be <
      vocab, logits never NaN, repeated runs identical, every kernel of a
      path launched;
@@ -205,6 +217,12 @@ KERNELS = {
         "qwen3_asr_tpu/ops/quant.py:129",
     ),
     "w8a8_matmul": (
+        "cuda", "qwen3_asr_tpu_torch/csrc/w8a8_matmul.cu",
+        "qwen3_asr_tpu/ops/pallas/w8a8_matmul.py:65",
+    ),
+    # K10 with the row scales given: a row-parallel shard's product under
+    # tp (the scaled quantize kernel, then K10's product).
+    "w8a8_matmul_scaled": (
         "cuda", "qwen3_asr_tpu_torch/csrc/w8a8_matmul.cu",
         "qwen3_asr_tpu/ops/pallas/w8a8_matmul.py:65",
     ),
@@ -1116,6 +1134,16 @@ PREFILL_MATMULS = (
     ("enc proj2", 3328, 1024, 2048),
 )
 
+#: (name, M, K, N) of K10's row-parallel products at tp = 2, one rank's
+#: K-slice of each row (the row scales are the whole row's): the decoder's
+#: wo and wd at the smoke batch's prefill (8 x 448 rows), the encoder's wo,
+#: fc2 and proj2 (8 x 416 tokens).
+ROW_PARALLEL_MATMULS = (
+    ("dec wo", 3584, 1024, 2048), ("dec wd", 3584, 3072, 2048),
+    ("enc wo", 3328, 512, 1024), ("enc fc2", 3328, 2048, 1024),
+    ("enc proj2", 3328, 512, 2048),
+)
+
 
 #: (M, K, N) of K9 at the int8-weights prefill (quantization="int8" without
 #: act_quant): one clip's 448-row prompt and the smoke batch's 8 x 448 rows,
@@ -1248,6 +1276,62 @@ def check_w8a8_matmul(gen) -> dict:
     # The record: one decoder layer's four prefill matmuls.  No one PyTorch
     # call computes it (torch._int_mm takes int8 operands: the row quantize
     # and the scale epilogue are further calls).
+    dec = [t for t in times if t[0].startswith("dec")]
+    return {"max_abs_err": 0.0, "ms": sum(t[1] for t in dec), "plain_ms": sum(t[2] for t in dec),
+            **_sum_bounds([t[3] for t in dec]), "library_ms": None}
+
+
+def check_w8a8_scaled(gen) -> dict:
+    """K10's entry with the row scales given (``w8a8_matmul(...,
+    row_scales=)``: the scaled quantize kernel, then the product) at
+    :data:`ROW_PARALLEL_MATMULS`, f32 out as the row-parallel partials
+    are: bit-exact to its plain version, and ``quantize_rows_scaled``
+    bit-exact to ``quantize_activations`` with the same scales.  x is the
+    first of two K-slices of a whole row, whose abs-max gives the scales
+    (one row's maximum lies in the other slice, one row is zero)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+    times = []
+    for name, M, K, N in ROW_PARALLEL_MATMULS:
+        whole = torch.randn(M, 2 * K, generator=gen, device="cuda").bfloat16()
+        whole[1] = 0
+        whole[2, K:] *= 8
+        x = whole[:, :K].contiguous()
+        scales = w8.scales_of_amax(w8.row_amax(whole))
+        del whole
+        wq = k_major_int8(gen, K, N)
+        ws = torch.rand(N, generator=gen, device="cuda") * 1e-3
+        out = w8.w8a8_matmul(x, wq, ws, torch.float32, row_scales=scales)
+        ref = w8.w8a8_matmul_plain(x, wq, ws, torch.float32, row_scales=scales)
+        xq = w8.quantize_rows_scaled(x, scales)
+        rq = w8.quantize_activations(x, scales)[0]
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            err = (out - ref).abs().max().item()
+            raise AssertionError(f"K10 scaled {name}: not bit-exact (max abs err {err:.3e})")
+        if not torch.equal(xq, rq):
+            raise AssertionError(f"K10 quantize_rows_scaled {name}: not bit-exact to "
+                                 f"quantize_activations")
+        del out, ref, xq, rq
+        ms = cuda_ms(lambda: w8.w8a8_matmul(x, wq, ws, torch.float32, row_scales=scales))
+        plain_ms = cuda_ms(lambda: w8.w8a8_matmul_plain(x, wq, ws, torch.float32,
+                                                        row_scales=scales))
+        quant_ms = cuda_ms(lambda: w8.quantize_rows_scaled(x, scales))
+        b = bound(M * K * 2 + M * 4 + K * N + N * 4 + M * N * 4, 2 * M * N * K,
+                  PEAK_INT8_TOPS * 1e12)
+        qb = bound(M * K * 3 + M * 4, 0, PEAK_INT8_TOPS * 1e12)
+        tops = 2 * M * N * K / (ms * 1e-3) / 1e12
+        print(f"K10 w8a8_matmul row_scales= {name} (tp=2 shard) M={M} K={K} N={N}: bit-exact "
+              f"(f32 out), quantize_rows_scaled bit-exact to quantize_activations "
+              f"({quant_ms:.4f} ms, bound {qb['bound_ms']:.4f} ms); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+              f"{tops:.1f} TOPS = {tops / PEAK_INT8_TOPS:.1%} of the int8 peak")
+        times.append((name, ms, plain_ms, b))
+        del wq, x, scales
+    torch.cuda.empty_cache()
+    # The record: one decoder layer's two row-parallel prefill products.
     dec = [t for t in times if t[0].startswith("dec")]
     return {"max_abs_err": 0.0, "ms": sum(t[1] for t in dec), "plain_ms": sum(t[2] for t in dec),
             **_sum_bounds([t[3] for t in dec]), "library_ms": None}
@@ -1954,8 +2038,8 @@ class Watch:
         self.nan_seen.zero_()
         real_logits = self.real_logits = self.generate.decoder_logits
 
-        def logits(params, cfg, hidden):
-            out = real_logits(params, cfg, hidden)
+        def logits(params, cfg, hidden, tp=None):
+            out = real_logits(params, cfg, hidden, tp=tp)
             self.nan_seen.logical_or_(torch.isnan(out).any())
             if not self.first_hidden:
                 self.first_hidden.append(hidden.clone())
@@ -2480,8 +2564,8 @@ class EncoderCalls:
 
         self.api, self.real, self.calls = api, api.encoder_forward, []
 
-        def forward(params, cfg, mel, n_valid):
-            out = self.real(params, cfg, mel, n_valid)
+        def forward(params, cfg, mel, n_valid, tp=None):
+            out = self.real(params, cfg, mel, n_valid, tp=tp)
             self.calls.append((mel, n_valid, out[0]))
             return out
 
@@ -3488,6 +3572,575 @@ def training_phase(card: str) -> dict:
     return arms
 
 
+# -- one replica per device, and (dp, tp) meshes ------------------------------------------
+
+#: The replicated server's requests: the smoke clips twice.
+REPLICATED_REQUESTS = 16
+#: The meshes the smoke runs on any machine, and with four cards also (2, 2).
+MESHES = ((1, 2), (2, 1))
+#: Seconds a mesh rank may take (spawn, CUDA init, the 1.7B build, the run).
+MESH_TIMEOUT = 600
+#: tp = 2 prefill logits against one device's, bf16 both: the largest
+#: allowed max |difference| over max |logit|, the bf16 floor that
+#: reference_check holds the kernels' bf16 logits to against float32.
+MESH_LOGIT_TOL = 5e-2
+
+
+def solo_choices(base, clips) -> tuple[list[list[int]], "object"]:
+    """Each clip's greedy ``transcribe`` on ``base`` (B = 1, eager under
+    :class:`Choices`) and the gaps of its choices, as one (choices, 2,
+    len(clips)) tensor (positions past a lane's stream padded with a gap
+    of 1 x max |logit|)."""
+    import torch
+
+    streams, per = [], []
+    for clip in clips:
+        with Choices() as rec:
+            streams.append(_ids([base.transcribe(clip, max_tokens=64)])[0])
+        per.append(top_two_gaps(rec.rows))
+    n = max(g.shape[0] for g in per)
+    gaps = torch.ones((n, 2, len(clips)))
+    for b, g in enumerate(per):
+        gaps[: g.shape[0], :, b] = g[:, :, 0]
+    return streams, gaps
+
+
+def replicated_phase(card: str, base) -> dict:
+    """``ReplicatedTranscriptionServer`` over ``max(2, device_count())``
+    replicas of ``ModelConfig()`` from random weights (seed 0,
+    ``speculative="off"``): two on ``cuda:0`` on a one-card machine (each
+    capturing its decode graphs while the other's kernels run), one a card
+    otherwise.  :data:`REPLICATED_REQUESTS` requests of the smoke clips
+    submitted at once (``max_tokens=64``); every result held to the solo
+    model's ``transcribe`` of its clip (``base``, the same weights) by the
+    near-tie rule; every replica served a batch; K1 and K2 launched.
+    Printed: wall time and RTFx of the server and of the solo model's
+    ``transcribe`` of the same requests one by one, batches per replica,
+    peak memory.  On one card the two replicas share it, so the ratio is an
+    observation, not a scaling claim."""
+    import torch
+
+    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, ReplicatedTranscriptionServer
+    from qwen3_asr_tpu_torch import RuntimeConfig
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    clips = smoke_clips()
+    requests = [clips[i % len(clips)] for i in range(REPLICATED_REQUESTS)]
+    audio_s = sum(len(c) for c in requests) / 16000.0
+    streams, gaps = solo_choices(base, clips)
+    for clip in clips:                      # captures each clip's bucket
+        base.transcribe(clip, max_tokens=64)
+    t0 = time.perf_counter()
+    for clip in requests:
+        base.transcribe(clip, max_tokens=64)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+
+    n_cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", 0)] * 2 if n_cards == 1
+               else [torch.device("cuda", i) for i in range(n_cards)])
+
+    def factory():
+        return Qwen3ASR.from_random(ModelConfig(), tokenizer=StubTokenizer(),
+                                    runtime=RuntimeConfig(speculative="off"),
+                                    dtype=torch.bfloat16, seed=SEED,
+                                    device=torch.device("cuda", torch.cuda.current_device()))
+
+    for d in sorted({d.index for d in devices}):
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    srv = ReplicatedTranscriptionServer(factory, devices=devices)
+    build_s = time.perf_counter() - t0
+    solo = [streams[i % len(clips)] for i in range(REPLICATED_REQUESTS)]
+    lane_gaps = gaps[:, :, [i % len(clips) for i in range(REPLICATED_REQUESTS)]]
+    walls = []
+    try:
+        # Round 1 captures the replicas' graphs as the batches come; round 2
+        # replays them where its batches fall in the same buckets.
+        for rnd in (1, 2):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            futures = [srv.submit(c, max_tokens=64) for c in requests]
+            results = [f.result(timeout=900) for f in futures]
+            walls.append(time.perf_counter() - t0)
+            launches = dict(LAUNCHES)
+            ids = _ids(results)
+            label = f"replicated server round {rnd}"
+            check_ids(label, ids, base._config.text_decoder.vocab_size)
+            check_launches(label, launches, BF16_PATH,
+                           ("kv_write_span_batch",) + STANDALONE_WRITERS)
+            compare_streams(f"{label} vs solo transcribe", solo, ids, lane_gaps)
+        captures = [m._generator.graphs.captures if m._generator.graphs else 0
+                    for m in srv.models]
+    finally:
+        srv.close()
+        for m in srv.models:
+            m.close()
+    if srv.stats.requests != 2 * REPLICATED_REQUESTS or srv.stats.failures:
+        raise AssertionError(f"replicated server: stats {srv.stats}")
+    if not all(n > 0 for n in srv.replica_batches):
+        raise AssertionError(f"replicated server: a replica served no batch "
+                             f"({srv.replica_batches})")
+    peaks = {d: torch.cuda.max_memory_allocated(d) / 2**30 for d in sorted({d.index for d in devices})}
+    where = ", ".join(str(d) for d in devices)
+    cold_s, wall_s = walls
+    print(f"replicated server [{card}]: {len(devices)} replicas on {where}, built in "
+          f"{build_s:.2f} s; {REPLICATED_REQUESTS} requests ({audio_s:.1f} s of audio) in "
+          f"{wall_s:.3f} s = RTFx {audio_s / wall_s:.1f} (round 1, capturing: {cold_s:.3f} s "
+          f"= RTFx {audio_s / cold_s:.1f}); the solo model's transcribe of the same requests "
+          f"one by one {solo_s:.3f} s = RTFx {audio_s / solo_s:.1f} (solo / server "
+          f"{solo_s / wall_s:.2f}); batches per replica {srv.replica_batches}, "
+          f"mean batch {srv.stats.mean_batch_size:.2f}; graph captures per replica "
+          f"{captures}; peak memory GiB by card {peaks}")
+    return launches
+
+
+def mesh_rank(rank: int, dp: int, tp: int, backend: str, workdir: str, runtimes: dict,
+              refs: dict) -> None:
+    """One rank of :func:`mesh_phase` (a spawned process): joins the group,
+    builds ``ModelConfig()`` from random weights (seed 0) on its card under
+    each of ``runtimes`` with ``(dp, tp)``, and ``transcribe_batch``es the
+    smoke clips (``max_tokens=64``); saves per runtime the ids, the
+    prefill logits, the launches, the decode stats and the peak memory.
+    For a runtime in ``refs`` (per dp coordinate, the path of one device's
+    streams and logits rows of that slice, :func:`mesh_reference`) it then
+    runs :func:`forced_run`."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig, parallel
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    parallel.initialize(num_processes=dp * tp, process_id=rank, backend=backend,
+                        init_method=f"file://{workdir}/init")
+    out = {}
+    clips = smoke_clips()
+    for name, runtime in runtimes.items():
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        model = Qwen3ASR.from_random(ModelConfig(), tokenizer=StubTokenizer(),
+                                     runtime=RuntimeConfig(**runtime, dp=dp, tp=tp),
+                                     dtype=torch.bfloat16, seed=SEED, device=device)
+        torch.cuda.synchronize(device)
+        build_s = time.perf_counter() - t0
+        logits = []
+        gen = model._generator
+        real = gen.decode
+        gen.decode = lambda kv, fl, *a, **k: logits.append(fl.float().cpu()) or real(kv, fl, *a, **k)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        results = model.transcribe_batch(clips, max_tokens=64)
+        torch.cuda.synchronize(device)
+        wall_s = time.perf_counter() - t0
+        del gen.decode
+        st = model.last_stats if logits else None
+        out[name] = dict(
+            ids=_ids(results), logits=logits, launches=dict(LAUNCHES), wall_s=wall_s,
+            build_s=build_s, peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+            decode_ms=st.stages["decode"] * 1e3 if st else 0.0,
+            steps=st.n_decode_steps if st else 0, tokens=st.n_generated_tokens if st else 0,
+            graphs=gen.graphs is not None,
+        )
+        if name in refs:
+            lo, hi = dp_slices(len(clips), dp)[rank // tp]
+            out[name]["forced"] = forced_run(model, clips, refs[name][rank // tp], lo, hi)
+        model.close()
+        del model, gen
+        torch.cuda.empty_cache()
+    out["topology"] = parallel.topology()
+    out["device"] = str(device)
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def forced_run(model, clips, ref_path: str, lo: int, hi: int) -> dict:
+    """``model``'s greedy ``transcribe_batch`` of ``clips`` forced along one
+    device's streams (:class:`Choices` ``forced``; the eager loop), so that
+    both see the same prefix at every position: each of its logits rows
+    (row 0 the prefill's, the later ones after the repetition penalty) held
+    to one device's row at every live position of every lane of this
+    rank's dp slice ``clips[lo:hi]``.  Returns the forced run's ids of the
+    slice, the worst max |difference| over max |logit| of one device's
+    row, its (position, lane), and the rows compared."""
+    import torch
+
+    ref = torch.load(ref_path, weights_only=False)
+    streams, rows = ref["streams"], ref["rows"]
+    with Choices(forced=padded(streams)) as rec:
+        ids = _ids(model.transcribe_batch(clips, max_tokens=64))[lo:hi]
+    worst, at, compared = 0.0, (0, 0), 0
+    for j, row in enumerate(rec.rows[: rows.shape[0]]):
+        row = row.float().cpu()
+        for b, stream in enumerate(streams):
+            if j < len(stream):
+                want = rows[j, b]
+                rel = ((row[b] - want).abs().max() / want.abs().max()).item()
+                compared += 1
+                if rel > worst:
+                    worst, at = rel, (j, b)
+    return dict(ids=ids, worst=worst, at=at, compared=compared)
+
+
+def run_mesh(dp: int, tp: int, backend: str, runtimes: dict, refs: dict) -> list[dict]:
+    """Spawn the ``dp * tp`` ranks of :func:`mesh_rank`; each rank's saved
+    result.  A rank that exits non-zero or outlives :data:`MESH_TIMEOUT`
+    raises."""
+    import multiprocessing as mp
+    import shutil
+
+    import torch
+
+    workdir = ROOT / "build" / f"mesh_{dp}x{tp}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, dp, tp, backend, str(workdir), runtimes, refs))
+             for r in range(dp * tp)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            p.join(max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                raise AssertionError(f"mesh ({dp}, {tp}) rank {r} outlived {MESH_TIMEOUT} s")
+            if p.exitcode != 0:
+                raise AssertionError(f"mesh ({dp}, {tp}) rank {r} exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(dp * tp)]
+
+
+def dp_slices(n: int, dp: int) -> list[tuple[int, int]]:
+    """The ``[lo, hi)`` of each dp coordinate's clips, as
+    ``Qwen3ASR.transcribe_batch`` splits ``n`` of them."""
+    per, extra = divmod(n, dp)
+    return [(d * per + min(d, extra), (d + 1) * per + min(d + 1, extra)) for d in range(dp)]
+
+
+def one_device_refs(model, clips, dp: int, name: str) -> dict:
+    """One device's references for a mesh of ``dp`` slices of ``clips``: per
+    slice the file of :func:`mesh_reference` and the prefill logits, and
+    the slices' streams and gaps joined in lane order (a slice is decoded
+    as a batch of its own, as a dp coordinate decodes it)."""
+    import torch
+
+    paths, logits, streams, gaps = [], [], [], []
+    for d, (lo, hi) in enumerate(dp_slices(len(clips), dp)):
+        path = ROOT / "build" / "mesh_refs" / f"{name}_dp{dp}_{d}.pt"
+        got, g = mesh_reference(model, clips[lo:hi], path)
+        paths.append(str(path))
+        streams += got
+        gaps.append(g)
+        logits.append(prefill_logits(model, clips[lo:hi]))
+    joined = torch.ones((max(g.shape[0] for g in gaps), 2, len(streams)))
+    b = 0
+    for g in gaps:
+        joined[: g.shape[0], :, b : b + g.shape[2]] = g
+        b += g.shape[2]
+    return dict(paths=paths, logits=logits, streams=streams, gaps=joined)
+
+
+def mesh_reference(model, clips, path: Path):
+    """One device's greedy ``transcribe_batch`` of ``clips`` through the
+    eager loop (:class:`Choices`): its streams and every step's (B, V)
+    logits row saved to ``path`` for the ranks' :func:`forced_run`; returns
+    the streams and the gaps of their choices (:func:`top_two_gaps`)."""
+    import torch
+
+    with Choices() as rec:
+        streams = _ids(model.transcribe_batch(clips, max_tokens=64))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"streams": streams, "rows": torch.stack([r.float().cpu() for r in rec.rows])},
+               path)
+    return streams, top_two_gaps(rec.rows)
+
+
+class _Stop(Exception):
+    pass
+
+
+def prefill_logits(model, clips):
+    """The f32 prefill logits (B, V) of ``model.transcribe_batch(clips)``,
+    stopping before the decode."""
+    got = []
+    gen = model._generator
+
+    def stop(kv, first_logits, *args, **kwargs):
+        got.append(first_logits.float().cpu())
+        raise _Stop
+
+    gen.decode = stop
+    try:
+        model.transcribe_batch(clips, max_tokens=64)
+    except _Stop:
+        pass
+    finally:
+        del gen.decode
+    return got[0]
+
+
+class SplitRowParallel:
+    """While active, one device computes each row-parallel product (the
+    decoder's wo and wd, the encoder's wo, fc2 and proj2) as a tp = 2 group
+    does: two K-halves, each an f32 partial (W8A8 against the whole row's
+    scales, K9, or a bf16 product with an f32 result), summed in f32 and
+    rounded once.  The (1, 2) mesh's arithmetic without its collectives:
+    its column-parallel W8A8 products are exact integer sums either way."""
+
+    def __enter__(self):
+        import torch
+
+        from qwen3_asr_tpu_torch.models import decoder, encoder
+        from qwen3_asr_tpu_torch.ops import quant
+        from qwen3_asr_tpu_torch.ops.kernels import w8a8_matmul as w8
+
+        self.modules, self.real = (decoder, encoder), quant.qlinear_row_parallel
+
+        def half(w, i: int, k: int):
+            if quant.is_quantized(w):
+                return {"q": w["q"][i * k:(i + 1) * k].t().contiguous().t(), "s": w["s"]}
+            return w[i * k:(i + 1) * k]
+
+        def split(x, w, tp):
+            if tp is not None:
+                return self.real(x, w, tp)
+            lead, K = x.shape[:-1], x.shape[-1]
+            x2, k = x.reshape(-1, K).contiguous(), K // 2
+            min_rows = quant._ACT_QUANT_MIN_ROWS.get()
+            w8a8 = quant.is_quantized(w) and min_rows is not None and x2.shape[0] >= min_rows
+            scales = w8.activation_scales(x2) if w8a8 else None
+            total = None
+            for i in (0, 1):
+                xi, wi = x2[:, i * k:(i + 1) * k].contiguous(), half(w, i, k)
+                part = (w8.w8a8_matmul(xi, wi["q"], wi["s"], torch.float32, row_scales=scales)
+                        if w8a8 else quant._partial_f32(xi, wi, None))
+                total = part if total is None else total + part
+            return total.to(x.dtype).reshape(*lead, total.shape[-1])
+
+        for module in self.modules:
+            module.qlinear_row_parallel = split
+        return self
+
+    def __exit__(self, *exc):
+        for module in self.modules:
+            module.qlinear_row_parallel = self.real
+
+
+def bf16_floor(base, clips) -> float:
+    """max |bf16 - f32| / max |f32 logit| of one device's prefill logits of
+    ``clips`` at full depth: ``base`` (bf16 weights and kernels) against
+    ``ModelConfig()`` from the same seed in float32 on the card (the plain
+    causal prefill, since K1 takes bf16 only; TF32 off)."""
+    import torch
+
+    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig
+    from qwen3_asr_tpu_torch.models import decoder as dec_mod
+
+    saved = (dec_mod.PREFILL_FLASH_ENABLED, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    dec_mod.PREFILL_FLASH_ENABLED = False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    ref = Qwen3ASR.from_random(ModelConfig(), tokenizer=StubTokenizer(),
+                               runtime=RuntimeConfig(speculative="off"), dtype=torch.float32,
+                               seed=SEED, device=torch.device("cuda"))
+    try:
+        f32 = prefill_logits(ref, clips)
+    finally:
+        (dec_mod.PREFILL_FLASH_ENABLED, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+        ref.close()
+        del ref
+        torch.cuda.empty_cache()
+    got = prefill_logits(base, clips)
+    return ((got - f32).abs().max() / f32.abs().max()).item()
+
+
+def mesh_phase(card: str, base, off: dict, int8) -> dict:
+    """``transcribe_batch`` of the smoke clips (``max_tokens=64``) on (dp, tp)
+    meshes of spawned ranks, each on a card, each holding ``ModelConfig()``
+    from random weights (seed 0; its tp shards).  With fewer cards than
+    ranks, the ranks share ``cuda:0`` over gloo (CUDA tensors through host
+    memory); with enough cards, NCCL, one rank a card.
+
+      * (1, 2), ``speculative="off"``, the default, and the int8 runtime
+        (int8 weights, W8A8 prefill with the row-parallel products' scales
+        all-reduced, int8 cache): every rank's streams equal, held to one
+        device's streams (``base``'s plain ones; ``int8``'s under
+        :class:`SplitRowParallel`, since re-quantizing the next product's
+        input amplifies a rounding difference) by the near-tie rule; the
+        prefill logits within :data:`MESH_LOGIT_TOL` of max |logit| of one
+        device's; for "off" and int8 a second run forced along one
+        device's streams (:func:`forced_run`), every step's logits row
+        within :data:`MESH_LOGIT_TOL` of one device's;
+        K1 and K2 (off), K5 (default), K4, K9, K10 and its row-scaled
+        entry (int8) launched in every rank; ms per eager decode iteration
+        (no graphs on a tp group);
+      * (2, 1), ``speculative="off"``: each dp slice bit-identical to
+        ``base``'s ``transcribe_batch`` of the same slice, the whole list
+        in every rank;
+      * (2, 2) with four cards: as (1, 2).
+
+    Before the meshes, one device's bf16 prefill logits against float32
+    (:func:`bf16_floor`), the floor the tp logits are read against, and
+    the int8 model's with its row-parallel products split against whole.  Every
+    rank's peak memory is printed.  Returns the launches of (1, 2)'s rank
+    0 under each runtime."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    clips = smoke_clips()
+    plain = off["ids"][0]
+    floor = bf16_floor(base, clips)
+    print(f"one device, bf16 against float32 (the same weights before rounding) [{card}]: "
+          f"prefill logits max abs err / max |logit| = {floor:.3e} at full depth (28 layers)")
+    whole = prefill_logits(int8, clips)
+    with SplitRowParallel():
+        split = prefill_logits(int8, clips)
+    split_rel = ((split - whole).abs().max() / whole.abs().max()).item()
+    print(f"one device, int8 (W8A8 prefill), its row-parallel products as two K-halves "
+          f"summed in f32 against whole [{card}]: prefill logits max abs err / max |logit| = "
+          f"{split_rel:.3e} (the int8 arm's rounding floor; the int8 mesh is held to the split)")
+    sliced = [_ids(base.transcribe_batch(clips[lo:hi], max_tokens=64))
+              for lo, hi in dp_slices(len(clips), 2)]
+    refs_by_dp = {}
+
+    def refs_for(dp: int) -> dict:
+        """One device's references by runtime for a tp mesh of ``dp`` slices."""
+        if dp not in refs_by_dp:
+            off_refs = one_device_refs(base, clips, dp, "off")
+            with SplitRowParallel():
+                int8_refs = one_device_refs(int8, clips, dp, "int8")
+            refs_by_dp[dp] = {"off": off_refs, "default": off_refs, "int8": int8_refs}
+        return refs_by_dp[dp]
+
+    if refs_for(1)["off"]["streams"] != plain:
+        raise AssertionError("one device's eager streams differ from its graphed ones")
+    meshes = MESHES + (((2, 2),) if n_cards >= 4 else ())
+    first = {}
+    for dp, tp in meshes:
+        backend = "nccl" if n_cards >= dp * tp else "gloo"
+        runtimes = {"off": {"speculative": "off"}}
+        if tp > 1:
+            runtimes.update(default={}, int8=dict(INT8_RUNTIME))
+        t0 = time.perf_counter()
+        refs = refs_for(dp) if tp > 1 else {}
+        ranks = run_mesh(dp, tp, backend, runtimes,
+                         {k: refs[k]["paths"] for k in ("off", "int8")} if tp > 1 else {})
+        label = f"mesh (dp={dp}, tp={tp}) over {backend} on " + ", ".join(
+            sorted({r['device'] for r in ranks}))
+        print(f"{label}: {dp * tp} ranks ran in {time.perf_counter() - t0:.1f} s "
+              f"(spawn, CUDA init, builds and runs)")
+        for name in runtimes:
+            ids = [r[name]["ids"] for r in ranks]
+            if any(i != ids[0] for i in ids):
+                raise AssertionError(f"{label} {name}: the ranks' results differ")
+            check_ids(f"{label} {name}", ids[0], base._config.text_decoder.vocab_size)
+            if tp == 1:
+                if ids[0] != sliced[0] + sliced[1]:
+                    raise AssertionError(f"{label} {name}: not bit-identical to one device's "
+                                         f"transcribe_batch of each slice")
+                print(f"{label} {name}: each dp slice bit-identical to one device's "
+                      f"transcribe_batch of it; every rank holds all {len(ids[0])} results")
+            else:
+                streams, lane_gaps = refs[name]["streams"], refs[name]["gaps"]
+                compare_streams(f"{label} {name} vs one device", streams, ids[0], lane_gaps)
+                for r, res in enumerate(ranks):
+                    d = r // tp
+                    got, ref = res[name]["logits"][0], refs[name]["logits"][d]
+                    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                    print(f"{label} {name} rank {r}: prefill logits vs one device's: max abs "
+                          f"err / max |logit| = {rel:.3e} (limit {MESH_LOGIT_TOL:g}; one "
+                          f"device's bf16 vs f32 {floor:.3e})")
+                    if not rel < MESH_LOGIT_TOL:
+                        raise AssertionError(f"{label} {name}: prefill logits {rel:.3e} apart")
+                    forced = res[name].get("forced")
+                    if forced is None:
+                        continue
+                    lo, hi = dp_slices(len(clips), dp)[d]
+                    if forced["ids"] != streams[lo:hi]:
+                        raise AssertionError(f"{label} {name} rank {r}: the forced run did "
+                                             f"not emit one device's streams")
+                    print(f"{label} {name} rank {r}: forced along one device's streams, "
+                          f"{forced['compared']} logits rows (every live position of every "
+                          f"lane): worst max abs err / max |logit| = {forced['worst']:.3e} at "
+                          f"(position, lane) {forced['at']} (limit {MESH_LOGIT_TOL:g})")
+                    if not forced["worst"] < MESH_LOGIT_TOL:
+                        raise AssertionError(f"{label} {name} rank {r}: step logits "
+                                             f"{forced['worst']:.3e} apart at {forced['at']}")
+            want = ("flash_attention_causal",) + {
+                "off": ("decode_attention",), "default": ("kv_write_span_batch",),
+                "int8": ("decode_attention_q8", "kv_write_rows_q8_fused", "quantized_matmul",
+                         "w8a8_matmul", "w8a8_matmul_scaled"),
+            }[name]
+            if tp == 1:
+                want = ("flash_attention_causal", "decode_attention")
+            for r, res in enumerate(ranks):
+                got = res[name]["launches"]
+                if res[name]["ids"] and not all(got.get(k, 0) for k in want):
+                    raise AssertionError(f"{label} {name} rank {r}: launches {got}")
+                steps = max(res[name]["steps"], 1)
+                counts = ", ".join(f"{k} {got.get(k, 0)}" for k in want)
+                print(f"{label} {name} rank {r} [{card}]: launches {counts}; transcribe_batch "
+                      f"{res[name]['wall_s']:.3f} s, decode "
+                      f"{res[name]['decode_ms']:.1f} ms over {res[name]['steps']} iterations = "
+                      f"{res[name]['decode_ms'] / steps:.2f} ms/iteration "
+                      f"({'graphed' if res[name]['graphs'] else 'eager'}), "
+                      f"{res[name]['tokens']} tokens, build {res[name]['build_s']:.2f} s, "
+                      f"peak memory {res[name]['peak_gib']:.2f} GiB")
+            if (dp, tp) == (1, 2):
+                first[name] = ranks[0][name]["launches"]
+    if n_cards < 4:
+        print(f"mesh phase: {n_cards} card(s): NCCL at (2, 2) not run")
+    return first
+
+
+def kernel_checks_on(index: int, seed: int = SEED) -> float:
+    """Phase 3's kernel checks against the plain versions, again, on
+    ``cuda:index``; returns the seconds they took."""
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.cuda.device(index):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        check_flash(gen)
+        check_decode(gen)
+        check_decode(gen, True)
+        check_kv_write(gen)
+        check_quantized_matmul(gen)
+        check_w8a8_matmul(gen)
+        check_w8a8_scaled(gen)
+        check_kv_write_span(gen)
+        check_decode_paged(gen, 1, False)
+        check_decode_paged(gen, 4, True)
+        check_decode_stream(gen, "hbm2")
+        check_decode_stream(gen, "hbm3")
+        check_conv_stem(gen)
+        check_decode_lanes(gen, "hbm5")
+        check_decode_lanes(gen, "sched")
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def second_card_phase() -> None:
+    """With two cards or more, phase 3's kernel checks again on ``cuda:1``
+    in the same process, after ``cuda:0``: each kernel with more than 48 KB
+    of shared memory sets its opt-in on that card too."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print("second card: one card, the kernels' checks on cuda:1 not run")
+        return
+    seconds = kernel_checks_on(1)
+    print(f"second card: every kernel checked against its plain version on cuda:1 after "
+          f"cuda:0 in {seconds:.1f} s")
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -3522,6 +4175,7 @@ def main() -> int:
         "kv_write_rows_q8": check_kv_write_q8(gen),
         "quantized_matmul": check_quantized_matmul(gen),
         "w8a8_matmul": check_w8a8_matmul(gen),
+        "w8a8_matmul_scaled": check_w8a8_scaled(gen),
         "kv_write_span_batch": check_kv_write_span(gen),
     })
     # The fused paged stores' records: K6's (the paged step's) at PAGED_ROW.
@@ -3541,6 +4195,7 @@ def main() -> int:
         "decode_attention_sched": check_decode_lanes(gen, "sched"),
     })
     torch.cuda.empty_cache()
+    second_card_phase()
     kab_launches = kernelab_step()
     torch.cuda.empty_cache()
     reference_check(quantized=False)
@@ -3558,15 +4213,16 @@ def main() -> int:
     launches.update(server_phase(card, base, off))
     graphs_phase(card, base)
     live_phase(card, base)
-    base.close()
-    del base
-    torch.cuda.empty_cache()
+    replicated_phase(card, base)
     int8 = build_model(INT8_RUNTIME)
     int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH,
                                 STANDALONE_WRITERS)["launches"]
     live_int8_phase(int8)
-    int8.close()
-    del int8
+    mesh_launches = mesh_phase(card, base, off, int8)
+    launches["w8a8_matmul_scaled"] = mesh_launches["int8"].get("w8a8_matmul_scaled", 0)
+    for model in (base, int8):
+        model.close()
+    del base, int8, model
     torch.cuda.empty_cache()
     training_phase(card)
     launches.update({name: int8_launches[name] for name in INT8_PATH})

@@ -3,13 +3,14 @@
 Transcription on an NVIDIA H100 (``Qwen3ASR``), the continuous-batching
 engine and its servers (``runtime/engine.py``, ``serving``), live streams
 (``IncrementalSession``, ``StreamingTranscriber``) and the command line
-(``python -m qwen3_asr_tpu_torch``), with
+(``python -m qwen3_asr_tpu_torch``), one model replica per device
+(``ReplicatedTranscriptionServer``) and (dp, tp) meshes over
+``torch.distributed`` for offline transcription (``parallel``), with
 hand-written CUDA kernels for the decoder's hot path (``ops/kernels``,
 sources in ``csrc``).  Imports ``torch`` and
 never ``jax``; importing needs no GPU and no ``nvcc`` (kernels are built at
 first use on a CUDA tensor).  The root exports the JAX package's public
-names that the port has; ``ReplicatedTranscriptionServer`` is not ported
-yet.
+names.
 """
 
 __version__ = "0.1.0"
@@ -29,7 +30,11 @@ from .models.encoder import encoder_forward, init_encoder_params
 from .models.params import load_checkpoint
 from .ops.sampling import sample_logits
 from .runtime.generate import Generator
-from .serving.server import ContinuousTranscriptionServer, TranscriptionServer
+from .serving.server import (
+    ContinuousTranscriptionServer,
+    ReplicatedTranscriptionServer,
+    TranscriptionServer,
+)
 from .incremental import IncrementalSession
 from .streaming import StreamingTranscriber, StreamSegment
 from .tokenizer import Tokenizer, build_detect_prompt, build_prompt, parse_output
@@ -61,6 +66,7 @@ __all__ = [
     "Generator",
     "TranscriptionServer",
     "ContinuousTranscriptionServer",
+    "ReplicatedTranscriptionServer",
     "IncrementalSession",
     "StreamingTranscriber",
     "StreamSegment",

@@ -30,12 +30,21 @@ The continuous-batching hooks ``make_engine`` (flat or paged
 ``ContinuousTranscriptionServer``; ``incremental_session`` opens a live
 stream's ``IncrementalSession`` (``incremental.py``).
 
-Not ported yet, and raising ``NotImplementedError``: multi-device meshes
-(``dp * tp > 1``).
+Meshes (``RuntimeConfig(dp, tp)``, ``dp * tp > 1``): one process per rank
+over ``torch.distributed`` (``parallel/``).  Call
+``parallel.initialize(...)`` in every rank, build the model in every rank
+(each keeps its tp shards of the parameters, quantized first), and call
+``transcribe``/``transcribe_batch`` with the same clips in every rank: the
+clips split into ``dp`` contiguous slices, each tp group decodes its slice
+with the tp collectives, and every rank gets the whole result list back
+(``all_gather_object``), in input order.  On a tp group the decode loop
+runs eagerly (no CUDA graphs), and ``make_engine`` and the servers raise
+``NotImplementedError``; ``incremental_session`` refuses meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 from dataclasses import dataclass
@@ -48,9 +57,10 @@ import torch
 from .audio.io import SAMPLE_RATE, find_split_points, load_audio
 from .audio.mel import HOP_LENGTH, N_FFT, MelFrontend, host_pad_batch, log_mel_batch
 from .config import ModelConfig, RuntimeConfig
-from .models.decoder import fuse_decoder_params
+from .models.decoder import fuse_decoder_params, local_heads
 from .models.encoder import encoder_forward
 from .models.params import load_checkpoint, random_params
+from .ops.kernels import _build
 from .ops.quant import is_quantized, quantize_decoder_params, quantize_encoder_params
 from .runtime.generate import Generator
 from .tokenizer import EOS_TOKEN_IDS, Tokenizer
@@ -98,9 +108,25 @@ def _validate_samples(audio) -> np.ndarray:
     return arr
 
 
-def _check_runtime(runtime: RuntimeConfig) -> None:
-    if runtime.dp * runtime.tp > 1:
-        raise NotImplementedError("multi-device meshes are not ported yet")
+#: Where the mesh paths that are left out stand.
+MESH_LATER = ("the continuous engine and servers on a tp mesh need one rank to admit "
+              "and step for the group: ROADMAP.md Queue 1, item 5 (b)")
+
+
+def _mesh_of(runtime: RuntimeConfig, config: ModelConfig):
+    """(the (dp, tp) mesh, this rank's tp group or None) of ``runtime``;
+    (None, None) for one device.  ValueError unless the process group holds
+    exactly ``dp * tp`` ranks, or when tp does not divide a split width."""
+    if runtime.dp * runtime.tp == 1:
+        return None, None
+    from .parallel import TP, check_tp, make_mesh
+
+    check_tp(config, runtime.tp)
+    mesh = make_mesh(runtime.dp, runtime.tp)
+    tp = None
+    if runtime.tp > 1:
+        tp = TP(runtime.tp, mesh.coordinate["tp"], mesh.group("tp"))
+    return mesh, tp
 
 
 class Qwen3ASR:
@@ -120,7 +146,7 @@ class Qwen3ASR:
     ) -> None:
         self._config = config
         self._runtime = runtime or RuntimeConfig()
-        _check_runtime(self._runtime)
+        self._mesh, self._tp = _mesh_of(self._runtime, config)
         encoder_params, decoder_params = self._transform_params(
             encoder_params, decoder_params
         )
@@ -132,16 +158,30 @@ class Qwen3ASR:
         #: Timing/throughput record of the most recent transcription.
         self.last_stats: RequestStats | None = None
         self._mel = MelFrontend(self._runtime.frame_buckets)
-        self._generator = Generator(decoder_params, config.text_decoder, self._runtime)
+        self._generator = Generator(decoder_params, config.text_decoder, self._runtime,
+                                    tp=self._tp)
+
+    @contextlib.contextmanager
+    def _held(self):
+        """The model's lock, with its generator's kernel scratch
+        (``_build.Scratch``) the owner of every launch meanwhile: the
+        encoder's as well as the decoder's."""
+        with self._lock, _build.scratch_scope(self._generator.scratch):
+            yield
 
     def _transform_params(self, encoder_params, decoder_params):
         """Storage-layout transforms of freshly loaded parameters, as JAX
-        ``api.py:180-207``: fuse QKV and gate|up, then quantize the decoder
-        with ``quantization="int8"``, and the encoder only when
-        ``act_quant="int8"`` as well (its W8A8 path is what uses them)."""
+        ``api.py:180-225``: fuse QKV and gate|up (on one tp rank only: the
+        rules split wq/wk/wv and wg/wu), then quantize the decoder with
+        ``quantization="int8"``, and the encoder only when
+        ``act_quant="int8"`` as well (its W8A8 path is what uses them), then
+        keep this rank's tp shards."""
         rt = self._runtime
         layer0 = decoder_params["layers"][0]
-        if rt.fuse_qkv and "wq" in layer0 and not is_quantized(layer0["wq"]):
+        if rt.tp > 1 and "wqkv" in layer0:
+            raise ValueError("tp > 1 takes the split decoder layout (wq/wk/wv, wg/wu), "
+                             "not fused wqkv/wgu")
+        if rt.fuse_qkv and rt.tp == 1 and "wq" in layer0 and not is_quantized(layer0["wq"]):
             decoder_params = fuse_decoder_params(decoder_params)
         if rt.quantization == "int8":
             if not is_quantized(decoder_params["embedding"]):
@@ -150,6 +190,13 @@ class Qwen3ASR:
                 encoder_params["layers"][0]["wq"]
             ):
                 encoder_params = quantize_encoder_params(encoder_params)
+        if rt.tp > 1:
+            from .parallel import decoder_param_sharding, encoder_param_sharding, shard_params
+
+            decoder_params = shard_params(
+                decoder_params, decoder_param_sharding(decoder_params), self._mesh)
+            encoder_params = shard_params(
+                encoder_params, encoder_param_sharding(encoder_params), self._mesh)
         return encoder_params, decoder_params
 
     # ------------------------------------------------------------------
@@ -202,8 +249,17 @@ class Qwen3ASR:
         seed: int = 0,
     ) -> TranscriptionResult:
         """Transcribe one clip (a file path or 1-D float32 16 kHz samples);
-        a clip longer than ``chunk_duration`` takes the long-form path."""
-        with self._lock:
+        a clip longer than ``chunk_duration`` takes the long-form path.  On
+        a mesh with ``dp > 1``, every rank calls it with the same clip: the
+        first dp slice decodes it (``transcribe_batch``)."""
+        if self._runtime.dp > 1:
+            return self.transcribe_batch(
+                [audio], language=language, temperature=temperature, top_p=top_p,
+                top_k=top_k, repetition_penalty=repetition_penalty, max_tokens=max_tokens,
+                repetition_context_size=repetition_context_size,
+                chunk_duration=chunk_duration, seed=seed,
+            )[0]
+        with self._held():
             samples = (
                 load_audio(audio) if isinstance(audio, (str, Path))
                 else _validate_samples(audio)
@@ -244,8 +300,45 @@ class Qwen3ASR:
         """Transcribe several clips in one batched mel/encoder/prefill pass
         and one decode loop (per-clip EOS and token budgets).  Clips longer
         than ``chunk_duration`` take the long-form path, all their chunks
-        pooled into shared groups; the rest still run as one batch."""
-        with self._lock:
+        pooled into shared groups; the rest still run as one batch.
+
+        On a mesh with ``dp > 1`` every rank calls it with the same clips:
+        dp coordinate d takes the d-th of ``dp`` contiguous slices (the
+        first ``len % dp`` one clip longer), its tp group transcribes that
+        slice as above (a coordinate with no clip decodes nothing), and the
+        slices' results come back to every rank through
+        ``all_gather_object`` over the world, in input order."""
+        options = dict(
+            language=language, temperature=temperature, top_p=top_p, top_k=top_k,
+            repetition_penalty=repetition_penalty, max_tokens=max_tokens,
+            repetition_context_size=repetition_context_size,
+            chunk_duration=chunk_duration, seed=seed,
+        )
+        if self._runtime.dp > 1:
+            return self._transcribe_batch_dp(list(audios), options)
+        return self._transcribe_batch_local(audios, **options)
+
+    def _transcribe_batch_dp(self, audios: list, options: dict) -> list[TranscriptionResult]:
+        import torch.distributed as dist
+
+        dp, tp = self._runtime.dp, self._runtime.tp
+        per, extra = divmod(len(audios), dp)
+        d = self._mesh.coordinate["dp"]
+        lo = d * per + min(d, extra)
+        mine = audios[lo : lo + per + (d < extra)]
+        local = self._transcribe_batch_local(mine, **options) if mine else []
+        gathered: list = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, local)
+        return [r for rank in range(0, dp * tp, tp) for r in gathered[rank]]
+
+    def _transcribe_batch_local(
+        self, audios, language=None, temperature=0.0, top_p=1.0, top_k=0,
+        repetition_penalty=1.2, max_tokens=None, repetition_context_size=100,
+        chunk_duration=1200.0, seed=0,
+    ) -> list[TranscriptionResult]:
+        """:meth:`transcribe_batch` of this rank's clips (all of them off a
+        dp mesh)."""
+        with self._held():
             lang_name = self._resolve_language(language)
             samples_list = [
                 load_audio(a) if isinstance(a, (str, Path)) else _validate_samples(a)
@@ -331,7 +424,8 @@ class Qwen3ASR:
 
         Each cell is logged as it starts.  The JAX package ends with
         ``wait_ready()`` for its background TPU compile, which is not
-        ported: here every cell has run when this returns.
+        ported: here every cell has run when this returns.  On a mesh every
+        rank warms every cell itself (no dp split; a tp group together).
         """
         if deployment is not None:
             durations = tuple(deployment.get("durations", durations))
@@ -350,7 +444,10 @@ class Qwen3ASR:
                 logger.info("warm_up %d/%d: batch=%d duration=%.1fs max_tokens=%d",
                             i + 1, len(cells), b, d, m)
                 clips = [np.zeros(max(1, int(d * SAMPLE_RATE)), dtype=np.float32)] * b
-                self.transcribe_batch(clips, max_tokens=m)
+                if self._runtime.dp == 1:
+                    self.transcribe_batch(clips, max_tokens=m)
+                else:
+                    self._transcribe_batch_local(clips, max_tokens=m)
                 if i == 0:
                     before = growths()
             if growths() == before:
@@ -435,7 +532,7 @@ class Qwen3ASR:
                 + self._runtime.max_decode_slots
             )
             per_seq_bytes = (
-                tc.num_hidden_layers * tc.num_key_value_heads * slots * tc.head_dim * 2 * 2
+                tc.num_hidden_layers * local_heads(tc, self._tp)[1] * slots * tc.head_dim * 2 * 2
             )
             budget = int(self._runtime.kv_cache_budget_gb * 2**30)
             group_size = max(1, min(group_size, budget // max(per_seq_bytes, 1)))
@@ -503,7 +600,8 @@ class Qwen3ASR:
                 n_valid_t = torch.tensor(n_valid, dtype=torch.long, device=device)
                 mel = log_mel_batch(torch.from_numpy(padded).to(device), n_valid_t, bucket)
                 features, _ = encoder_forward(
-                    self._encoder_params, self._config.audio_encoder, mel, n_valid_t
+                    self._encoder_params, self._config.audio_encoder, mel, n_valid_t,
+                    tp=self._tp,
                 )
                 kv, first_logits = gen.prefill(
                     features,
@@ -514,8 +612,10 @@ class Qwen3ASR:
                 )
                 if device.type == "cuda":
                     # Stage times then hold the device work; the decode
-                    # loop's first step would wait here anyway.
-                    torch.cuda.synchronize(device)
+                    # loop's first step would wait here anyway.  The
+                    # stream, not the device: a device-wide sync would break
+                    # another replica's graph capture on this card.
+                    torch.cuda.current_stream(device).synchronize()
             with stage_timer(stats, "decode"):
                 token_lists = gen.decode(
                     kv, first_logits, prompt_lens, list(max_tokens_list), token_bucket,
@@ -564,7 +664,10 @@ class Qwen3ASR:
         model's device (JAX ``api.py:898-956``).  ``paged=True`` backs it
         with a page pool of ``kv_pool_gb`` (default ``kv_cache_budget_gb``),
         at most every slot's worst case: slots then hold pages for their
-        actual prompt and transcript lengths."""
+        actual prompt and transcript lengths.  Not on a tp group
+        (``NotImplementedError``)."""
+        if self._runtime.tp > 1:
+            raise NotImplementedError(f"make_engine on a tp mesh: {MESH_LATER}")
         from .runtime.engine import DecodeEngine
 
         gen = self._generator
@@ -625,11 +728,12 @@ class Qwen3ASR:
         run_g = self._runtime.plan_prefill_run(max(prompt_lens), pb_g)
         ids = gen.pack_prompts(prompts, run_g)
         padded = host_pad_batch(transport, bucket, N_FFT, HOP_LENGTH)
-        with self._lock, torch.inference_mode():
+        with self._held(), torch.inference_mode():
             n_valid_t = torch.tensor(n_valid, dtype=torch.long, device=device)
             mel = log_mel_batch(torch.from_numpy(padded).to(device), n_valid_t, bucket)
             features, _ = encoder_forward(
-                self._encoder_params, self._config.audio_encoder, mel, n_valid_t
+                self._encoder_params, self._config.audio_encoder, mel, n_valid_t,
+                tp=self._tp,
             )
             kv, first_logits = gen.prefill(
                 features,

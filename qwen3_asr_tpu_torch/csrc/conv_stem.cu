@@ -237,8 +237,8 @@ extern "C" int conv_s2_gelu_bf16(const void* x, const void* w, const void* b,
   const cuuint32_t box[2] = {64, kBK};
   cudaError_t err = hopper::make_map_bf16(&map_w, w, 2, dims, strides, box);
   if (err != cudaSuccess) return (int)err;
-  static bool smem_ok = false;
-  err = gemm::allow_smem(conv_s2_gelu_kernel, kSmem, smem_ok);
+  static gemm::SmemAllowed smem;
+  err = gemm::allow_smem(conv_s2_gelu_kernel, kSmem, smem);
   if (err != cudaSuccess) return (int)err;
   conv_s2_gelu_kernel<<<(unsigned)(m_tiles * n_tiles_n), kThreads, kSmem,
                         (cudaStream_t)stream>>>(

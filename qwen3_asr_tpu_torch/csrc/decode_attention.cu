@@ -77,6 +77,7 @@
 #include <stdint.h>
 
 #include "decode_split.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
 
@@ -287,13 +288,9 @@ int launch(const void* q, void* kall, void* vall, void* kscale, void* vscale,
            cudaStream_t stream) {
   using Rg = Ring<G, Q8, kRuns>;
   auto kernel = decode_kernel<G, Q8>;
-  static bool smem_ok = false;
-  if (!smem_ok) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Rg::kBytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_ok = true;
-  }
+  static gemm::SmemAllowed smem;
+  const cudaError_t err = gemm::allow_smem(kernel, Rg::kBytes, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(splits, Hkv, B);
   kernel<<<grid, kBlockThreads, Rg::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), kall, vall, static_cast<float*>(kscale),

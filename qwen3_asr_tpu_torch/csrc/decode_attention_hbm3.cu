@@ -27,8 +27,8 @@ __global__ void __launch_bounds__(pstream::kBlockThreads)
 
 template <int G>
 int launch(const dstream::Args& a, int per, cudaStream_t stream) {
-  static bool smem_ok = false;
-  return pstream::launch(decode_hbm3_kernel<G>, smem_ok, (a.B * a.Hkv + per - 1) / per, stream,
+  static gemm::SmemAllowed smem;
+  return pstream::launch(decode_hbm3_kernel<G>, smem, (a.B * a.Hkv + per - 1) / per, stream,
                          a, per);
 }
 

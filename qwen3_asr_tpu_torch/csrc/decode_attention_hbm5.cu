@@ -37,8 +37,8 @@ __global__ void __launch_bounds__(pstream::kBlockThreads)
 
 template <int G>
 int launch(const dstream::Args& a, const int* decode_end, int blocks, cudaStream_t stream) {
-  static bool smem_ok = false;
-  return pstream::launch(decode_hbm5_kernel<G>, smem_ok, blocks, stream, a, decode_end);
+  static gemm::SmemAllowed smem;
+  return pstream::launch(decode_hbm5_kernel<G>, smem, blocks, stream, a, decode_end);
 }
 
 }  // namespace

@@ -75,6 +75,7 @@
 #include <stdint.h>
 
 #include "decode_split.cuh"
+#include "gemm_tiles.cuh"
 
 namespace {
 
@@ -472,23 +473,26 @@ int launch(const Args& a) {
   // The ring, the merge buffer of blocks with more than one split, then
   // the lane's table row.
   const int table = ((a.max_pages + 3) & ~3) * 4;
-  static int smem_set = 0, occupancy_smem = 0, per_sm = 1;
-  auto allow = [&](int smem) {
-    if (smem <= smem_set) return cudaSuccess;
-    smem_set = smem;
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  };
-  cudaError_t err = allow(Rg::kBytes + table);
-  if (err == cudaSuccess && Rg::kBytes + table != occupancy_smem) {
-    occupancy_smem = Rg::kBytes + table;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsAll,
-                                                        occupancy_smem);
-    per_sm = max(per_sm, 1);
+  // Per device: the shared memory allowed, and the blocks an SM holds at
+  // the last ring-and-table size asked there.
+  static gemm::SmemAllowed allowed;
+  static std::mutex occupancy_mu;
+  static int occupancy_smem[gemm::kMaxDevices], per_sm_of[gemm::kMaxDevices];
+  int device = 0, sms = 0, per_sm = 1;
+  cudaError_t err = gemm::current_device(device);
+  if (err == cudaSuccess) err = gemm::allow_smem(kernel, Rg::kBytes + table, allowed);
+  if (err == cudaSuccess) {
+    std::lock_guard<std::mutex> lock(occupancy_mu);
+    if (Rg::kBytes + table != occupancy_smem[device]) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_of[device], kernel,
+                                                          kThreadsAll, Rg::kBytes + table);
+      per_sm_of[device] = max(per_sm_of[device], 1);
+      if (err == cudaSuccess) occupancy_smem[device] = Rg::kBytes + table;
+    }
+    per_sm = per_sm_of[device];
   }
   // Blocks per (lane, KV head): every split its own block when they all fit
   // on the card at once, else as few splits to a block as make them fit.
-  int device = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int64_t units = (int64_t)a.B * a.Hkv * a.splits;
@@ -496,7 +500,7 @@ int launch(const Args& a) {
   const int per_block = (int)((units + resident - 1) / resident);
   const int nb = (a.splits + per_block - 1) / per_block;
   const int smem = Rg::kBytes + (nb < a.splits ? Rg::kMerge : 0) + table;
-  err = allow(smem);
+  err = gemm::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nb, a.Hkv, a.B);
   kernel<<<grid, kThreadsAll, smem, a.stream>>>(

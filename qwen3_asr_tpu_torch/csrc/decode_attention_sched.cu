@@ -90,8 +90,8 @@ __global__ void __launch_bounds__(pstream::kBlockThreads)
 
 template <int G>
 int launch(const dstream::Args& a, const Schedule& s, int blocks, cudaStream_t stream) {
-  static bool smem_ok = false;
-  return pstream::launch(decode_sched_kernel<G>, smem_ok, blocks, stream, a, s);
+  static gemm::SmemAllowed smem;
+  return pstream::launch(decode_sched_kernel<G>, smem, blocks, stream, a, s);
 }
 
 }  // namespace

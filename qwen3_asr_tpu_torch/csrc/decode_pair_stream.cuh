@@ -489,10 +489,11 @@ __device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
 }
 
 // Launch `kernel` (one of run_stream's entry kernels) on `grid` blocks,
-// allowing it kRingBytes of shared memory once (`smem_ok`).
+// allowing it kRingBytes of shared memory once per device (`smem`).
 template <typename Kernel, typename... KArgs>
-int launch(Kernel kernel, bool& smem_ok, int grid, cudaStream_t stream, KArgs... args) {
-  const cudaError_t err = gemm::allow_smem(kernel, kRingBytes, smem_ok);
+int launch(Kernel kernel, gemm::SmemAllowed& smem, int grid, cudaStream_t stream,
+           KArgs... args) {
+  const cudaError_t err = gemm::allow_smem(kernel, kRingBytes, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kBlockThreads, kRingBytes, stream>>>(args...);
   return (int)cudaGetLastError();

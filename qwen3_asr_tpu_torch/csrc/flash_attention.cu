@@ -50,6 +50,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gemm_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -450,13 +451,9 @@ extern "C" int flash_attention_causal_bf16(const void* q, const void* k,
   if (err == cudaSuccess) err = head_map(&map_k, k, B * Hkv, T);
   if (err == cudaSuccess) err = head_map(&map_v, v, B * Hkv, T);
   if (err != cudaSuccess) return (int)err;
-  static bool smem_ok = false;
-  if (!smem_ok) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_ok = true;
-  }
+  static gemm::SmemAllowed smem;
+  err = gemm::allow_smem(flash_fwd_kernel, kSmem, smem);
+  if (err != cudaSuccess) return (int)err;
   Geometry g;
   g.Hq = Hq;
   g.Hkv = Hkv;

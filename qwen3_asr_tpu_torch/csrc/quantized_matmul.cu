@@ -51,6 +51,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -360,13 +361,10 @@ int launch(const void* x, const void* wq, const void* s, void* out, void* partia
                               CU_TENSOR_MAP_SWIZZLE_64B);
   }
   if (err != cudaSuccess) return (int)err;
-  static bool smem_ok = false;
+  static gemm::SmemAllowed smem;
   auto kernel = qmm_kernel<NB, kF32Out>;
-  if (!smem_ok) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_ok = true;
-  }
+  err = gemm::allow_smem(kernel, C::kSmem, smem);
+  if (err != cudaSuccess) return (int)err;
   g.m_tiles = (g.M + NB - 1) / NB;
   const int64_t fit = kL2Budget / ((int64_t)NB * g.K * 2);
   g.group = (int)(fit < 1 ? 1 : (fit > g.m_tiles ? g.m_tiles : fit));

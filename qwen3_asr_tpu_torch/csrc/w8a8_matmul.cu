@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -107,6 +108,33 @@ __global__ void __launch_bounds__(kQThreads)
   uint2* dst = reinterpret_cast<uint2*>(xq + (int64_t)r * K);
   for (int c = tid; c < chunks; c += kQThreads) {
     const uint4 v = row[c];
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = quantize_rn(__bfloat162float(e[i]), s, rcp);
+      packed[i / 4] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (i % 4));
+    }
+    dst[c] = make_uint2(packed[0], packed[1]);
+  }
+}
+
+// The quantize pass of a row-parallel shard, which holds a K-slice of each
+// row: the row's scale sx[r] comes from the caller (the abs-max of the whole
+// row, taken across the shards, over 127), and the slice is quantized with
+// it as quantize_rows_kernel quantizes a row.  No shared memory: each thread
+// reads its 16-byte chunks once.
+__global__ void __launch_bounds__(kQThreads)
+    quantize_rows_scaled_kernel(const __nv_bfloat16* __restrict__ x,
+                                const float* __restrict__ sx, int8_t* __restrict__ xq,
+                                int K) {
+  const int r = blockIdx.x;
+  const float s = sx[r];
+  const float rcp = __frcp_rn(s);
+  const uint4* src = reinterpret_cast<const uint4*>(x + (int64_t)r * K);
+  uint2* dst = reinterpret_cast<uint2*>(xq + (int64_t)r * K);
+  for (int c = threadIdx.x; c < K / 8; c += kQThreads) {
+    const uint4 v = src[c];
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
     uint32_t packed[2] = {0u, 0u};
 #pragma unroll
@@ -253,13 +281,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 int quantize_rows(const void* x, void* xq, void* sx, int M, int K, cudaStream_t stream) {
-  static int smem_set = 48 << 10;
+  static gemm::SmemAllowed smem;
   const int bytes = K * 2;
-  if (bytes > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        quantize_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (bytes > (48 << 10)) {
+    const cudaError_t err = gemm::allow_smem(quantize_rows_kernel, bytes, smem);
     if (err != cudaSuccess) return (int)err;
-    smem_set = bytes;
   }
   quantize_rows_kernel<<<M, kQThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
@@ -267,9 +293,17 @@ int quantize_rows(const void* x, void* xq, void* sx, int M, int K, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+int quantize_rows_scaled(const void* x, const void* sx, void* xq, int M, int K,
+                         cudaStream_t stream) {
+  quantize_rows_scaled_kernel<<<M, kQThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(sx),
+      static_cast<int8_t*>(xq), K);
+  return (int)cudaGetLastError();
+}
+
 template <bool kF32Out>
-int gemm(const void* xq, const void* sx, const void* wq, const void* ws, void* out, int M,
-         int N, int K, cudaStream_t stream) {
+int run_gemm(const void* xq, const void* sx, const void* wq, const void* ws, void* out, int M,
+             int N, int K, cudaStream_t stream) {
   CUtensorMap map_x, map_w;
   cudaError_t err = hopper::make_map_s8(&map_x, xq, M, K, K, kBM, kBK,
                                         CU_TENSOR_MAP_SWIZZLE_128B);
@@ -277,13 +311,9 @@ int gemm(const void* xq, const void* sx, const void* wq, const void* ws, void* o
     err = hopper::make_map_s8(&map_w, wq, N, K, K, kBN, kBK, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != cudaSuccess) return (int)err;
-  static bool smem_ok = false;
-  if (!smem_ok) {
-    err = cudaFuncSetAttribute(w8a8_gemm_kernel<kF32Out>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_ok = true;
-  }
+  static gemm::SmemAllowed smem;
+  err = gemm::allow_smem(w8a8_gemm_kernel<kF32Out>, kSmem, smem);
+  if (err != cudaSuccess) return (int)err;
   Geometry g;
   g.M = M;
   g.N = N;
@@ -326,6 +356,30 @@ extern "C" int w8a8_matmul_bf16(const void* x, void* xq, void* sx, const void* w
   cudaStream_t st = (cudaStream_t)stream;
   const int err = quantize_rows(x, xq, sx, M, K, st);
   if (err != 0) return err;
-  return out_f32 ? gemm<true>(xq, sx, wq, ws, out, M, N, K, st)
-                 : gemm<false>(xq, sx, wq, ws, out, M, N, K, st);
+  return out_f32 ? run_gemm<true>(xq, sx, wq, ws, out, M, N, K, st)
+                 : run_gemm<false>(xq, sx, wq, ws, out, M, N, K, st);
+}
+
+// x (M, K) bf16 and sx (M,) f32 row scales given by the caller -> xq (M, K)
+// int8; contiguous on the device, K % 64 == 0.
+extern "C" int quantize_rows_scaled_bf16(const void* x, const void* sx, void* xq, int M,
+                                         int K, void* stream) {
+  if (M == 0) return (int)cudaSuccess;
+  if (K <= 0 || K % 64) return (int)cudaErrorInvalidValue;
+  return quantize_rows_scaled(x, sx, xq, M, K, (cudaStream_t)stream);
+}
+
+// As w8a8_matmul_bf16, with the row scales sx (M,) f32 given by the caller
+// (a row-parallel shard's: the whole row's abs-max over 127) instead of taken
+// from x: xq (M, K) int8 scratch that this call fills.
+extern "C" int w8a8_matmul_scaled_bf16(const void* x, const void* sx, void* xq, const void* wq,
+                                       const void* ws, void* out, int M, int N, int K,
+                                       int out_f32, void* stream) {
+  if (M == 0 || N == 0) return (int)cudaSuccess;
+  if (K <= 0 || K % 64 || N % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = quantize_rows_scaled(x, sx, xq, M, K, st);
+  if (err != 0) return err;
+  return out_f32 ? run_gemm<true>(xq, sx, wq, ws, out, M, N, K, st)
+                 : run_gemm<false>(xq, sx, wq, ws, out, M, N, K, st);
 }

@@ -154,7 +154,7 @@ class IncrementalSession:
         gen = self._gen
         ids = np.zeros((1, PREFIX_PAD), np.int64)
         ids[0, :9] = self._prefix_ids
-        with torch.inference_mode():
+        with self._model._held(), torch.inference_mode():
             kv = init_kv_cache(gen.cfg, 1, self._cache_len, self._dtype, self._device)
             kv, _ = gen.advance(kv, gen.embed_ids(ids), np.arange(PREFIX_PAD)[None], 0, 8)
         return kv
@@ -296,7 +296,7 @@ class IncrementalSession:
         if n_total_frames == 0:
             return TranscriptionResult(text="", language="Unknown", duration=self.duration)
         try:
-            with self._model._lock, torch.inference_mode():
+            with self._model._held(), torch.inference_mode():
                 return self._preview_impl(n_total_frames)
         except BaseException:
             # A failure mid-preview (out of memory, an interrupt, a kernel

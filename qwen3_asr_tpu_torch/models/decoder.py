@@ -56,6 +56,20 @@ so the lookup gathers columns and the lm head is ``qlinear`` with f32
 output.  The split decode step also takes the int8 cache ``{"q": int8,
 "s": f32}`` pair: attention runs K4, whose launch also quantizes the
 step's fresh bf16 rows and stores them (K3-int8 fused), under every mode.
+
+Tensor parallelism (``tp``, a :class:`~..parallel.collectives.TP`; None is
+one device and the code above unchanged): the parameters are this rank's
+shards (``parallel/sharding.py``), so the head counts are local (``Hq/tp``,
+``Hkv/tp``) and so is the KV cache.  wq/wk/wv/wg/wu are column-parallel and
+need no collective; wo and wd are row-parallel, their f32 partials summed
+over the group and rounded once (``ops/quant.py:qlinear_row_parallel``).
+The embedding is vocab-parallel (:func:`embed_tokens`), and the tied lm
+head's vocab-sharded f32 logits are gathered before the sampler
+(:func:`decoder_logits`).  The kernels K1, K2, K4, K5, K9 and K10 run
+unchanged on the local heads or columns, as the JAX package runs its
+Pallas kernels per shard through ``shard_map``.  The paged paths
+(``decoder_paged_step``/``_verify``) take no ``tp``: the continuous engine
+is not yet ported to a mesh.
 """
 
 from __future__ import annotations
@@ -81,9 +95,10 @@ from ..ops.kernels.decode_attention_paged import (
 from ..ops.attention import sdpa
 from ..ops.kernels.kv_write import kv_write_rows, kv_write_span_pair
 from ..ops.norms import rms_norm
-from ..ops.quant import is_quantized, qlinear
+from ..ops.quant import is_quantized, qlinear, qlinear_row_parallel
 from ..ops.quant_kv import is_quantized_kv, kv_seq_len
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.collectives import TP, gather_from_tp, vocab_parallel_embed
 
 DecoderParams = dict[str, Any]
 
@@ -106,6 +121,15 @@ DECODE_KERNEL_MODE = os.environ.get("QWEN3_ASR_DECODE_KERNEL", "auto")
 #: "0" the plain causal :func:`sdpa` ("causal"), no kernel.
 PREFILL_FLASH_ENABLED = os.environ.get("QWEN3_ASR_PREFILL_FLASH", "1") != "0"
 _PLAIN_SWITCHES_ITEM = 'ROADMAP.md Queue 1, "Plain-path switches"'
+
+
+def local_heads(cfg: TextDecoderConfig, tp: TP | None = None) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank: the config's, split over
+    ``tp``."""
+    if tp is None:
+        return cfg.num_attention_heads, cfg.num_key_value_heads
+    return (tp.shard(cfg.num_attention_heads, "the query heads"),
+            tp.shard(cfg.num_key_value_heads, "the KV heads"))
 
 
 def init_decoder_params(
@@ -151,11 +175,11 @@ def init_kv_cache(
     max_len: int,
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cpu",
+    tp: TP | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Zeroed (keys, values), each (L, B, kv_heads, max_len, head_dim)."""
-    shape = (
-        cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim
-    )
+    """Zeroed (keys, values), each (L, B, kv_heads, max_len, head_dim), the
+    KV heads this rank's under ``tp``."""
+    shape = (cfg.num_hidden_layers, batch, local_heads(cfg, tp)[1], max_len, cfg.head_dim)
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
@@ -173,11 +197,16 @@ def fuse_decoder_params(params: DecoderParams) -> DecoderParams:
     return {**params, "layers": layers}
 
 
-def embed_tokens(params: DecoderParams, ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: DecoderParams, ids: torch.Tensor, tp: TP | None = None) -> torch.Tensor:
     """Token embedding lookup, (...) -> (..., hidden).  A quantized (H, V)
-    embedding gathers columns and rescales them."""
+    embedding gathers columns and rescales them.  Under ``tp`` the table is
+    this rank's vocab shard, and the rows are summed over the group
+    (:func:`~..parallel.collectives.vocab_parallel_embed`)."""
     emb = params["embedding"]
     ids = ids.long()
+    if tp is not None:
+        shard = (emb["s"] if is_quantized(emb) else emb).shape[0]
+        return vocab_parallel_embed(ids, lambda local: embed_tokens(params, local), shard, tp)
     if is_quantized(emb):
         cols = emb["q"].t().index_select(0, ids.reshape(-1))      # (n, H)
         rows = cols.float() * emb["s"][ids.reshape(-1)][:, None]
@@ -185,7 +214,7 @@ def embed_tokens(params: DecoderParams, ids: torch.Tensor) -> torch.Tensor:
     return emb[ids]
 
 
-def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None):
+def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None, tp=None):
     """ln1 -> fused-or-split QKV -> per-head QK RMSNorm -> RoPE at the
     angles (cos, sin) (B, 1, T, D/2).
     Returns q (B, nq, T, D), k, v (B, nkv, T, D), contiguous.  Given
@@ -193,7 +222,7 @@ def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None
     RoPE's rounding and v's transpose copy write them there, the same ops
     with the same results, so no copy into a row buffer follows."""
     B, T, _ = h.shape
-    nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    (nq, nkv), D = local_heads(cfg, tp), cfg.head_dim
     eps = cfg.rms_norm_eps
     x = rms_norm(h, lp["ln1"], eps)
     if "wqkv" in lp:
@@ -209,14 +238,14 @@ def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None
     return q, k, v
 
 
-def _mlp_block(h, lp, eps):
-    """Pre-norm SwiGLU MLP with residual."""
+def _mlp_block(h, lp, eps, tp=None):
+    """Pre-norm SwiGLU MLP with residual (wd row-parallel under ``tp``)."""
     x = rms_norm(h, lp["ln2"], eps)
     if "wgu" in lp:
         gate, up = qlinear(x, lp["wgu"]).chunk(2, dim=-1)
     else:
         gate, up = qlinear(x, lp["wg"]), qlinear(x, lp["wu"])
-    return h + qlinear(F.silu(gate) * up, lp["wd"])
+    return h + qlinear_row_parallel(F.silu(gate) * up, lp["wd"], tp)
 
 
 def decoder_forward(
@@ -228,9 +257,11 @@ def decoder_forward(
     write_slots=None,
     decode_ctx: tuple[torch.Tensor, int, int] | None = None,
     attn_impl: str = "auto",
+    tp: TP | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Run the layer stack over input embeddings ``hidden`` (B, T, H) at
-    absolute RoPE ``positions`` (B, T).
+    absolute RoPE ``positions`` (B, T); under ``tp`` with this rank's
+    parameter shards and KV heads.
 
     Fresh prefill: ``write_slots`` and ``decode_ctx`` None, T > 1; rows land
     at slots [0, T).  Split decode: ``decode_ctx = (prompt_len (B,) int32,
@@ -258,7 +289,7 @@ def decoder_forward(
     autograd cannot see.
     """
     B, T, _ = hidden.shape
-    nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    (nq, nkv), D = local_heads(cfg, tp), cfg.head_dim
     eps = cfg.rms_norm_eps
     scale = D ** -0.5
     fresh = decode_ctx is None and write_slots is None
@@ -271,7 +302,7 @@ def decoder_forward(
                          "no decode_ctx)")
     cos, sin = rope_cos_sin(positions[:, None, :], D, cfg.rope_theta)
     if attn_impl == "causal":
-        return _causal_prefill(params, cfg, hidden, cos, sin, kv_cache)
+        return _causal_prefill(params, cfg, hidden, cos, sin, kv_cache, tp)
     if kv_cache is None:
         raise ValueError("kv_cache is required except under attn_impl='causal'")
     keys, values = kv_cache
@@ -279,12 +310,12 @@ def decoder_forward(
 
     if attn_impl == "flash":
         for layer, lp in enumerate(params["layers"]):
-            q, k, v = _project_qkv(h, lp, cfg, cos, sin)
+            q, k, v = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
             keys[layer, :, :, :T] = k
             values[layer, :, :, :T] = v
             attn = flash_attention_causal(q, k, v, scale=scale)
-            h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
-            h = _mlp_block(h, lp, eps)
+            h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
+            h = _mlp_block(h, lp, eps, tp)
         return h, (keys, values)
 
     if decode_ctx is not None and T == 1 and write_slots is not None:
@@ -298,23 +329,24 @@ def decoder_forward(
             # K2/K4 store each layer's fresh row from the attention's launch.
             slots = _per_lane(write_slots, B, device)
             for layer, lp in enumerate(params["layers"]):
-                q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+                q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
                 attn = attend(q[:, :, 0, :], keys, values, k_new, v_new, layer, plen, dend,
                               pbucket, scale=scale, write_slots=slots)
-                h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
-                h = _mlp_block(h, lp, eps)
+                h = h + qlinear_row_parallel(attn.reshape(B, 1, nq * D), lp["wo"], tp)
+                h = _mlp_block(h, lp, eps, tp)
             return h, (keys, values)
         n_layers = len(params["layers"])
         k_rows = torch.empty((n_layers, B, nkv, 1, D), dtype=hidden.dtype, device=device)
         v_rows = torch.empty_like(k_rows)
         for layer, lp in enumerate(params["layers"]):
-            q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, k_rows[layer], v_rows[layer])
+            q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, k_rows[layer], v_rows[layer],
+                                           tp)
             attn = attend(
                 q[:, :, 0, :], keys, values, k_new, v_new, layer, plen, dend,
                 pbucket, scale=scale,
             )
-            h = h + qlinear(attn.reshape(B, 1, nq * D), lp["wo"])
-            h = _mlp_block(h, lp, eps)
+            h = h + qlinear_row_parallel(attn.reshape(B, 1, nq * D), lp["wo"], tp)
+            h = _mlp_block(h, lp, eps, tp)
         kv_write_rows(keys, k_rows, write_slots)
         kv_write_rows(values, v_rows, write_slots)
         return h, (keys, values)
@@ -322,13 +354,13 @@ def decoder_forward(
     if decode_ctx is not None and 1 < T <= 8 and write_slots is not None:
         if is_quantized_kv(keys):
             raise ValueError("the int8 KV cache takes single-token decode only")
-        return _verify_split(params, cfg, h, cos, sin, keys, values, decode_ctx)
+        return _verify_split(params, cfg, h, cos, sin, keys, values, decode_ctx, tp)
 
     if decode_ctx is None and write_slots is not None:
         if is_quantized_kv(keys):
             raise ValueError("int8 KV caches support single-token decode only")
         return _cached_forward(params, cfg, h, positions, cos, sin, keys, values,
-                               write_slots)
+                               write_slots, tp)
 
     raise NotImplementedError(
         "the PyTorch port runs fresh prefill (T > 1, no write_slots), the "
@@ -338,7 +370,7 @@ def decoder_forward(
     )
 
 
-def _causal_prefill(params, cfg: TextDecoderConfig, h, cos, sin, kv_cache):
+def _causal_prefill(params, cfg: TextDecoderConfig, h, cos, sin, kv_cache, tp=None):
     """The fresh prefill under ``attn_impl="causal"`` (JAX
     ``decoder.py:816-845``): each layer attends over its own fresh K/V with
     :func:`sdpa` under a causal mask (K1's plain version, on every device),
@@ -347,13 +379,13 @@ def _causal_prefill(params, cfg: TextDecoderConfig, h, cos, sin, kv_cache):
     its length S in its dtype (a new pair; the given cache is not
     written)."""
     B, T, _ = h.shape
-    nq, D = cfg.num_attention_heads, cfg.head_dim
+    nq, D = local_heads(cfg, tp)[0], cfg.head_dim
     ks, vs = [], []
     for lp in params["layers"]:
-        q, k, v = _project_qkv(h, lp, cfg, cos, sin)
+        q, k, v = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
         attn = flash_attention_causal_plain(q, k, v, scale=D ** -0.5)
-        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
-        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+        h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
+        h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
         ks.append(k)
         vs.append(v)
     k_stack, v_stack = torch.stack(ks), torch.stack(vs)
@@ -367,7 +399,7 @@ def _causal_prefill(params, cfg: TextDecoderConfig, h, cos, sin, kv_cache):
 
 
 def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys, values,
-                    write_slots):
+                    write_slots, tp=None):
     """The general cached forward (JAX ``decoder.py:455-479``, ``:847-873``):
     T >= 1 fresh positions per lane appended to an existing cache, as the
     incremental sessions advance their decoder prefix.  Per layer the T
@@ -380,7 +412,7 @@ def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys
     scatter).  The attention is :func:`sdpa` in plain PyTorch on every
     device: the JAX package runs it on XLA, not in a Pallas kernel."""
     B, T, _ = h.shape
-    nq, D = cfg.num_attention_heads, cfg.head_dim
+    nq, D = local_heads(cfg, tp)[0], cfg.head_dim
     S = keys.shape[3]
     device = h.device
     mask = torch.arange(S, device=device)[None, None, None, :] <= positions[:, None, :, None]
@@ -392,7 +424,7 @@ def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys
     else:
         start = min(max(int(write_slots), 0), S - T)
     for layer, lp in enumerate(params["layers"]):
-        q, k, v = _project_qkv(h, lp, cfg, cos, sin)
+        q, k, v = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
         if isinstance(write_slots, torch.Tensor):
             keys[layer, lane, :, slot] = k[lane, :, t].to(keys.dtype)
             values[layer, lane, :, slot] = v[lane, :, t].to(values.dtype)
@@ -400,8 +432,8 @@ def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys
             keys[layer, :, :, start : start + T] = k
             values[layer, :, :, start : start + T] = v
         attn = sdpa(q, keys[layer], values[layer], mask=mask, scale=D ** -0.5)
-        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
-        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+        h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
+        h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
     return h, (keys, values)
 
 
@@ -453,7 +485,8 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
-def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, decode_ctx):
+def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, decode_ctx,
+                  tp=None):
     """The speculative verify pass (JAX ``decoder.py:744-814``): T fresh
     positions per lane against the read-only cache, one forward.
 
@@ -467,7 +500,7 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
     by one K5 launch for K and V at slots ``ws .. ws + T - 1``."""
     plen, ws, pbucket = decode_ctx
     B, T, _ = h.shape
-    nq, nkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    (nq, nkv), D = local_heads(cfg, tp), cfg.head_dim
     G = nq // nkv
     S = keys.shape[3]
     scale = D ** -0.5
@@ -486,7 +519,7 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
     k_rows = torch.empty((n_layers, B, nkv, T, D), dtype=h.dtype, device=device)
     v_rows = torch.empty_like(k_rows)
     for layer, lp in enumerate(params["layers"]):
-        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, k_rows[layer], v_rows[layer])
+        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, k_rows[layer], v_rows[layer], tp)
         # Query rows (g, t) of each KV head: (B*nkv, G*T, D).
         qg = q.reshape(B * nkv, G * T, D)
         kc = keys[layer].reshape(B * nkv, S, D)
@@ -501,8 +534,8 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
         w_self = w[..., S:].reshape(B * nkv, G * T, T)
         out = _bmm_f32(w_cache, vc) + torch.bmm(w_self, v_new.reshape(B * nkv, T, D).float())
         attn = out.reshape(B, nq, T, D).to(h.dtype)
-        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
-        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+        h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
+        h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
     kv_write_span_pair(keys, values, k_rows, v_rows, ws)
     return h, (keys, values)
 
@@ -588,8 +621,11 @@ def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_
     return h, (keys, values)
 
 
-def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Final RMSNorm + tied lm_head -> float32 logits (B, T, vocab).
+def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.Tensor,
+                   tp: TP | None = None) -> torch.Tensor:
+    """Final RMSNorm + tied lm_head -> float32 logits (B, T, vocab).  Under
+    ``tp`` each rank's vocab shard gives (B, T, vocab / tp), gathered over
+    the group in rank order, so every rank holds the same whole rows.
 
     The logits are the f32 accumulator, as in the JAX package
     (``preferred_element_type=float32``): bf16 weights on the GPU go
@@ -599,6 +635,8 @@ def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.
     ``torch.mm``'s ``out_dtype`` form has no derivative, so a call that
     autograd records (training) multiplies the same bf16 operands as f32
     tensors instead: the same products, exact in f32, summed in f32."""
+    if tp is not None:
+        return gather_from_tp(decoder_logits(params, cfg, hidden), tp, dim=-1)
     h = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
     emb = params["embedding"]
     if is_quantized(emb):

@@ -22,6 +22,15 @@ repository runs here under the default stem: the conv stem is
 whole forward runs under the activation-quant gate with at least 256 rows
 (JAX ``encoder.py:337``, ``:368-371``), so its products run kernel K10 (K9
 below 256 rows); conv kernels, biases and norms stay full precision.
+
+Tensor parallelism (``tp``, a :class:`~..parallel.collectives.TP`; None is
+one device and the code above unchanged), by the encoder's rules in
+``parallel/sharding.py``: wq/wk/wv with their biases, fc1 and proj1 are
+column-parallel (local heads, local FFN columns); wo, fc2 and proj2 are
+row-parallel, their f32 partials summed over the group and rounded once,
+and their replicated biases (bo, fc2_b, proj2_b) added once, after the
+sum.  ``conv_out`` splits its output columns, so its output is gathered
+before the position table is added.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ from ..config import AudioEncoderConfig
 from ..ops.attention import windowed_self_attention
 from ..ops.kernels.experiments.conv_stem import conv_s2_gelu
 from ..ops.norms import layer_norm
-from ..ops.quant import act_quant_rows, is_quantized, qlinear
+from ..ops.quant import act_quant_rows, is_quantized, qlinear, qlinear_row_parallel
+from ..parallel.collectives import TP, gather_from_tp
 
 EncoderParams = dict[str, Any]
 
@@ -144,9 +154,10 @@ def valid_token_count(cfg: AudioEncoderConfig, n_valid_frames: torch.Tensor) -> 
 CONV_STEM_MODE = os.environ.get("QWEN3_ASR_CONV_STEM", "conv")
 
 
-def conv_stem(params: EncoderParams, chunks: torch.Tensor) -> torch.Tensor:
+def conv_stem(params: EncoderParams, chunks: torch.Tensor, tp: TP | None = None) -> torch.Tensor:
     """Mode-dispatched conv stem (:data:`CONV_STEM_MODE`): (B * n_chunks, 1,
-    mel, chunk) -> (B * n_chunks, tokens_per_chunk, d_model)."""
+    mel, chunk) -> (B * n_chunks, tokens_per_chunk, d_model); under ``tp``
+    ``conv_out``'s column shards gathered."""
     if CONV_STEM_MODE == "pallas":
         x = _pallas_stem(params, chunks)
     else:
@@ -157,6 +168,8 @@ def conv_stem(params: EncoderParams, chunks: torch.Tensor) -> torch.Tensor:
     # (N, ch, freq', time') -> channel-major flatten (N, time', ch * freq').
     n, ch, freq, time = x.shape
     x = x.permute(0, 3, 1, 2).reshape(n, time, ch * freq)
+    if tp is not None:
+        return gather_from_tp(qlinear(x, params["conv_out"]), tp, dim=-1)
     return qlinear(x, params["conv_out"])
 
 
@@ -181,18 +194,20 @@ def encoder_forward(
     cfg: AudioEncoderConfig,
     mel: torch.Tensor,
     n_valid_frames: torch.Tensor,
+    tp: TP | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode (B, n_mels, T) log-mel (T a multiple of ``n_window_infer``,
     invalid frames zero) to ``(features (B, T // 100 * 13, output_dim),
     n_valid_tokens (B,))``.  Quantized layer weights run the whole forward
-    under the activation-quant gate."""
+    under the activation-quant gate.  Under ``tp`` the parameters are this
+    rank's shards and every rank gets the whole features."""
     if is_quantized(params["layers"][0]["wq"]):
         with act_quant_rows(_ACT_QUANT_ENC_MIN_ROWS):
-            return _encoder_forward(params, cfg, mel, n_valid_frames)
-    return _encoder_forward(params, cfg, mel, n_valid_frames)
+            return _encoder_forward(params, cfg, mel, n_valid_frames, tp)
+    return _encoder_forward(params, cfg, mel, n_valid_frames, tp)
 
 
-def _encoder_forward(params, cfg, mel, n_valid_frames):
+def _encoder_forward(params, cfg, mel, n_valid_frames, tp=None):
     B, n_mels, T = mel.shape
     chunk = cfg.chunk_frames
     if T % cfg.n_window_infer:
@@ -205,7 +220,7 @@ def _encoder_forward(params, cfg, mel, n_valid_frames):
 
     chunks = mel.reshape(B, n_mels, n_chunks, chunk).permute(0, 2, 1, 3)
     chunks = chunks.reshape(B * n_chunks, 1, n_mels, chunk).to(dtype)
-    x = conv_stem(params, chunks)                    # (B * n_chunks, tpc, d)
+    x = conv_stem(params, chunks, tp)                # (B * n_chunks, tpc, d)
     x = x + _device_positions(cfg.max_source_positions, cfg.d_model, tpc, x.device, dtype)[None]
 
     total = n_chunks * tpc
@@ -213,9 +228,10 @@ def _encoder_forward(params, cfg, mel, n_valid_frames):
     n_tokens = valid_token_count(cfg, n_valid_frames)
     token_valid = torch.arange(total, device=mel.device)[None, :] < n_tokens[:, None]
 
-    nq = cfg.encoder_attention_heads
     d = cfg.d_model
-    hd = d // nq
+    hd = d // cfg.encoder_attention_heads
+    nq = cfg.encoder_attention_heads if tp is None else tp.shard(
+        cfg.encoder_attention_heads, "the encoder's heads")
     scale = hd ** -0.5
 
     def heads(t):
@@ -229,15 +245,15 @@ def _encoder_forward(params, cfg, mel, n_valid_frames):
         attn = windowed_self_attention(
             q, k, v, window=cfg.window_tokens, valid_mask=token_valid, scale=scale
         )
-        attn = attn.transpose(1, 2).reshape(B, total, d)
-        h = h + qlinear(attn, lp["wo"]) + lp["bo"]
+        attn = attn.transpose(1, 2).reshape(B, total, nq * hd)
+        h = h + qlinear_row_parallel(attn, lp["wo"], tp) + lp["bo"]
         x = layer_norm(h, lp["ln2_w"], lp["ln2_b"], _LN_EPS)
         x = F.gelu(qlinear(x, lp["fc1_w"]) + lp["fc1_b"], approximate="none")
-        h = h + qlinear(x, lp["fc2_w"]) + lp["fc2_b"]
+        h = h + qlinear_row_parallel(x, lp["fc2_w"], tp) + lp["fc2_b"]
 
     h = layer_norm(h, params["ln_post_w"], params["ln_post_b"], _LN_EPS)
     h = F.gelu(qlinear(h, params["proj1_w"]) + params["proj1_b"], approximate="none")
-    features = qlinear(h, params["proj2_w"]) + params["proj2_b"]
+    features = qlinear_row_parallel(h, params["proj2_w"], tp) + params["proj2_b"]
     zero = torch.zeros((), dtype=features.dtype, device=features.device)
     features = torch.where(token_valid[:, :, None], features, zero)
     return features, n_tokens

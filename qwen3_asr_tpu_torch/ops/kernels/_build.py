@@ -24,6 +24,7 @@ entry point returns the ``cudaError_t`` of its launch, and
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +32,7 @@ import subprocess
 import threading
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -41,8 +43,11 @@ NVCC_FLAGS = (
 )
 
 #: Kernel launches per wrapper name.  Each wrapper adds one where it
-#: launches its kernel and nowhere else; the plain (CPU) path never counts.
+#: launches its kernel (:func:`count`) and nowhere else; the plain (CPU) path
+#: never counts.
 LAUNCHES: Counter = Counter()
+_count_lock = threading.Lock()
+_sink = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,6 +101,10 @@ _SIGNATURES = {
     "w8a8_matmul_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, xq, sx, M, K, stream
     "quantize_rows_bf16": (_P, _P, _P, _I, _I, _P),
+    # x, sx (given), xq, wq, ws, out, M, N, K, out_f32, stream
+    "w8a8_matmul_scaled_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, sx (given), xq, M, K, stream
+    "quantize_rows_scaled_bf16": (_P, _P, _P, _I, _I, _P),
     # x, w, b, out, N, H, W, C, O, stream
     "conv_s2_gelu_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, kall, vall, k_new, v_new, prompt_len, out, layer, B, Hq, Hkv, S,
@@ -209,6 +218,101 @@ def library() -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def count(name: str) -> None:
+    """Add one launch of ``name``: to :data:`LAUNCHES`, or, while this thread
+    runs :func:`diverted`, to that call's counter.  Several threads may
+    launch at once (one model replica per device, two on one card)."""
+    counter = getattr(_sink, "counter", None)
+    if counter is not None:
+        counter[name] += 1
+        return
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def diverted(fn) -> Counter:
+    """Run ``fn`` and return the launches this thread's wrappers counted
+    meanwhile, which :data:`LAUNCHES` does not see (a CUDA-graph capture,
+    during which nothing runs).  Other threads count as usual."""
+    prev = getattr(_sink, "counter", None)
+    _sink.counter = counted = Counter()
+    try:
+        fn()
+    finally:
+        _sink.counter = prev
+    return counted
+
+
+def add_launches(counted: Counter) -> None:
+    """Add ``counted`` to :data:`LAUNCHES` (a graph replay's launches)."""
+    with _count_lock:
+        LAUNCHES.update(counted)
+
+
+class Scratch:
+    """Device buffers that kernels need to themselves while they run (the
+    arrival counters of K2/K4/K6/K7, K9's split-K partials and the plans
+    that hold their pointers), per device, for one owner.
+
+    An owner's launches run one at a time: a
+    :class:`~qwen3_asr_tpu_torch.runtime.generate.Generator` (its prefill,
+    its decode loop and the CUDA graphs it captures, and its model's
+    encoder, all under the model's lock) or a
+    :class:`~qwen3_asr_tpu_torch.runtime.engine.DecodeEngine`.  A graph
+    keeps the buffers of the owner that captured it, whichever thread
+    replays it, and two owners (two model replicas, on one card or two)
+    never share.  The owner frees them (:meth:`clear`) with its graphs.
+    Grown and never freed before that, since a captured graph keeps the
+    pointers it was given."""
+
+    def __init__(self) -> None:
+        self._pools: dict[int | None, dict] = {}
+
+    def pool(self, device) -> dict:
+        """This owner's buffers on ``device``, by name."""
+        return self._pools.setdefault(device.index, {})
+
+    def clear(self) -> None:
+        self._pools.clear()
+
+
+#: The buffers of launches made outside every owner's scope (a direct
+#: wrapper call), one pool per device: such calls share them, in order, as
+#: one thread's calls do.
+SHARED_SCRATCH = Scratch()
+_scope = threading.local()
+
+
+@contextmanager
+def scratch_scope(scratch: Scratch):
+    """Make ``scratch`` the owner of this thread's launches meanwhile."""
+    prev = getattr(_scope, "scratch", None)
+    _scope.scratch = scratch
+    try:
+        yield scratch
+    finally:
+        _scope.scratch = prev
+
+
+def owned(method):
+    """Decorate a method so that its launches use its object's ``scratch``
+    (:func:`scratch_scope`)."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with scratch_scope(self.scratch):
+            return method(self, *args, **kwargs)
+
+    return run
+
+
+def scratch(device) -> dict:
+    """The scratch pool a launch on ``device`` uses: the owner's whose scope
+    this thread is in (:func:`scratch_scope`), else :data:`SHARED_SCRATCH`'s."""
+    owner = getattr(_scope, "scratch", None)
+    return (owner or SHARED_SCRATCH).pool(device)
 
 
 def check(err: int, name: str) -> None:

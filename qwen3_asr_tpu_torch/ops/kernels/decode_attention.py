@@ -109,17 +109,11 @@ def masked_attention_plain(
     return out.reshape(B, hq, D).to(q.dtype)
 
 
-#: Per device index: zeroed int32 arrival counters, one per (lane, KV
-#: head), that the kernel leaves at zero, shared by every call on the
-#: device's streams in order.  Grown and never freed, since a captured CUDA
-#: graph keeps the pointer it was given.
-_counters: dict[int | None, list[torch.Tensor]] = {}
-
-
 def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``device``, the same buffer
-    for every call that fits in it."""
-    bufs = _counters.setdefault(device.index, [])
+    """At least ``n`` zeroed int32 counters on ``device``, one per (lane,
+    KV head), which the kernel leaves at zero: the same buffer for every
+    call of the scratch owner (``_build.scratch``) that fits in it."""
+    bufs = _build.scratch(device).setdefault("arrival_counters", [])
     if not bufs or bufs[-1].numel() < n:
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
@@ -297,9 +291,9 @@ def _launch(name, entry, q, cache_shape, cache_ptrs, k_new, v_new, layer,
         int(prompt_bucket), splits, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count(name)
     if slots is not None:
-        _build.LAUNCHES[NAME_Q8_WRITE if name == NAME_Q8 else NAME_WRITE] += 1
+        _build.count(NAME_Q8_WRITE if name == NAME_Q8 else NAME_WRITE)
     return out
 
 

@@ -206,9 +206,9 @@ def _launch(name, entry, q, pool_shape, pool_ptrs, k_new, v_new, layer, table,
         n_pages, PS, max_pages, splits, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count(name)
     if target is not None:
-        _build.LAUNCHES[NAME_Q8_WRITE if entry.endswith("q8") else NAME_WRITE] += 1
+        _build.count(NAME_Q8_WRITE if entry.endswith("q8") else NAME_WRITE)
     return out
 
 

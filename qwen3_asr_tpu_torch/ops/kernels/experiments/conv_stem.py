@@ -104,5 +104,5 @@ def conv_s2_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
         _build.stream_ptr(x),
     )
     _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out

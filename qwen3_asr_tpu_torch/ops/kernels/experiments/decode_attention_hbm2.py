@@ -129,7 +129,7 @@ def scalar_end_stream(name: str, entry: str, q, kall, vall, k_new, v_new, layer:
         _build.stream_ptr(q),
     )
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count(name)
     return out
 
 

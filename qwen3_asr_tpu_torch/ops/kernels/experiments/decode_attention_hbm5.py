@@ -92,5 +92,5 @@ def decode_attention_hbm5(
         _build.stream_ptr(q),
     )
     _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out

@@ -244,5 +244,5 @@ def decode_attention_sched(
         min(B * hkv, _sm_count(q.device)), float(scale), _build.stream_ptr(q),
     )
     _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out

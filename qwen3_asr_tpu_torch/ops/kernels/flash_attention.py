@@ -76,5 +76,5 @@ def flash_attention_causal(
         B, hq, k.shape[1], T, float(scale), _build.stream_ptr(q),
     )
     _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out

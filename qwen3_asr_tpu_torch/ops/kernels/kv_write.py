@@ -101,7 +101,7 @@ def _launch(
         _build.stream_ptr(cache),
     )
     _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count(name)
     return cache
 
 
@@ -196,7 +196,7 @@ def kv_write_span_pair(
         slots.data_ptr(), L, B, H, T, S, _build.stream_ptr(keys),
     )
     _build.check(err, NAME_SPAN)
-    _build.LAUNCHES[NAME_SPAN] += 1
+    _build.count(NAME_SPAN)
     return keys, values
 
 
@@ -243,7 +243,7 @@ def kv_write_rows_q8(cache: dict, rows: torch.Tensor, slots: torch.Tensor) -> di
         slots.data_ptr(), L, B, H, S, _build.stream_ptr(rows),
     )
     _build.check(err, NAME_Q8)
-    _build.LAUNCHES[NAME_Q8] += 1
+    _build.count(NAME_Q8)
     return cache
 
 
@@ -320,7 +320,7 @@ def kv_write_rows_paged(
         L, rows.shape[1], H, T, n_pages, PS, _build.stream_ptr(pool),
     )
     _build.check(err, NAME_PAGED)
-    _build.LAUNCHES[NAME_PAGED] += 1
+    _build.count(NAME_PAGED)
     return pool
 
 
@@ -356,5 +356,5 @@ def kv_write_rows_paged_q8(
         offsets.data_ptr(), L, rows.shape[1], H, T, n_pages, PS, _build.stream_ptr(pq),
     )
     _build.check(err, NAME_PAGED_Q8)
-    _build.LAUNCHES[NAME_PAGED_Q8] += 1
+    _build.count(NAME_PAGED_Q8)
     return pool

@@ -37,14 +37,10 @@ ROW_TILES = (8, 16, 32, 64, 128, 256)
 COL_TILE = 128
 K_BLOCK = 64
 
-#: Per device index: the split-K workspace (f32) and the zeroed arrival
-#: counters (the kernel leaves them zeroed), shared by every call on the
-#: device's streams in order.  A split plan keeps at most one block per SM
-#: with row tiles of at most 64, so sms x 64 x 128 floats and sms counters
-#: always suffice; buffers are never freed, since plans keep their pointers.
-_scratch: dict[int | None, list[torch.Tensor]] = {}
-#: (M, N, K, device index) -> (nb, splits, per, workspace ptr, counters ptr).
-_plans: dict[tuple, tuple] = {}
+#: A split plan keeps at most one block per SM with row tiles of at most
+#: 64, so sms x 64 x 128 floats of split-K workspace and sms counters always
+#: suffice.  Both, and the plans that hold their pointers, are the scratch
+#: owner's (``_build.scratch``).
 
 
 def quantized_matmul_plain(
@@ -122,20 +118,24 @@ def check_k_major(wq: torch.Tensor) -> None:
 
 
 def _plan(M: int, N: int, K: int, device: torch.device) -> tuple:
-    key = (M, N, K, device.index)
-    plan = _plans.get(key)
+    """(nb, splits, per, workspace ptr, counters ptr) of an (M, N, K) call:
+    the split-K workspace (f32) and the zeroed arrival counters (the kernel
+    leaves them zeroed) are the scratch owner's."""
+    pool = _build.scratch(device)
+    plans = pool.setdefault("quantized_matmul_plans", {})
+    plan = plans.get((M, N, K))
     if plan is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         nb, splits, per = split_k_plan(M, N, K, sms)
         ptrs = (None, None)
         if splits > 1:
-            bufs = _scratch.setdefault(device.index, [])
+            bufs = pool.setdefault("quantized_matmul_split_k", [])
             n_partial = max(splits * M * N, sms * 64 * COL_TILE)
             if not bufs or bufs[-2].numel() < splits * M * N:
                 bufs += [torch.empty(n_partial, dtype=torch.float32, device=device),
                          torch.zeros(max(sms, 4096), dtype=torch.int32, device=device)]
             ptrs = (bufs[-2].data_ptr(), bufs[-1].data_ptr())
-        plan = _plans[key] = (nb, splits, per, *ptrs)
+        plan = plans[(M, N, K)] = (nb, splits, per, *ptrs)
     return plan
 
 
@@ -163,5 +163,5 @@ def quantized_matmul(
         M, N, K, int(out_dtype == torch.float32), nb, splits, per, _build.stream_ptr(x),
     )
     _build.check(err, NAME)
-    _build.LAUNCHES[NAME] += 1
+    _build.count(NAME)
     return out

@@ -16,6 +16,14 @@ contiguous (out, in) tensor), which the GPU kernels read without a copy.
   * other quantized calls: weight-only int8 (kernel K9,
     ``ops/kernels/quantized_matmul.py``).
 
+Under tensor parallelism (``parallel/``) a row-parallel weight holds a
+K-slice of the product: :func:`qlinear_row_parallel` takes each rank's
+partial product in float32 (K9 or K10 with f32 output, or a bf16 product
+with an f32 accumulator), all-reduces it over the tp group and rounds it
+once (a replicated bias is added after it).  Under the W8A8 gate its activation
+scales are the whole row's: the rows' abs-maxima are all-reduced (max) over
+the group first and K10 quantizes with them.
+
 The JAX package scopes the row gate with a trace-time ``ContextVar``; here
 the same context manager sets it for the eager calls made inside it.  The
 prefill runs under it when ``quantization == act_quant == "int8"``, so the
@@ -32,12 +40,13 @@ from typing import Any
 import torch
 
 from .kernels.quantized_matmul import quantized_matmul
-from .kernels.w8a8_matmul import quantize_activations, w8a8_matmul
+from .kernels.w8a8_matmul import quantize_activations, row_amax, scales_of_amax, w8a8_matmul
 from .quant_kv import div127
 
 __all__ = [
     "DECODER_QUANT_KEYS", "ENCODER_QUANT_KEYS", "ENCODER_QUANT_TOP_KEYS",
     "act_quant_rows", "dequantize_weight", "is_quantized", "k_major", "qlinear",
+    "qlinear_row_parallel",
     "quantize_activations", "quantize_decoder_params", "quantize_encoder_params",
     "quantize_weight",
 ]
@@ -95,6 +104,37 @@ def qlinear(x: torch.Tensor, w: Any, out_dtype: torch.dtype | None = None) -> to
     else:
         y = quantized_matmul(x2, w["q"], w["s"], out_dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def _partial_f32(x2: torch.Tensor, w: Any, tp) -> torch.Tensor:
+    """A row-parallel shard's (M, N) f32 partial of ``x2 @ w``: summed in
+    f32 and not rounded, so the sum over the shards rounds once."""
+    if is_quantized(w):
+        min_rows = _ACT_QUANT_MIN_ROWS.get()
+        if min_rows is not None and x2.shape[0] >= min_rows:
+            from ..parallel.collectives import all_reduce_max
+
+            scales = scales_of_amax(all_reduce_max(row_amax(x2), tp))
+            return w8a8_matmul(x2, w["q"], w["s"], torch.float32, row_scales=scales)
+        return quantized_matmul(x2, w["q"], w["s"], torch.float32)
+    if x2.is_cuda and x2.dtype == torch.bfloat16:
+        return torch.mm(x2, w, out_dtype=torch.float32)
+    return x2.float() @ w.float()
+
+
+def qlinear_row_parallel(x: torch.Tensor, w: Any, tp) -> torch.Tensor:
+    """``x @ w`` for a row-parallel weight shard ``w`` (its input rows split
+    over ``tp``, a :class:`~..parallel.collectives.TP`; x holds the matching
+    K-slice): the f32 partials summed over the group and rounded to x's
+    dtype once.  A replicated bias is the caller's to add, once, after it.
+    ``tp`` None is the one-device :func:`qlinear`."""
+    if tp is None:
+        return qlinear(x, w)
+    from ..parallel.collectives import reduce_from_tp
+
+    lead, K = x.shape[:-1], x.shape[-1]
+    part = _partial_f32(x.reshape(-1, K).contiguous(), w, tp)
+    return reduce_from_tp(part, tp).to(x.dtype).reshape(*lead, part.shape[-1])
 
 
 #: Decoder linear weights that are quantized (both layouts).

@@ -52,6 +52,7 @@ from ..models.decoder import (
     embed_tokens,
 )
 from ..ops import speculative
+from ..ops.kernels import _build
 from ..ops.kernels.decode_attention_paged import MAX_QUERY_ROWS
 from ..ops.quant_kv import quantize_kv
 from ..ops.sampling import (
@@ -170,6 +171,9 @@ class DecodeEngine:
         if token_bucket % 128:
             raise ValueError("token_bucket must be a multiple of 128")
         self.gen = generator
+        #: The kernels' scratch of this engine's launches, its own: a
+        #: server's thread steps it while the model may serve other calls.
+        self.scratch = _build.Scratch()
         self.cfg: TextDecoderConfig = generator.cfg
         self.prompt_bucket = prompt_bucket
         self.token_bucket = token_bucket
@@ -430,6 +434,7 @@ class DecodeEngine:
                 pool[layer, dst] = src.to(pool.dtype)
 
     @torch.inference_mode()
+    @_build.owned
     def admit(
         self, kv_group, first_logits, slots: list[int], reqs: list[SlotRequest]
     ) -> list[SlotRequest]:
@@ -606,6 +611,7 @@ class DecodeEngine:
         return None
 
     @torch.inference_mode()
+    @_build.owned
     def step(self, k_steps: int | None = None) -> None:
         """Run one decode chunk over every live slot."""
         k = k_steps or self.chunk_steps

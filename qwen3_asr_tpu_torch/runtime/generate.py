@@ -50,6 +50,14 @@ prefill forward runs under the activation-quant gate (JAX
 prefill lm head (M = B rows) stays weight-only; with
 ``kv_cache_dtype="int8"`` :meth:`Generator.decode` quantizes the freshly
 prefilled bf16 cache once before the loop (JAX ``:1230-1234``).
+
+Tensor parallelism (``Generator(..., tp=...)``, parameters this rank's
+shards): the cache holds the local KV heads and is planned for them; every
+rank of the group runs the same loop on the same gathered logits, so a
+sampled call, seeded alike in every rank, draws the same tokens in all of
+them.  Under ``tp`` the loop runs eagerly, in the same blocks as on the CPU:
+a gloo collective cannot be captured in a CUDA graph, and capturing NCCL's
+is later work (ROADMAP).
 """
 
 from __future__ import annotations
@@ -62,7 +70,14 @@ import torch
 
 from ..config import RuntimeConfig, TextDecoderConfig
 from ..models import decoder as _decoder
-from ..models.decoder import decoder_forward, decoder_logits, embed_tokens, init_kv_cache
+from ..models.decoder import (
+    decoder_forward,
+    decoder_logits,
+    embed_tokens,
+    init_kv_cache,
+    local_heads,
+)
+from ..ops.kernels import _build
 from ..ops.quant import act_quant_rows
 from ..ops.quant_kv import is_quantized_kv, kv_seq_len, quantize_kv_cache
 from ..ops.sampling import (
@@ -155,10 +170,16 @@ class Generator:
         cfg: TextDecoderConfig,
         runtime: RuntimeConfig | None = None,
         eos_ids: frozenset[int] = EOS_TOKEN_IDS,
+        tp=None,
     ) -> None:
         self.params = params
         self.cfg = cfg
         self.runtime = runtime or RuntimeConfig()
+        #: The tensor-parallel group (``parallel.collectives.TP``) or None.
+        self.tp = tp
+        #: The kernels' scratch for every launch of this generator and of the
+        #: graphs it captures (``ops/kernels/_build.py`` ``Scratch``).
+        self.scratch = _build.Scratch()
         self._eos_ids = sorted(eos_ids)
         #: Decode-loop iterations of the last :meth:`decode` call (verify
         #: iterations when it speculated).
@@ -190,7 +211,8 @@ class Generator:
         """(prompt_bucket, token_bucket, cache_len), as the JAX package
         plans them: a 256-multiple prompt bucket and a memory-aware token
         bucket under ``kv_cache_budget_gb``.  Rows are sized as bf16 even
-        with the int8 cache: the prefill holds the bf16 cache first."""
+        with the int8 cache: the prefill holds the bf16 cache first; under
+        ``tp`` they hold this rank's KV heads."""
         prompt_bucket = -(-(audio_token_bucket + 32) // 256) * 256
         if max_prompt_len > prompt_bucket:
             raise ValueError(
@@ -198,7 +220,7 @@ class Generator:
             )
         cfg = self.cfg
         row_bytes = (
-            cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim * 2 * 2
+            cfg.num_hidden_layers * local_heads(cfg, self.tp)[1] * cfg.head_dim * 2 * 2
         )
         budget = int(self.runtime.kv_cache_budget_gb * 2**30)
         allowed_mem = budget // (row_bytes * max(batch, 1)) - prompt_bucket
@@ -273,6 +295,7 @@ class Generator:
 
     # -- incremental prompt advance (streaming sessions) -------------------
 
+    @_build.owned
     def advance(self, kv, embeds, positions, write_slot: int, last_index: int):
         """Append T prompt tokens to an existing cache (the cached forward,
         JAX ``generate.py:156-198``): K/V rows land at slots ``[write_slot,
@@ -285,8 +308,9 @@ class Generator:
         positions = torch.as_tensor(positions, dtype=torch.long, device=embeds.device)
         with self._act_quant_ctx():
             hidden, kv = decoder_forward(self.params, self.cfg, embeds, positions, kv,
-                                         write_slots=int(write_slot))
-            logits = decoder_logits(self.params, self.cfg, hidden[:, last_index : last_index + 1])
+                                         write_slots=int(write_slot), tp=self.tp)
+            logits = decoder_logits(self.params, self.cfg, hidden[:, last_index : last_index + 1],
+                                    tp=self.tp)
         return kv, logits[:, 0]
 
     def embed_ids(self, ids) -> torch.Tensor:
@@ -294,23 +318,25 @@ class Generator:
         (JAX ``generate.py:211-217``), for the sessions' prefix and suffix
         spans."""
         device = self.params["final_norm"].device
-        return embed_tokens(self.params, torch.as_tensor(ids, device=device))
+        return embed_tokens(self.params, torch.as_tensor(ids, device=device), tp=self.tp)
 
     # -- prefill ----------------------------------------------------------
 
+    @_build.owned
     def prefill(self, features, ids, n_audio, prompt_len, cache_len: int,
                 arena: bool = False):
         """Embed the prompt, inject audio features at slots [9, 9 + n_audio),
         run the fresh-prefill forward into a zeroed cache of ``cache_len``
         slots, and take logits at ``prompt_len - 1``.  With ``arena`` on CUDA
-        the cache is the decode graphs' arena view (valid until the next
-        such prefill), so the graphed decode takes it without a copy.
+        (and no ``tp``) the cache is the decode graphs' arena view (valid
+        until the next such prefill), so the graphed decode takes it without
+        a copy.
 
         features (B, Ta, H); ids (B, P) right-padded prompt ids; n_audio and
         prompt_len (B,).  Returns ((keys, values), first_logits (B, vocab))."""
         cfg = self.cfg
         B, P = ids.shape
-        embeds = embed_tokens(self.params, ids)
+        embeds = embed_tokens(self.params, ids, tp=self.tp)
         take = min(P - _AUDIO_OFFSET, features.shape[1])
         injected = torch.zeros_like(embeds)
         injected[:, _AUDIO_OFFSET : _AUDIO_OFFSET + take] = features[:, :take].to(embeds.dtype)
@@ -318,17 +344,18 @@ class Generator:
         is_audio = (slot >= _AUDIO_OFFSET) & (slot < _AUDIO_OFFSET + n_audio[:, None])
         embeds = torch.where(is_audio[:, :, None], injected, embeds)
 
-        if arena and embeds.is_cuda:
+        if arena and embeds.is_cuda and self.tp is None:
             kv = tuple(v.zero_() for v in self._arena_kv(
                 (cfg.num_hidden_layers, B, cfg.num_key_value_heads, cache_len, cfg.head_dim),
                 embeds.dtype, embeds.device,
             ))
         else:
-            kv = init_kv_cache(cfg, B, cache_len, embeds.dtype, embeds.device)
+            kv = init_kv_cache(cfg, B, cache_len, embeds.dtype, embeds.device, tp=self.tp)
         with self._act_quant_ctx():
-            hidden, kv = decoder_forward(self.params, cfg, embeds, slot.expand(B, P), kv)
+            hidden, kv = decoder_forward(self.params, cfg, embeds, slot.expand(B, P), kv,
+                                         tp=self.tp)
         last = hidden[torch.arange(B, device=ids.device), prompt_len.long() - 1]
-        logits = decoder_logits(self.params, cfg, last[:, None, :])[:, 0]
+        logits = decoder_logits(self.params, cfg, last[:, None, :], tp=self.tp)[:, 0]
         return kv, logits
 
     # -- decode -----------------------------------------------------------
@@ -371,6 +398,7 @@ class Generator:
                     o.copy_(c)
         return out
 
+    @_build.owned
     def decode(
         self,
         kv,
@@ -395,7 +423,8 @@ class Generator:
         On CUDA tensors under decode mode "auto" or "5" the loop replays the
         bucket's captured step graph (captured on first use) in blocks of
         ``graphs.BLOCK`` steps; on CPU tensors the same step runs eagerly
-        in the same blocks.  Decode modes "3" and "4", whose kernels K11a
+        in the same blocks, as do CUDA tensors under ``tp`` (no graphs on a
+        tp group).  Decode modes "3" and "4", whose kernels K11a
         and K11b take the decode end as a host int, and ``eager=True`` (the
         graphs' oracle on the card) run one eager step per look at
         ``done``.  ``plain=True`` runs the plain loop whatever
@@ -410,7 +439,7 @@ class Generator:
         device = first_logits.device
         B = first_logits.shape[0]
         host_ends = _decoder.DECODE_KERNEL_MODE in ("3", "4")
-        graphed = device.type == "cuda" and not (eager or host_ends)
+        graphed = device.type == "cuda" and self.tp is None and not (eager or host_ends)
         if graphed:
             kv = self._graph_cache(kv)
         elif self.runtime.kv_cache_dtype == "int8" and not is_quantized_kv(kv[0]):
@@ -541,12 +570,12 @@ class Generator:
             slot_step = min(prompt_bucket + host_step, S - 1)
             dend = min(prompt_bucket + host_step, S)
         pos = req.plen.long() + st.counts - 1
-        embeds = embed_tokens(self.params, st.cur)[:, None, :]
+        embeds = embed_tokens(self.params, st.cur, tp=self.tp)[:, None, :]
         hidden, kv = decoder_forward(
             self.params, self.cfg, embeds, pos[:, None], kv,
-            write_slots=slot_step, decode_ctx=(req.plen, dend, prompt_bucket),
+            write_slots=slot_step, decode_ctx=(req.plen, dend, prompt_bucket), tp=self.tp,
         )
-        logits = decoder_logits(self.params, self.cfg, hidden)[:, 0]
+        logits = decoder_logits(self.params, self.cfg, hidden, tp=self.tp)[:, 0]
         nxt = req.sample(logits, req.recent(st.tokens, st.counts), req.penalty)
 
         slot = st.counts.clamp(0, tb - 1)[:, None]
@@ -582,10 +611,10 @@ class Generator:
         pos = (req.plen.long() + counts - 1)[:, None] + offs[None, :]
         ws = (prompt_bucket + counts - 1).to(torch.int32)           # (B,)
         hidden, kv = decoder_forward(
-            self.params, self.cfg, embed_tokens(self.params, ids), pos, kv,
-            write_slots=ws, decode_ctx=(req.plen, ws, prompt_bucket),
+            self.params, self.cfg, embed_tokens(self.params, ids, tp=self.tp), pos, kv,
+            write_slots=ws, decode_ctx=(req.plen, ws, prompt_bucket), tp=self.tp,
         )
-        logits = decoder_logits(self.params, self.cfg, hidden)      # (B, T, V)
+        logits = decoder_logits(self.params, self.cfg, hidden, tp=self.tp)   # (B, T, V)
         if req.mode == "sample":        # -1: no proposal at that position
             proposals = torch.where(dvalid, draft, no_draft[:, None])
 
@@ -623,10 +652,12 @@ class Generator:
         st.steps.add_(any_live.long())
 
     def close(self) -> None:
-        """Free the captured decode graphs and their cache arena."""
+        """Free the captured decode graphs, their cache arena and the
+        kernels' scratch."""
         if self.graphs is not None:
             self.graphs.close()
             self.graphs = None
+        self.scratch.clear()
 
     def harvest(
         self, tokens, counts, n: int, max_tokens: list[int], token_bucket: int

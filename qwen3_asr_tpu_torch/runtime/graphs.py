@@ -23,18 +23,26 @@ a buffer of the arena drops every captured graph.
 
 Kernel launches are counted on the host when a wrapper runs
 (``ops/kernels/_build.py`` ``LAUNCHES``).  During a capture nothing runs
-and during a replay no wrapper runs, so a capture takes back what its
-wrappers counted and each replay adds that difference again
+and during a replay no wrapper runs, so what the capturing thread's
+wrappers count goes aside (``_build.diverted``; other threads, such as a
+second replica's on the same card, count as usual) and each replay adds it
 (:class:`StepGraph`).  A replay runs its kernels whether or not a lane is
 still live: the steps after every lane is done are no-ops on the visible
 state (the JAX package's fixed-K programs rely on the same,
 ``generate.py:628-633``), and their launches are counted.
 
 No fallback: a failed capture or replay raises.
+
+A generator on a tensor-parallel group (``Generator(..., tp=...)``) builds
+no :class:`DecodeGraphs`: its steps call collectives, which a capture cannot
+hold under gloo, and capturing NCCL's is later work (ROADMAP.md Queue 1,
+item 5 (c)); its loop runs the same step eagerly in the same blocks.  Under
+dp alone nothing crosses ranks inside a decode, and the graphs stay.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import Counter
 from collections.abc import Callable
@@ -52,6 +60,19 @@ from ..ops.kernels import _build
 #: step, and four steps queued ahead of a host thread that may wake late,
 #: for 6% more than 1 on a 64-token decode.
 BLOCK = 4
+
+
+#: One lock per device index: captures on one device run one at a time.
+#: ``torch.cuda.graph`` synchronizes the device as it begins, which would
+#: break a capture that another thread (a second replica on the same card)
+#: has under way; the other thread's kernels and replays run on meanwhile.
+_capture_locks: dict[int | None, threading.Lock] = {}
+_capture_locks_lock = threading.Lock()
+
+
+def _capture_lock(device: torch.device) -> threading.Lock:
+    with _capture_locks_lock:
+        return _capture_locks.setdefault(device.index, threading.Lock())
 
 
 def run_blocks(step: Callable[[int], None], done: torch.Tensor, block: int,
@@ -94,15 +115,8 @@ def run_blocks(step: Callable[[int], None], done: torch.Tensor, block: int,
 
 def record_launches(capture: Callable[[], None]) -> Counter:
     """Run ``capture`` and return the kernel launches its wrappers counted,
-    taking them back out of ``LAUNCHES``: nothing ran."""
-    before = Counter(_build.LAUNCHES)
-    try:
-        capture()
-    finally:
-        counted = _build.LAUNCHES - before
-        _build.LAUNCHES.clear()
-        _build.LAUNCHES.update(before)
-    return counted
+    which ``LAUNCHES`` does not see: nothing ran."""
+    return _build.diverted(capture)
 
 
 class StepGraph:
@@ -115,7 +129,7 @@ class StepGraph:
 
     def replay(self, _i: int = 0) -> None:
         self.graph.replay()
-        _build.LAUNCHES.update(self.launches)
+        _build.add_launches(self.launches)
 
 
 class DecodeGraphs:
@@ -181,9 +195,11 @@ class DecodeGraphs:
                                   capture_error_mode="thread_local"):
                 step()
 
-        t0 = time.perf_counter()
-        launches = record_launches(capture)
-        torch.cuda.synchronize(self.device)
+        with _capture_lock(self.device):
+            t0 = time.perf_counter()
+            launches = record_launches(capture)
+            # The capture stream, not the device (see _capture_locks).
+            stream.synchronize()
         self.last_capture_ms = (time.perf_counter() - t0) * 1e3
         self.captures += 1
         entry = StepGraph(graph, launches)

@@ -1,9 +1,16 @@
-"""Serving: the drain and the continuous-batching transcription servers."""
+"""Serving: the drain, continuous-batching and replicated transcription
+servers."""
 
-from .server import ContinuousTranscriptionServer, ServerStats, TranscriptionServer
+from .server import (
+    ContinuousTranscriptionServer,
+    ReplicatedTranscriptionServer,
+    ServerStats,
+    TranscriptionServer,
+)
 
 __all__ = [
     "TranscriptionServer",
     "ContinuousTranscriptionServer",
+    "ReplicatedTranscriptionServer",
     "ServerStats",
 ]

@@ -16,14 +16,22 @@ Concurrent callers submit clips and get futures back:
   chunk and finished sequences free their slots without stopping the batch.
   An admitted request's future carries ``ttft_s``, the seconds from submit
   to the end of its prefill.
+* :class:`ReplicatedTranscriptionServer` scales out by data parallelism in
+  one process: one whole model replica per device, one worker thread per
+  replica, all draining one shared queue as :class:`TranscriptionServer`'s
+  worker drains its own.  No collective crosses replicas.
 
 The worker threads enter ``torch.inference_mode()`` themselves (PyTorch's
-grad mode is per thread).  The JAX package's ``ReplicatedTranscriptionServer``
-(one replica per device) is not ported yet: it comes with multi-GPU.
+grad mode is per thread).  On a tp mesh (``RuntimeConfig(tp > 1)``, one
+process per rank) every rank would have to admit and step in lockstep,
+which is a design of its own: the drain and continuous servers raise
+``NotImplementedError`` there, and the drain server also on a dp mesh,
+whose ``transcribe_batch`` is a collective over every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -31,6 +39,13 @@ from concurrent.futures import Future
 from dataclasses import dataclass
 
 import torch
+
+
+def _refuse_tp(model, what: str) -> None:
+    if model._runtime.tp > 1:
+        from ..api import MESH_LATER
+
+        raise NotImplementedError(f"{what}: {MESH_LATER}")
 
 
 @dataclass
@@ -144,6 +159,11 @@ class TranscriptionServer:
     """Batch-at-admission serving around a :class:`Qwen3ASR` model."""
 
     def __init__(self, model, max_batch_size: int = 8, batch_window_ms: float = 15.0) -> None:
+        _refuse_tp(model, "TranscriptionServer")
+        if model._runtime.dp > 1:
+            raise NotImplementedError(
+                "TranscriptionServer on a dp mesh: its transcribe_batch is a collective over "
+                "every rank; serve one replica per device with ReplicatedTranscriptionServer")
         self._model = model
         self._max_batch = max_batch_size
         self._window_s = batch_window_ms / 1000.0
@@ -230,6 +250,7 @@ class ContinuousTranscriptionServer:
         kv_pool_gb: float | None = None,
         warm: bool | tuple[float, ...] = False,
     ) -> None:
+        _refuse_tp(model, "ContinuousTranscriptionServer")
         self._model = model
         self._engine = model.make_engine(
             n_slots=n_slots, max_duration=max_duration, max_new_tokens=max_new_tokens,
@@ -516,3 +537,132 @@ class ContinuousTranscriptionServer:
                 "request cannot be admitted: its prompt alone exceeds the "
                 "engine's KV page pool; raise kv_pool_gb"
             ))
+
+
+class ReplicatedTranscriptionServer:
+    """dp scale-out serving: one whole model replica per device, in one
+    process (JAX ``serving/server.py:625-740``).
+
+    At 1.7B the whole parameter set fits one card, so throughput scales
+    without collectives: ``model_factory`` is called once per device, under
+    ``torch.cuda.device(d)`` for a CUDA device (the counterpart of
+    ``jax.default_device``), and its replica is served by a worker thread of
+    its own, which sets its current CUDA device to ``d`` first (the current
+    device is per thread, and the kernels launch on the current stream of
+    their tensors' device).  The workers drain ONE shared queue, each
+    batching as :class:`TranscriptionServer` does; a replica busy with a
+    long batch simply does not poll while its siblings drain.  A failed
+    batch is retried request by request on the same replica, as in the JAX
+    package.
+
+    ``devices`` defaults to every visible CUDA device; with none and no
+    ``devices`` given, ``ValueError`` (never CPU replicas unasked).  Any
+    device list is taken, two replicas on one card included: each replica
+    has its own decode graphs, captured on a side stream of its own, one
+    capture a card at a time (``runtime/graphs.py``), and the kernels'
+    scratch buffers are kept per thread, so one replica's capture and
+    another's kernels can overlap.
+    """
+
+    def __init__(
+        self,
+        model_factory,
+        devices=None,
+        max_batch_size: int = 8,
+        batch_window_ms: float = 15.0,
+    ) -> None:
+        if devices is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        self._devices = [torch.device(d) for d in devices]
+        if not self._devices:
+            raise ValueError("no devices for replicas")
+        self._max_batch = max_batch_size
+        self._window_s = batch_window_ms / 1000.0
+        self._queue: queue.Queue[_Request | None] = queue.Queue()
+        self.stats = ServerStats()
+        #: Batches each replica has served, by replica index.
+        self.replica_batches = [0] * len(self._devices)
+        self._closed = False
+        self._models = []
+        for d in self._devices:
+            with _on_device(d):
+                self._models.append(model_factory())
+        self._workers = [
+            threading.Thread(target=self._run_replica, args=(i, m, d), daemon=True)
+            for i, (m, d) in enumerate(zip(self._models, self._devices))
+        ]
+        for w in self._workers:
+            w.start()
+
+    @property
+    def n_replicas(self) -> int:
+        return len(self._models)
+
+    @property
+    def models(self) -> list:
+        """The replicas, in device order."""
+        return list(self._models)
+
+    # -- client API --------------------------------------------------------
+
+    def submit(self, audio, **options) -> Future:
+        if self._closed:
+            raise RuntimeError("server is closed")
+        fut: Future = Future()
+        self._queue.put(_Request(audio, options, fut, time.time()))
+        self.stats.bump("requests")
+        return fut
+
+    def transcribe(self, audio, **options):
+        return self.submit(audio, **options).result()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for _ in self._workers:
+            self._queue.put(None)
+        for w in self._workers:
+            w.join(timeout=60)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- workers -----------------------------------------------------------
+
+    def _run_replica(self, index: int, model, device: torch.device) -> None:
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        with torch.inference_mode():
+            while True:
+                batch = _collect_batch(
+                    self._queue, self._max_batch, self._window_s,
+                    model._runtime.frame_buckets,
+                )
+                if batch is None:
+                    return
+                self.stats.record_batch(len(batch))
+                self.replica_batches[index] += 1
+                try:
+                    results = model.transcribe_batch(
+                        [r.audio for r in batch], **batch[0].options
+                    )
+                    for req, res in zip(batch, results):
+                        _deliver(req.future, res)
+                except Exception:
+                    for req in batch:
+                        try:
+                            _deliver(req.future, model.transcribe(req.audio, **req.options))
+                        except Exception as exc:  # noqa: BLE001
+                            self.stats.bump("failures")
+                            _deliver(req.future, exc=exc)
+
+
+def _on_device(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device, else nothing."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

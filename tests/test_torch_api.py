@@ -123,19 +123,28 @@ def test_int8_transcribe_and_detect_token_identical(int8_pair):
 
 
 def test_unported_features_raise(pair):
-    """Only multi-device meshes are left out; sampling, long-form chunking
-    and ``speculative="ngram"`` (with either cache) construct and run."""
+    """A mesh (``dp * tp > 1``) needs a process group of ``dp * tp`` ranks
+    (``parallel.initialize``; tests/test_torch_parallel.py runs them), and a
+    tp group refuses the continuous engine; sampling, long-form chunking and
+    ``speculative="ngram"`` (with either cache) construct and run."""
+    import dataclasses
+
     from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
 
     _, port = pair
     for rt in ({"dp": 2}, {"tp": 2}, {"dp": 2, "speculative": "ngram"}):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+        with pytest.raises(ValueError, match="parallel.initialize"):
             Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
                      port._tokenizer, RuntimeConfig(**rt))
     for rt in ({"speculative": "ngram"},
                {"speculative": "ngram", "kv_cache_dtype": "int8"}):
         Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
                  port._tokenizer, RuntimeConfig(**rt))
+    on_tp = Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
+                     port._tokenizer, RuntimeConfig())
+    on_tp._runtime = dataclasses.replace(on_tp._runtime, tp=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        on_tp.make_engine()
 
 
 def test_wav_file_round_trip(pair, tmp_path):
@@ -191,6 +200,8 @@ def test_import_needs_neither_jax_nor_nvcc(tmp_path):
         "from qwen3_asr_tpu_torch.ops.kernels.experiments import decode_attention_hbm5, "
         "decode_attention_sched\n"
         "from qwen3_asr_tpu_torch.training import checkpoint, train\n"
+        "from qwen3_asr_tpu_torch.parallel import collectives, distributed, mesh, sharding\n"
+        "from qwen3_asr_tpu_torch import ReplicatedTranscriptionServer\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'optax', 'orbax', 'qwen3_asr_tpu')]\n"
         "assert not bad, bad\n"
@@ -244,9 +255,8 @@ def test_warm_up_tuple_max_tokens(pair, caplog, monkeypatch):
     assert "warm_up complete: 4 program shapes" in caplog.text
 
 
-#: Public names of the JAX package that later slices bring (ROADMAP Queue 1,
-#: "Multi-GPU").
-LATER_SLICES = {"ReplicatedTranscriptionServer"}
+#: Public names of the JAX package that later slices bring (none are left).
+LATER_SLICES: set[str] = set()
 
 
 def test_root_exports_match_jax():

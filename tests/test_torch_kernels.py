@@ -199,19 +199,19 @@ def test_decode_idle_lane_is_finite():
 
 
 def test_arrival_counters_are_cached_and_grown():
-    """The kernel's ticket counters: one zeroed buffer per device, handed to
-    every call that fits, grown (the old one kept alive) when a batch needs
-    more."""
-    da_mod._counters.pop(None, None)
+    """The kernel's ticket counters: one zeroed buffer per scratch owner
+    and device (``_build.scratch``), handed to every call that fits, grown
+    (the old one kept alive) when a batch needs more."""
     cpu = torch.device("cpu")
-    a = da_mod.arrival_counters(cpu, 8 * 8)
-    assert a.dtype == torch.int32 and a.numel() >= 64 and not a.any()
-    assert da_mod.arrival_counters(cpu, 96 * 8) is a
-    big = da_mod.arrival_counters(cpu, a.numel() + 1)
-    assert big.numel() > a.numel() and not big.any()
-    assert da_mod.arrival_counters(cpu, 1) is big
-    assert da_mod._counters[None] == [a, big]
-    da_mod._counters.pop(None)
+    owner = _build.Scratch()
+    with _build.scratch_scope(owner):
+        a = da_mod.arrival_counters(cpu, 8 * 8)
+        assert a.dtype == torch.int32 and a.numel() >= 64 and not a.any()
+        assert da_mod.arrival_counters(cpu, 96 * 8) is a
+        big = da_mod.arrival_counters(cpu, a.numel() + 1)
+        assert big.numel() > a.numel() and not big.any()
+        assert da_mod.arrival_counters(cpu, 1) is big
+    assert owner.pool(cpu)["arrival_counters"] == [a, big]
 
 
 @pytest.mark.parametrize("S,q8,ptrs,ok", [

@@ -128,29 +128,48 @@ def clips(seconds=(1.0, 2.3, 5.1), seed: int = 0) -> list[np.ndarray]:
     return out
 
 
-def models(seed: int = 0, runtime: dict | None = None):
-    """(JAX Qwen3ASR, port Qwen3ASR) on the same float32 weights."""
+def port_config():
+    """The port's ModelConfig of the tiny model (no JAX import)."""
+    from qwen3_asr_tpu_torch import config as tc
+
+    return tc.ModelConfig(
+        audio_encoder=tc.AudioEncoderConfig(**TINY_ENCODER),
+        text_decoder=tc.TextDecoderConfig(**TINY_DECODER),
+    )
+
+
+def jax_model(seed: int = 0, runtime: dict | None = None, params=None):
+    """The JAX package's Qwen3ASR on the tiny float32 weights of ``seed``
+    (or the numpy pytrees ``params``); a runtime with ``tp``/``dp`` runs on
+    the virtual CPU mesh of ``tests/conftest.py``."""
     import jax.numpy as jnp
 
     from qwen3_asr_tpu.api import Qwen3ASR as JaxASR
     from qwen3_asr_tpu.config import RuntimeConfig as JaxRuntime
 
+    jcfg, _ = configs()
+    enc, dec = params if params is not None else numpy_params(jcfg, seed)
+    return JaxASR(
+        jcfg,
+        {k: _to_jnp(v, jnp) for k, v in enc.items()},
+        {k: _to_jnp(v, jnp) for k, v in dec.items()},
+        StubTokenizer(),
+        JaxRuntime(**dict(RUNTIME, **(runtime or {}))),
+    )
+
+
+def models(seed: int = 0, runtime: dict | None = None):
+    """(JAX Qwen3ASR, port Qwen3ASR) on the same float32 weights."""
     from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
     from qwen3_asr_tpu_torch.models.params import params_from_jax
 
     jcfg, tcfg = configs()
     enc, dec = numpy_params(jcfg, seed)
     rt = dict(RUNTIME, **(runtime or {}))
-    jax_model = JaxASR(
-        jcfg,
-        {k: _to_jnp(v, jnp) for k, v in enc.items()},
-        {k: _to_jnp(v, jnp) for k, v in dec.items()},
-        StubTokenizer(),
-        JaxRuntime(**rt),
-    )
+    jax = jax_model(runtime=runtime, params=(enc, dec))
     enc_t, dec_t = params_from_jax(enc, dec)
     port = Qwen3ASR(tcfg, enc_t, dec_t, StubTokenizer(), RuntimeConfig(**rt))
-    return jax_model, port
+    return jax, port
 
 
 def _to_jnp(tree, jnp):
