@@ -145,7 +145,16 @@ failure raises and the script exits non-zero):
      debug mode (no host sync), every loss finite and falling, every
      parameter leaf's gradient finite and nonzero, ms a step against its
      bound, peak memory, the global gradient norm, and no hand-written
-     kernel launched in the whole phase.  Before the int8 model, on the
+     kernel launched in the whole phase; then the train step on (dp, tp)
+     meshes of spawned ranks (:func:`mesh_training_phase`: the tiny config
+     on (1, 2), (2, 1), and (2, 2) with four cards, held to one device's
+     loss and gradients; ``ModelConfig()`` on (1, 2) in float32, its
+     gradient's per-leaf norms and seeded projections held to one
+     device's, and three bf16 steps; a full-width dp mesh at reduced depth
+     (full depth on (2, 2) with four cards) held to one device's loss, the
+     replicated leaves bit-identical across ranks; a sharded snapshot
+     restored onto the mesh and onto one device; no kernel launched;
+     ``dryrun_multichip(2)``).  Before the int8 model, on the
      plain run's model: :func:`replicated_phase` (a
      ``ReplicatedTranscriptionServer`` of ``max(2, cards)`` replicas, two
      on ``cuda:0`` on one card, 16 requests in two rounds, each result held
@@ -168,7 +177,9 @@ failure raises and the script exits non-zero):
      ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available or when
-the package is not beside this script.
+the package is not beside this script.  ``python3 chip_smoke.py --training``
+runs :func:`training_phase` and :func:`mesh_training_phase` alone and prints
+no result line.
 """
 
 from __future__ import annotations
@@ -3387,22 +3398,28 @@ def grad_report(state) -> tuple[list[str], list[str], float]:
     return bad, zero, float(rows[:, 2].sum().sqrt())
 
 
-def train_parity(card: str) -> None:
+def train_tiny_config():
+    """The float32 parity config (:data:`TRAIN_TINY_ENCODER`, ``_DECODER``)."""
+    from qwen3_asr_tpu_torch.config import AudioEncoderConfig, ModelConfig, TextDecoderConfig
+
+    return ModelConfig(audio_encoder=AudioEncoderConfig(**TRAIN_TINY_ENCODER),
+                       text_decoder=TextDecoderConfig(**TRAIN_TINY_DECODER))
+
+
+def train_parity(card: str) -> tuple[float, dict]:
     """(a) The tiny config, float32 with TF32 off (cuDNN's conv uses it by
     default): one Adam step on the card against the same step on CPU
     tensors, the loss within 1e-5 relative and every gradient leaf within
     1e-4 x max |CPU grad| + 1e-7 (``tests/test_torch_training.py``'s
-    tolerances)."""
+    tolerances).  Returns the card's loss and gradients by leaf name."""
     import functools
 
     import torch
 
-    from qwen3_asr_tpu_torch.config import AudioEncoderConfig, ModelConfig, TextDecoderConfig
     from qwen3_asr_tpu_torch.models.params import random_params
     from qwen3_asr_tpu_torch.training.train import init_train_state, make_train_step, named_params
 
-    cfg = ModelConfig(audio_encoder=AudioEncoderConfig(**TRAIN_TINY_ENCODER),
-                      text_decoder=TextDecoderConfig(**TRAIN_TINY_DECODER))
+    cfg = train_tiny_config()
     opt = functools.partial(torch.optim.Adam, lr=1e-3)
     step = make_train_step(cfg)
     cpu_params = random_params(cfg, seed=SEED, dtype=torch.float32)
@@ -3429,6 +3446,7 @@ def train_parity(card: str) -> None:
     print(f"training parity (tiny f32 config, TF32 off, one Adam step): loss card {gpu_loss:.7f} "
           f"CPU {cpu_loss:.7f} (rel {rel:.2e}); {len(cpu_g)} gradient leaves within 1e-4 x max |g| "
           f"+ 1e-7, the closest at {worst:.1%} of its tolerance: {worst_name} ({card})")
+    return gpu_loss, gpu_g
 
 
 def train_arm(card: str, dtype, label: str) -> dict:
@@ -3438,7 +3456,8 @@ def train_arm(card: str, dtype, label: str) -> dict:
     under ``torch.cuda.set_sync_debug_mode("warn")`` (a host sync inside a
     step fails the arm).  (d) Every loss finite and the last below the
     first, every parameter leaf's gradient (the last step's) finite and
-    nonzero."""
+    nonzero.  The float32 arm also keeps the warm step's gradient
+    fingerprint (:func:`grad_fingerprint`)."""
     import functools
     import warnings
 
@@ -3462,6 +3481,7 @@ def train_arm(card: str, dtype, label: str) -> dict:
     losses = [loss]
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    fingerprint = grad_fingerprint(state) if dtype == torch.float32 else None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(TRAIN_STEPS):
@@ -3511,7 +3531,8 @@ def train_arm(card: str, dtype, label: str) -> dict:
         raise AssertionError(f"training {label}: non-finite gradient {bad[:5]}, zero gradient "
                              f"{zero[:5]}")
     del state, batch, losses, loss
-    return {"ms": ms, "peak_gb": peak_gb, "losses": trajectory, "bound_ms": bound_ms}
+    return {"ms": ms, "peak_gb": peak_gb, "losses": trajectory, "bound_ms": bound_ms,
+            "fingerprint": fingerprint}
 
 
 def lm_head_derivative(card: str) -> None:
@@ -3547,7 +3568,9 @@ def training_phase(card: str) -> dict:
     """The training path (``qwen3_asr_tpu_torch/training``): (a)
     :func:`train_parity`; the lm head's derivative; (b) :func:`train_arm` in
     float32 and (c) in bf16 at full width; (d) no hand-written kernel
-    launched in the whole phase (``LAUNCHES`` unchanged)."""
+    launched in the whole phase (``LAUNCHES`` unchanged).  Returns the
+    one-device references of :func:`mesh_training_phase`: the tiny step's
+    loss and gradients (``"tiny"``) and each arm's record."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
@@ -3556,9 +3579,8 @@ def training_phase(card: str) -> dict:
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        train_parity(card)
+        arms = {"tiny": train_parity(card)}
         lm_head_derivative(card)
-        arms = {}
         for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             arms[label] = train_arm(card, dtype, label)
             torch.cuda.empty_cache()
@@ -3695,7 +3717,7 @@ def replicated_phase(card: str, base) -> dict:
     return launches
 
 
-def mesh_rank(rank: int, dp: int, tp: int, backend: str, workdir: str, runtimes: dict,
+def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes: dict,
               refs: dict) -> None:
     """One rank of :func:`mesh_phase` (a spawned process): joins the group,
     builds ``ModelConfig()`` from random weights (seed 0) on its card under
@@ -3785,19 +3807,25 @@ def forced_run(model, clips, ref_path: str, lo: int, hi: int) -> dict:
 
 def run_mesh(dp: int, tp: int, backend: str, runtimes: dict, refs: dict) -> list[dict]:
     """Spawn the ``dp * tp`` ranks of :func:`mesh_rank`; each rank's saved
-    result.  A rank that exits non-zero or outlives :data:`MESH_TIMEOUT`
-    raises."""
+    result."""
+    return spawn_ranks(mesh_rank, dp, tp, f"mesh_{dp}x{tp}", backend, runtimes, refs)
+
+
+def spawn_ranks(target, dp: int, tp: int, name: str, *args) -> list[dict]:
+    """Spawn ``target(rank, dp, tp, workdir, *args)`` in ``dp * tp``
+    processes, ``workdir`` = ``build/<name>``; each rank's saved result
+    (``workdir/rank<r>.pt``).  A rank that exits non-zero or outlives
+    :data:`MESH_TIMEOUT` raises."""
     import multiprocessing as mp
     import shutil
 
     import torch
 
-    workdir = ROOT / "build" / f"mesh_{dp}x{tp}"
+    workdir = ROOT / "build" / name
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, dp, tp, backend, str(workdir), runtimes, refs))
+    procs = [ctx.Process(target=target, args=(r, dp, tp, str(workdir), *args))
              for r in range(dp * tp)]
     for p in procs:
         p.start()
@@ -3806,9 +3834,9 @@ def run_mesh(dp: int, tp: int, backend: str, runtimes: dict, refs: dict) -> list
         for r, p in enumerate(procs):
             p.join(max(1.0, deadline - time.monotonic()))
             if p.is_alive():
-                raise AssertionError(f"mesh ({dp}, {tp}) rank {r} outlived {MESH_TIMEOUT} s")
+                raise AssertionError(f"{name} ({dp}, {tp}) rank {r} outlived {MESH_TIMEOUT} s")
             if p.exitcode != 0:
-                raise AssertionError(f"mesh ({dp}, {tp}) rank {r} exited {p.exitcode}")
+                raise AssertionError(f"{name} ({dp}, {tp}) rank {r} exited {p.exitcode}")
     finally:
         for p in procs:
             if p.is_alive():
@@ -4141,6 +4169,545 @@ def second_card_phase() -> None:
     print(f"second card: every kernel checked against its plain version on cuda:1 after "
           f"cuda:0 in {seconds:.1f} s")
 
+
+# -- the train step on (dp, tp) meshes ----------------------------------------------------
+
+#: (encoder layers, decoder layers) at full width of the dp meshes on one
+#: card (a (2, 1) float32 state at full depth, 2 x 32.5 GB of parameters,
+#: gradients and Adam moments, does not fit beside the activations) and of
+#: the sharded snapshot (the full-depth float32 state is 32.5 GB on disk).
+TRAIN_DP_DEPTH = (4, 4)
+TRAIN_SNAPSHOT_DEPTH = (1, 1)
+#: The full-width (1, 2) float32 gradient against one device's, per leaf:
+#: its norm and its projection on a seeded N(0, 1) tensor each within this
+#: share of the leaf's norm plus 1e-6 of the whole gradient's norm (a leaf
+#: whose exact gradient is 0, as the encoder's key biases, holds rounding).
+TRAIN_GRAD_TOL = 1e-3
+
+
+def depth_config(enc_layers: int, dec_layers: int):
+    """``ModelConfig()`` at full width with ``enc_layers`` encoder and
+    ``dec_layers`` decoder layers."""
+    from qwen3_asr_tpu_torch.config import AudioEncoderConfig, ModelConfig, TextDecoderConfig
+
+    return ModelConfig(audio_encoder=AudioEncoderConfig(encoder_layers=enc_layers),
+                       text_decoder=TextDecoderConfig(num_hidden_layers=dec_layers))
+
+
+def grad_fingerprint(state):
+    """(leaves, 2) float64 on the host: each leaf's gradient's squared norm
+    and its projection on a seeded N(0, 1) tensor of the leaf's global
+    shape, over this rank's shard (summed over a tp group's ranks, the
+    whole gradient's)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.training.train import named_params, tp_dims
+
+    mesh = state.mesh
+    tp, coord = (mesh.shape["tp"], mesh.coordinate["tp"]) if mesh is not None else (1, 0)
+    rows = []
+    named = named_params(state.encoder, state.decoder)
+    for i, ((_, t), d) in enumerate(zip(named, tp_dims(state.encoder, state.decoder))):
+        g = t.grad.detach()
+        shape = list(g.shape)
+        if d is not None:
+            shape[d] *= tp
+        r = torch.randn(shape, generator=torch.Generator(device=g.device).manual_seed(SEED + i),
+                        device=g.device)
+        if d is not None:
+            r = r.chunk(tp, dim=d)[coord]
+        rows.append(torch.stack([(g * g).sum(dtype=torch.float64),
+                                 (g * r).sum(dtype=torch.float64)]))
+    return torch.stack(rows).cpu()
+
+
+def digest(t) -> tuple[int, int]:
+    """Two int64 sums of ``t``'s bit patterns, plain and position-weighted
+    (wrapping): equal for equal bits."""
+    import torch
+
+    bits = t.detach().reshape(-1).view(torch.int32 if t.element_size() == 4 else torch.int16)
+    plain = weighted = 0
+    for lo in range(0, bits.numel(), 1 << 24):
+        chunk = bits[lo : lo + (1 << 24)].long()
+        w = torch.arange(lo, lo + chunk.numel(), device=chunk.device) % 65521 + 1
+        plain += chunk.sum().item()
+        weighted += (chunk * w).sum().item()
+    return plain, weighted
+
+
+def state_digests(state, moments: bool = False) -> dict:
+    """Each local leaf's :func:`digest` by name; with ``moments`` also its
+    Adam moments' (``name:exp_avg``, ``name:exp_avg_sq``)."""
+    from qwen3_asr_tpu_torch.training.train import named_params
+
+    named = named_params(state.encoder, state.decoder)
+    out = {n: digest(t) for n, t in named}
+    if moments:
+        opt = state.optimizer.state_dict()["state"]
+        for i, (n, _) in enumerate(named):
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{n}:{k}"] = digest(opt[i][k])
+    return out
+
+
+def mesh_train_state(cfg, dtype, device, mesh, seed: int = SEED):
+    """A step-0 Adam (lr :data:`TRAIN_LR`) state of ``cfg`` from
+    ``random_params(seed)`` on ``device``, this rank's shards on ``mesh``."""
+    import functools
+
+    import torch
+
+    from qwen3_asr_tpu_torch.models.params import random_params
+    from qwen3_asr_tpu_torch.training.train import init_train_state
+
+    params = random_params(cfg, seed=seed, dtype=dtype, device=device)
+    return init_train_state(cfg, functools.partial(torch.optim.Adam, lr=TRAIN_LR), *params, mesh)
+
+
+def timed_steps(state, batch, cfg, n: int, device) -> tuple:
+    """``n`` train steps between two CUDA events: (state, losses, ms a step,
+    collectives a step, bytes a step)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.parallel.collectives import TRAFFIC
+    from qwen3_asr_tpu_torch.training.train import make_train_step
+
+    step = make_train_step(cfg)
+    TRAFFIC.clear()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = []
+    for _ in range(n):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize(device)
+    calls = sum(v for k, v in TRAFFIC.items() if not k.endswith("bytes"))
+    nbytes = sum(v for k, v in TRAFFIC.items() if k.endswith("bytes"))
+    return (state, torch.stack(losses).float().cpu().tolist(), start.elapsed_time(end) / n,
+            calls / n, nbytes / n)
+
+
+def train_job_tiny(mesh, device, workdir) -> dict:
+    """(a) The tiny float32 step of :func:`train_parity` (Adam lr 1e-3, the
+    weights drawn on the host): the loss and this rank's gradients."""
+    import functools
+
+    import torch
+
+    from qwen3_asr_tpu_torch.models.params import random_params
+    from qwen3_asr_tpu_torch.training.train import init_train_state, make_train_step, named_params
+
+    cfg = train_tiny_config()
+    params = tuple(_params_to(p, device, torch.float32)
+                   for p in random_params(cfg, seed=SEED, dtype=torch.float32))
+    state = init_train_state(cfg, functools.partial(torch.optim.Adam, lr=1e-3), *params, mesh)
+    batch = train_batch(cfg.text_decoder.vocab_size, 2, 800, 700, 91, 144, SEED, device)
+    state, loss = make_train_step(cfg)(state, batch)
+    return {"loss": loss.item(),
+            "grads": {n: t.grad.cpu() for n, t in named_params(state.encoder, state.decoder)}}
+
+
+def train_job_full(mesh, device, workdir) -> dict:
+    """(b) ``ModelConfig()`` on the :data:`TRAIN_FULL` batch: one float32
+    step (its loss, host-clock seconds, :func:`grad_fingerprint`, peak
+    memory, collectives and the replicated leaves' digests), then in bf16
+    one warm step and :data:`TRAIN_STEPS` timed steps."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    B, frames, valid, n_audio, P = TRAIN_FULL
+    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, device)
+    out = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        state = mesh_train_state(cfg, dtype, device, mesh)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state, losses, ms, calls, nbytes = timed_steps(state, batch, cfg, 1, device)
+        first_s = time.perf_counter() - t0
+        rec = {"first_s": first_s, "first_loss": losses[0]}
+        if label == "f32":
+            rec.update(fingerprint=grad_fingerprint(state), digests=state_digests(state))
+        else:
+            state, more, ms, calls, nbytes = timed_steps(state, batch, cfg, TRAIN_STEPS, device)
+            rec["losses"] = losses + more
+        rec.update(ms=ms, calls=calls, bytes=nbytes,
+                   peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+        out[label] = rec
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_job_dp(mesh, device, workdir, depth) -> dict:
+    """(c) One float32 step at full width and ``depth`` (None: full depth)
+    on the :data:`TRAIN_FULL` batch: loss, ms, peak memory, collectives and
+    every leaf's digest after the step."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig() if depth is None else depth_config(*depth)
+    B, frames, valid, n_audio, P = TRAIN_FULL
+    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, device)
+    state = mesh_train_state(cfg, torch.float32, device, mesh)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    state, losses, ms, calls, nbytes = timed_steps(state, batch, cfg, 1, device)
+    return {"loss": losses[0], "ms": ms, "calls": calls, "bytes": nbytes,
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "digests": state_digests(state)}
+
+
+def train_job_snapshot(mesh, device, workdir) -> dict:
+    """(d) At :data:`TRAIN_SNAPSHOT_DEPTH`, float32: one step, a sharded
+    snapshot under ``workdir/ckpt``, a second step; a fresh state (other
+    weights) restored from the snapshot, held bit for bit to the saved
+    state, and its step: both second losses and the saved state's
+    digests."""
+    import torch
+
+    from qwen3_asr_tpu_torch.training import checkpoint as ckpt
+    from qwen3_asr_tpu_torch.training.train import make_train_step
+
+    cfg = depth_config(*TRAIN_SNAPSHOT_DEPTH)
+    B, frames, valid, n_audio, P = TRAIN_FULL
+    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, device)
+    step = make_train_step(cfg)
+    state = mesh_train_state(cfg, torch.float32, device, mesh)
+    state, loss1 = step(state, batch)
+    t0 = time.perf_counter()
+    path = ckpt.save_train_state(Path(workdir) / "ckpt", state)
+    save_s = time.perf_counter() - t0
+    saved = state_digests(state, moments=True)
+    state, loss2 = step(state, batch)
+    del state
+    t0 = time.perf_counter()
+    run = ckpt.restore_train_state(Path(workdir) / "ckpt",
+                                   mesh_train_state(cfg, torch.float32, device, mesh, SEED + 1))
+    restore_s = time.perf_counter() - t0
+    restored = state_digests(run, moments=True)
+    run, loss2r = step(run, batch)
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    return {"loss1": loss1.item(), "loss2": loss2.item(), "loss2_restored": loss2r.item(),
+            "restored_step": run.step - 1, "equal": restored == saved, "saved": saved,
+            "path": str(path.parent), "save_s": save_s, "restore_s": restore_s,
+            "snapshot_bytes": nbytes}
+
+
+TRAIN_JOBS = {"tiny": train_job_tiny, "full": train_job_full, "dp": train_job_dp,
+              "snapshot": train_job_snapshot}
+
+
+def train_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, jobs: dict) -> None:
+    """One rank of :func:`mesh_training_phase` (a spawned process): joins the
+    group with TF32 off and runs ``jobs`` (:data:`TRAIN_JOBS` name ->
+    keyword arguments) on its card; saves each job's record, its mesh
+    coordinate and the hand-written kernels it launched."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from qwen3_asr_tpu_torch import parallel
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize(num_processes=dp * tp, process_id=rank, backend=backend,
+                        init_method=f"file://{workdir}/init")
+    mesh = parallel.make_mesh(dp, tp)
+    out = {"coordinate": dict(mesh.coordinate), "device": str(device)}
+    for name, kwargs in jobs.items():
+        out[name] = TRAIN_JOBS[name](mesh, device, workdir, **kwargs)
+        torch.cuda.empty_cache()
+    out["launches"] = dict(LAUNCHES)
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def same_replicated(label: str, ranks: list[dict], digests_of, dims: dict) -> int:
+    """Raise unless every replicated leaf's digest is the same in every rank
+    and a sharded leaf's in the ranks of one tp coordinate; returns the
+    leaves compared."""
+    first = {}
+    for r in ranks:
+        tp = r["coordinate"]["tp"]
+        for name, dg in digests_of(r).items():
+            key = name if dims[name] is None else (name, tp)
+            if first.setdefault(key, dg) != dg:
+                raise AssertionError(f"{label}: {name} differs across ranks")
+    return len(first)
+
+
+def mesh_training_phase(card: str, refs: dict) -> None:
+    """The train step on (dp, tp) meshes of spawned ranks
+    (:func:`train_rank`, the spawn, timeout and failure handling of
+    :func:`mesh_phase`), TF32 off, held to :func:`training_phase`'s one
+    device (``refs``):
+
+      (a) the tiny float32 config on (1, 2), (2, 1), and (2, 2) with four
+          cards: the loss within 1e-5 relative of one device's, every
+          gathered gradient leaf within 1e-4 x max |g| + 1e-7;
+      (b) ``ModelConfig()`` on (1, 2): one float32 step held to one
+          device's (the loss within 1e-5 relative; per leaf the gradient's
+          norm and seeded projection, summed over the shards, within
+          :data:`TRAIN_GRAD_TOL`), then bf16, a warm and three timed
+          steps, every loss finite and the last below the first; ms a step
+          (CUDA events), peak memory a rank, collectives and bytes a step;
+      (c) dp meshes, float32: (2, 1) at :data:`TRAIN_DP_DEPTH` (one card:
+          gloo through host memory; NCCL with two cards or more), and with
+          four cards (2, 2) over NCCL at full depth: the loss within 1e-5
+          relative of one device's on the whole batch, replicated leaves
+          bit-identical across the ranks (digests);
+      (d) a sharded snapshot on (1, 2) at :data:`TRAIN_SNAPSHOT_DEPTH`
+          restored into a fresh (1, 2) state (bit-identical to the saved
+          state, the next step's loss bit-identical) and into one device
+          (its slices' digests equal to the ranks' saved ones, the next
+          loss within 1e-5 relative);
+      (e) no hand-written kernel launched in any rank or here;
+      (f) ``dryrun_multichip(2)``."""
+    import shutil
+
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.training import asr_loss, checkpoint as ckpt
+    from qwen3_asr_tpu_torch.training.dryrun import dryrun_multichip
+    from qwen3_asr_tpu_torch.training.train import named_params
+
+    t_phase = time.perf_counter()
+    before = dict(LAUNCHES)
+    n_cards = torch.cuda.device_count()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        B, frames, valid, n_audio, P = TRAIN_FULL
+        dp_cfg = depth_config(*TRAIN_DP_DEPTH)
+        with torch.no_grad():
+            params = mesh_train_state(dp_cfg, torch.float32, "cuda", None)
+            batch = train_batch(dp_cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P,
+                                SEED, "cuda")
+            dp_ref = asr_loss(params.encoder, params.decoder, dp_cfg, batch).item()
+        del params, batch
+        torch.cuda.empty_cache()
+        plans = [((1, 2), {"tiny": {}, "full": {}, "snapshot": {}}),
+                 ((2, 1), {"tiny": {}, "dp": {"depth": TRAIN_DP_DEPTH}})]
+        if n_cards >= 4:
+            plans.append(((2, 2), {"tiny": {}, "dp": {"depth": None}}))
+        results = {}
+        for (dp, tp), jobs in plans:
+            backend = "nccl" if n_cards >= dp * tp else "gloo"
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(train_rank, dp, tp, f"train_mesh_{dp}x{tp}", backend, jobs)
+            label = f"train mesh (dp={dp}, tp={tp}) over {backend} on " + ", ".join(
+                sorted({r["device"] for r in ranks}))
+            print(f"{label}: {dp * tp} ranks ran {', '.join(jobs)} in "
+                  f"{time.perf_counter() - t0:.1f} s (spawn, CUDA init, builds and steps)")
+            results[(dp, tp)] = (label, ranks)
+            hold_tiny(card, label, ranks, refs["tiny"])
+            for r, rank in enumerate(ranks):
+                if any(rank["launches"].values()):
+                    raise AssertionError(f"{label} rank {r}: hand-written kernels launched "
+                                         f"{rank['launches']}")
+            if "full" in jobs:
+                hold_full(card, label, ranks, refs)
+            if "dp" in jobs:
+                depth = jobs["dp"]["depth"]
+                want = refs["f32"]["losses"][0] if depth is None else dp_ref
+                hold_dp(card, label, ranks, want, depth)
+            if "snapshot" in jobs:
+                hold_snapshot(card, label, ranks)
+        dryrun_multichip(2)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        for d in (ROOT / "build").glob("train_mesh_*"):
+            shutil.rmtree(d, ignore_errors=True)
+    if dict(LAUNCHES) != before:
+        raise AssertionError("mesh training phase launched hand-written kernels here")
+    if n_cards < 4:
+        print(f"mesh training phase: {n_cards} card(s): (2, 2) not run")
+    print(f"mesh training phase: no hand-written kernel launched in any rank or here "
+          f"({time.perf_counter() - t_phase:.1f} s) ({card})")
+
+
+def leaf_dims(cfg) -> dict:
+    """Each parameter leaf's tp-split dim (None: replicated) by name."""
+    import torch
+
+    from qwen3_asr_tpu_torch.models.params import random_params
+    from qwen3_asr_tpu_torch.training.train import named_params, tp_dims
+
+    enc, dec = random_params(cfg, seed=None, dtype=torch.float32, device="meta")
+    return {n: d for (n, _), d in zip(named_params(enc, dec), tp_dims(enc, dec))}
+
+
+def tp_row(ranks: list[dict]) -> list[dict]:
+    """The ranks at dp coordinate 0, in tp order."""
+    return sorted((r for r in ranks if r["coordinate"]["dp"] == 0),
+                  key=lambda r: r["coordinate"]["tp"])
+
+
+def one_loss(label: str, values: list[float]) -> float:
+    if any(v != values[0] for v in values):
+        raise AssertionError(f"{label}: the ranks' losses differ: {values}")
+    if not math.isfinite(values[0]):
+        raise AssertionError(f"{label}: non-finite loss {values[0]}")
+    return values[0]
+
+
+def hold_loss(label: str, got: float, want: float) -> float:
+    rel = abs(got - want) / abs(want)
+    if not rel <= 1e-5:
+        raise AssertionError(f"{label}: loss {got} against one device's {want} (rel {rel:.2e})")
+    return rel
+
+
+def hold_tiny(card: str, label: str, ranks: list[dict], ref: tuple) -> None:
+    """(a) The tiny step's loss and gathered gradients against one device's."""
+    import torch
+
+    loss_ref, grads_ref = ref
+    loss = one_loss(f"{label} tiny", [r["tiny"]["loss"] for r in ranks])
+    rel = hold_loss(f"{label} tiny", loss, loss_ref)
+    dims, row = leaf_dims(train_tiny_config()), tp_row(ranks)
+    worst, worst_name = 0.0, ""
+    for name, want in grads_ref.items():
+        parts = [r["tiny"]["grads"][name] for r in row]
+        got = parts[0] if dims[name] is None else torch.cat(parts, dim=dims[name])
+        tol = 1e-4 * want.abs().max().item() + 1e-7
+        err = (got - want).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{label} tiny: {name} grad err {err:.3e} > {tol:.3e}")
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+    print(f"{label} tiny f32 (TF32 off): loss {loss:.7f} against one device's {loss_ref:.7f} "
+          f"(rel {rel:.2e}); {len(grads_ref)} gathered gradient leaves within 1e-4 x max |g| "
+          f"+ 1e-7, the closest at {worst:.1%} of its tolerance ({worst_name}) ({card})")
+
+
+def hold_full(card: str, label: str, ranks: list[dict], refs: dict) -> None:
+    """(b) The full-width float32 step against one device's, then the bf16
+    steps; times, peaks and collectives printed a rank."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ModelConfig
+
+    f32 = [r["full"]["f32"] for r in ranks]
+    loss = one_loss(f"{label} f32", [x["first_loss"] for x in f32])
+    rel = hold_loss(f"{label} f32", loss, refs["f32"]["losses"][0])
+    dims = leaf_dims(ModelConfig())
+    ref = refs["f32"]["fingerprint"]
+    got = tp_row(ranks)[0]["full"]["f32"]["fingerprint"].clone()
+    for i, d in enumerate(dims.values()):
+        if d is not None:
+            got[i] = sum(r["full"]["f32"]["fingerprint"][i] for r in tp_row(ranks))
+    total = ref[:, 0].sum().sqrt().item()
+    worst, worst_name = 0.0, ""
+    for i, name in enumerate(dims):
+        norm = ref[i, 0].sqrt().item()
+        tol = TRAIN_GRAD_TOL * norm + 1e-6 * total
+        err = max(abs(got[i, 0].sqrt().item() - norm), abs(got[i, 1].item() - ref[i, 1].item()))
+        if not err <= tol:
+            raise AssertionError(f"{label} f32: {name} gradient norm/projection off by "
+                                 f"{err:.3e} (norm {norm:.3e}, tolerance {tol:.3e})")
+        if err / norm > worst and norm > 1e-6 * total:
+            worst, worst_name = err / norm, name
+    n = same_replicated(f"{label} f32", ranks, lambda r: r["full"]["f32"]["digests"], dims)
+    print(f"{label} ModelConfig() f32: loss {loss:.7f} against one device's "
+          f"{refs['f32']['losses'][0]:.7f} (rel {rel:.2e}); {len(dims)} leaves' gradient norm "
+          f"and seeded projection summed over the shards within {TRAIN_GRAD_TOL:g} x the leaf's "
+          f"norm + 1e-6 x the whole norm of one device's, the worst at {worst:.2e} of its "
+          f"norm ({worst_name}); {n} leaf copies bit-identical where replicated ({card})")
+    bf16 = [r["full"]["bf16"] for r in ranks]
+    traj = [one_loss(f"{label} bf16 step {k}", [x["losses"][k] for x in bf16])
+            for k in range(len(bf16[0]["losses"]))]
+    if not traj[-1] < traj[0]:
+        raise AssertionError(f"{label} bf16: loss did not fall {traj}")
+    print(f"{label} ModelConfig() bf16: losses {['%.6f' % x for x in traj]} (warm, "
+          f"{TRAIN_STEPS} timed), one device's first {refs['bf16']['losses'][0]:.6f} ({card})")
+    for r, rank in enumerate(ranks):
+        for dtype in ("f32", "bf16"):
+            x = rank["full"][dtype]
+            timing = (f"{x['first_s'] * 1e3:.1f} ms the step (host clock, first)"
+                      if dtype == "f32" else
+                      f"{x['ms']:.1f} ms a step (CUDA events, mean of {TRAIN_STEPS}; first "
+                      f"{x['first_s'] * 1e3:.1f} ms host)")
+            print(f"{label} rank {r} {dtype}: {timing}; peak memory {x['peak_gb']:.2f} GB "
+                  f"(max_memory_allocated, built state included); {x['calls']:.0f} collectives "
+                  f"a step, {x['bytes'] / 1e9:.3f} GB handed to them ({card})")
+
+
+def hold_dp(card: str, label: str, ranks: list[dict], want: float, depth) -> None:
+    """(c) A dp mesh's float32 step against one device's loss on the whole
+    batch; replicated leaves bit-identical across the ranks."""
+    from qwen3_asr_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig() if depth is None else depth_config(*depth)
+    loss = one_loss(f"{label} dp", [r["dp"]["loss"] for r in ranks])
+    rel = hold_loss(f"{label} dp", loss, want)
+    n = same_replicated(f"{label} dp", ranks, lambda r: r["dp"]["digests"], leaf_dims(cfg))
+    where = "full depth" if depth is None else f"{depth[0]} encoder, {depth[1]} decoder layers"
+    print(f"{label} ModelConfig() f32 at {where}: loss {loss:.7f} against one device's "
+          f"{want:.7f} on the whole batch (rel {rel:.2e}); {n} leaf copies bit-identical "
+          f"across the ranks ({card})")
+    for r, rank in enumerate(ranks):
+        x = rank["dp"]
+        print(f"{label} rank {r} f32: {x['ms']:.1f} ms the step (CUDA events); peak memory "
+              f"{x['peak_gb']:.2f} GB; {x['calls']:.0f} collectives a step, "
+              f"{x['bytes'] / 1e9:.3f} GB handed to them ({card})")
+
+
+def hold_snapshot(card: str, label: str, ranks: list[dict]) -> None:
+    """(d) The sharded snapshot: restored on the mesh bit for bit, then onto
+    one device (its slices' digests the ranks' saved ones; the next step's
+    loss within 1e-5 relative of the mesh's)."""
+    import torch
+
+    from qwen3_asr_tpu_torch.training import checkpoint as ckpt
+    from qwen3_asr_tpu_torch.training.train import make_train_step, named_params
+
+    for r, rank in enumerate(ranks):
+        x = rank["snapshot"]
+        if not (x["equal"] and x["restored_step"] == 1 and x["loss2"] == x["loss2_restored"]):
+            raise AssertionError(f"{label} snapshot rank {r}: restored state equal "
+                                 f"{x['equal']}, step {x['restored_step']}, next loss "
+                                 f"{x['loss2_restored']} against {x['loss2']}")
+    x = ranks[0]["snapshot"]
+    cfg = depth_config(*TRAIN_SNAPSHOT_DEPTH)
+    state = ckpt.restore_train_state(x["path"], mesh_train_state(cfg, torch.float32, "cuda",
+                                                                 None, SEED + 2))
+    dims = leaf_dims(cfg)
+    opt = state.optimizer.state_dict()["state"]
+    named = named_params(state.encoder, state.decoder)
+    tp = len(tp_row(ranks))
+    for rank in tp_row(ranks):
+        c = rank["coordinate"]["tp"]
+        for i, (name, t) in enumerate(named):
+            d = dims[name]
+            for key, whole in ((name, t), (f"{name}:exp_avg", opt[i]["exp_avg"]),
+                               (f"{name}:exp_avg_sq", opt[i]["exp_avg_sq"])):
+                part = whole if d is None else whole.chunk(tp, dim=d)[c]
+                if digest(part.contiguous()) != rank["snapshot"]["saved"][key]:
+                    raise AssertionError(f"{label} snapshot: {key} restored on one device is "
+                                         f"not tp rank {c}'s saved shard")
+    B, frames, valid, n_audio, P = TRAIN_FULL
+    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, "cuda")
+    state, loss = make_train_step(cfg)(state, batch)
+    rel = hold_loss(f"{label} snapshot on one device", loss.item(), x["loss2"])
+    print(f"{label} sharded snapshot of ModelConfig() at {TRAIN_SNAPSHOT_DEPTH[0]} encoder, "
+          f"{TRAIN_SNAPSHOT_DEPTH[1]} decoder layer(s), f32, Adam: "
+          f"{x['snapshot_bytes'] / 1e9:.2f} GB in {x['save_s']:.1f} s, restored in "
+          f"{x['restore_s']:.1f} s; on the mesh bit-identical and the next loss equal "
+          f"({x['loss2']:.7f}); on one device every leaf and moment equal to the ranks' "
+          f"shards, the next loss {loss.item():.7f} (rel {rel:.2e}) ({card})")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -4157,6 +4724,11 @@ def main() -> int:
     print(card)              # the nvidia-smi name,power.limit line as it is
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--training"]:
+        # The training phases alone (no kernel is built or checked), to
+        # iterate on them; prints no result line.
+        mesh_training_phase(card, training_phase(card))
+        return 0
 
     from qwen3_asr_tpu_torch.ops.kernels import _build
 
@@ -4224,7 +4796,8 @@ def main() -> int:
         model.close()
     del base, int8, model
     torch.cuda.empty_cache()
-    training_phase(card)
+    train_refs = training_phase(card)
+    mesh_training_phase(card, train_refs)
     launches.update({name: int8_launches[name] for name in INT8_PATH})
     launches.update({name: kab_launches[name] for name in KERNELAB[1:]})
 

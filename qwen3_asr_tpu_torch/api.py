@@ -119,14 +119,11 @@ def _mesh_of(runtime: RuntimeConfig, config: ModelConfig):
     exactly ``dp * tp`` ranks, or when tp does not divide a split width."""
     if runtime.dp * runtime.tp == 1:
         return None, None
-    from .parallel import TP, check_tp, make_mesh
+    from .parallel import check_tp, make_mesh
 
     check_tp(config, runtime.tp)
     mesh = make_mesh(runtime.dp, runtime.tp)
-    tp = None
-    if runtime.tp > 1:
-        tp = TP(runtime.tp, mesh.coordinate["tp"], mesh.group("tp"))
-    return mesh, tp
+    return mesh, mesh.tp_group()
 
 
 class Qwen3ASR:

@@ -61,11 +61,15 @@ Tensor parallelism (``tp``, a :class:`~..parallel.collectives.TP`; None is
 one device and the code above unchanged): the parameters are this rank's
 shards (``parallel/sharding.py``), so the head counts are local (``Hq/tp``,
 ``Hkv/tp``) and so is the KV cache.  wq/wk/wv/wg/wu are column-parallel and
-need no collective; wo and wd are row-parallel, their f32 partials summed
-over the group and rounded once (``ops/quant.py:qlinear_row_parallel``).
+need no collective forward; wo and wd are row-parallel, their f32 partials
+summed over the group and rounded once (``ops/quant.py:qlinear_row_parallel``).
 The embedding is vocab-parallel (:func:`embed_tokens`), and the tied lm
 head's vocab-sharded f32 logits are gathered before the sampler
-(:func:`decoder_logits`).  The kernels K1, K2, K4, K5, K9 and K10 run
+(:func:`decoder_logits`).  Every column-parallel input and the lm head's
+input pass through ``copy_to_tp`` (identity forward), as do the replicated
+``q_norm``/``k_norm``, which scale this rank's heads only: under autograd
+their gradients, partial on each rank, are all-reduced over the group.
+The kernels K1, K2, K4, K5, K9 and K10 run
 unchanged on the local heads or columns, as the JAX package runs its
 Pallas kernels per shard through ``shard_map``.  The paged paths
 (``decoder_paged_step``/``_verify``) take no ``tp``: the continuous engine
@@ -98,7 +102,7 @@ from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear, qlinear_row_parallel
 from ..ops.quant_kv import is_quantized_kv, kv_seq_len
 from ..ops.rope import apply_rope, rope_cos_sin
-from ..parallel.collectives import TP, gather_from_tp, vocab_parallel_embed
+from ..parallel.collectives import TP, copy_to_tp, gather_from_tp, vocab_parallel_embed
 
 DecoderParams = dict[str, Any]
 
@@ -225,12 +229,17 @@ def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None
     (nq, nkv), D = local_heads(cfg, tp), cfg.head_dim
     eps = cfg.rms_norm_eps
     x = rms_norm(h, lp["ln1"], eps)
+    q_norm, k_norm = lp["q_norm"], lp["k_norm"]
+    if tp is not None:
+        # Column-parallel input; q_norm/k_norm are replicated but scale this
+        # rank's heads only, so their gradients too sum over the group.
+        x, q_norm, k_norm = (copy_to_tp(t, tp) for t in (x, q_norm, k_norm))
     if "wqkv" in lp:
         q, k, v = torch.split(qlinear(x, lp["wqkv"]), [nq * D, nkv * D, nkv * D], dim=-1)
     else:
         q, k, v = qlinear(x, lp["wq"]), qlinear(x, lp["wk"]), qlinear(x, lp["wv"])
-    q = rms_norm(q.reshape(B, T, nq, D), lp["q_norm"], eps).transpose(1, 2)
-    k = rms_norm(k.reshape(B, T, nkv, D), lp["k_norm"], eps).transpose(1, 2)
+    q = rms_norm(q.reshape(B, T, nq, D), q_norm, eps).transpose(1, 2)
+    k = rms_norm(k.reshape(B, T, nkv, D), k_norm, eps).transpose(1, 2)
     v = v.reshape(B, T, nkv, D).transpose(1, 2)
     v = v.contiguous() if v_out is None else v_out.copy_(v)
     q = apply_rope(q, cos, sin).contiguous()
@@ -241,6 +250,8 @@ def _project_qkv(h, lp, cfg: TextDecoderConfig, cos, sin, k_out=None, v_out=None
 def _mlp_block(h, lp, eps, tp=None):
     """Pre-norm SwiGLU MLP with residual (wd row-parallel under ``tp``)."""
     x = rms_norm(h, lp["ln2"], eps)
+    if tp is not None:
+        x = copy_to_tp(x, tp)
     if "wgu" in lp:
         gate, up = qlinear(x, lp["wgu"]).chunk(2, dim=-1)
     else:
@@ -635,9 +646,15 @@ def decoder_logits(params: DecoderParams, cfg: TextDecoderConfig, hidden: torch.
     ``torch.mm``'s ``out_dtype`` form has no derivative, so a call that
     autograd records (training) multiplies the same bf16 operands as f32
     tensors instead: the same products, exact in f32, summed in f32."""
-    if tp is not None:
-        return gather_from_tp(decoder_logits(params, cfg, hidden), tp, dim=-1)
     h = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+    if tp is not None:
+        return gather_from_tp(_lm_head(params, copy_to_tp(h, tp)), tp, dim=-1)
+    return _lm_head(params, h)
+
+
+def _lm_head(params: DecoderParams, h: torch.Tensor) -> torch.Tensor:
+    """The tied lm head on the final-normed ``h``: f32 logits over the
+    embedding's rows (this rank's vocab shard under tp)."""
     emb = params["embedding"]
     if is_quantized(emb):
         return qlinear(h, emb, out_dtype=torch.float32)

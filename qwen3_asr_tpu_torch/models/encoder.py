@@ -30,7 +30,9 @@ column-parallel (local heads, local FFN columns); wo, fc2 and proj2 are
 row-parallel, their f32 partials summed over the group and rounded once,
 and their replicated biases (bo, fc2_b, proj2_b) added once, after the
 sum.  ``conv_out`` splits its output columns, so its output is gathered
-before the position table is added.
+before the position table is added.  Each column-parallel product's
+replicated input passes through ``copy_to_tp`` (identity forward), whose
+backward all-reduces its gradient, partial on each rank.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ..ops.attention import windowed_self_attention
 from ..ops.kernels.experiments.conv_stem import conv_s2_gelu
 from ..ops.norms import layer_norm
 from ..ops.quant import act_quant_rows, is_quantized, qlinear, qlinear_row_parallel
-from ..parallel.collectives import TP, gather_from_tp
+from ..parallel.collectives import TP, copy_to_tp, gather_from_tp
 
 EncoderParams = dict[str, Any]
 
@@ -169,7 +171,7 @@ def conv_stem(params: EncoderParams, chunks: torch.Tensor, tp: TP | None = None)
     n, ch, freq, time = x.shape
     x = x.permute(0, 3, 1, 2).reshape(n, time, ch * freq)
     if tp is not None:
-        return gather_from_tp(qlinear(x, params["conv_out"]), tp, dim=-1)
+        return gather_from_tp(qlinear(copy_to_tp(x, tp), params["conv_out"]), tp, dim=-1)
     return qlinear(x, params["conv_out"])
 
 
@@ -237,8 +239,13 @@ def _encoder_forward(params, cfg, mel, n_valid_frames, tp=None):
     def heads(t):
         return t.reshape(B, total, nq, hd).transpose(1, 2)
 
+    def tp_input(t):
+        """A column-parallel product's replicated input: its gradient sums
+        over the tp group."""
+        return t if tp is None else copy_to_tp(t, tp)
+
     for lp in params["layers"]:
-        x = layer_norm(h, lp["ln1_w"], lp["ln1_b"], _LN_EPS)
+        x = tp_input(layer_norm(h, lp["ln1_w"], lp["ln1_b"], _LN_EPS))
         q = heads(qlinear(x, lp["wq"]) + lp["bq"])
         k = heads(qlinear(x, lp["wk"]) + lp["bk"])
         v = heads(qlinear(x, lp["wv"]) + lp["bv"])
@@ -247,11 +254,11 @@ def _encoder_forward(params, cfg, mel, n_valid_frames, tp=None):
         )
         attn = attn.transpose(1, 2).reshape(B, total, nq * hd)
         h = h + qlinear_row_parallel(attn, lp["wo"], tp) + lp["bo"]
-        x = layer_norm(h, lp["ln2_w"], lp["ln2_b"], _LN_EPS)
+        x = tp_input(layer_norm(h, lp["ln2_w"], lp["ln2_b"], _LN_EPS))
         x = F.gelu(qlinear(x, lp["fc1_w"]) + lp["fc1_b"], approximate="none")
         h = h + qlinear_row_parallel(x, lp["fc2_w"], tp) + lp["fc2_b"]
 
-    h = layer_norm(h, params["ln_post_w"], params["ln_post_b"], _LN_EPS)
+    h = tp_input(layer_norm(h, params["ln_post_w"], params["ln_post_b"], _LN_EPS))
     h = F.gelu(qlinear(h, params["proj1_w"]) + params["proj1_b"], approximate="none")
     features = qlinear_row_parallel(h, params["proj2_w"], tp) + params["proj2_b"]
     zero = torch.zeros((), dtype=features.dtype, device=features.device)

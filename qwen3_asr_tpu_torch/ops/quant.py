@@ -117,8 +117,11 @@ def _partial_f32(x2: torch.Tensor, w: Any, tp) -> torch.Tensor:
             scales = scales_of_amax(all_reduce_max(row_amax(x2), tp))
             return w8a8_matmul(x2, w["q"], w["s"], torch.float32, row_scales=scales)
         return quantized_matmul(x2, w["q"], w["s"], torch.float32)
-    if x2.is_cuda and x2.dtype == torch.bfloat16:
+    records = torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad)
+    if x2.is_cuda and x2.dtype == torch.bfloat16 and not records:
         return torch.mm(x2, w, out_dtype=torch.float32)
+    # torch.mm's out_dtype form has no derivative: a call that autograd
+    # records multiplies f32 copies of the same bf16 operands.
     return x2.float() @ w.float()
 
 

@@ -25,6 +25,7 @@ row-parallel product).  Under gloo a CUDA tensor goes through host memory
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -49,6 +50,18 @@ class TP:
         return n // self.size
 
 
+#: The collectives this process has called and the bytes it handed them:
+#: ``"all_reduce"``/``"all_gather"``/``"broadcast"`` calls and
+#: ``"<kind> bytes"``.  A plain count (no device sync); readers reset it
+#: with ``clear()``.
+TRAFFIC: collections.Counter = collections.Counter()
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    TRAFFIC[kind] += 1
+    TRAFFIC[f"{kind} bytes"] += t.numel() * t.element_size()
+
+
 def _host_path(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) != "nccl"
 
@@ -61,6 +74,7 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """All-reduce ``t`` in place over ``group`` and return it."""
+    _count("all_reduce", t)
     if _host_path(t, group):
         host = _staged(t)
         dist.all_reduce(host, op=op, group=group)
@@ -70,9 +84,24 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
+def broadcast_(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` of the first rank of ``group``, in place in every rank's
+    ``t``; returns it."""
+    _count("broadcast", t)
+    src = dist.get_global_rank(group, 0)
+    if _host_path(t, group):
+        host = _staged(t)
+        dist.broadcast(host, src=src, group=group)
+        t.copy_(host)
+    else:
+        dist.broadcast(t, src=src, group=group)
+    return t
+
+
 def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """``t`` of every rank of ``group``, concatenated along ``dim`` in rank
     order."""
+    _count("all_gather", t)
     size = dist.get_world_size(group)
     if _host_path(t, group):
         host = _staged(t.contiguous())

@@ -23,6 +23,8 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from .collectives import TP
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -40,6 +42,13 @@ class Mesh:
         if self.device_mesh is None:
             raise ValueError("a mesh of one device has no process group")
         return self.device_mesh.get_group(axis)
+
+    def tp_group(self) -> TP | None:
+        """This rank's tensor-parallel group, the models' ``tp``; None for
+        tp = 1."""
+        if self.shape["tp"] == 1:
+            return None
+        return TP(self.shape["tp"], self.coordinate["tp"], self.group("tp"))
 
 
 def _mesh_device_type() -> str:

@@ -1,5 +1,5 @@
 """Runs the port on a (dp, tp) mesh of CPU processes, for the port's tests
-(``tests/test_torch_parallel.py``).
+(``tests/test_torch_parallel.py``, ``tests/test_torch_train_mesh.py``).
 
 :func:`run_mesh` starts ``dp * tp`` processes of this file, one per rank,
 which join one gloo process group through ``init_method=file://`` in the
@@ -18,7 +18,11 @@ runtime (dp and tp set to the mesh), ``transcribe_batch`` or
 decode call's first logits (the prefill's); on a tp group, when the
 payload asks, ``grads`` (the tp collectives' forward and backward on a
 column -> row pair of linears) and ``refusals`` (what a tp group refuses:
-the engine, the servers).
+the engine, the servers).  The training job (:func:`_train`, payload key
+``train``, ``tests/test_torch_train_mesh.py``): AdamW steps of the mesh
+train step on the payload's batch, each step's loss and local parameters,
+the first step's local gradients, a sharded snapshot (saved, resumed, or
+restored from other meshes' snapshots) and the dp refusal.
 
 Run by hand: ``python tests/torch_mesh.py RANK DP TP WORKDIR``.
 """
@@ -38,6 +42,12 @@ TIMEOUT = 120
 
 def run_mesh(dp: int, tp: int, workdir: Path, payload: dict) -> list[dict]:
     """Run the job on ``payload`` in ``dp * tp`` ranks; each rank's result."""
+    return wait_mesh(start_mesh(dp, tp, workdir, payload))
+
+
+def start_mesh(dp: int, tp: int, workdir: Path, payload: dict) -> tuple:
+    """Start the ``dp * tp`` ranks of the job on ``payload`` and return at
+    once; :func:`wait_mesh` of the handle waits for their results."""
     import torch
 
     workdir = Path(workdir)
@@ -54,6 +64,15 @@ def run_mesh(dp: int, tp: int, workdir: Path, payload: dict) -> list[dict]:
             [sys.executable, __file__, str(rank), str(dp), str(tp), str(workdir)],
             env=env, cwd=str(workdir), stdout=log, stderr=subprocess.STDOUT,
         ))
+    return dp, tp, workdir, procs, logs
+
+
+def wait_mesh(handle: tuple) -> list[dict]:
+    """Each rank's result of a :func:`start_mesh` job; a rank that fails
+    or outlives :data:`TIMEOUT` fails the test with its output."""
+    import torch
+
+    dp, tp, workdir, procs, logs = handle
     failed = []
     try:
         for rank, p in enumerate(procs):
@@ -107,7 +126,7 @@ def _transcribe(payload: dict, dp: int, tp: int) -> dict:
     from torch_parity import ids_of
 
     out = {}
-    for case in payload["cases"]:
+    for case in payload.get("cases", []):
         model = _model(payload, dict(case.get("runtime", {}), dp=dp, tp=tp))
         logits = _first_logits(model)
         if case.get("single"):
@@ -123,10 +142,9 @@ def _transcribe(payload: dict, dp: int, tp: int) -> dict:
         }
         model.close()
     if payload.get("grads") and tp > 1:
-        from qwen3_asr_tpu_torch.parallel import TP, make_mesh
+        from qwen3_asr_tpu_torch.parallel import make_mesh
 
-        mesh = make_mesh(dp, tp)
-        out["grads"] = _grads(payload["grads"], TP(tp, mesh.coordinate["tp"], mesh.group("tp")))
+        out["grads"] = _grads(payload["grads"], make_mesh(dp, tp).tp_group())
     if payload.get("refusals") and tp > 1:
         out["refusals"] = _refusals(payload)
     return out
@@ -150,6 +168,104 @@ def _grads(g: dict, tp) -> dict:
     loss.backward()
     return {"y": y.detach(), "z": z.detach(), "loss": loss.detach(), "x": x.grad,
             "w1": w1.grad, "w2": w2.grad}
+
+
+def local_state(state) -> dict:
+    """Copies of a TrainState's local leaves and optimizer state by name."""
+    from qwen3_asr_tpu_torch.training.train import named_params
+
+    named = named_params(state.encoder, state.decoder)
+    opt = state.optimizer.state_dict()["state"]
+    return {"params": {n: t.detach().clone() for n, t in named},
+            "moments": {n: {k: v.clone() for k, v in opt[i].items()}
+                        for i, (n, _) in enumerate(named) if i in opt},
+            "step": state.step}
+
+
+def _train(job: dict, dp: int, tp: int) -> dict:
+    """The mesh train step on ``job``'s batch: ``job["steps"]`` AdamW(1e-4)
+    steps from ``job["params"]`` (whole float32 trees; tp rank 1 shifts its
+    gradient of the replicated ``encoder.conv1_b`` by 1e-6), each step's loss
+    and local parameters, the first step's local gradients (dp-summed);
+    with ``job["save"]``, a snapshot of step 1 there, restored into a fresh
+    state and resumed to the last step (bit-equal to the uninterrupted
+    run?); each snapshot of ``job["restore"]`` restored into a fresh state;
+    ``job["odd_batch"]``'s dp refusal."""
+    import copy
+    import functools
+
+    import torch
+
+    from qwen3_asr_tpu_torch.parallel import make_mesh
+    from qwen3_asr_tpu_torch.training import checkpoint as ckpt
+    from qwen3_asr_tpu_torch.training.dryrun import tiny_config
+    from qwen3_asr_tpu_torch.training.train import (
+        Batch,
+        init_train_state,
+        make_train_step,
+        named_params,
+        shard_batch,
+    )
+
+    mesh = make_mesh(dp, tp)
+    cfg = tiny_config()
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-4)
+
+    def fresh():
+        state = init_train_state(cfg, adamw, *copy.deepcopy(job["params"]), mesh)
+        if mesh.coordinate["tp"] == 1:
+            # A replicated leaf's gradient rounded apart on one rank, as a
+            # kernel that adds with atomics may round it on the card.
+            state.encoder["conv1_b"].register_hook(lambda g: g + 1e-6)
+        return state
+
+    step, batch = make_train_step(cfg), Batch(**job["batch"])
+    out = {"losses": [], "params": [], "coordinate": dict(mesh.coordinate)}
+    state, saved = fresh(), None
+    for k in range(job["steps"]):
+        state, loss = step(state, batch)
+        out["losses"].append(loss.item())
+        out["params"].append({n: t.detach().clone()
+                              for n, t in named_params(state.encoder, state.decoder)})
+        if k == 0:
+            out["grads"] = {n: t.grad.clone() for n, t in named_params(state.encoder,
+                                                                         state.decoder)}
+            if job.get("save"):
+                ckpt.save_train_state(job["save"], state)
+                saved = out["saved"] = local_state(state)
+    if saved is not None:
+        run = ckpt.restore_train_state(job["save"], fresh())
+        restored = local_state(run)
+        losses = []
+        for _ in range(job["steps"] - 1):
+            run, loss = step(run, batch)
+            losses.append(loss.item())
+        final, resumed = local_state(state), local_state(run)
+        out["resume"] = dict(
+            restored_step=restored["step"],
+            restored_equal=_same(restored, saved),
+            losses=losses,
+            equal=_same(resumed, final) and resumed["step"] == final["step"],
+        )
+    out["restored"] = {path: local_state(ckpt.restore_train_state(path, fresh()))
+                       for path in job.get("restore", [])}
+    try:
+        shard_batch(Batch(**job["odd_batch"]), mesh)
+        out["odd"] = None
+    except ValueError as exc:
+        out["odd"] = str(exc)
+    return out
+
+
+def _same(a: dict, b: dict) -> bool:
+    """Bit-equal local leaves and optimizer state."""
+    import torch
+
+    return (a["params"].keys() == b["params"].keys()
+            and all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"])
+            and a["moments"].keys() == b["moments"].keys()
+            and all(torch.equal(a["moments"][n][k], b["moments"][n][k])
+                    for n in a["moments"] for k in a["moments"][n]))
 
 
 def _refusals(payload: dict) -> dict:
@@ -186,6 +302,8 @@ def main(argv: list[str]) -> int:
                         init_method=f"file://{workdir / 'init'}")
     payload = torch.load(workdir / "payload.pt", weights_only=False)
     out = _transcribe(payload, dp, tp)
+    if payload.get("train"):
+        out["train"] = _train(payload["train"], dp, tp)
     out["topology"] = parallel.topology()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "orbax", "qwen3_asr_tpu")]
     if bad:
