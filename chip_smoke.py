@@ -112,7 +112,7 @@ failure raises and the script exits non-zero):
      loops against the eager loop (:func:`graphs_phase`: plain B=1, 8 and
      96 (W8A8), the int8 cache at B=8, sampled B=8, speculative B=1 and 8,
      sampled speculative B=1, int8-weights speculative B=1; from one
-     prefill, five decodes of each loop in turns: tokens bit-identical,
+     prefill, two decodes of each loop in turns: tokens bit-identical,
      launches = the eager count plus the no-op replays', no re-capture for
      new sampling values; ms per live iteration, capture ms, device busy
      share, replays and host syncs per decode, peak memory); the
@@ -164,7 +164,18 @@ failure raises and the script exits non-zero):
      held to the plain streams by the near-tie rule and its prefill logits
      within 5e-2 of max |logit|, (2, 1) bit-identical to one device on each
      slice, and with four cards (2, 2); gloo on a shared card, NCCL with a
-     card a rank; a rank that fails or outlives its time fails the smoke).
+     card a rank; a rank that fails or outlives its time fails the smoke;
+     in the same ranks :func:`mesh_serving_phase`: on (1, 2) the
+     ``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` in two
+     waves, paged under ``spec_engine`` off (K6) and auto (K7), each with
+     K8 fused, and flat (K2 with K3 fused), every rank constructing it and
+     rank 0 submitting, streams held to one device's plain streams by the
+     near-tie rule and every token to one device's plain step on the same
+     prefix (:func:`hold_forced`), launches and engine counters equal
+     across ranks, ms per chunk iteration, TTFTs and peak memory printed;
+     the drain ``TranscriptionServer`` on (1, 2), held so to one device's
+     ``transcribe_batch`` of the same batch, and on (2, 1), bit-identical
+     to one device's ``transcribe_batch`` of each dp slice).
      With two cards or more, phase 3's checks also run on ``cuda:1``
      (:func:`second_card_phase`).
      Token ids must be <
@@ -2825,8 +2836,8 @@ GRAPH_ARMS = (
     ("sampled speculative B=1", {"spec_sampling": True}, 1, SAMPLING),
     ("int8-weights speculative B=1", {"quantization": "int8"}, 1, {}),
 )
-#: Eager and graphed decodes per arm, taken in turns (E G G E E G G E E G).
-GRAPH_TURNS = "EGGEEGGEEG"
+#: Eager and graphed decodes per arm, taken in turns (E G G E).
+GRAPH_TURNS = "EGGE"
 
 
 def profiled_busy(call) -> tuple[int, float, float]:
@@ -3606,6 +3617,11 @@ MESH_TIMEOUT = 600
 #: allowed max |difference| over max |logit|, the bf16 floor that
 #: reference_check holds the kernels' bf16 logits to against float32.
 MESH_LOGIT_TOL = 5e-2
+#: A tp stream's token against one device's row on the same prefix: the
+#: largest allowed gap below that row's max, over max |logit|.  A tp row
+#: within MESH_LOGIT_TOL of one device's, element by element, can choose
+#: any token within twice that of one device's best.
+MESH_TOKEN_TOL = 2 * MESH_LOGIT_TOL
 
 
 def solo_choices(base, clips) -> tuple[list[list[int]], "object"]:
@@ -3718,7 +3734,7 @@ def replicated_phase(card: str, base) -> dict:
 
 
 def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes: dict,
-              refs: dict) -> None:
+              refs: dict, serve: dict) -> None:
     """One rank of :func:`mesh_phase` (a spawned process): joins the group,
     builds ``ModelConfig()`` from random weights (seed 0) on its card under
     each of ``runtimes`` with ``(dp, tp)``, and ``transcribe_batch``es the
@@ -3726,7 +3742,8 @@ def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes:
     prefill logits, the launches, the decode stats and the peak memory.
     For a runtime in ``refs`` (per dp coordinate, the path of one device's
     streams and logits rows of that slice, :func:`mesh_reference`) it then
-    runs :func:`forced_run`."""
+    runs :func:`forced_run`; for a runtime in ``serve``, the servers' runs
+    named there on the same model (:func:`mesh_serving_rank`)."""
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -3768,6 +3785,8 @@ def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes:
         if name in refs:
             lo, hi = dp_slices(len(clips), dp)[rank // tp]
             out[name]["forced"] = forced_run(model, clips, refs[name][rank // tp], lo, hi)
+        if name in serve:
+            out[name]["serving"] = mesh_serving_rank(model, device, serve[name])
         model.close()
         del model, gen
         torch.cuda.empty_cache()
@@ -3805,10 +3824,262 @@ def forced_run(model, clips, ref_path: str, lo: int, hi: int) -> dict:
     return dict(ids=ids, worst=worst, at=at, compared=compared)
 
 
-def run_mesh(dp: int, tp: int, backend: str, runtimes: dict, refs: dict) -> list[dict]:
+def run_mesh(dp: int, tp: int, backend: str, runtimes: dict, refs: dict,
+             serve: dict) -> list[dict]:
     """Spawn the ``dp * tp`` ranks of :func:`mesh_rank`; each rank's saved
     result."""
-    return spawn_ranks(mesh_rank, dp, tp, f"mesh_{dp}x{tp}", backend, runtimes, refs)
+    return spawn_ranks(mesh_rank, dp, tp, f"mesh_{dp}x{tp}", backend, runtimes, refs, serve)
+
+
+#: The continuous servers of :func:`mesh_serving_phase` on a tp group, named
+#: as in :data:`SERVER_PATHS`: (label, spec_engine, paged).
+MESH_SERVER_RUNS = (("paged, spec_engine off", "off", True),
+                    ("paged, spec_engine auto", "auto", True),
+                    ("flat, spec_engine off", "off", False))
+#: The continuous server's page pool on a mesh, the whole group's (each tp
+#: rank holds 1/tp of it): bounded, since a gloo mesh's ranks share a card.
+MESH_POOL_GB = 2.0
+#: The drain server's requests on a mesh: the smoke clips of 18-30 s, one
+#: frame bucket, so one batch.
+DRAIN_CLIPS = slice(4, 8)
+#: Each mesh serving request's token budget: the first 32 tokens of one
+#: device's 64-token plain streams are the streams it is held to.
+MESH_SERVE_TOKENS = 32
+
+
+def mesh_serving_rank(model, device, runs) -> dict:
+    """One rank's part of :func:`mesh_serving_phase` on ``model``: the
+    continuous servers of :data:`MESH_SERVER_RUNS` (``"continuous"`` in
+    ``runs``) and the drain server (``"drain"``); the seconds they took."""
+    out = {}
+    t0 = time.perf_counter()
+    if "continuous" in runs:
+        rt = model._generator.runtime
+        saved = rt.spec_engine
+        for label, spec, paged in MESH_SERVER_RUNS:
+            rt.spec_engine = spec
+            out[label] = mesh_server_run(model, device, paged)
+        rt.spec_engine = saved
+    if "drain" in runs:
+        out["drain"] = mesh_drain_run(model, device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_server_run(model, device, paged: bool) -> dict:
+    """``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` on this
+    rank of a tp group, every rank constructing it: on the driving rank the
+    smoke clips in two waves (the second once the first chunk ran, greedy,
+    :data:`MESH_SERVE_TOKENS`-token budgets), their ids and TTFTs; on every
+    rank the launches
+    (counters set to 0 just before the first submit, read after close),
+    the engine counters, the chunks' seconds, the pool and peak memory."""
+    import dataclasses
+
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.serving import ContinuousTranscriptionServer
+
+    clips = smoke_clips()
+    srv = ContinuousTranscriptionServer(model, n_slots=8, max_duration=30.0,
+                                        max_new_tokens=512, chunk_steps=16, paged=paged,
+                                        kv_pool_gb=MESH_POOL_GB)
+    engine = srv._engine
+    step_s, real_step = [], engine.step
+
+    def timed(k_steps=None):            # a chunk ends in its status fetch
+        t0 = time.perf_counter()
+        real_step(k_steps)
+        step_s.append(time.perf_counter() - t0)
+
+    engine.step = timed
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = {}
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    if srv.driving:
+        futs = [srv.submit(c, max_tokens=MESH_SERVE_TOKENS) for c in clips[:4]]
+        deadline = time.time() + 300
+        while engine.stats.chunks < 1 and time.time() < deadline:
+            time.sleep(0.002)
+        futs += [srv.submit(c, max_tokens=MESH_SERVE_TOKENS) for c in clips[4:]]
+        out["ids"] = _ids([f.result(timeout=600) for f in futs])
+        out["ttft_s"] = [getattr(f, "ttft_s", None) for f in futs]
+    srv.close()
+    out.update(
+        wall_s=time.perf_counter() - t0, launches=dict(LAUNCHES),
+        stats=dataclasses.asdict(engine.stats), step_s=sum(step_s),
+        pool_gib=2 * sum(t.numel() * t.element_size() for t in (
+            engine._keys.values() if isinstance(engine._keys, dict) else [engine._keys]))
+        / 2**30,
+        shape=(f"{engine.n_pages} pages of {engine.page_size} rows" if paged else
+               f"{engine.n_slots} slots x {engine.cache_len} rows"),
+        peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+        failures=srv.stats.failures, fault=repr(srv._fault),
+    )
+    return out
+
+
+def mesh_drain_run(model, device) -> dict:
+    """``TranscriptionServer`` on the mesh, every rank constructing it: the
+    smoke clips of :data:`DRAIN_CLIPS` (one frame bucket) submitted at once
+    on global rank 0 (``max_tokens=MESH_SERVE_TOKENS``), their ids; the
+    launches and batches on every rank."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.serving import TranscriptionServer
+
+    srv = TranscriptionServer(model, max_batch_size=8, batch_window_ms=2000)
+    out = {}
+    torch.cuda.synchronize(device)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    if srv.driving:
+        out["ids"] = _ids([f.result(timeout=600) for f in
+                           [srv.submit(c, max_tokens=MESH_SERVE_TOKENS)
+                            for c in smoke_clips()[DRAIN_CLIPS]]])
+    srv.close()
+    out.update(wall_s=time.perf_counter() - t0, launches=dict(LAUNCHES),
+               batches=srv.stats.batches, failures=srv.stats.failures)
+    return out
+
+
+def hold_forced(label: str, base, clips, streams, max_tokens: int) -> None:
+    """Every token of ``streams`` (one per clip, from a run on a tp mesh)
+    held to one device's plain step on the same prefix: ``base``'s plain
+    loop forced along the streams (:class:`Choices`), then each token's
+    penalized logit within MESH_TOKEN_TOL x max |logit| of its row's max.
+    Unlike :func:`compare_streams`, this holds every token, not only a
+    lane's first divergence.  Prints how many tokens of a row lie within
+    the limit on average (the check's reach), and how many chosen tokens
+    lie past NEAR_TIE."""
+    import torch
+
+    with Choices(forced=padded(streams)) as plain:
+        forced = _ids(base.transcribe_batch(clips, max_tokens=max_tokens))
+    if any(got[: len(s)] != s for got, s in zip(forced, streams)):
+        raise AssertionError(f"{label}: the forced plain run left the streams")
+    n = max(len(s) for s in streams)
+    if len(plain.rows) < n:
+        raise AssertionError(f"{label}: {len(plain.rows)} rows for {n} tokens")
+    tokens, lens = padded(streams)
+    with torch.inference_mode():
+        rows = torch.stack(plain.rows[:n])[:, : len(streams)].float()   # (n, B, V)
+        top, scale = rows.amax(-1), rows.abs().amax(-1)
+        gap = (top - rows.gather(2, tokens.t()[:, :, None])[..., 0]) / scale
+        within = (rows >= (top - MESH_TOKEN_TOL * scale)[..., None]).sum(-1).float()
+        live = torch.arange(n, device="cuda")[:, None] < lens[None, :]
+        gap, within = gap[live].cpu(), within[live].cpu()
+    worst = int(gap.argmax())
+    print(f"{label}: {gap.numel()} tokens held to one device's forced plain step: "
+          f"{int((gap > 0).sum())} apart from its argmax, {int((gap > NEAR_TIE).sum())} past "
+          f"{NEAR_TIE:g}, top gap to the chosen token up to {gap.max().item():.2e} of max "
+          f"|logit| (limit {MESH_TOKEN_TOL:g}); {within.mean().item():.2f} tokens a row "
+          f"within the limit on average")
+    if gap[worst] > MESH_TOKEN_TOL:
+        raise AssertionError(f"{label}: a token {gap[worst].item():.2e} of max |logit| below "
+                             f"one device's best choice on the same prefix")
+
+
+def mesh_serving_phase(card: str, label: str, dp: int, tp: int, ranks: list[dict], base,
+                       one_device: dict) -> float:
+    """The servers on a mesh, from :func:`mesh_phase`'s spawned ranks
+    (:func:`mesh_serving_rank`), held to one device (``base``, the same
+    weights, ``"off"``).  On a tp group the continuous server of each
+    :data:`MESH_SERVER_RUNS` entry: its driving rank's streams held to one
+    device's plain streams (``one_device``: streams and gaps) by the
+    near-tie rule and every token by :func:`hold_forced`, each rank
+    launching its :data:`SERVER_PATHS` kernels (K6/K7 with K8 fused, or K2
+    with K3 fused; no standalone writer), the ranks' launches and engine
+    counters equal, a mid-decode admission, the pool within
+    :data:`MESH_POOL_GB`.  The drain server's one batch: on a tp group held
+    to one device's ``transcribe_batch`` of the same batch by both rules;
+    on (2, 1) bit-identical to one device's ``transcribe_batch`` of each
+    dp slice.  Prints ms per chunk iteration, each request's TTFT and
+    every rank's peak memory; returns the seconds the ranks spent
+    serving."""
+    import torch
+
+    n, vocab = MESH_SERVE_TOKENS, base._config.text_decoder.vocab_size
+    clips = smoke_clips()
+    one_device = {"streams": [s[:n] for s in one_device["streams"]],
+                  "gaps": one_device["gaps"][:n]}
+    for name in ("default", "off"):
+        serving = [r[name].get("serving") for r in ranks if name in r]
+        if not serving or serving[0] is None:
+            continue
+        for run, _, _ in MESH_SERVER_RUNS:
+            if run not in serving[0]:
+                continue
+            got = [s[run] for s in serving]
+            head = f"{label} continuous server {run}"
+            path, never = SERVER_PATHS[run][2:]
+            for r, g in enumerate(got):
+                check_launches(f"{head} rank {r}", g["launches"], path, never)
+                if g["fault"] != "None" or g["failures"]:
+                    raise AssertionError(f"{head} rank {r}: fault {g['fault']}, "
+                                         f"{g['failures']} failures")
+                if g["pool_gib"] > MESH_POOL_GB / tp + 1e-6:
+                    raise AssertionError(f"{head} rank {r}: a {g['pool_gib']:.2f} GiB pool")
+            if any(g["launches"] != got[0]["launches"] or g["stats"] != got[0]["stats"]
+                   for g in got):
+                raise AssertionError(f"{head}: the ranks' launches or engine counters differ")
+            st = got[0]["stats"]
+            if st["mid_decode_admissions"] < 1:
+                raise AssertionError(f"{head}: no mid-decode admission")
+            ids = got[0]["ids"]
+            check_ids(head, ids, vocab)
+            if any(t is None for t in got[0]["ttft_s"]):
+                raise AssertionError(f"{head}: a request has no ttft_s")
+            for r, g in enumerate(got):
+                print(f"{head} rank {r} [{card}]: {g['shape']} ({g['pool_gib']:.2f} GiB K+V "
+                      f"a rank), {g['wall_s']:.2f} s wall for 8 requests, {st['chunks']} "
+                      f"chunks, {st['iterations']} iterations, "
+                      f"{g['step_s'] * 1e3 / max(st['iterations'], 1):.2f} ms per chunk "
+                      f"iteration; {st['mid_decode_admissions']} mid-decode admissions; peak "
+                      f"memory {g['peak_gib']:.2f} GiB; launches and engine counters equal "
+                      f"across ranks")
+            print(f"{head} ttft_s {[round(t, 3) for t in got[0]['ttft_s']]}")
+            compare_streams(f"{head} vs one device", one_device["streams"], ids,
+                            one_device["gaps"])
+            hold_forced(f"{head} forced", base, clips, ids, n)
+        drain = [s["drain"] for s in serving if "drain" in s]
+        if drain:
+            head = f"{label} drain server"
+            for r, g in enumerate(drain):
+                check_launches(f"{head} rank {r}", g["launches"],
+                               ("flash_attention_causal", "decode_attention"),
+                               ("kv_write_span_batch",) + STANDALONE_WRITERS)
+            if drain[0]["batches"] != 1 or drain[0]["failures"]:
+                raise AssertionError(f"{head}: {drain[0]['batches']} batches, "
+                                     f"{drain[0]['failures']} failures")
+            ids = drain[0]["ids"]
+            check_ids(head, ids, vocab)
+            print(f"{head} [{card}]: {len(ids)} requests in one batch, "
+                  f"{drain[0]['wall_s']:.2f} s wall")
+            batch = clips[DRAIN_CLIPS]
+            if tp == 1:
+                want = [seq for lo, hi in dp_slices(len(batch), dp)
+                        for seq in _ids(base.transcribe_batch(batch[lo:hi], max_tokens=n))]
+                if ids != want:
+                    raise AssertionError(f"{head}: not bit-identical to one device's "
+                                         f"transcribe_batch of each dp slice")
+                print(f"{head}: each dp slice bit-identical to one device's "
+                      f"transcribe_batch of it")
+            else:
+                with Choices() as rec:
+                    want = _ids(base.transcribe_batch(batch, max_tokens=n))
+                compare_streams(f"{head} vs one device's batch", want, ids,
+                                top_two_gaps(rec.rows))
+                hold_forced(f"{head} forced", base, batch, ids, n)
+            torch.cuda.empty_cache()
+    seconds = max(r[name]["serving"]["seconds"] for r in ranks for name in ("default", "off")
+                  if name in r and "serving" in r[name])
+    print(f"mesh serving phase at (dp={dp}, tp={tp}) [{card}]: {seconds:.1f} s in the ranks")
+    return seconds
 
 
 def spawn_ranks(target, dp: int, tp: int, name: str, *args) -> list[dict]:
@@ -4013,7 +4284,12 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
       * (2, 1), ``speculative="off"``: each dp slice bit-identical to
         ``base``'s ``transcribe_batch`` of the same slice, the whole list
         in every rank;
-      * (2, 2) with four cards: as (1, 2).
+      * (2, 2) with four cards: as (1, 2);
+      * the servers on (1, 2) and (2, 1) (:func:`mesh_serving_phase`, in
+        the same ranks after their ``transcribe_batch`` runs): on (1, 2) the
+        continuous server (paged under ``spec_engine`` off and auto, flat),
+        every rank constructing it and rank 0 submitting, and the drain
+        server on both meshes.
 
     Before the meshes, one device's bf16 prefill logits against float32
     (:func:`bf16_floor`), the floor the tp logits are read against, and
@@ -4051,7 +4327,7 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
     if refs_for(1)["off"]["streams"] != plain:
         raise AssertionError("one device's eager streams differ from its graphed ones")
     meshes = MESHES + (((2, 2),) if n_cards >= 4 else ())
-    first = {}
+    first, serving_s = {}, 0.0
     for dp, tp in meshes:
         backend = "nccl" if n_cards >= dp * tp else "gloo"
         runtimes = {"off": {"speculative": "off"}}
@@ -4059,8 +4335,11 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
             runtimes.update(default={}, int8=dict(INT8_RUNTIME))
         t0 = time.perf_counter()
         refs = refs_for(dp) if tp > 1 else {}
+        serve = ({"default": ("continuous",), "off": ("drain",)} if tp > 1 else
+                 {"off": ("drain",)}) if (dp, tp) in MESHES else {}
         ranks = run_mesh(dp, tp, backend, runtimes,
-                         {k: refs[k]["paths"] for k in ("off", "int8")} if tp > 1 else {})
+                         {k: refs[k]["paths"] for k in ("off", "int8")} if tp > 1 else {},
+                         serve)
         label = f"mesh (dp={dp}, tp={tp}) over {backend} on " + ", ".join(
             sorted({r['device'] for r in ranks}))
         print(f"{label}: {dp * tp} ranks ran in {time.perf_counter() - t0:.1f} s "
@@ -4124,6 +4403,11 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
                       f"peak memory {res[name]['peak_gib']:.2f} GiB")
             if (dp, tp) == (1, 2):
                 first[name] = ranks[0][name]["launches"]
+        if serve:
+            serving_s += mesh_serving_phase(card, label, dp, tp, ranks, base,
+                                            refs_for(1)["off"])
+    print(f"mesh serving phase [{card}]: {serving_s:.1f} s in the ranks over "
+          f"{', '.join(str(m) for m in MESHES)}")
     if n_cards < 4:
         print(f"mesh phase: {n_cards} card(s): NCCL at (2, 2) not run")
     return first

@@ -38,8 +38,13 @@ over ``torch.distributed`` (``parallel/``).  Call
 clips split into ``dp`` contiguous slices, each tp group decodes its slice
 with the tp collectives, and every rank gets the whole result list back
 (``all_gather_object``), in input order.  On a tp group the decode loop
-runs eagerly (no CUDA graphs), and ``make_engine`` and the servers raise
-``NotImplementedError``; ``incremental_session`` refuses meshes.
+runs eagerly (no CUDA graphs); ``make_engine`` and ``prefill_group`` run
+on the group's shards (every rank applies the same engine operations, as
+``serving/server.py`` drives them), and ``incremental_session`` refuses
+meshes.  While a server drives a mesh model from its worker thread, the
+model's other entry points refuse calls from any other thread
+(``RuntimeError``): their collectives would interleave with the
+server's.
 """
 
 from __future__ import annotations
@@ -108,11 +113,6 @@ def _validate_samples(audio) -> np.ndarray:
     return arr
 
 
-#: Where the mesh paths that are left out stand.
-MESH_LATER = ("the continuous engine and servers on a tp mesh need one rank to admit "
-              "and step for the group: ROADMAP.md Queue 1, item 5 (b)")
-
-
 def _mesh_of(runtime: RuntimeConfig, config: ModelConfig):
     """(the (dp, tp) mesh, this rank's tp group or None) of ``runtime``;
     (None, None) for one device.  ValueError unless the process group holds
@@ -152,6 +152,9 @@ class Qwen3ASR:
         self._device = decoder_params["final_norm"].device
         self._tokenizer = tokenizer
         self._lock = threading.Lock()
+        #: The thread of a server that drives this mesh model's collectives
+        #: (``serving/server.py``), or None: :meth:`_check_caller`.
+        self._served_by: threading.Thread | None = None
         #: Timing/throughput record of the most recent transcription.
         self.last_stats: RequestStats | None = None
         self._mel = MelFrontend(self._runtime.frame_buckets)
@@ -165,6 +168,16 @@ class Qwen3ASR:
         encoder's as well as the decoder's."""
         with self._lock, _build.scratch_scope(self._generator.scratch):
             yield
+
+    def _check_caller(self, what: str) -> None:
+        """RuntimeError when a server drives this model's mesh collectives
+        from another thread: a call from here would issue collectives
+        between the server's, in an order the other ranks do not follow."""
+        owner = self._served_by
+        if owner is not None and owner is not threading.current_thread():
+            raise RuntimeError(
+                f"{what}: a server drives this model's mesh collectives from its worker "
+                f"thread; submit to the server, or close it first")
 
     def _transform_params(self, encoder_params, decoder_params):
         """Storage-layout transforms of freshly loaded parameters, as JAX
@@ -249,6 +262,7 @@ class Qwen3ASR:
         a clip longer than ``chunk_duration`` takes the long-form path.  On
         a mesh with ``dp > 1``, every rank calls it with the same clip: the
         first dp slice decodes it (``transcribe_batch``)."""
+        self._check_caller("transcribe")
         if self._runtime.dp > 1:
             return self.transcribe_batch(
                 [audio], language=language, temperature=temperature, top_p=top_p,
@@ -305,6 +319,7 @@ class Qwen3ASR:
         slice as above (a coordinate with no clip decodes nothing), and the
         slices' results come back to every rank through
         ``all_gather_object`` over the world, in input order."""
+        self._check_caller("transcribe_batch")
         options = dict(
             language=language, temperature=temperature, top_p=top_p, top_k=top_k,
             repetition_penalty=repetition_penalty, max_tokens=max_tokens,
@@ -424,6 +439,7 @@ class Qwen3ASR:
         ported: here every cell has run when this returns.  On a mesh every
         rank warms every cell itself (no dp split; a tp group together).
         """
+        self._check_caller("warm_up")
         if deployment is not None:
             durations = tuple(deployment.get("durations", durations))
             batch_sizes = tuple(deployment.get("batch_sizes", batch_sizes))
@@ -661,10 +677,15 @@ class Qwen3ASR:
         model's device (JAX ``api.py:898-956``).  ``paged=True`` backs it
         with a page pool of ``kv_pool_gb`` (default ``kv_cache_budget_gb``),
         at most every slot's worst case: slots then hold pages for their
-        actual prompt and transcript lengths.  Not on a tp group
-        (``NotImplementedError``)."""
-        if self._runtime.tp > 1:
-            raise NotImplementedError(f"make_engine on a tp mesh: {MESH_LATER}")
+        actual prompt and transcript lengths.
+
+        On a tp group every rank makes the engine with the same arguments:
+        the page count comes from the global KV heads, so it equals one
+        device's engine's, and each rank's pool holds its own heads, ``1/tp``
+        of the bytes.  The ranks must then apply the same engine operations
+        (``prefill_group`` + ``admit``, ``step``, ``retire``) in the same
+        order, as ``ContinuousTranscriptionServer`` has the group's first
+        rank drive them (``parallel/lockstep.py``)."""
         from .runtime.engine import DecodeEngine
 
         gen = self._generator
@@ -681,6 +702,7 @@ class Qwen3ASR:
                 tc.head_dim + 4 if self._runtime.kv_cache_dtype == "int8"
                 else tc.head_dim * 2
             )
+            # The global KV heads: one device's page count on any tp group.
             page_bytes = tc.num_hidden_layers * tc.num_key_value_heads * page_size * row_bytes * 2
             budget_gb = kv_pool_gb if kv_pool_gb is not None else self._runtime.kv_cache_budget_gb
             n_pages = max(4, int(budget_gb * 2**30) // page_bytes)
@@ -697,7 +719,11 @@ class Qwen3ASR:
         covering only the prompt region (cache length = the group's prompt
         bucket).  ``lang_names`` are resolved full names (None: detect), one
         per clip.  The group's batch is padded to a power of two with silent
-        clips and sliced back, as in the JAX package."""
+        clips and sliced back, as in the JAX package.  On a tp group every
+        rank calls it with the same clips: the encoder and the prefill run
+        with the group's collectives, and ``kv`` holds this rank's KV
+        heads."""
+        self._check_caller("prefill_group")
         gen = self._generator
         device = self._device
         n_real = len(samples_list)

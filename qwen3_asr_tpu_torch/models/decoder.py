@@ -69,11 +69,11 @@ head's vocab-sharded f32 logits are gathered before the sampler
 input pass through ``copy_to_tp`` (identity forward), as do the replicated
 ``q_norm``/``k_norm``, which scale this rank's heads only: under autograd
 their gradients, partial on each rank, are all-reduced over the group.
-The kernels K1, K2, K4, K5, K9 and K10 run
-unchanged on the local heads or columns, as the JAX package runs its
-Pallas kernels per shard through ``shard_map``.  The paged paths
-(``decoder_paged_step``/``_verify``) take no ``tp``: the continuous engine
-is not yet ported to a mesh.
+The kernels K1, K2, K4, K5, K6, K7, K9 and
+K10 run unchanged on the local heads or columns, as the JAX package runs
+its Pallas kernels per shard through ``shard_map``; the paged paths
+(``decoder_paged_step``/``_verify``, the continuous engine's) reduce at
+the same points as the contiguous ones.
 """
 
 from __future__ import annotations
@@ -562,15 +562,17 @@ def decoder_paged_step(
     decode_count: torch.Tensor,    # (B,) generated rows already in the pool
     write_pages: torch.Tensor,     # (B,) physical page of this step's row
     write_offsets: torch.Tensor,   # (B,) row offset inside that page
+    tp: TP | None = None,
 ):
     """One decode step over the paged pool (JAX ``decoder.py:881-1033``):
     attention over the pre-step pages with the fresh token's self-term (K6,
     or its int8 form on the ``{"q", "s"}`` pool), whose launch then stores
-    the layer's row (K8 fused).  The pools are updated in place.  Returns
-    (pre-final-norm hidden (B, 1, H), pools)."""
+    the layer's row (K8 fused).  The pools are updated in place; under
+    ``tp`` they hold this rank's KV heads.  Returns (pre-final-norm hidden
+    (B, 1, H), pools)."""
     return _paged_forward(
         params, cfg, hidden, positions, kv_pages, page_table, prompt_len,
-        decode_count, write_pages[:, None], write_offsets[:, None],
+        decode_count, write_pages[:, None], write_offsets[:, None], tp,
     )
 
 
@@ -585,6 +587,7 @@ def decoder_paged_verify(
     decode_count: torch.Tensor,    # (B,) rows in the pool, excluding the T fresh
     write_pages: torch.Tensor,     # (B, T) physical page per fresh row
     write_offsets: torch.Tensor,   # (B, T)
+    tp: TP | None = None,
 ):
     """The speculative verify forward over the paged pool (JAX
     ``decoder.py:1036-1201``): T positions per lane in one forward, history
@@ -594,17 +597,18 @@ def decoder_paged_verify(
     layer loop).  Returns (hidden (B, T, H), pools)."""
     return _paged_forward(
         params, cfg, hidden, positions, kv_pages, page_table, prompt_len,
-        decode_count, write_pages, write_offsets,
+        decode_count, write_pages, write_offsets, tp,
     )
 
 
 def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_table,
-                   prompt_len, decode_count, write_pages, write_offsets):
+                   prompt_len, decode_count, write_pages, write_offsets, tp=None):
     """Shared body of :func:`decoder_paged_step` (T = 1) and
-    :func:`decoder_paged_verify`."""
+    :func:`decoder_paged_verify`; under ``tp`` on this rank's heads, wo and
+    wd row-parallel as in :func:`decoder_forward`."""
     keys, values = kv_pages
     B, T, _ = h.shape
-    nq, D = cfg.num_attention_heads, cfg.head_dim
+    nq, D = local_heads(cfg, tp)[0], cfg.head_dim
     device = h.device
     q8 = is_quantized_kv(keys)
     if T == 1:
@@ -620,15 +624,15 @@ def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_
     )
     cos, sin = rope_cos_sin(positions[:, None, :], D, cfg.rope_theta)
     for layer, lp in enumerate(params["layers"]):
-        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin)
+        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
         if T == 1:
             attn = attend(q[:, :, 0], keys, values, k_new, v_new, layer, table,
                           plen, dcount, scale=D ** -0.5, **target)[:, :, None]
         else:
             attn = attend(q, keys, values, k_new, v_new, layer, table, plen,
                           dcount, scale=D ** -0.5, **target)
-        h = h + qlinear(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"])
-        h = _mlp_block(h, lp, cfg.rms_norm_eps)
+        h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
+        h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
     return h, (keys, values)
 
 

@@ -5,7 +5,8 @@ driving one device: call :func:`initialize` in every rank, then build
 ``Qwen3ASR(..., RuntimeConfig(dp=..., tp=...))`` in every rank and call
 ``transcribe``/``transcribe_batch`` with the same clips in every rank; each
 rank gets the whole result list.  The tp collectives are explicit
-(``collectives.py``).
+(``collectives.py``); the servers keep a mesh's ranks in lockstep through
+the control channels of ``lockstep.py``.
 """
 
 from .collectives import (

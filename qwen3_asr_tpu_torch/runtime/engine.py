@@ -33,6 +33,16 @@ admission, retirement or page event changes them.  Sampled slots draw from
 one seeded ``torch.Generator`` each, moved with the slot on compaction, so a
 request's sampled stream depends only on its own seed and tokens.  Every
 public method runs under ``torch.inference_mode()``.
+
+On a tp group (the generator's ``tp``) each rank's engine holds its own KV
+heads (a pool of the one-device engine's page count, ``1/tp`` of its
+bytes) and runs every forward with the group's collectives; its host state
+(slots, page tables, counters) is the one-device engine's.  Every host
+decision reads device values that the gathered logits make bit-identical
+on every rank (the chunk's early exit and sampled ``active`` lanes, the
+first tokens, the status fetch), so ranks that apply the same operations
+in the same order stay in lockstep: ``serving/server.py`` has one rank
+drive and broadcast them (``parallel/lockstep.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from ..models.decoder import (
     decoder_paged_step,
     decoder_paged_verify,
     embed_tokens,
+    local_heads,
 )
 from ..ops import speculative
 from ..ops.kernels import _build
@@ -151,7 +162,8 @@ class DecodeEngine:
     at once; ``chunk_steps`` the decode iterations per :meth:`step`.
     ``paged=True`` backs the engine with ``n_pages`` pages of ``page_size``
     (128 or 256) rows (default: every slot's worst case plus the trash
-    page).
+    page).  Under the generator's ``tp`` the cache and the pool hold this
+    rank's KV heads.
     """
 
     @torch.inference_mode()
@@ -171,6 +183,7 @@ class DecodeEngine:
         if token_bucket % 128:
             raise ValueError("token_bucket must be a multiple of 128")
         self.gen = generator
+        self.tp = generator.tp
         #: The kernels' scratch of this engine's launches, its own: a
         #: server's thread steps it while the model may serve other calls.
         self.scratch = _build.Scratch()
@@ -189,7 +202,7 @@ class DecodeEngine:
         # kv_cache_dtype="int8": int8 rows + per-row f32 scales; prompt K/V
         # is quantized once at admission, fresh rows on write.
         self.kv_dtype = generator.runtime.kv_cache_dtype
-        L, H, D = (self.cfg.num_hidden_layers, self.cfg.num_key_value_heads,
+        L, H, D = (self.cfg.num_hidden_layers, local_heads(self.cfg, self.tp)[1],
                    self.cfg.head_dim)
 
         def alloc(shape):
@@ -278,7 +291,7 @@ class DecodeEngine:
         """Up to ``k_steps`` iterations over the first ``B`` slots, stopping
         once every live lane is done.  Returns the per-lane verify-forward
         counts (zeros for plain chunks)."""
-        params, cfg = self.gen.params, self.cfg
+        params, cfg, tp = self.gen.params, self.cfg, self.tp
         tb = self.token_bucket
         ctl = self._ctl_d
         live, plen = ctl["mask"][:B], ctl["prompt_len"][:B]
@@ -315,7 +328,7 @@ class DecodeEngine:
                 draft, dvalid = speculative.ngram_draft(tokens, counts, n=ngram_n, gamma=gamma)
                 ids = torch.cat([cur[:, None], draft], dim=1)               # (B, T)
                 pos = (plen_l + counts - 1)[:, None] + offs[None, :]
-                embeds = embed_tokens(params, ids)
+                embeds = embed_tokens(params, ids, tp=tp)
                 drow = (counts - 1).clamp_min(0)
                 if self.paged:
                     wrow = drow[:, None] + offs[None, :]                    # (B, T)
@@ -327,15 +340,15 @@ class DecodeEngine:
                     pages = torch.where(raw >= maxp, torch.zeros_like(pages), pages)
                     hidden, _ = decoder_paged_verify(
                         params, cfg, embeds, pos, (self._keys, self._values), table,
-                        plen, drow, pages, wrow % PS,
+                        plen, drow, pages, wrow % PS, tp=tp,
                     )
                 else:
                     ws = (self.prompt_bucket + drow).int()
                     hidden, _ = decoder_forward(
                         params, cfg, embeds, pos, (self._keys, self._values),
-                        write_slots=ws, decode_ctx=(plen, ws, self.prompt_bucket),
+                        write_slots=ws, decode_ctx=(plen, ws, self.prompt_bucket), tp=tp,
                     )
-                logits = decoder_logits(params, cfg, hidden)                # (B, T, V)
+                logits = decoder_logits(params, cfg, hidden, tp=tp)         # (B, T, V)
                 tokens, counts, done, cur = _spec_accept_chain(
                     logits, draft, dvalid, tokens, counts, done, cur, live, recent,
                     rep_pen, max_new, tb, self._is_eos, gamma,
@@ -343,20 +356,20 @@ class DecodeEngine:
                 continue
             pos = plen_l + counts - 1
             drow = (counts - 1).clamp_min(0)            # decode row being written
-            embeds = embed_tokens(params, cur)[:, None, :]
+            embeds = embed_tokens(params, cur, tp=tp)[:, None, :]
             if self.paged:
                 page = table[lanes, (pp + drow // PS).clamp(0, maxp - 1)]
                 hidden, _ = decoder_paged_step(
                     params, cfg, embeds, pos[:, None], (self._keys, self._values),
-                    table, plen, drow, page, drow % PS,
+                    table, plen, drow, page, drow % PS, tp=tp,
                 )
             else:
                 ws = (self.prompt_bucket + drow).int()
                 hidden, _ = decoder_forward(
                     params, cfg, embeds, pos[:, None], (self._keys, self._values),
-                    write_slots=ws, decode_ctx=(plen, ws, self.prompt_bucket),
+                    write_slots=ws, decode_ctx=(plen, ws, self.prompt_bucket), tp=tp,
                 )
-            logits = decoder_logits(params, cfg, hidden)[:, 0]
+            logits = decoder_logits(params, cfg, hidden, tp=tp)[:, 0]
             if greedy:
                 nxt = apply_repetition_penalty(
                     logits.float(), recent(tokens, counts), rep_pen
@@ -406,7 +419,8 @@ class DecodeEngine:
         return first
 
     def _put_flat(self, cache, group: torch.Tensor, slots: torch.Tensor) -> None:
-        """Prompt rows of the group into the slots' first ``pb_g`` rows."""
+        """Prompt rows of the group into the slots' first ``pb_g`` rows (this
+        rank's KV heads under tp, as the prefill made them)."""
         pb_g = group.shape[3]
         for layer in range(group.shape[0]):
             if isinstance(cache, dict):

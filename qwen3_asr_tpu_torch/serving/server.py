@@ -22,30 +22,51 @@ Concurrent callers submit clips and get futures back:
   worker drains its own.  No collective crosses replicas.
 
 The worker threads enter ``torch.inference_mode()`` themselves (PyTorch's
-grad mode is per thread).  On a tp mesh (``RuntimeConfig(tp > 1)``, one
-process per rank) every rank would have to admit and step in lockstep,
-which is a design of its own: the drain and continuous servers raise
-``NotImplementedError`` there, and the drain server also on a dp mesh,
-whose ``transcribe_batch`` is a collective over every rank.
+grad mode is per thread) and the model's CUDA device (the current device is
+per thread too).
+
+On a mesh (``RuntimeConfig(dp, tp)``, one process per rank) the servers
+run SPMD (``parallel/lockstep.py``): every rank constructs the server with
+the same arguments; the driving rank owns the queue, the clock, batching
+and futures, and broadcasts each operation to its followers, which apply
+it to their own shards in the same order.  ``submit`` on a follower raises
+``RuntimeError`` naming the driving rank; results are delivered on the
+driving rank only, and a follower's ``close()`` returns once the driving
+rank has closed the server.
+
+* :class:`ContinuousTranscriptionServer` on a tp group: the group's first
+  rank drives; each ``prefill_group`` + ``admit``, ``step`` and ``retire``
+  (warm-up's too) runs on every rank of the group, and ends in a status
+  exchange.  If any rank raises inside one, the server stops on every rank
+  and every pending future gets the error.  On dp > 1 each tp group runs
+  an engine of its own, driven by its own first rank.
+* :class:`TranscriptionServer` on any (dp, tp) mesh: global rank 0 drives;
+  each batch, and each one-by-one retry after a failed batch, runs as
+  ``transcribe_batch`` or ``transcribe`` on every rank (collectives over
+  the mesh).
+
+The driving rank reads and validates each clip (``load_audio``, shape,
+empty, ``max_duration``) before it broadcasts anything, so a bad clip fails
+its own future and costs no operation.  While a server drives a mesh
+model, the model's entry points refuse calls from other threads
+(``Qwen3ASR._check_caller``): their collectives would interleave with the
+server's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
-
-def _refuse_tp(model, what: str) -> None:
-    if model._runtime.tp > 1:
-        from ..api import MESH_LATER
-
-        raise NotImplementedError(f"{what}: {MESH_LATER}")
+from ..parallel.lockstep import STOP, RankFault
 
 
 @dataclass
@@ -118,6 +139,17 @@ def _deliver(fut: Future, result=None, exc=None) -> None:
         pass
 
 
+def _samples(audio):
+    """A request's clip as samples: a file path read, an array checked
+    (1-D float32 or int16 PCM)."""
+    from ..api import _validate_samples
+    from ..audio.io import load_audio
+
+    if isinstance(audio, (str, Path)) or hasattr(audio, "__fspath__"):
+        return load_audio(audio)
+    return _validate_samples(audio)
+
+
 def _collect_batch(
     q: "queue.Queue[_Request | None]", max_batch: int, window_s: float,
     frame_buckets=None,
@@ -155,44 +187,134 @@ def _collect_batch(
     return batch
 
 
-class TranscriptionServer:
-    """Batch-at-admission serving around a :class:`Qwen3ASR` model."""
+def engine_op(model, engine, op: str, args: dict):
+    """One continuous-engine operation on this rank, as a lockstep channel
+    carries it: ``admit`` (``prefill_group`` of ``args["reqs"]``' samples in
+    ``args["langs"]``, each request's prompt set, then ``engine.admit`` into
+    ``args["slots"]``; the requests not admitted), ``step`` (one chunk) or
+    ``retire`` (the finished requests and their tokens)."""
+    if op == "admit":
+        reqs = args["reqs"]
+        kv, first_logits, prompts = model.prefill_group([r.samples for r in reqs], args["langs"])
+        for r, prompt in zip(reqs, prompts):
+            r.prompt = prompt
+        return engine.admit(kv, first_logits, args["slots"], reqs)
+    if op == "step":
+        return engine.step()
+    if op == "retire":
+        return engine.retire()
+    raise ValueError(f"unknown engine operation {op!r}")
 
-    def __init__(self, model, max_batch_size: int = 8, batch_window_ms: float = 15.0) -> None:
-        _refuse_tp(model, "TranscriptionServer")
-        if model._runtime.dp > 1:
-            raise NotImplementedError(
-                "TranscriptionServer on a dp mesh: its transcribe_batch is a collective over "
-                "every rank; serve one replica per device with ReplicatedTranscriptionServer")
+
+class _Served:
+    """What the two servers share: the queue, the futures still pending,
+    the control channel and the worker (the driving rank's server loop, or
+    a follower's loop over the posted operations).  Off a mesh the channel
+    is None and every operation runs here alone."""
+
+    _name = "server"
+    #: Seconds the driving rank's ``close()`` waits for the worker.
+    _join_s = 60
+
+    def _setup(self, model, channel) -> None:
         self._model = model
-        self._max_batch = max_batch_size
-        self._window_s = batch_window_ms / 1000.0
+        self._channel = channel
         self._queue: queue.Queue[_Request | None] = queue.Queue()
         self.stats = ServerStats()
         self._closed = False
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._fault: BaseException | None = None
+        self._close_requested = False
+        self._pending: set[Future] = set()
+        self._pending_lock = threading.Lock()
+        target = self._run if self.driving else self._follow
+        self._worker = threading.Thread(target=self._in_worker, args=(target,), daemon=True)
+
+    @property
+    def driving(self) -> bool:
+        """Whether this rank takes requests: always off a mesh."""
+        return self._channel is None or self._channel.driving
+
+    def _start(self) -> None:
+        if self._channel is not None:
+            self._model._served_by = self._worker
         self._worker.start()
+
+    def _in_worker(self, target) -> None:
+        try:
+            with torch.inference_mode(), _on_device(self._model._device):
+                target()
+        finally:
+            if self._channel is not None and self._model._served_by is self._worker:
+                self._model._served_by = None
+
+    def _op(self, op: str, args: dict, wire: dict | None = None):
+        """Run ``op`` on every rank of the channel (here alone off a mesh);
+        the result of this rank's :meth:`_apply`."""
+        if self._channel is None:
+            return self._apply(op, args)
+        return self._channel.lead(op, self._apply, args, wire)
+
+    def _follow(self) -> None:
+        try:
+            self._channel.follow(self._apply)
+        except Exception as exc:  # noqa: BLE001 -- RankFault, or a broken channel
+            self._fault = exc
+        self._closed = True
+
+    def _post_stop(self) -> None:
+        if self._channel is not None:
+            try:
+                self._channel.post(STOP)
+            except Exception:  # noqa: BLE001 -- the group is gone already
+                pass
+
+    # -- client API ----------------------------------------------------------
 
     def submit(self, audio, **options) -> Future:
         """Enqueue one clip; returns a Future[TranscriptionResult]."""
-        if self._closed:
-            raise RuntimeError("server is closed")
-        fut: Future = Future()
+        if not self.driving:
+            raise RuntimeError(
+                f"{self._name}.submit on rank {torch.distributed.get_rank()}, a follower: "
+                f"requests go to the driving rank, global rank {self._channel.driving_rank}")
+        with self._pending_lock:
+            if self._closed:
+                raise RuntimeError(f"{self._name} is closed") from self._fault
+            fut: Future = Future()
+            self._pending.add(fut)
+        fut.add_done_callback(self._resolved)
         self._queue.put(_Request(audio, options, fut, time.time()))
         self.stats.bump("requests")
         return fut
+
+    def _resolved(self, fut: Future) -> None:
+        with self._pending_lock:
+            self._pending.discard(fut)
 
     def transcribe(self, audio, **options):
         """Blocking convenience wrapper over :meth:`submit`."""
         return self.submit(audio, **options).result()
 
+    def _stop(self, exc: BaseException) -> None:
+        """A fault: the server takes no more requests, and every pending
+        future gets ``exc``."""
+        with self._pending_lock:
+            self._closed = True
+            self._fault = exc
+            pending = list(self._pending)
+        for fut in pending:
+            self.stats.bump("failures")
+            _deliver(fut, exc=exc)
+
     def close(self) -> None:
-        """Drain and stop the worker."""
-        if self._closed:
-            return
-        self._closed = True
-        self._queue.put(None)
-        self._worker.join(timeout=30)
+        """Driving rank: finish the work in flight and stop the worker (and
+        the followers), waiting at most ``_join_s``.  Follower: wait until
+        the driving rank has."""
+        if self.driving and not self._close_requested:
+            self._close_requested = True
+            with self._pending_lock:
+                self._closed = True
+            self._queue.put(None)
+        self._worker.join(timeout=self._join_s if self.driving else None)
 
     def __enter__(self):
         return self
@@ -200,33 +322,87 @@ class TranscriptionServer:
     def __exit__(self, *exc):
         self.close()
 
+
+class TranscriptionServer(_Served):
+    """Batch-at-admission serving around a :class:`Qwen3ASR` model; on a
+    (dp, tp) mesh driven by global rank 0 (module docstring)."""
+
+    _name = "TranscriptionServer"
+    _join_s = 30
+
+    def __init__(self, model, max_batch_size: int = 8, batch_window_ms: float = 15.0) -> None:
+        rt = model._runtime
+        self._setup(model, model._mesh.channel("world") if rt.dp * rt.tp > 1 else None)
+        self._max_batch = max_batch_size
+        self._window_s = batch_window_ms / 1000.0
+        self._start()
+
+    def _apply(self, op: str, args: dict):
+        if op == "batch":
+            return self._model.transcribe_batch(args["clips"], **args["options"])
+        if op == "one":
+            return self._model.transcribe(args["clip"], **args["options"])
+        raise ValueError(f"unknown operation {op!r}")
+
+    def _follow(self) -> None:
+        # A failed batch is retried clip by clip: a fault ends no follower.
+        while True:
+            try:
+                self._channel.follow(self._apply)
+                return
+            except RankFault:
+                continue
+            except Exception as exc:  # noqa: BLE001 -- a broken channel
+                self._fault = exc
+                return
+
     def _run(self) -> None:
-        with torch.inference_mode():
-            while True:
-                batch = _collect_batch(
-                    self._queue, self._max_batch, self._window_s,
-                    self._model._runtime.frame_buckets,
-                )
-                if batch is None:
-                    return
-                self.stats.record_batch(len(batch))
+        try:
+            self._serve()
+        except Exception as exc:  # noqa: BLE001 -- a broken channel
+            self._stop(exc)
+        finally:
+            self._post_stop()
+
+    def _serve(self) -> None:
+        while True:
+            batch = _collect_batch(
+                self._queue, self._max_batch, self._window_s,
+                self._model._runtime.frame_buckets,
+            )
+            if batch is None:
+                return
+            self.stats.record_batch(len(batch))
+            ready = []
+            for req in batch:
                 try:
-                    results = self._model.transcribe_batch(
-                        [r.audio for r in batch], **batch[0].options
-                    )
-                    for req, res in zip(batch, results):
-                        _deliver(req.future, res)
-                except Exception:
-                    # Isolate: retry each clip alone; per-request errors.
-                    for req in batch:
-                        try:
-                            _deliver(req.future, self._model.transcribe(req.audio, **req.options))
-                        except Exception as exc:  # noqa: BLE001
-                            self.stats.bump("failures")
-                            _deliver(req.future, exc=exc)
+                    # Checked here, before any rank runs the batch: a dp
+                    # slice that raised alone would leave the others in a
+                    # collective.
+                    self._model._resolve_language(req.options.get("language"))
+                    ready.append((req, _samples(req.audio)))
+                except Exception as exc:  # noqa: BLE001
+                    self.stats.bump("failures")
+                    _deliver(req.future, exc=exc)
+            if not ready:
+                continue
+            try:
+                results = self._op("batch", {"clips": [s for _, s in ready],
+                                             "options": ready[0][0].options})
+                for (req, _), res in zip(ready, results):
+                    _deliver(req.future, res)
+            except Exception:  # noqa: BLE001
+                # Isolate: retry each clip alone; per-request errors.
+                for req, samples in ready:
+                    try:
+                        _deliver(req.future, self._op("one", {"clip": samples,
+                                                              "options": req.options}))
+                    except Exception as exc:  # noqa: BLE001
+                        self.stats.bump("failures")
+                        _deliver(req.future, exc=exc)
 
 
-class ContinuousTranscriptionServer:
+class ContinuousTranscriptionServer(_Served):
     """In-flight continuous batching: requests join a running decode.
 
     Builds ``model.make_engine(...)`` (paged by default) and serves it from
@@ -235,7 +411,10 @@ class ContinuousTranscriptionServer:
     ``admit_batch`` (default ``n_slots``) requests are prefilled per
     admission.  ``warm=True`` (or a tuple of durations) runs one prefill,
     admit, chunk and retire cycle per admission-group size before serving.
+    On a tp group the group's first rank drives (module docstring).
     """
+
+    _name = "ContinuousTranscriptionServer"
 
     def __init__(
         self,
@@ -250,8 +429,7 @@ class ContinuousTranscriptionServer:
         kv_pool_gb: float | None = None,
         warm: bool | tuple[float, ...] = False,
     ) -> None:
-        _refuse_tp(model, "ContinuousTranscriptionServer")
-        self._model = model
+        self._setup(model, model._mesh.channel("tp") if model._runtime.tp > 1 else None)
         self._engine = model.make_engine(
             n_slots=n_slots, max_duration=max_duration, max_new_tokens=max_new_tokens,
             chunk_steps=chunk_steps, paged=paged, page_size=page_size,
@@ -259,22 +437,40 @@ class ContinuousTranscriptionServer:
         )
         self._max_duration = max_duration
         self._admit_batch = admit_batch or n_slots
-        self._queue: queue.Queue[_Request | None] = queue.Queue()
-        self.stats = ServerStats()
-        self._closed = False
-        if warm:
-            self._warm_up(warm if isinstance(warm, (tuple, list)) else (max_duration,))
-        self._worker = threading.Thread(target=self._run, daemon=True)
-        self._worker.start()
+        if warm and self.driving:
+            # The followers' workers, started in their constructors, apply
+            # the warm-up's operations.
+            if self._channel is not None:
+                model._served_by = threading.current_thread()
+            try:
+                self._warm_up(warm if isinstance(warm, (tuple, list)) else (max_duration,))
+            except BaseException as exc:
+                if self._channel is not None:
+                    model._served_by = None
+                if not isinstance(exc, RankFault) and not isinstance(exc.__cause__, RankFault):
+                    self._post_stop()   # a RankFault stopped the followers already
+                raise
+        self._start()
 
-    def _warm_requests(self, clip, prompts):
+    def _apply(self, op: str, args: dict):
+        return engine_op(self._model, self._engine, op, args)
+
+    def _engine_admit(self, reqs, langs: list) -> list:
+        """``prefill_group`` + ``admit`` of ``reqs`` (SlotRequests without
+        prompts) into the free slots, on every rank; the requests that
+        were not admitted."""
+        args = {"reqs": reqs, "langs": langs, "slots": self._engine.free_slots()}
+        wire = dict(args, reqs=[dataclasses.replace(r, meta=None) for r in reqs])
+        return self._op("admit", args, wire)
+
+    def _warm_requests(self, clip, n: int):
         from ..runtime.engine import SlotRequest
 
         return [
-            SlotRequest(samples=clip, prompt=p, max_new=2, temperature=0.0, top_k=0,
+            SlotRequest(samples=clip, prompt=[], max_new=2, temperature=0.0, top_k=0,
                         top_p=1.0, repetition_penalty=1.2, repetition_context_size=100,
                         seed=0, meta=None)
-            for p in prompts
+            for _ in range(n)
         ]
 
     def _warm_up(self, durations: tuple[float, ...]) -> None:
@@ -297,10 +493,10 @@ class ContinuousTranscriptionServer:
                         i + 1, len(cells), dur, bg)
             clip = np.zeros(int(dur * SAMPLE_RATE), np.float32)
             try:
-                kv, first_logits, prompts = self._model.prefill_group(
-                    [clip] * bg, ["English"] * bg
-                )
-            except torch.cuda.OutOfMemoryError as exc:
+                self._engine_admit(self._warm_requests(clip, bg), ["English"] * bg)
+            except Exception as exc:
+                if not _out_of_memory(exc):
+                    raise
                 raise RuntimeError(
                     f"continuous-server warm_up ran out of device memory at "
                     f"admission-group size {bg} (padded prefill width "
@@ -312,9 +508,8 @@ class ContinuousTranscriptionServer:
                     f"pool), kv_pool_gb= (bounds the pool and oversubscribes), "
                     f"or fewer n_slots."
                 ) from exc
-            engine.admit(kv, first_logits, engine.free_slots(), self._warm_requests(clip, prompts))
-            engine.step()
-            engine.retire()
+            self._op("step", {})
+            self._op("retire", {})
         if self._admit_batch < engine.n_slots:
             logger.info("continuous-server warm_up: full-width chunk (%d slots, "
                         "admissions capped at %d)", engine.n_slots, self._admit_batch)
@@ -325,50 +520,20 @@ class ContinuousTranscriptionServer:
                     if not free:
                         break
                     bg = min(len(free), self._admit_batch)
-                    kv, first_logits, prompts = self._model.prefill_group(
-                        [clip] * bg, ["English"] * bg
-                    )
-                    if engine.admit(kv, first_logits, free[:bg],
-                                    self._warm_requests(clip, prompts)):
+                    if self._engine_admit(self._warm_requests(clip, bg), ["English"] * bg):
                         # The pool holds fewer slots at this length: warm
                         # the reachable width (nothing retires during the fill).
                         break
-                engine.step()
+                self._op("step", {})
                 while engine.n_live() > 0:
-                    engine.retire()
+                    self._op("retire", {})
                     if engine.n_live() > 0:
-                        engine.step()
+                        self._op("step", {})
         logger.info("continuous-server warm_up done (%d cells)", len(cells))
 
     @property
     def engine_stats(self):
         return self._engine.stats
-
-    # -- client API ----------------------------------------------------------
-
-    def submit(self, audio, **options) -> Future:
-        if self._closed:
-            raise RuntimeError("server is closed")
-        fut: Future = Future()
-        self._queue.put(_Request(audio, options, fut, time.time()))
-        self.stats.bump("requests")
-        return fut
-
-    def transcribe(self, audio, **options):
-        return self.submit(audio, **options).result()
-
-    def close(self) -> None:
-        if self._closed:
-            return
-        self._closed = True
-        self._queue.put(None)
-        self._worker.join(timeout=60)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
 
     # -- worker --------------------------------------------------------------
 
@@ -392,8 +557,8 @@ class ContinuousTranscriptionServer:
         """Admit up to the engine's free slots and ``admit_batch``; returns
         the requests deferred (page pool exhausted, or over the cap) for a
         retry after retirements."""
-        from ..api import TranscriptionResult, _validate_samples
-        from ..audio.io import SAMPLE_RATE, load_audio
+        from ..api import TranscriptionResult
+        from ..audio.io import SAMPLE_RATE
         from ..runtime.engine import SlotRequest
 
         # Never prefill more than the free slots or the admission cap (the
@@ -403,10 +568,7 @@ class ContinuousTranscriptionServer:
         ready = []
         for req in reqs:
             try:
-                if isinstance(req.audio, str) or hasattr(req.audio, "__fspath__"):
-                    samples = load_audio(req.audio)
-                else:
-                    samples = _validate_samples(req.audio)
+                samples = _samples(req.audio)
                 duration = len(samples) / SAMPLE_RATE
                 if len(samples) == 0:
                     _deliver(req.future, TranscriptionResult(text="", language="Unknown",
@@ -426,15 +588,12 @@ class ContinuousTranscriptionServer:
         if not ready:
             return overflow
         try:
-            kv, first_logits, prompts = self._model.prefill_group(
-                [r[1] for r in ready], [r[2] for r in ready]
-            )
             slot_reqs = []
-            for (req, samples, lang, duration), prompt in zip(ready, prompts):
+            for req, samples, lang, duration in ready:
                 opts = req.options
                 slot_reqs.append(SlotRequest(
                     samples=samples,
-                    prompt=prompt,
+                    prompt=[],
                     max_new=opts.get("max_tokens") or max(256, int(duration * 50)),
                     temperature=opts.get("temperature", 0.0),
                     top_k=opts.get("top_k", 0),
@@ -445,9 +604,7 @@ class ContinuousTranscriptionServer:
                     meta=(req.future, lang, duration),
                 ))
             by_slotreq = {id(sr): r[0] for sr, r in zip(slot_reqs, ready)}
-            rejected = self._engine.admit(
-                kv, first_logits, self._engine.free_slots(), slot_reqs
-            )
+            rejected = self._engine_admit(slot_reqs, [r[2] for r in ready])
             rejected_ids = {id(sr) for sr in rejected}
             if len(slot_reqs) > len(rejected):
                 self.stats.record_batch(len(slot_reqs) - len(rejected))
@@ -459,6 +616,8 @@ class ContinuousTranscriptionServer:
                         req = by_slotreq[id(sr)]
                         req.future.ttft_s = now - req.submit_ts
             return [by_slotreq[id(sr)] for sr in rejected] + overflow
+        except RankFault:
+            raise
         except Exception as exc:  # noqa: BLE001
             for req, *_ in ready:
                 self.stats.bump("failures")
@@ -469,7 +628,7 @@ class ContinuousTranscriptionServer:
         from ..api import TranscriptionResult
 
         retired = 0
-        for slot_req, toks in self._engine.retire():
+        for slot_req, toks in self._op("retire", {}):
             retired += 1
             future, lang, duration = slot_req.meta
             try:
@@ -482,8 +641,14 @@ class ContinuousTranscriptionServer:
         return retired
 
     def _run(self) -> None:
-        with torch.inference_mode():
+        try:
             self._serve()
+        except RankFault as exc:
+            self._stop(exc)         # every follower stopped at the same exchange
+            return
+        except Exception as exc:  # noqa: BLE001 -- fail the futures, not silently
+            self._stop(exc)
+        self._post_stop()
 
     def _serve(self) -> None:
         deferred: list[_Request] = []
@@ -499,7 +664,7 @@ class ContinuousTranscriptionServer:
                 while engine.n_live() > 0 or deferred:
                     if deferred:
                         deferred = self._admit(deferred)
-                    engine.step()
+                    self._op("step", {})
                     if self._retire():
                         retry_deferred = True
                     if engine.n_active() == 0 and deferred:
@@ -523,7 +688,7 @@ class ContinuousTranscriptionServer:
                 if self._retire():
                     retry_deferred = True
             if engine.n_active() > 0:
-                engine.step()
+                self._op("step", {})
                 if self._retire():
                     retry_deferred = True
             elif engine.n_live() > 0:
@@ -659,6 +824,14 @@ class ReplicatedTranscriptionServer:
                         except Exception as exc:  # noqa: BLE001
                             self.stats.bump("failures")
                             _deliver(req.future, exc=exc)
+
+
+def _out_of_memory(exc: BaseException) -> bool:
+    """Whether ``exc`` is the device running out of memory: here, or on any
+    rank of a lockstep operation."""
+    if isinstance(exc, RankFault):
+        return any(m.startswith("OutOfMemoryError") for m in exc.errors.values())
+    return isinstance(exc, torch.cuda.OutOfMemoryError)
 
 
 def _on_device(device: torch.device):

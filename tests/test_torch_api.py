@@ -125,8 +125,10 @@ def test_int8_transcribe_and_detect_token_identical(int8_pair):
 def test_unported_features_raise(pair):
     """A mesh (``dp * tp > 1``) needs a process group of ``dp * tp`` ranks
     (``parallel.initialize``; tests/test_torch_parallel.py runs them), and a
-    tp group refuses the continuous engine; sampling, long-form chunking and
-    ``speculative="ngram"`` (with either cache) construct and run."""
+    tp group refuses the incremental session (the continuous engine and the
+    servers run there since the lockstep servers); sampling, long-form
+    chunking and ``speculative="ngram"`` (with either cache) construct and
+    run."""
     import dataclasses
 
     from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
@@ -143,8 +145,9 @@ def test_unported_features_raise(pair):
     on_tp = Qwen3ASR(port._config, port._encoder_params, port._decoder_params,
                      port._tokenizer, RuntimeConfig())
     on_tp._runtime = dataclasses.replace(on_tp._runtime, tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        on_tp.make_engine()
+    on_tp._generator.runtime = on_tp._runtime
+    with pytest.raises(ValueError, match="single-device"):
+        on_tp.incremental_session()
 
 
 def test_wav_file_round_trip(pair, tmp_path):

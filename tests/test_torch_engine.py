@@ -528,8 +528,8 @@ def test_sampled_chunks_draw_from_the_filtered_distribution(pair, monkeypatch):
     row = torch.from_numpy(np.random.default_rng(12).standard_normal(vocab).astype(np.float32))
     real = teng.decoder_logits
 
-    def pinned(params, cfg, hidden):
-        out = real(params, cfg, hidden)
+    def pinned(params, cfg, hidden, tp=None):
+        out = real(params, cfg, hidden, tp=tp)
         return row.expand_as(out).clone()
 
     monkeypatch.setattr(teng, "decoder_logits", pinned)

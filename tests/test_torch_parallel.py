@@ -23,6 +23,26 @@ once for the module, on the tiny float32 checkpoint of
     whole list in every rank, a dp coordinate with no clip decoding
     nothing;
   * (2, 2): greedy tokens identical to one device and to JAX's tp = 2.
+
+The same spawns serve (``tests/torch_mesh.py``'s serving job, every rank
+constructing each server and the driving rank submitting):
+
+  * (1, 2): the continuous server, paged under ``spec_engine="off"`` and
+    ``"auto"`` and flat, on the JAX test's three clips
+    (``tests/test_parallel.py:162-193``) and then a request admitted
+    mid-decode: ids equal to the port's one-device ``transcribe`` and to
+    the JAX tp = 2 model's, every rank's engine state equal after every
+    operation; sampled requests equal across ranks and on a second run;
+    the engine driven by hand through the control channel on a fixed
+    schedule over an oversubscribed pool, its counters, pages and tokens
+    equal to one device's on the same schedule; a ``StreamingTranscriber``
+    through the server; a follower's ``submit`` and a direct call beside a
+    running server refused; a follower raising once inside an admission
+    ends the server on both ranks, the error on every pending future;
+  * (1, 2), (2, 1), (2, 2): the drain server equal to ``transcribe_batch``
+    of the same clips, and, with its first batch raising on every rank,
+    to ``transcribe`` of each clip retried alone; (2, 2) also runs a
+    continuous server in each tp group.
 """
 
 from __future__ import annotations
@@ -54,6 +74,24 @@ LONG = clips((5.1,), seed=4)[0]
 LONG_KW = dict(chunk_duration=2.0)
 PCM = [(a * 30000).astype(np.int16) for a in clips((1.5, 0.4, 0.9), seed=3)]
 DETECT_KW = dict(max_tokens=6, language="detect")
+
+
+def _sine(seconds, freq):
+    t = np.arange(int(seconds * 16000)) / 16000
+    return (0.4 * np.sin(2 * np.pi * freq * t)).astype(np.float32)
+
+
+#: The JAX package's tp serving test's clips (``tests/test_parallel.py:178``).
+SERVE_CLIPS = [_sine(1.0, 350.0), _sine(0.5, 500.0), _sine(1.5, 260.0)]
+LONG_CLIP, SHORT_CLIP = clips((2.0, 0.6), seed=5)
+STREAM = clips((2.6,), seed=6)[0]
+SERVE_SAMPLED = dict(temperature=0.7, top_k=50, top_p=0.9, seed=1)
+#: The continuous servers of the (1, 2) serving job: (runtime, paged).
+SERVE_CONTINUOUS = {"paged off": ({"spec_engine": "off"}, True), "paged auto": ({}, True),
+                    "flat": ({}, False)}
+#: The hand-driven engine: 3 slots over 5 usable pages of 128 rows.
+SCHEDULE_ENGINE = dict(n_slots=3, max_duration=8.0, max_new_tokens=256, chunk_steps=4,
+                       page_size=128, kv_pool_gb=6 * 2 * 2 * 128 * 256 * 2 / 2**30)
 
 
 @pytest.fixture(scope="module")
@@ -293,21 +331,31 @@ DP2_CASES = [
 DP2TP2_CASES = [_case("default"), _case("off", speculative="off")]
 
 
+def _serving(*runs, **extra):
+    return dict(dict(runs=runs, runtime=RUNTIME, clips=SERVE_CLIPS, long=LONG_CLIP,
+                     short=SHORT_CLIP, stream=STREAM, sampling=SERVE_SAMPLED,
+                     continuous=SERVE_CONTINUOUS, engine=SCHEDULE_ENGINE), **extra)
+
+
 @pytest.fixture(scope="module")
 def tp2(port_params, tmp_path_factory):
-    payload = dict(params=port_params, cases=TP2_CASES, grads=_grad_payload(), refusals=True)
+    payload = dict(params=port_params, cases=TP2_CASES, grads=_grad_payload(), refusals=True,
+                   serving=_serving("continuous", "sampled", "schedule", "drain", "stream",
+                                    "fault"))
     return run_mesh(1, 2, tmp_path_factory.mktemp("tp2"), payload)
 
 
 @pytest.fixture(scope="module")
 def dp2(port_params, tmp_path_factory):
-    payload = dict(params=port_params, cases=DP2_CASES)
+    payload = dict(params=port_params, cases=DP2_CASES, serving=_serving("drain"))
     return run_mesh(2, 1, tmp_path_factory.mktemp("dp2"), payload)
 
 
 @pytest.fixture(scope="module")
 def dp2tp2(port_params, tmp_path_factory):
-    payload = dict(params=port_params, cases=DP2TP2_CASES)
+    payload = dict(params=port_params, cases=DP2TP2_CASES,
+                   serving=_serving("drain", "continuous",
+                                    continuous={"paged off": SERVE_CONTINUOUS["paged off"]}))
     return run_mesh(2, 2, tmp_path_factory.mktemp("dp2tp2"), payload)
 
 
@@ -380,11 +428,13 @@ def test_tp2_collective_gradients(tp2):
 
 
 def test_tp2_refusals(tp2):
+    """A tp group refuses the incremental session (the JAX package refuses
+    meshes there too) and makes the engine, its pool on the local heads."""
     for rank in tp2:
         out = rank["refusals"]
-        for name in ("make_engine", "ContinuousTranscriptionServer", "TranscriptionServer"):
-            assert out[name] is not None and out[name].startswith("NotImplementedError"), name
-            assert "ROADMAP.md" in out[name]
+        assert out["make_engine"] is None
+        L, n_pages, heads, PS, D = out["make_engine result"]
+        assert (L, heads, PS, D) == (2, 1, 256, 128)
         assert out["incremental_session"].startswith("ValueError")
     assert [r["topology"].process_index for r in tp2] == [0, 1]
     assert all(r["topology"].process_count == 2 for r in tp2)
@@ -426,3 +476,149 @@ def test_dp2_tp2_matches_one_device_and_jax(dp2tp2, reference, jax_tp2, name):
     case = next(c for c in DP2TP2_CASES if c["name"] == name)
     assert got == ids_of(jax_tp2.transcribe_batch(case["clips"], **case["kwargs"]))
     assert [r[name]["decoded"] for r in dp2tp2] == [True] * 4
+
+
+# -- serving on the meshes ---------------------------------------------------------------
+
+#: The continuous job's requests in result order, and their budgets.
+SERVE_ORDER = SERVE_CLIPS + [SHORT_CLIP, LONG_CLIP]
+SERVE_BUDGETS = [5, 5, 5, 4, 40]
+
+
+@pytest.fixture(scope="module")
+def serve_reference(port_params):
+    """One device's ``transcribe`` ids of the continuous job's requests."""
+    model = _port(port_params)
+    return [ids_of([model.transcribe(c, max_tokens=m)])[0]
+            for c, m in zip(SERVE_ORDER, SERVE_BUDGETS)]
+
+
+def _hold_states(a, b) -> None:
+    """Two runs' engine states (``torch_mesh.engine_state`` after every
+    operation) equal, operation by operation."""
+    assert [op for op, _ in a] == [op for op, _ in b]
+    for i, ((op, x), (_, y)) in enumerate(zip(a, b)):
+        assert x.keys() == y.keys()
+        for k in x:
+            if isinstance(x[k], torch.Tensor):
+                assert torch.equal(x[k], y[k]), (i, op, k)
+            else:
+                assert np.array_equal(np.asarray(x[k]), np.asarray(y[k])), (i, op, k)
+
+
+@pytest.mark.parametrize("label", list(SERVE_CONTINUOUS))
+def test_tp2_continuous_server_matches_one_device_and_jax(tp2, serve_reference, jax_tp2,
+                                                          label):
+    lead, follower = (r["serving"][label] for r in tp2)
+    assert lead["ids"] == serve_reference
+    assert lead["ids"] == [ids_of([jax_tp2.transcribe(c, max_tokens=m)])[0]
+                             for c, m in zip(SERVE_ORDER, SERVE_BUDGETS)]
+    assert lead["stats"]["mid_decode_admissions"] >= 1
+    assert lead["stats"] == follower["stats"]
+    assert lead["retired"] == follower["retired"]
+    assert lead["fault"] == follower["fault"] == "None"
+
+
+@pytest.mark.parametrize("label", list(SERVE_CONTINUOUS))
+def test_tp2_continuous_ranks_in_lockstep(tp2, label):
+    lead, follower = (r["serving"][label] for r in tp2)
+    _hold_states(lead["states"], follower["states"])
+    assert len(lead["states"]) > 10
+    assert (lead["stats"]["spec_chunks"] > 0) == (label != "paged off")
+
+
+def test_tp2_engine_schedule_matches_one_device(tp2, port_params):
+    import dataclasses
+
+    from torch_mesh import engine_schedule, engine_state
+
+    from qwen3_asr_tpu_torch.serving.server import engine_op
+
+    model = _port(port_params)
+    engine = model.make_engine(paged=True, **SCHEDULE_ENGINE)
+    states, retired = [], []
+
+    def run(op, args):
+        result = engine_op(model, engine, op, args)
+        states.append((op, engine_state(engine)))
+        if op == "retire":
+            retired.append([toks for _, toks in result])
+        return result
+
+    engine_schedule(engine, run, SERVE_CLIPS)
+    assert engine.n_pages == 6 and engine._keys.shape[2] == 2
+    assert any(s["paused"].any() for _, s in states)          # the pool ran out
+    assert engine.stats.mid_decode_admissions >= 1
+    for rank in tp2:
+        got = rank["serving"]["schedule"]
+        assert got["n_pages"] == engine.n_pages and got["pool"][2] == 1
+        assert got["stats"] == dataclasses.asdict(engine.stats)
+        assert got["retired"] == retired
+        _hold_states(got["states"], states)
+
+
+def test_tp2_sampled_server_equal_across_ranks_and_runs(tp2):
+    lead, follower = (r["serving"]["sampled"] for r in tp2)
+    for run in range(2):
+        assert lead[run]["retired"] == follower[run]["retired"]
+        _hold_states(lead[run]["states"], follower[run]["states"])
+    assert lead[0]["ids"] == lead[1]["ids"]
+    assert len({t for seq in lead[0]["ids"] for t in seq}) > 3
+
+
+@pytest.mark.parametrize("mesh", ["tp2", "dp2", "dp2tp2"])
+def test_mesh_drain_server_matches_transcribe_batch(request, port_params, mesh):
+    ranks = request.getfixturevalue(mesh)
+    model = _port(port_params)
+    dp = 1 if mesh == "tp2" else 2
+    batch = [ids for part in _slices(SERVE_CLIPS, dp)
+             for ids in ids_of(model.transcribe_batch(part, max_tokens=5))]
+    alone = [ids_of([model.transcribe(c, max_tokens=5)])[0] for c in SERVE_CLIPS]
+    lead = ranks[0]["serving"]["drain"]
+    assert lead["ids"] == [batch, alone]
+    assert lead["errors"] == ["ValueError", "ValueError"]
+    assert lead["batches"] == [1, 1]
+    for rank in ranks[1:]:
+        assert "driving rank, global rank 0" in rank["serving"]["drain"]["submit"]
+
+
+def test_tp2_streaming_through_the_server(tp2, port_params):
+    got = tp2[0]["serving"]["stream"]
+    model = _port(port_params)
+    want = [ids_of([model.transcribe(STREAM[round(a * 16000):round(b * 16000)],
+                                     max_tokens=5)])[0] for a, b in got["segments"]]
+    assert got["ids"] == want and len(got["segments"]) >= 2
+    assert got["segments"][-1][1] == pytest.approx(len(STREAM) / 16000)
+
+
+def test_tp2_follower_submit_and_direct_calls_refused(tp2):
+    for label in SERVE_CONTINUOUS:
+        assert "driving rank, global rank 0" in tp2[1]["serving"][label]["submit"]
+        assert "submit to the server" in tp2[0]["serving"][label]["direct"]
+
+
+def test_tp2_server_fault_stops_every_rank(tp2):
+    lead, follower = (r["serving"]["fault"] for r in tp2)
+    assert len(lead["errors"]) == 2
+    assert all("RankFault" in e and "rank 1: RuntimeError: injected fault" in e
+               for e in lead["errors"])
+    assert "is closed" in lead["after"]
+    for side in (lead, follower):
+        assert "RankFault" in side["fault"] and not side["alive"]
+    assert lead["seconds"] < 60
+
+
+def test_tp2_warm_up_out_of_memory_on_a_follower_gives_sizing_advice(tp2):
+    lead, follower = (r["serving"]["fault"] for r in tp2)
+    assert "ran out of device memory at admission-group size 1" in lead["oom"]
+    assert "kv_pool_gb=" in lead["oom"]
+    assert follower["oom"] is None
+    assert "RankFault" in follower["oom_fault"] and "OutOfMemoryError" in follower["oom_fault"]
+
+
+def test_dp2tp2_continuous_server_in_each_tp_group(dp2tp2, serve_reference):
+    for d in (0, 1):
+        lead, follower = (dp2tp2[2 * d + r]["serving"]["paged off"] for r in (0, 1))
+        assert lead["ids"] == serve_reference
+        assert lead["retired"] == follower["retired"]
+        _hold_states(lead["states"], follower["states"])

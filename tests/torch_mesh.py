@@ -17,8 +17,16 @@ runtime (dp and tp set to the mesh), ``transcribe_batch`` or
 ``transcribe`` of the case's clips, the result ids, languages and each
 decode call's first logits (the prefill's); on a tp group, when the
 payload asks, ``grads`` (the tp collectives' forward and backward on a
-column -> row pair of linears) and ``refusals`` (what a tp group refuses:
-the engine, the servers).  The training job (:func:`_train`, payload key
+column -> row pair of linears) and ``refusals`` (what a tp group still
+refuses: the incremental session).  The serving job (:func:`_serving`,
+payload key ``serving``): the servers on the mesh, every rank constructing
+them and the driving rank submitting (``ContinuousTranscriptionServer`` on
+a tp group, paged and flat, greedy and sampled, with a mid-decode
+admission; ``TranscriptionServer`` on any mesh, its batch once failing on
+every rank; a ``StreamingTranscriber`` through the tp server; an injected
+fault), each rank's engine state after every operation, and the engine
+driven by hand through the control channel on :func:`engine_schedule`.
+The training job (:func:`_train`, payload key
 ``train``, ``tests/test_torch_train_mesh.py``): AdamW steps of the mesh
 train step on the payload's batch, each step's loss and local parameters,
 the first step's local gradients, a sharded snapshot (saved, resumed, or
@@ -150,6 +158,303 @@ def _transcribe(payload: dict, dp: int, tp: int) -> dict:
     return out
 
 
+# -- serving on the mesh ------------------------------------------------------------------
+
+#: The continuous server's size in the serving job (the JAX test's:
+#: ``tests/test_parallel.py:162-193``).
+SERVER = dict(n_slots=4, max_duration=8.0, max_new_tokens=128, chunk_steps=4)
+
+
+def engine_state(engine) -> dict:
+    """A copy of an engine's slot state: device tokens, counts, flags and
+    current tokens, the host mirrors and (paged) the page accounting."""
+    out = {name: getattr(engine, name).clone() for name in
+           ("_tokens", "_counts_d", "_done_d", "_cur_d")}
+    out.update({name: getattr(engine, name).copy() for name in
+                ("_live", "_done", "_counts", "_prompt_len")})
+    if engine.paged:
+        out.update(table=engine._page_table.copy(), paused=engine._paused.copy(),
+                   free=list(engine._free_pages))
+    return out
+
+
+def engine_schedule(engine, run, clips) -> None:
+    """A fixed schedule of engine operations, ``run(op, args)`` each: two
+    requests admitted, a chunk, a third admitted mid-decode (deferred while
+    the pool cannot take its prompt), then chunks and retirements until the
+    engine is empty."""
+    from qwen3_asr_tpu_torch.runtime.engine import SlotRequest
+
+    def admit(items):
+        reqs = [SlotRequest(samples=c, prompt=[], max_new=m, meta=None) for c, m in items]
+        rejected = run("admit", {"reqs": reqs, "langs": ["English"] * len(reqs),
+                                 "slots": engine.free_slots()})
+        return [item for item, r in zip(items, reqs) if any(r is x for x in rejected)]
+
+    waiting = admit([(clips[0], 150), (clips[1], 40)])
+    run("step", {})
+    waiting += admit([(clips[2], 20)])
+    for _ in range(200):
+        if waiting and engine.free_slots():
+            waiting = admit(waiting)
+        if engine.n_live() == 0 and not waiting:
+            return
+        run("step", {})
+        run("retire", {})
+    raise AssertionError("the schedule did not drain the engine")
+
+
+def _recording(states: list, retired: list):
+    """A patch of ``serving.server.engine_op`` that keeps the engine state
+    after every operation and each retirement's token lists."""
+    from qwen3_asr_tpu_torch.serving import server
+
+    real = server.engine_op
+
+    def op(model, engine, name, args):
+        result = real(model, engine, name, args)
+        states.append((name, engine_state(engine)))
+        if name == "retire":
+            retired.append([toks for _, toks in result])
+        return result
+
+    return real, op
+
+
+def _wait(cond, seconds: float = 60) -> None:
+    import time
+
+    deadline = time.monotonic() + seconds
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.005)
+
+
+def _continuous(payload: dict, job: dict, dp: int, tp: int, runtime: dict, paged: bool,
+                options: dict | None = None) -> dict:
+    """The JAX test's three clips through a continuous server on the mesh,
+    then a long request and a short one admitted while it decodes; on the
+    driving rank the results' ids, a direct ``model.transcribe``'s refusal
+    and the stats, on a follower ``submit``'s refusal."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.serving import ContinuousTranscriptionServer
+    from qwen3_asr_tpu_torch.serving import server as server_mod
+
+    from torch_parity import ids_of
+
+    model = _model(payload, dict(runtime, dp=dp, tp=tp))
+    states, retired = [], []
+    real, server_mod.engine_op = _recording(states, retired)
+    out = {}
+    try:
+        srv = ContinuousTranscriptionServer(model, paged=paged, **SERVER)
+        kw = dict(options or {}, max_tokens=5)
+        if srv.driving:
+            results = [f.result(timeout=60) for f in
+                       [srv.submit(c, **kw) for c in job["clips"]]]
+            long_f = srv.submit(job["long"], **dict(kw, max_tokens=40))
+            _wait(lambda: srv.engine_stats.admitted >= len(job["clips"]) + 1)
+            short_f = srv.submit(job["short"], **dict(kw, max_tokens=4))
+            try:
+                model.transcribe(job["short"], max_tokens=4)
+                out["direct"] = None
+            except RuntimeError as exc:
+                out["direct"] = str(exc)
+            results += [short_f.result(timeout=60), long_f.result(timeout=60)]
+            out["ids"] = ids_of(results)
+        else:
+            try:
+                srv.submit(job["short"])
+                out["submit"] = None
+            except RuntimeError as exc:
+                out["submit"] = str(exc)
+        srv.close()
+        out["stats"] = dataclasses.asdict(srv.engine_stats)
+        out["fault"] = repr(srv._fault)
+    finally:
+        server_mod.engine_op = real
+    out.update(states=states, retired=retired)
+    model.close()
+    return out
+
+
+def _schedule(payload: dict, job: dict, dp: int, tp: int) -> dict:
+    """:func:`engine_schedule` on an oversubscribed paged engine, driven
+    by hand through the tp group's control channel: the engine state after
+    every operation, the retirements' tokens, the stats and the page
+    count."""
+    import dataclasses
+
+    from qwen3_asr_tpu_torch.parallel.lockstep import STOP
+    from qwen3_asr_tpu_torch.serving.server import engine_op
+
+    model = _model(payload, dict(job["runtime"], dp=dp, tp=tp))
+    engine = model.make_engine(paged=True, **job["engine"])
+    channel = model._mesh.channel("tp")
+    states, retired = [], []
+
+    def apply(op, args):
+        result = engine_op(model, engine, op, args)
+        states.append((op, engine_state(engine)))
+        if op == "retire":
+            retired.append([toks for _, toks in result])
+        return result
+
+    if channel.driving:
+        engine_schedule(engine, lambda op, args: channel.lead(op, apply, args), job["clips"])
+        channel.post(STOP)
+    else:
+        channel.follow(apply)
+    out = dict(states=states, retired=retired, stats=dataclasses.asdict(engine.stats),
+               n_pages=engine.n_pages, pool=tuple(engine._keys.shape))
+    model.close()
+    return out
+
+
+def _drain(payload: dict, job: dict, dp: int, tp: int) -> dict:
+    """The drain server on the mesh, twice: the clips and a malformed one
+    (refused on the driving rank), then the clips again with the first
+    batch raising on every rank (each clip retried alone)."""
+    from qwen3_asr_tpu_torch.serving import TranscriptionServer
+
+    from torch_parity import ids_of
+
+    model = _model(payload, dict(job["runtime"], dp=dp, tp=tp))
+    out = {"ids": [], "errors": [], "batches": []}
+    real = model._run_pipeline_batch
+    for rnd in range(2):
+        calls = []
+
+        def once(*args, **kwargs):
+            calls.append(1)
+            if rnd == 1 and len(calls) == 1:
+                raise RuntimeError("injected batch fault")
+            return real(*args, **kwargs)
+
+        model._run_pipeline_batch = once
+        srv = TranscriptionServer(model, max_batch_size=4, batch_window_ms=500)
+        if srv.driving:
+            futs = [srv.submit(c, max_tokens=5) for c in job["clips"]]
+            bad = srv.submit(job["clips"][0][None, :], max_tokens=5)
+            out["ids"].append(ids_of([f.result(timeout=60) for f in futs]))
+            out["errors"].append(type(bad.exception(timeout=60)).__name__)
+        else:
+            try:
+                srv.submit(job["clips"][0])
+            except RuntimeError as exc:
+                out["submit"] = str(exc)
+        srv.close()
+        out["batches"].append(srv.stats.batches)
+    model.close()
+    return out
+
+
+def _stream(payload: dict, job: dict, dp: int, tp: int) -> dict:
+    """A ``StreamingTranscriber`` on the driving rank submitting its
+    segments to the tp group's continuous server (``feed_nowait`` in
+    pieces, ``flush_nowait``): each segment's span and ids."""
+    from qwen3_asr_tpu_torch.serving import ContinuousTranscriptionServer
+    from qwen3_asr_tpu_torch.streaming import StreamingTranscriber
+
+    from torch_parity import ids_of
+
+    model = _model(payload, dict(job["runtime"], dp=dp, tp=tp))
+    srv = ContinuousTranscriptionServer(model, **SERVER)
+    out = {}
+    if srv.driving:
+        stream = StreamingTranscriber(model, segment_duration=1.0, search_duration=0.25,
+                                      server=srv, max_tokens=5)
+        audio, futs = job["stream"], []
+        for lo in range(0, len(audio), 4000):
+            futs += stream.feed_nowait(audio[lo:lo + 4000])
+        futs += stream.flush_nowait()
+        segs = [f.result(timeout=60) for f in futs]
+        out["segments"] = [(s.start, s.end) for s in segs]
+        out["ids"] = ids_of(segs)
+    srv.close()
+    model.close()
+    return out
+
+
+def _fault(payload: dict, job: dict, dp: int, tp: int) -> dict:
+    """A continuous server whose follower raises once inside an admission
+    (``engine.admit``, after the prefill's collectives): what each rank saw.
+    Then a warmed server whose follower runs out of device memory in
+    warm-up's first admission: the driving rank's constructor error."""
+    import time
+
+    import torch
+
+    from qwen3_asr_tpu_torch.serving import ContinuousTranscriptionServer
+
+    model = _model(payload, dict(job["runtime"], dp=dp, tp=tp))
+    srv = ContinuousTranscriptionServer(model, **SERVER)
+    if not srv.driving:
+        real, calls = srv._engine.admit, []
+
+        def admit(*args, **kwargs):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("injected fault")
+            return real(*args, **kwargs)
+
+        srv._engine.admit = admit
+    out = {}
+    t0 = time.monotonic()
+    if srv.driving:
+        first = srv.submit(job["long"], max_tokens=40)
+        _wait(lambda: srv.engine_stats.admitted >= 1)
+        second = srv.submit(job["short"], max_tokens=4)
+        out["errors"] = [repr(f.exception(timeout=60)) for f in (first, second)]
+        try:
+            srv.submit(job["short"])
+            out["after"] = None
+        except RuntimeError as exc:
+            out["after"] = str(exc)
+    srv.close()
+    out.update(seconds=time.monotonic() - t0, fault=repr(srv._fault),
+               alive=srv._worker.is_alive())
+    if not srv.driving:
+        make = model.make_engine
+
+        def make_engine(**kwargs):
+            engine = make(**kwargs)
+
+            def admit(*args, **kw):
+                raise torch.cuda.OutOfMemoryError("injected: out of device memory")
+
+            engine.admit = admit
+            return engine
+
+        model.make_engine = make_engine
+    try:
+        warmed = ContinuousTranscriptionServer(model, warm=True, **SERVER)
+        out["oom"] = None
+        warmed.close()
+        out["oom_fault"] = repr(warmed._fault)
+    except RuntimeError as exc:
+        out["oom"] = str(exc)
+    model.close()
+    return out
+
+
+def _serving(payload: dict, dp: int, tp: int) -> dict:
+    job = payload["serving"]
+    out = {}
+    for name in job["runs"]:
+        if name == "continuous":
+            for label, (runtime, paged) in job["continuous"].items():
+                out[label] = _continuous(payload, job, dp, tp, dict(job["runtime"], **runtime),
+                                         paged)
+        elif name == "sampled":
+            out["sampled"] = [_continuous(payload, job, dp, tp, job["runtime"], True,
+                                          job["sampling"]) for _ in range(2)]
+        else:
+            out[name] = {"schedule": _schedule, "drain": _drain, "stream": _stream,
+                         "fault": _fault}[name](payload, job, dp, tp)
+    return out
+
+
 def _grads(g: dict, tp) -> dict:
     """The collectives on a column -> row pair: y = reduce(tanh(copy(x) @ W1)
     @ W2) plus a term through the gather of the column output; x and this
@@ -269,22 +574,16 @@ def _same(a: dict, b: dict) -> bool:
 
 
 def _refusals(payload: dict) -> dict:
-    """The message of each call a tp group refuses (None if it did not)."""
-    from qwen3_asr_tpu_torch.serving.server import (
-        ContinuousTranscriptionServer,
-        TranscriptionServer,
-    )
-
+    """The message of each call a tp group refuses (None if it did not):
+    ``make_engine`` runs there (then its pool's shape), the incremental
+    session does not."""
     model = _model(payload, {"dp": 1, "tp": 2})
     out = {}
-    for name, call in (("make_engine", lambda: model.make_engine()),
-                       ("ContinuousTranscriptionServer",
-                        lambda: ContinuousTranscriptionServer(model)),
-                       ("TranscriptionServer", lambda: TranscriptionServer(model)),
+    for name, call in (("make_engine", lambda: model.make_engine(paged=True)._keys.shape),
                        ("incremental_session", lambda: model.incremental_session())):
         try:
-            call()
             out[name] = None
+            out[f"{name} result"] = call()
         except (NotImplementedError, ValueError) as exc:
             out[name] = f"{type(exc).__name__}: {exc}"
     return out
@@ -302,6 +601,8 @@ def main(argv: list[str]) -> int:
                         init_method=f"file://{workdir / 'init'}")
     payload = torch.load(workdir / "payload.pt", weights_only=False)
     out = _transcribe(payload, dp, tp)
+    if payload.get("serving"):
+        out["serving"] = _serving(payload, dp, tp)
     if payload.get("train"):
         out["train"] = _train(payload["train"], dp, tp)
     out["topology"] = parallel.topology()
