@@ -8,7 +8,11 @@ CUDA build of PyTorch; it imports nothing of JAX.  Phases, in order (any
 failure raises and the script exits non-zero):
 
   1. card identity (``nvidia-smi`` name and power limit);
-  2. build the CUDA kernels from ``qwen3_asr_tpu_torch/csrc`` (seconds);
+  2. build the CUDA kernels from ``qwen3_asr_tpu_torch/csrc`` (seconds),
+     and the native audio library (``make -C
+     qwen3_asr_tpu_torch/audio/csrc``, no fallback): ``load_audio`` of a
+     PCM16 WAV written under ``build/`` must take the native route and
+     equal the numpy decoder's samples bit for bit;
   3. each kernel against its plain PyTorch version at main-path shapes, on
      the card: max abs error vs the plain version computed in float32
      (K1 at B=8, T = 64, 448, 1024, 1088, 77 and B=64, T=448; K1, K2,
@@ -78,7 +82,15 @@ failure raises and the script exits non-zero):
      ``transcribe_batch`` of 8 synthetic clips of 4-30 s
      (``max_tokens=64``) twice and one ``transcribe`` under
      ``speculative="off"`` (K1, K2 with K3 fused, no standalone writer;
-     the bf16 lm head must keep its f32 accumulator); on the same model
+     the bf16 lm head must keep its f32 accumulator); the same plain loop
+     over the int8 cache (K4 with K3-int8 fused), the int8 runs'
+     reference; decode mode "0" on both caches (the plain attention:
+     K2/K4 never launched, the standalone K3 or K3-int8 twice a replay,
+     the mode's own graph captured once and replayed, ms per iteration
+     beside the default loop's, streams and tokens held as the modes'
+     below); decode modes "3" and "4" on the int8 cache (K4 with K3-int8
+     fused kept, a layer a step each, no K11a/K11b, no standalone writer;
+     the stream held to the int8 reference's); on the same model
      ``transcribe_batch`` under decode modes "3" (K11a) and "4" (K11b; both
      eager: their kernels take the decode end as a host int), K2
      never launched, the mode's kernel 28 x steps and the standalone K3 2 x
@@ -108,7 +120,16 @@ failure raises and the script exits non-zero):
      contiguous-cache kernel or a standalone writer, and the flat engine
      (K2 with per-lane K3 fused), every stream held to
      the plain ``transcribe_batch`` stream by the near-tie rule, with ms per
-     chunk iteration, engine counters and each request's TTFT; the graphed
+     chunk iteration, engine counters and each request's TTFT; the "xla"
+     KV writer (:func:`xla_writer_phase`: the plain writers, which wait
+     for nothing on the device, no fused store, no standalone writer, no
+     K5): the plain loop (K2 without its store; its every token held to
+     the default row on the same prefix) and the speculative loop, each
+     captured once for the writer's bucket and replayed, then the paged
+     server under ``spec_engine`` off (K6) and auto (K7), streams held to
+     the plain stream by the near-tie rule, then the end-to-end line (ms
+     per decode iteration of the graphed plain loop under the default
+     modes, "0" and "xla", in turns); the graphed
      loops against the eager loop (:func:`graphs_phase`: plain B=1, 8 and
      96 (W8A8), the int8 cache at B=8, sampled B=8, speculative B=1 and 8,
      sampled speculative B=1, int8-weights speculative B=1; from one
@@ -182,8 +203,9 @@ failure raises and the script exits non-zero):
      vocab, logits never NaN, repeated runs identical, every kernel of a
      path launched;
   6. ``{"kernels": [...]}`` JSON, one entry for every kernel a path
-     launches, the fused stores included (the standalone K3-int8 and K8,
-     which no path launches any more, are held in phase 3 and left out),
+     launches, the fused stores included (the standalone K8, which no path
+     launches any more, is held in phase 3 and left out; the standalone
+     K3-int8's launches come from decode mode "0" on the int8 cache),
      then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -320,15 +342,16 @@ KERNELS = {
 #: pass each (the JAX package runs K11c and K11d from no other path).
 KERNELAB = ("decode_attention", "decode_attention_sched", "decode_attention_hbm5")
 #: The standalone row writers that no default path launches: the decode
-#: attention stores the fresh rows itself (the ``*_fused`` names).  Only
-#: decode modes "3"/"4" launch ``kv_write_rows``; the others launch on no
-#: path (:data:`ORACLES`).
+#: attention stores the fresh rows itself (the ``*_fused`` names).  Decode
+#: modes "0", "3" and "4" launch ``kv_write_rows``, and "0" on the int8
+#: cache ``kv_write_rows_q8``; the paged two launch on no path
+#: (:data:`ORACLES`).
 STANDALONE_WRITERS = ("kv_write_rows", "kv_write_rows_q8", "kv_write_rows_paged",
                       "kv_write_rows_paged_q8")
 #: Kernels that no path launches: held to their plain versions in phase 3
 #: and used there as their fused stores' oracles, left out of the kernels
 #: line, whose TPU sites the fused entries carry.
-ORACLES = ("kv_write_rows_q8", "kv_write_rows_paged", "kv_write_rows_paged_q8")
+ORACLES = ("kv_write_rows_paged", "kv_write_rows_paged_q8")
 #: The kernels each path must launch, and those it must not.
 BF16_PATH = ("flash_attention_causal", "decode_attention", "kv_write_rows_fused")
 INT8_PATH = ("flash_attention_causal", "decode_attention_q8", "kv_write_rows_q8_fused",
@@ -2607,16 +2630,177 @@ class EncoderCalls:
 STEM_TOL = 5e-2
 
 
-def modes_phase(card: str, base, off: dict) -> dict:
+class Switch:
+    """Sets ``models/decoder.py``'s plain-path switches while active: the
+    decode kernel mode (``QWEN3_ASR_DECODE_KERNEL``) and the KV writer
+    (``QWEN3_ASR_KV_WRITER``)."""
+
+    def __init__(self, mode: str = "auto", writer: str = "auto"):
+        self.values = {"DECODE_KERNEL_MODE": mode, "KV_WRITER_MODE": writer}
+
+    def __enter__(self):
+        from qwen3_asr_tpu_torch.models import decoder
+
+        self.module = decoder
+        self.saved = {k: getattr(decoder, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(decoder, k, v)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+def iteration_ms(st) -> float:
+    """The decode stage's ms over its iterations (verify iterations when
+    the loop speculated)."""
+    return st.stages["decode"] * 1e3 / max(st.n_decode_steps, 1)
+
+
+def int8_cache_reference(card: str, base) -> dict:
+    """The plain loop over the int8 cache (K4 with K3-int8 fused) on
+    ``base``'s weights: its model, a graphed ``transcribe_batch`` of the
+    smoke clips (after one that captures the bucket) and the same under
+    :class:`Choices` (the eager loop: its tokens must equal the graphed,
+    and its choice rows give the near-tie gaps).  The reference of the
+    int8-cache runs under decode mode "0" and of the int8 pool servers."""
+    model = build_model({"kv_cache_dtype": "int8", "speculative": "off"}, base)
+    clips = smoke_clips()
+    model.transcribe_batch(clips, max_tokens=64)
+    ids = _ids(model.transcribe_batch(clips, max_tokens=64))
+    st = model.last_stats
+    with Choices() as rec:
+        eager = _ids(model.transcribe_batch(clips, max_tokens=64))
+    if eager != ids:
+        raise AssertionError("int8 cache: the eager loop's tokens differ from the graphed")
+    print_stats("transcribe_batch B=8 int8 cache (the default modes, graphed)", card, st)
+    return {"model": model, "ids": ids, "gaps": top_two_gaps(rec.rows), "stats": st}
+
+
+#: The kernels a decode mode "0" run must not launch: no hand-written
+#: decode attention, no fused store, no K5.
+MODE0_NEVER = ("decode_attention", "decode_attention_q8", "kv_write_rows_fused",
+               "kv_write_rows_q8_fused", "kv_write_span_batch", "decode_attention_hbm2",
+               "decode_attention_hbm3")
+
+
+def mode0_runs(card: str, base, off: dict, int8_ref: dict) -> dict:
+    """Decode mode "0" (the plain attention, ``decode_attention_plain``, or
+    ``decode_attention_q8_plain`` over the dequantized int8 cache) on the
+    plain run's model and on the int8-cache reference's, greedy
+    ``transcribe_batch`` of the smoke clips: one call that captures the
+    mode's own graph, then one counted that replays it (no capture), K2/K4
+    never launched, the standalone K3 (K3-int8) twice a replay (K and V,
+    all layers a launch), ms per decode iteration beside the default
+    graphed loop's, replays and host syncs; then the eager loop under
+    :class:`Choices` (its tokens equal the graphed), the stream held to the
+    default stream by the near-tie rule and every token to the default
+    modes' row on the same prefix.  Returns the launches of K3-int8 (its
+    one path)."""
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    clips = smoke_clips()
+    vocab = base._config.text_decoder.vocab_size
+    launches = {}
+    for label, model, ref_ids, ref_gaps, ref_st, writer in (
+            ("decode mode 0, bf16 cache", base, off["ids"][0], off["gaps"][0], off["stats"][1],
+             "kv_write_rows"),
+            ("decode mode 0, int8 cache", int8_ref["model"], int8_ref["ids"], int8_ref["gaps"],
+             int8_ref["stats"], "kv_write_rows_q8")):
+        t0 = time.perf_counter()
+        graphs = model._generator.graphs
+        with Switch(mode="0"):
+            captures = graphs.captures
+            first = _ids(model.transcribe_batch(clips, max_tokens=64))
+            if graphs.captures != captures + 1:
+                raise AssertionError(f"{label}: the mode's bucket was not captured")
+            with Watch() as watch:
+                LAUNCHES.clear()
+                ids = _ids(model.transcribe_batch(clips, max_tokens=64))
+                got = dict(LAUNCHES)
+                if bool(watch.nan_seen):
+                    raise AssertionError(f"{label}: NaN logits")
+            st = model.last_stats
+            if graphs.captures != captures + 1 or ids != first:
+                raise AssertionError(f"{label}: a second capture, or the replayed run's "
+                                     "tokens differ from the capturing run's")
+            with Choices() as rec:
+                eager = _ids(model.transcribe_batch(clips, max_tokens=64))
+        if eager != ids:
+            raise AssertionError(f"{label}: the eager loop's tokens differ from the graphed")
+        check_ids(label, ids, vocab)
+        other = "kv_write_rows" if writer == "kv_write_rows_q8" else "kv_write_rows_q8"
+        check_launches(label, got, ("flash_attention_causal", writer), MODE0_NEVER + (other,))
+        if got[writer] != 2 * st.n_decode_replays:
+            raise AssertionError(f"{label}: {writer} launched {got[writer]} times, want 2 x "
+                                 f"{st.n_decode_replays} replays")
+        print_stats(f"transcribe_batch B=8 {label} (graphed)", card, st)
+        print(f"{label} [{card}]: graphed, one capture of the mode's bucket, "
+              f"{st.n_decode_replays} replays and {st.n_host_syncs} host syncs for "
+              f"{st.n_decode_steps} live steps; ms per decode iteration {iteration_ms(st):.3f} "
+              f"against the default modes' graphed {iteration_ms(ref_st):.3f} "
+              f"({iteration_ms(st) / iteration_ms(ref_st):.2f}x)")
+        compare_streams(f"{label} vs the default modes, transcribe_batch B=8", ref_ids, ids,
+                        ref_gaps)
+        hold_loop_to_plain(f"{label} held to the default modes, B=8", model, clips, rec.rows, ids)
+        del rec
+        launches.setdefault(writer, got[writer])
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def int8_modes_runs(card: str, int8_ref: dict) -> None:
+    """Decode modes "3" and "4" on the int8 cache (the int8-cache
+    reference's model), greedy ``transcribe_batch`` of the smoke clips: the
+    int8 cache keeps K4 with its fused K3-int8 store (the JAX package
+    dequantizes for its XLA attention there; the port runs the kernel the
+    caller asked for), eagerly (the modes' loop), K4 and its store a layer
+    a step, neither K11a/K11b nor a standalone writer nor the plain
+    attention; the stream held to the int8 reference's by the near-tie
+    rule."""
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    model, clips = int8_ref["model"], smoke_clips()
+    n_layers = model._config.text_decoder.num_hidden_layers
+    for mode in ("3", "4"):
+        t0 = time.perf_counter()
+        label = f"decode mode {mode}, int8 cache"
+        with Switch(mode=mode), Watch() as watch:
+            LAUNCHES.clear()
+            ids = _ids(model.transcribe_batch(clips, max_tokens=64))
+            got = dict(LAUNCHES)
+            if bool(watch.nan_seen):
+                raise AssertionError(f"{label}: NaN logits")
+        st = model.last_stats
+        check_ids(label, ids, model._config.text_decoder.vocab_size)
+        check_launches(label, got, ("flash_attention_causal", "decode_attention_q8",
+                                    "kv_write_rows_q8_fused"),
+                       ("decode_attention", "decode_attention_hbm2", "decode_attention_hbm3",
+                        "kv_write_rows_fused") + STANDALONE_WRITERS)
+        for name in ("decode_attention_q8", "kv_write_rows_q8_fused"):
+            if got[name] != n_layers * st.n_decode_steps:
+                raise AssertionError(f"{label}: {name} launched {got[name]} times, want "
+                                     f"{n_layers} x {st.n_decode_steps} steps")
+        print_stats(f"transcribe_batch B=8 {label} (eager)", card, st)
+        compare_streams(f"{label} vs the default modes, transcribe_batch B=8", int8_ref["ids"],
+                        ids, int8_ref["gaps"])
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+
+
+def modes_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
     """The JAX package's kernel modes on the plain run's model (``"off"``):
+    decode mode "0" on the bf16 and the int8 cache (:func:`mode0_runs`),
+    modes "3"/"4" on the int8 cache (:func:`int8_modes_runs`: K4 kept);
     ``transcribe_batch`` of the smoke clips under decode modes "3" (K11a)
     and "4" (K11b) -- K2 never launched, the mode's kernel 28 x steps --
     and under the "pallas" stem (K11e twice per encoder call), each stream
     held to the plain ("auto", "conv") stream by the near-tie rule and each
     of its tokens to the default modes' row on the same prefix; then the
     encoder features of every stem mode held to the "conv" stem's.  Returns
-    the launches of K11a, K11b and K11e, each from its own run, and of the
-    standalone K3 from mode "3"'s (the one path that still launches it)."""
+    the launches of K11a, K11b and K11e, each from its own run, of the
+    standalone K3 from mode "0"'s bf16 run and of K3-int8 from its int8
+    run (the paths that launch them)."""
     import torch
 
     from qwen3_asr_tpu_torch.models import decoder as dec_mod
@@ -2627,7 +2811,8 @@ def modes_phase(card: str, base, off: dict) -> dict:
     clips = smoke_clips()
     vocab = base._config.text_decoder.vocab_size
     n_layers = base._config.text_decoder.num_hidden_layers
-    launches = {}
+    launches = mode0_runs(card, base, off, int8_ref)
+    int8_modes_runs(card, int8_ref)
     runs = (("decode mode 3", dec_mod, "DECODE_KERNEL_MODE", "3", "decode_attention_hbm2"),
             ("decode mode 4", dec_mod, "DECODE_KERNEL_MODE", "4", "decode_attention_hbm3"),
             ("stem pallas", enc_mod, "CONV_STEM_MODE", "pallas", "conv_s2_gelu"))
@@ -2792,26 +2977,20 @@ def server_run(card: str, model, label: str, paged: bool, path, never, plain) ->
     return launches
 
 
-def server_phase(card: str, base, off: dict) -> dict:
+def server_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
     """The continuous server at 1.7B on the plain run's weights: paged
     (K6), paged speculative (K7), the int8 pool plain and speculative (q8
     K6/K7), each with K8 fused, and the flat engine (K2, per-lane K3
-    fused).
+    fused); the int8 pools' streams held to the plain loop over the int8
+    cache (``int8_ref``).
     Returns the launches of the paged kernels, each from its own path."""
     import torch
 
     launches = {}
     plain = (off["ids"][0], off["gaps"][0])
-    int8_plain = None
+    int8_plain = (int8_ref["ids"], int8_ref["gaps"])
     for label, (runtime, paged, path, never) in SERVER_PATHS.items():
         model = build_model(runtime, base)
-        if runtime.get("kv_cache_dtype") == "int8" and int8_plain is None:
-            # The plain loop over the int8 cache is the reference there.
-            ref = build_model({"kv_cache_dtype": "int8", "speculative": "off"}, base)
-            with Choices() as rec:
-                ids = _ids(ref.transcribe_batch(smoke_clips(), max_tokens=64))
-            int8_plain = (ids, top_two_gaps(rec.rows))
-            del rec, ref
         run = server_run(card, model, label, paged, path, never,
                          int8_plain if runtime.get("kv_cache_dtype") == "int8" else plain)
         for name in path:
@@ -2820,6 +2999,120 @@ def server_phase(card: str, base, off: dict) -> dict:
         del model
         torch.cuda.empty_cache()
     return launches
+
+
+#: The fused stores, which no run under the "xla" writer may launch.
+FUSED_STORES = ("kv_write_rows_fused", "kv_write_rows_q8_fused", "kv_write_rows_paged_fused",
+                "kv_write_rows_paged_q8_fused")
+#: The continuous server's arms under the "xla" writer: (label, runtime,
+#: the kernel it must launch).
+XLA_SERVER_RUNS = (("paged, spec_engine off", {"spec_engine": "off"}, "decode_attention_paged"),
+                   ("paged, spec_engine auto", {}, "decode_attention_paged_verify"))
+
+
+def xla_writer_phase(card: str, base, off: dict) -> None:
+    """``QWEN3_ASR_KV_WRITER=xla`` at 1.7B on the plain run's weights: every
+    row lands through the plain writers (the JAX package's XLA writers), so
+    no fused store, no standalone writer and no K5 runs.  The plain writers
+    never wait for the device, so the loops capture them: the plain loop
+    (K2 without its store) and the speculative loop (the verify split) on
+    the smoke batch each capture one graph for the writer's bucket and
+    replay it, then the eager loop under :class:`Choices` must give the
+    same tokens; each stream held to the plain stream by the near-tie rule,
+    the plain loop's every token also to the default step's row on the same
+    prefix; the continuous server, paged under ``spec_engine`` off (K6) and
+    auto (K7), held as :func:`server_run` holds it.  Then the end-to-end
+    line: ms per decode iteration of the graphed plain loop under the
+    default modes, decode mode "0" and the "xla" writer, in turns."""
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    clips = smoke_clips()
+    vocab = base._config.text_decoder.vocab_size
+    n_layers = base._config.text_decoder.num_hidden_layers
+    never = FUSED_STORES + STANDALONE_WRITERS + ("kv_write_span_batch",)
+    spec_model = build_model({}, base)
+    for label, model, path in (("xla writer, plain loop", base,
+                                ("flash_attention_causal", "decode_attention")),
+                               ("xla writer, speculative loop", spec_model,
+                                ("flash_attention_causal",))):
+        t0 = time.perf_counter()
+        with Switch(writer="xla"):
+            model.transcribe_batch(clips, max_tokens=64)           # captures the bucket
+            graphs = model._generator.graphs
+            captures = graphs.captures
+            with Watch() as watch:
+                LAUNCHES.clear()
+                ids = _ids(model.transcribe_batch(clips, max_tokens=64))
+                got = dict(LAUNCHES)
+                if bool(watch.nan_seen):
+                    raise AssertionError(f"{label}: NaN logits")
+            st = model.last_stats
+            if graphs.captures != captures or not st.n_decode_replays:
+                raise AssertionError(f"{label}: the writer's bucket was not replayed from "
+                                     "its one capture")
+            with Choices() as rec:
+                eager = _ids(model.transcribe_batch(clips, max_tokens=64))
+            if eager != ids:
+                raise AssertionError(f"{label}: the eager loop's tokens differ from the graphed")
+        check_ids(label, ids, vocab)
+        check_launches(label, got, path, never + (("decode_attention",) if model is spec_model
+                                                  else ()))
+        if "decode_attention" in path and got["decode_attention"] != n_layers * st.n_decode_replays:
+            raise AssertionError(f"{label}: K2 launched {got['decode_attention']} times, want "
+                                 f"{n_layers} x {st.n_decode_replays} replays")
+        print_stats(f"transcribe_batch B=8 {label} (graphed)", card, st)
+        print(f"{label} [{card}]: graphed, one capture of the writer's bucket, "
+              f"{st.n_decode_replays} replays and {st.n_host_syncs} host syncs for "
+              f"{st.n_decode_steps} live steps")
+        compare_streams(f"{label} vs plain transcribe_batch B=8", off["ids"][0], ids,
+                        off["gaps"][0])
+        if "decode_attention" in path:
+            hold_loop_to_plain(f"{label} held to the default modes, B=8", base, clips, rec.rows,
+                               ids)
+        del rec
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    spec_model.close()
+    del spec_model
+
+    for label, runtime, kernel in XLA_SERVER_RUNS:
+        t0 = time.perf_counter()
+        model = build_model(runtime, base)
+        with Switch(writer="xla"):
+            server_run(card, model, f"{label}, xla writer", True,
+                       ("flash_attention_causal", kernel), CONTIGUOUS + never,
+                       (off["ids"][0], off["gaps"][0]))
+        model.close()
+        del model
+        print(f"server {label}, xla writer: {time.perf_counter() - t0:.1f} s")
+
+    # The end-to-end line: the graphed plain loop of the same model under
+    # the default modes, "0" and "xla", in turns, after one run of each
+    # (which captures its bucket only if the graphs were dropped since).
+    t0 = time.perf_counter()
+    arms = {"default": Switch(), "0": Switch(mode="0"), "xla": Switch(writer="xla")}
+    ms = {name: [] for name in arms}
+    for name, arm in arms.items():
+        with arm:
+            base.transcribe_batch(clips, max_tokens=64)
+    graphs = base._generator.graphs
+    captures = graphs.captures
+    for name in ("default", "0", "xla", "xla", "0", "default"):
+        with arms[name]:
+            base.transcribe_batch(clips, max_tokens=64)
+        ms[name].append(iteration_ms(base.last_stats))
+    if graphs.captures != captures:
+        raise AssertionError("end to end: an arm captured its bucket again")
+
+    def fmt(xs):
+        return " / ".join(f"{x:.3f}" for x in xs)
+
+    best = {name: min(xs) for name, xs in ms.items()}
+    print(f"end to end, graphed plain loop B=8, ms per decode iteration in turns [{card}]: "
+          f"default (K2 with K3 fused) {fmt(ms['default'])}, mode 0 (plain attention, "
+          f"standalone K3) {fmt(ms['0'])}, xla writer (K2 without its store, plain writer) "
+          f"{fmt(ms['xla'])}; the hand-written attention and fused store buy "
+          f"{best['0'] / best['default']:.2f}x, the fused store alone "
+          f"{best['xla'] / best['default']:.2f}x ({time.perf_counter() - t0:.1f} s)")
 
 
 #: The graphed loops' arms: (label, runtime, batch, sampling).  Each runs
@@ -4992,6 +5285,49 @@ def hold_snapshot(card: str, label: str, ranks: list[dict]) -> None:
     torch.cuda.empty_cache()
 
 
+def native_audio_phase(card: str) -> None:
+    """The port's native C++ audio library: built from the checkout
+    (``make -C qwen3_asr_tpu_torch/audio/csrc``, no fallback), then
+    ``load_audio`` of a PCM16 WAV of the 30 s smoke clip at 24 kHz, written
+    under ``build/``: it must take the native route, and its samples must
+    equal the numpy decoder's, resampled the same way, bit for bit."""
+    import struct
+
+    import numpy as np
+
+    from qwen3_asr_tpu_torch.audio import io as audio_io
+    from qwen3_asr_tpu_torch.audio import native
+
+    t0 = time.perf_counter()
+    subprocess.run(["make", "-C", str(native.library_path().parent)], check=True,
+                   capture_output=True, timeout=300)
+    native._load_attempted, native._lib = False, None
+    if not native.available():
+        raise AssertionError(f"native audio: {native.library_path()} did not load")
+    rate = 24000
+    pcm = (np.clip(smoke_clips()[-1], -1, 1) * 32767).astype("<i2").tobytes()
+    fmt = struct.pack("<HHIIHH", 1, 1, rate, 2 * rate, 2, 16)
+    body = b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data" + struct.pack("<I", len(pcm)) + pcm
+    wav = ROOT / "build" / "smoke_audio" / "clip.wav"
+    wav.parent.mkdir(parents=True, exist_ok=True)
+    wav.write_bytes(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WAVE" + body)
+    calls, real = [], native.decode_wav_file
+    native.decode_wav_file = lambda path: calls.append(path) or real(path)
+    try:
+        got = audio_io.load_audio(wav)
+    finally:
+        native.decode_wav_file = real
+    samples, sr = audio_io._decode_wav(wav.read_bytes())
+    want = audio_io.resample_linear(samples, sr, audio_io.SAMPLE_RATE)
+    if calls != [wav] or not np.array_equal(got, want):
+        raise AssertionError("native audio: load_audio did not take the native route, or its "
+                             "samples differ from the numpy decoder's")
+    print(f"native audio [{card}]: {native.library_path().relative_to(ROOT)} built and loaded; "
+          f"load_audio of a {len(samples) / sr:.1f} s PCM16 WAV at {sr} Hz took the native "
+          f"route, {len(got)} samples at 16 kHz equal to the numpy decoder's "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -5022,6 +5358,7 @@ def main() -> int:
           f"{_build.last_build_seconds:.2f} s; 0 = library already built) -> "
           f"{_build.library_path().relative_to(ROOT)}")
 
+    native_audio_phase(card)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     measured = {"flash_attention_causal": check_flash(gen)}
     measured["decode_attention"], measured["kv_write_rows_fused"] = check_decode(gen)
@@ -5063,10 +5400,14 @@ def main() -> int:
     off = slice_phase(card, base, off_rt, BF16_PATH, ("kv_write_span_batch",) + STANDALONE_WRITERS,
                       lm_head=True, record_gaps=True)
     launches = dict(off["launches"])
-    launches.update(modes_phase(card, base, off))
+    int8_ref = int8_cache_reference(card, base)
+    launches.update(modes_phase(card, base, off, int8_ref))
     spec_launches = speculative_phase(card, base, off)
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
-    launches.update(server_phase(card, base, off))
+    launches.update(server_phase(card, base, off, int8_ref))
+    int8_ref["model"].close()
+    del int8_ref
+    xla_writer_phase(card, base, off)
     graphs_phase(card, base)
     live_phase(card, base)
     replicated_phase(card, base)

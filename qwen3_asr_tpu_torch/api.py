@@ -218,10 +218,18 @@ class Qwen3ASR:
         runtime: RuntimeConfig | None = None,
         dtype: torch.dtype = torch.bfloat16,
         device: torch.device | str = "cuda",
+        **kwargs,
     ) -> "Qwen3ASR":
         """Load ``config.json``, the tokenizer and ``model.safetensors`` from a
-        local checkpoint directory onto ``device``."""
+        local checkpoint directory, or from a Hugging Face Hub repo id when
+        ``model_path`` is not a directory (``huggingface_hub.snapshot_download``
+        with ``kwargs``, as the JAX package's ``from_pretrained``), onto
+        ``device``."""
         path = Path(model_path)
+        if not path.is_dir():
+            from huggingface_hub import snapshot_download
+
+            path = Path(snapshot_download(repo_id=str(model_path), **kwargs))
         config = ModelConfig.from_pretrained(path)
         tokenizer = Tokenizer(path)
         enc, dec = load_checkpoint(path, config, dtype=dtype, device=device)

@@ -2,8 +2,10 @@
 
 Counterpart of ``qwen3_asr_tpu/audio/io.py``: the same numpy WAV decoder,
 ``soundfile`` fallback, linear-interpolation resampler and long-form
-split-point search.  The native C++ decoder (``qwen3_asr_tpu/audio/native.py``)
-is not ported yet.
+split-point search.  :func:`load_audio` decodes WAV files with the port's
+native C++ library (``audio/native.py``, ``make -C
+qwen3_asr_tpu_torch/audio/csrc``) when it is built, as the JAX package's
+loader does, and with the numpy decoder otherwise.
 """
 
 from __future__ import annotations
@@ -81,8 +83,9 @@ def resample_linear(x: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
 def load_audio(path: str | Path, target_sr: int = SAMPLE_RATE) -> np.ndarray:
     """Load an audio file as mono float32 at ``target_sr``.
 
-    WAV files go through the numpy decoder; other formats (and WAV
-    encodings it does not read) go through ``soundfile`` when installed.
+    WAV files are decoded natively (the C++ library when built, numpy
+    otherwise); other formats (and WAV encodings neither reads) go through
+    ``soundfile`` when installed.
     """
     path = Path(path)
     samples = None
@@ -90,8 +93,13 @@ def load_audio(path: str | Path, target_sr: int = SAMPLE_RATE) -> np.ndarray:
 
     if path.suffix.lower() == ".wav":
         try:
-            samples, sr = _decode_wav(path.read_bytes())
-        except ValueError:
+            from . import native
+
+            if native.available():
+                samples, sr = native.decode_wav_file(path)
+            else:
+                samples, sr = _decode_wav(path.read_bytes())
+        except Exception:
             samples = None
 
     if samples is None:

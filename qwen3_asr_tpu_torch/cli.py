@@ -6,7 +6,7 @@ per-request telemetry; ``--stream`` prints segments as they finalize at
 low-energy boundaries (``StreamingTranscriber``), ``--live`` a refreshed
 preview every REFRESH_SECONDS of audio (``IncrementalSession``).  The model
 loads through ``Qwen3ASR.from_pretrained`` from a local checkpoint
-directory onto the GPU.
+directory, or a Hugging Face Hub repo id, onto the GPU.
 """
 
 from __future__ import annotations

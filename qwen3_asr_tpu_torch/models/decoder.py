@@ -16,8 +16,11 @@ transcription slices run:
     and the same launch then stores the layer's fresh row at the shared
     slot, or at per-lane slots for the continuous engine's flat cache (K3
     fused into K2's fold).  Under :data:`DECODE_KERNEL_MODE` "3" or "4"
-    with a shared slot, K11a or K11b attend, and all layers' fresh rows
-    are written by ONE post-loop K3 call.  Either way a layer's rows land
+    with a shared slot, K11a or K11b attend; under "0" the plain attention
+    (the JAX package's XLA form); in both cases, and under the "xla"
+    :data:`KV_WRITER_MODE`, all layers' fresh rows are written by ONE
+    post-loop writer call (K3, K3-int8, or the plain writer under "xla").
+    Either way a layer's rows land
     after that layer's attention has read the cache, the JAX package's
     order (it writes after the layer loop because an in-loop update made
     XLA copy the whole cache, ``decoder.py:680-684``; the card has no such
@@ -38,8 +41,9 @@ transcription slices run:
 The continuous engine's paged pool (``decoder_paged_step``, JAX
 ``decoder.py:881-1033``, and ``decoder_paged_verify``, ``:1036-1201``) runs
 the same split form through a page table: attention is kernel K6 (or K7
-for the T-position verify), whose launch also stores the layer's fresh
-rows (K8 fused into the fold).
+for the T-position verify) under every decode mode, whose launch also
+stores the layer's fresh rows (K8 fused into the fold; under the "xla"
+writer the plain paged writer after the layer loop).
 
 Per layer: RMSNorm -> fused QKV -> per-head Q/K RMSNorm BEFORE RoPE
 (non-interleaved, theta 1e6) -> attention -> o_proj -> RMSNorm -> SwiGLU.
@@ -55,7 +59,9 @@ activation-quant gate); a quantized embedding is stored transposed (H, V),
 so the lookup gathers columns and the lm head is ``qlinear`` with f32
 output.  The split decode step also takes the int8 cache ``{"q": int8,
 "s": f32}`` pair: attention runs K4, whose launch also quantizes the
-step's fresh bf16 rows and stores them (K3-int8 fused), under every mode.
+step's fresh bf16 rows and stores them (K3-int8 fused), under "auto", "5",
+"3" and "4"; under "0" the plain attention over the layer dequantized to
+the activation dtype (JAX ``:612-627``), then the standalone K3-int8.
 
 Tensor parallelism (``tp``, a :class:`~..parallel.collectives.TP`; None is
 one device and the code above unchanged): the parameters are this rank's
@@ -86,7 +92,12 @@ import torch
 import torch.nn.functional as F
 
 from ..config import TextDecoderConfig
-from ..ops.kernels.decode_attention import decode_attention, decode_attention_q8
+from ..ops.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+    decode_attention_q8,
+    decode_attention_q8_plain,
+)
 from ..ops.kernels.experiments.decode_attention_hbm2 import decode_attention_hbm2
 from ..ops.kernels.experiments.decode_attention_hbm3 import decode_attention_hbm3
 from ..ops.kernels.flash_attention import flash_attention_causal, flash_attention_causal_plain
@@ -97,10 +108,19 @@ from ..ops.kernels.decode_attention_paged import (
     decode_attention_paged_verify_q8,
 )
 from ..ops.attention import sdpa
-from ..ops.kernels.kv_write import kv_write_rows, kv_write_span_pair
+from ..ops.kernels.kv_write import (
+    kv_write_rows,
+    kv_write_rows_batch,
+    kv_write_rows_paged_plain,
+    kv_write_rows_paged_q8_plain,
+    kv_write_rows_plain,
+    kv_write_rows_q8,
+    kv_write_span_pair,
+    kv_write_span_pair_plain,
+)
 from ..ops.norms import rms_norm
 from ..ops.quant import is_quantized, qlinear, qlinear_row_parallel
-from ..ops.quant_kv import is_quantized_kv, kv_seq_len
+from ..ops.quant_kv import is_quantized_kv, kv_seq_len, quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from ..parallel.collectives import TP, copy_to_tp, gather_from_tp, vocab_parallel_embed
 
@@ -108,23 +128,59 @@ DecoderParams = dict[str, Any]
 
 #: Decode attention of the single-token split step, read from
 #: ``QWEN3_ASR_DECODE_KERNEL`` at import (the JAX package's modes,
-#: ``qwen3_asr_tpu/models/decoder.py:39-48``, dispatch :575-614): "auto" and
-#: "5" run K2; with a shared write slot (an int ``write_slots``, the plain
-#: decode loop) "3" runs K11a (``decode_attention_hbm2``) and "4" K11b
+#: ``qwen3_asr_tpu/models/decoder.py:39-48``, dispatch :489-657): "auto" and
+#: "5" run K2 (K4 on the int8 cache), each storing the step's row from the
+#: same launch; with a shared write slot (an int ``write_slots``, the decode
+#: modes' loop) "3" runs K11a (``decode_attention_hbm2``) and "4" K11b
 #: (``decode_attention_hbm3``), both on the largest block of 1024/512/256/128
 #: rows that divides the cache length and the prompt bucket (ValueError if
-#: none does, where the JAX package raises StopIteration).  Per-lane slots
-#: (the flat engine) keep K2 and the int8 cache keeps K4 under every mode.
-#: "0" (the JAX package's XLA attention) and other modes raise: the port has
-#: no plain-path switch yet.
+#: none does, where the JAX package raises StopIteration), and per-lane
+#: slots (the flat engine) keep K2.  The int8 cache keeps K4 under "3"/"4"
+#: too, where the JAX package dequantizes it for its XLA attention (JAX
+#: ``:500-508``): the caller asked for a kernel.  "0" runs the plain
+#: attention (the JAX package's XLA attention, the int8 cache dequantized
+#: to the activation dtype: ``decode_attention_plain``,
+#: ``decode_attention_q8_plain``) on every device.  Wherever the attention
+#: stores no row, the rows land after the layer loop through the writer
+#: :data:`KV_WRITER_MODE` picks.  The paged step and verify run K6/K7 under
+#: every mode (JAX ``:920``, ``:1074``), the verify split its plain attention
+#: and K5.  Any other value raises ValueError at the first split step
+#: (the JAX package runs its XLA attention for it).
 DECODE_KERNEL_MODE = os.environ.get("QWEN3_ASR_DECODE_KERNEL", "auto")
+DECODE_KERNEL_MODES = ("auto", "5", "4", "3", "0")
+
+#: The KV-cache row writers, read from ``QWEN3_ASR_KV_WRITER`` at import as
+#: the JAX package reads it (``qwen3_asr_tpu/models/decoder.py:87-99``):
+#: "auto" writes through the kernels (the stores fused into K2/K4/K6/K7, the
+#: standalone K3 or K3-int8 where the attention stores nothing, K5 for the
+#: verify split's span); "xla" calls K2/K4/K6/K7 without a write target and
+#: writes every row with the plain writers on every device, in the JAX
+#: package's XLA forms: a shared slot by a slice update whose start is
+#: clamped into the cache (``dynamic_update_slice``), per-lane slots, spans
+#: and pages by one scatter that drops rows outside the cache or page
+#: (:func:`_write_rows_xla`, ``kv_write_span_pair_plain``,
+#: ``kv_write_rows_paged_plain``, ``kv_write_rows_paged_q8_plain``; the int8
+#: cache takes ``quantize_kv``'s rows and scales).  None of them waits for the
+#: device, so the decode loops capture them in their CUDA graphs as they
+#: capture the kernels (``runtime/generate.py``).  Any other value raises
+#: ValueError.
+KV_WRITER_MODE = os.environ.get("QWEN3_ASR_KV_WRITER", "auto")
+KV_WRITER_MODES = ("auto", "xla")
 
 #: The fresh prefill's attention under ``attn_impl="auto"``, read from
 #: ``QWEN3_ASR_PREFILL_FLASH`` at import as the JAX package reads it
 #: (``qwen3_asr_tpu/models/decoder.py:51-55``): on (the default), kernel K1;
 #: "0" the plain causal :func:`sdpa` ("causal"), no kernel.
 PREFILL_FLASH_ENABLED = os.environ.get("QWEN3_ASR_PREFILL_FLASH", "1") != "0"
-_PLAIN_SWITCHES_ITEM = 'ROADMAP.md Queue 1, "Plain-path switches"'
+
+
+def xla_writer() -> bool:
+    """Whether :data:`KV_WRITER_MODE` selects the plain writers ("xla");
+    ValueError for a value outside :data:`KV_WRITER_MODES`."""
+    if KV_WRITER_MODE not in KV_WRITER_MODES:
+        raise ValueError(f"QWEN3_ASR_KV_WRITER={KV_WRITER_MODE!r}: expected one of "
+                         f"{', '.join(map(repr, KV_WRITER_MODES))}")
+    return KV_WRITER_MODE == "xla"
 
 
 def local_heads(cfg: TextDecoderConfig, tp: TP | None = None) -> tuple[int, int]:
@@ -358,8 +414,8 @@ def decoder_forward(
             )
             h = h + qlinear_row_parallel(attn.reshape(B, 1, nq * D), lp["wo"], tp)
             h = _mlp_block(h, lp, eps, tp)
-        kv_write_rows(keys, k_rows, write_slots)
-        kv_write_rows(values, v_rows, write_slots)
+        for cache, rows in ((keys, k_rows), (values, v_rows)):
+            _write_step_rows(cache, rows, write_slots)
         return h, (keys, values)
 
     if decode_ctx is not None and 1 < T <= 8 and write_slots is not None:
@@ -451,23 +507,26 @@ def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys
 def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int,
                           pbucket: int):
     """(attention, decode end, fused) of the split step under
-    :data:`DECODE_KERNEL_MODE`: K4 on the int8 cache, K2 for per-lane slots
-    and under "auto"/"5" (both with a (B,) decode end, and ``fused``: the
+    :data:`DECODE_KERNEL_MODE`: the plain attention under "0" (a (B,)
+    decode end); otherwise K4 on the int8 cache, K2 for per-lane slots and
+    under "auto"/"5" (both with a (B,)
+    decode end, and ``fused`` unless :data:`KV_WRITER_MODE` is "xla": the
     call takes ``write_slots`` and stores the fresh row), K11a under "3" and
     K11b under "4" (an int decode end; not fused), each with ``block_k`` the
     largest of 1024/512/256/128 that divides S and the prompt bucket (JAX
-    ``decoder.py:601-610``)."""
+    ``decoder.py:601-610``).  An unknown mode raises ValueError."""
     mode = DECODE_KERNEL_MODE
-    if mode not in ("auto", "3", "4", "5"):
-        raise NotImplementedError(
-            f"QWEN3_ASR_DECODE_KERNEL={mode!r}: the port runs decode modes "
-            f"'auto', '3', '4' and '5' only; the plain (XLA) attention path "
-            f"is {_PLAIN_SWITCHES_ITEM}"
-        )
+    if mode not in DECODE_KERNEL_MODES:
+        raise ValueError(f"QWEN3_ASR_DECODE_KERNEL={mode!r}: expected one of "
+                         f"{', '.join(map(repr, DECODE_KERNEL_MODES))}")
+    store = not xla_writer()
+    if mode == "0":
+        plain = decode_attention_q8_plain if q8 else decode_attention_plain
+        return plain, _per_lane(dend, B, device), False
     if q8:
-        return decode_attention_q8, _per_lane(dend, B, device), True
+        return decode_attention_q8, _per_lane(dend, B, device), store
     if per_lane or mode in ("auto", "5"):
-        return decode_attention, _per_lane(dend, B, device), True
+        return decode_attention, _per_lane(dend, B, device), store
     block_k = next((bk for bk in (1024, 512, 256, 128)
                     if S % bk == 0 and pbucket % bk == 0), None)
     if block_k is None:
@@ -477,6 +536,50 @@ def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int
         )
     kernel = decode_attention_hbm2 if mode == "3" else decode_attention_hbm3
     return partial(kernel, block_k=block_k), int(dend), False
+
+
+def _write_step_rows(cache, rows: torch.Tensor, write_slots) -> None:
+    """The split step's rows (L, B, Hkv, 1, D) at ``write_slots`` after the
+    layer loop, where the attention stored none: the standalone K3 (K3-int8
+    on the int8 cache ``{"q", "s"}``), or under the "xla" writer the JAX
+    package's XLA writer (:func:`_write_rows_xla`)."""
+    if xla_writer():
+        _write_rows_xla(cache, rows, write_slots)
+        return
+    B = rows.shape[1]
+    if is_quantized_kv(cache):
+        kv_write_rows_q8(cache, rows, _per_lane(write_slots, B, rows.device))
+    elif isinstance(write_slots, torch.Tensor):
+        kv_write_rows_batch(cache, rows, _per_lane(write_slots, B, rows.device))
+    else:
+        kv_write_rows(cache, rows, int(write_slots))
+
+
+def _write_rows_xla(cache, rows: torch.Tensor, write_slots) -> None:
+    """The JAX package's XLA row writer (``decoder.py:698-726``), in place:
+    a slot shared by every lane (an int, or any slot at B == 1) by a slice
+    update whose start, a negative one counted from the end, is clamped into
+    [0, S - 1] (``dynamic_update_slice``),
+    per-lane slots by a scatter that drops rows outside [0, S); the int8
+    cache takes ``quantize_kv``'s rows and scales the same way."""
+    if is_quantized_kv(cache):
+        qr = quantize_kv(rows)
+        pairs = ((cache["q"], qr["q"]), (cache["s"][..., None], qr["s"][..., None]))
+    else:
+        pairs = ((cache, rows),)
+    for dst, src in pairs:
+        B, S = dst.shape[1], dst.shape[3]
+        src = src.to(dst.dtype)
+        if not isinstance(write_slots, torch.Tensor):
+            start = int(write_slots)
+            start = min(max(start + S if start < 0 else start, 0), S - 1)
+            dst[:, :, :, start : start + 1] = src
+        elif B == 1:
+            slot = write_slots.to(device=dst.device, dtype=torch.long).reshape(1)
+            slot = torch.where(slot < 0, slot + S, slot).clamp(0, S - 1)
+            dst.index_copy_(3, slot, src)
+        else:
+            kv_write_rows_plain(dst, src, _per_lane(write_slots, B, dst.device))
 
 
 def _per_lane(x, B: int, device) -> torch.Tensor:
@@ -547,7 +650,8 @@ def _verify_split(params, cfg: TextDecoderConfig, h, cos, sin, keys, values, dec
         attn = out.reshape(B, nq, T, D).to(h.dtype)
         h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
         h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
-    kv_write_span_pair(keys, values, k_rows, v_rows, ws)
+    writer = kv_write_span_pair_plain if xla_writer() else kv_write_span_pair
+    writer(keys, values, k_rows, v_rows, ws)
     return h, (keys, values)
 
 
@@ -605,7 +709,10 @@ def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_
                    prompt_len, decode_count, write_pages, write_offsets, tp=None):
     """Shared body of :func:`decoder_paged_step` (T = 1) and
     :func:`decoder_paged_verify`; under ``tp`` on this rank's heads, wo and
-    wd row-parallel as in :func:`decoder_forward`."""
+    wd row-parallel as in :func:`decoder_forward`.  K6/K7 attend under every
+    decode mode (JAX ``decoder.py:920``, ``:1074``); under the "xla" writer
+    they store nothing and the plain paged writers land the rows after the
+    layer loop (JAX ``:1008-1027``, ``:1168-1196``)."""
     keys, values = kv_pages
     B, T, _ = h.shape
     nq, D = local_heads(cfg, tp)[0], cfg.head_dim
@@ -618,13 +725,22 @@ def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_
     table = page_table.to(device=device, dtype=torch.int32).contiguous()
     plen = _per_lane(prompt_len, B, device)
     dcount = _per_lane(decode_count, B, device)
-    target = dict(
-        write_pages=write_pages.to(device=device, dtype=torch.int32).contiguous(),
-        write_offsets=write_offsets.to(device=device, dtype=torch.int32).contiguous(),
-    )
+    pages = write_pages.to(device=device, dtype=torch.int32).contiguous()
+    offsets = write_offsets.to(device=device, dtype=torch.int32).contiguous()
+    xla = xla_writer()
+    # Under the "xla" writer the attention stores nothing: each layer's
+    # projection writes its rows here, and the plain writer lands them all
+    # after the layer loop, as the JAX package writes its pools.
+    target = {} if xla else dict(write_pages=pages, write_offsets=offsets)
+    k_rows = v_rows = None
+    if xla:
+        k_rows = torch.empty((len(params["layers"]), B, local_heads(cfg, tp)[1], T, D),
+                             dtype=h.dtype, device=device)
+        v_rows = torch.empty_like(k_rows)
     cos, sin = rope_cos_sin(positions[:, None, :], D, cfg.rope_theta)
     for layer, lp in enumerate(params["layers"]):
-        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
+        rows = (None, None) if k_rows is None else (k_rows[layer], v_rows[layer])
+        q, k_new, v_new = _project_qkv(h, lp, cfg, cos, sin, *rows, tp=tp)
         if T == 1:
             attn = attend(q[:, :, 0], keys, values, k_new, v_new, layer, table,
                           plen, dcount, scale=D ** -0.5, **target)[:, :, None]
@@ -633,6 +749,10 @@ def _paged_forward(params, cfg: TextDecoderConfig, h, positions, kv_pages, page_
                           dcount, scale=D ** -0.5, **target)
         h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
         h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
+    if xla:
+        writer = kv_write_rows_paged_q8_plain if q8 else kv_write_rows_paged_plain
+        writer(keys, k_rows, pages, offsets)
+        writer(values, v_rows, pages, offsets)
     return h, (keys, values)
 
 

@@ -21,15 +21,20 @@ the card; both count under ``kv_write_span_batch``.
 On a CPU tensor the wrappers run the plain versions (one ``index_put_``
 each, rows whose slot lies outside ``[0, S)`` dropped as the kernel drops
 them); on a CUDA tensor they launch the kernel or raise.  All update
-``cache`` in place and return it.
+``cache`` in place and return it.  The plain versions never wait for the
+device, so a CUDA graph can hold them (the decoder's "xla" KV writer runs
+them on the card): a dropped row's index is clamped into the cache, and it
+writes there the value that place ends with -- the row that lands there,
+or what the cache held -- so no index of the one ``index_put_`` takes two
+different values.
 
 The decoder's default decode paths no longer call K3 or K8: K2/K4 and
 K6/K7 store the fresh rows from the same launch (``write_slots``,
 ``write_pages``/``write_offsets`` of ``decode_attention*``), and their plain
 versions call the plain writers here on the layer's slice.  The standalone
-kernels stay as those stores' oracles on the card, and ``kv_write_rows``
-serves the decode modes "3"/"4", whose attention kernels take no write
-target.
+kernels stay as those stores' oracles on the card; ``kv_write_rows``
+serves the decode modes "0", "3" and "4", whose attention takes no write
+target, and ``kv_write_rows_q8`` mode "0" on the int8 cache.
 
 The int8 cache ``{"q", "s"}`` takes the step's bf16 rows through
 :func:`kv_write_rows_q8`: one launch quantizes each 128-wide row with
@@ -130,7 +135,8 @@ def span_indices(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(lane, row, slot) index vectors of the span rows that land inside
     the cache: row t of lane b goes to ``slots[b] + t`` unless that is
-    outside [0, S).  Syncs with the device (the count is data-dependent)."""
+    outside [0, S).  Syncs with the device (the count is data-dependent);
+    the byte counts of the card checks use it, the writers do not."""
     target = slots.long()[:, None] + torch.arange(T, device=slots.device)[None, :]
     lane, row = torch.nonzero((target >= 0) & (target < S), as_tuple=True)
     return lane, row, target[lane, row]
@@ -141,9 +147,17 @@ def kv_write_span_batch_plain(
 ) -> torch.Tensor:
     """cache[:, b, :, slots[b] + t, :] = rows[:, b, :, t, :] for every lane b
     and span row t whose slot lies in [0, S) (one ``index_put_``); the rest
-    are dropped."""
-    lane, row, slot = span_indices(slots, rows.shape[3], cache.shape[3])
-    cache[:, lane, :, slot] = rows[:, lane, :, row]
+    are dropped.  No device sync: a row outside the cache writes at its
+    slot clamped into [0, S) the row that lands there, if one does, else
+    the cache's own value."""
+    B, T, S = rows.shape[1], rows.shape[3], cache.shape[3]
+    start = slots.to(device=cache.device, dtype=torch.long)[:, None]
+    slot = (start + torch.arange(T, device=cache.device)).clamp(0, S - 1)      # (B, T)
+    src = slot - start                        # the span row that lands on `slot`, if any
+    lands = ((src >= 0) & (src < T))[..., None, None, None]
+    lane = torch.arange(B, device=cache.device)[:, None].expand(B, T)
+    new = rows[:, lane, :, src.clamp(0, T - 1)].to(cache.dtype)             # (B, T, L, H, D)
+    cache[:, lane, :, slot] = torch.where(lands, new, cache[:, lane, :, slot])
     return cache
 
 
@@ -256,7 +270,8 @@ def paged_indices(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(flat row, page, offset) of the rows that land: row ``b * T + t``
     goes to ``clip(pages[b, t], 0, n_pages - 1)`` at ``offsets[b, t]`` unless
-    the offset lies outside [0, page_size).  Syncs with the device."""
+    the offset lies outside [0, page_size).  Syncs with the device; the
+    byte counts of the card checks use it, the writers do not."""
     p = pages.reshape(-1).long().clamp(0, n_pages - 1)
     o = offsets.reshape(-1).long()
     (keep,) = torch.nonzero((o >= 0) & (o < page_size), as_tuple=True)
@@ -267,11 +282,21 @@ def kv_write_rows_paged_plain(
     pool: torch.Tensor, rows: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor
 ) -> torch.Tensor:
     """pool[:, pages[b, t], :, offsets[b, t], :] = rows[:, b, :, t, :] (pages
-    clipped, out-of-page offsets dropped) as one ``index_put_``."""
+    clipped, out-of-page offsets dropped) as one ``index_put_``.  No device
+    sync: a dropped row repeats the first kept row's write, or, when no row
+    is kept, writes the pool's own value at its offset clamped into the
+    page."""
     L, B, H, T, D = rows.shape
-    keep, p, o = paged_indices(pages, offsets, pool.shape[1], pool.shape[3])
-    flat = rows.permute(1, 3, 0, 2, 4).reshape(B * T, L, H, D)
-    pool[:, p, :, o] = flat[keep].to(pool.dtype)
+    n = B * T
+    p = pages.reshape(-1).to(device=pool.device, dtype=torch.long).clamp(0, pool.shape[1] - 1)
+    o = offsets.reshape(-1).to(device=pool.device, dtype=torch.long)
+    keep = (o >= 0) & (o < pool.shape[3])
+    some = keep.any()
+    own = torch.arange(n, device=pool.device)
+    src = torch.where(keep | ~some, own, keep.to(torch.uint8).argmax())
+    p, o = p[src], o[src].clamp(0, pool.shape[3] - 1)
+    flat = rows.permute(1, 3, 0, 2, 4).reshape(n, L, H, D)[src].to(pool.dtype)
+    pool[:, p, :, o] = torch.where((keep | some)[:, None, None, None], flat, pool[:, p, :, o])
     return pool
 
 

@@ -13,9 +13,15 @@ and write only device tensors (the state ``tokens``, ``counts``, ``done``,
 ``cur`` and the live-step counter, and the request's values, sampling
 parameters included), and a loop that runs it:
 
-  * on CUDA tensors under decode mode "auto" or "5", each step is captured
-    once per bucket as a CUDA graph and replayed in blocks, with one look
-    at ``done`` per block (``runtime/graphs.py``);
+  * on CUDA tensors under decode mode "auto", "5" or "0", each step is
+    captured once per bucket, decode mode and KV writer as a CUDA graph
+    and replayed in blocks, with one look at ``done`` per block
+    (``runtime/graphs.py``).  Under "0" the graph holds the plain
+    attention, which reads the decode ends from the device and never
+    waits for it, and the standalone K3 (K3-int8) writer; under the "xla"
+    KV writer (``models/decoder.py:KV_WRITER_MODE``) the plain writers,
+    which never wait for the device either.  A step that waits for the
+    device inside a capture raises: no loop turns eager for it;
   * on CPU tensors the same step runs eagerly in the same blocks: the
     plain version of the graphed loop;
   * decode modes "3" and "4" (K11a, K11b take the decode end as a host
@@ -193,8 +199,9 @@ class Generator:
         self.last_replays = 0
         self.last_host_syncs = 0
         #: The bucket of the last :meth:`decode` call: (B, S, token_bucket,
-        #: mode, rep_window, k_subset, cache dtype, spec (gamma, n) or None),
-        #: the key of its captured graph on CUDA.
+        #: mode, rep_window, k_subset, cache dtype, spec (gamma, n) or None,
+        #: decode kernel mode, KV writer), the key of its captured graph on
+        #: CUDA.
         self.last_bucket: tuple | None = None
         #: The captured decode graphs and their cache arena (CUDA only).
         self.graphs: _graphs.DecodeGraphs | None = None
@@ -420,11 +427,11 @@ class Generator:
         ``:1208-1302``: the speculative loop where :meth:`_plan_spec` says
         so and the cache is not int8, else the plain loop.
 
-        On CUDA tensors under decode mode "auto" or "5" the loop replays the
-        bucket's captured step graph (captured on first use) in blocks of
-        ``graphs.BLOCK`` steps; on CPU tensors the same step runs eagerly
-        in the same blocks, as do CUDA tensors under ``tp`` (no graphs on a
-        tp group).  Decode modes "3" and "4", whose kernels K11a
+        On CUDA tensors under decode mode "auto", "5" or "0" the loop
+        replays the bucket's captured step graph (captured on first use) in
+        blocks of ``graphs.BLOCK`` steps; on CPU tensors the same step runs
+        eagerly in the same blocks, as do CUDA tensors under ``tp`` (no
+        graphs on a tp group).  Decode modes "3" and "4", whose kernels K11a
         and K11b take the decode end as a host int, and ``eager=True`` (the
         graphs' oracle on the card) run one eager step per look at
         ``done``.  ``plain=True`` runs the plain loop whatever
@@ -448,7 +455,8 @@ class Generator:
         spec = None if q8 or plain else self._plan_spec(mode, B)
         key = self.last_bucket = (
             B, kv_seq_len(kv[0]), token_bucket, mode, rep_window, k_subset,
-            "int8" if q8 else kv[0].dtype, spec,
+            "int8" if q8 else kv[0].dtype, spec, _decoder.DECODE_KERNEL_MODE,
+            _decoder.KV_WRITER_MODE,
         )
         entry = self._graphs_on(device).get(key) if graphed else None
         generator = None

@@ -8,7 +8,9 @@ once per bucket as a CUDA graph (:class:`DecodeGraphs`), and the host then
 replays that graph in blocks of :data:`BLOCK` steps, looking at the lanes'
 ``done`` flags once per block (:func:`run_blocks`) where the eager loop
 waits for the device once per token.  A bucket is (B, S, token_bucket,
-mode, rep_window, k_subset, cache dtype, spec (gamma, n) or None); the
+mode, rep_window, k_subset, cache dtype, spec (gamma, n) or None, decode
+kernel mode, KV writer: a graph captured under mode "0" holds the plain
+attention, one under the "xla" writer the plain writers); the
 sampling values are device tensors that the graph reads, so changing them
 reuses the bucket's graph.
 

@@ -3,7 +3,8 @@
 Counterpart of ``qwen3_asr_tpu/utils/telemetry.py`` without JAX:
 ``RequestStats`` and ``logger`` are the same; ``stage_timer`` wraps each
 stage in ``torch.profiler.record_function`` so the same span names appear
-on a ``torch.profiler`` timeline.  Stage times are host wall clock: a stage
+on a ``torch.profiler`` timeline, which :func:`profile_trace` records (the
+JAX package's records an XLA trace).  Stage times are host wall clock: a stage
 that ends in a device sync (the decode loop's per-step ``done`` read, the
 final token copy) includes its device work, an asynchronous one does not.
 """
@@ -12,8 +13,10 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import torch
 
@@ -96,3 +99,28 @@ def stage_timer(stats: RequestStats | None, name: str):
                 stats.stages[name] = stats.stages.get(name, 0.0) + (
                     time.perf_counter() - t0
                 )
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | Path):
+    """Record a ``torch.profiler`` trace of the enclosed block: CPU activity
+    and, where a CUDA device is present, the device's kernels and copies,
+    with the ``qwen3_asr/<stage>`` spans of :func:`stage_timer`.  On exit
+    the trace is written under ``log_dir`` (made if missing) as a Chrome
+    trace, ``trace_<pid>_<time>.json``, for ``chrome://tracing`` or
+    Perfetto.  Yields the profiler, whose ``key_averages()`` summarises the
+    block by operation."""
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities, record_shapes=False)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        path = out / f"trace_{os.getpid()}_{time.time_ns()}.json"
+        prof.export_chrome_trace(str(path))
+        logger.info("profile trace written to %s", path)

@@ -17,8 +17,8 @@ On the CPU:
   * one split decode step under modes "3" and "4" against the JAX decoder
     (which runs its XLA attention on the CPU), 1e-4 as
     tests/test_torch_modules.py; per-lane write slots keep K2 under both
-    modes; "0" raises NotImplementedError and a shape no block size tiles
-    ValueError;
+    modes; "0" runs (the plain attention: the "auto" step on the CPU), an
+    unknown mode and a shape no block size tiles raise ValueError;
   * greedy ``transcribe_batch(speculative="off")`` token-identical to the
     JAX package under modes "3" and "4".
 
@@ -272,10 +272,17 @@ def test_unported_and_untileable_modes_raise(tiny, monkeypatch):
             write_slots=pb, decode_ctx=(plen, pb, pb),
         )
 
-    for mode in ("0", "1"):
+    for mode in ("1", "2", "x"):
         monkeypatch.setattr(tdec, "DECODE_KERNEL_MODE", mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="'auto', '5', '4', '3', '0'"):
             step(256)
+    # "0" runs: the plain attention, the same step as "auto" on the CPU.
+    monkeypatch.setattr(tdec, "DECODE_KERNEL_MODE", "auto")
+    h_auto, kv_auto = step(256)
+    monkeypatch.setattr(tdec, "DECODE_KERNEL_MODE", "0")
+    h_plain, kv_plain = step(256)
+    assert torch.equal(h_plain, h_auto)
+    assert all(torch.equal(a, b) for a, b in zip(kv_plain, kv_auto))
     for mode in ("3", "4"):
         monkeypatch.setattr(tdec, "DECODE_KERNEL_MODE", mode)
         with pytest.raises(ValueError, match="S=144"):
