@@ -217,6 +217,7 @@ no result line.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import math
@@ -4026,6 +4027,93 @@ def replicated_phase(card: str, base) -> dict:
     return launches
 
 
+#: The kernels each tp runtime's decode loop launches (in its graph).
+TP_DECODE_KERNELS = {"off": ("decode_attention", "kv_write_rows_fused"),
+                     "default": ("kv_write_span_batch",),
+                     "int8": ("decode_attention_q8", "kv_write_rows_q8_fused",
+                              "quantized_matmul")}
+
+
+def loop_runs(model, clips, device, runs) -> dict:
+    """``model.transcribe_batch(clips, max_tokens=64)`` once for each (name,
+    eager) of ``runs``, the decode loop graphed or eager
+    (``decode(eager=True)``); per run the ids, the decode's ms, live steps,
+    steps run and looks at ``done``, the wall, and the kernel launches and
+    collectives counted from the decode call's start (a replay adds its
+    capture's).  Also the graphs' captures and last capture ms, and the
+    peak memory over the runs."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+    from qwen3_asr_tpu_torch.parallel import collectives
+
+    gen = model._generator
+    real = gen.decode
+
+    def counted(eager, *args, **kwargs):
+        collectives.TRAFFIC.clear()
+        LAUNCHES.clear()
+        return real(*args, eager=eager, **kwargs)
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        for name, eager in runs:
+            gen.decode = functools.partial(counted, eager)
+            t0 = time.perf_counter()
+            ids = _ids(model.transcribe_batch(clips, max_tokens=64))
+            torch.cuda.synchronize(device)
+            st = model.last_stats
+            out[name] = dict(ids=ids, wall_s=time.perf_counter() - t0,
+                             decode_ms=st.stages["decode"] * 1e3, steps=st.n_decode_steps,
+                             replays=st.n_decode_replays, syncs=st.n_host_syncs,
+                             traffic=dict(collectives.TRAFFIC), launches=dict(LAUNCHES))
+    finally:
+        del gen.decode
+    out["captures"] = gen.graphs.captures if gen.graphs else 0
+    out["capture_ms"] = gen.graphs.last_capture_ms if gen.graphs else 0.0
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    return out
+
+
+def hold_loops(label: str, card: str, loops: dict, want=()) -> list[list[int]]:
+    """The graphed loop of :func:`loop_runs` against its eager run: ids bit
+    for bit (and the capturing run's, when there is one), a capture made,
+    each replay's collectives equal to one eager step's (the eager loop runs
+    one step a look), the kernels ``want`` launched graphed.  Prints both
+    ms per iteration, replays, looks at ``done``, collectives a step and
+    peak memory beside ``card``; returns the graphed ids."""
+    g, e = loops["graphed"], loops["eager"]
+    ids = [r["ids"] for r in (loops.get("capture", g), g, e)]
+    if not ids[0] == ids[1] == ids[2]:
+        raise AssertionError(f"{label}: the graphed loop's ids differ from the eager loop's")
+    if loops["captures"] < 1:
+        raise AssertionError(f"{label}: no decode graph was captured")
+    per_replay = {k: v / max(g["replays"], 1) for k, v in g["traffic"].items()}
+    per_step = {k: v / max(e["replays"], 1) for k, v in e["traffic"].items()}
+    if per_replay != per_step or not per_step.get("all_reduce"):
+        raise AssertionError(f"{label}: collectives a replay {per_replay} against an eager "
+                             f"step's {per_step}")
+    missing = [k for k in want if not g["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"{label}: the graphed loop launched no {missing}")
+    graphed_ms = g["decode_ms"] / max(g["steps"], 1)
+    eager_ms = e["decode_ms"] / max(e["steps"], 1)
+    print(f"{label} [{card}]: graphed ids bit-identical to the eager loop's; decode "
+          f"{graphed_ms:.3f} ms/iteration graphed ({g['steps']} live iterations, "
+          f"{g['replays']} replays, {g['syncs']} looks at done; {loops['captures']} "
+          f"capture(s), the last {loops['capture_ms']:.1f} ms) against {eager_ms:.3f} eager "
+          f"({eager_ms / graphed_ms:.2f}x; {e['steps']} steps, {e['syncs']} looks); a replay "
+          f"{per_replay.get('all_reduce', 0):g} all-reduces "
+          f"({per_replay.get('all_reduce bytes', 0) / 1024:.1f} KiB) and "
+          f"{per_replay.get('all_gather', 0):g} all-gathers "
+          f"({per_replay.get('all_gather bytes', 0) / 1024:.1f} KiB) as an eager step; "
+          f"transcribe_batch wall {g['wall_s']:.3f} s graphed, {e['wall_s']:.3f} s eager; "
+          f"peak memory {loops['peak_gib']:.2f} GiB; launches a replay "
+          + ", ".join(f"{k} {g['launches'].get(k, 0) / max(g['replays'], 1):g}" for k in want))
+    return g["ids"]
+
+
 def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes: dict,
               refs: dict, serve: dict) -> None:
     """One rank of :func:`mesh_phase` (a spawned process): joins the group,
@@ -4033,6 +4121,8 @@ def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes:
     each of ``runtimes`` with ``(dp, tp)``, and ``transcribe_batch``es the
     smoke clips (``max_tokens=64``); saves per runtime the ids, the
     prefill logits, the launches, the decode stats and the peak memory.
+    Where that run captured decode graphs on a tp group (NCCL), the graphed
+    and the eager loop then run the same clips (:func:`loop_runs`).
     For a runtime in ``refs`` (per dp coordinate, the path of one device's
     streams and logits rows of that slice, :func:`mesh_reference`) it then
     runs :func:`forced_run`; for a runtime in ``serve``, the servers' runs
@@ -4068,13 +4158,19 @@ def mesh_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, runtimes:
         wall_s = time.perf_counter() - t0
         del gen.decode
         st = model.last_stats if logits else None
+        graphed = gen.graphs is not None and gen.graphs.captures > 0
         out[name] = dict(
             ids=_ids(results), logits=logits, launches=dict(LAUNCHES), wall_s=wall_s,
             build_s=build_s, peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
             decode_ms=st.stages["decode"] * 1e3 if st else 0.0,
             steps=st.n_decode_steps if st else 0, tokens=st.n_generated_tokens if st else 0,
-            graphs=gen.graphs is not None,
+            graphs=graphed,
         )
+        if graphed and tp > 1:
+            # The first run captured: the graphed loop again, then the eager
+            # loop (its oracle) on the same clips.
+            out[name]["loops"] = loop_runs(model, clips, device, (("graphed", False),
+                                                                  ("eager", True)))
         if name in refs:
             lo, hi = dp_slices(len(clips), dp)[rank // tp]
             out[name]["forced"] = forced_run(model, clips, refs[name][rank // tp], lo, hi)
@@ -4554,7 +4650,7 @@ def bf16_floor(base, clips) -> float:
     return ((got - f32).abs().max() / f32.abs().max()).item()
 
 
-def mesh_phase(card: str, base, off: dict, int8) -> dict:
+def mesh_phase(card: str, base, off: dict, int8, meshes=None, serving: bool = True) -> dict:
     """``transcribe_batch`` of the smoke clips (``max_tokens=64``) on (dp, tp)
     meshes of spawned ranks, each on a card, each holding ``ModelConfig()``
     from random weights (seed 0; its tp shards).  With fewer cards than
@@ -4572,8 +4668,11 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
         device's streams (:func:`forced_run`), every step's logits row
         within :data:`MESH_LOGIT_TOL` of one device's;
         K1 and K2 (off), K5 (default), K4, K9, K10 and its row-scaled
-        entry (int8) launched in every rank; ms per eager decode iteration
-        (no graphs on a tp group);
+        entry (int8) launched in every rank; ms per decode iteration, eager
+        over gloo, graphed over NCCL (each tp step's collectives captured in
+        its graph), where every rank also runs the eager loop on the same
+        clips and its graphed ids must equal it bit for bit
+        (:func:`hold_loops`);
       * (2, 1), ``speculative="off"``: each dp slice bit-identical to
         ``base``'s ``transcribe_batch`` of the same slice, the whole list
         in every rank;
@@ -4587,8 +4686,10 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
     Before the meshes, one device's bf16 prefill logits against float32
     (:func:`bf16_floor`), the floor the tp logits are read against, and
     the int8 model's with its row-parallel products split against whole.  Every
-    rank's peak memory is printed.  Returns the launches of (1, 2)'s rank
-    0 under each runtime."""
+    rank's peak memory is printed.  ``meshes`` (default :data:`MESHES`, and
+    (2, 2) with four cards) and ``serving=False`` cut the phase to the
+    meshes named, without the servers (``--tp-graphs``).  Returns the
+    launches of (1, 2)'s rank 0 under each runtime."""
     import torch
 
     n_cards = torch.cuda.device_count()
@@ -4619,7 +4720,8 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
 
     if refs_for(1)["off"]["streams"] != plain:
         raise AssertionError("one device's eager streams differ from its graphed ones")
-    meshes = MESHES + (((2, 2),) if n_cards >= 4 else ())
+    if meshes is None:
+        meshes = MESHES + (((2, 2),) if n_cards >= 4 else ())
     first, serving_s = {}, 0.0
     for dp, tp in meshes:
         backend = "nccl" if n_cards >= dp * tp else "gloo"
@@ -4629,7 +4731,7 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
         t0 = time.perf_counter()
         refs = refs_for(dp) if tp > 1 else {}
         serve = ({"default": ("continuous",), "off": ("drain",)} if tp > 1 else
-                 {"off": ("drain",)}) if (dp, tp) in MESHES else {}
+                 {"off": ("drain",)}) if serving and (dp, tp) in MESHES else {}
         ranks = run_mesh(dp, tp, backend, runtimes,
                          {k: refs[k]["paths"] for k in ("off", "int8")} if tp > 1 else {},
                          serve)
@@ -4685,6 +4787,15 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
                 got = res[name]["launches"]
                 if res[name]["ids"] and not all(got.get(k, 0) for k in want):
                     raise AssertionError(f"{label} {name} rank {r}: launches {got}")
+                if "loops" in res[name]:
+                    if res[name]["loops"]["graphed"]["ids"] != res[name]["ids"]:
+                        raise AssertionError(f"{label} {name} rank {r}: the graphed rerun's "
+                                             f"ids differ from the first run's")
+                    hold_loops(f"{label} {name} rank {r}", card, res[name]["loops"],
+                               TP_DECODE_KERNELS[name])
+                elif tp > 1 and backend == "nccl":
+                    raise AssertionError(f"{label} {name} rank {r}: an NCCL tp group decoded "
+                                         f"eagerly")
                 steps = max(res[name]["steps"], 1)
                 counts = ", ".join(f"{k} {got.get(k, 0)}" for k in want)
                 print(f"{label} {name} rank {r} [{card}]: launches {counts}; transcribe_batch "
@@ -4699,11 +4810,86 @@ def mesh_phase(card: str, base, off: dict, int8) -> dict:
         if serve:
             serving_s += mesh_serving_phase(card, label, dp, tp, ranks, base,
                                             refs_for(1)["off"])
-    print(f"mesh serving phase [{card}]: {serving_s:.1f} s in the ranks over "
-          f"{', '.join(str(m) for m in MESHES)}")
+    if serving:
+        print(f"mesh serving phase [{card}]: {serving_s:.1f} s in the ranks over "
+              f"{', '.join(str(m) for m in MESHES)}")
+    if n_cards < 2:
+        print(f"mesh phase: {n_cards} card: the graphed decode on an NCCL tp group of "
+              f"several ranks not run (tp_graphs_phase checks it on one rank)")
     if n_cards < 4:
         print(f"mesh phase: {n_cards} card(s): NCCL at (2, 2) not run")
     return first
+
+
+#: The runtimes of :func:`tp_graphs_phase`.
+TP_GRAPH_RUNTIMES = {"off": {"speculative": "off"}, "default": {}, "int8": dict(INT8_RUNTIME)}
+
+
+def tp_graphs_rank(rank: int, dp: int, tp: int, workdir: str, runtimes: dict) -> None:
+    """The one rank of :func:`tp_graphs_phase` (a spawned process): joins a
+    one-rank NCCL group on ``cuda:0``, builds ``ModelConfig()`` from random
+    weights (seed 0), and for each of ``runtimes`` (a model on those
+    weights) hands its generator a ``TP(1, 0, <the world group>)`` by hand
+    (``_mesh_of`` makes no group when dp * tp == 1) and runs
+    :func:`loop_runs` on the smoke clips: graphed (capturing), graphed, and
+    eager."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from qwen3_asr_tpu_torch import ModelConfig, Qwen3ASR, RuntimeConfig, parallel
+    from qwen3_asr_tpu_torch.parallel.collectives import TP
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    parallel.initialize(num_processes=dp * tp, process_id=rank, backend="nccl",
+                        init_method=f"file://{workdir}/init")
+    group = TP(1, 0, dist.group.WORLD)
+    t0 = time.perf_counter()
+    base = Qwen3ASR.from_random(ModelConfig(), tokenizer=StubTokenizer(),
+                                runtime=RuntimeConfig(speculative="off"),
+                                dtype=torch.bfloat16, seed=SEED, device=device)
+    torch.cuda.synchronize(device)
+    out = {"build_s": time.perf_counter() - t0, "backend": dist.get_backend(group.group)}
+    clips = smoke_clips()
+    for name, runtime in runtimes.items():
+        model = Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
+                         base._tokenizer, RuntimeConfig(**runtime))
+        model._generator.tp = group
+        out[name] = loop_runs(model, clips, device, (("capture", False), ("graphed", False),
+                                                    ("eager", True)))
+        model.close()
+    base.close()
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def tp_graphs_phase(card: str, off: dict, int8_slice: dict) -> None:
+    """The graphed decode loop on a tensor-parallel group over NCCL, on one
+    card: one spawned rank (:func:`tp_graphs_rank`), a one-rank NCCL group,
+    ``ModelConfig()`` at full width and depth, the smoke clips under
+    ``speculative="off"``, the default (speculative) and the int8 runtime.
+    Every collective of the tp step (the embedding's all-reduce, wo's and
+    wd's in each layer, the logits' all-gather) is a real
+    ``ProcessGroupNCCL`` call inside the captured graph.  Held per runtime
+    (:func:`hold_loops`): the capturing and the replaying run's ids
+    bit-identical to the eager loop's (the same kernels run, and a one-rank
+    collective is an identity), each replay's collectives equal to an eager
+    step's, the path's decode kernels launched; the streams held to one
+    device's graphed streams (``off``'s plain ones for the bf16 runtimes,
+    ``int8_slice``'s for int8) by the near-tie rule.  It shows the capture
+    plumbing, not that several ranks agree: :func:`mesh_phase` checks that
+    with two cards or more."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(tp_graphs_rank, 1, 1, "tp_graphs", TP_GRAPH_RUNTIMES)[0]
+    label = f"tp graphs (one-rank {res['backend']} group, TP(1, 0, world))"
+    refs = {"off": off, "default": off, "int8": int8_slice}
+    for name in TP_GRAPH_RUNTIMES:
+        ids = hold_loops(f"{label} {name}", card, res[name], TP_DECODE_KERNELS[name])
+        ref = refs[name]
+        compare_streams(f"{label} {name} vs one device", ref["ids"][0], ids, ref["gaps"][0])
+    print(f"{label}: {time.perf_counter() - t0:.1f} s (spawn, CUDA and NCCL init, the 1.7B "
+          f"build {res['build_s']:.2f} s, three runtimes)")
 
 
 def kernel_checks_on(index: int, seed: int = SEED) -> float:
@@ -5328,6 +5514,30 @@ def native_audio_phase(card: str) -> None:
           f"({time.perf_counter() - t0:.2f} s)")
 
 
+def tp_graphs_only(card: str) -> None:
+    """``--tp-graphs``: the kernels built, the bf16 and int8 models' slices
+    (their graphed streams and gaps), :func:`tp_graphs_phase`, and with two
+    cards or more :func:`mesh_phase` at (1, 2) without the servers."""
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+
+    _build.library()
+    off_rt = {"speculative": "off"}
+    base = build_model(off_rt)
+    off = slice_phase(card, base, off_rt, BF16_PATH, record_gaps=True)
+    int8 = build_model(INT8_RUNTIME)
+    int8_slice = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH, record_gaps=True)
+    tp_graphs_phase(card, off, int8_slice)
+    if torch.cuda.device_count() >= 2:
+        mesh_phase(card, base, off, int8, meshes=((1, 2),), serving=False)
+    else:
+        print("tp graphs: 1 card: the graphed decode on an NCCL group of several ranks "
+              "not run")
+    for model in (base, int8):
+        model.close()
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -5348,6 +5558,12 @@ def main() -> int:
         # The training phases alone (no kernel is built or checked), to
         # iterate on them; prints no result line.
         mesh_training_phase(card, training_phase(card))
+        return 0
+    if sys.argv[1:] == ["--tp-graphs"]:
+        # The graphed tp decode alone: the one-rank NCCL phase and, with two
+        # cards or more, (1, 2) over NCCL, each against one device's
+        # streams; prints no result line.
+        tp_graphs_only(card)
         return 0
 
     from qwen3_asr_tpu_torch.ops.kernels import _build
@@ -5412,9 +5628,11 @@ def main() -> int:
     live_phase(card, base)
     replicated_phase(card, base)
     int8 = build_model(INT8_RUNTIME)
-    int8_launches = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH,
-                                STANDALONE_WRITERS)["launches"]
+    int8_slice = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH, STANDALONE_WRITERS,
+                             record_gaps=True)
+    int8_launches = int8_slice["launches"]
     live_int8_phase(int8)
+    tp_graphs_phase(card, off, int8_slice)
     mesh_launches = mesh_phase(card, base, off, int8)
     launches["w8a8_matmul_scaled"] = mesh_launches["int8"].get("w8a8_matmul_scaled", 0)
     for model in (base, int8):

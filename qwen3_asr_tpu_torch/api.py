@@ -37,11 +37,12 @@ over ``torch.distributed`` (``parallel/``).  Call
 ``transcribe``/``transcribe_batch`` with the same clips in every rank: the
 clips split into ``dp`` contiguous slices, each tp group decodes its slice
 with the tp collectives, and every rank gets the whole result list back
-(``all_gather_object``), in input order.  On a tp group the decode loop
-runs eagerly (no CUDA graphs); ``make_engine`` and ``prefill_group`` run
-on the group's shards (every rank applies the same engine operations, as
-``serving/server.py`` drives them), and ``incremental_session`` refuses
-meshes.  While a server drives a mesh model from its worker thread, the
+(``all_gather_object``), in input order.  On an NCCL tp group the decode
+loops run as CUDA graphs with the collectives captured, as on one device
+(on a gloo group eagerly, ``runtime/generate.py``); ``make_engine`` and
+``prefill_group`` run on the group's shards (every rank applies the same
+engine operations, as ``serving/server.py`` drives them), and
+``incremental_session`` refuses meshes.  While a server drives a mesh model from its worker thread, the
 model's other entry points refuse calls from any other thread
 (``RuntimeError``): their collectives would interleave with the
 server's.

@@ -21,12 +21,16 @@ can run through them (``torch.distributed.nn.functional.all_reduce`` would
 all-reduce the gradient of a forward all-reduce too, which is wrong for a
 row-parallel product).  Under gloo a CUDA tensor goes through host memory
 (f32 for 16-bit floats), so ranks that share one card can run a mesh.
+Under NCCL every collective runs on the device (:func:`on_device`), so a
+CUDA graph can capture it (``runtime/graphs.py``): the wrappers wait for
+nothing on the host, and :func:`all_gather` writes one buffer.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 
 import torch
 import torch.distributed as dist
@@ -53,17 +57,50 @@ class TP:
 #: The collectives this process has called and the bytes it handed them:
 #: ``"all_reduce"``/``"all_gather"``/``"broadcast"`` calls and
 #: ``"<kind> bytes"``.  A plain count (no device sync); readers reset it
-#: with ``clear()``.
+#: with ``clear()``.  A CUDA-graph replay calls no wrapper: the graph adds
+#: what its capture counted (:func:`diverted`, :func:`add_traffic`).
 TRAFFIC: collections.Counter = collections.Counter()
+
+_sink = threading.local()
+_traffic_lock = threading.Lock()
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
-    TRAFFIC[kind] += 1
-    TRAFFIC[f"{kind} bytes"] += t.numel() * t.element_size()
+    counted = {kind: 1, f"{kind} bytes": t.numel() * t.element_size()}
+    sink = getattr(_sink, "counter", None)
+    if sink is not None:
+        sink.update(counted)
+        return
+    add_traffic(counted)
+
+
+def diverted(fn) -> collections.Counter:
+    """Run ``fn`` and return the traffic this thread's collectives counted
+    meanwhile, which :data:`TRAFFIC` does not see (a CUDA-graph capture,
+    during which nothing runs).  Other threads count as usual."""
+    prev = getattr(_sink, "counter", None)
+    _sink.counter = counted = collections.Counter()
+    try:
+        fn()
+    finally:
+        _sink.counter = prev
+    return counted
+
+
+def add_traffic(counted) -> None:
+    """Add ``counted`` to :data:`TRAFFIC` (a graph replay's collectives)."""
+    with _traffic_lock:
+        TRAFFIC.update(counted)
+
+
+def on_device(group) -> bool:
+    """Whether ``group``'s collectives run on the device (NCCL), where a
+    CUDA graph can capture them; gloo's go through host memory."""
+    return dist.get_backend(group) == "nccl"
 
 
 def _host_path(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) != "nccl"
+    return t.is_cuda and not on_device(group)
 
 
 def _staged(t: torch.Tensor) -> torch.Tensor:
@@ -103,15 +140,15 @@ def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     order."""
     _count("all_gather", t)
     size = dist.get_world_size(group)
-    if _host_path(t, group):
-        host = _staged(t.contiguous())
-        parts = [torch.empty_like(host) for _ in range(size)]
-        dist.all_gather(parts, host, group=group)
-        return torch.cat(parts, dim=dim).to(t.device, t.dtype)
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    if on_device(group):
+        out = torch.empty((size, *t.shape), dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t, group=group)
+        return torch.cat(out.unbind(0), dim=dim)
+    host = _staged(t) if t.is_cuda else t
+    parts = [torch.empty_like(host) for _ in range(size)]
+    dist.all_gather(parts, host, group=group)
+    return torch.cat(parts, dim=dim).to(t.device, t.dtype)
 
 
 class _CopyToTP(torch.autograd.Function):

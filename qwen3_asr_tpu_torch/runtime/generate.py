@@ -61,9 +61,13 @@ Tensor parallelism (``Generator(..., tp=...)``, parameters this rank's
 shards): the cache holds the local KV heads and is planned for them; every
 rank of the group runs the same loop on the same gathered logits, so a
 sampled call, seeded alike in every rank, draws the same tokens in all of
-them.  Under ``tp`` the loop runs eagerly, in the same blocks as on the CPU:
-a gloo collective cannot be captured in a CUDA graph, and capturing NCCL's
-is later work (ROADMAP).
+them, and every rank's ``done`` flags are bit-identical.  On an NCCL group
+the loops are graphed as on one device, with the group's collectives
+captured in each step's graph; every rank captures the same buckets in the
+same order and stops after the same block only because of that identity
+(``runtime/graphs.py``).  A gloo group's collectives stage through host
+memory, which a capture cannot hold: its loop runs eagerly, in the same
+blocks as on the CPU (:meth:`Generator._capturable`).
 """
 
 from __future__ import annotations
@@ -95,6 +99,7 @@ from ..ops.sampling import (
     spec_verify_sample,
 )
 from ..ops.speculative import ngram_draft
+from ..parallel import collectives
 from ..tokenizer import EOS_TOKEN_IDS, PROMPT_PREFIX
 from ..utils.telemetry import logger
 from . import graphs as _graphs
@@ -334,10 +339,10 @@ class Generator:
                 arena: bool = False):
         """Embed the prompt, inject audio features at slots [9, 9 + n_audio),
         run the fresh-prefill forward into a zeroed cache of ``cache_len``
-        slots, and take logits at ``prompt_len - 1``.  With ``arena`` on CUDA
-        (and no ``tp``) the cache is the decode graphs' arena view (valid
-        until the next such prefill), so the graphed decode takes it without
-        a copy.
+        slots, and take logits at ``prompt_len - 1``.  With ``arena`` where
+        :meth:`decode` graphs its loop, the cache is the decode graphs' arena
+        view (valid until the next such prefill), so the graphed decode
+        takes it without a copy.
 
         features (B, Ta, H); ids (B, P) right-padded prompt ids; n_audio and
         prompt_len (B,).  Returns ((keys, values), first_logits (B, vocab))."""
@@ -351,13 +356,7 @@ class Generator:
         is_audio = (slot >= _AUDIO_OFFSET) & (slot < _AUDIO_OFFSET + n_audio[:, None])
         embeds = torch.where(is_audio[:, :, None], injected, embeds)
 
-        if arena and embeds.is_cuda and self.tp is None:
-            kv = tuple(v.zero_() for v in self._arena_kv(
-                (cfg.num_hidden_layers, B, cfg.num_key_value_heads, cache_len, cfg.head_dim),
-                embeds.dtype, embeds.device,
-            ))
-        else:
-            kv = init_kv_cache(cfg, B, cache_len, embeds.dtype, embeds.device, tp=self.tp)
+        kv = self._prefill_cache(B, cache_len, embeds.dtype, embeds.device, arena)
         with self._act_quant_ctx():
             hidden, kv = decoder_forward(self.params, cfg, embeds, slot.expand(B, P), kv,
                                          tp=self.tp)
@@ -365,7 +364,33 @@ class Generator:
         logits = decoder_logits(self.params, cfg, last[:, None, :], tp=self.tp)[:, 0]
         return kv, logits
 
+    def _prefill_cache(self, B: int, cache_len: int, dtype, device, arena: bool):
+        """A zeroed (keys, values) cache of this rank's KV heads: in the
+        arena with ``arena`` where the loop is graphed, else fresh."""
+        if not (arena and self._capturable(device)):
+            return init_kv_cache(self.cfg, B, cache_len, dtype, device, tp=self.tp)
+        cfg = self.cfg
+        shape = (cfg.num_hidden_layers, B, local_heads(cfg, self.tp)[1], cache_len,
+                 cfg.head_dim)
+        return tuple(v.zero_() for v in self._arena_kv(shape, dtype, device))
+
     # -- decode -----------------------------------------------------------
+
+    def _capturable(self, device: torch.device) -> bool:
+        """Whether a CUDA graph can hold this generator's steps on
+        ``device``: on CUDA, on one device or on a tp group whose
+        collectives run on the device (NCCL, ``collectives.on_device``, as
+        ``collectives`` decides its own host path).  A gloo group's stage
+        through host memory."""
+        return device.type == "cuda" and (self.tp is None
+                                          or collectives.on_device(self.tp.group))
+
+    def _graphed(self, device: torch.device, eager: bool) -> bool:
+        """Whether :meth:`decode` replays captured steps: where they can be
+        captured, unless ``eager`` or decode mode "3"/"4" (K11a/K11b take
+        the decode end as a host int) asks for one eager step a look."""
+        return (self._capturable(device) and not eager
+                and _decoder.DECODE_KERNEL_MODE not in ("3", "4"))
 
     def _graphs_on(self, device: torch.device) -> _graphs.DecodeGraphs:
         if self.graphs is None or self.graphs.device != device:
@@ -429,9 +454,10 @@ class Generator:
 
         On CUDA tensors under decode mode "auto", "5" or "0" the loop
         replays the bucket's captured step graph (captured on first use) in
-        blocks of ``graphs.BLOCK`` steps; on CPU tensors the same step runs
-        eagerly in the same blocks, as do CUDA tensors under ``tp`` (no
-        graphs on a tp group).  Decode modes "3" and "4", whose kernels K11a
+        blocks of ``graphs.BLOCK`` steps, with the collectives inside it on
+        an NCCL tp group; on CPU tensors the same step runs eagerly in the
+        same blocks, as do CUDA tensors on a gloo tp group
+        (:meth:`_graphed`).  Decode modes "3" and "4", whose kernels K11a
         and K11b take the decode end as a host int, and ``eager=True`` (the
         graphs' oracle on the card) run one eager step per look at
         ``done``.  ``plain=True`` runs the plain loop whatever
@@ -446,7 +472,7 @@ class Generator:
         device = first_logits.device
         B = first_logits.shape[0]
         host_ends = _decoder.DECODE_KERNEL_MODE in ("3", "4")
-        graphed = device.type == "cuda" and self.tp is None and not (eager or host_ends)
+        graphed = self._graphed(device, eager)
         if graphed:
             kv = self._graph_cache(kv)
         elif self.runtime.kv_cache_dtype == "int8" and not is_quantized_kv(kv[0]):

@@ -24,22 +24,34 @@ prefill and the int8 cache's quantization write into those views.  Growing
 a buffer of the arena drops every captured graph.
 
 Kernel launches are counted on the host when a wrapper runs
-(``ops/kernels/_build.py`` ``LAUNCHES``).  During a capture nothing runs
+(``ops/kernels/_build.py`` ``LAUNCHES``), and so are the tp collectives
+(``parallel/collectives.py`` ``TRAFFIC``).  During a capture nothing runs
 and during a replay no wrapper runs, so what the capturing thread's
-wrappers count goes aside (``_build.diverted``; other threads, such as a
-second replica's on the same card, count as usual) and each replay adds it
-(:class:`StepGraph`).  A replay runs its kernels whether or not a lane is
-still live: the steps after every lane is done are no-ops on the visible
-state (the JAX package's fixed-K programs rely on the same,
-``generate.py:628-633``), and their launches are counted.
+wrappers count goes aside (``_build.diverted``, ``collectives.diverted``;
+other threads, such as a second replica's on the same card, count as
+usual) and each replay adds it (:class:`StepGraph`).  A replay runs its
+kernels whether or not a lane is still live: the steps after every lane is
+done are no-ops on the visible state (the JAX package's fixed-K programs
+rely on the same, ``generate.py:628-633``), and their launches and
+collectives are counted.
 
 No fallback: a failed capture or replay raises.
 
-A generator on a tensor-parallel group (``Generator(..., tp=...)``) builds
-no :class:`DecodeGraphs`: its steps call collectives, which a capture cannot
-hold under gloo, and capturing NCCL's is later work (ROADMAP.md Queue 1,
-item 5 (c)); its loop runs the same step eagerly in the same blocks.  Under
-dp alone nothing crosses ranks inside a decode, and the graphs stay.
+On a tensor-parallel group (``Generator(..., tp=...)``) whose backend is
+NCCL, each rank captures the same steps with the group's collectives
+inside them, the counterpart of the JAX package's one SPMD program with
+its collectives (``qwen3_asr_tpu/api.py:141-149``).  The ranks stay in
+lockstep because every host decision reads values that are bit-identical
+in every rank: the logits are gathered whole before any token is chosen,
+each sampled call seeds every rank's generator alike, so the ``done``
+flags agree and every rank captures the same buckets in the same order and
+replays the same blocks.  A rank that decided otherwise would wait in a
+collective for ever; nothing here can detect it.  The capture's warm-up
+step runs the collectives for real, so every rank reaches it together.  A
+gloo group runs the same step eagerly in the same blocks
+(``Generator._capturable``): its collectives stage through host memory,
+which a capture cannot hold.  Under dp alone nothing crosses ranks inside
+a decode, and the graphs are one device's.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from math import prod
 import torch
 
 from ..ops.kernels import _build
+from ..parallel import collectives
 
 #: Replays of the step graph between two looks at ``done``.  Measured on an
 #: H100 at 1, 4, 8 and 16 (``tools/torch_decode_profile.py --blocks``,
@@ -121,17 +134,30 @@ def record_launches(capture: Callable[[], None]) -> Counter:
     return _build.diverted(capture)
 
 
+def record(capture: Callable[[], None]) -> tuple[Counter, Counter]:
+    """Run ``capture`` and return (kernel launches, collectives) that its
+    wrappers counted, which neither ``LAUNCHES`` nor ``TRAFFIC`` sees."""
+    launches = Counter()
+
+    def run():
+        launches.update(record_launches(capture))
+
+    return launches, collectives.diverted(run)
+
+
 class StepGraph:
     """A captured step: :meth:`replay` launches it and adds the launches
-    its capture counted."""
+    and the collectives its capture counted."""
 
-    def __init__(self, graph, launches: Counter) -> None:
+    def __init__(self, graph, launches: Counter, traffic: Counter | None = None) -> None:
         self.graph = graph
         self.launches = launches
+        self.traffic = traffic or Counter()
 
     def replay(self, _i: int = 0) -> None:
         self.graph.replay()
         _build.add_launches(self.launches)
+        collectives.add_traffic(self.traffic)
 
 
 class DecodeGraphs:
@@ -179,7 +205,9 @@ class DecodeGraphs:
         kernels' lazily made buffers), then capture it as bucket ``key``'s
         graph, with ``generator`` registered so that each replay draws fresh
         numbers.  ``statics`` are the tensors the step reads and writes; the
-        warm-up step changes them, and the caller fills them anew."""
+        warm-up step changes them, and the caller fills them anew.  On a tp
+        group the warm-up step's collectives run, and count, in every rank;
+        the capture's are counted per replay."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -199,12 +227,12 @@ class DecodeGraphs:
 
         with _capture_lock(self.device):
             t0 = time.perf_counter()
-            launches = record_launches(capture)
+            launches, traffic = record(capture)
             # The capture stream, not the device (see _capture_locks).
             stream.synchronize()
         self.last_capture_ms = (time.perf_counter() - t0) * 1e3
         self.captures += 1
-        entry = StepGraph(graph, launches)
+        entry = StepGraph(graph, launches, traffic)
         self.entries[key] = (statics, entry)
         return entry
 

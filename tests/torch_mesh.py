@@ -30,7 +30,11 @@ The training job (:func:`_train`, payload key
 ``train``, ``tests/test_torch_train_mesh.py``): AdamW steps of the mesh
 train step on the payload's batch, each step's loss and local parameters,
 the first step's local gradients, a sharded snapshot (saved, resumed, or
-restored from other meshes' snapshots) and the dp refusal.
+restored from other meshes' snapshots) and the dp refusal.  The graphed tp
+job (:func:`_tp_graphs`, payload key ``tp_graphs``,
+``tests/test_torch_tp_graphs.py``, on the card): the decode loops graphed
+and eager on an NCCL group (payload key ``backend``, gloo by default), one
+card a rank.
 
 Run by hand: ``python tests/torch_mesh.py RANK DP TP WORKDIR``.
 """
@@ -155,6 +159,57 @@ def _transcribe(payload: dict, dp: int, tp: int) -> dict:
         out["grads"] = _grads(payload["grads"], make_mesh(dp, tp).tp_group())
     if payload.get("refusals") and tp > 1:
         out["refusals"] = _refusals(payload)
+    return out
+
+
+def _tp_graphs(job: dict, dp: int, tp: int) -> dict:
+    """For each arm of ``job`` (name -> (runtime, ``transcribe_batch``
+    keywords)), the tiny model in bf16 on this rank's card (random weights,
+    seed 0; ``job["encoder"]``/``job["decoder"]`` override its widths)
+    transcribes ``job["clips"]`` three times: graphed (the first call
+    captures), graphed again, and eagerly (``decode(eager=True)``).
+    Per run: the ids, the collectives counted from the decode call's start
+    (``TRAFFIC``), its steps run and live steps; per arm the captures.  On
+    one rank (dp = tp = 1) the generator gets a ``TP`` over the world group
+    by hand (a mesh of one makes no group), so every collective is a real
+    one-rank call."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from torch_parity import TINY_DECODER, TINY_ENCODER, StubTokenizer, ids_of
+
+    from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
+    from qwen3_asr_tpu_torch import config as tc
+    from qwen3_asr_tpu_torch.parallel import collectives
+
+    cfg = tc.ModelConfig(
+        audio_encoder=tc.AudioEncoderConfig(**dict(TINY_ENCODER, **job.get("encoder", {}))),
+        text_decoder=tc.TextDecoderConfig(**dict(TINY_DECODER, **job.get("decoder", {}))),
+    )
+
+    def counted(real, eager, *args, **kwargs):
+        collectives.TRAFFIC.clear()
+        return real(*args, eager=eager, **kwargs)
+
+    out = {}
+    for name, (runtime, kwargs) in job["arms"].items():
+        model = Qwen3ASR.from_random(
+            cfg, tokenizer=StubTokenizer(),
+            runtime=RuntimeConfig(**runtime, dp=dp, tp=tp), dtype=torch.bfloat16, seed=0,
+            device=torch.device("cuda", torch.cuda.current_device()))
+        gen = model._generator
+        if dp * tp == 1:
+            gen.tp = collectives.TP(1, 0, dist.group.WORLD)
+        real, runs = gen.decode, []
+        for eager in (False, False, True):
+            gen.decode = functools.partial(counted, real, eager)
+            ids = ids_of(model.transcribe_batch(job["clips"], **kwargs))
+            runs.append(dict(ids=ids, traffic=dict(collectives.TRAFFIC),
+                             replays=gen.last_replays, steps=gen.last_decode_steps))
+        del gen.decode
+        out[name] = dict(runs=runs, captures=gen.graphs.captures if gen.graphs else 0)
+        model.close()
     return out
 
 
@@ -597,10 +652,13 @@ def main(argv: list[str]) -> int:
     torch.set_num_threads(1)
     from qwen3_asr_tpu_torch import parallel
 
-    parallel.initialize(num_processes=dp * tp, process_id=rank, backend="gloo",
-                        init_method=f"file://{workdir / 'init'}")
     payload = torch.load(workdir / "payload.pt", weights_only=False)
+    parallel.initialize(num_processes=dp * tp, process_id=rank,
+                        backend=payload.get("backend", "gloo"),
+                        init_method=f"file://{workdir / 'init'}")
     out = _transcribe(payload, dp, tp)
+    if payload.get("tp_graphs"):
+        out["tp_graphs"] = _tp_graphs(payload["tp_graphs"], dp, tp)
     if payload.get("serving"):
         out["serving"] = _serving(payload, dp, tp)
     if payload.get("train"):
