@@ -120,7 +120,19 @@ failure raises and the script exits non-zero):
      contiguous-cache kernel or a standalone writer, and the flat engine
      (K2 with per-lane K3 fused), every stream held to
      the plain ``transcribe_batch`` stream by the near-tie rule, with ms per
-     chunk iteration, engine counters and each request's TTFT; the "xla"
+     chunk iteration, engine counters and each request's TTFT, the engine's
+     chunks replayed from captured CUDA graphs (captured in the first chunk
+     of each bucket, no warm-up); before the servers, the engine's graphed
+     chunks against ``eager=True`` chunks from the same admissions
+     (:func:`engine_graphs_phase`: ``DecodeEngine`` driven directly, the
+     smoke clips in two waves, 32-token budgets, ``chunk_steps=16``; paged
+     bf16 plain in an oversubscribed pool whose lanes pause and resume,
+     paged bf16 speculative, paged int8 plain, flat bf16 plain and
+     speculative, and a sampled chunk mixing greedy lanes with two seeds
+     of unequal ``top_k``: tokens bit-identical, the engine counters
+     equal, each chunk's launches its live iterations (eager) or its
+     replays (graphed) x the bucket's captured launches; ms per chunk
+     iteration both ways, captures, replays, looks, peak memory); the "xla"
      KV writer (:func:`xla_writer_phase`: the plain writers, which wait
      for nothing on the device, no fused store, no standalone writer, no
      K5): the plain loop (K2 without its store; its every token held to
@@ -2916,9 +2928,11 @@ def modes_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
 def server_run(card: str, model, label: str, paged: bool, path, never, plain) -> dict:
     """``ContinuousTranscriptionServer(n_slots=8, chunk_steps=16)`` on the
     smoke clips in two waves (the second submitted once the first chunk
-    ran), greedy, 64-token budgets; launch counters set to 0 just before the
-    first submit and read after the last result.  Each stream is held to
-    ``plain`` (ids, gaps) of the same clips by the near-tie rule."""
+    ran), greedy, 64-token budgets, the engine's chunks graphed (each
+    bucket captured in its first chunk: no warm-up); launch counters set to
+    0 just before the first submit and read after the last result.  Each
+    stream is held to ``plain`` (ids, gaps) of the same clips by the
+    near-tie rule."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
@@ -2954,6 +2968,7 @@ def server_run(card: str, model, label: str, paged: bool, path, never, plain) ->
                 time.sleep(0.002)
             futs += [srv.submit(c, max_tokens=64) for c in clips[4:]]
             results = [f.result(timeout=600) for f in futs]
+            captures = engine.graphs.captures if engine.graphs else 0
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
         if bool(watch.nan_seen):
@@ -2968,10 +2983,13 @@ def server_run(card: str, model, label: str, paged: bool, path, never, plain) ->
         raise AssertionError(f"server {label}: a request failed or has no ttft_s")
     spec = (f", {st.spec_tokens_per_forward:.3f} spec tokens per lane-forward"
             if st.spec_chunks else "")
+    if captures < 1:
+        raise AssertionError(f"server {label}: the engine captured no chunk graph")
     print(f"server {label} [{card}]: {keys.dtype} cache of {shape} ({cache_gib:.2f} GiB "
           f"K+V), {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; {wall:.2f} s "
           f"wall for 8 requests, {st.chunks} chunks, {st.iterations} iterations, "
-          f"{sum(step_s) * 1e3 / max(st.iterations, 1):.2f} ms per chunk iteration; mean "
+          f"{sum(step_s) * 1e3 / max(st.iterations, 1):.2f} ms per chunk iteration (graphed: "
+          f"{captures} captures, {st.replays} replays, {st.looks} looks); mean "
           f"occupancy {st.mean_occupancy:.2f}, {st.mid_decode_admissions} mid-decode "
           f"admissions{spec}; ttft_s {[round(f.ttft_s, 3) for f in futs]}")
     compare_streams(f"server {label} vs plain transcribe_batch B=8", plain[0], ids, plain[1])
@@ -3000,6 +3018,225 @@ def server_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
         del model
         torch.cuda.empty_cache()
     return launches
+
+
+#: The graphed engine's arms (:func:`engine_graphs_phase`): (label, runtime,
+#: paged, sampled, oversubscribed pool, the kernels the chunks launch).
+ENGINE_ARMS = (
+    ("paged bf16 plain, oversubscribed pool", {"spec_engine": "off"}, True, False, True,
+     ("decode_attention_paged", "kv_write_rows_paged_fused")),
+    ("paged bf16 speculative", {"spec_engine": "on"}, True, False, False,
+     ("decode_attention_paged_verify", "kv_write_rows_paged_fused")),
+    ("paged int8 plain", {"spec_engine": "off", "kv_cache_dtype": "int8"}, True, False, False,
+     ("decode_attention_paged_q8", "kv_write_rows_paged_q8_fused")),
+    ("flat bf16 plain", {"spec_engine": "off"}, False, False, False,
+     ("decode_attention", "kv_write_rows_fused")),
+    ("flat bf16 speculative", {"spec_engine": "on"}, False, False, False,
+     ("kv_write_span_batch",)),
+    ("paged bf16 sampled mixed", {"spec_engine": "off"}, True, True, False,
+     ("decode_attention_paged", "kv_write_rows_paged_fused")),
+)
+#: Token budget and chunk iterations of the engine phase's requests.
+ENGINE_TOKENS = 32
+ENGINE_CHUNK = 16
+#: The sampled arm's sampling by clip index (the rest greedy): two seeds,
+#: unequal ``top_k``, so one chunk mixes greedy lanes and two pools' worth
+#: of ``top_k`` (the chunk takes the largest).
+ENGINE_SAMPLED = {1: dict(temperature=0.8, top_k=50, top_p=0.9, seed=1),
+                  4: dict(temperature=1.0, top_k=300, top_p=0.95, seed=2)}
+
+
+def engine_requests(clips, prompts, first: int, sampled: bool) -> list:
+    """The engine phase's SlotRequests for ``clips`` (clip index ``first``
+    on), ``ENGINE_TOKENS``-token budgets, greedy unless ``sampled`` names
+    their index in :data:`ENGINE_SAMPLED`."""
+    from qwen3_asr_tpu_torch.runtime.engine import SlotRequest
+
+    return [SlotRequest(samples=c, prompt=p, max_new=ENGINE_TOKENS, meta=first + j,
+                        **(ENGINE_SAMPLED.get(first + j, {}) if sampled else {}))
+            for j, (c, p) in enumerate(zip(clips, prompts))]
+
+
+def engine_drive(engine, waves) -> dict:
+    """Admit ``waves[0]``, one chunk, then ``waves[1]`` (if any) mid-decode;
+    chunks until every request retired.  A wave is (kv, first logits, requests);
+    requests the page pool refuses wait, in order, one at a time, for the
+    next retirement.  Per chunk: its bucket, live iterations, replays,
+    launches, captures, wall.  Launches are counted only inside ``step``."""
+    import collections
+
+    import torch
+
+    from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
+
+    pending = []
+
+    def queue(kv, lg, reqs):
+        pending.extend(((kv[0][:, j : j + 1], kv[1][:, j : j + 1]), lg[j : j + 1], r)
+                       for j, r in enumerate(reqs))
+
+    def admit():
+        while pending and engine.free_slots():
+            kv, lg, req = pending[0]
+            if engine.admit(kv, lg, engine.free_slots(), [req]):
+                return
+            pending.pop(0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    queue(*waves[0])
+    admit()
+    chunks, results, paused = [], {}, 0
+    total = sum(len(w[2]) for w in waves)
+    for i in range(200):
+        if i == 1 and len(waves) > 1:
+            queue(*waves[1])
+            admit()
+        st = engine.stats
+        before = (collections.Counter(LAUNCHES), st.iterations, st.replays,
+                  engine.graphs.captures if engine.graphs else 0)
+        t0 = time.perf_counter()
+        engine.step()
+        wall = time.perf_counter() - t0
+        if engine.paged:
+            paused += int(engine._paused.any())
+        chunks.append(dict(
+            bucket=engine.last_bucket, iterations=st.iterations - before[1],
+            replays=st.replays - before[2], launches=collections.Counter(LAUNCHES) - before[0],
+            captured=(engine.graphs.captures if engine.graphs else 0) - before[3], wall=wall))
+        for req, toks in engine.retire():
+            results[req.meta] = [int(t) for t in toks]
+        admit()
+        if len(results) == total and not pending:
+            break
+    return dict(results=results, chunks=chunks, paused=paused,
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def hold_engine_pair(label: str, card: str, graphed: dict, eager: dict, eng_g, eng_e,
+                     path=(), vocab: int = 0, counters: bool = True) -> dict:
+    """The graphed engine against its ``eager=True`` run from the same
+    admissions: tokens bit-identical, with ``counters`` the counters equal
+    (replays and looks aside; an engine run a second time counts its
+    freed slots' stale device counts into ``steps``, as the JAX engine
+    does), each chunk's live iterations equal, every eager chunk's
+    launches = its live iterations x the bucket's captured launches and
+    every graphed chunk's = its replays x them (so the graphed run's are
+    the eager count plus the no-op replays'); prints ms per chunk
+    iteration both ways, captures, replays, looks, peak memory.  Returns
+    the graphed chunks' launches."""
+    import collections
+    import dataclasses
+
+    if graphed["results"] != eager["results"] or len(graphed["results"]) != 8:
+        raise AssertionError(f"{label}: graphed tokens differ from the eager engine's")
+    ids = [graphed["results"][i] for i in sorted(graphed["results"])]
+    if vocab:
+        check_ids(label, ids, vocab)
+    sg, se = dataclasses.asdict(eng_g.stats), dataclasses.asdict(eng_e.stats)
+    aside = ("replays", "looks") if counters else tuple(sg)
+    if {k: v for k, v in sg.items() if k not in aside} != \
+            {k: v for k, v in se.items() if k not in aside}:
+        raise AssertionError(f"{label}: engine counters {sg} against eager {se}")
+    if [c["iterations"] for c in graphed["chunks"]] != [c["iterations"] for c in eager["chunks"]]:
+        raise AssertionError(f"{label}: live iterations per chunk differ")
+    total = collections.Counter()
+    for cg, ce in zip(graphed["chunks"], eager["chunks"]):
+        entry = eng_g.graphs.get(cg["bucket"]) if cg["iterations"] else None
+        per = entry[1].launches if entry else collections.Counter()
+        want_g = collections.Counter({k: v * cg["replays"] for k, v in per.items()})
+        want_e = collections.Counter({k: v * ce["iterations"] for k, v in per.items()})
+        if +cg["launches"] != +want_g or +ce["launches"] != +want_e:
+            raise AssertionError(f"{label}: chunk launches graphed {dict(cg['launches'])}, "
+                                 f"eager {dict(ce['launches'])}, a replay {dict(per)}")
+        total += cg["launches"]
+    check_launches(f"{label} graphed chunks", dict(total), path)
+    its = sum(c["iterations"] for c in graphed["chunks"])
+    g_ms = sum(c["wall"] for c in graphed["chunks"]) * 1e3 / max(its, 1)
+    warm = [c for c in graphed["chunks"] if not c["captured"]]
+    warm_ms = sum(c["wall"] for c in warm) * 1e3 / max(sum(c["iterations"] for c in warm), 1)
+    e_ms = sum(c["wall"] for c in eager["chunks"]) * 1e3 / max(its, 1)
+    ref_ms = warm_ms if warm else g_ms
+    spec = (f", {eng_g.stats.spec_tokens_per_forward:.3f} tokens per lane-forward"
+            if eng_g.stats.spec_chunks else "")
+    same = "counters equal" if counters else "live iterations a chunk equal"
+    print(f"engine {label} [{card}]: graphed tokens bit-identical to eager=True, {same}; "
+          f"{eng_g.stats.chunks} chunks, {its} live iterations, {eng_g.stats.replays} "
+          f"replays ({eng_g.stats.replays - its} no-op), {eng_g.stats.looks} looks graphed "
+          f"against {eng_e.stats.looks} eager; ms per chunk iteration graphed {g_ms:.3f} "
+          f"({warm_ms:.3f} over the {len(warm)} chunks that captured nothing), eager "
+          f"{e_ms:.3f} = {e_ms / ref_ms:.2f}x; {eng_g.graphs.captures} captures "
+          f"(the last {eng_g.graphs.last_capture_ms:.1f} ms); peak memory graphed "
+          f"{graphed['peak']:.2f} GiB, eager {eager['peak']:.2f} GiB; "
+          f"{graphed['paused']} chunks with a paused lane{spec}; launches {dict(total)}")
+    return dict(total)
+
+
+def engine_graphs_phase(card: str, base) -> dict:
+    """The continuous engine's chunks as CUDA graphs, driven through
+    ``DecodeEngine`` directly at 1.7B on ``base``'s weights (seed 0), arm
+    by arm (:data:`ENGINE_ARMS`): the smoke clips prefilled once in two
+    waves of four, the graphed engine and then an ``eager=True`` engine
+    admitting them in the same order (:func:`engine_drive`,
+    ``ENGINE_TOKENS``-token budgets, ``chunk_steps=ENGINE_CHUNK``), held by
+    :func:`hold_engine_pair`, then the graphed engine, emptied, once more
+    (every bucket replayed, no capture), held the same way.  The
+    oversubscribed arm's pool holds every
+    prompt and three decode pages, so lanes pause and resume.  Returns
+    each arm's graphed launches."""
+    import torch
+
+    from qwen3_asr_tpu_torch.runtime import engine as engine_mod
+
+    clips = smoke_clips()
+    vocab = base._config.text_decoder.vocab_size
+    out = {}
+    for label, runtime, paged, sampled, tight, path in ENGINE_ARMS:
+        t0 = time.perf_counter()
+        model = build_model(runtime, base)
+        waves = []
+        for first in (0, 4):
+            kv, lg, prompts = model.prefill_group(clips[first : first + 4], ["English"] * 4)
+            waves.append((kv, lg, engine_requests(clips[first : first + 4], prompts, first,
+                                                  sampled)))
+        pool_gb = None
+        if tight:           # every prompt's pages, three decode pages, the trash page
+            ps = 256        # make_engine's page size
+            pages = sum(-(-len(r.prompt) // ps) for w in waves for r in w[2]) + 3 + 1
+            tc = base._config.text_decoder
+            page_bytes = tc.num_hidden_layers * tc.num_key_value_heads * ps * tc.head_dim * 4
+            pool_gb = (pages + 0.5) * page_bytes / 2**30
+        runs, engines = {}, {}
+        with Watch(engine_mod) as watch:
+            for eager in (False, True):
+                eng = model.make_engine(n_slots=8, max_duration=30.0,
+                                        max_new_tokens=ENGINE_TOKENS, chunk_steps=ENGINE_CHUNK,
+                                        paged=paged, kv_pool_gb=pool_gb, eager=eager)
+                runs[eager] = engine_drive(eng, waves)
+                engines[eager] = eng
+            # The graphed engine again, emptied: every bucket replays.
+            eng = engines[False]
+            captures, first_stats = eng.graphs.captures, eng.stats
+            eng.stats = engine_mod.EngineStats()
+            again = engine_drive(eng, waves)
+            if bool(watch.nan_seen):
+                raise AssertionError(f"engine {label}: NaN logits")
+        if tight and not (runs[False]["paused"] and runs[True]["paused"]):
+            raise AssertionError(f"engine {label}: no lane paused for pages")
+        if eng.graphs.captures != captures:
+            raise AssertionError(f"engine {label}: the second graphed run captured again")
+        hold_engine_pair(f"{label}, replaying", card, again, runs[True], eng, engines[True],
+                         path, vocab, counters=False)
+        eng.stats = first_stats
+        out[label] = hold_engine_pair(label, card, runs[False], runs[True], engines[False],
+                                      engines[True], path, vocab)
+        for eng in engines.values():
+            eng.close()
+        model.close()
+        del model, engines, waves
+        torch.cuda.empty_cache()
+        print(f"engine {label}: {time.perf_counter() - t0:.1f} s for the arm")
+    return out
 
 
 #: The fused stores, which no run under the "xla" writer may launch.
@@ -4858,10 +5095,54 @@ def tp_graphs_rank(rank: int, dp: int, tp: int, workdir: str, runtimes: dict) ->
         model._generator.tp = group
         out[name] = loop_runs(model, clips, device, (("capture", False), ("graphed", False),
                                                     ("eager", True)))
+        if name == "off":
+            out["engine"] = tp_engine_runs(model, clips)
         model.close()
     base.close()
     torch.save(out, Path(workdir) / f"rank{rank}.pt")
     dist.destroy_process_group()
+
+
+def tp_engine_runs(model, clips) -> dict:
+    """The paged continuous engine on the model's tp group: four smoke
+    clips admitted into a graphed engine and into an ``eager=True`` one
+    from one prefill (:func:`engine_drive`); per run the tokens, counters,
+    chunks' walls and the captures."""
+    import dataclasses
+
+    kv, lg, prompts = model.prefill_group(clips[:4], ["English"] * 4)
+    waves = [(kv, lg, engine_requests(clips[:4], prompts, 0, False))]
+    out = {}
+    for name, eager in (("graphed", False), ("eager", True)):
+        eng = model.make_engine(n_slots=4, max_duration=30.0, max_new_tokens=ENGINE_TOKENS,
+                                chunk_steps=ENGINE_CHUNK, paged=True, eager=eager)
+        run = engine_drive(eng, waves)
+        out[name] = dict(results=run["results"], stats=dataclasses.asdict(eng.stats),
+                         wall=sum(c["wall"] for c in run["chunks"]),
+                         captures=eng.graphs.captures if eng.graphs else 0)
+        eng.close()
+    return out
+
+
+def hold_tp_engine(label: str, card: str, runs: dict) -> None:
+    """:func:`tp_engine_runs`' graphed engine against its eager one: tokens
+    bit-identical, counters equal (replays and looks aside), a capture
+    made; ms per chunk iteration both ways."""
+    g, e = runs["graphed"], runs["eager"]
+    aside = ("replays", "looks")
+    same = {k: v for k, v in g["stats"].items() if k not in aside} == \
+        {k: v for k, v in e["stats"].items() if k not in aside}
+    if g["results"] != e["results"] or len(g["results"]) != 4 or not same:
+        raise AssertionError(f"{label}: the graphed engine differs from the eager one: "
+                             f"{g['stats']} against {e['stats']}")
+    if g["captures"] < 1 or e["captures"]:
+        raise AssertionError(f"{label}: {g['captures']} captures graphed, {e['captures']} eager")
+    its = max(g["stats"]["iterations"], 1)
+    print(f"{label} [{card}]: graphed paged engine chunks bit-identical to eager=True, "
+          f"counters equal; {g['stats']['chunks']} chunks, {its} live iterations, "
+          f"{g['stats']['replays']} replays, {g['stats']['looks']} looks ({e['stats']['looks']} "
+          f"eager), {g['captures']} captures; ms per chunk iteration graphed "
+          f"{g['wall'] * 1e3 / its:.3f} (captures included), eager {e['wall'] * 1e3 / its:.3f}")
 
 
 def tp_graphs_phase(card: str, off: dict, int8_slice: dict) -> None:
@@ -4877,7 +5158,9 @@ def tp_graphs_phase(card: str, off: dict, int8_slice: dict) -> None:
     collective is an identity), each replay's collectives equal to an eager
     step's, the path's decode kernels launched; the streams held to one
     device's graphed streams (``off``'s plain ones for the bf16 runtimes,
-    ``int8_slice``'s for int8) by the near-tie rule.  It shows the capture
+    ``int8_slice``'s for int8) by the near-tie rule; on ``off``'s model the
+    paged continuous engine's captured chunks, collectives inside, held to
+    its ``eager=True`` chunks (:func:`tp_engine_runs`).  It shows the capture
     plumbing, not that several ranks agree: :func:`mesh_phase` checks that
     with two cards or more."""
     t0 = time.perf_counter()
@@ -4888,6 +5171,7 @@ def tp_graphs_phase(card: str, off: dict, int8_slice: dict) -> None:
         ids = hold_loops(f"{label} {name}", card, res[name], TP_DECODE_KERNELS[name])
         ref = refs[name]
         compare_streams(f"{label} {name} vs one device", ref["ids"][0], ids, ref["gaps"][0])
+    hold_tp_engine(f"{label} engine", card, res["engine"])
     print(f"{label}: {time.perf_counter() - t0:.1f} s (spawn, CUDA and NCCL init, the 1.7B "
           f"build {res['build_s']:.2f} s, three runtimes)")
 
@@ -5620,6 +5904,10 @@ def main() -> int:
     launches.update(modes_phase(card, base, off, int8_ref))
     spec_launches = speculative_phase(card, base, off)
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
+    t_engine = time.perf_counter()
+    engine_launches = engine_graphs_phase(card, base)
+    print(f"engine graphs phase: {time.perf_counter() - t_engine:.1f} s; graphed chunk "
+          f"launches by arm (no-op replays included): {engine_launches}")
     launches.update(server_phase(card, base, off, int8_ref))
     int8_ref["model"].close()
     del int8_ref

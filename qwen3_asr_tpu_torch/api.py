@@ -679,6 +679,7 @@ class Qwen3ASR:
         paged: bool = False,
         page_size: int = 256,
         kv_pool_gb: float | None = None,
+        eager: bool = False,
     ):
         """A :class:`~qwen3_asr_tpu_torch.runtime.engine.DecodeEngine` sized
         for clips up to ``max_duration`` seconds and transcripts up to
@@ -686,7 +687,9 @@ class Qwen3ASR:
         model's device (JAX ``api.py:898-956``).  ``paged=True`` backs it
         with a page pool of ``kv_pool_gb`` (default ``kv_cache_budget_gb``),
         at most every slot's worst case: slots then hold pages for their
-        actual prompt and transcript lengths.
+        actual prompt and transcript lengths.  ``eager=True`` makes an
+        engine whose chunks run eagerly on the card too (the oracle of its
+        captured chunks).
 
         On a tp group every rank makes the engine with the same arguments:
         the page count comes from the global KV heads, so it equals one
@@ -719,7 +722,7 @@ class Qwen3ASR:
             n_pages = min(n_pages, full)
         return DecodeEngine(
             gen, prompt_bucket, token_bucket, n_slots=n_slots, chunk_steps=chunk_steps,
-            paged=paged, page_size=page_size, n_pages=n_pages,
+            paged=paged, page_size=page_size, n_pages=n_pages, eager=eager,
         )
 
     def prefill_group(self, samples_list, lang_names):

@@ -13,6 +13,13 @@ every logit) -> draw.  Draws are Gumbel-max over uniforms from an explicit
 Gumbel-max too); the two packages' random streams differ, so they agree in
 distribution, not draw for draw.
 
+The continuous engine's sampled lanes draw from counter streams instead
+(:func:`sample_streams`): lane b's uniforms for its n-th token are a hash
+of (its request's seed, n, the vocabulary id), computed in integer tensor
+ops on the device with no generator state, so a lane's draws depend on
+nothing but its request and its token index, and a captured CUDA graph of
+the engine's chunk draws for every lane without a generator per slot.
+
 ``temperature``, ``top_k``, ``top_p``, the repetition penalty and the live
 ``repetition_context_size`` are values on the device, as the JAX package
 traces them: each takes a Python number, a 0-d tensor or a per-lane (B,)
@@ -130,12 +137,50 @@ def _filtered_pool(
     return masked, idx
 
 
-def _gumbel_choice(masked: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def _gumbel_choice(masked: torch.Tensor, generator: torch.Generator | None,
+                   u: torch.Tensor | None = None) -> torch.Tensor:
     """Column index of one categorical draw per row over the logits
-    ``masked`` (Gumbel-max)."""
-    u = torch.rand(masked.shape, generator=generator, device=masked.device)
+    ``masked`` (Gumbel-max), from the uniforms ``u`` or from ``generator``."""
+    if u is None:
+        u = torch.rand(masked.shape, generator=generator, device=masked.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     return torch.argmax(masked + gumbel, dim=-1)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for ``x`` in [0, 2**32) held in int64 and a
+    32-bit constant ``c``, multiplied by 16-bit halves of ``c`` so that no
+    product reaches 2**63 (signed int64 overflow is not relied on)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + ((x * hi) & 0xFFFF) * 65536) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (xor-shift-multiply, full avalanche) on
+    values in [0, 2**32) held in int64."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_uniform(seed: torch.Tensor, n: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms in (0, 1), (B, K): row b, column j is a hash of
+    (``seed[b]``, ``n[b]``, ``ids[b, j]``) -- a request's seed (int64), its
+    token index and a vocabulary id -- on a grid of 2**-23 offset by half a
+    step, so that float32 holds every value exactly and none is 0 or 1.
+    The seed enters as its two 32-bit limbs."""
+    seed, n = seed.long(), n.long()
+    key = _mix32(_mix32((seed & _M32) ^ 0x9E3779B9) ^ ((seed >> 32) & _M32))
+    key = _mix32(key ^ (n & _M32))
+    key2 = _mix32(key ^ 0x85EBCA6B)
+    x = _mix32((ids.long() & _M32) ^ key[:, None])
+    x = _mix32(x ^ key2[:, None])
+    return ((x >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
 
 
 def _is_zero(temperature) -> bool:
@@ -162,6 +207,30 @@ def sample_logits(
     masked, idx = _filtered_pool(logits, temperature, top_k, top_p, k_subset)
     choice = _gumbel_choice(masked, generator)
     return idx.gather(1, choice[:, None])[:, 0]
+
+
+def sample_streams(
+    logits: torch.Tensor,          # (B, vocab)
+    temperature: torch.Tensor,     # (B,) float32, 0 = greedy lane
+    top_k,
+    top_p,
+    repetition_penalty,
+    recent_tokens: torch.Tensor,   # (B, W)
+    k_subset: int,
+    seed: torch.Tensor,            # (B,) int64 the lanes' request seeds
+    n: torch.Tensor,               # (B,) int64 index of the token drawn
+) -> torch.Tensor:
+    """One token id per lane (B,) int64 of a mixed batch: the penalized
+    argmax where ``temperature == 0``, else a draw from the filtered
+    distribution whose Gumbel noise comes from :func:`counter_uniform`
+    keyed by (``seed``, ``n``) and each candidate's vocabulary id.  No host
+    value, no generator: a lane's draw depends only on its own logits,
+    parameters, seed and token index."""
+    logits = apply_repetition_penalty(logits.float(), recent_tokens, repetition_penalty)
+    masked, idx = _filtered_pool(logits, temperature, top_k, top_p, k_subset)
+    choice = _gumbel_choice(masked, None, counter_uniform(seed, n, idx))
+    drawn = idx.gather(1, choice[:, None])[:, 0]
+    return torch.where(temperature.reshape(-1) == 0, logits.argmax(dim=-1), drawn)
 
 
 def spec_verify_sample(

@@ -23,26 +23,42 @@ lanes and rows past a slot's table write there.  All-greedy chunks on narrow
 engines run speculative verify iterations (``RuntimeConfig.spec_engine``)
 that emit exactly the plain greedy stream.
 
-A chunk is a Python loop of at most ``k_steps`` iterations that stops once
-every live lane is done, with one host sync per iteration -- the JAX
-package's ``"while"`` chunk shape (its default ``"scan"`` shape exists for
-the TPU's persistent compile cache and is not carried over; greedy tokens
-are the same under both).  Control state lives in numpy mirrors (what the
-host scheduler reads) and in small device tensors re-uploaded only when an
-admission, retirement or page event changes them.  Sampled slots draw from
-one seeded ``torch.Generator`` each, moved with the slot on compaction, so a
-request's sampled stream depends only on its own seed and tokens.  Every
-public method runs under ``torch.inference_mode()``.
+A chunk runs one iteration function, :meth:`DecodeEngine._chunk_step`,
+which reads and writes only static device tensors: the slots' state
+(tokens, counts, done flags, current tokens), the chunk's counters (per-lane
+verify forwards, live iterations) and the control buffers (live mask,
+prompt lengths, budgets, sampling values, seeds, page table), which
+admissions, retirements and page events fill in place.  On CUDA tensors
+each bucket's iteration (width, greedy/sampled, speculative, rep window,
+candidate pool, cache dtype, paged, decode mode, KV writer) is captured once
+as a CUDA graph and replayed in blocks of ``graphs.BLOCK``, with one look at
+the lanes a block and one status fetch a chunk, as the JAX package runs a
+chunk as one compiled program; on CPU tensors the same iteration runs
+eagerly in the same blocks, and ``eager=True`` runs one iteration a look
+(the graphs' oracle on the card).  A chunk stops at ``k_steps``
+iterations or once no live lane is undone; iterations run after that are
+no-ops on every slot's tokens, counts and flags, and a device counter
+counts only the live ones.  The JAX package's default ``"scan"`` chunk
+shape exists for the TPU's persistent compile cache and is not carried
+over; greedy tokens are the same under both.  Sampled lanes draw from
+counter streams keyed by (the request's seed, the token index) and each
+candidate's vocabulary id (``ops/sampling.py`` ``sample_streams``), so a
+request's sampled stream depends only on its own seed and tokens, not on
+its slot, its neighbours, a pause or the block size.  Every public method
+runs under ``torch.inference_mode()``.
 
 On a tp group (the generator's ``tp``) each rank's engine holds its own KV
 heads (a pool of the one-device engine's page count, ``1/tp`` of its
 bytes) and runs every forward with the group's collectives; its host state
 (slots, page tables, counters) is the one-device engine's.  Every host
 decision reads device values that the gathered logits make bit-identical
-on every rank (the chunk's early exit and sampled ``active`` lanes, the
-first tokens, the status fetch), so ranks that apply the same operations
-in the same order stay in lockstep: ``serving/server.py`` has one rank
-drive and broadcast them (``parallel/lockstep.py``).
+on every rank (the looks at the lanes, the first tokens, the status
+fetch), so ranks that apply the same operations in the same order stay in
+lockstep: ``serving/server.py`` has one rank drive and broadcast them
+(``parallel/lockstep.py``).  On an NCCL group the captured chunks hold the
+group's collectives, and every rank captures the same buckets in the same
+order; a gloo group's collectives stage through host memory, so its chunks
+run eagerly in blocks.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ import numpy as np
 import torch
 
 from ..config import TextDecoderConfig
+from ..models import decoder as _decoder
 from ..models.decoder import (
     decoder_forward,
     decoder_logits,
@@ -71,9 +88,10 @@ from ..ops.sampling import (
     TOP_K_SUBSET,
     apply_repetition_penalty,
     recent_token_window,
-    sample_logits,
+    sample_streams,
 )
 from ..utils.telemetry import logger
+from . import graphs as _graphs
 
 
 def _spec_accept_chain(
@@ -105,6 +123,12 @@ def _spec_accept_chain(
     return tokens, counts, done, cur
 
 
+def _seed64(seed: int) -> int:
+    """A request's seed as the int64 its counter stream is keyed by (the
+    low 64 bits, two's complement)."""
+    return (int(seed) + 2**63) % 2**64 - 2**63
+
+
 @dataclass
 class SlotRequest:
     """One admitted clip's bookkeeping (host side)."""
@@ -129,8 +153,14 @@ class EngineStats:
     retired: int = 0
     chunks: int = 0
     steps: int = 0
-    #: Chunk-loop iterations run (plain steps or verify forwards).
+    #: Live chunk iterations (plain steps or verify forwards), counted on
+    #: the device: iterations with a live lane not yet done.
     iterations: int = 0
+    #: Iterations run (graph replays on CUDA), the live ones and the no-op
+    #: ones of a chunk's last block; and looks at the lanes (host syncs
+    #: before a chunk's status fetch).
+    replays: int = 0
+    looks: int = 0
     mid_decode_admissions: int = 0
     occupancy_sum: float = 0.0
     # Speculative chunks: lane-steps are verify forwards a lane paid while
@@ -163,7 +193,9 @@ class DecodeEngine:
     ``paged=True`` backs the engine with ``n_pages`` pages of ``page_size``
     (128 or 256) rows (default: every slot's worst case plus the trash
     page).  Under the generator's ``tp`` the cache and the pool hold this
-    rank's KV heads.
+    rank's KV heads.  ``eager=True`` runs every chunk eagerly, one
+    iteration a look at the lanes, on the card too: the oracle of the
+    captured chunks.
     """
 
     @torch.inference_mode()
@@ -177,6 +209,7 @@ class DecodeEngine:
         paged: bool = False,
         page_size: int = 256,
         n_pages: int | None = None,
+        eager: bool = False,
     ) -> None:
         if prompt_bucket % 256:
             raise ValueError("prompt_bucket must be a multiple of 256")
@@ -184,8 +217,9 @@ class DecodeEngine:
             raise ValueError("token_bucket must be a multiple of 128")
         self.gen = generator
         self.tp = generator.tp
-        #: The kernels' scratch of this engine's launches, its own: a
-        #: server's thread steps it while the model may serve other calls.
+        #: The kernels' scratch of this engine's launches and captured
+        #: chunks, its own: a server's thread steps it while the model may
+        #: serve other calls.
         self.scratch = _build.Scratch()
         self.cfg: TextDecoderConfig = generator.cfg
         self.prompt_bucket = prompt_bucket
@@ -193,8 +227,14 @@ class DecodeEngine:
         self.cache_len = prompt_bucket + token_bucket
         self.n_slots = n_slots
         self.chunk_steps = chunk_steps
+        self.eager = eager
         self.stats = EngineStats()
         self._eos_ids = generator._eos_ids
+        #: The captured chunk iterations by bucket (CUDA only), and the
+        #: bucket of the last chunk: (width, greedy, spec, rep_window,
+        #: k_subset, cache dtype, paged, decode kernel mode, KV writer).
+        self.graphs: _graphs.DecodeGraphs | None = None
+        self.last_bucket: tuple | None = None
 
         ref = generator.params["final_norm"]
         self.device = ref.device
@@ -248,17 +288,39 @@ class DecodeEngine:
         self._top_p = np.ones(n, np.float32)
         self._rep_pen = np.ones(n, np.float32)
         self._rep_ctx = np.zeros(n, np.int64)
+        self._seed = np.zeros(n, np.int64)
         self._meta: list[Optional[SlotRequest]] = [None] * n
-        self._gens: list[Optional[torch.Generator]] = [None] * n
 
-        # Device state: the truth a chunk reads and advances.
+        # Device state: the truth a chunk reads and advances.  Every tensor
+        # a chunk iteration reads or writes is allocated here, once, and
+        # updated in place: a captured chunk keeps these pointers.
         dev = self.device
         self._tokens = torch.zeros((n, token_bucket), dtype=torch.long, device=dev)
         self._counts_d = torch.ones(n, dtype=torch.long, device=dev)
         self._done_d = torch.ones(n, dtype=torch.bool, device=dev)
         self._cur_d = torch.zeros(n, dtype=torch.long, device=dev)
         self._eos_d = torch.tensor(self._eos_ids, dtype=torch.long, device=dev)
-        self._ctl_d: dict = {}
+        #: A chunk's counters: per-lane verify forwards, live iterations,
+        #: and the lanes with nothing to do (what a look reads).
+        self._fwd_d = torch.zeros(n, dtype=torch.long, device=dev)
+        self._iters_d = torch.zeros((), dtype=torch.long, device=dev)
+        self._halt_d = torch.ones(n, dtype=torch.bool, device=dev)
+        #: Control buffers (:meth:`_refresh_ctl` fills them in place from
+        #: their host mirrors, through pinned staging tensors on CUDA).
+        ctl = {
+            "mask": (torch.bool, (n,)), "prompt_len": (torch.int32, (n,)),
+            "max_new": (torch.long, (n,)), "rep_pen": (torch.float32, (n,)),
+            "rep_ctx": (torch.long, (n,)), "temp": (torch.float32, (n,)),
+            "top_k": (torch.long, (n,)), "top_p": (torch.float32, (n,)),
+            "seed": (torch.long, (n,)),
+        }
+        if paged:
+            ctl["table"] = (torch.int32, (n, self.max_pages))
+        pin = dev.type == "cuda"
+        self._ctl_d = {k: torch.zeros(shape, dtype=dt, device=dev)
+                       for k, (dt, shape) in ctl.items()}
+        self._ctl_host = {k: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                          for k, (dt, shape) in ctl.items()}
         self._ctl_dirty = True
         # Paged step widths: powers of two up to n_slots.
         self._widths = sorted(
@@ -270,67 +332,57 @@ class DecodeEngine:
     def _is_eos(self, tok: torch.Tensor) -> torch.Tensor:
         return (tok[:, None] == self._eos_d[None, :]).any(dim=-1)
 
-    def _sample(self, logits, recent, active: np.ndarray) -> torch.Tensor:
-        """One token per lane of a mixed (not all-greedy) chunk: each active
-        lane samples with its own parameters and generator (a greedy lane
-        takes the penalized argmax); inactive lanes get 0, never used."""
-        out = torch.zeros(logits.shape[0], dtype=torch.long, device=logits.device)
-        vocab = self.cfg.vocab_size
-        for b in np.nonzero(active)[0]:
-            top_k = int(self._top_k[b])
-            k_subset = self.gen.runtime.pick_top_k_subset(
-                top_k if top_k > 0 else TOP_K_SUBSET, vocab
-            )
-            out[b] = sample_logits(
-                logits[b : b + 1], float(self._temp[b]), top_k, float(self._top_p[b]),
-                float(self._rep_pen[b]), recent[b : b + 1], self._gens[b], k_subset,
-            )[0]
-        return out
-
-    def _run_chunk(self, k_steps: int, greedy: bool, B: int, rep_window: int, spec):
-        """Up to ``k_steps`` iterations over the first ``B`` slots, stopping
-        once every live lane is done.  Returns the per-lane verify-forward
-        counts (zeros for plain chunks)."""
+    def _chunk_step(self, B: int, greedy: bool, rep_window: int, k_subset: int, spec):
+        """One chunk iteration over the first ``B`` slots, as a function of
+        no arguments that reads and writes only the engine's static tensors
+        and never reads the device from the host (a CUDA graph holds it).
+        A plain step, or a speculative verify iteration with ``spec`` =
+        (gamma, ngram_n) (all-greedy chunks); sampled lanes of a mixed chunk
+        draw from their counter streams at the index of the token drawn,
+        one candidate pool of ``k_subset`` for the chunk.  An iteration with
+        no live lane left undone changes no token, count or flag."""
         params, cfg, tp = self.gen.params, self.cfg, self.tp
         tb = self.token_bucket
         ctl = self._ctl_d
         live, plen = ctl["mask"][:B], ctl["prompt_len"][:B]
         max_new, rep_pen, rep_ctx = ctl["max_new"][:B], ctl["rep_pen"][:B], ctl["rep_ctx"][:B]
-        tokens = self._tokens[:B]                      # a view: updated in place
-        counts = self._counts_d[:B].clone()
-        done = self._done_d[:B].clone()
-        cur = self._cur_d[:B].clone()
-        fwd = torch.zeros(B, dtype=torch.long, device=self.device)
-        lanes = torch.arange(B, device=self.device)
-        plen_l = plen.long()
-        if self.paged:
+        temp, top_k, top_p, seed = (ctl[k][:B] for k in ("temp", "top_k", "top_p", "seed"))
+        tokens = self._tokens[:B]
+        counts_s, done_s, cur_s = self._counts_d[:B], self._done_d[:B], self._cur_d[:B]
+        fwd, halt, iters = self._fwd_d[:B], self._halt_d[:B], self._iters_d
+        paged = self.paged
+        if paged:
             PS, maxp = self.page_size, self.max_pages
             table = ctl["table"][:B]
-            pp = (plen_l + PS - 1) // PS
 
         def recent(tokens, counts):
             return recent_token_window(tokens, counts, rep_ctx, rep_window, tb)
 
-        for _ in range(k_steps):
-            if greedy:
-                if not bool((live & ~done).any()):
-                    break
-            else:
-                active_host = (live & ~done).cpu().numpy()
-                if not active_host.any():
-                    break
-            self.stats.iterations += 1
+        def store(counts, done, cur) -> None:
+            counts_s.copy_(counts)
+            done_s.copy_(done)
+            cur_s.copy_(cur)
+            halt.copy_(~(live & ~done))
+
+        def step() -> None:
+            lanes = torch.arange(B, device=tokens.device)
+            plen_l = plen.long()
+            active = live & ~done_s
+            iters.add_(active.any().long())
+            counts = counts_s
+            drow = (counts - 1).clamp_min(0)            # decode row being written
+            if paged:
+                pp = (plen_l + PS - 1) // PS
             if spec is not None:
                 gamma, ngram_n = spec
                 T = gamma + 1
-                offs = torch.arange(T, device=self.device)
-                fwd += (live & ~done).long()
+                offs = torch.arange(T, device=tokens.device)
+                fwd.add_(active.long())
                 draft, dvalid = speculative.ngram_draft(tokens, counts, n=ngram_n, gamma=gamma)
-                ids = torch.cat([cur[:, None], draft], dim=1)               # (B, T)
+                ids = torch.cat([cur_s[:, None], draft], dim=1)             # (B, T)
                 pos = (plen_l + counts - 1)[:, None] + offs[None, :]
                 embeds = embed_tokens(params, ids, tp=tp)
-                drow = (counts - 1).clamp_min(0)
-                if self.paged:
+                if paged:
                     wrow = drow[:, None] + offs[None, :]                    # (B, T)
                     raw = pp[:, None] + wrow // PS
                     pages = table[lanes[:, None], raw.clamp(0, maxp - 1)]
@@ -349,15 +401,14 @@ class DecodeEngine:
                         write_slots=ws, decode_ctx=(plen, ws, self.prompt_bucket), tp=tp,
                     )
                 logits = decoder_logits(params, cfg, hidden, tp=tp)         # (B, T, V)
-                tokens, counts, done, cur = _spec_accept_chain(
-                    logits, draft, dvalid, tokens, counts, done, cur, live, recent,
+                store(*_spec_accept_chain(
+                    logits, draft, dvalid, tokens, counts, done_s, cur_s, live, recent,
                     rep_pen, max_new, tb, self._is_eos, gamma,
-                )
-                continue
+                )[1:])
+                return
             pos = plen_l + counts - 1
-            drow = (counts - 1).clamp_min(0)            # decode row being written
-            embeds = embed_tokens(params, cur, tp=tp)[:, None, :]
-            if self.paged:
+            embeds = embed_tokens(params, cur_s, tp=tp)[:, None, :]
+            if paged:
                 page = table[lanes, (pp + drow // PS).clamp(0, maxp - 1)]
                 hidden, _ = decoder_paged_step(
                     params, cfg, embeds, pos[:, None], (self._keys, self._values),
@@ -375,20 +426,64 @@ class DecodeEngine:
                     logits.float(), recent(tokens, counts), rep_pen
                 ).argmax(dim=-1)
             else:
-                nxt = self._sample(logits, recent(tokens, counts), active_host)
-            active = live & ~done
+                nxt = sample_streams(logits, temp, top_k, top_p, rep_pen,
+                                     recent(tokens, counts), k_subset, seed, counts)
             slot = counts.clamp(0, tb - 1)[:, None]
             keep = tokens.gather(1, slot)[:, 0]
             tokens.scatter_(1, slot, torch.where(active, nxt, keep)[:, None])
             counts = counts + active.long()
             # Only genuine completion sets done: a page-paused slot (masked
             # out of ``live`` for this chunk) must not be harvested.
-            done = done | (active & (self._is_eos(nxt) | (counts >= max_new)))
-            cur = torch.where(active & ~done, nxt, cur)
-        self._counts_d[:B] = counts
-        self._done_d[:B] = done
-        self._cur_d[:B] = cur
-        return fwd
+            done = done_s | (active & (self._is_eos(nxt) | (counts >= max_new)))
+            store(counts, done, torch.where(active & ~done, nxt, cur_s))
+
+        return step
+
+    def _run_chunk(self, k_steps: int, greedy: bool, B: int, rep_window: int,
+                   k_subset: int, spec) -> tuple[int, int]:
+        """Up to ``k_steps`` iterations over the first ``B`` slots in blocks,
+        stopping at the first look that finds no live lane undone: replays
+        of the bucket's captured iteration on the card (captured on first
+        use: its warm-up run is the chunk's first iteration), the same
+        iteration eagerly on CPU tensors, on a gloo tp group or with
+        ``eager``.  Returns (iterations run, looks at the lanes)."""
+        self._fwd_d.zero_()
+        self._iters_d.zero_()
+        self._halt_d.copy_(~(self._ctl_d["mask"] & ~self._done_d))
+        halt = self._halt_d[:B]
+        key = self.last_bucket = (
+            B, greedy, spec, rep_window, k_subset,
+            "int8" if self.kv_dtype == "int8" else self._keys.dtype, self.paged,
+            _decoder.DECODE_KERNEL_MODE, _decoder.KV_WRITER_MODE,
+        )
+        if self.eager or not self.gen._capturable(self.device):
+            step = self._chunk_step(B, greedy, rep_window, k_subset, spec)
+            block = 1 if self.eager else _graphs.BLOCK
+            return _graphs.run_blocks(lambda _i: step(), halt, block, cap=k_steps)
+        if self.graphs is None:
+            self.graphs = _graphs.DecodeGraphs(self.device)
+        entry = self.graphs.get(key)
+        graph = entry[1] if entry else None
+
+        def replay(_i: int) -> None:
+            nonlocal graph
+            if graph is None:
+                step = self._chunk_step(B, greedy, rep_window, k_subset, spec)
+                graph = self.graphs.capture(key, step, step)
+                logger.info("engine chunk graph captured in %.1f ms: B=%d greedy=%s spec=%s "
+                            "rep_window=%d k_subset=%d", self.graphs.last_capture_ms,
+                            *key[:5])
+                return
+            graph.replay()
+
+        return _graphs.run_blocks(replay, halt, _graphs.BLOCK, ahead=True, cap=k_steps)
+
+    def close(self) -> None:
+        """Free the captured chunks and the kernels' scratch."""
+        if self.graphs is not None:
+            self.graphs.close()
+            self.graphs = None
+        self.scratch.clear()
 
     # -- host control --------------------------------------------------------
 
@@ -402,21 +497,32 @@ class DecodeEngine:
         """Slots holding a request (decoding or finished-but-unharvested)."""
         return int(self._live.sum())
 
-    def _first_tokens(self, first_logits: torch.Tensor, reqs, gens) -> torch.Tensor:
+    def _first_tokens(self, first_logits: torch.Tensor, reqs) -> torch.Tensor:
         """First token per admitted sequence, with no repetition penalty
-        (JAX ``_first_impl`` :550): argmax, or a draw for sampled requests."""
+        (JAX ``_first_impl`` :550): argmax, or for sampled requests the
+        draw of index 0 of the request's counter stream, from one candidate
+        pool for the group as JAX ``admit`` picks it (1024, or the bucket of
+        the largest ``top_k`` when that exceeds 1024 and a request
+        samples)."""
         first = first_logits.float().argmax(dim=-1)
-        no_recent = torch.full((1, 1), RECENT_PAD_ID, dtype=torch.long, device=first.device)
-        for j, r in enumerate(reqs):
-            if r.temperature != 0.0:
-                k_subset = self.gen.runtime.pick_top_k_subset(
-                    r.top_k if r.top_k > 0 else TOP_K_SUBSET, self.cfg.vocab_size
-                )
-                first[j] = sample_logits(
-                    first_logits[j : j + 1], r.temperature, r.top_k, r.top_p, 1.0,
-                    no_recent, gens[j], k_subset,
-                )[0]
-        return first
+        if all(r.temperature == 0.0 for r in reqs):
+            return first
+        top_k_max = max(r.top_k for r in reqs)
+        k_subset = TOP_K_SUBSET
+        if top_k_max > TOP_K_SUBSET:
+            k_subset = self.gen.runtime.pick_top_k_subset(top_k_max, self.cfg.vocab_size)
+        dev = first_logits.device
+
+        def column(name, dtype):
+            return torch.tensor([getattr(r, name) for r in reqs], dtype=dtype, device=dev)
+
+        no_recent = torch.full((len(reqs), 1), RECENT_PAD_ID, dtype=torch.long, device=dev)
+        seeds = torch.tensor([_seed64(r.seed) for r in reqs], dtype=torch.long, device=dev)
+        return sample_streams(
+            first_logits, column("temperature", torch.float32), column("top_k", torch.long),
+            column("top_p", torch.float32), 1.0, no_recent, k_subset, seeds,
+            torch.zeros_like(seeds),
+        )
 
     def _put_flat(self, cache, group: torch.Tensor, slots: torch.Tensor) -> None:
         """Prompt rows of the group into the slots' first ``pb_g`` rows (this
@@ -487,14 +593,7 @@ class DecodeEngine:
             self.stats.mid_decode_admissions += len(reqs)
         bg = len(reqs)
         slots_np = np.asarray(slots[:bg], np.int64)
-        gens = []
-        for r in reqs:
-            g = None
-            if r.temperature != 0.0:
-                g = torch.Generator(device=self.device)
-                g.manual_seed(r.seed)
-            gens.append(g)
-        first = self._first_tokens(first_logits, reqs, gens)
+        first = self._first_tokens(first_logits, reqs)
         first_np = first.cpu().numpy()
         budgets = np.asarray([min(r.max_new, self.token_bucket) for r in reqs], np.int64)
         done_new = np.array(
@@ -535,8 +634,8 @@ class DecodeEngine:
             self._top_p[s] = r.top_p
             self._rep_pen[s] = r.repetition_penalty
             self._rep_ctx[s] = r.repetition_context_size
+            self._seed[s] = _seed64(r.seed)
             self._meta[s] = r
-            self._gens[s] = gens[j]
             self._done[s] = bool(done_new[j])
         self._ctl_dirty = True
         self.stats.admitted += bg
@@ -581,23 +680,25 @@ class DecodeEngine:
         return self._live & ~self._done & ~self._paused
 
     def _refresh_ctl(self) -> None:
-        """Re-upload the per-slot parameters (admission, retirement and page
-        events only).  Host ``done`` folds into the mask: it is a superset of
-        the device's (force-finished slots are marked on the host only)."""
+        """Fill the control buffers in place from their host mirrors
+        (admission, retirement and page events only): the buffers keep the
+        pointers a captured chunk holds.  Host ``done`` folds into the mask:
+        it is a superset of the device's (force-finished slots are marked on
+        the host only)."""
         mask = self._live & ~self._done
         if self.paged:
             mask &= ~self._paused
-        dev = self.device
-        # torch.tensor copies: the numpy mirrors change after the upload.
-        self._ctl_d = {
-            "mask": torch.tensor(mask, device=dev),
-            "prompt_len": torch.tensor(self._prompt_len, device=dev),
-            "max_new": torch.tensor(self._max_new, device=dev),
-            "rep_pen": torch.tensor(self._rep_pen, device=dev),
-            "rep_ctx": torch.tensor(self._rep_ctx, device=dev),
+        mirrors = {
+            "mask": mask, "prompt_len": self._prompt_len, "max_new": self._max_new,
+            "rep_pen": self._rep_pen, "rep_ctx": self._rep_ctx, "temp": self._temp,
+            "top_k": self._top_k, "top_p": self._top_p, "seed": self._seed,
         }
         if self.paged:
-            self._ctl_d["table"] = torch.tensor(self._page_table, device=dev)
+            mirrors["table"] = self._page_table
+        for name, buf in self._ctl_d.items():
+            host = self._ctl_host[name]
+            host.numpy()[...] = mirrors[name]
+            buf.copy_(host)         # waits for the copy: the host buffer is reused
         self._ctl_dirty = False
 
     def _plan_chunk_spec(self, greedy: bool):
@@ -627,7 +728,13 @@ class DecodeEngine:
     @torch.inference_mode()
     @_build.owned
     def step(self, k_steps: int | None = None) -> None:
-        """Run one decode chunk over every live slot."""
+        """Run one decode chunk over every live slot: at most ``k_steps``
+        (default ``chunk_steps``) iterations in blocks, graphed on the card
+        (:meth:`_run_chunk`), then one status fetch.  Per chunk, on the
+        host: page planning, the width, greedy or mixed, the rep window, the
+        candidate pool (JAX ``engine.py:1112-1117``: the bucket of the
+        largest ``top_k`` over the live lanes, for every lane) and whether
+        to speculate."""
         k = k_steps or self.chunk_steps
         pre_spec = None
         if self.paged:
@@ -663,21 +770,32 @@ class DecodeEngine:
         rep_window = rt.rep_window
         if mask.any() and (self._rep_pen[mask] != 1.0).any():
             rep_window = rt.pick_rep_window(int(self._rep_ctx[mask].max()), self.token_bucket)
+        k_subset = TOP_K_SUBSET
+        if not greedy and mask.any():
+            top_k_max = int(self._top_k[mask].max())
+            k_subset = rt.pick_top_k_subset(
+                top_k_max if top_k_max > 0 else TOP_K_SUBSET, self.cfg.vocab_size
+            )
         spec = self._plan_chunk_spec(greedy)
         if self.paged and spec is not None and pre_spec is None:
             # A force-finish flipped the chunk to all-greedy after pages were
             # planned for plain steps: run it plain.
             spec = None
-        fwd = self._run_chunk(k, greedy, width, rep_window, spec)
+        replays, looks = self._run_chunk(k, greedy, width, rep_window, k_subset, spec)
         counts_before = self._counts
-        status = torch.stack([self._counts_d, self._done_d.long()]).cpu().numpy()
-        self._counts = status[0].copy()
-        self._done = status[1].astype(bool)
+        n = self.n_slots
+        status = torch.cat([self._counts_d, self._done_d.long(), self._fwd_d,
+                            self._iters_d.reshape(1)]).cpu().numpy()
+        self._counts = status[:n].copy()
+        self._done = status[n : 2 * n].astype(bool)
         self.stats.chunks += 1
+        self.stats.iterations += int(status[-1])
+        self.stats.replays += replays
+        self.stats.looks += looks
         self.stats.steps += int((self._counts - counts_before).max(initial=0))
         if spec is not None:
             self.stats.spec_chunks += 1
-            self.stats.spec_lane_steps += int(fwd.sum())
+            self.stats.spec_lane_steps += int(status[2 * n : 3 * n].sum())
             self.stats.spec_lane_tokens += int((self._counts - counts_before)[mask].sum())
         self.stats.occupancy_sum += self.n_active() + int((self._live & self._done).sum())
 
@@ -697,7 +815,6 @@ class DecodeEngine:
             self._prompt_len[s] = 0
             self._cur[s] = 0
             self._meta[s] = None
-            self._gens[s] = None
             if self.paged:
                 n_owned = int(self._pp[s] + self._dp_alloc[s])
                 self._free_pages.extend(
@@ -730,15 +847,15 @@ class DecodeEngine:
             for a in (
                 self._live, self._done, self._counts, self._prompt_len,
                 self._max_new, self._cur, self._temp, self._top_k,
-                self._top_p, self._rep_pen, self._rep_ctx,
+                self._top_p, self._rep_pen, self._rep_ctx, self._seed,
                 self._pp, self._dp_alloc, self._paused,
             ):
                 a[dst] = a[src]
-            self._meta[dst], self._gens[dst] = self._meta[src], self._gens[src]
+            self._meta[dst] = self._meta[src]
             self._page_table[dst, :] = self._page_table[src, :]
             self._live[src] = False
             self._done[src] = True
-            self._meta[src] = self._gens[src] = None
+            self._meta[src] = None
             self._page_table[src, :] = 0
             self._pp[src] = 0
             self._dp_alloc[src] = 0

@@ -91,22 +91,27 @@ def _capture_lock(device: torch.device) -> threading.Lock:
 
 
 def run_blocks(step: Callable[[int], None], done: torch.Tensor, block: int,
-               ahead: bool = False) -> tuple[int, int]:
+               ahead: bool = False, cap: int | None = None) -> tuple[int, int]:
     """Call ``step(i)`` for i = 0, 1, ... in blocks of ``block`` until every
     lane of ``done`` is set, looking at ``done`` once before the first block
-    and once per block.  With ``ahead`` (CUDA), each block's ``done`` is
-    copied to pinned host memory without waiting, and the copy of the
-    block before is read while the block runs, so the host stays one block
-    ahead of the device.  Returns (steps run, looks at ``done``)."""
+    and once per block, or until ``cap`` steps have run (the last block cut
+    short to end there, with no look after it).  With ``ahead`` (CUDA), each
+    block's ``done`` is copied to pinned host memory without waiting, and
+    the copy of the block before is read while the block runs, so the host
+    stays one block ahead of the device.  Returns (steps run, looks at
+    ``done``)."""
     looks = 1
     if bool(done.all()):
         return 0, looks
+    limit = cap if cap is not None else float("inf")
     n = 0
     if not ahead:
         while True:
-            for _ in range(block):
+            for _ in range(min(block, limit - n)):
                 step(n)
                 n += 1
+            if n >= limit:
+                return n, looks
             looks += 1
             if bool(done.all()):
                 return n, looks
@@ -114,9 +119,11 @@ def run_blocks(step: Callable[[int], None], done: torch.Tensor, block: int,
     copied = [torch.cuda.Event(), torch.cuda.Event()]
     prev = None
     while True:
-        for _ in range(block):
+        for _ in range(min(block, limit - n)):
             step(n)
             n += 1
+        if n >= limit:
+            return n, looks
         cur = (n // block) % 2
         host[cur].copy_(done, non_blocking=True)
         copied[cur].record()

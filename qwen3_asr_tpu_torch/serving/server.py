@@ -535,6 +535,13 @@ class ContinuousTranscriptionServer(_Served):
     def engine_stats(self):
         return self._engine.stats
 
+    def close(self) -> None:
+        """As :meth:`_Served.close`, then free the engine's captured chunks
+        and kernel scratch once the worker has stopped."""
+        super().close()
+        if not self._worker.is_alive():
+            self._engine.close()
+
     # -- worker --------------------------------------------------------------
 
     def _drain_new(self, block: bool) -> list[_Request] | None:

@@ -33,7 +33,8 @@ the smoke's server runs it (8 slots, 16-step chunks, 30 s clips, 512-token
 transcripts): paged bf16 and int8 pools under ``spec_engine`` "off" (paged
 steps) and "auto" (paged verify iterations), and the flat bf16 engine; the
 smoke batch admitted at once (64-token budgets), once unprofiled to warm
-up, then ``--runs`` times under ``torch.profiler`` over its chunks to the
+up (the chunks' graphs are captured there), then ``--runs``
+times into the same engine under ``torch.profiler`` over its chunks to the
 last retirement: chunk iterations, device kernels and copies and fills per
 iteration (the chunks' own, such as the status fetch, included; copies and
 fills apart), kernel ms per
@@ -123,16 +124,16 @@ def device_kernels(prof) -> tuple[int, int, int, float, Counter, Counter]:
     return n, copies, fills, total, by_name, counts
 
 
-def engine_run(model, paged: bool, clips, prof=None) -> tuple[dict, list]:
-    """The smoke batch through a fresh engine, all admitted at once, chunks
-    until the last retirement (profiled when ``prof`` is a profiler
-    context).  Returns (engine stats, per-clip tokens)."""
+def engine_run(model, engine, clips, prof=None) -> tuple[dict, list]:
+    """The smoke batch through ``engine`` (empty; its counters reset), all
+    admitted at once, chunks until the last retirement (profiled when
+    ``prof`` is a profiler context).  Returns (engine stats, per-clip
+    tokens)."""
     import torch
 
-    from qwen3_asr_tpu_torch.runtime.engine import SlotRequest
+    from qwen3_asr_tpu_torch.runtime.engine import EngineStats, SlotRequest
 
-    engine = model.make_engine(n_slots=8, max_duration=30.0, max_new_tokens=512,
-                               chunk_steps=16, paged=paged)
+    engine.stats = EngineStats()
     kv, logits, prompts = model.prefill_group(clips, ["English"] * len(clips))
     reqs = [SlotRequest(samples=c, prompt=p, max_new=64, meta=i)
             for i, (c, p) in enumerate(zip(clips, prompts))]
@@ -161,10 +162,12 @@ def engine_profile(card: str, base, clips, runs: int, out: Path) -> None:
     for label, (runtime, paged) in ENGINES.items():
         model = Qwen3ASR(base._config, base._encoder_params, base._decoder_params,
                          base._tokenizer, RuntimeConfig(**runtime))
-        engine_run(model, paged, clips)                        # warm-up
+        engine = model.make_engine(n_slots=8, max_duration=30.0, max_new_tokens=512,
+                                   chunk_steps=16, paged=paged)
+        engine_run(model, engine, clips)              # warm-up: captures the chunks' buckets
         for run in range(runs):
             prof = torch.profiler.profile(activities=acts)
-            st, _ = engine_run(model, paged, clips, prof)
+            st, _ = engine_run(model, engine, clips, prof)
             n, copies, fills, us, by_name, counts = device_kernels(prof)
             it = max(st["iterations"], 1)
             tag = label.replace(", ", "_").replace(" ", "-")
@@ -175,7 +178,8 @@ def engine_profile(card: str, base, clips, runs: int, out: Path) -> None:
                   f"{us / 1e3 / it:.3f} kernel-ms per iteration; profiled wall "
                   f"{st['wall_s'] * 1e3 / it:.2f} ms per iteration; top kernels (us): "
                   + ", ".join(f"{k} {d:.0f}" for k, d in by_name.most_common(5)))
-        del model
+        engine.close()
+        del model, engine
         torch.cuda.empty_cache()
 
 
