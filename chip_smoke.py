@@ -3384,8 +3384,11 @@ def profiled_busy(call) -> tuple[int, float, float]:
         call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # User annotations (the port's ``qwen3_asr/*`` spans, the optimizer's
+    # ``Optimizer.step#Adam.step``) also sit on the device timeline.
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset", "qwen3_asr/"))]
+               and not e.name.startswith(("Memcpy", "Memset", "qwen3_asr/"))
+               and "#" not in e.name and not getattr(e, "is_user_annotation", False)]
     return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3, wall
 
 
@@ -3991,39 +3994,105 @@ def train_parity(card: str) -> tuple[float, dict]:
     return gpu_loss, gpu_g
 
 
-def train_arm(card: str, dtype, label: str) -> dict:
-    """(b)/(c) ``ModelConfig()`` from ``random_params(seed=0)`` in ``dtype``
-    on the card, Adam at lr 1e-4, the :data:`TRAIN_FULL` batch: one warm
-    step, :data:`TRAIN_STEPS` steps between two CUDA events, then one step
-    under ``torch.cuda.set_sync_debug_mode("warn")`` (a host sync inside a
-    step fails the arm).  (d) Every loss finite and the last below the
-    first, every parameter leaf's gradient (the last step's) finite and
-    nonzero.  The float32 arm also keeps the warm step's gradient
-    fingerprint (:func:`grad_fingerprint`)."""
+def train_restore(card: str) -> None:
+    """Restore after a capture, on the tiny float32 config (TF32 off, Adam
+    lr 1e-3, weights drawn on the host): a state takes three steps (the
+    warm-up, the capture and its replay, a replay), is saved, and takes a
+    fourth; ``restore_train_state`` loads the snapshot back into that
+    captured state (the optimizer's state tensors are new, so the step drops
+    its graphs), and its next three steps (eager, capture, replay) must
+    equal three ``eager=True`` steps of a fresh state restored from the same
+    snapshot bit for bit: losses, parameters and Adam moments."""
+    import dataclasses
+    import functools
+    import shutil
+
+    import torch
+
+    from qwen3_asr_tpu_torch.models.params import random_params
+    from qwen3_asr_tpu_torch.training import checkpoint as ckpt
+    from qwen3_asr_tpu_torch.training.train import init_train_state, make_train_step
+
+    cfg = train_tiny_config()
+    opt = functools.partial(torch.optim.Adam, lr=1e-3)
+
+    def fresh(seed):
+        params = random_params(cfg, seed=seed, dtype=torch.float32)
+        return init_train_state(cfg, opt, *(_params_to(p, "cuda", torch.float32) for p in params))
+
+    batch = train_batch(cfg.text_decoder.vocab_size, 2, 800, 700, 91, 144, SEED, "cuda")
+    where = ROOT / "build" / "train_restore"
+    shutil.rmtree(where, ignore_errors=True)
+    try:
+        step, state = make_train_step(cfg), fresh(SEED)
+        for _ in range(3):
+            state, _ = step(state, batch)
+        ckpt.save_train_state(where, state)
+        state, _ = step(state, batch)
+        state = ckpt.restore_train_state(where, state)
+        runs = {}
+        for label, st, stepper in (("graphed", state, step),
+                                   ("eager", ckpt.restore_train_state(where, fresh(SEED + 1)),
+                                    make_train_step(cfg, eager=True))):
+            losses = []
+            for _ in range(3):
+                st, loss = stepper(st, batch)
+                losses.append(loss)
+            runs[label] = (torch.stack(losses).cpu().tolist(), state_digests(st, moments=True))
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    counts = dataclasses.asdict(step.stats)
+    want = {"captures": 2, "replays": 5, "eager_steps": 2, "drops": 1}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"training restore after capture: the step's counters {counts}, "
+                             f"want {want}")
+    if runs["graphed"] != runs["eager"]:
+        raise AssertionError(f"training restore after capture: losses {runs['graphed'][0]} "
+                             f"against a fresh eager run's {runs['eager'][0]}, parameters and "
+                             f"moments equal: {runs['graphed'][1] == runs['eager'][1]}")
+    print(f"training restore after capture (tiny f32 config): the snapshot loaded into the "
+          f"captured state dropped its graphs (drops {counts['drops']}), its next three steps "
+          f"(eager, capture, replay) bit-identical to eager=True from a fresh restore: losses "
+          f"{['%.7f' % x for x in runs['graphed'][0]]}, {len(runs['graphed'][1])} leaves and "
+          f"moments ({card})")
+
+
+def train_run(cfg, dtype, init, batch, eager: bool, fingerprint: bool = False) -> dict:
+    """One run of the train step (``make_train_step(cfg, eager=eager)``) from
+    a copy of the parameter trees ``init``, Adam at lr :data:`TRAIN_LR`, on
+    ``batch``: two steps on the host clock (graphed: the shape's warm-up
+    step, then its capture and first replay), :data:`TRAIN_STEPS` steps
+    between two CUDA events, one step under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and one under
+    :func:`profiled_busy`.  Returns the losses, the timings, the step's
+    counters, the host syncs of the checked step, the profiled step's
+    kernels and busy share, the peak memory, the last step's
+    :func:`grad_fingerprint` and :func:`grad_report`, and the parameters'
+    :func:`state_digests`; with ``fingerprint`` also the first step's
+    :func:`grad_fingerprint`."""
+    import copy
+    import dataclasses
     import functools
     import warnings
 
     import torch
 
-    from qwen3_asr_tpu_torch.config import ModelConfig
-    from qwen3_asr_tpu_torch.models.params import random_params
     from qwen3_asr_tpu_torch.training.train import init_train_state, make_train_step
 
-    cfg = ModelConfig()
-    B, frames, valid, n_audio, P = TRAIN_FULL
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, functools.partial(torch.optim.Adam, lr=TRAIN_LR),
-                             *random_params(cfg, seed=SEED, dtype=dtype, device="cuda"))
-    n_params = sum(t.numel() for t in state.optimizer.param_groups[0]["params"])
-    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, "cuda")
-    step = make_train_step(cfg)
-    t0 = time.perf_counter()
-    state, loss = step(state, batch)
-    losses = [loss]
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    fingerprint = grad_fingerprint(state) if dtype == torch.float32 else None
+                             *copy.deepcopy(init))
+    step = make_train_step(cfg, eager=eager)
+    losses, first_s, out = [], [], {}
+    for k in range(2):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(loss)
+        torch.cuda.synchronize()
+        first_s.append(time.perf_counter() - t0)
+        if k == 0 and fingerprint:
+            out["first_fingerprint"] = grad_fingerprint(state)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(TRAIN_STEPS):
@@ -4041,10 +4110,85 @@ def train_arm(card: str, dtype, label: str) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    trajectory = torch.stack(losses).float().cpu().tolist()
+    last = []
+
+    def profiled():
+        last.append(step(state, batch))
+
+    kernels, kernel_ms, wall_ms = profiled_busy(profiled)
+    state = last[0][0]
+    losses.append(last[0][1])
     bad, zero, gnorm = grad_report(state)
+    out.update(
+        losses=torch.stack(losses).float().cpu().tolist(), ms=ms, first_s=first_s,
+        stats=dataclasses.asdict(step.stats), graphed=step.graphed(state), syncs=syncs,
+        kernels=kernels, kernel_ms=kernel_ms, wall_ms=wall_ms,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, fingerprint=grad_fingerprint(state),
+        bad=bad, zero=zero, gnorm=gnorm, digests=state_digests(state),
+        n_params=sum(t.numel() for t in state.optimizer.param_groups[0]["params"]))
+    step.close()
+    del state, loss, losses, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Whether two :func:`train_run` records have bit-identical losses and
+    parameters."""
+    return a["losses"] == b["losses"] and a["digests"] == b["digests"]
+
+
+def hold_graphed(label: str, graphed: dict, eager: list[dict]) -> None:
+    """Hold a graphed :func:`train_run` to two ``eager=True`` runs from the
+    same state, with ``cudnn.deterministic`` on (:func:`training_phase`):
+    the two eager runs bit-identical (losses and parameters), so eager is
+    reproducible, and the graphed run bit-identical to them; every leaf's
+    last gradient (norm and seeded projection, :func:`grad_fingerprint`)
+    within :data:`TRAIN_GRAD_TOL` of its norm plus 1e-6 of the whole
+    gradient's norm of the first eager run's."""
+    e1, e2 = eager
+    if not same_bits(e1, e2):
+        raise AssertionError(f"{label}: two eager=True runs from one state differ: losses "
+                             f"{e1['losses']} against {e2['losses']}")
+    if not same_bits(graphed, e1):
+        raise AssertionError(f"{label}: the graphed run is not bit-identical to eager=True: "
+                             f"losses {graphed['losses']} against {e1['losses']}, parameters "
+                             f"equal {graphed['digests'] == e1['digests']}")
+    ref, got = e1["fingerprint"], graphed["fingerprint"]
+    total = ref[:, 0].sum().sqrt().item()
+    for i in range(ref.shape[0]):
+        norm = ref[i, 0].sqrt().item()
+        err = max(abs(got[i, 0].sqrt().item() - norm), abs(got[i, 1].item() - ref[i, 1].item()))
+        if not err <= TRAIN_GRAD_TOL * norm + 1e-6 * total:
+            raise AssertionError(f"{label}: leaf {i} last gradient off by {err:.3e} (norm "
+                                 f"{norm:.3e}) against eager=True")
+
+
+def train_arm(card: str, dtype, label: str) -> dict:
+    """(b)/(c) ``ModelConfig()`` from ``random_params(seed=0)`` in ``dtype``
+    on the card, the :data:`TRAIN_FULL` batch: :func:`train_run` graphed,
+    then twice with ``eager=True`` from the same initial trees, the graphed
+    run held to them (:func:`hold_graphed`).  (d) In each run every loss
+    finite and the last below the first, every parameter leaf's last
+    gradient finite and nonzero, no host sync in the checked step; the
+    graphed run captures once.  Returns the graphed run's record (with
+    ``fingerprint`` its first step's gradient fingerprint, the float32
+    reference of :func:`mesh_training_phase`) and the eager runs' ms."""
+    import torch
+
+    from qwen3_asr_tpu_torch.config import ModelConfig
+    from qwen3_asr_tpu_torch.models.params import random_params
+
+    cfg = ModelConfig()
+    B, frames, valid, n_audio, P = TRAIN_FULL
+    init = random_params(cfg, seed=SEED, dtype=dtype, device="cuda")
+    batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, "cuda")
+    graphed = train_run(cfg, dtype, init, batch, eager=False, fingerprint=dtype == torch.float32)
+    eager = [train_run(cfg, dtype, init, batch, eager=True) for _ in range(2)]
+    del init, batch
+    torch.cuda.empty_cache()
     flops, head_flops = train_step_work(cfg, B, frames, P)
+    n_params = graphed["n_params"]
     itemsize = torch.empty((), dtype=dtype).element_size()
     if dtype == torch.float32:
         t_ops = flops / PEAK_F32_FLOPS
@@ -4054,27 +4198,46 @@ def train_arm(card: str, dtype, label: str) -> dict:
     # parameters and moments: 7 tensors of the parameters' size.
     t_bytes = 7 * n_params * itemsize / (PEAK_HBM_GBPS * 1e9)
     bound_ms = max(t_ops, t_bytes) * 1e3
-    print(f"training {label}: ModelConfig() ({n_params / 1e9:.3f}B parameters, {dtype}), "
-          f"B={B} x {frames} mel frames ({valid} valid, {n_audio} audio tokens), P={P}, Adam "
-          f"lr {TRAIN_LR}: losses {['%.6f' % x for x in trajectory]} (warm step, "
-          f"{TRAIN_STEPS} timed, one sync-checked); {ms:.1f} ms a step (CUDA events, mean of {TRAIN_STEPS}; warm "
-          f"step {warm_s:.2f} s host); bound {bound_ms:.1f} ms by "
-          f"{'operations' if t_ops >= t_bytes else 'bytes'} ({flops / 1e12:.2f} TFLOP, "
-          f"{bound_ms / ms:.1%} of it); peak memory {peak_gb:.2f} GB "
-          f"(max_memory_allocated); global grad norm {gnorm:.4e} (last step); host syncs "
-          f"in the checked step {len(syncs)} ({card})")
-    if syncs:
-        raise AssertionError(f"training {label}: host syncs inside a step: {syncs[:3]}")
-    if not all(map(math.isfinite, trajectory)):
-        raise AssertionError(f"training {label}: non-finite loss {trajectory}")
-    if not trajectory[-1] < trajectory[0]:
-        raise AssertionError(f"training {label}: loss did not fall {trajectory}")
-    if bad or zero:
-        raise AssertionError(f"training {label}: non-finite gradient {bad[:5]}, zero gradient "
-                             f"{zero[:5]}")
-    del state, batch, losses, loss
-    return {"ms": ms, "peak_gb": peak_gb, "losses": trajectory, "bound_ms": bound_ms,
-            "fingerprint": fingerprint}
+    for run, name in ((graphed, "graphed"), (eager[0], "eager"), (eager[1], "eager (2nd)")):
+        st, traj = run["stats"], run["losses"]
+        print(f"training {label} {name}: ModelConfig() ({n_params / 1e9:.3f}B parameters, "
+              f"{dtype}), B={B} x {frames} mel frames ({valid} valid, {n_audio} audio tokens), "
+              f"P={P}, Adam lr {TRAIN_LR}: losses {['%.6f' % x for x in traj]} (2 first steps, "
+              f"{TRAIN_STEPS} timed, one sync-checked, one profiled); {run['ms']:.1f} ms a step "
+              f"(CUDA events, mean of {TRAIN_STEPS}; first steps {run['first_s'][0]:.2f} / "
+              f"{run['first_s'][1]:.2f} s host); bound {bound_ms:.1f} ms by "
+              f"{'operations' if t_ops >= t_bytes else 'bytes'} ({flops / 1e12:.2f} TFLOP, "
+              f"{bound_ms / run['ms']:.1%} of it); profiled step {run['kernels']} device "
+              f"kernels, {run['kernel_ms']:.1f} ms of them in {run['wall_ms']:.1f} ms wall "
+              f"({run['kernel_ms'] / run['wall_ms']:.1%} busy); captures {st['captures']} "
+              f"({st['capture_ms']:.1f} ms host), replays {st['replays']}, eager steps "
+              f"{st['eager_steps']}; peak memory {run['peak_gb']:.2f} GB (max_memory_allocated, "
+              f"the state included); global grad norm {run['gnorm']:.4e} (last step); host "
+              f"syncs in the checked step {len(run['syncs'])} ({card})")
+        if run["syncs"]:
+            raise AssertionError(f"training {label} {name}: host syncs inside a step: "
+                                 f"{run['syncs'][:3]}")
+        if not all(map(math.isfinite, traj)):
+            raise AssertionError(f"training {label} {name}: non-finite loss {traj}")
+        if not traj[-1] < traj[0]:
+            raise AssertionError(f"training {label} {name}: loss did not fall {traj}")
+        if run["bad"] or run["zero"]:
+            raise AssertionError(f"training {label} {name}: non-finite gradient {run['bad'][:5]}, "
+                                 f"zero gradient {run['zero'][:5]}")
+    st = graphed["stats"]
+    if not (graphed["graphed"] and st["captures"] == 1 and st["eager_steps"] == 1
+            and st["replays"] == len(graphed["losses"]) - 1):
+        raise AssertionError(f"training {label}: the graphed run's counters {st}")
+    hold_graphed(f"training {label}", graphed, eager)
+    print(f"training {label}: graphed {graphed['ms']:.1f} ms a step against eager=True "
+          f"{eager[0]['ms']:.1f} / {eager[1]['ms']:.1f} ({eager[0]['ms'] / graphed['ms']:.2f}x), "
+          f"one capture of {st['capture_ms']:.1f} ms; losses and parameters bit-identical to "
+          f"eager=True (two eager runs bit-identical); every leaf's last gradient "
+          f"within {TRAIN_GRAD_TOL:g} x its norm + 1e-6 x the whole norm; peak memory "
+          f"{graphed['peak_gb']:.2f} GB graphed against {eager[0]['peak_gb']:.2f} eager ({card})")
+    return {"ms": graphed["ms"], "eager_ms": [e["ms"] for e in eager],
+            "peak_gb": graphed["peak_gb"], "losses": graphed["losses"], "bound_ms": bound_ms,
+            "fingerprint": graphed.get("first_fingerprint")}
 
 
 def lm_head_derivative(card: str) -> None:
@@ -4108,9 +4271,13 @@ def lm_head_derivative(card: str) -> None:
 
 def training_phase(card: str) -> dict:
     """The training path (``qwen3_asr_tpu_torch/training``): (a)
-    :func:`train_parity`; the lm head's derivative; (b) :func:`train_arm` in
-    float32 and (c) in bf16 at full width; (d) no hand-written kernel
-    launched in the whole phase (``LAUNCHES`` unchanged).  Returns the
+    :func:`train_parity` and :func:`train_restore`; the lm head's
+    derivative; (b) :func:`train_arm` in float32 and (c) in bf16 at full
+    width, the graphed step against ``eager=True``; (d) no hand-written
+    kernel launched in the whole phase (``LAUNCHES`` unchanged).  TF32 off
+    and ``cudnn.deterministic`` on: cuDNN's default conv backward adds with
+    atomics, and two eager runs of the tiny config then differ in most
+    leaves (Adam turns rounding-level gradients into lr-sized steps).  Returns the
     one-device references of :func:`mesh_training_phase`: the tiny step's
     loss and gradients (``"tiny"``) and each arm's record."""
     import torch
@@ -4118,16 +4285,20 @@ def training_phase(card: str) -> dict:
     from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         arms = {"tiny": train_parity(card)}
+        train_restore(card)
         lm_head_derivative(card)
         for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             arms[label] = train_arm(card, dtype, label)
             torch.cuda.empty_cache()
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
     if dict(LAUNCHES) != before:
         changed = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES if LAUNCHES[k] != before.get(k, 0)}
         raise AssertionError(f"training phase launched hand-written kernels: {changed}")
@@ -5298,9 +5469,10 @@ def state_digests(state, moments: bool = False) -> dict:
     return out
 
 
-def mesh_train_state(cfg, dtype, device, mesh, seed: int = SEED):
-    """A step-0 Adam (lr :data:`TRAIN_LR`) state of ``cfg`` from
-    ``random_params(seed)`` on ``device``, this rank's shards on ``mesh``."""
+def mesh_train_state(cfg, dtype, device, mesh, seed: int = SEED, **adam):
+    """A step-0 Adam (lr :data:`TRAIN_LR`, ``adam`` its other options) state
+    of ``cfg`` from ``random_params(seed)`` on ``device``, this rank's
+    shards on ``mesh``."""
     import functools
 
     import torch
@@ -5309,18 +5481,17 @@ def mesh_train_state(cfg, dtype, device, mesh, seed: int = SEED):
     from qwen3_asr_tpu_torch.training.train import init_train_state
 
     params = random_params(cfg, seed=seed, dtype=dtype, device=device)
-    return init_train_state(cfg, functools.partial(torch.optim.Adam, lr=TRAIN_LR), *params, mesh)
+    return init_train_state(cfg, functools.partial(torch.optim.Adam, lr=TRAIN_LR, **adam),
+                            *params, mesh)
 
 
-def timed_steps(state, batch, cfg, n: int, device) -> tuple:
-    """``n`` train steps between two CUDA events: (state, losses, ms a step,
-    collectives a step, bytes a step)."""
+def timed_steps(step, state, batch, n: int, device) -> tuple:
+    """``n`` calls of the train step ``step`` between two CUDA events:
+    (state, losses, ms a step, collectives a step, bytes a step)."""
     import torch
 
     from qwen3_asr_tpu_torch.parallel.collectives import TRAFFIC
-    from qwen3_asr_tpu_torch.training.train import make_train_step
 
-    step = make_train_step(cfg)
     TRAFFIC.clear()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -5360,31 +5531,45 @@ def train_job_full(mesh, device, workdir) -> dict:
     """(b) ``ModelConfig()`` on the :data:`TRAIN_FULL` batch: one float32
     step (its loss, host-clock seconds, :func:`grad_fingerprint`, peak
     memory, collectives and the replicated leaves' digests), then in bf16
-    one warm step and :data:`TRAIN_STEPS` timed steps."""
+    two first steps (graphed over NCCL: the warm-up, then the capture and
+    its replay) and :data:`TRAIN_STEPS` timed steps, the step's counters and
+    whether it was graphed; where it was, the same bf16 steps again with
+    ``eager=True`` from the same initial state (their losses, ms and the
+    parameters' digests beside the graphed run's)."""
+    import dataclasses
+
     import torch
 
     from qwen3_asr_tpu_torch.config import ModelConfig
+    from qwen3_asr_tpu_torch.training.train import make_train_step
 
     cfg = ModelConfig()
     B, frames, valid, n_audio, P = TRAIN_FULL
     batch = train_batch(cfg.text_decoder.vocab_size, B, frames, valid, n_audio, P, SEED, device)
     out = {}
-    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    for dtype, label, eager in ((torch.float32, "f32", False), (torch.bfloat16, "bf16", False),
+                                (torch.bfloat16, "bf16 eager", True)):
+        if eager and not out["bf16"]["graphed"]:
+            break
         state = mesh_train_state(cfg, dtype, device, mesh)
+        step = make_train_step(cfg, eager=eager)
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        state, losses, ms, calls, nbytes = timed_steps(state, batch, cfg, 1, device)
+        state, losses, ms, calls, nbytes = timed_steps(step, state, batch, 1, device)
         first_s = time.perf_counter() - t0
         rec = {"first_s": first_s, "first_loss": losses[0]}
         if label == "f32":
             rec.update(fingerprint=grad_fingerprint(state), digests=state_digests(state))
         else:
-            state, more, ms, calls, nbytes = timed_steps(state, batch, cfg, TRAIN_STEPS, device)
-            rec["losses"] = losses + more
-        rec.update(ms=ms, calls=calls, bytes=nbytes,
+            state, more, _, _, _ = timed_steps(step, state, batch, 1, device)
+            state, timed, ms, calls, nbytes = timed_steps(step, state, batch, TRAIN_STEPS, device)
+            rec.update(losses=losses + more + timed, digests=state_digests(state))
+        rec.update(ms=ms, calls=calls, bytes=nbytes, graphed=step.graphed(state),
+                   stats=dataclasses.asdict(step.stats),
                    peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
         out[label] = rec
+        step.close()
         del state
         torch.cuda.empty_cache()
     return out
@@ -5397,6 +5582,7 @@ def train_job_dp(mesh, device, workdir, depth) -> dict:
     import torch
 
     from qwen3_asr_tpu_torch.config import ModelConfig
+    from qwen3_asr_tpu_torch.training.train import make_train_step
 
     cfg = ModelConfig() if depth is None else depth_config(*depth)
     B, frames, valid, n_audio, P = TRAIN_FULL
@@ -5404,7 +5590,7 @@ def train_job_dp(mesh, device, workdir, depth) -> dict:
     state = mesh_train_state(cfg, torch.float32, device, mesh)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    state, losses, ms, calls, nbytes = timed_steps(state, batch, cfg, 1, device)
+    state, losses, ms, calls, nbytes = timed_steps(make_train_step(cfg), state, batch, 1, device)
     return {"loss": losses[0], "ms": ms, "calls": calls, "bytes": nbytes,
             "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
             "digests": state_digests(state)}
@@ -5452,7 +5638,7 @@ TRAIN_JOBS = {"tiny": train_job_tiny, "full": train_job_full, "dp": train_job_dp
 
 def train_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, jobs: dict) -> None:
     """One rank of :func:`mesh_training_phase` (a spawned process): joins the
-    group with TF32 off and runs ``jobs`` (:data:`TRAIN_JOBS` name ->
+    group with TF32 off and ``cudnn.deterministic`` on and runs ``jobs`` (:data:`TRAIN_JOBS` name ->
     keyword arguments) on its card; saves each job's record, its mesh
     coordinate and the hand-written kernels it launched."""
     sys.path.insert(0, str(ROOT))
@@ -5464,6 +5650,7 @@ def train_rank(rank: int, dp: int, tp: int, workdir: str, backend: str, jobs: di
     device = torch.device("cuda", rank if backend == "nccl" else 0)
     torch.cuda.set_device(device)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     parallel.initialize(num_processes=dp * tp, process_id=rank, backend=backend,
                         init_method=f"file://{workdir}/init")
     mesh = parallel.make_mesh(dp, tp)
@@ -5502,9 +5689,13 @@ def mesh_training_phase(card: str, refs: dict) -> None:
       (b) ``ModelConfig()`` on (1, 2): one float32 step held to one
           device's (the loss within 1e-5 relative; per leaf the gradient's
           norm and seeded projection, summed over the shards, within
-          :data:`TRAIN_GRAD_TOL`), then bf16, a warm and three timed
-          steps, every loss finite and the last below the first; ms a step
-          (CUDA events), peak memory a rank, collectives and bytes a step;
+          :data:`TRAIN_GRAD_TOL`), then bf16, two first steps and three
+          timed, every loss finite and the last below the first; over
+          NCCL the step is graphed (one capture a rank) and each rank's
+          run bit-identical to an ``eager=True`` rerun, its collectives a
+          replay those of an eager step, over gloo eager;
+          ms a step (CUDA events), peak memory a rank, collectives and
+          bytes a step;
       (c) dp meshes, float32: (2, 1) at :data:`TRAIN_DP_DEPTH` (one card:
           gloo through host memory; NCCL with two cards or more), and with
           four cards (2, 2) over NCCL at full depth: the loss within 1e-5
@@ -5529,8 +5720,10 @@ def mesh_training_phase(card: str, refs: dict) -> None:
     t_phase = time.perf_counter()
     before = dict(LAUNCHES)
     n_cards = torch.cuda.device_count()
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     try:
         B, frames, valid, n_audio, P = TRAIN_FULL
         dp_cfg = depth_config(*TRAIN_DP_DEPTH)
@@ -5570,7 +5763,8 @@ def mesh_training_phase(card: str, refs: dict) -> None:
                 hold_snapshot(card, label, ranks)
         dryrun_multichip(2)
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
         for d in (ROOT / "build").glob("train_mesh_*"):
             shutil.rmtree(d, ignore_errors=True)
     if dict(LAUNCHES) != before:
@@ -5674,8 +5868,37 @@ def hold_full(card: str, label: str, ranks: list[dict], refs: dict) -> None:
             for k in range(len(bf16[0]["losses"]))]
     if not traj[-1] < traj[0]:
         raise AssertionError(f"{label} bf16: loss did not fall {traj}")
-    print(f"{label} ModelConfig() bf16: losses {['%.6f' % x for x in traj]} (warm, "
-          f"{TRAIN_STEPS} timed), one device's first {refs['bf16']['losses'][0]:.6f} ({card})")
+    graphed = {x["graphed"] for x in bf16}
+    if len(graphed) != 1:
+        raise AssertionError(f"{label} bf16: some ranks graphed the step, some did not")
+    graphed = graphed.pop()
+    for r, x in enumerate(bf16):
+        st = x["stats"]
+        want = ({"captures": 1, "replays": len(traj) - 1, "eager_steps": 1} if graphed else
+                {"captures": 0, "replays": 0, "eager_steps": len(traj)})
+        if {k: st[k] for k in want} != want:
+            raise AssertionError(f"{label} rank {r} bf16: the step's counters {st}, want {want}")
+    how = "eager (the group's collectives stage through host memory)"
+    if graphed:
+        eager = [r["full"]["bf16 eager"] for r in ranks]
+        same = all(g["losses"] == e["losses"] and g["digests"] == e["digests"]
+                   for g, e in zip(bf16, eager))
+        if not same:
+            raise AssertionError(f"{label} bf16: graphed losses {traj} against eager=True "
+                                 f"{eager[0]['losses']}, parameters equal per rank "
+                                 f"{[g['digests'] == e['digests'] for g, e in zip(bf16, eager)]}")
+        for r, (g, e) in enumerate(zip(bf16, eager)):
+            if (g["calls"], g["bytes"]) != (e["calls"], e["bytes"]):
+                raise AssertionError(f"{label} rank {r} bf16: a replay counts {g['calls']} "
+                                     f"collectives ({g['bytes']} bytes), an eager step "
+                                     f"{e['calls']} ({e['bytes']})")
+        how = (f"graphed over NCCL (one capture a rank, {bf16[0]['stats']['capture_ms']:.1f} ms "
+               f"on rank 0), every rank's losses and parameters bit-identical to its "
+               f"eager=True rerun ({', '.join('%.1f' % e['ms'] for e in eager)} ms a step), "
+               f"{bf16[0]['calls']:.0f} collectives a replay as in an eager step")
+    print(f"{label} ModelConfig() bf16: losses {['%.6f' % x for x in traj]} (2 first steps, "
+          f"{TRAIN_STEPS} timed), one device's first {refs['bf16']['losses'][0]:.6f}; the step "
+          f"ran {how} ({card})")
     for r, rank in enumerate(ranks):
         for dtype in ("f32", "bf16"):
             x = rank["full"][dtype]

@@ -78,11 +78,12 @@ def sinusoidal_positions(max_positions: int, d_model: int) -> np.ndarray:
     return table.astype(np.float32)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _device_positions(max_positions: int, d_model: int, rows: int, device: torch.device,
                       dtype: torch.dtype) -> torch.Tensor:
     """The first ``rows`` rows of the sinusoid table on ``device``, copied
-    once (a copy from host memory per forward would wait for the device)."""
+    once (a copy from host memory per forward would wait for the device),
+    and kept: captured CUDA graphs read it."""
     table = sinusoidal_positions(max_positions, d_model)[:rows]
     return torch.from_numpy(table).to(device=device, dtype=dtype)
 

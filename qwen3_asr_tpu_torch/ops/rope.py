@@ -22,7 +22,8 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return (1.0 / (theta ** exponents)).astype(np.float32)
 
 
-@lru_cache(maxsize=8)
+# Unbounded: captured CUDA graphs read the tensor, which an eviction would free.
+@lru_cache(maxsize=None)
 def _device_frequencies(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
 

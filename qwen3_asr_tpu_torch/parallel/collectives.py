@@ -62,28 +62,39 @@ class TP:
 TRAFFIC: collections.Counter = collections.Counter()
 
 _sink = threading.local()
+#: Diverting counters by CUDA stream handle (:func:`diverted`'s ``stream``).
+_stream_sinks: dict[int, collections.Counter] = {}
 _traffic_lock = threading.Lock()
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
     counted = {kind: 1, f"{kind} bytes": t.numel() * t.element_size()}
     sink = getattr(_sink, "counter", None)
+    if sink is None and _stream_sinks and t.is_cuda:
+        sink = _stream_sinks.get(torch.cuda.current_stream(t.device).cuda_stream)
     if sink is not None:
         sink.update(counted)
         return
     add_traffic(counted)
 
 
-def diverted(fn) -> collections.Counter:
+def diverted(fn, stream: torch.cuda.Stream | None = None) -> collections.Counter:
     """Run ``fn`` and return the traffic this thread's collectives counted
     meanwhile, which :data:`TRAFFIC` does not see (a CUDA-graph capture,
-    during which nothing runs).  Other threads count as usual."""
+    during which nothing runs), and with ``stream`` also what any thread
+    counted on that stream (autograd runs a capture's backward, and its
+    collectives, on a device thread of its own).  Other threads count as
+    usual."""
     prev = getattr(_sink, "counter", None)
     _sink.counter = counted = collections.Counter()
+    if stream is not None:
+        _stream_sinks[stream.cuda_stream] = counted
     try:
         fn()
     finally:
         _sink.counter = prev
+        if stream is not None:
+            _stream_sinks.pop(stream.cuda_stream, None)
     return counted
 
 

@@ -28,8 +28,10 @@ Kernel launches are counted on the host when a wrapper runs
 (``parallel/collectives.py`` ``TRAFFIC``).  During a capture nothing runs
 and during a replay no wrapper runs, so what the capturing thread's
 wrappers count goes aside (``_build.diverted``, ``collectives.diverted``;
-other threads, such as a second replica's on the same card, count as
-usual) and each replay adds it (:class:`StepGraph`).  A replay runs its
+the collectives of any thread on the capture stream too, such as the
+autograd thread that runs a captured train step's backward; other threads,
+such as a second replica's on the same card, count as usual) and each
+replay adds it (:class:`StepGraph`).  A replay runs its
 kernels whether or not a lane is still live: the steps after every lane is
 done are no-ops on the visible state (the JAX package's fixed-K programs
 rely on the same, ``generate.py:628-633``), and their launches and
@@ -141,15 +143,18 @@ def record_launches(capture: Callable[[], None]) -> Counter:
     return _build.diverted(capture)
 
 
-def record(capture: Callable[[], None]) -> tuple[Counter, Counter]:
+def record(capture: Callable[[], None],
+           stream: torch.cuda.Stream | None = None) -> tuple[Counter, Counter]:
     """Run ``capture`` and return (kernel launches, collectives) that its
-    wrappers counted, which neither ``LAUNCHES`` nor ``TRAFFIC`` sees."""
+    wrappers counted, which neither ``LAUNCHES`` nor ``TRAFFIC`` sees; the
+    collectives also of any thread on the capture ``stream`` (a backward's,
+    ``collectives.diverted``)."""
     launches = Counter()
 
     def run():
         launches.update(record_launches(capture))
 
-    return launches, collectives.diverted(run)
+    return launches, collectives.diverted(run, stream)
 
 
 class StepGraph:
@@ -171,7 +176,9 @@ class DecodeGraphs:
     """The captured decode steps of one :class:`~.generate.Generator` on one
     device, by bucket, with the arena their KV caches live in and the one
     memory pool every capture shares (the graphs replay one at a time on
-    the device's current stream)."""
+    the device's current stream).  A :class:`~.engine.DecodeEngine` keeps
+    its chunk iterations here and ``training.train.TrainStep`` its train
+    steps, one entry per batch shape, without the arena."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -206,23 +213,36 @@ class DecodeGraphs:
         """(static tensors, :class:`StepGraph`) of bucket ``key``, or None."""
         return self.entries.get(key)
 
+    def _side(self) -> torch.cuda.Stream:
+        """The side stream captures run on, made with the shared pool."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._stream
+
+    def warm(self, step: Callable[[], None]) -> None:
+        """Run ``step`` once on the side stream that captures run on, after
+        the current stream's work and before its next (PyTorch's rule for a
+        step that is to be captured: the allocator, cuBLAS and the kernels'
+        lazily made buffers settle off the capture)."""
+        stream = self._side()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            step()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+
     def capture(self, key: tuple, statics, step: Callable[[], None],
-                generator: torch.Generator | None = None) -> StepGraph:
-        """Warm ``step`` up once on a side stream (allocator, cuBLAS, the
-        kernels' lazily made buffers), then capture it as bucket ``key``'s
+                generator: torch.Generator | None = None, warm: bool = True) -> StepGraph:
+        """Warm ``step`` up once (:meth:`warm`; ``warm=False``: the caller
+        ran its warm-up step already), then capture it as bucket ``key``'s
         graph, with ``generator`` registered so that each replay draws fresh
         numbers.  ``statics`` are the tensors the step reads and writes; the
         warm-up step changes them, and the caller fills them anew.  On a tp
         group the warm-up step's collectives run, and count, in every rank;
         the capture's are counted per replay."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            step()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if warm:
+            self.warm(step)
+        stream = self._side()
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
@@ -234,7 +254,7 @@ class DecodeGraphs:
 
         with _capture_lock(self.device):
             t0 = time.perf_counter()
-            launches, traffic = record(capture)
+            launches, traffic = record(capture, stream)
             # The capture stream, not the device (see _capture_locks).
             stream.synchronize()
         self.last_capture_ms = (time.perf_counter() - t0) * 1e3

@@ -1,3 +1,3 @@
-from .train import TrainState, asr_loss, make_train_step
+from .train import TrainState, TrainStep, asr_loss, make_train_step
 
-__all__ = ["TrainState", "asr_loss", "make_train_step"]
+__all__ = ["TrainState", "TrainStep", "asr_loss", "make_train_step"]

@@ -202,7 +202,8 @@ def restore_train_state(
     one device) and copied in place into the template's tensor, in its
     device and dtype (replacing the tensors would detach the template's
     optimizer from its parameters); the optimizer state likewise, then
-    loaded into the template's optimizer.  Pass a freshly initialized state
+    loaded into the template's optimizer, whose param groups keep their own
+    ``capturable`` flag.  Pass a freshly initialized state
     (:func:`~.train.init_train_state`) of the same global layout, on any
     mesh; ValueError if the layouts differ.  Returns the template with the
     saved step."""
@@ -234,5 +235,12 @@ def restore_train_state(
                 state[i] = {k: local(v, dim if v.shape == whole.shape else None)
                             .clone(memory_format=torch.contiguous_format)
                             for k, v in moments.items()}
-    template.optimizer.load_state_dict({"state": state, "param_groups": snap.param_groups})
+    groups, own = snap.param_groups, template.optimizer.param_groups
+    if len(groups) == len(own):
+        # The template's own ``capturable`` flag: a snapshot taken on the
+        # card says True (the train step sets it there), which an optimizer
+        # over CPU tensors cannot step.
+        groups = [dict(g, capturable=o["capturable"]) if "capturable" in o else g
+                  for g, o in zip(groups, own)]
+    template.optimizer.load_state_dict({"state": state, "param_groups": groups})
     return replace(template, step=snap.step)

@@ -26,6 +26,13 @@ is the slice of the whole one).  A tp group takes its first rank's
 gradients of the replicated leaves, so those stay bit-identical across the
 ranks.
 
+On the card the step is graphed, the counterpart of JAX's one jitted
+program: each batch shape's step body is captured once as a CUDA graph,
+with a mesh's NCCL collectives in it, and replayed (:func:`make_train_step`,
+:class:`TrainStep`; the rules of ``runtime/graphs.py`` hold).  CPU tensors,
+gloo groups and ``make_train_step(cfg, eager=True)`` run the same body
+eagerly.
+
 Batch layout: every sample is a right-padded prompt of bucketed length P
 holding the chat template with audio-pad placeholders at slots
 [9, 9 + n_audio); ``labels`` carries the next-token target at each position
@@ -46,7 +53,8 @@ from ..config import ModelConfig
 from ..models.decoder import decoder_forward, decoder_logits, embed_tokens
 from ..models.encoder import encoder_forward
 from ..ops.quant import is_quantized
-from ..parallel.collectives import TP, all_reduce_, broadcast_
+from ..runtime import graphs as _graphs
+from ..parallel.collectives import TP, all_reduce_, broadcast_, on_device
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import check_tp, decoder_param_sharding, encoder_param_sharding, shard_params
 
@@ -224,54 +232,273 @@ def bucketed(tensors: list[torch.Tensor], collective) -> None:
             t.copy_(part.view_as(t))
 
 
-def make_train_step(cfg: ModelConfig) -> Callable[[TrainState, Batch], tuple[TrainState, torch.Tensor]]:
-    """The train step: ``(state, batch) -> (state, loss)``.
+def capturable(device: torch.device, mesh: Mesh | None) -> bool:
+    """Whether a CUDA graph can hold a train step on ``device`` over
+    ``mesh``: on CUDA, on one device or on a mesh whose groups run their
+    collectives on the device (NCCL, ``collectives.on_device``, the test of
+    ``Generator._capturable``).  A gloo group's collectives stage through
+    host memory, which a capture cannot hold."""
+    if device.type != "cuda":
+        return False
+    if mesh is None or mesh.shape["dp"] * mesh.shape["tp"] == 1:
+        return True
+    return all(on_device(mesh.group(axis)) for axis in ("dp", "tp") if mesh.shape[axis] > 1)
 
-    Zeroes the gradients, computes :func:`asr_loss` on the batch moved to
-    the parameters' device, calls ``backward()``, steps the optimizer (the
-    parameters change in place) and counts the step.  The loss comes back
-    as a detached 0-d tensor on the device.  With the batch already there,
-    nothing in a step after the first waits for the device (the first
-    copies the RoPE and position tables to it once)."""
 
-    def step(state: TrainState, batch: Batch) -> tuple[TrainState, torch.Tensor]:
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Set ``capturable=True`` on every param group that has the option
+    (``torch.optim.Adam`` and ``AdamW`` among them: their step count and
+    bias corrections then live on the device), moving a step count kept on
+    the host to its parameter's device, where ``load_state_dict`` puts it
+    for such a group."""
+    for group in optimizer.param_groups:
+        if group.get("capturable") is not False:
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            count = optimizer.state.get(p, {}).get("step")
+            if isinstance(count, torch.Tensor) and count.device != p.device:
+                optimizer.state[p]["step"] = count.to(device=p.device, dtype=torch.float32)
+
+
+def hyperparameters(optimizer: torch.optim.Optimizer) -> list[dict]:
+    """Each param group's settings but its params, as a captured step bakes
+    them in: a float by value, a tensor (an ``lr`` that the step reads on
+    the device) by its data pointer."""
+    def baked(v):
+        if isinstance(v, torch.Tensor):
+            return ("tensor at", v.data_ptr())
+        if isinstance(v, (tuple, list)):
+            return tuple(baked(x) for x in v)
+        return v
+
+    return [{k: baked(v) for k, v in group.items() if k != "params"}
+            for group in optimizer.param_groups]
+
+
+def check_hyperparameters(baked: list[dict], optimizer: torch.optim.Optimizer) -> None:
+    """Raise ``ValueError`` naming the first setting of ``optimizer``'s param
+    groups that differs from ``baked`` (:func:`hyperparameters` at the
+    capture): a replay would run the captured value and ignore the new one."""
+    now = hyperparameters(optimizer)
+    if len(now) != len(baked):
+        raise ValueError(f"the optimizer has {len(now)} param groups, {len(baked)} when the "
+                         "train step was captured: close() the step to capture anew")
+    for i, (was, is_) in enumerate(zip(baked, now)):
+        for key in sorted(was.keys() | is_.keys()):
+            if was.get(key) != is_.get(key):
+                raise ValueError(
+                    f"param group {i}: {key!r} is {is_.get(key)!r}, {was.get(key)!r} when the "
+                    "train step was captured, and a replay would run the captured value; "
+                    "schedule the learning rate with a tensor lr updated in place "
+                    "(lr=torch.tensor(...) on the parameters' device, then lr.fill_(...)), "
+                    "or close() the step to capture anew"
+                )
+
+
+def pointers(state: TrainState) -> tuple[int, ...]:
+    """The data pointers that a captured step holds: each parameter leaf of
+    the trees and its gradient, then each tensor the optimizer steps and its
+    state tensors (``restore_train_state`` and ``load_state_dict`` replace
+    these)."""
+    out = []
+    for _, t in named_params(state.encoder, state.decoder):
+        out += (t.data_ptr(), 0 if t.grad is None else t.grad.data_ptr())
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            out.append(p.data_ptr())
+            out += (v.data_ptr() for v in state.optimizer.state.get(p, {}).values()
+                    if isinstance(v, torch.Tensor))
+    return tuple(out)
+
+
+@dataclass
+class StepStats:
+    """What a :class:`TrainStep` did: graphs captured, replays (a capturing
+    call's included), steps run eagerly (every step on the CPU, over gloo
+    and under ``eager=True``; on the card each shape's first call after a
+    drop), times the graphs were dropped for stale pointers, and the last
+    capture's host milliseconds."""
+
+    captures: int = 0
+    replays: int = 0
+    eager_steps: int = 0
+    drops: int = 0
+    capture_ms: float = 0.0
+
+
+class _Shape:
+    """One batch shape's static tensors: the batch, the loss the step
+    writes, whether a warm-up step ran since the last drop, and the
+    optimizer settings its graph baked in."""
+
+    def __init__(self, local: Batch, device: torch.device) -> None:
+        self.batch = Batch(*(torch.empty_like(t, device=device) for t in local))
+        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+        self.warm = False
+        self.hyper: list[dict] = []
+
+
+class TrainStep:
+    """The train step of :func:`make_train_step`: ``step(state, batch) ->
+    (state, loss)``, with :attr:`stats` and :meth:`close`."""
+
+    def __init__(self, cfg: ModelConfig, eager: bool = False) -> None:
+        self.cfg = cfg
+        self.eager = eager
+        self.stats = StepStats()
+        #: Static tensors by shape key (the device, each field's shape and
+        #: dtype).
+        self._shapes: dict[tuple, _Shape] = {}
+        self._graphs: _graphs.DecodeGraphs | None = None
+        self._pointers: tuple[int, ...] | None = None
+
+    def graphed(self, state: TrainState) -> bool:
+        """Whether a step of ``state`` replays a captured graph."""
+        return not self.eager and capturable(state.decoder["final_norm"].device, state.mesh)
+
+    def __call__(self, state: TrainState, batch: Batch) -> tuple[TrainState, torch.Tensor]:
         device = state.decoder["final_norm"].device
-        state.optimizer.zero_grad(set_to_none=True)
-        mesh = state.mesh
-        if mesh is None or mesh.shape["dp"] * mesh.shape["tp"] == 1:
-            loss = asr_loss(state.encoder, state.decoder, cfg, batch.to(device))
-            loss.backward()
-            state.optimizer.step()
-            return replace(state, step=state.step + 1), loss.detach()
-        tp = mesh.tp_group()
-        nll, count = masked_nll(state.encoder, state.decoder, cfg,
-                                shard_batch(batch, mesh).to(device), tp)
-        dp = mesh.group("dp") if mesh.shape["dp"] > 1 else None
-        if dp is not None:
-            count = all_reduce_(count, dp)
-        loss = nll / torch.clamp(count, min=1.0)
-        loss.backward()
-        loss = loss.detach().reshape(1)
         params = [t for _, t in named_params(state.encoder, state.decoder)]
-        for t in params:
-            if t.grad is None:
-                t.grad = torch.zeros_like(t)
-        if dp is not None:
-            # The loss rides in the gradients' buckets: the sum of the
-            # slices' shares is the whole batch's mean.
-            bucketed([t.grad for t in params] + [loss], lambda f: all_reduce_(f, dp))
-        if tp is not None:
-            # Every rank of the group computed the replicated leaves'
-            # gradients from the same values, but a kernel that adds with
-            # atomics (cuDNN's conv backward) may round them apart: the
-            # group takes its first rank's, so the leaves stay equal.
-            replicated = [t.grad for t, d in zip(params, tp_dims(state.encoder, state.decoder))
-                          if d is None]
-            bucketed(replicated, lambda f: broadcast_(f, tp.group))
-        state.optimizer.step()
-        return replace(state, step=state.step + 1), loss[0]
+        with torch.no_grad():
+            for t in params:
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+        if device.type == "cuda":
+            make_capturable(state.optimizer)
+        local = shard_batch(batch, state.mesh)
+        key = (device, *((tuple(t.shape), t.dtype) for t in local))
+        entry = self._shapes.get(key)
+        if entry is None:
+            entry = self._shapes[key] = _Shape(local, device)
+        with torch.no_grad():
+            for dst, src in zip(entry.batch, local):
+                dst.copy_(src)
+        if not self.graphed(state):
+            self._body(state, params, entry)
+            self.stats.eager_steps += 1
+        else:
+            self._graphed_step(state, params, entry, key, device)
+        return replace(state, step=state.step + 1), entry.loss.clone()
 
-    return step
+    def _graphed_step(self, state, params, entry: _Shape, key: tuple, device) -> None:
+        if self._graphs is None or self._graphs.device != device:
+            self.close()
+            self._graphs = _graphs.DecodeGraphs(device)
+        graphs = self._graphs
+        now = pointers(state)
+        if now != self._pointers:
+            if graphs.entries:
+                self.stats.drops += 1
+            graphs.entries.clear()
+            for shape in self._shapes.values():
+                shape.warm = False
+            self._pointers = now
+        captured = graphs.get(key)
+        if captured is not None:
+            check_hyperparameters(entry.hyper, state.optimizer)
+            graph = captured[1]
+        elif not entry.warm:
+            # The shape's first step: a real one, on the capture's side
+            # stream; it makes the optimizer's state.
+            graphs.warm(lambda: self._body(state, params, entry))
+            entry.warm = True
+            self.stats.eager_steps += 1
+            self._pointers = pointers(state)
+            return
+        else:
+            graph = graphs.capture(key, entry, lambda: self._body(state, params, entry),
+                                   warm=False)
+            entry.hyper = hyperparameters(state.optimizer)
+            self.stats.captures += 1
+            self.stats.capture_ms = graphs.last_capture_ms
+        graph.replay()
+        self.stats.replays += 1
+
+    def _body(self, state: TrainState, params: list[torch.Tensor], entry: _Shape) -> None:
+        """One step on ``entry``'s static batch: the gradients zeroed in
+        place, the loss and ``backward()``, on a mesh the dp sum and the tp
+        broadcast, the optimizer's step, the loss written to ``entry``."""
+        cfg, batch, mesh = self.cfg, entry.batch, state.mesh
+        torch._foreach_zero_([t.grad for t in params])
+        if mesh is None or mesh.shape["dp"] * mesh.shape["tp"] == 1:
+            loss = asr_loss(state.encoder, state.decoder, cfg, batch)
+            loss.backward()
+        else:
+            tp = mesh.tp_group()
+            nll, count = masked_nll(state.encoder, state.decoder, cfg, batch, tp)
+            dp = mesh.group("dp") if mesh.shape["dp"] > 1 else None
+            if dp is not None:
+                count = all_reduce_(count, dp)
+            loss = nll / torch.clamp(count, min=1.0)
+            loss.backward()
+            loss = loss.detach().reshape(1)
+            if dp is not None:
+                # The loss rides in the gradients' buckets: the sum of the
+                # slices' shares is the whole batch's mean.
+                bucketed([t.grad for t in params] + [loss], lambda f: all_reduce_(f, dp))
+            if tp is not None:
+                # Every rank of the group computed the replicated leaves'
+                # gradients from the same values, but a kernel that adds with
+                # atomics (cuDNN's conv backward) may round them apart: the
+                # group takes its first rank's, so the leaves stay equal.
+                replicated = [t.grad for t, d in zip(params, tp_dims(state.encoder, state.decoder))
+                              if d is None]
+                bucketed(replicated, lambda f: broadcast_(f, tp.group))
+        state.optimizer.step()
+        entry.loss.copy_(loss.detach().reshape(()))
+
+    def close(self) -> None:
+        """Free the captured graphs and their memory pool; the next step on
+        the card warms up and captures anew."""
+        if self._graphs is not None:
+            self._graphs.close()
+        self._graphs = self._pointers = None
+        for shape in self._shapes.values():
+            shape.warm = False
+
+
+def make_train_step(cfg: ModelConfig, eager: bool = False) -> TrainStep:
+    """The train step: ``step(state, batch) -> (state, loss)``.
+
+    Each call copies the batch (this rank's dp slice of it on a mesh) into
+    static tensors of its shape key (each field's shape and dtype) on the
+    parameters' device, then runs one step body: the gradients zeroed in
+    place (``.grad`` tensors allocated once and shared by every shape), the
+    loss (:func:`asr_loss`; on a mesh the slice's :func:`masked_nll` over
+    the dp-summed mask count), ``backward()``, on a mesh the dp gradient sum
+    and the tp broadcast, the optimizer's step (the parameters change in
+    place).  The loss comes back as a fresh 0-d float32 tensor on the
+    device, which later steps leave as it is; the state's step count goes
+    up by one.
+
+    Graphed (the counterpart of JAX's one jitted step, ``runtime/graphs.py``
+    has the rules): on the card, on one device or a mesh whose collectives
+    run on the device (NCCL; :func:`capturable`), each batch shape's first
+    call is a real step on the capture's side stream (it makes the
+    optimizer's state and warms cuBLAS and cuDNN), the second captures the
+    body as a CUDA graph, with a mesh's collectives in it, and replays it;
+    later calls replay it.  Every rank of a mesh captures the same shapes in
+    the same order.  A replay adds its capture's collectives to
+    ``collectives.TRAFFIC``.  No fallback: a failed capture or replay
+    raises.
+
+    On the card the step first sets ``capturable=True`` on every param
+    group of an optimizer that has the option (:func:`make_capturable`;
+    ``torch.optim.Adam`` and ``AdamW``, eagerly too, so that both run the
+    same arithmetic); another optimizer is captured as it is, or its step
+    raises under capture.  A graph bakes in each group's float settings
+    (``lr``, betas, eps, weight decay): a replay after one changed raises
+    ``ValueError`` (:func:`check_hyperparameters`); schedule with a tensor
+    ``lr`` updated in place.  A graph holds the data pointers of the
+    parameters, their gradients and the optimizer's state: when they change
+    (:func:`pointers`; ``restore_train_state``, a tensor assigned anew) the
+    graphs are dropped, and the next call is an eager step, then a capture.
+
+    Eager: CPU tensors, a gloo group and ``eager=True`` (the graphs' oracle
+    on the card) run the same body, one launch at a time.  With the batch
+    already on the device nothing in a step waits for the device."""
+    return TrainStep(cfg, eager)
 
 
 def init_train_state(

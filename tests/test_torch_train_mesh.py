@@ -267,6 +267,17 @@ def test_replicated_leaves_bit_identical_across_ranks(runs, weights, shape):
                         f"{name} step {k + 1}"
 
 
+@pytest.mark.parametrize("shape", MESHES)
+def test_gloo_mesh_step_runs_its_body_eagerly(runs, shape):
+    """A gloo group's collectives stage through host memory: the step is
+    not graphed, and every call (the resumed run's on (2, 2) too) runs the
+    body eagerly."""
+    resumed = STEPS - 1 if shape == (2, 2) else 0
+    for rank in runs["ranks"][shape]:
+        assert rank["step"] == dict(graphed=False, captures=0, replays=0,
+                                    eager_steps=STEPS + resumed, drops=0, capture_ms=0.0)
+
+
 @pytest.mark.parametrize("shape", DP2)
 def test_global_masked_mean_over_unequal_slices(runs, weights, shape):
     """dp slice 1 holds no label: the mesh's loss is the whole batch's masked

@@ -550,8 +550,10 @@ def _train(job: dict, dp: int, tp: int) -> dict:
     with ``job["save"]``, a snapshot of step 1 there, restored into a fresh
     state and resumed to the last step (bit-equal to the uninterrupted
     run?); each snapshot of ``job["restore"]`` restored into a fresh state;
-    ``job["odd_batch"]``'s dp refusal."""
+    whether the step was graphed and its counters; ``job["odd_batch"]``'s
+    dp refusal."""
     import copy
+    import dataclasses
     import functools
 
     import torch
@@ -609,6 +611,7 @@ def _train(job: dict, dp: int, tp: int) -> dict:
         )
     out["restored"] = {path: local_state(ckpt.restore_train_state(path, fresh()))
                        for path in job.get("restore", [])}
+    out["step"] = dict(graphed=step.graphed(state), **dataclasses.asdict(step.stats))
     try:
         shard_batch(Batch(**job["odd_batch"]), mesh)
         out["odd"] = None

@@ -107,8 +107,11 @@ def streams() -> dict:
         torch.cuda.empty_cache()
     for label, (runtime, paged, *_) in SERVER_PATHS.items():
         model = build_model(runtime, base)
-        out[f"engine {label}"] = engine_run(model, paged, clips)[1]
-        del model
+        engine = model.make_engine(n_slots=8, max_duration=30.0, max_new_tokens=512,
+                                   chunk_steps=16, paged=paged)
+        out[f"engine {label}"] = engine_run(model, engine, clips)[1]
+        engine.close()
+        del model, engine
         torch.cuda.empty_cache()
     auto.close()
     base.close()
