@@ -30,9 +30,12 @@ failure raises and the script exits non-zero):
      dcount 64, 1024 at PS 256, and B=8 dcount 64 at PS 128, the smoke
      clips' prompt lengths, an idle lane): as K2; K8, the paged row write, bf16
      and int8: exact outside the trash page 0; K11a and K11b, decode
-     attention with one decode end for every lane, at K2's shapes and at
-     B=6 with the decode end at the prompt bucket and an idle lane: as K2,
-     and K11a bit-identical to K11b;
+     attention with one decode end for every lane (a 0-d int32 tensor on
+     the card), at K2's shapes and at B=6 with the decode end at the
+     prompt bucket and an idle lane: as K2, K11a bit-identical to K11b,
+     and one launch captured as a CUDA graph replayed with the end changed
+     on the device between replays, each replay bit-identical to the eager
+     call at that end (K3's shared slot likewise);
      K11e, the stem's conv + bias + GELU at conv2's and conv3's shapes for
      the smoke batch's 256 chunks: atol 2e-2 + rtol 2e-2 of the bf16
      output; K11c and K11d, decode attention with per-lane decode ends and
@@ -89,12 +92,14 @@ failure raises and the script exits non-zero):
      the mode's own graph captured once and replayed, ms per iteration
      beside the default loop's, streams and tokens held as the modes'
      below); decode modes "3" and "4" on the int8 cache (K4 with K3-int8
-     fused kept, a layer a step each, no K11a/K11b, no standalone writer;
-     the stream held to the int8 reference's); on the same model
-     ``transcribe_batch`` under decode modes "3" (K11a) and "4" (K11b; both
-     eager: their kernels take the decode end as a host int), K2
-     never launched, the mode's kernel 28 x steps and the standalone K3 2 x
-     steps, and under the "pallas" stem (K11e twice per encoder call), each
+     fused kept, graphed, a layer a replay each, no K11a/K11b, no
+     standalone writer; the stream held to the int8 reference's); on the
+     same model ``transcribe_batch`` under decode modes "3" (K11a) and "4"
+     (K11b; both graphed: the kernels read the decode end, and the
+     standalone K3 the slot, from the device), K2 never launched, the
+     mode's kernel 28 x (replays + the capture's warm-up step) and the
+     standalone K3 twice that, the eager loop's ids equal to the graphed
+     loop's, and under the "pallas" stem (K11e twice per encoder call), each
      stream held to the plain one by the near-tie rule below,
      every token of the three streams held to the default modes' logits
      on the same prefix (the default loop forced along the stream),
@@ -144,9 +149,11 @@ failure raises and the script exits non-zero):
      modes, "0" and "xla", in turns); the graphed
      loops against the eager loop (:func:`graphs_phase`: plain B=1, 8 and
      96 (W8A8), the int8 cache at B=8, sampled B=8, speculative B=1 and 8,
-     sampled speculative B=1, int8-weights speculative B=1; from one
-     prefill, two decodes of each loop in turns: tokens bit-identical,
-     launches = the eager count plus the no-op replays', no re-capture for
+     sampled speculative B=1, int8-weights speculative B=1, decode modes
+     "3" and "4" at B=8; from one
+     prefill, two decodes of each loop in turns (32-token budgets): tokens
+     bit-identical, launches = the eager count plus the no-op replays', no
+     re-capture for
      new sampling values; ms per live iteration, capture ms, device busy
      share, replays and host syncs per decode, peak memory); the
      live-stream path (:func:`live_phase`, on a model sharing the plain
@@ -154,11 +161,15 @@ failure raises and the script exits non-zero):
      window is near-silent in 1 s pieces, previewed at five prefixes, each
      preview's tokens held to ``transcribe`` of the prefix by the near-tie
      rule, K2 with K3 fused 28 x replays a preview and no K1, K5 or
-     standalone writer, one graph capture for the session's bucket, the
-     committed windows counted, the quiet window re-advanced once the
-     clamp floor rose, a ``transcribe`` of another clip between two
-     previews changing nothing (preview, transcribe, advance and decode ms
-     printed); a ``StreamingTranscriber`` over 60 s of gapped tones
+     standalone writer, one capture of the decode bucket and one of the
+     window advance's on the first preview (the advance replays a graph
+     per (B, S, T) bucket), the committed windows counted, the quiet window
+     re-advanced once the clamp floor rose, one preview again with every
+     advance and the decode eager (text and first-token logits
+     bit-identical), a ``transcribe`` of another clip between two previews
+     changing nothing (preview, transcribe, advance and decode ms
+     printed), the advance's graphed and eager ms at T = 16 and 104; a
+     ``StreamingTranscriber`` over 60 s of gapped tones
      (segments and one ``partial()`` held to ``transcribe``) and two
      sessions streaming that audio through ``feed_nowait`` on the paged
      continuous server (held to the model path); one preview on int8
@@ -831,8 +842,10 @@ def check_kv_write(gen) -> dict:
     cache = torch.randn(L, B, hkv, S, D, generator=gen, device="cuda").bfloat16()
     rows = torch.randn(L, B, hkv, 1, D, generator=gen, device="cuda").bfloat16()
     slots = torch.randint(512, S, (B,), generator=gen, device="cuda").int()
+    shared_slot = device_int(600)
     for label, run, plain_slots in (
-        ("shared slot", lambda c: kw.kv_write_rows(c, rows, 600), torch.full_like(slots, 600)),
+        ("shared slot", lambda c: kw.kv_write_rows(c, rows, shared_slot),
+         torch.full_like(slots, 600)),
         ("per-lane slots", lambda c: kw.kv_write_rows_batch(c, rows, slots), slots),
     ):
         out = run(cache.clone())
@@ -842,6 +855,11 @@ def check_kv_write(gen) -> dict:
             raise AssertionError(f"K3 {label}: differs from the plain version")
         print(f"K3 kv_write_rows {label}: bit-exact")
     work = cache.clone()
+    hold_replays("K3 kv_write_rows shared slot",
+                 lambda: kw.kv_write_rows(work, rows, shared_slot), lambda: work.copy_(cache),
+                 shared_slot, (600, 513, S - 1),
+                 lambda v: kw.kv_write_rows_plain(cache.clone(), rows, torch.full_like(slots, v)))
+    shared_slot.fill_(600)
     shared = torch.full_like(slots, 600)
     # One index_put_ of the same rows at the same (lane, slot) pairs.
     lane = torch.arange(B, device="cuda")
@@ -852,7 +870,7 @@ def check_kv_write(gen) -> dict:
         work[:, lane, :, slot] = vals
 
     t = write_times(f"K3 kv_write_rows L={L} B={B} S={S}",
-                    lambda: kw.kv_write_rows(work, rows, 600),
+                    lambda: kw.kv_write_rows(work, rows, shared_slot),
                     lambda: kw.kv_write_rows_plain(work, rows, shared), index_put)
     b = bound(2 * L * B * hkv * D * 2, 0, 1.0)
     print(f"K3 bound {b['bound_ms']:.4f} ms (bytes)")
@@ -907,12 +925,51 @@ def lanes_case(gen, B: int, S: int, skew: bool) -> tuple[dict, object, object]:
     return c, plen, dend
 
 
+def device_int(value: int):
+    """A 0-d int32 tensor on the card: the one decode end or shared slot
+    that K11a, K11b and K3 read on the device."""
+    import torch
+
+    return torch.tensor(value, dtype=torch.int32, device="cuda")
+
+
+def hold_replays(label: str, call, reset, end, values, want) -> None:
+    """``call()`` (one launch that reads the 0-d ``end`` on the device,
+    returning its output) captured once as a CUDA graph, then replayed
+    after ``reset()`` with ``end`` filled with each of ``values`` in turn:
+    each replay's output bit-identical to ``want(value)``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reset()
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for v in values:
+        reset()
+        end.fill_(v)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want(v)):
+            raise AssertionError(f"{label}: the replay at {v} differs from the eager call")
+    print(f"{label}: one captured launch replayed at {', '.join(map(str, values))} (the value "
+          f"changed on the device between replays), each bit-identical to the eager call")
+    del graph
+
+
 def check_decode_stream(gen, kind: str) -> dict:
     """K11a (``"hbm2"``) or K11b (``"hbm3"``) at K2's check shapes and
-    ``STREAM_EXTRA`` with one decode end for every lane (as the plain loop
-    passes it), against K2's plain version in float32 (atol 2e-2 + rtol
-    2e-2, as K2), K11a also bit for bit against K11b (one stream under two
-    kernel names); the kernel and K2 on the same inputs timed on a cold
+    ``STREAM_EXTRA`` with one decode end for every lane, a 0-d int32 tensor
+    on the card (as the plain loop passes it), against K2's plain version
+    in float32 (atol 2e-2 + rtol 2e-2, as K2), K11a also bit for bit
+    against K11b (one stream under two kernel names); at B=8 S=640 one
+    launch captured as a CUDA graph and replayed with the end changed on
+    the device between replays, each replay bit-identical to the eager
+    call at that end; the kernel and K2 on the same inputs timed on a cold
     cache."""
     import torch
 
@@ -930,23 +987,29 @@ def check_decode_stream(gen, kind: str) -> dict:
         if B > 1:
             plen[-1] = 0               # a lane with no prompt rows
         dend = pb if (B, S) in STREAM_EXTRA else pb + (S - pb) // 2
+        end = device_int(dend)
         block_k = h2.tile_block_k(S, pb, 512)
         fresh = (c["q"], c["kall"], c["vall"], c["k_new"], c["v_new"])
         layer = c["L"] - 1
-        out = fn(*fresh, layer, plen, dend, pb)
+        out = fn(*fresh, layer, plen, end, pb)
         torch.cuda.synchronize()
         one = (c["kall"][layer:layer + 1], c["vall"][layer:layer + 1])
         ref = h2.scalar_end_plain(c["q"].float(), one[0].float(), one[1].float(),
-                                  c["k_new"].float(), c["v_new"].float(), 0, plen, dend, pb,
+                                  c["k_new"].float(), c["v_new"].float(), 0, plen, end, pb,
                                   D ** -0.5)
         err = _close(f"{label} B={B} S={S}", out, ref, 2e-2, 2e-2)
         if kind == "hbm2" and not torch.equal(out, h3.decode_attention_hbm3(
-                *fresh, layer, plen, dend, pb)):
+                *fresh, layer, plen, end, pb)):
             raise AssertionError(f"{label} B={B} S={S}: not bit-identical to K11b")
         del out, ref
-        ms, host_ms = attention_ms(lambda layer: fn(*fresh, layer, plen, dend, pb), c["L"])
+        if (B, S) == (8, 640):
+            probe = device_int(dend)
+            hold_replays(f"{label} B={B} S={S}", lambda: fn(*fresh, layer, plen, probe, pb),
+                         lambda: None, probe, (pb, pb + 1, dend, S),
+                         lambda v: fn(*fresh, layer, plen, device_int(v), pb))
+        ms, host_ms = attention_ms(lambda layer: fn(*fresh, layer, plen, end, pb), c["L"])
         plain_ms = cuda_ms(lambda: h2.scalar_end_plain(
-            c["q"], *one, c["k_new"], c["v_new"], 0, plen, dend, pb, D ** -0.5))
+            c["q"], *one, c["k_new"], c["v_new"], 0, plen, end, pb, D ** -0.5))
         ends = torch.full_like(plen, dend)
         k2_ms, k2_host = attention_ms(
             lambda layer: da.decode_attention(*fresh, layer, plen, ends, pb), c["L"])
@@ -1011,7 +1074,7 @@ def check_decode_lanes(gen, kind: str) -> dict:
             mid = pb + (S - pb) // 2
             same_end = (h5.decode_attention_hbm5(*fresh, layer, clamped,
                                                  torch.full_like(plen, mid), pb),
-                        h3.decode_attention_hbm3(*fresh, layer, clamped, mid, pb))
+                        h3.decode_attention_hbm3(*fresh, layer, clamped, device_int(mid), pb))
             extra = (f"block_p={h5.prompt_block(pb, S)}, {blocks} blocks, "
                      f"{B * 8 / blocks:.2f} pairs a block ({ranges}); "
                      f"equal ends = K11b bit for bit")
@@ -2768,8 +2831,9 @@ def int8_modes_runs(card: str, int8_ref: dict) -> None:
     reference's model), greedy ``transcribe_batch`` of the smoke clips: the
     int8 cache keeps K4 with its fused K3-int8 store (the JAX package
     dequantizes for its XLA attention there; the port runs the kernel the
-    caller asked for), eagerly (the modes' loop), K4 and its store a layer
-    a step, neither K11a/K11b nor a standalone writer nor the plain
+    caller asked for), graphed (the mode's own bucket, captured by the run),
+    K4 and its store a layer a replay (the capture's warm-up step
+    included), neither K11a/K11b nor a standalone writer nor the plain
     attention; the stream held to the int8 reference's by the near-tie
     rule."""
     from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
@@ -2779,6 +2843,8 @@ def int8_modes_runs(card: str, int8_ref: dict) -> None:
     for mode in ("3", "4"):
         t0 = time.perf_counter()
         label = f"decode mode {mode}, int8 cache"
+        graphs = model._generator.graphs
+        captures = graphs.captures
         with Switch(mode=mode), Watch() as watch:
             LAUNCHES.clear()
             ids = _ids(model.transcribe_batch(clips, max_tokens=64))
@@ -2786,16 +2852,20 @@ def int8_modes_runs(card: str, int8_ref: dict) -> None:
             if bool(watch.nan_seen):
                 raise AssertionError(f"{label}: NaN logits")
         st = model.last_stats
+        runs = st.n_decode_replays + graphs.captures - captures
         check_ids(label, ids, model._config.text_decoder.vocab_size)
         check_launches(label, got, ("flash_attention_causal", "decode_attention_q8",
                                     "kv_write_rows_q8_fused"),
                        ("decode_attention", "decode_attention_hbm2", "decode_attention_hbm3",
                         "kv_write_rows_fused") + STANDALONE_WRITERS)
+        if graphs.captures != captures + 1:
+            raise AssertionError(f"{label}: {graphs.captures - captures} captures, want 1")
         for name in ("decode_attention_q8", "kv_write_rows_q8_fused"):
-            if got[name] != n_layers * st.n_decode_steps:
+            if got[name] != n_layers * runs:
                 raise AssertionError(f"{label}: {name} launched {got[name]} times, want "
-                                     f"{n_layers} x {st.n_decode_steps} steps")
-        print_stats(f"transcribe_batch B=8 {label} (eager)", card, st)
+                                     f"{n_layers} x ({st.n_decode_replays} replays + 1 "
+                                     "capture's warm-up step)")
+        print_stats(f"transcribe_batch B=8 {label} (graphed)", card, st)
         compare_streams(f"{label} vs the default modes, transcribe_batch B=8", int8_ref["ids"],
                         ids, int8_ref["gaps"])
         print(f"{label}: {time.perf_counter() - t0:.1f} s")
@@ -2806,10 +2876,15 @@ def modes_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
     decode mode "0" on the bf16 and the int8 cache (:func:`mode0_runs`),
     modes "3"/"4" on the int8 cache (:func:`int8_modes_runs`: K4 kept);
     ``transcribe_batch`` of the smoke clips under decode modes "3" (K11a)
-    and "4" (K11b) -- K2 never launched, the mode's kernel 28 x steps --
-    and under the "pallas" stem (K11e twice per encoder call), each stream
-    held to the plain ("auto", "conv") stream by the near-tie rule and each
-    of its tokens to the default modes' row on the same prefix; then the
+    and "4" (K11b), graphed -- one capture of the mode's bucket, K2 never
+    launched, the mode's kernel 28 x (replays + the capture's warm-up
+    step), no-op replays included, and the standalone K3 twice as many --
+    under "3" then the same call's eager loop under :class:`Choices` (its
+    ids equal to the graphed run's), under "4" the stream bit-identical to
+    mode "3"'s (K11b is K11a bit for bit, phase 3), and under the "pallas"
+    stem (K11e twice per encoder call), each stream held to the plain
+    ("auto", "conv") stream by the near-tie rule and each of its tokens to
+    the default modes' row on the same prefix; then the
     encoder features of every stem mode held to the "conv" stem's.  Returns
     the launches of K11a, K11b and K11e, each from its own run, of the
     standalone K3 from mode "0"'s bf16 run and of K3-int8 from its int8
@@ -2830,19 +2905,45 @@ def modes_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
             ("decode mode 4", dec_mod, "DECODE_KERNEL_MODE", "4", "decode_attention_hbm3"),
             ("stem pallas", enc_mod, "CONV_STEM_MODE", "pallas", "conv_s2_gelu"))
     pallas_calls = None
+    graphs = base._generator.graphs
+    mode3_ids = None
     for label, module, attr, mode, kernel in runs:
+        graphed = kernel != "conv_s2_gelu"
         saved = getattr(module, attr)
         setattr(module, attr, mode)
+        rec = None
         try:
-            with Watch() as watch, EncoderCalls() as enc, Choices() as rec:
-                LAUNCHES.clear()
-                ids = _ids(base.transcribe_batch(clips, max_tokens=64))
-                got = dict(LAUNCHES)
-                if bool(watch.nan_seen):
-                    raise AssertionError(f"{label}: NaN logits")
+            if graphed:
+                # The mode's own bucket, captured by this call; under "3"
+                # then the same call's eager loop under Choices for its rows.
+                captures = graphs.captures
+                with Watch() as watch:
+                    LAUNCHES.clear()
+                    ids = _ids(base.transcribe_batch(clips, max_tokens=64))
+                    got = dict(LAUNCHES)
+                st = base.last_stats
+                new = graphs.captures - captures
+                if mode3_ids is None:
+                    mode3_ids = ids
+                    with Choices() as rec:
+                        eager = _ids(base.transcribe_batch(clips, max_tokens=64))
+                    if eager != ids:
+                        raise AssertionError(f"{label}: the eager loop's ids differ from the "
+                                             "graphed loop's")
+                elif ids != mode3_ids:
+                    # K11b is K11a bit for bit (phase 3): mode "4" decodes
+                    # mode "3"'s stream, held below through it.
+                    raise AssertionError(f"{label}: the stream differs from decode mode 3's")
+            else:
+                with Watch() as watch, EncoderCalls() as enc, Choices() as rec:
+                    LAUNCHES.clear()
+                    ids = _ids(base.transcribe_batch(clips, max_tokens=64))
+                    got = dict(LAUNCHES)
+                st = base.last_stats
+            if bool(watch.nan_seen):
+                raise AssertionError(f"{label}: NaN logits")
         finally:
             setattr(module, attr, saved)
-        st = base.last_stats
         check_ids(label, ids, vocab)
         if kernel == "conv_s2_gelu":
             want = 2 * len(enc.calls)
@@ -2851,22 +2952,34 @@ def modes_phase(card: str, base, off: dict, int8_ref: dict) -> dict:
                                         "kv_write_rows_fused", kernel), STANDALONE_WRITERS)
         else:
             # The stream kernels take no write target: the standalone K3
-            # writes after the layer loop.
-            want = n_layers * st.n_decode_steps
+            # writes after the layer loop.  Graphed: every replay and the
+            # capture's warm-up step launch them.
+            if new != 1:
+                raise AssertionError(f"{label}: {new} captures, want 1 (the mode's bucket)")
+            n_runs = st.n_decode_replays + new
+            want = n_layers * n_runs
             check_launches(label, got, ("flash_attention_causal", "kv_write_rows", kernel),
                            ("decode_attention", "kv_write_rows_fused", "kv_write_span_batch"))
-            if got["kv_write_rows"] != 2 * st.n_decode_steps:
+            if got["kv_write_rows"] != 2 * n_runs:
                 raise AssertionError(f"{label}: kv_write_rows launched {got['kv_write_rows']} "
-                                     f"times, want 2 x {st.n_decode_steps} steps")
+                                     f"times, want 2 x ({st.n_decode_replays} replays + 1 "
+                                     "capture's warm-up step)")
+            if st.n_host_syncs >= st.n_decode_steps:
+                raise AssertionError(f"{label}: {st.n_host_syncs} looks at done for "
+                                     f"{st.n_decode_steps} live steps: not graphed")
             launches.setdefault("kv_write_rows", got["kv_write_rows"])
         if got[kernel] != want:
             raise AssertionError(f"{label}: {kernel} launched {got[kernel]} times, want {want}")
-        print_stats(f"transcribe_batch B=8 {label}", card, st)
+        print_stats(f"transcribe_batch B=8 {label}{' (graphed)' if graphed else ''}", card, st)
+        launches[kernel] = got[kernel]
+        if rec is None:
+            print(f"{label}: the stream bit-identical to decode mode 3's (K11b is K11a bit "
+                  "for bit), which is held to the default modes")
+            continue
         compare_streams(f"{label} vs auto, transcribe_batch B=8", off["ids"][0], ids,
                         off["gaps"][0])
         hold_loop_to_plain(f"{label} held to the default modes, B=8", base, clips, rec.rows, ids)
         del rec
-        launches[kernel] = got[kernel]
 
     # Encoder features of each stem mode against the "conv" stem on the
     # smoke batch's mel; each stem's own output against the float32 stem
@@ -3353,22 +3466,27 @@ def xla_writer_phase(card: str, base, off: dict) -> None:
           f"{best['xla'] / best['default']:.2f}x ({time.perf_counter() - t0:.1f} s)")
 
 
-#: The graphed loops' arms: (label, runtime, batch, sampling).  Each runs
-#: the eager and the graphed loop from one prefill.
+#: The graphed loops' arms: (label, runtime, batch, sampling, decode kernel
+#: mode).  Each runs the eager and the graphed loop from one prefill.
 SAMPLING = dict(temperature=0.7, top_k=50, top_p=0.9, seed=1)
 GRAPH_ARMS = (
-    ("plain B=1", {"speculative": "off"}, 1, {}),
-    ("plain B=8", {"speculative": "off"}, 8, {}),
-    ("plain B=96 W8A8", {"quantization": "int8", "act_quant": "int8"}, 96, {}),
-    ("plain int8 cache B=8", {"speculative": "off", "kv_cache_dtype": "int8"}, 8, {}),
-    ("sampled B=8", {}, 8, SAMPLING),
-    ("speculative B=1", {}, 1, {}),
-    ("speculative B=8", {}, 8, {}),
-    ("sampled speculative B=1", {"spec_sampling": True}, 1, SAMPLING),
-    ("int8-weights speculative B=1", {"quantization": "int8"}, 1, {}),
+    ("plain B=1", {"speculative": "off"}, 1, {}, "auto"),
+    ("plain B=8", {"speculative": "off"}, 8, {}, "auto"),
+    ("plain B=96 W8A8", {"quantization": "int8", "act_quant": "int8"}, 96, {}, "auto"),
+    ("plain int8 cache B=8", {"speculative": "off", "kv_cache_dtype": "int8"}, 8, {}, "auto"),
+    ("sampled B=8", {}, 8, SAMPLING, "auto"),
+    ("speculative B=1", {}, 1, {}, "auto"),
+    ("speculative B=8", {}, 8, {}, "auto"),
+    ("sampled speculative B=1", {"spec_sampling": True}, 1, SAMPLING, "auto"),
+    ("int8-weights speculative B=1", {"quantization": "int8"}, 1, {}, "auto"),
+    ("decode mode 3 B=8", {"speculative": "off"}, 8, {}, "3"),
+    ("decode mode 4 B=8", {"speculative": "off"}, 8, {}, "4"),
 )
-#: Eager and graphed decodes per arm, taken in turns (E G G E).
+#: Eager and graphed decodes per arm, taken in turns (E G G E), each with
+#: every lane's budget cut to GRAPH_TOKENS (the arm's graph, captured by a
+#: 64-token call, unchanged).
 GRAPH_TURNS = "EGGE"
+GRAPH_TOKENS = 32
 
 
 def profiled_busy(call) -> tuple[int, float, float]:
@@ -3394,7 +3512,7 @@ def profiled_busy(call) -> tuple[int, float, float]:
 
 #: Token budget of the profiled decodes of the graphed phase (a window of
 #: the same loop; a whole 64-token eager decode is ~120k kernel events).
-BUSY_TOKENS = 16
+BUSY_TOKENS = 8
 
 
 def graphs_phase(card: str, base) -> None:
@@ -3403,126 +3521,135 @@ def graphs_phase(card: str, base) -> None:
     the arm's clips (``max_tokens=64``) captures the bucket's graph and
     records the decode call's inputs; from that one prefill the eager loop
     (``decode(eager=True)``, one host sync a step) and the graphed loop then
-    run in turns, five each.  Held: every run's tokens bit-identical to the
-    first eager run's (greedy and sampled: the sampled graph registers the
-    call's generator, whose Philox offsets advance as in the eager loop;
-    were they not to match, two graphed runs at one seed must agree, and the
-    arm says so); every eager run's launches = live steps x the captured
-    step's launches, every graphed run's = the eager count + the no-op
-    replays' launches; new sampling values reuse the bucket's graph (no new
-    capture).  Printed beside the card: ms per live iteration (median of
-    five, each loop), capture ms, device busy share of one run of each loop
-    (``torch.profiler``), replays, live steps and host syncs per decode, and
-    peak device memory of each loop."""
+    run in turns (:data:`GRAPH_TURNS`, budgets cut to :data:`GRAPH_TOKENS`).
+    Held: every run's tokens bit-identical to the first eager run's (greedy
+    and sampled: the sampled graph registers the call's generator, whose
+    Philox offsets advance as in the eager loop; were they not to match,
+    two graphed runs at one seed must agree, and the arm says so); every
+    eager run's launches = live steps x the captured step's launches, every
+    graphed run's = the eager count + the no-op replays' launches; new
+    sampling values reuse the bucket's graph (no new capture).  The decode modes "3" and "4" arms (K11a, K11b and the
+    standalone K3, the end and slot read on the device) run under
+    :class:`Switch`.  Printed beside the card: ms per live iteration
+    (median of the turns, each loop), capture ms, device busy share of one
+    run of each loop (``torch.profiler``), replays, live steps and host
+    syncs per decode, and peak device memory of each loop."""
+    clips8 = smoke_clips()
+    for label, runtime, B, sampling, mode in GRAPH_ARMS:
+        clips = [clips8[-1]] if B == 1 else (clips8 * (B // 8))
+        with Switch(mode=mode):
+            graph_arm(card, base, label, runtime, clips, sampling)
+
+
+def graph_arm(card: str, base, label: str, runtime: dict, clips, sampling: dict) -> None:
+    """One arm of :func:`graphs_phase` on ``clips``, under the decode
+    kernel mode in force."""
     import torch
 
     from qwen3_asr_tpu_torch.ops.kernels import LAUNCHES
     from qwen3_asr_tpu_torch.runtime import graphs as graphs_mod
     from qwen3_asr_tpu_torch.runtime.generate import Generator
 
-    clips8 = smoke_clips()
     vocab = base._config.text_decoder.vocab_size
-    for label, runtime, B, sampling in GRAPH_ARMS:
-        clips = [clips8[-1]] if B == 1 else (clips8 * (B // 8))
-        model = build_model(runtime, base)
-        gen = model._generator
-        seen = {}
-        real = Generator.decode
+    model = build_model(runtime, base)
+    gen = model._generator
+    seen = {}
+    real = Generator.decode
 
-        def spy(self, *args, **kwargs):
-            seen.update(args=args, kwargs=kwargs)
-            return real(self, *args, **kwargs)
+    def spy(self, *args, **kwargs):
+        seen.update(args=args, kwargs=kwargs)
+        return real(self, *args, **kwargs)
 
-        Generator.decode = spy
-        try:
-            with Watch():
-                model.transcribe_batch(clips, max_tokens=64, **sampling)
-        finally:
-            Generator.decode = real
-        dg = gen.graphs
-        capture_ms, captures = dg.last_capture_ms, dg.captures
-        if captures != 1:
-            raise AssertionError(f"graphs {label}: {captures} captures, want 1")
-        args, kwargs = seen["args"], seen["kwargs"]
+    Generator.decode = spy
+    try:
+        with Watch():
+            model.transcribe_batch(clips, max_tokens=64, **sampling)
+    finally:
+        Generator.decode = real
+    dg = gen.graphs
+    capture_ms, captures = dg.last_capture_ms, dg.captures
+    if captures != 1:
+        raise AssertionError(f"graphs {label}: {captures} captures, want 1")
+    args, kwargs = seen["args"], seen["kwargs"]
 
-        def decode(eager: bool, budget: int | None = None) -> dict:
-            call = args if budget is None else (
-                *args[:3], [min(m, budget) for m in args[3]], *args[4:])
-            LAUNCHES.clear()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            toks = gen.decode(*call, eager=eager, **kwargs)
-            torch.cuda.synchronize()
-            return {"toks": toks, "ms": (time.perf_counter() - t0) * 1e3,
-                    "launches": dict(LAUNCHES), "steps": gen.last_decode_steps,
-                    "replays": gen.last_replays, "syncs": gen.last_host_syncs,
-                    "peak": torch.cuda.max_memory_allocated() / 2**30}
+    def decode(eager: bool, budget: int | None = None) -> dict:
+        call = args if budget is None else (
+            *args[:3], [min(m, budget) for m in args[3]], *args[4:])
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = gen.decode(*call, eager=eager, **kwargs)
+        torch.cuda.synchronize()
+        return {"toks": toks, "ms": (time.perf_counter() - t0) * 1e3,
+                "launches": dict(LAUNCHES), "steps": gen.last_decode_steps,
+                "replays": gen.last_replays, "syncs": gen.last_host_syncs,
+                "peak": torch.cuda.max_memory_allocated() / 2**30}
 
-        with Watch() as watch, torch.inference_mode():
-            runs = {"E": [], "G": []}
-            for turn in GRAPH_TURNS:
-                runs[turn].append(decode(turn == "E"))
-            peak = {turn: max(r["peak"] for r in runs[turn]) for turn in "EG"}
-            busy = {turn: profiled_busy(lambda: decode(turn == "E", BUSY_TOKENS))
-                    for turn in "EG"}
-            if sampling:
-                for other in (dict(temperature=0.5, top_k=7, top_p=0.8, seed=2),
-                              dict(temperature=1.1, top_k=200, top_p=0.97, seed=3,
-                                   repetition_penalty=1.05, repetition_context_size=40)):
-                    gen.decode(*args, **dict(kwargs, **other))
-                if dg.captures != captures:
-                    raise AssertionError(f"graphs {label}: new sampling values re-captured")
-            if bool(watch.nan_seen):
-                raise AssertionError(f"graphs {label}: NaN logits")
-        eager, graphed = runs["E"], runs["G"]
-        ref = eager[0]["toks"]
-        check_ids(f"graphs {label}", ref, vocab)
-        if any(r["toks"] != ref for r in eager):
-            raise AssertionError(f"graphs {label}: two eager runs at one seed differ")
-        if any(r["toks"] != ref for r in graphed):
-            if not sampling or any(r["toks"] != graphed[0]["toks"] for r in graphed):
-                raise AssertionError(f"graphs {label}: the graphed loop's tokens differ")
-            print(f"graphs {label}: the graphed sampled stream differs from the eager one "
-                  f"(the graph's Philox offsets); the graphed runs agree at one seed")
-            same = "graphed runs identical at one seed"
-        else:
-            same = "graphed tokens bit-identical to eager"
-        per = dg.get(gen.last_bucket)[1].launches
-        steps = ref_steps = eager[0]["steps"]
-        for r in eager + graphed:
-            if r["steps"] != ref_steps:
-                raise AssertionError(f"graphs {label}: {r['steps']} live steps, want {ref_steps}")
-        for r in eager:
-            want = {k: v * steps for k, v in per.items()}
-            if r["launches"] != want:
-                raise AssertionError(f"graphs {label}: eager launches {r['launches']}, want "
-                                     f"{want} ({steps} steps x the captured step's {dict(per)})")
-        for r in graphed:
-            want = {k: v * r["replays"] for k, v in per.items()}
-            if r["launches"] != want:
-                raise AssertionError(f"graphs {label}: graphed launches {r['launches']}, want "
-                                     f"{want} ({r['replays']} replays)")
-        e_ms = sorted(r["ms"] / steps for r in eager)
-        g_ms = sorted(r["ms"] / steps for r in graphed)
-        g = graphed[0]
-        print(f"graphs {label} [{card}]: {same}; {steps} live steps, {g['replays']} replays "
-              f"(blocks of {graphs_mod.BLOCK}), "
-              f"{g['syncs']} host syncs per graphed decode against {eager[0]['syncs']} eager; "
-              f"ms per live iteration eager {e_ms[len(e_ms) // 2]:.3f} (min {e_ms[0]:.3f}, max "
-              f"{e_ms[-1]:.3f}), graphed {g_ms[len(g_ms) // 2]:.3f} (min {g_ms[0]:.3f}, max "
-              f"{g_ms[-1]:.3f}) = {e_ms[len(e_ms) // 2] / g_ms[len(g_ms) // 2]:.2f}x; capture "
-              f"{capture_ms:.1f} ms ({captures} capture{'s' if captures > 1 else ''}"
-              f"{', none for new sampling values' if sampling else ''}); device busy over a "
-              f"{BUSY_TOKENS}-token decode under the profiler, eager "
-              f"{busy['E'][1] / busy['E'][2]:.1%} ({busy['E'][0]} kernels, {busy['E'][1]:.1f} of "
-              f"{busy['E'][2]:.1f} ms), graphed {busy['G'][1] / busy['G'][2]:.1%} "
-              f"({busy['G'][0]} kernels, {busy['G'][1]:.1f} of {busy['G'][2]:.1f} ms); peak "
-              f"memory eager {peak['E']:.2f} GiB, graphed {peak['G']:.2f} GiB; launches per "
-              f"step {dict(per)}")
-        model.close()
-        del model, gen, dg
-        torch.cuda.empty_cache()
+    with Watch() as watch, torch.inference_mode():
+        runs = {"E": [], "G": []}
+        for turn in GRAPH_TURNS:
+            runs[turn].append(decode(turn == "E", GRAPH_TOKENS))
+        peak = {turn: max(r["peak"] for r in runs[turn]) for turn in "EG"}
+        busy = {turn: profiled_busy(lambda: decode(turn == "E", BUSY_TOKENS))
+                for turn in "EG"}
+        if sampling:
+            for other in (dict(temperature=0.5, top_k=7, top_p=0.8, seed=2),
+                          dict(temperature=1.1, top_k=200, top_p=0.97, seed=3,
+                               repetition_penalty=1.05, repetition_context_size=40)):
+                gen.decode(*args, **dict(kwargs, **other))
+            if dg.captures != captures:
+                raise AssertionError(f"graphs {label}: new sampling values re-captured")
+        if bool(watch.nan_seen):
+            raise AssertionError(f"graphs {label}: NaN logits")
+    eager, graphed = runs["E"], runs["G"]
+    ref = eager[0]["toks"]
+    check_ids(f"graphs {label}", ref, vocab)
+    if any(r["toks"] != ref for r in eager):
+        raise AssertionError(f"graphs {label}: two eager runs at one seed differ")
+    if any(r["toks"] != ref for r in graphed):
+        if not sampling or any(r["toks"] != graphed[0]["toks"] for r in graphed):
+            raise AssertionError(f"graphs {label}: the graphed loop's tokens differ")
+        print(f"graphs {label}: the graphed sampled stream differs from the eager one "
+              f"(the graph's Philox offsets); the graphed runs agree at one seed")
+        same = "graphed runs identical at one seed"
+    else:
+        same = "graphed tokens bit-identical to eager"
+    per = dg.get(gen.last_bucket)[1].launches
+    steps = ref_steps = eager[0]["steps"]
+    for r in eager + graphed:
+        if r["steps"] != ref_steps:
+            raise AssertionError(f"graphs {label}: {r['steps']} live steps, want {ref_steps}")
+    for r in eager:
+        want = {k: v * steps for k, v in per.items()}
+        if r["launches"] != want:
+            raise AssertionError(f"graphs {label}: eager launches {r['launches']}, want "
+                                 f"{want} ({steps} steps x the captured step's {dict(per)})")
+    for r in graphed:
+        want = {k: v * r["replays"] for k, v in per.items()}
+        if r["launches"] != want:
+            raise AssertionError(f"graphs {label}: graphed launches {r['launches']}, want "
+                                 f"{want} ({r['replays']} replays)")
+    e_ms = sorted(r["ms"] / steps for r in eager)
+    g_ms = sorted(r["ms"] / steps for r in graphed)
+    g = graphed[0]
+    print(f"graphs {label} [{card}]: {same}; {steps} live steps, {g['replays']} replays "
+          f"(blocks of {graphs_mod.BLOCK}), "
+          f"{g['syncs']} host syncs per graphed decode against {eager[0]['syncs']} eager; "
+          f"ms per live iteration eager {e_ms[len(e_ms) // 2]:.3f} (min {e_ms[0]:.3f}, max "
+          f"{e_ms[-1]:.3f}), graphed {g_ms[len(g_ms) // 2]:.3f} (min {g_ms[0]:.3f}, max "
+          f"{g_ms[-1]:.3f}) = {e_ms[len(e_ms) // 2] / g_ms[len(g_ms) // 2]:.2f}x; capture "
+          f"{capture_ms:.1f} ms ({captures} capture{'s' if captures > 1 else ''}"
+          f"{', none for new sampling values' if sampling else ''}); device busy over a "
+          f"{BUSY_TOKENS}-token decode under the profiler, eager "
+          f"{busy['E'][1] / busy['E'][2]:.1%} ({busy['E'][0]} kernels, {busy['E'][1]:.1f} of "
+          f"{busy['E'][2]:.1f} ms), graphed {busy['G'][1] / busy['G'][2]:.1%} "
+          f"({busy['G'][0]} kernels, {busy['G'][1]:.1f} of {busy['G'][2]:.1f} ms); peak "
+          f"memory eager {peak['E']:.2f} GiB, graphed {peak['G']:.2f} GiB; launches per "
+          f"step {dict(per)}")
+    model.close()
+    del model, gen, dg
+    torch.cuda.empty_cache()
 
 
 #: The live-stream phase's session and stream options.
@@ -3652,6 +3779,80 @@ def first_row_note(preview: StageTimes, offline: StageTimes) -> str:
             f"offline top-two gap {(top2[0] - top2[1]).item() / top:.2e}")
 
 
+def hold_eager_preview(card: str, sess, res, st: StageTimes) -> None:
+    """The same preview again with every advance and the decode eager
+    (``eager=True``, the graphs' oracle): its text and first-token logits
+    bit-identical to the graphed preview's ``res`` and ``st``."""
+    from functools import partialmethod
+
+    import torch
+
+    from qwen3_asr_tpu_torch.runtime.generate import Generator
+
+    saved = Generator.advance, Generator.decode
+    Generator.advance = partialmethod(saved[0], eager=True)
+    Generator.decode = partialmethod(saved[1], eager=True)
+    try:
+        eager, ms, est = timed_preview(sess)
+    finally:
+        Generator.advance, Generator.decode = saved
+    if eager.text != res.text:
+        raise AssertionError("live: the eager preview's text differs from the graphed one's")
+    for a, b in zip(st.first_logits, est.first_logits):
+        if not torch.equal(a, b):
+            raise AssertionError("live: the eager preview's first-token logits differ from "
+                                 "the graphed one's")
+    print(f"live preview, eager advance and decode [{card}]: text and first-token logits "
+          f"bit-identical to the graphed preview's; preview {ms:.1f} ms, advance "
+          f"{est.advance_ms:.1f} ms ({est.advances} calls), decode {est.decode_ms:.1f} ms")
+
+
+#: The advance spans a session makes (the prefix and suffix, a window) and
+#: the turns of each timing (eager, graphed, graphed, eager) x rounds.
+ADVANCE_SPANS = (16, 104)
+ADVANCE_ROUNDS = 5
+
+
+def advance_turns(card: str, gen, sess) -> None:
+    """``Generator.advance`` at T = 16 and 104 on a copy of the session's
+    cache, graphed (the arena copies in and out included) and eager in
+    turns: CUDA-synced wall ms a call, medians; the timed calls replay the
+    bucket's graph (no capture among them)."""
+    import torch
+
+    cfg = gen.cfg
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    with torch.inference_mode():
+        kv = tuple(c.clone() for c in sess._kv)
+        for T in ADVANCE_SPANS:
+            embeds = (0.02 * torch.randn(1, T, cfg.hidden_size, generator=rng,
+                                         device="cuda")).to(kv[0].dtype)
+            pos = (9 + torch.arange(T))[None]
+            times = {True: [], False: []}
+
+            def call(eager: bool) -> float:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gen.advance(kv, embeds, pos, 9, T - 1, eager=eager)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            call(True)
+            call(False)
+            captures = gen.graphs.captures
+            for _ in range(ADVANCE_ROUNDS):
+                for eager in (True, False, False, True):
+                    times[eager].append(call(eager))
+            if gen.graphs.captures != captures:
+                raise AssertionError(f"live advance T={T}: a timed call captured again")
+            e, g = (sorted(times[x]) for x in (True, False))
+            print(f"live advance T={T} B=1 S={kv[0].shape[3]} [{card}]: graphed "
+                  f"{g[len(g) // 2]:.3f} ms (min {g[0]:.3f}, max {g[-1]:.3f}; the cache copied "
+                  f"into the arena and back included), eager {e[len(e) // 2]:.3f} ms (min "
+                  f"{e[0]:.3f}, max {e[-1]:.3f}) = {e[len(e) // 2] / g[len(g) // 2]:.2f}x, "
+                  f"{2 * ADVANCE_ROUNDS} calls each in turns, no capture among them")
+
+
 def live_int8_phase(int8) -> None:
     """On the int8-cache model a ``StreamingTranscriber`` opens no
     incremental session (the session refuses the int8 cache, the JAX
@@ -3678,10 +3879,15 @@ def live_phase(card: str, base) -> None:
     samples, mid window 2, window 2 + 40 samples, the end): each preview's
     tokens held to ``transcribe`` of the same prefix by the near-tie rule;
     launches per preview K2 and its fused K3 28 x replays, never K1, K5 or
-    a standalone writer; one capture for the session's bucket, on the first
-    preview; the committed windows counted and the quiet window re-advanced
-    after the floor rose; a ``transcribe`` of another clip between two
-    previews of the same audio changes nothing.  Printed per preview:
+    a standalone writer; on the first preview one capture of the decode
+    bucket and one of the window advance's (T = 104; the session's prefix
+    advance captured T = 16, which the suffix advance replays), none later;
+    the committed windows counted and the quiet window re-advanced after
+    the floor rose; the 12.5 s preview again with every advance and the
+    decode eager (:func:`hold_eager_preview`: text and first-token logits
+    bit-identical); a ``transcribe`` of another clip between two previews
+    of the same audio changes nothing; the advance's graphed and eager ms
+    at T = 16 and 104 (:func:`advance_turns`).  Printed per preview:
     preview ms, transcribe ms of the prefix, advance ms, decode ms per
     iteration.  Then ``StreamingTranscriber``: 60 s of gapped tones in 1 s
     pieces (``segment_duration=20``, ``search_duration=5``), each final
@@ -3717,13 +3923,19 @@ def live_phase(card: str, base) -> None:
             while fed < cut:
                 sess.feed(clip[fed : min(fed + 16000, cut)])
                 fed = min(fed + 16000, cut)
-            captures = gen.graphs.captures if gen.graphs is not None else 0
+            keys = set(gen.graphs.entries)
             LAUNCHES.clear()
             res, prev_ms, st = timed_preview(sess)
             launches = dict(LAUNCHES)
-            new_captures = gen.graphs.captures - captures
-            if new_captures != (1 if i == 0 else 0):
-                raise AssertionError(f"live preview {i}: {new_captures} captures")
+            new_keys = set(gen.graphs.entries) - keys
+            new_advance = sum(k[0] == "advance" for k in new_keys)
+            new_captures = len(new_keys) - new_advance
+            # The first preview captures the decode bucket and the window
+            # advance's (T = 104); the session's prefix advance captured
+            # T = 16, which the suffix advance replays.
+            if (new_captures, new_advance) != ((1, 1) if i == 0 else (0, 0)):
+                raise AssertionError(f"live preview {i}: {new_captures} decode and "
+                                     f"{new_advance} advance captures")
             replays = gen.last_replays
             # A capture's warm-up step runs eagerly once, and counts.
             for name in ("decode_attention", "kv_write_rows_fused"):
@@ -3745,11 +3957,14 @@ def live_phase(card: str, base) -> None:
             print(f"live preview {i} [{card}]: {cut / 16000:.4f} s of audio, "
                   f"{sess._committed} windows committed; preview {prev_ms:.1f} ms against "
                   f"transcribe of the prefix {off_ms:.1f} ms; advance {st.advance_ms:.1f} ms "
-                  f"({st.advances} calls), decode {st.decode_ms:.1f} ms over {steps} live steps "
+                  f"({st.advances} graphed calls, {new_advance} captured), decode "
+                  f"{st.decode_ms:.1f} ms over {steps} live steps "
                   f"= {st.decode_ms / max(steps, 1):.3f} ms per iteration ({replays} replays); "
                   f"{len(ids)} tokens, offline tokens equal: {_ids([off])[0] == ids}; "
                   f"{first_row_note(st, off_st)}")
             last = ids
+            if i == 2:
+                hold_eager_preview(card, sess, res, st)
         if advanced.count(0) < 2 or not floors[2][0] > floors[1][0]:
             raise AssertionError(f"live: window 0 advanced {advanced.count(0)} times, floors "
                                  f"{floors[1][0]} -> {floors[2][0]}: no re-advance after the "
@@ -3762,6 +3977,7 @@ def live_phase(card: str, base) -> None:
               f"{floors[1][0]:.4f} -> {floors[2][0]:.4f}), windows advanced in order "
               f"{advanced}; a transcribe of another clip between two previews of the same "
               f"audio left the preview's tokens identical")
+        advance_turns(card, gen, sess)
 
         # StreamingTranscriber: final segments and one partial().
         audio = gapped_tones(60.0, 3.7, SEED + 3)
@@ -3823,7 +4039,8 @@ def live_phase(card: str, base) -> None:
 def live_int8_weights(card: str, base, audio) -> None:
     """One preview of ``audio`` by a session on int8 weights over the bf16
     cache (``quantization="int8"``): the advance's products run K9 at its
-    16- and 104-row spans, the decode K9 at M = 1 with K2 and the fused K3;
+    16- and 104-row spans, inside the advance's captured graphs, the decode
+    K9 at M = 1 with K2 and the fused K3;
     the tokens held to ``transcribe`` of the same audio."""
     import torch
 
@@ -6045,6 +6262,19 @@ def tp_graphs_only(card: str) -> None:
         model.close()
 
 
+class Laps:
+    """Prints the wall seconds of each phase of :func:`main` as it ends,
+    and the total since the build began."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        print(f"phase time, {label}: {now - self.last:.1f} s (total {now - self.t0:.1f} s)")
+        self.last = now
+
+
 def main() -> int:
     if not (ROOT / "qwen3_asr_tpu_torch").is_dir():
         print("chip_smoke.py: qwen3_asr_tpu_torch/ is not beside this script",
@@ -6075,6 +6305,7 @@ def main() -> int:
 
     from qwen3_asr_tpu_torch.ops.kernels import _build
 
+    lap = Laps()
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc "
@@ -6082,6 +6313,7 @@ def main() -> int:
           f"{_build.library_path().relative_to(ROOT)}")
 
     native_audio_phase(card)
+    lap("build and native audio")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     measured = {"flash_attention_causal": check_flash(gen)}
     measured["decode_attention"], measured["kv_write_rows_fused"] = check_decode(gen)
@@ -6111,12 +6343,14 @@ def main() -> int:
         "decode_attention_sched": check_decode_lanes(gen, "sched"),
     })
     torch.cuda.empty_cache()
+    lap("kernel checks")
     second_card_phase()
     kab_launches = kernelab_step()
     torch.cuda.empty_cache()
     reference_check(quantized=False)
     reference_check(quantized=True)
     reference_check_paged()
+    lap("kernelab and small-width references")
     # Each kernel's launch count comes from the run of its own path.
     off_rt = {"speculative": "off"}
     base = build_model(off_rt)
@@ -6124,34 +6358,46 @@ def main() -> int:
                       lm_head=True, record_gaps=True)
     launches = dict(off["launches"])
     int8_ref = int8_cache_reference(card, base)
+    lap("plain slice and int8-cache reference")
     launches.update(modes_phase(card, base, off, int8_ref))
+    lap("modes")
     spec_launches = speculative_phase(card, base, off)
     launches["kv_write_span_batch"] = spec_launches["kv_write_span_batch"]
+    lap("speculative")
     t_engine = time.perf_counter()
     engine_launches = engine_graphs_phase(card, base)
     print(f"engine graphs phase: {time.perf_counter() - t_engine:.1f} s; graphed chunk "
           f"launches by arm (no-op replays included): {engine_launches}")
     launches.update(server_phase(card, base, off, int8_ref))
+    lap("engine graphs and servers")
     int8_ref["model"].close()
     del int8_ref
     xla_writer_phase(card, base, off)
+    lap("xla writer")
     graphs_phase(card, base)
+    lap("graphed loops")
     live_phase(card, base)
+    lap("live")
     replicated_phase(card, base)
     int8 = build_model(INT8_RUNTIME)
     int8_slice = slice_phase(card, int8, INT8_RUNTIME, INT8_PATH, STANDALONE_WRITERS,
                              record_gaps=True)
     int8_launches = int8_slice["launches"]
     live_int8_phase(int8)
+    lap("replicated, int8 slice and live int8")
     tp_graphs_phase(card, off, int8_slice)
+    lap("tp graphs")
     mesh_launches = mesh_phase(card, base, off, int8)
+    lap("meshes")
     launches["w8a8_matmul_scaled"] = mesh_launches["int8"].get("w8a8_matmul_scaled", 0)
     for model in (base, int8):
         model.close()
     del base, int8, model
     torch.cuda.empty_cache()
     train_refs = training_phase(card)
+    lap("training")
     mesh_training_phase(card, train_refs)
+    lap("mesh training")
     launches.update({name: int8_launches[name] for name in INT8_PATH})
     launches.update({name: kab_launches[name] for name in KERNELAB[1:]})
 

@@ -4,7 +4,7 @@
 // Replaces qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm2.py:
 // decode_attention_hbm2 (:134; kernel _kernel :23, pallas_call :181).
 // Shapes, masking and numerics: decode_pair_stream.cuh (one decode end for
-// every lane, prompt lengths clamped to [0, pb]).
+// every lane, read from device memory, prompt lengths clamped to [0, pb]).
 //
 // The TPU kernel gives each lane one grid cell that walks all its KV heads'
 // blocks of block_k rows with a double-buffered DMA, with no split of the
@@ -28,41 +28,45 @@ namespace {
 
 template <int G>
 __global__ void __launch_bounds__(pstream::kBlockThreads)
-    decode_hbm2_kernel(dstream::Args a, int per) {
-  pstream::run_stream<G, false, const int*>(a, nullptr, per);
+    decode_hbm2_kernel(dstream::Args a, const int* decode_end, int per) {
+  pstream::run_stream<G, false, const int*>(a, decode_end, per);
 }
 
 template <int G>
-int launch(const dstream::Args& a, int per, cudaStream_t stream) {
+int launch(const dstream::Args& a, const int* decode_end, int per, cudaStream_t stream) {
   static gemm::SmemAllowed smem;
   return pstream::launch(decode_hbm2_kernel<G>, smem, (a.B * a.Hkv + per - 1) / per, stream,
-                         a, per);
+                         a, decode_end, per);
 }
 
 }  // namespace
 
 // q (B, Hq, 128), kall/vall (L, B, Hkv, S, 128), k_new/v_new (B, Hkv, 1,
 // 128), out (B, Hq, 128) bf16; prompt_len (B,) int32; all contiguous on the
-// device.  decode_end is one int for every lane; block_k divides S and pb
-// and is a multiple of 32; Hq / Hkv is 1, 2 or 4; per >= 1 is the pairs
-// each block streams (the wrapper's stream_grid: cdiv(B Hkv, min(B Hkv, SM
-// count))).  Returns the launch's cudaError_t.
+// device.  decode_end points at one int32 on the device, the decode end of
+// every lane, which the kernel reads (a graph replay takes the value it
+// finds there, as the TPU kernel reads its end by scalar prefetch, :38,
+// :164); block_k divides S and pb and is a multiple of 32; Hq / Hkv is 1, 2
+// or 4; per >= 1 is the pairs each block streams (the wrapper's
+// stream_grid: cdiv(B Hkv, min(B Hkv, SM count))).  Returns the launch's
+// cudaError_t.
 extern "C" int decode_attention_hbm2_bf16(
     const void* q, const void* kall, const void* vall, const void* k_new,
     const void* v_new, const void* prompt_len, void* out, int layer, int B,
-    int Hq, int Hkv, int S, int pb, int decode_end, int block_k, int per,
+    int Hq, int Hkv, int S, int pb, const void* decode_end, int block_k, int per,
     float scale, void* stream) {
   if (B == 0) return (int)cudaSuccess;
   if (Hkv <= 0 || Hq % Hkv || per < 1 || !pstream::valid_tiling(S, pb, block_k)) {
     return (int)cudaErrorInvalidValue;
   }
   const dstream::Args a = dstream::make_args(q, kall, vall, k_new, v_new, prompt_len, out,
-                                             layer, B, Hkv, S, pb, decode_end, scale);
+                                             layer, B, Hkv, S, pb, scale);
+  const int* dend = static_cast<const int*>(decode_end);
   cudaStream_t st = (cudaStream_t)stream;
   switch (Hq / Hkv) {
-    case 1: return launch<1>(a, per, st);
-    case 2: return launch<2>(a, per, st);
-    case 4: return launch<4>(a, per, st);
+    case 1: return launch<1>(a, dend, per, st);
+    case 2: return launch<2>(a, dend, per, st);
+    case 4: return launch<4>(a, dend, per, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -60,7 +60,7 @@ extern "C" int decode_attention_hbm5_bf16(
     return (int)cudaErrorInvalidValue;
   }
   const dstream::Args a = dstream::make_args(q, kall, vall, k_new, v_new, prompt_len, out,
-                                             layer, B, Hkv, S, pb, S, scale);
+                                             layer, B, Hkv, S, pb, scale);
   const int* dend = static_cast<const int*>(decode_end);
   cudaStream_t st = (cudaStream_t)stream;
   switch (Hq / Hkv) {

@@ -114,7 +114,7 @@ extern "C" int decode_attention_sched_bf16(
     return (int)cudaErrorInvalidValue;
   }
   const dstream::Args a = dstream::make_args(q, kall, vall, k_new, v_new, nullptr, out,
-                                             layer, B, Hkv, S, 0, 0, scale);
+                                             layer, B, Hkv, S, 0, scale);
   Schedule s;
   s.totals = static_cast<const int*>(totals);
   s.bl = static_cast<const int*>(bl);

@@ -9,10 +9,12 @@
 // or pb <= s < dend[b], and the fresh row is folded in as a self-term.  Each
 // entry point says where a pair finds its lane's geometry (the stream's
 // kLane and ends arguments, span_of below):
-//   * one decode end for every lane (Args::dend; K11a and K11b), prompt
-//     lengths (Args::prompt_len) and Args::pb: prompt lengths clamped to
-//     [0, pb], so a lane with prompt_len 0 and dend == pb has no valid row
-//     and yields v_new;
+//   * one decode end for every lane (K11a and K11b: ends points at one
+//     int32 in device memory, which each block reads once, before its
+//     producer warp plans a tile, and clamps to [pb, S], as the TPU kernels
+//     read theirs by scalar prefetch), prompt lengths (Args::prompt_len)
+//     and Args::pb: prompt lengths clamped to [0, pb], so a lane with
+//     prompt_len 0 and dend == pb has no valid row and yields v_new;
 //   * per-lane ends (kLane, ends the (B,) decode ends; K11c), each clamped
 //     to [pb, S], and prompt lengths clamped to [1, pb], as the TPU kernel
 //     clamps them so that every lane owns a block: an idle lane attends row
@@ -110,14 +112,15 @@ struct LaneRuns {
   int plen, pb, dend;
 };
 
-// ends: the (B,) per-lane decode ends when kLane, else unused.
+// ends: the (B,) per-lane decode ends when kLane, else the block's one
+// decode end, already clamped (run_stream's copy in shared memory).
 template <bool kLane>
 __device__ __forceinline__ Span span_of(const Args& a, const int* ends, int pair) {
   Span s;
   s.b = pair / a.Hkv;
   s.hk = pair - s.b * a.Hkv;
   s.plen = min(max(a.prompt_len[s.b], kLane ? 1 : 0), a.pb);
-  s.dend = kLane ? min(max(ends[s.b], a.pb), a.S) : a.dend;
+  s.dend = kLane ? min(max(ends[s.b], a.pb), a.S) : ends[0];
   s.n_prompt = (s.plen + kTile - 1) / kTile;
   s.n = s.n_prompt + (s.dend - a.pb + kTile - 1) / kTile;
   return s;
@@ -279,7 +282,10 @@ __device__ __forceinline__ void finish(const Args& a, const Span& s, const float
 // The body of each entry point's kernel (kBlockThreads threads, kRingBytes
 // of dynamic shared memory).  Block blockIdx.x streams pairs [blockIdx.x
 // per, + per), or, with per-lane ends or runs and more pairs than blocks,
-// its block_range.
+// its block_range.  Without kLane, ends points at the launch's one decode
+// end in device memory: thread 0 reads it once and every thread then reads
+// the block's clamped copy, so a captured launch takes the end that its
+// replay finds there.
 template <int G, bool kLane, typename Ends>
 __device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
   extern __shared__ __align__(128) uint8_t ring[];
@@ -295,6 +301,7 @@ __device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
   __shared__ float m_slot[2][G], l_slot[2][G];
   __shared__ __align__(16) float acc_slot[2][G][kD];
   __shared__ int2 range;
+  __shared__ int end_s;   // the one decode end, clamped (without kLane)
 
   const int pairs = a.B * a.Hkv;
   const int warp = threadIdx.x / 32;
@@ -310,6 +317,7 @@ __device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
       hopper::mbar_init(&a_bar[i], 1);
     }
     decode_split::ring_init<kStages>(full, empty, 1);
+    if constexpr (!kLane) end_s = min(max(*ends, a.pb), a.S);
   }
   if constexpr (kLane) {
     if (balanced && warp == kWarps) {
@@ -323,6 +331,8 @@ __device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
       begin = range.x;
       end = range.y;
     }
+  } else {
+    ends = &end_s;
   }
 
   if (warp == kWarps) {
@@ -391,7 +401,7 @@ __device__ __forceinline__ void run_stream(const Args& a, Ends ends, int per) {
       dstream::unpack8(*reinterpret_cast<const uint4*>(kb + r * kD * 2 + sub * 16), kf);
       const int row = row0 + r;
       const bool ok =
-          row < s.plen || (row >= pb_of(a, ends, s) && row < (kLane ? s.dend : a.dend));
+          row < s.plen || (row >= pb_of(a, ends, s) && row < s.dend);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         float part = 0.f;

@@ -1,6 +1,6 @@
 // The launch arguments and element helpers of the persistent decode stream
-// (decode_pair_stream.cuh), which runs K11a-K11d: Args, make_args (K2's
-// clamps), bf16_round, unpack8, and the tile and row-split constants.
+// (decode_pair_stream.cuh), which runs K11a-K11d: Args, make_args,
+// bf16_round, unpack8, and the tile and row-split constants.
 //
 // q (B, Hq, 128); kall/vall (L, B, Hkv, S, 128); k_new/v_new (B, Hkv, 1, 128),
 // all bf16.  Numerics follow the TPU kernels, not K2 (decode_attention_hbm2.py
@@ -30,7 +30,7 @@ struct Args {
   const __nv_bfloat16* v_new;
   const int* prompt_len;
   __nv_bfloat16* out;
-  int layer, B, Hkv, S, pb, dend;
+  int layer, B, Hkv, S, pb;
   float scale;
 };
 
@@ -48,12 +48,13 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
   }
 }
 
-// Clamp the launch arguments as K2 does (prompt rows inside the prompt
-// bucket, the decode end inside [pb, S]).
+// The launch arguments.  The decode end is not among them: K11a and K11b
+// read theirs from device memory in the kernel (decode_pair_stream.cuh's
+// run_stream), K11c and K11d per lane.
 inline Args make_args(const void* q, const void* kall, const void* vall,
                       const void* k_new, const void* v_new,
                       const void* prompt_len, void* out, int layer, int B,
-                      int Hkv, int S, int pb, int dend, float scale) {
+                      int Hkv, int S, int pb, float scale) {
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.kall = static_cast<const __nv_bfloat16*>(kall);
@@ -67,7 +68,6 @@ inline Args make_args(const void* q, const void* kall, const void* vall,
   a.Hkv = Hkv;
   a.S = S;
   a.pb = pb;
-  a.dend = dend < pb ? pb : (dend > S ? S : dend);
   a.scale = scale;
   return a;
 }

@@ -26,12 +26,16 @@ within bf16 rounding.
 
 Per preview the device runs: mel + encoder of the ONE incomplete tail
 window, a <= 104-token cached advance, a 16-token suffix advance, and the
-plain decode loop (K2 with K3 fused, replayed as a CUDA graph).
+plain decode loop (K2 with K3 fused); on the card each advance and the
+decode replay CUDA graphs.
 
 The session's prefix lives in a KV cache of its own, outside the decode
 graphs' arena: an offline ``prefill(arena=True)`` (any ``transcribe``
 between two previews) zeroes the arena, and the graphed decode copies the
-session's cache into the arena once per preview.  Each preview holds the
+session's cache into the arena once per preview.  The graphed advance
+copies it into views of its own in the same arena and back around each
+replay (``Generator.advance``), so every session of one (B, S, T) bucket
+replays one captured graph.  Each preview holds the
 model's lock across its advances and its decode, as ``transcribe`` does,
 since the arena and the captured graphs are shared.  The session runs on
 the model's device.

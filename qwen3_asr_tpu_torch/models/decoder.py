@@ -16,7 +16,9 @@ transcription slices run:
     and the same launch then stores the layer's fresh row at the shared
     slot, or at per-lane slots for the continuous engine's flat cache (K3
     fused into K2's fold).  Under :data:`DECODE_KERNEL_MODE` "3" or "4"
-    with a shared slot, K11a or K11b attend; under "0" the plain attention
+    with a shared slot (an int, or a 0-d device tensor as the plain loop
+    passes it), K11a or K11b attend, reading the decode end from the
+    device; under "0" the plain attention
     (the JAX package's XLA form); in both cases, and under the "xla"
     :data:`KV_WRITER_MODE`, all layers' fresh rows are written by ONE
     post-loop writer call (K3, K3-int8, or the plain writer under "xla").
@@ -130,12 +132,16 @@ DecoderParams = dict[str, Any]
 #: ``QWEN3_ASR_DECODE_KERNEL`` at import (the JAX package's modes,
 #: ``qwen3_asr_tpu/models/decoder.py:39-48``, dispatch :489-657): "auto" and
 #: "5" run K2 (K4 on the int8 cache), each storing the step's row from the
-#: same launch; with a shared write slot (an int ``write_slots``, the decode
-#: modes' loop) "3" runs K11a (``decode_attention_hbm2``) and "4" K11b
+#: same launch; with a shared write slot (an int or a 0-d tensor
+#: ``write_slots``: the plain loop's, which the JAX package traces as one
+#: scalar) "3" runs K11a (``decode_attention_hbm2``) and "4" K11b
 #: (``decode_attention_hbm3``), both on the largest block of 1024/512/256/128
 #: rows that divides the cache length and the prompt bucket (ValueError if
-#: none does, where the JAX package raises StopIteration), and per-lane
-#: slots (the flat engine) keep K2.  The int8 cache keeps K4 under "3"/"4"
+#: none does, where the JAX package raises StopIteration), each reading the
+#: one decode end from a 0-d int32 tensor on the device, and the standalone
+#: K3 then writes the rows at the 0-d slot, so the graphed loop captures
+#: both (``runtime/generate.py``); per-lane (B,) slots (the flat engine)
+#: keep K2.  The int8 cache keeps K4 under "3"/"4"
 #: too, where the JAX package dequantizes it for its XLA attention (JAX
 #: ``:500-508``): the caller asked for a kernel.  "0" runs the plain
 #: attention (the JAX package's XLA attention, the int8 cache dequantized
@@ -333,13 +339,15 @@ def decoder_forward(
     Fresh prefill: ``write_slots`` and ``decode_ctx`` None, T > 1; rows land
     at slots [0, T).  Split decode: ``decode_ctx = (prompt_len (B,) int32,
     decode_end, prompt_bucket int)`` and T == 1; the fresh rows land at
-    ``write_slots``; ``decode_end`` and ``write_slots`` are each an int
-    shared by every lane (the decode loop) or a (B,) tensor (the continuous
-    engine's lanes at their own depths, JAX ``engine.py:446-451``).  Verify split:
-    ``decode_ctx = (prompt_len, ws, prompt_bucket)`` with ``ws`` (B,) the
-    per-lane write slots (also passed as ``write_slots``) and 1 < T <= 8;
-    bf16 or f32 cache only.  Cached forward: ``write_slots`` (an int shared
-    by every lane, or a (B,) tensor) and no ``decode_ctx``, T >= 1; the
+    ``write_slots``; ``decode_end`` and ``write_slots`` are each shared by
+    every lane, an int or a 0-d tensor (the plain loop's, computed on the
+    device: the JAX package's traced scalars), or a (B,) tensor (the
+    continuous engine's lanes at their own depths, JAX
+    ``engine.py:446-451``).  Verify split: ``decode_ctx = (prompt_len, ws,
+    prompt_bucket)`` with ``ws`` (B,) the per-lane write slots (also passed
+    as ``write_slots``) and 1 < T <= 8; bf16 or f32 cache only.  Cached
+    forward: ``write_slots`` (an int or a 0-d tensor shared by every lane,
+    or a (B,) tensor) and no ``decode_ctx``, T >= 1; the
     rows land at ``write_slots .. write_slots + T`` and attend the cache up
     to their own positions; bf16 or f32 cache only.  Returns the
     pre-final-norm hidden (B, T, H) and the (updated in place) cache.
@@ -389,7 +397,7 @@ def decoder_forward(
         plen, dend, pbucket = decode_ctx
         device = hidden.device
         attend, dend, fused = _split_step_attention(
-            is_quantized_kv(keys), isinstance(write_slots, torch.Tensor), dend, B, device,
+            is_quantized_kv(keys), not _shared(write_slots), dend, B, device,
             kv_seq_len(keys), pbucket,
         )
         if fused:
@@ -472,32 +480,39 @@ def _cached_forward(params, cfg: TextDecoderConfig, h, positions, cos, sin, keys
     incremental sessions advance their decoder prefix.  Per layer the T
     fresh K/V rows are written first, then the queries attend over the
     layer's whole cache under ``slot <= position``, so each row sees
-    itself.  An int ``write_slots`` writes every lane at the same slots by
-    one slice copy, its start clamped so the T rows fit (the JAX package's
-    ``dynamic_update_slice``); a (B,) tensor writes each lane at its own
-    slots, and rows outside [0, S) are dropped (its ``mode="drop"``
-    scatter).  The attention is :func:`sdpa` in plain PyTorch on every
-    device: the JAX package runs it on XLA, not in a Pallas kernel."""
+    itself.  A shared ``write_slots`` (an int, or a 0-d tensor as
+    ``Generator.advance`` passes it) writes every lane at the same slots,
+    its start clamped on the device so the T rows fit (the JAX package's
+    ``dynamic_update_slice``), by ``index_copy_``: nothing waits for the
+    device, so the advance's CUDA graph holds it.  A (B,) tensor writes
+    each lane at its own slots, and rows outside [0, S) are dropped (its
+    ``mode="drop"`` scatter); that form counts the rows that land on the
+    host (``nonzero``), so it runs eagerly only (no caller captures it: a
+    capture that reached it would raise).  The attention is :func:`sdpa` in
+    plain PyTorch on every device: the JAX package runs it on XLA, not in a
+    Pallas kernel."""
     B, T, _ = h.shape
     nq, D = local_heads(cfg, tp)[0], cfg.head_dim
     S = keys.shape[3]
     device = h.device
     mask = torch.arange(S, device=device)[None, None, None, :] <= positions[:, None, :, None]
-    if isinstance(write_slots, torch.Tensor):
+    per_lane = not _shared(write_slots)
+    if per_lane:
         rows = write_slots.to(device=device, dtype=torch.long).reshape(B, 1) + torch.arange(
             T, device=device)[None, :]                            # (B, T)
         lane, t = ((rows >= 0) & (rows < S)).nonzero(as_tuple=True)
         slot = rows[lane, t]
     else:
-        start = min(max(int(write_slots), 0), S - T)
+        start = torch.as_tensor(write_slots, device=device).to(torch.long)
+        span = start.clamp(0, S - T) + torch.arange(T, device=device)    # (T,)
     for layer, lp in enumerate(params["layers"]):
         q, k, v = _project_qkv(h, lp, cfg, cos, sin, tp=tp)
-        if isinstance(write_slots, torch.Tensor):
+        if per_lane:
             keys[layer, lane, :, slot] = k[lane, :, t].to(keys.dtype)
             values[layer, lane, :, slot] = v[lane, :, t].to(values.dtype)
         else:
-            keys[layer, :, :, start : start + T] = k
-            values[layer, :, :, start : start + T] = v
+            keys[layer].index_copy_(2, span, k.to(keys.dtype))
+            values[layer].index_copy_(2, span, v.to(values.dtype))
         attn = sdpa(q, keys[layer], values[layer], mask=mask, scale=D ** -0.5)
         h = h + qlinear_row_parallel(attn.transpose(1, 2).reshape(B, T, nq * D), lp["wo"], tp)
         h = _mlp_block(h, lp, cfg.rms_norm_eps, tp)
@@ -512,7 +527,8 @@ def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int
     under "auto"/"5" (both with a (B,)
     decode end, and ``fused`` unless :data:`KV_WRITER_MODE` is "xla": the
     call takes ``write_slots`` and stores the fresh row), K11a under "3" and
-    K11b under "4" (an int decode end; not fused), each with ``block_k`` the
+    K11b under "4" for a shared slot (the decode end one 0-d int32 tensor on
+    ``device``, which the kernel reads; not fused), each with ``block_k`` the
     largest of 1024/512/256/128 that divides S and the prompt bucket (JAX
     ``decoder.py:601-610``).  An unknown mode raises ValueError."""
     mode = DECODE_KERNEL_MODE
@@ -535,7 +551,7 @@ def _split_step_attention(q8: bool, per_lane: bool, dend, B: int, device, S: int
             f"both the cache length S={S} and the prompt bucket {pbucket}"
         )
     kernel = decode_attention_hbm2 if mode == "3" else decode_attention_hbm3
-    return partial(kernel, block_k=block_k), int(dend), False
+    return partial(kernel, block_k=block_k), _one(dend, device), False
 
 
 def _write_step_rows(cache, rows: torch.Tensor, write_slots) -> None:
@@ -549,17 +565,17 @@ def _write_step_rows(cache, rows: torch.Tensor, write_slots) -> None:
     B = rows.shape[1]
     if is_quantized_kv(cache):
         kv_write_rows_q8(cache, rows, _per_lane(write_slots, B, rows.device))
-    elif isinstance(write_slots, torch.Tensor):
-        kv_write_rows_batch(cache, rows, _per_lane(write_slots, B, rows.device))
+    elif _shared(write_slots):
+        kv_write_rows(cache, rows, _one(write_slots, rows.device))
     else:
-        kv_write_rows(cache, rows, int(write_slots))
+        kv_write_rows_batch(cache, rows, _per_lane(write_slots, B, rows.device))
 
 
 def _write_rows_xla(cache, rows: torch.Tensor, write_slots) -> None:
     """The JAX package's XLA row writer (``decoder.py:698-726``), in place:
-    a slot shared by every lane (an int, or any slot at B == 1) by a slice
-    update whose start, a negative one counted from the end, is clamped into
-    [0, S - 1] (``dynamic_update_slice``),
+    a slot shared by every lane (an int or a 0-d tensor, or any slot at B
+    == 1) by a slice update whose start, a negative one counted from the
+    end, is clamped into [0, S - 1] on the device (``dynamic_update_slice``),
     per-lane slots by a scatter that drops rows outside [0, S); the int8
     cache takes ``quantize_kv``'s rows and scales the same way."""
     if is_quantized_kv(cache):
@@ -570,23 +586,32 @@ def _write_rows_xla(cache, rows: torch.Tensor, write_slots) -> None:
     for dst, src in pairs:
         B, S = dst.shape[1], dst.shape[3]
         src = src.to(dst.dtype)
-        if not isinstance(write_slots, torch.Tensor):
-            start = int(write_slots)
-            start = min(max(start + S if start < 0 else start, 0), S - 1)
-            dst[:, :, :, start : start + 1] = src
-        elif B == 1:
-            slot = write_slots.to(device=dst.device, dtype=torch.long).reshape(1)
+        if _shared(write_slots) or B == 1:
+            slot = torch.as_tensor(write_slots, device=dst.device).to(torch.long).reshape(1)
             slot = torch.where(slot < 0, slot + S, slot).clamp(0, S - 1)
             dst.index_copy_(3, slot, src)
         else:
             kv_write_rows_plain(dst, src, _per_lane(write_slots, B, dst.device))
 
 
+def _shared(x) -> bool:
+    """Whether a write slot or decode end is one value for every lane: an
+    int or a 0-d tensor (a (B,) tensor is per lane)."""
+    return not isinstance(x, torch.Tensor) or x.dim() == 0
+
+
+def _one(x, device) -> torch.Tensor:
+    """A shared slot or decode end (an int, or a one-element tensor) as a
+    0-d int32 tensor on ``device``, converted on the device."""
+    return torch.as_tensor(x, device=device).to(torch.int32).reshape(())
+
+
 def _per_lane(x, B: int, device) -> torch.Tensor:
-    """An int shared by every lane, or a (B,) tensor, as int32 (B,) on
-    ``device``."""
+    """An int or a 0-d tensor shared by every lane (expanded on the
+    device), or a (B,) tensor, as int32 (B,) on ``device``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int32).reshape(B).contiguous()
+        x = x.to(device=device, dtype=torch.int32)
+        return (x.expand(B) if x.dim() == 0 else x.reshape(B)).contiguous()
     return torch.full((B,), int(x), dtype=torch.int32, device=device)
 
 

@@ -108,13 +108,14 @@ _SIGNATURES = {
     # x, w, b, out, N, H, W, C, O, stream
     "conv_s2_gelu_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, kall, vall, k_new, v_new, prompt_len, out, layer, B, Hq, Hkv, S,
-    # prompt_bucket, decode_end, block_k, per (pairs per block), scale, stream
+    # prompt_bucket, decode_end (one int32 on the device), block_k, per
+    # (pairs per block), scale, stream
     "decode_attention_hbm2_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P,
     ),
     # as decode_attention_hbm2_bf16
     "decode_attention_hbm3_bf16": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P,
     ),
     # q, kall, vall, k_new, v_new, prompt_len, decode_end, out, layer, B, Hq,
     # Hkv, S, prompt_bucket, block_p, blocks, scale, stream
@@ -320,6 +321,24 @@ def check(err: int, name: str) -> None:
     if err != 0:
         text = library().cuda_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA launch failed: error {err} ({text})")
+
+
+def check_device_int(name: str, value, device) -> None:
+    """Raise unless ``value`` is one int32 on ``device``, 0-d or (1,): the
+    shared decode end or write slot that a kernel reads on the device (as
+    the TPU kernels read theirs by scalar prefetch), so that a CUDA graph
+    replays the launch with whatever value the tensor then holds.  A host
+    int, a per-lane (B,) tensor or another dtype is refused."""
+    import torch
+
+    if not isinstance(value, torch.Tensor):
+        raise TypeError(f"{name} must be a 0-d int32 tensor on {device}, got "
+                        f"{type(value).__name__}")
+    if value.dtype != torch.int32 or value.dim() > 1 or value.numel() != 1:
+        raise ValueError(f"{name} must be one int32 (0-d or (1,)), got {value.dtype} "
+                         f"{tuple(value.shape)}")
+    if value.device != device:
+        raise ValueError(f"{name} is on {value.device}, expected {device}")
 
 
 def refuse_autograd(name: str, *tensors) -> None:

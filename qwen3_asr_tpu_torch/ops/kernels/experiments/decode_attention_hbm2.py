@@ -4,7 +4,12 @@ Replaces ``qwen3_asr_tpu/ops/pallas/experiments/decode_attention_hbm2.py:
 decode_attention_hbm2``.  K2's function with one ``decode_end`` for every
 lane: cache row s of lane b is valid when ``s < prompt_len[b]`` or
 ``prompt_bucket <= s < decode_end``, and the step's fresh ``k_new``/``v_new``
-row is folded in as a self-term.  The TPU walks the cache in blocks of
+row is folded in as a self-term.  ``decode_end`` is a 0-d (or (1,)) int32
+tensor on q's device, which the kernel reads, as the TPU kernel reads its
+end by scalar prefetch (``decode_attention_hbm2.py:38``, ``:164``): the
+wrapper never waits for the device, so a CUDA graph holds the launch and
+each replay takes the end the tensor then holds (the decode modes' graphed
+loop).  The TPU walks the cache in blocks of
 ``block_k`` rows (halved from the requested size until it divides S and the
 prompt bucket; :func:`tile_block_k`), which here decides only the input
 check.  Its numerics are the TPU kernel's (q * scale rounded to bf16, bf16
@@ -21,8 +26,8 @@ values from tile to tile.  One launch, no split of a pair's rows and no
 combine pass; the output is K11b's bit for bit.
 
 Its plain version is K2's :func:`~..decode_attention.decode_attention_plain`
-with the scalar decode end broadcast to every lane, behind this wrapper's
-shape checks and tiling rule; it runs on CPU tensors.  On a CUDA tensor the
+with the scalar decode end broadcast to every lane on the device, behind
+this wrapper's shape checks and tiling rule; it runs on CPU tensors.  On a CUDA tensor the
 wrapper launches the kernel or raises.
 """
 
@@ -58,13 +63,20 @@ def tile_block_k(S: int, prompt_bucket: int, block_k: int) -> int:
     return block_k
 
 
-def scalar_end_plain(q, kall, vall, k_new, v_new, layer, prompt_len, decode_end: int,
-                     prompt_bucket: int, scale: float) -> torch.Tensor:
-    """K2's plain version with ``decode_end`` shared by every lane."""
-    dend = torch.full(prompt_len.shape, int(decode_end), dtype=torch.int32,
-                      device=prompt_len.device)
+def scalar_end_plain(q, kall, vall, k_new, v_new, layer, prompt_len,
+                     decode_end: torch.Tensor, prompt_bucket: int,
+                     scale: float) -> torch.Tensor:
+    """K2's plain version with the one-element ``decode_end`` tensor shared
+    by every lane (broadcast on its device, no host read)."""
+    dend = decode_end.to(prompt_len.device).reshape(()).expand(prompt_len.shape)
     return decode_attention_plain(q, kall, vall, k_new, v_new, layer, prompt_len,
                                   dend, prompt_bucket, scale)
+
+
+def check_end(decode_end, device: torch.device) -> None:
+    """The one decode end of K11a/K11b: a 0-d or (1,) int32 tensor on
+    ``device`` (q's); a host int or a per-lane (B,) end is refused."""
+    _build.check_device_int("decode_end", decode_end, device)
 
 
 def check(q, kall, vall, k_new, v_new, layer, prompt_len, block_k: int) -> None:
@@ -106,11 +118,12 @@ def check(q, kall, vall, k_new, v_new, layer, prompt_len, block_k: int) -> None:
 
 
 def scalar_end_stream(name: str, entry: str, q, kall, vall, k_new, v_new, layer: int,
-                      prompt_len, decode_end: int, prompt_bucket: int, scale: float | None,
-                      block_k: int) -> torch.Tensor:
+                      prompt_len, decode_end: torch.Tensor, prompt_bucket: int,
+                      scale: float | None, block_k: int) -> torch.Tensor:
     """K11a or K11b: the plain version on CPU tensors; on CUDA tensors the
     checks, then the stream kernel of C entry point ``entry``, counted under
-    ``name``."""
+    ``name``, reading ``decode_end`` on the device."""
+    check_end(decode_end, q.device)
     block_k = tile_block_k(kall.shape[3], prompt_bucket, block_k)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -125,7 +138,7 @@ def scalar_end_stream(name: str, entry: str, q, kall, vall, k_new, v_new, layer:
     err = getattr(_build.library(), entry)(
         q.data_ptr(), kall.data_ptr(), vall.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), prompt_len.data_ptr(), out.data_ptr(), int(layer), B, hq,
-        hkv, S, int(prompt_bucket), int(decode_end), block_k, per, float(scale),
+        hkv, S, int(prompt_bucket), decode_end.data_ptr(), block_k, per, float(scale),
         _build.stream_ptr(q),
     )
     _build.check(err, name)
@@ -141,12 +154,13 @@ def decode_attention_hbm2(
     v_new: torch.Tensor,
     layer: int,
     prompt_len: torch.Tensor,   # (B,) int32
-    decode_end: int,            # one slot for every lane
+    decode_end: torch.Tensor,   # 0-d int32 on q's device: one end for every lane
     prompt_bucket: int,
     scale: float | None = None,
     block_k: int = 512,
 ) -> torch.Tensor:
     """One-token attention of q over layer ``layer`` of the stacked cache plus
-    the fresh row, with one ``decode_end`` for every lane.  Returns (B, Hq, D)."""
+    the fresh row, with one ``decode_end`` for every lane, read on the
+    device.  Returns (B, Hq, D)."""
     return scalar_end_stream(NAME, "decode_attention_hbm2_bf16", q, kall, vall, k_new, v_new,
                              layer, prompt_len, decode_end, prompt_bucket, scale, block_k)

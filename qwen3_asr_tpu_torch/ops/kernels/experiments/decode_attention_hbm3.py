@@ -33,7 +33,7 @@ def decode_attention_hbm3(
     v_new: torch.Tensor,
     layer: int,
     prompt_len: torch.Tensor,   # (B,) int32
-    decode_end: int,            # one slot for every lane
+    decode_end: torch.Tensor,   # 0-d int32 on q's device: one end for every lane
     prompt_bucket: int,
     scale: float | None = None,
     block_k: int = 512,

@@ -116,10 +116,15 @@ def _write(cache: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor) -> torc
     return _launch(NAME, cache, rows, slots, 1)
 
 
-def kv_write_rows(cache: torch.Tensor, rows: torch.Tensor, slot: int) -> torch.Tensor:
+def kv_write_rows(cache: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """Write ``rows`` (L, B, Hkv, 1, D) into ``cache`` (L, B, Hkv, S, D) at
-    one ``slot`` shared by every lane."""
-    slots = torch.full((cache.shape[1],), slot, dtype=torch.int32, device=cache.device)
+    one ``slot`` shared by every lane: a 0-d (or (1,)) int32 tensor on the
+    cache's device, as the TPU kernel reads its slot by scalar prefetch
+    (``kv_write.py:39``), expanded to the lanes on the device, so a CUDA
+    graph holds the write and each replay takes the slot the tensor then
+    holds."""
+    _build.check_device_int("slot", slot, cache.device)
+    slots = slot.reshape(()).expand(cache.shape[1]).contiguous()
     return _write(cache, rows, slots)
 
 

@@ -13,19 +13,29 @@ and write only device tensors (the state ``tokens``, ``counts``, ``done``,
 ``cur`` and the live-step counter, and the request's values, sampling
 parameters included), and a loop that runs it:
 
-  * on CUDA tensors under decode mode "auto", "5" or "0", each step is
-    captured once per bucket, decode mode and KV writer as a CUDA graph
-    and replayed in blocks, with one look at ``done`` per block
-    (``runtime/graphs.py``).  Under "0" the graph holds the plain
-    attention, which reads the decode ends from the device and never
-    waits for it, and the standalone K3 (K3-int8) writer; under the "xla"
-    KV writer (``models/decoder.py:KV_WRITER_MODE``) the plain writers,
-    which never wait for the device either.  A step that waits for the
-    device inside a capture raises: no loop turns eager for it;
+  * on CUDA tensors, under every decode mode, each step is captured once
+    per bucket, decode mode and KV writer as a CUDA graph and replayed in
+    blocks, with one look at ``done`` per block (``runtime/graphs.py``).
+    The plain step's write slot and decode end are 0-d tensors computed on
+    the device from the live-step counter, as the JAX loop traces them:
+    under "3"/"4" K11a/K11b read the end, and the standalone K3 the slot,
+    from device memory; under "0" the graph holds the plain attention,
+    which reads the decode ends from the device and never waits for it,
+    and the standalone K3 (K3-int8) writer; under the "xla" KV writer
+    (``models/decoder.py:KV_WRITER_MODE``) the plain writers, which never
+    wait for the device either.  A step that waits for the device inside a
+    capture raises: no loop turns eager for it;
   * on CPU tensors the same step runs eagerly in the same blocks: the
     plain version of the graphed loop;
-  * decode modes "3" and "4" (K11a, K11b take the decode end as a host
-    int) and ``decode(eager=True)`` run one step per look at ``done``.
+  * ``decode(eager=True)`` runs one eager step per look at ``done``: the
+    graphs' oracle on the card.
+
+The live sessions' cached advance (:meth:`Generator.advance`, JAX
+``jax.jit``s it per shape with the slot and the last index traced) is
+captured the same way, once per (B, S, T, cache dtype, weight quantization,
+tp) bucket, its slot and last index 0-d device tensors inside the graph;
+its cache and inputs are copied into the bucket's buffers before each
+replay (see :meth:`Generator.advance`).
 
 The cache layout, buckets and step semantics are the JAX package's, so
 greedy decoding produces the same tokens:
@@ -308,22 +318,86 @@ class Generator:
     # -- incremental prompt advance (streaming sessions) -------------------
 
     @_build.owned
-    def advance(self, kv, embeds, positions, write_slot: int, last_index: int):
+    def advance(self, kv, embeds, positions, write_slot, last_index, eager: bool = False):
         """Append T prompt tokens to an existing cache (the cached forward,
         JAX ``generate.py:156-198``): K/V rows land at slots ``[write_slot,
-        write_slot + T)`` of ``kv``, updated in place, and the f32 logits
-        are taken at ``last_index`` within the new span, as :meth:`prefill`
-        takes them.  ``embeds`` (B, T, H); ``positions`` (B, T) RoPE
-        positions.  The incremental sessions (``incremental.py``) extend
-        their decoder prefix with it one encoder window at a time; the
-        offline paths never call it.  Returns (kv, logits (B, vocab))."""
-        positions = torch.as_tensor(positions, dtype=torch.long, device=embeds.device)
+        write_slot + T)`` of ``kv`` (the start clamped into [0, S - T]),
+        updated in place, and the f32 logits are taken at ``last_index``
+        within the new span, as :meth:`prefill` takes them.  ``embeds`` (B,
+        T, H); ``positions`` (B, T) RoPE positions; ``write_slot`` and
+        ``last_index`` ints or 0-d tensors.  The incremental sessions
+        (``incremental.py``) extend their decoder prefix with it one encoder
+        window at a time; the offline paths never call it.  Returns (kv,
+        logits (B, vocab)), the logits a tensor of the caller's own.
+
+        Where :meth:`decode` graphs its loop (:meth:`_capturable`) and
+        unless ``eager``, the advance replays a CUDA graph captured once per
+        bucket (B, S, T, cache dtype, weight quantization, tp; the JAX
+        package ``jax.jit``s it once per shape): the bucket's static inputs
+        (embeds, positions, and the slot and last index as 0-d tensors,
+        which the step reads on the device) are filled, the cache is copied
+        into the arena's ``"advance_k"``/``"advance_v"`` views (not the
+        decode loop's ``"k"``/``"v"``), the graph replays, and the cache is
+        copied back: each session owns its cache, so a graph holds the
+        arena's pointers and any session of the bucket replays it with no
+        capture of its own (about 2 x 2 x 37 MB of copies for a 640-slot
+        bf16 cache at 1.7B).  The logits are cloned out of the graph's
+        buffer.  CPU tensors, a gloo tp group and ``eager=True`` (the graph's
+        oracle) run the same step eagerly on ``kv`` itself.  A failed
+        capture or replay raises."""
+        device = embeds.device
+        if eager or not self._capturable(device):
+            positions = torch.as_tensor(positions, dtype=torch.long, device=device)
+            return kv, self._advance_step(kv, embeds, positions, write_slot, last_index)
+        g = self._graphs_on(device)
+        B, T = embeds.shape[:2]
+        cache = tuple(g.view(f"advance_{n}", tuple(c.shape), c.dtype) for n, c in zip("kv", kv))
+        rt = self.runtime
+        key = ("advance", B, kv_seq_len(kv[0]), T, kv[0].dtype, embeds.dtype,
+               rt.quantization, rt.act_quant, 1 if self.tp is None else self.tp.size)
+        entry = g.get(key)
+        st = entry[0] if entry is not None else {
+            "embeds": torch.empty_like(embeds),
+            "positions": torch.empty((B, T), dtype=torch.long, device=device),
+            "slot": torch.empty((), dtype=torch.long, device=device),
+            "last": torch.empty((), dtype=torch.long, device=device)}
+        st["embeds"].copy_(embeds)
+        st["positions"].copy_(torch.as_tensor(positions))
+        st["slot"].fill_(write_slot)
+        st["last"].fill_(last_index)
+        for c, src in zip(cache, kv):
+            c.copy_(src)
+        if entry is None:
+            # The capture's warm-up step runs on this call's inputs: it
+            # writes the span's rows, which the replay writes again alike
+            # before any layer reads them.
+            def step():
+                st["logits"] = self._advance_step(cache, st["embeds"], st["positions"],
+                                                  st["slot"], st["last"])
+
+            graph = g.capture(key, st, step)
+            logger.info("advance graph captured in %.1f ms: B=%d S=%d T=%d",
+                        g.last_capture_ms, B, key[2], T)
+        else:
+            graph = entry[1]
+        graph.replay()
+        for dst, c in zip(kv, cache):
+            dst.copy_(c)
+        return kv, st["logits"].clone()
+
+    def _advance_step(self, kv, embeds, positions, write_slot, last_index) -> torch.Tensor:
+        """The advance's forward on ``kv`` (in place): the cached forward at
+        the shared ``write_slot``, then the f32 logits (B, vocab) of the row
+        at ``last_index``, each an int or a 0-d tensor, read on the device."""
+        device = embeds.device
+        last = torch.as_tensor(last_index, device=device).to(torch.long).reshape(1)
         with self._act_quant_ctx():
-            hidden, kv = decoder_forward(self.params, self.cfg, embeds, positions, kv,
-                                         write_slots=int(write_slot), tp=self.tp)
-            logits = decoder_logits(self.params, self.cfg, hidden[:, last_index : last_index + 1],
+            hidden, _ = decoder_forward(self.params, self.cfg, embeds, positions, kv,
+                                        write_slots=torch.as_tensor(write_slot, device=device),
+                                        tp=self.tp)
+            logits = decoder_logits(self.params, self.cfg, hidden.index_select(1, last),
                                     tp=self.tp)
-        return kv, logits[:, 0]
+        return logits[:, 0]
 
     def embed_ids(self, ids) -> torch.Tensor:
         """Embedded token ids (B, T) -> (B, T, H) on the parameters' device
@@ -387,10 +461,11 @@ class Generator:
 
     def _graphed(self, device: torch.device, eager: bool) -> bool:
         """Whether :meth:`decode` replays captured steps: where they can be
-        captured, unless ``eager`` or decode mode "3"/"4" (K11a/K11b take
-        the decode end as a host int) asks for one eager step a look."""
-        return (self._capturable(device) and not eager
-                and _decoder.DECODE_KERNEL_MODE not in ("3", "4"))
+        captured (every decode mode: under "3"/"4" K11a/K11b read their end
+        from the device), unless ``eager`` asks for one eager step a look.
+        On an NCCL tp group modes "3"/"4" graph as the others do, their
+        collectives in the graph."""
+        return self._capturable(device) and not eager
 
     def _graphs_on(self, device: torch.device) -> _graphs.DecodeGraphs:
         if self.graphs is None or self.graphs.device != device:
@@ -452,15 +527,13 @@ class Generator:
         ``:1208-1302``: the speculative loop where :meth:`_plan_spec` says
         so and the cache is not int8, else the plain loop.
 
-        On CUDA tensors under decode mode "auto", "5" or "0" the loop
-        replays the bucket's captured step graph (captured on first use) in
-        blocks of ``graphs.BLOCK`` steps, with the collectives inside it on
-        an NCCL tp group; on CPU tensors the same step runs eagerly in the
-        same blocks, as do CUDA tensors on a gloo tp group
-        (:meth:`_graphed`).  Decode modes "3" and "4", whose kernels K11a
-        and K11b take the decode end as a host int, and ``eager=True`` (the
-        graphs' oracle on the card) run one eager step per look at
-        ``done``.  ``plain=True`` runs the plain loop whatever
+        On CUDA tensors, under every decode mode, the loop replays the
+        bucket's captured step graph (captured on first use) in blocks of
+        ``graphs.BLOCK`` steps, with the collectives inside it on an NCCL
+        tp group; on CPU tensors the same step runs eagerly in the same
+        blocks, as do CUDA tensors on a gloo tp group (:meth:`_graphed`).
+        ``eager=True`` (the graphs' oracle on the card) runs one eager step
+        per look at ``done``.  ``plain=True`` runs the plain loop whatever
         :meth:`_plan_spec` says, as the JAX package's incremental sessions
         call its plain ``_decode`` (JAX ``incremental.py:395-418``).  A
         failed capture or replay raises."""
@@ -471,7 +544,6 @@ class Generator:
         )
         device = first_logits.device
         B = first_logits.shape[0]
-        host_ends = _decoder.DECODE_KERNEL_MODE in ("3", "4")
         graphed = self._graphed(device, eager)
         if graphed:
             kv = self._graph_cache(kv)
@@ -512,9 +584,9 @@ class Generator:
             self.last_replays, self.last_host_syncs = _graphs.run_blocks(
                 graph.replay, state.done, _graphs.BLOCK, ahead=True)
         else:
-            block = 1 if eager or host_ends else _graphs.BLOCK
+            block = 1 if eager else _graphs.BLOCK
             self.last_replays, self.last_host_syncs = _graphs.run_blocks(
-                self._step(kv, req, state, spec, host_ends), state.done, block)
+                self._step(kv, req, state, spec), state.done, block)
         steps = int(state.steps)
         self.last_decode_steps = steps
         logger.debug("decode: %d live steps, %d replays, %d looks at done (%s)",
@@ -574,35 +646,29 @@ class Generator:
         return _State(tokens, counts, done, first,
                       torch.zeros((), dtype=torch.long, device=device))
 
-    def _step(self, kv, req: _Request, state: _State, spec, host_ends: bool = False):
-        """The loop's step as a function of the step index: the speculative
-        verify iteration, or the plain step (given the index as its host
-        step with ``host_ends``)."""
+    def _step(self, kv, req: _Request, state: _State, spec):
+        """The loop's step as a function of the step index (unused: the
+        step reads its counter on the device): the speculative verify
+        iteration, or the plain step."""
         if spec is not None:
             return lambda _i: self._spec_step(kv, req, state, *spec)
-        if host_ends:
-            return lambda i: self._plain_step(kv, req, state, host_step=i)
         return lambda _i: self._plain_step(kv, req, state)
 
-    def _plain_step(self, kv, req: _Request, st: _State, host_step: int | None = None):
+    def _plain_step(self, kv, req: _Request, st: _State):
         """One token per live lane (JAX ``_decode_machinery`` :326-409): every
         lane writes the shared decode slot ``min(pb + step, S - 1)`` at RoPE
         position ``plen + count - 1``, attending up to ``min(pb + step, S)``.
-        Slot and end are (B,) int32 tensors computed from the live-step
-        counter on the device (K2, or K4 on the int8 cache, with the fused
-        row store), or ints from ``host_step`` (the decode modes "3"/"4"
-        loop: K11a/K11b, then K3).  Updates ``st`` in place."""
+        Slot and end are 0-d int32 tensors computed from the live-step
+        counter on the device, the JAX loop's traced scalars: K2 (K4 on the
+        int8 cache) takes them expanded to the lanes, with the fused row
+        store; under decode modes "3"/"4" K11a/K11b read the end and the
+        standalone K3 the slot.  Updates ``st`` in place."""
         S = kv_seq_len(kv[0])
         tb = req.token_bucket
         prompt_bucket = S - tb
-        B = st.counts.shape[0]
         live = ~st.done
-        if host_step is None:
-            at = (st.steps + prompt_bucket).to(torch.int32).expand(B)
-            slot_step, dend = at.clamp(max=S - 1), at.clamp(max=S)
-        else:
-            slot_step = min(prompt_bucket + host_step, S - 1)
-            dend = min(prompt_bucket + host_step, S)
+        at = (st.steps + prompt_bucket).to(torch.int32)
+        slot_step, dend = at.clamp(max=S - 1), at.clamp(max=S)
         pos = req.plen.long() + st.counts - 1
         embeds = embed_tokens(self.params, st.cur, tp=self.tp)[:, None, :]
         hidden, kv = decoder_forward(

@@ -21,7 +21,10 @@ fills before its first replay, and the KV cache is a view at the base of
 the arena (:meth:`DecodeGraphs.view`, one flat buffer per cache tensor),
 whatever the bucket, so every graph sees the same cache pointers.  The
 prefill and the int8 cache's quantization write into those views.  Growing
-a buffer of the arena drops every captured graph.
+a buffer of the arena drops every captured graph (any may hold its
+pointers); adding a buffer of a new name drops none (none can), so the
+live sessions' advance (``Generator.advance``, views of names of its own)
+and the decode loop keep each other's graphs.
 
 Kernel launches are counted on the host when a wrapper runs
 (``ops/kernels/_build.py`` ``LAUNCHES``), and so are the tp collectives
@@ -190,23 +193,26 @@ class DecodeGraphs:
         #: warm-up step excluded).
         self.captures = 0
         self.last_capture_ms = 0.0
-        #: Times a buffer of the arena grew (each drops every graph).
+        #: Times a buffer of the arena grew (each drops every graph; a
+        #: buffer of a new name is no growth).
         self.growths = 0
         self._pool = None
         self._stream: torch.cuda.Stream | None = None
 
     def view(self, name: str, shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
         """A contiguous ``dtype`` tensor of ``shape`` at the base of the arena
-        buffer ``name``, which grows (dropping every graph) when too small."""
+        buffer ``name``, made at first use and grown (dropping every graph,
+        which may hold its old pointers) when too small."""
         nbytes = prod(shape) * dtype.itemsize
         buf = self.buffers.get(name)
         if buf is None or buf.numel() < nbytes:
-            self.entries.clear()
-            self.buffers.pop(name, None)
-            del buf
+            if buf is not None:
+                self.entries.clear()
+                self.growths += 1
+                del self.buffers[name]
+                del buf
             self.buffers[name] = buf = torch.empty(nbytes, dtype=torch.uint8,
                                                    device=self.device)
-            self.growths += 1
         return buf[:nbytes].view(dtype).view(shape)
 
     def get(self, key: tuple):

@@ -555,7 +555,7 @@ def test_cuda_hbm5_equals_hbm3_at_equal_ends(cuda, B, S, G):
     dend = pb + (S - pb) // 2
     ends = torch.full_like(plen, dend)
     lanes = h5.decode_attention_hbm5(q, kall, vall, k_new, v_new, 1, plen, ends, pb)
-    shared = decode_attention_hbm3(q, kall, vall, k_new, v_new, 1, plen, dend, pb)
+    shared = decode_attention_hbm3(q, kall, vall, k_new, v_new, 1, plen, ends[0], pb)
     torch.cuda.synchronize()
     assert torch.equal(lanes, shared)
 

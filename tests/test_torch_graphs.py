@@ -21,7 +21,9 @@ no-op steps after the last lane is done):
   ``repetition_penalty`` and ``repetition_context_size`` keep the bucket
   key of the graph cache (only greedy/sampled changes it);
 * ``record_launches``/``StepGraph`` take a capture's launches back out of
-  ``LAUNCHES`` and add them once per replay (a stub graph).
+  ``LAUNCHES`` and add them once per replay (a stub graph);
+* the arena: a buffer of a new name keeps the captured graphs, a grown one
+  drops them all.
 
 ``cuda``-marked (skipped without a GPU): on the tiny decoder in bf16 on the
 card, the graphed loop (plain, int8 cache, speculative, sampled) is
@@ -182,8 +184,8 @@ def test_steps_after_done_change_nothing(setting, monkeypatch):
     captured = {}
     real_step = Generator._step
 
-    def spy_step(self, kv, req, state, spec, host_ends=False):
-        fn = real_step(self, kv, req, state, spec, host_ends)
+    def spy_step(self, kv, req, state, spec):
+        fn = real_step(self, kv, req, state, spec)
         captured.update(state=state, fn=fn)
         return fn
 
@@ -260,6 +262,22 @@ def test_replays_add_the_recorded_launches(monkeypatch):
     with pytest.raises(ZeroDivisionError):
         graphs.record_launches(lambda: _build.count("x") or 1 / 0)
     assert "x" not in +_build.LAUNCHES
+
+
+def test_arena_growth_drops_graphs_a_new_buffer_none():
+    """A buffer of a new name (the advance's views beside the decode
+    loop's cache) keeps every captured graph; growing a buffer drops them
+    all, since any may hold its old pointers; a smaller view reuses it."""
+    dg = graphs.DecodeGraphs(torch.device("cpu"))
+    dg.entries["advance"] = ("statics", "graph")
+    a = dg.view("advance_k", (2, 3), torch.float32)
+    dg.entries["decode"] = ("statics", "graph")
+    dg.view("k", (4, 8), torch.bfloat16)
+    assert set(dg.entries) == {"advance", "decode"} and dg.growths == 0
+    assert dg.view("advance_k", (3,), torch.float32).data_ptr() == a.data_ptr()
+    assert len(dg.entries) == 2
+    dg.view("k", (4, 9), torch.bfloat16)
+    assert dg.entries == {} and dg.growths == 1
 
 
 # -- on the card: the graphed loop against the eager loop ---------------------------

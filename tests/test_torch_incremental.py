@@ -12,7 +12,13 @@ Per module, on the same inputs made with numpy from a seed:
   ``decode_ctx``) against JAX ``decoder_forward``: hidden and cache, atol
   1e-5, uniform and per-lane slots, slots running past S, T = 1, 16 and
   104; the int8 cache raises;
-* ``Generator.advance`` logits and cache against JAX ``Generator.advance``.
+* ``Generator.advance`` logits and cache against JAX ``Generator.advance``,
+  also with the slot and last index as 0-d tensors at the sessions' slots
+  and the clamp edges;
+* the advance's graph bucket on the CPU (its capture a stand-in that runs
+  the step): one capture per (B, S, T, dtype, ...) for every session, the
+  graphed advance bit-identical to the eager one, two sessions previewing
+  in turns giving their solo texts.
 
 The whole slice: previews token-identical to the JAX ``IncrementalSession``
 and to the port's own ``transcribe`` at the cut points of
@@ -22,7 +28,9 @@ previews after a decode, and poisoning after a preview made to fail.
 
 ``cuda``-marked (skipped without a GPU): the advance on the card (bf16)
 against the CPU float32 advance, within the smoke's reference tolerance
-(5e-2 of max |logit|), and a graphed preview equal to an eager one.
+(5e-2 of max |logit|), a graphed preview (decode and advances) equal to an
+eager one, the graphed advance bit-identical to the eager one, and two
+sessions in turns giving their solo texts.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import torch
 
 from qwen3_asr_tpu_torch import Qwen3ASR, RuntimeConfig
 from qwen3_asr_tpu_torch.audio import mel as tmel
-from qwen3_asr_tpu_torch.incremental import WINDOW_SAMPLES, IncrementalSession
+from qwen3_asr_tpu_torch.incremental import PREFIX_PAD, WINDOW_SAMPLES, IncrementalSession
 from qwen3_asr_tpu_torch.models.params import params_from_jax
 from torch_parity import clips, configs, models, numpy_params
 
@@ -236,6 +244,153 @@ def test_advance_matches_jax(pair):
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=ATOL, rtol=0)
         for t, j in zip(tkv, jkv):
             np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
+
+
+#: (write slot, T) of the device-scalar advance, S = 288: the slots a session
+#: uses (the prefix at 0, a window at 9, the suffix after a window) and the
+#: clamp edges (S - T, S - T + 5 clamped to S - T, a window at 0).
+ADVANCE_CASES = [(0, 16), (9, 104), (113, 16), (272, 16), (277, 16), (0, 104), (184, 104)]
+
+
+@pytest.mark.parametrize("slot,T", ADVANCE_CASES)
+def test_advance_device_scalars_match_jax(pair, slot, T):
+    """``advance`` with the write slot and the last index as 0-d tensors
+    (as its graph reads them) on a random cache, against the JAX
+    ``_advance_impl`` (jitted, the slot and index traced): logits and cache
+    within 1e-5, and bit-identical to the same call with ints."""
+    jax_model, port = pair
+    jgen, tgen = jax_model._generator, port._generator
+    cfg = port._config.text_decoder
+    S = 288
+    rng = np.random.default_rng(slot * 7 + T)
+    shape = (cfg.num_hidden_layers, 1, cfg.num_key_value_heads, S, cfg.head_dim)
+    kv = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    feats = rng.standard_normal((1, T, cfg.hidden_size)).astype(np.float32)
+    pos = (slot + np.arange(T))[None]
+    last = T - 1 - (slot % 5)
+    jkv, jlogits = jgen.advance((jnp.asarray(kv[0]), jnp.asarray(kv[1])), jnp.asarray(feats),
+                                pos, slot, last)
+    tkv, tlogits = tgen.advance(tuple(torch.from_numpy(c.copy()) for c in kv),
+                                torch.from_numpy(feats), pos,
+                                torch.tensor(slot, dtype=torch.int32), torch.tensor(last))
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=ATOL, rtol=0)
+    for t, j in zip(tkv, jkv):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
+    ikv, ilogits = tgen.advance(tuple(torch.from_numpy(c.copy()) for c in kv),
+                                torch.from_numpy(feats), pos, slot, last)
+    assert torch.equal(ilogits, tlogits)
+    assert all(torch.equal(a, b) for a, b in zip(ikv, tkv))
+
+
+class _Replay:
+    """A captured graph's stand-in on the CPU: a replay runs the step."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def replay(self):
+        self.step()
+
+
+def _cpu_capture(self, key, statics, step, generator=None, warm=True):
+    """``DecodeGraphs.capture`` on the CPU: the warm-up step, then an entry
+    whose replays run the step on the same buffers."""
+    from collections import Counter
+
+    from qwen3_asr_tpu_torch.runtime import graphs
+
+    if warm:
+        step()
+    entry = graphs.StepGraph(_Replay(step), Counter())
+    self.captures += 1
+    self.entries[key] = (statics, entry)
+    return entry
+
+
+@pytest.fixture
+def graphed_advance(pair, monkeypatch):
+    """A model on the pair's weights whose ``advance`` takes its graphed
+    path on CPU tensors (``_capturable`` patched true, a capture that
+    replays by running the step), the decode loop kept eager."""
+    from qwen3_asr_tpu_torch.runtime import graphs
+    from qwen3_asr_tpu_torch.runtime.generate import Generator
+
+    monkeypatch.setattr(Generator, "_capturable", lambda self, device: True)
+    monkeypatch.setattr(graphs.DecodeGraphs, "capture", _cpu_capture)
+    real = Generator.decode
+    monkeypatch.setattr(Generator, "decode",
+                        lambda self, *a, **k: real(self, *a, **dict(k, eager=True)))
+    port = pair[1]
+    return Qwen3ASR(port._config, port._encoder_params, port._decoder_params, port._tokenizer,
+                    RuntimeConfig(**RT))
+
+
+def _advance_keys(gen) -> list[tuple]:
+    return [k for k in gen.graphs.entries if k[0] == "advance"]
+
+
+def test_advance_bucket_captured_once_across_sessions(graphed_advance):
+    """The advance's bucket key is (B, S, T, cache dtype, ...): the first
+    session's prefix advance captures it, a second session of the same
+    bucket captures nothing, a window's T = 104 is a bucket of its own; the
+    graphed advance (the arena copy in and out) is bit-identical to the
+    eager one on the session's cache."""
+    model = graphed_advance
+    gen = model._generator
+    a = model.incremental_session(max_tokens=6, language="English")
+    (key,) = _advance_keys(gen)
+    assert key[1:5] == (1, a._cache_len, PREFIX_PAD, torch.float32)
+    assert gen.graphs.captures == 1
+    b = model.incremental_session(max_tokens=6, language="English")
+    assert gen.graphs.captures == 1 and _advance_keys(gen) == [key]
+    assert all(torch.equal(x, y) for x, y in zip(a._kv, b._kv))
+    cfg = model._config.text_decoder
+    feats = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 104, cfg.hidden_size)).astype(np.float32))
+    pos = (9 + np.arange(104))[None]
+    with torch.inference_mode():             # as the sessions call it
+        eager_kv = tuple(c.clone() for c in a._kv)
+        eager_kv, eager_logits = gen.advance(eager_kv, feats, pos, 9, 103, eager=True)
+        kv, logits = gen.advance(a._kv, feats, pos, 9, 103)
+        assert gen.graphs.captures == 2 and len(_advance_keys(gen)) == 2
+        assert torch.equal(logits, eager_logits)
+        assert all(torch.equal(x, y) for x, y in zip(kv, eager_kv))
+        assert kv[0] is a._kv[0]              # the session's own cache, updated in place
+        gen.advance(b._kv, feats, pos, 9, 103)
+    assert gen.graphs.captures == 2
+    assert all(torch.equal(x, y) for x, y in zip(a._kv, b._kv))
+
+
+
+def test_interleaved_sessions_give_their_solo_texts(graphed_advance):
+    """Two sessions on one model share the advance's buckets and arena:
+    previews taken in turns give each session's texts alone (and the
+    offline transcript of each prefix)."""
+    model = graphed_advance
+    kw = dict(max_tokens=6, language="English")
+    streams = (_speech_like(12.0, seed=21), _speech_like(10.0, seed=22, amp=0.2))
+    cuts = (int(3.2 * 16_000), WINDOW_SAMPLES + 40, int(9.9 * 16_000))
+
+    def previews(sess, audio, cut, fed):
+        sess.feed(audio[fed:cut])
+        return sess.preview().text
+
+    solo = []
+    for audio in streams:
+        sess, fed, texts = model.incremental_session(**kw), 0, []
+        for cut in cuts:
+            texts.append(previews(sess, audio, cut, fed))
+            fed = cut
+        solo.append(texts)
+    sessions = [model.incremental_session(**kw) for _ in streams]
+    fed = 0
+    for i, cut in enumerate(cuts):
+        for k, (sess, audio) in enumerate(zip(sessions, streams)):
+            assert previews(sess, audio, cut, fed) == solo[k][i]
+        fed = cut
+    for k, audio in enumerate(streams):
+        assert solo[k][-1] == model.transcribe(audio[: cuts[-1]], **kw).text
+    assert len({tuple(t) for t in solo}) == 2
 
 
 # -- the whole slice -------------------------------------------------------------
@@ -439,7 +594,66 @@ def test_graphed_preview_equals_eager_preview(pair, cuda, monkeypatch):
     sess = card.incremental_session(max_tokens=16, language="English")
     sess.feed(_speech_like(12.0, seed=13))
     graphed = sess.preview().text
-    assert card._generator.graphs is not None and card._generator.graphs.captures == 1
-    real = Generator.decode
-    monkeypatch.setattr(Generator, "decode", lambda self, *a, **k: real(self, *a, eager=True, **k))
+    gen = card._generator
+    # One decode bucket; the advance's buckets: T = 16 (prefix, suffix) and 104.
+    assert len(gen.graphs.entries) - len(_advance_keys(gen)) == 1
+    assert gen.graphs.captures == 1 + len(_advance_keys(gen)) == 3
+    for name in ("decode", "advance"):
+        real = getattr(Generator, name)
+        monkeypatch.setattr(Generator, name,
+                            lambda self, *a, _real=real, **k: _real(self, *a, **dict(k, eager=True)))
     assert sess.preview().text == graphed
+
+
+@pytest.mark.cuda
+def test_graphed_advance_bit_identical_on_the_card(pair, cuda):
+    """The captured advance (bf16, the arena copies included) against
+    ``advance(eager=True)`` on the same cache: logits and cache bit for
+    bit, at two slots of one bucket (one capture)."""
+    from qwen3_asr_tpu_torch.models.decoder import init_kv_cache
+
+    card = _card_model(pair, cuda, torch.bfloat16)
+    gen = card._generator
+    cfg = card._config.text_decoder
+    rng = np.random.default_rng(14)
+    with torch.inference_mode():
+        kv = init_kv_cache(cfg, 1, 288, torch.bfloat16, cuda)
+        for c in kv:
+            c.copy_(torch.from_numpy(rng.standard_normal(c.shape).astype(np.float32)))
+        for slot in (9, 113):
+            feats = torch.from_numpy(rng.standard_normal(
+                (1, 104, cfg.hidden_size)).astype(np.float32)).to(cuda, torch.bfloat16)
+            pos = (slot + np.arange(104))[None]
+            ref_kv, ref = gen.advance(tuple(c.clone() for c in kv), feats, pos, slot, 103,
+                                      eager=True)
+            kv, logits = gen.advance(kv, feats, pos, slot, 103)
+            assert torch.equal(logits, ref)
+            assert all(torch.equal(a, b) for a, b in zip(kv, ref_kv))
+    assert gen.graphs.captures == 1
+    card.close()
+
+
+@pytest.mark.cuda
+def test_interleaved_sessions_on_the_card(pair, cuda):
+    """Two bf16 sessions previewing in turns on one card model give the
+    texts each gives alone."""
+    card = _card_model(pair, cuda, torch.bfloat16)
+    kw = dict(max_tokens=12, language="English")
+    streams = (_speech_like(12.0, seed=23), _speech_like(10.0, seed=24, amp=0.2))
+    cuts = (int(3.2 * 16_000), WINDOW_SAMPLES + 40, int(9.9 * 16_000))
+    solo = []
+    for audio in streams:
+        sess, fed, texts = card.incremental_session(**kw), 0, []
+        for cut in cuts:
+            sess.feed(audio[fed:cut])
+            fed = cut
+            texts.append(sess.preview().text)
+        solo.append(texts)
+    sessions = [card.incremental_session(**kw) for _ in streams]
+    fed = 0
+    for i, cut in enumerate(cuts):
+        for k, (sess, audio) in enumerate(zip(sessions, streams)):
+            sess.feed(audio[fed:cut])
+            assert sess.preview().text == solo[k][i]
+        fed = cut
+    card.close()

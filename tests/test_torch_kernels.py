@@ -251,7 +251,8 @@ def test_kv_write_rows_bit_exact_vs_pallas(slot):
     cache = rng.standard_normal((2, 3, 2, 64, 128)).astype(np.float32)
     rows = rng.standard_normal((2, 3, 2, 1, 128)).astype(np.float32)
     ref = np.asarray(pallas_write(jnp.asarray(cache), jnp.asarray(rows), jnp.int32(slot), interpret=True))
-    out = kv_write_rows(torch.from_numpy(cache.copy()), torch.from_numpy(rows), slot)
+    out = kv_write_rows(torch.from_numpy(cache.copy()), torch.from_numpy(rows),
+                        torch.tensor(slot, dtype=torch.int32))
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
@@ -276,7 +277,7 @@ def test_kv_write_rows_batch_bit_exact_vs_pallas():
 def test_kv_write_rows_in_place():
     cache = torch.zeros(1, 2, 1, 8, 128)
     rows = torch.ones(1, 2, 1, 1, 128)
-    out = kv_write_rows(cache, rows, 6)
+    out = kv_write_rows(cache, rows, torch.tensor(6, dtype=torch.int32))
     assert out is cache
     assert cache[:, :, :, 6].eq(1).all() and cache.sum() == 2 * 128
 
@@ -513,7 +514,7 @@ def test_cuda_kv_write_matches_plain(cuda):
     slots = torch.tensor([0, 50, 95], dtype=torch.int32, device=cuda)
     out = kv_write_rows_batch(cache.clone(), rows, slots)
     assert torch.equal(out, kv_write_rows_plain(cache.clone(), rows, slots))
-    out = kv_write_rows(cache.clone(), rows, 7)
+    out = kv_write_rows(cache.clone(), rows, torch.tensor(7, dtype=torch.int32, device=cuda))
     assert torch.equal(out, kv_write_rows_plain(cache.clone(), rows, torch.full_like(slots, 7)))
 
 

@@ -9,8 +9,9 @@ On the CPU:
   (a stub graph);
 * the graphing decision: CPU tensors and a gloo group run the loop
   eagerly, one device and an NCCL group (a fake group, ``get_backend``
-  patched) graph it, and decode modes "3"/"4" and ``eager=True`` stay
-  eager on any group;
+  patched) graph it under every decode mode, "3"/"4" included (K11a/K11b
+  read their decode end from the device), and ``eager=True`` stays eager
+  on any group;
 * the prefill's arena view on a tp group holds this rank's KV heads, the
   shape ``init_kv_cache(..., tp=)`` gives, and the graphed decode takes it
   (and its int8 quantization) in place.
@@ -120,9 +121,12 @@ DECISIONS = {
     ("cuda", "nccl", "5", False): True,
     ("cuda", "gloo", "auto", False): False,
     ("cuda", "gloo", "0", False): False,
-    ("cuda", "nccl", "3", False): False,
-    ("cuda", "nccl", "4", False): False,
-    ("cuda", None, "3", False): False,
+    ("cuda", "nccl", "3", False): True,
+    ("cuda", "nccl", "4", False): True,
+    ("cuda", None, "3", False): True,
+    ("cuda", None, "4", False): True,
+    ("cuda", "gloo", "3", False): False,
+    ("cuda", None, "4", True): False,
     ("cuda", "nccl", "auto", True): False,
 }
 

@@ -11,7 +11,9 @@ and the plain loop over the int8 KV cache (``"off-int8"``), each graphed
 (the default on the card: the step replayed as a CUDA graph in blocks of
 ``graphs.BLOCK``) and eager (``-eager``: ``decode(eager=True)``, one host
 sync a step), and the plain loop under decode mode "4" (``"mode4"``: K11b
-and the standalone K3, eager) runs greedy ``transcribe_batch`` of the smoke
+and the standalone K3 reading the decode end and the slot on the device,
+graphed like the others, with ``"mode4-eager"`` its eager twin) runs greedy
+``transcribe_batch`` of the smoke
 batch (8 clips of 4-30 s, ``max_tokens=64``) and ``transcribe`` of its
 30 s clip: once to warm up (and capture), ``--runs`` times unprofiled in
 turns (decode ms per live iteration and per emitted token, replays and
@@ -222,10 +224,10 @@ def main() -> int:
     auto, off_int8 = sharing({}), sharing(dict(speculative="off", kv_cache_dtype="int8"))
     models = {
         "off": base, "off-eager": base, "auto": auto, "auto-eager": auto,
-        "off-int8": off_int8, "off-int8-eager": off_int8, "mode4": base,
+        "off-int8": off_int8, "off-int8-eager": off_int8, "mode4": base, "mode4-eager": base,
     }
     #: The decode kernel mode each loop runs under (decoder.DECODE_KERNEL_MODE).
-    modes = {"mode4": "4"}
+    modes = {"mode4": "4", "mode4-eager": "4"}
     clips = smoke_clips()
     calls = {
         "B=8": lambda m: m.transcribe_batch(clips, max_tokens=64),
@@ -266,7 +268,8 @@ def main() -> int:
                     run_loop(name, call, block)
                     report(label, name, models[name], f"graphed, BLOCK={block}")
     # Unprofiled decode times, the loops in turns.
-    order = ("off", "off-eager", "auto", "auto-eager", "off-int8", "off-int8-eager", "mode4")
+    order = ("off", "off-eager", "auto", "auto-eager", "off-int8", "off-int8-eager", "mode4",
+             "mode4-eager")
     for run in range(args.runs):
         for label, call in calls.items():
             for name in order + order[::-1]:

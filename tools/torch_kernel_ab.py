@@ -16,9 +16,11 @@ The tool compiles the ones that ``--kernels`` names with the port's nvcc
 flags into a library of their own (in ``DIR``), binds their C entry points
 with the signatures of :data:`PARENT_SIGNATURES` (K1's and K11e's are the
 port's; K2's, K4's, K6's and K7's are those of commit 76a5270, whose decode
-attention takes no write target; K5's that of commit f57a6e0; K11a's,
-K11b's and K11c's the port's, as in commit f0ebdf1; K11d's that of commit
-f0ebdf1, whose grid was the schedule's cores), and then, on the same
+attention takes no write target; K5's that of commit f57a6e0; K11a's and
+K11b's those of commits f0ebdf1 to df68cd9, whose decode end is an int
+argument where the change reads it from a 0-d int32 tensor on the device;
+K11c's the port's, as in commit f0ebdf1; K11d's that of commit f0ebdf1,
+whose grid was the schedule's cores), and then, on the same
 inputs:
 
   * says whether the two versions' outputs are bit-identical, and holds
@@ -131,9 +133,12 @@ PARENT_SIGNATURES = {
     # K5 of commit f57a6e0 (one cache a launch): cache, rows, slots, L, B,
     # H, T, S, stream
     "kv_write_rows_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # K11a, K11b, K11c: the port's signatures (commit f0ebdf1's)
-    "decode_attention_hbm2_bf16": None,
-    "decode_attention_hbm3_bf16": None,
+    # K11a, K11b of commits f0ebdf1 to df68cd9 (the decode end an int):
+    # q, kall, vall, k_new, v_new, prompt_len, out, layer, B, Hq, Hkv, S,
+    # prompt_bucket, decode_end, block_k, per, scale, stream
+    "decode_attention_hbm2_bf16": (_P,) * 7 + (_I,) * 9 + (ctypes.c_float, _P),
+    "decode_attention_hbm3_bf16": (_P,) * 7 + (_I,) * 9 + (ctypes.c_float, _P),
+    # K11c: the port's signature (commit f0ebdf1's)
     "decode_attention_hbm5_bf16": None,
     # K11d of commit f0ebdf1 (a block per core and KV head): q, kall, vall,
     # k_new, v_new, totals, bl, off, lim, flags, out, layer, B, Hq, Hkv, S,
@@ -831,14 +836,15 @@ def ab_stream(lib, gen, rounds: int, kernel: str) -> list[dict]:
             return out
 
         ends = torch.full_like(plen, dend)
-        arms = {"parent": parent, "change": lambda layer: fn(*fresh, layer, plen, dend, pb),
+        end = ends[0]               # the change's one end, read on the device
+        arms = {"parent": parent, "change": lambda layer: fn(*fresh, layer, plen, end, pb),
                 "k2": lambda layer: da.decode_attention(*fresh, layer, plen, ends, pb)}
         layer = c["L"] - 1
         out, pout = arms["change"](layer), parent(layer)
-        k11b = h3.decode_attention_hbm3(*fresh, layer, plen, dend, pb)
+        k11b = h3.decode_attention_hbm3(*fresh, layer, plen, end, pb)
         ref = h2.scalar_end_plain(c["q"].float(), c["kall"][layer:layer + 1].float(),
                                   c["vall"][layer:layer + 1].float(), c["k_new"].float(),
-                                  c["v_new"].float(), 0, plen, dend, pb, D ** -0.5)
+                                  c["v_new"].float(), 0, plen, end, pb, D ** -0.5)
         err = _close(f"{kernel} B={B} S={S}", out, ref, 2e-2, 2e-2)
         perr = _close(f"parent {kernel} B={B} S={S}", pout, ref, 2e-2, 2e-2)
         same, same_b = torch.equal(out, pout), torch.equal(out, k11b)

@@ -133,7 +133,7 @@ def bench_kernel(device="cuda", B=32, S=640, pb=512, L=28, plen=408, dend_off=64
 
     q, kall, vall, k_new, v_new = _cache(L, B, S, device)
     plens = torch.full((B,), plen, dtype=torch.int32, device=device)
-    dend = pb + dend_off
+    dend = torch.tensor(pb + dend_off, dtype=torch.int32, device=device)
 
     def layer(i):
         return decode_attention_hbm3(q, kall, vall, k_new, v_new, i, plens, dend, pb,
