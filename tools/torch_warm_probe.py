@@ -46,6 +46,14 @@ sys.path.insert(0, str(ROOT))
 WORKDIR = ROOT / "build" / "warm_probe"
 
 
+def drop_library() -> None:
+    """Delete the built kernel library, so that the next process's first
+    kernel launch builds it (``nvcc``), as on a fresh checkout."""
+    from qwen3_asr_tpu_torch.ops.kernels import _build
+
+    _build.library_path().unlink(missing_ok=True)
+
+
 def child(arm: str, workdir: Path) -> None:
     import torch
 
@@ -117,7 +125,7 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s", flush=True)
         for arm in args.arms:
             if args.unbuilt:
-                _build.library_path().unlink(missing_ok=True)
+                drop_library()
             p = subprocess.run([sys.executable, __file__, "--child", arm], cwd=ROOT)
             if p.returncode:
                 return p.returncode
